@@ -1,0 +1,541 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch / CUDA port on one NVIDIA card (an H100).
+
+    python3 chip_smoke.py
+
+Phases:
+  1. environment: torch, CUDA, nvcc, triton, the card's name and power
+     limit; builds the port's CUDA kernels from this checkout (nvcc into
+     build/) and prints the build's seconds;
+  2. each kernel wrapper against its plain PyTorch version at the main
+     path's shapes (T=26 tables, B=2048, L=32, D=128, uniform ids over
+     R=1,000,000 rows, random lengths including 0, -1 padding), in f32 and
+     bf16, plus D=10 (the scalar path) and D=96; stacked and flat over a
+     copy of the same rows bitwise-equal;
+  3. the uncached engine at full width (CONFIG: 26 x 1,000,000 x 128 fp32
+     tables) serving 8192 requests in flushes of 2048: scores against a
+     plain score on the card, one TBE launch per flush, and 26
+     single-table launches for one flush under fused=False;
+  4. the cached engine (65,536 slots per table, LFU, host cold tier) on
+     the same requests: scores and pooled lookups bitwise-equal to phase 3;
+  5. kernel, plain-version and library times at the phase-2 shapes, beside
+     each kernel's bound;
+  6. the card line, one JSON line of the kernels, and last the result line.
+
+Any failed check raises: the script exits non-zero and prints no result
+line.  It also fails without a CUDA card, and without the port's sources
+beside it.
+"""
+import dataclasses
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+# one cuBLAS workspace layout, so equal GEMMs stay bitwise-equal
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+ROOT = Path(__file__).resolve().parent
+SOURCE = "src/repro_torch/csrc/tbe_gather_pool.cu"
+REPLACES = {"gather_pool_tbe_flat": "src/repro/kernels/embedding_gather.py:150",
+            "gather_pool_tbe": "src/repro/kernels/embedding_gather.py:215",
+            "gather_pool": "src/repro/kernels/embedding_gather.py:95"}
+# H100 SXM peaks (NVIDIA data sheet), at a 700 W power limit
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS_PER_S = 67e12
+# kernel vs plain pooling: two f32 summation orders of <= 32 terms differ by
+# at most 32 * 2**-24 * sum|w * x| ~ 2e-6 * sum|w * x|, and sum|w * x| < 2
+# here (rows ~ N(0, 1/128), weights in [0, 1)), so 1e-5 holds with margin
+POOL_TOL = dict(rtol=1e-5, atol=1e-5)
+# pCTR: the pooled vectors' f32 differences carried through the MLPs
+PCTR_TOL = dict(rtol=1e-4, atol=1e-5)
+
+DEV = "cuda"
+T, B, L, D, R = 26, 2048, 32, 128, 1_000_000
+REQUESTS, BATCH = 8192, 2048
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def check(ok: bool, what: str) -> None:
+    if not ok:
+        raise RuntimeError(f"check failed: {what}")
+
+
+def compare(name, got, want, tol) -> float:
+    err = float((got - want).abs().max())
+    ok = bool(torch.allclose(got, want, **tol))
+    log(f"  {name}: max_abs_err {err:.3e} (allclose rtol={tol['rtol']} "
+        f"atol={tol['atol']}) {'ok' if ok else 'FAIL'}")
+    check(ok, f"{name} within tolerance")
+    return err
+
+
+# ---------------------------------------------------------------------------
+# 1. environment and build
+# ---------------------------------------------------------------------------
+
+def phase_environment(build) -> str:
+    log("== 1. environment")
+    log(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
+        f"torch.version.cuda {torch.version.cuda}")
+    nvcc = subprocess.run([build.nvcc(), "--version"], capture_output=True,
+                          text=True, check=True, timeout=60)
+    log(f"nvcc: {nvcc.stdout.strip().splitlines()[-1]}")
+    try:
+        import triton
+        log(f"triton {triton.__version__}: importable")
+    except ImportError as e:
+        log(f"triton: not importable ({e})")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0]
+    log(card)
+    log(f"torch.cuda: {torch.cuda.get_device_name(0)}, "
+        f"{torch.cuda.device_count()} device(s)")
+    t0 = time.perf_counter()
+    rec = build.build(["tbe_gather_pool"])["tbe_gather_pool"]
+    build.load("tbe_gather_pool")
+    log(f"build: {rec.path.name}: nvcc {rec.seconds:.2f} s, build + load "
+        f"{time.perf_counter() - t0:.2f} s")
+    for line in rec.log.splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"  {line.strip()}")
+    return card
+
+
+# ---------------------------------------------------------------------------
+# 2. kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def _inputs(g, t, b, lp, r, d, dev):
+    """Tables ~ N(0, 1/d), lengths in [0, lp], uniform ids, -1 padding,
+    weights in [0, 1) zeroed on padding."""
+    tables = torch.randn((t, r, d), generator=g, device=dev).mul_(d ** -0.5)
+    lens = torch.randint(0, lp + 1, (t, b), generator=g, device=dev,
+                         dtype=torch.int32)
+    mask = torch.arange(lp, device=dev) < lens[..., None]
+    ids = torch.randint(0, r, (t, b, lp), generator=g, device=dev,
+                        dtype=torch.int32)
+    idx = torch.where(mask, ids, -1).to(torch.int32)
+    w = torch.rand((t, b, lp), generator=g, device=dev) * mask
+    # ragged per-table row counts in the same flat row space
+    rows_t = r - torch.randint(0, r // 2, (t,), generator=g, device=dev)
+    off = (torch.cumsum(rows_t, 0) - rows_t).to(torch.int32)
+    ids_r = torch.minimum(
+        (torch.rand((t, b, lp), generator=g, device=dev)
+         * rows_t[:, None, None]).long(), rows_t[:, None, None] - 1)
+    idx_r = torch.where(mask, ids_r, -1).to(torch.int32)
+    return dict(tables=tables, idx=idx, w=w, mask=mask, off=off, idx_r=idx_r)
+
+
+def _check_all(eg, x, tag, one=5) -> dict:
+    """The three wrappers against their plain versions; returns errors."""
+    tables, idx, w = x["tables"], x["idx"], x["w"]
+    t_, r_, d_ = tables.shape
+    flat = tables.view(t_ * r_, d_)
+    errs = {}
+    stacked = eg.gather_pool_tbe(tables, idx, w)
+    errs["gather_pool_tbe"] = compare(
+        f"gather_pool_tbe {tag}", stacked,
+        eg.gather_pool_tbe_ref(tables, idx, w), POOL_TOL)
+    errs["gather_pool_tbe_flat"] = compare(
+        f"gather_pool_tbe_flat ragged {tag}",
+        eg.gather_pool_tbe_flat(flat, x["off"], x["idx_r"], w),
+        eg.gather_pool_tbe_flat_ref(flat, x["off"], x["idx_r"], w), POOL_TOL)
+    one = min(one, t_ - 1)
+    single = eg.gather_pool(tables[one], idx[one], w[one])
+    errs["gather_pool"] = compare(
+        f"gather_pool table {one} {tag}", single,
+        eg.gather_pool_ref(tables[one], idx[one], w[one]), POOL_TOL)
+    check(torch.equal(single, stacked[one]),
+          f"single-table launch bitwise == fused TBE table {one} {tag}")
+    return errs
+
+
+def phase_kernels(eg) -> dict:
+    log("== 2. kernels against their plain versions")
+    dev = torch.device(DEV)
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = _inputs(g, T, B, L, R, D, dev)
+    log(f"  T={T} B={B} L={L} D={D} R={R}: "
+        f"{int(x['mask'].sum())} valid lookups of {T * B * L}")
+    errs = _check_all(eg, x, "f32")
+    bf = dict(x, tables=x["tables"].to(torch.bfloat16))
+    for k, v in _check_all(eg, bf, "bf16").items():
+        errs[k] = max(errs[k], v)
+    del bf
+    for d_small in (10, 96):
+        small = _inputs(g, 3, 64, 7, 1000, d_small, dev)
+        _check_all(eg, small, f"D={d_small} f32", one=1)
+        _check_all(eg, dict(small, tables=small["tables"].to(
+            torch.bfloat16)), f"D={d_small} bf16", one=1)
+
+    # stacked tables and a compact flat pool holding the same rows (the
+    # slot-pool layout): the same kernel pools them bitwise-equal
+    tables, idx, w, mask = x["tables"], x["idx"], x["w"], x["mask"]
+    rows, counts = [], []
+    slots = torch.zeros_like(idx)
+    for t in range(T):
+        uniq, inv = torch.unique(idx[t][mask[t]].long(), return_inverse=True)
+        rows.append(tables[t, uniq])
+        counts.append(uniq.numel())
+        slots[t][mask[t]] = inv.to(torch.int32)
+    pool = torch.cat(rows)
+    off_p = torch.tensor([0] + counts[:-1], device=dev).cumsum(0).to(
+        torch.int32)
+    same = torch.equal(eg.gather_pool_tbe_flat(pool, off_p, slots, w),
+                       eg.gather_pool_tbe(tables, idx, w))
+    log(f"  stacked vs flat pool of the same {pool.shape[0]} rows: "
+        f"{'bitwise equal' if same else 'DIFFER'}")
+    check(same, "stacked and flat pool bitwise-equal")
+    x["errs"] = errs
+    return x
+
+
+# ---------------------------------------------------------------------------
+# 3. / 4. the engine at full width
+# ---------------------------------------------------------------------------
+
+def _requests(cfg, CTRRequest):
+    """Zipf(1.05) ids, lengths in [1, L], -1 padding beyond lengths."""
+    from repro_torch.core.jagged import zipf_ranks
+
+    rng = np.random.default_rng(2)
+    t_, l_ = cfg.num_sparse_features, cfg.pooling
+    ids = zipf_ranks(rng, 1.05, cfg.rows_per_table,
+                     (REQUESTS, t_, l_)).astype(np.int32)
+    lengths = rng.integers(1, l_ + 1, (REQUESTS, t_)).astype(np.int32)
+    ids[np.arange(l_) >= lengths[..., None]] = -1
+    dense = rng.standard_normal(
+        (REQUESTS, cfg.num_dense_features)).astype(np.float32)
+    return [CTRRequest(rid=i, dense=dense[i], indices=ids[i],
+                       lengths=lengths[i]) for i in range(REQUESTS)]
+
+
+def _serve(eng, eg):
+    """Flush the whole queue, each flush timed by CUDA events; the launch
+    counts are set to 0 just before and read just after."""
+    scores, heads, ms, splits = {}, [], [], 0
+    eg.reset_launch_counts()
+    while eng.queue:
+        head = eng.queue[: eng.batch_size]
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = eng.flush()
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+        splits += len(out) < len(head)
+        heads.append(head)
+        scores.update(out)
+    return scores, heads, ms, splits, dict(eg.LAUNCH_COUNTS)
+
+
+def _profile_flush(eng, head, median_ms, label):
+    """One more flush of ``head`` under torch.profiler (after the launch
+    counts were read): device time by kernel and the device's busy share
+    of the median unprofiled flush."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for r in head:
+        eng.submit(r)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng.flush()
+    # device-side rows only (kernels, copies); the CPU ops' rows repeat
+    # their kernels' time, and the profiler's own buffer requests are not
+    # work of the flush
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0
+              and not e.key.startswith("Activity Buffer")]
+    check(any("tbe_gather_pool_kernel" in e.key for e in events),
+          f"the profiled {label} flush ran the TBE kernel")
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    log(f"  profiled {label} flush: device busy {busy_ms:.3f} ms = "
+        f"{100 * busy_ms / median_ms:.1f}% of the median flush "
+        f"({median_ms:.3f} ms); idle {100 - 100 * busy_ms / median_ms:.1f}%")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]:
+        log(f"    {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<3d} "
+            f"{e.key[:90]}")
+
+
+def _padded(eng, head):
+    dense, idx, lens = eng._pad_batch(head)
+    dev = torch.device(DEV)
+    return (torch.as_tensor(dense, device=dev),
+            torch.as_tensor(idx, device=dev),
+            torch.as_tensor(lens, device=dev))
+
+
+def phase_uncached(pt, eg) -> dict:
+    log("== 3. uncached engine at full width (CONFIG)")
+    cfg = pt.CONFIG
+    t0 = time.perf_counter()
+    params = pt.init_params(torch.Generator(device=DEV).manual_seed(1),
+                            cfg, device=DEV)
+    torch.cuda.synchronize()
+    log(f"  init_params: {cfg.num_sparse_features} x {cfg.rows_per_table} x "
+        f"{cfg.embedding_dim} {cfg.dtype} tables "
+        f"({cfg.embedding_config().table_bytes / 1e9:.1f} GB) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    reqs = _requests(cfg, pt.CTRRequest)
+    eng = pt.DLRMEngine(params, cfg, batch_size=BATCH, device=DEV)
+    for r in reqs:
+        eng.submit(r)
+    scores, heads, ms, _, counts = _serve(eng, eg)
+    log(f"  {len(scores)} requests in {len(heads)} flushes; launches "
+        f"{counts}; flush ms {[round(m, 3) for m in ms]}, median "
+        f"{statistics.median(ms):.3f} ms (CUDA events)")
+    vals = np.array(list(scores.values()))
+    check(len(scores) == REQUESTS and np.isfinite(vals).all()
+          and ((vals > 0) & (vals < 1)).all(), "8192 finite pCTRs in (0, 1)")
+    check(counts == {"gather_pool": 0, "gather_pool_tbe": len(heads),
+                     "gather_pool_tbe_flat": 0},
+          "one fused TBE launch per flush")
+
+    # the plain score on the card: ref.py pooling + the model's own
+    # interaction and MLPs
+    err = 0.0
+    with torch.no_grad():
+        for head in heads:
+            dense, idx, lens = _padded(eng, head)
+            pooled = pt.ref.embedding_bag_batched_ref(
+                params["tables"], idx, lens).transpose(0, 1)
+            bot = pt.dlrm._mlp_apply(params["bottom"], dense, final_act=True)
+            logit = pt.dlrm._mlp_apply(
+                params["top"], pt.dlrm.dot_interaction(bot, pooled))[:, 0]
+            want = torch.sigmoid(logit)[: len(head)].double().cpu()
+            got = torch.tensor([scores[r.rid] for r in head],
+                               dtype=torch.float64)
+            err = max(err, float((got - want).abs().max()))
+            check(bool(torch.allclose(got, want, **PCTR_TOL)),
+                  "engine pCTR vs plain score")
+    log(f"  engine vs plain score on the card: max_abs_err {err:.3e} "
+        f"(rtol={PCTR_TOL['rtol']} atol={PCTR_TOL['atol']}) ok")
+
+    # fused=False: one flush is T single-table launches, same scores
+    eng_u = pt.DLRMEngine(params, dataclasses.replace(cfg, fused=False),
+                          batch_size=BATCH, device=DEV)
+    for r in heads[0]:
+        eng_u.submit(r)
+    scores_u, _, ms_u, _, counts_u = _serve(eng_u, eg)
+    log(f"  fused=False flush: launches {counts_u}, {ms_u[0]:.3f} ms")
+    check(counts_u == {"gather_pool": cfg.num_sparse_features,
+                       "gather_pool_tbe": 0, "gather_pool_tbe_flat": 0},
+          "fused=False flush is 26 single-table launches")
+    check(all(scores_u[r.rid] == scores[r.rid] for r in heads[0]),
+          "fused=False scores bitwise == fused")
+    log("  fused=False scores bitwise equal to fused")
+    _profile_flush(eng, heads[1], statistics.median(ms), "uncached")
+    return dict(params=params, reqs=reqs, scores=scores, heads=heads,
+                flush_ms=ms, launches={"gather_pool_tbe": counts[
+                    "gather_pool_tbe"], "gather_pool": counts_u[
+                    "gather_pool"]})
+
+
+def phase_cached(pt, eg, unc) -> dict:
+    log("== 4. cached engine at full width (65,536 slots/table, LFU, host "
+        "cold tier)")
+    cache = pt.CacheConfig(rows=65536, policy="lfu", cold_tier="host")
+    cfg = dataclasses.replace(pt.CONFIG, cache=cache)
+    t0 = time.perf_counter()
+    eng = pt.DLRMEngine(unc["params"], cfg, batch_size=BATCH, device=DEV)
+    torch.cuda.synchronize()
+    log(f"  cache built in {time.perf_counter() - t0:.1f} s: pool "
+        f"{eng.cache.pool_bytes / 1e6:.0f} MB on the card, host cold tier "
+        f"{eng.cache.cold.tables.numel() * 4 / 1e9:.1f} GB")
+    for r in unc["reqs"]:
+        eng.submit(r)
+    scores, heads, ms, splits, counts = _serve(eng, eg)
+    st = eng.cache_stats()
+    log(f"  {len(scores)} requests in {len(heads)} flushes, {splits} "
+        f"half-split(s); launches {counts}; flush ms "
+        f"{[round(m, 3) for m in ms]}, median {statistics.median(ms):.3f} ms")
+    log(f"  hit rate {st.hit_rate:.4f} ({st.hits} hits, {st.misses} misses),"
+        f" {st.evictions} evictions, {st.bytes_h2d / 1e6:.1f} MB h2d; "
+        f"prefetch {st.prefetch_s:.3f} s, scatter {st.scatter_s:.3f} s, "
+        f"forward {st.forward_s:.3f} s")
+    hit_rate = st.hit_rate
+    check(counts == {"gather_pool": 0, "gather_pool_tbe": 0,
+                     "gather_pool_tbe_flat": len(heads)},
+          "one fused flat TBE launch per cached flush")
+    check(sorted(scores) == sorted(unc["scores"])
+          and all(scores[k] == unc["scores"][k] for k in scores),
+          "cached scores bitwise == uncached")
+    log("  cached scores bitwise equal to uncached")
+    ecfg = pt.CONFIG.embedding_config()
+    with torch.no_grad():
+        for head in unc["heads"]:
+            _, idx, lens = _padded(eng, head)
+            slots = eng.cache.prefetch_arrays(idx.cpu().numpy(),
+                                              lens.cpu().numpy())
+            got = eng.cache.device_lookup(
+                eng.cache.pool, torch.as_tensor(slots, device=idx.device),
+                lens, None)
+            want = pt.eb.pooled_lookup_local(
+                unc["params"]["tables"], pt.JaggedBatch(idx, lens), ecfg)
+            check(torch.equal(got, want), "cached pooled bitwise == uncached")
+    log(f"  cached pooled lookups bitwise equal to uncached "
+        f"({len(unc['heads'])} batches)")
+    _profile_flush(eng, unc["heads"][1], statistics.median(ms), "cached")
+    return dict(launches=counts["gather_pool_tbe_flat"], flush_ms=ms,
+                splits=splits, hit_rate=hit_rate)
+
+
+# ---------------------------------------------------------------------------
+# 5. times
+# ---------------------------------------------------------------------------
+
+def _times(fn, reps, scratch):
+    """Per-launch CUDA-event times (ms), L2 evicted before each launch by
+    writing a buffer five times its size."""
+    evs = []
+    for _ in range(reps):
+        scratch.zero_()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        evs.append((s, e))
+    torch.cuda.synchronize()
+    return [s.elapsed_time(e) for s, e in evs]
+
+
+def _bound(addr, w, t_, d_, itemsize):
+    """Least time: the unique rows this data reads plus ids, weights,
+    offsets and output, once each, over HBM; or 2 flops per valid
+    element over the fp32 rate; whichever is larger."""
+    live = w != 0
+    rows = torch.unique(addr[live]).numel()
+    n = w.numel()
+    nbytes = rows * d_ * itemsize + n * 8 + t_ * 4 + (n // w.shape[-1]) \
+        * d_ * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 2 * int(live.sum()) * d_ / FP32_FLOPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def phase_times(eg, x) -> dict:
+    log("== 5. times at the phase-2 shapes (f32; median of 20 launches per "
+        "version, in turns plain, kernel, library, library, kernel, plain)")
+    F = torch.nn.functional
+    tables, idx, w, mask = x["tables"], x["idx"], x["w"], x["mask"]
+    flat = tables.view(T * R, D)
+    off, idx_r = x["off"], x["idx_r"]
+    ar = (torch.arange(T, device=tables.device) * R)[:, None, None]
+    g_flat = (off.long()[:, None, None] + torch.where(mask, idx_r, 0)).view(
+        T * B, L)
+    g_stack = (ar + torch.where(mask, idx, 0)).view(T * B, L)
+    one = min(5, T - 1)
+    g_one = torch.where(mask[one], idx[one], 0).long()
+    cases = {
+        "gather_pool_tbe_flat": (
+            lambda: eg.gather_pool_tbe_flat(flat, off, idx_r, w),
+            lambda: eg.gather_pool_tbe_flat_ref(flat, off, idx_r, w),
+            lambda: F.embedding_bag(g_flat, flat, mode="sum",
+                                    per_sample_weights=w.view(T * B, L)),
+            (g_flat.view(T, B, L), w, T)),
+        "gather_pool_tbe": (
+            lambda: eg.gather_pool_tbe(tables, idx, w),
+            lambda: eg.gather_pool_tbe_ref(tables, idx, w),
+            lambda: F.embedding_bag(g_stack, flat, mode="sum",
+                                    per_sample_weights=w.view(T * B, L)),
+            (g_stack.view(T, B, L), w, T)),
+        "gather_pool": (
+            lambda: eg.gather_pool(tables[one], idx[one], w[one]),
+            lambda: eg.gather_pool_ref(tables[one], idx[one], w[one]),
+            lambda: F.embedding_bag(g_one, tables[one], mode="sum",
+                                    per_sample_weights=w[one]),
+            (g_one[None], w[one][None], 1)),
+    }
+    scratch = torch.empty(256 * 2 ** 20 // 4, device=tables.device)
+    out = {}
+    for name, (kern, plain, lib, (addr, ww, t_)) in cases.items():
+        want = plain().reshape(-1, D)
+        check(bool(torch.allclose(lib().reshape(-1, D), want, **POOL_TOL)),
+              f"{name}: library yardstick computes the same function")
+        kern()
+        p1 = _times(plain, 10, scratch)
+        k1 = _times(kern, 10, scratch)
+        l1 = _times(lib, 20, scratch)
+        k2 = _times(kern, 10, scratch)
+        p2 = _times(plain, 10, scratch)
+        bound_ms, bound_by = _bound(addr, ww, t_, D, 4)
+        out[name] = dict(ms=statistics.median(k1 + k2),
+                         plain_ms=statistics.median(p1 + p2),
+                         library_ms=statistics.median(l1),
+                         bound_ms=bound_ms, bound_by=bound_by)
+        log(f"  {name}: kernel {out[name]['ms']:.4f} ms, plain "
+            f"{out[name]['plain_ms']:.4f} ms, library "
+            f"{out[name]['library_ms']:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by}); kernel at {100 * bound_ms / out[name]['ms']:.1f}%"
+            f" of the bound")
+    return out
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import build
+    from repro_torch.kernels import embedding_gather as eg
+
+    class pt:   # the port's entry points, one namespace
+        from repro_torch.configs.dlrm import CONFIG
+        from repro_torch.core import embedding_bag as eb
+        from repro_torch.core.cache_config import CacheConfig
+        from repro_torch.core.jagged import JaggedBatch
+        from repro_torch.kernels import ref
+        from repro_torch.models import dlrm
+        from repro_torch.models.dlrm import init_params
+        from repro_torch.serving.engine import CTRRequest, DLRMEngine
+
+    # full fp32 products on the card, as in the reference
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    card = phase_environment(build)
+    x = phase_kernels(eg)
+    unc = phase_uncached(pt, eg)
+    cached = phase_cached(pt, eg, unc)
+    del unc["params"]
+    times = phase_times(eg, x)
+
+    log("== 6. summary")
+    launches = {**unc["launches"], "gather_pool_tbe_flat": cached["launches"]}
+    kernels = [dict(name=name, route="cuda", source=SOURCE,
+                    replaces=REPLACES[name], launches=launches[name],
+                    max_abs_err=x["errs"][name], **times[name])
+               for name in ("gather_pool_tbe_flat", "gather_pool_tbe",
+                            "gather_pool")]
+    log(f"uncached median flush {statistics.median(unc['flush_ms']):.3f} ms,"
+        f" cached median flush {statistics.median(cached['flush_ms']):.3f} "
+        f"ms, cached hit rate {cached['hit_rate']:.4f}; total "
+        f"{time.perf_counter() - t_start:.1f} s")
+    log(card)
+    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
