@@ -5,22 +5,32 @@
 
 Phases:
   1. environment: torch, CUDA, nvcc, triton, the card's name and power
-     limit; builds the port's CUDA kernels from this checkout (nvcc into
-     build/) and prints the build's seconds;
+     limit; builds the port's CUDA kernels from this checkout (one nvcc per
+     source, all started together, into build/) and prints the build's
+     seconds;
   2. each kernel wrapper against its plain PyTorch version at the main
-     path's shapes (T=26 tables, B=2048, L=32, D=128, uniform ids over
-     R=1,000,000 rows, random lengths including 0, -1 padding), in f32 and
-     bf16, plus D=10 (the scalar path) and D=96; stacked and flat over a
-     copy of the same rows bitwise-equal;
+     path's shapes: the TBE wrappers at T=26 tables, B=2048, L=32, D=128,
+     uniform ids over R=1,000,000 rows, random lengths including 0, -1
+     padding, in f32 and bf16, plus D=10 (the scalar path) and D=96;
+     stacked and flat over a copy of the same rows bitwise-equal; the
+     one-sided row puts on 4 simulated hosts' contributions of 2**18 rows
+     (the padded fetch of every flush of phase 6) at D=128 and of 1000
+     rows at D=10, f32 and bf16, bitwise;
   3. the uncached engine at full width (CONFIG: 26 x 1,000,000 x 128 fp32
      tables) serving 8192 requests in flushes of 2048: scores against a
      plain score on the card, one TBE launch per flush, and 26
      single-table launches for one flush under fused=False;
   4. the cached engine (65,536 slots per table, LFU, host cold tier) on
      the same requests: scores and pooled lookups bitwise-equal to phase 3;
-  5. kernel, plain-version and library times at the phase-2 shapes, beside
-     each kernel's bound;
-  6. the card line, one JSON line of the kernels, and last the result line.
+  5. kernel, plain-version and library times: the TBE wrappers at the
+     phase-2 shapes, the row puts at the padded fetch of a steady-state
+     flush of phase 4, beside each kernel's bound;
+  6. the cached engine over the REMOTE cold tier (the same cache, the
+     tables row-split over 4 simulated hosts on the card), once with the
+     bulk and once with the one-sided transport, on the same requests:
+     scores and pooled lookups bitwise-equal to phase 3, the one-sided run
+     4 put launches per non-empty fetch and the bulk run none;
+  7. the card line, one JSON line of the kernels, and last the result line.
 
 Any failed check raises: the script exits non-zero and prints no result
 line.  It also fails without a CUDA card, and without the port's sources
@@ -42,10 +52,14 @@ import torch
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 ROOT = Path(__file__).resolve().parent
-SOURCE = "src/repro_torch/csrc/tbe_gather_pool.cu"
+TBE_SOURCE = "src/repro_torch/csrc/tbe_gather_pool.cu"
+PUT_SOURCE = "src/repro_torch/csrc/onesided_put_rows.cu"
+SOURCES = {"gather_pool_tbe_flat": TBE_SOURCE, "gather_pool_tbe": TBE_SOURCE,
+           "gather_pool": TBE_SOURCE, "onesided_put_rows": PUT_SOURCE}
 REPLACES = {"gather_pool_tbe_flat": "src/repro/kernels/embedding_gather.py:150",
             "gather_pool_tbe": "src/repro/kernels/embedding_gather.py:215",
-            "gather_pool": "src/repro/kernels/embedding_gather.py:95"}
+            "gather_pool": "src/repro/kernels/embedding_gather.py:95",
+            "onesided_put_rows": "src/repro/kernels/onesided_a2a.py:116"}
 # H100 SXM peaks (NVIDIA data sheet), at a 700 W power limit
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
@@ -59,6 +73,8 @@ PCTR_TOL = dict(rtol=1e-4, atol=1e-5)
 DEV = "cuda"
 T, B, L, D, R = 26, 2048, 32, 128, 1_000_000
 REQUESTS, BATCH = 8192, 2048
+HOSTS = 4                  # simulated hosts of the remote cold tier
+PUT_ROWS = 2 ** 18         # the padded rows of each of phase 6's fetches
 
 
 def log(msg: str) -> None:
@@ -104,13 +120,17 @@ def phase_environment(build) -> str:
     log(f"torch.cuda: {torch.cuda.get_device_name(0)}, "
         f"{torch.cuda.device_count()} device(s)")
     t0 = time.perf_counter()
-    rec = build.build(["tbe_gather_pool"])["tbe_gather_pool"]
-    build.load("tbe_gather_pool")
-    log(f"build: {rec.path.name}: nvcc {rec.seconds:.2f} s, build + load "
+    names = ["tbe_gather_pool", "onesided_put_rows"]
+    recs = build.build(names)          # one nvcc per source, in parallel
+    for name in names:
+        build.load(name)
+    log(f"build + load of {len(names)} sources: "
         f"{time.perf_counter() - t0:.2f} s")
-    for line in rec.log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  {line.strip()}")
+    for rec in recs.values():
+        log(f"  {rec.path.name}: nvcc {rec.seconds:.2f} s")
+        for line in rec.log.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"    {line.strip()}")
     return card
 
 
@@ -163,7 +183,40 @@ def _check_all(eg, x, tag, one=5) -> dict:
     return errs
 
 
-def phase_kernels(eg) -> dict:
+def _contribs(g, h, m, d, dtype, dev):
+    """(H_src, H_dst, M, D) contributions of a row fetch: N(0, 1) rows,
+    each (requester, row) owned by one rank, ``0 * row`` (so -0.0 for half
+    of them) at the other ranks."""
+    rows = torch.randn((h, h, m, d), generator=g, device=dev)
+    owner = torch.randint(0, h, (h, m), generator=g, device=dev)
+    mine = owner[None] == torch.arange(h, device=dev)[:, None, None]
+    return (rows * mine[..., None]).to(dtype)
+
+
+def _bits(x):
+    """The raw bits of a float tensor, so -0.0 and 0.0 differ."""
+    return x.view({4: torch.int32, 2: torch.int16}[x.element_size()])
+
+
+def _check_puts(oa, c, tag) -> float:
+    """The put kernel's exchange and row fetch against their plain versions
+    on the same contributions: bitwise; returns the max abs error."""
+    exch = oa.onesided_put_rows(c)
+    want = oa.onesided_put_rows_ref(c)
+    fetched = oa.onesided_fetch_rows(c)
+    want_f = oa.onesided_fetch_rows_ref(c)
+    torch.cuda.synchronize()
+    err = max(float((exch.float() - want.float()).abs().max()),
+              float((fetched.float() - want_f.float()).abs().max()))
+    ok = torch.equal(_bits(exch), _bits(want)) and \
+        torch.equal(_bits(fetched), _bits(want_f))
+    log(f"  onesided_put_rows {tag}: exchange and fetched rows "
+        f"{'bitwise equal' if ok else 'DIFFER'} (max_abs_err {err:.3e})")
+    check(ok, f"onesided_put_rows {tag} bitwise == plain version")
+    return err
+
+
+def phase_kernels(eg, oa) -> dict:
     log("== 2. kernels against their plain versions")
     dev = torch.device(DEV)
     g = torch.Generator(device=dev).manual_seed(0)
@@ -199,6 +252,17 @@ def phase_kernels(eg) -> dict:
     log(f"  stacked vs flat pool of the same {pool.shape[0]} rows: "
         f"{'bitwise equal' if same else 'DIFFER'}")
     check(same, "stacked and flat pool bitwise-equal")
+
+    # the row puts: 4 simulated hosts, D=128 (16-byte vectors) and D=10
+    # (the scalar path), f32 and bf16
+    put_err = 0.0
+    for m, d in ((PUT_ROWS, D), (1000, 10)):
+        for dtype in (torch.float32, torch.bfloat16):
+            c = _contribs(g, HOSTS, m, d, dtype, dev)
+            put_err = max(put_err, _check_puts(
+                oa, c, f"H={HOSTS} M={m} D={d} {str(dtype)[6:]}"))
+            del c
+    errs["onesided_put_rows"] = put_err
     x["errs"] = errs
     return x
 
@@ -207,28 +271,36 @@ def phase_kernels(eg) -> dict:
 # 3. / 4. the engine at full width
 # ---------------------------------------------------------------------------
 
-def _requests(cfg, CTRRequest):
+def _requests(cfg, CTRRequest, n, seed):
     """Zipf(1.05) ids, lengths in [1, L], -1 padding beyond lengths."""
     from repro_torch.core.jagged import zipf_ranks
 
-    rng = np.random.default_rng(2)
+    rng = np.random.default_rng(seed)
     t_, l_ = cfg.num_sparse_features, cfg.pooling
     ids = zipf_ranks(rng, 1.05, cfg.rows_per_table,
-                     (REQUESTS, t_, l_)).astype(np.int32)
-    lengths = rng.integers(1, l_ + 1, (REQUESTS, t_)).astype(np.int32)
+                     (n, t_, l_)).astype(np.int32)
+    lengths = rng.integers(1, l_ + 1, (n, t_)).astype(np.int32)
     ids[np.arange(l_) >= lengths[..., None]] = -1
     dense = rng.standard_normal(
-        (REQUESTS, cfg.num_dense_features)).astype(np.float32)
+        (n, cfg.num_dense_features)).astype(np.float32)
     return [CTRRequest(rid=i, dense=dense[i], indices=ids[i],
-                       lengths=lengths[i]) for i in range(REQUESTS)]
+                       lengths=lengths[i]) for i in range(n)]
 
 
-def _serve(eng, eg):
-    """Flush the whole queue, each flush timed by CUDA events; the launch
-    counts are set to 0 just before and read just after."""
-    scores, heads, ms, splits = {}, [], [], 0
-    eg.reset_launch_counts()
+def _fetched_rows(eng) -> int:
+    st = eng.cache_stats()
+    return 0 if st is None else st.fetch_host + st.fetch_remote
+
+
+def _serve(eng, kmods):
+    """Flush the whole queue, each flush timed by CUDA events; every
+    kernel module's launch counts are set to 0 just before and read just
+    after.  Also returns the rows each flush fetched from the cold tier."""
+    scores, heads, ms, splits, fetched = {}, [], [], 0, []
+    for mod in kmods:
+        mod.reset_launch_counts()
     while eng.queue:
+        before = _fetched_rows(eng)
         head = eng.queue[: eng.batch_size]
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -237,16 +309,20 @@ def _serve(eng, eg):
         end.record()
         end.synchronize()
         ms.append(start.elapsed_time(end))
+        fetched.append(_fetched_rows(eng) - before)
         splits += len(out) < len(head)
         heads.append(head)
         scores.update(out)
-    return scores, heads, ms, splits, dict(eg.LAUNCH_COUNTS)
+    counts = {k: v for mod in kmods for k, v in mod.LAUNCH_COUNTS.items()}
+    return scores, heads, ms, splits, counts, fetched
 
 
-def _profile_flush(eng, head, median_ms, label):
+def _profile_flush(eng, head, median_ms, label,
+                   kernels=("tbe_gather_pool_kernel",)):
     """One more flush of ``head`` under torch.profiler (after the launch
     counts were read): device time by kernel and the device's busy share
-    of the median unprofiled flush."""
+    of the median unprofiled flush; checks that each of ``kernels`` ran.
+    Returns the idle share in percent."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -262,8 +338,9 @@ def _profile_flush(eng, head, median_ms, label):
               if e.device_type == DeviceType.CUDA
               and e.self_device_time_total > 0
               and not e.key.startswith("Activity Buffer")]
-    check(any("tbe_gather_pool_kernel" in e.key for e in events),
-          f"the profiled {label} flush ran the TBE kernel")
+    for kernel in kernels:
+        check(any(kernel in e.key for e in events),
+              f"the profiled {label} flush ran {kernel}")
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     log(f"  profiled {label} flush: device busy {busy_ms:.3f} ms = "
         f"{100 * busy_ms / median_ms:.1f}% of the median flush "
@@ -271,6 +348,7 @@ def _profile_flush(eng, head, median_ms, label):
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]:
         log(f"    {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<3d} "
             f"{e.key[:90]}")
+    return 100 - 100 * busy_ms / median_ms
 
 
 def _padded(eng, head):
@@ -281,7 +359,7 @@ def _padded(eng, head):
             torch.as_tensor(lens, device=dev))
 
 
-def phase_uncached(pt, eg) -> dict:
+def phase_uncached(pt, eg, oa) -> dict:
     log("== 3. uncached engine at full width (CONFIG)")
     cfg = pt.CONFIG
     t0 = time.perf_counter()
@@ -292,11 +370,11 @@ def phase_uncached(pt, eg) -> dict:
         f"{cfg.embedding_dim} {cfg.dtype} tables "
         f"({cfg.embedding_config().table_bytes / 1e9:.1f} GB) in "
         f"{time.perf_counter() - t0:.1f} s")
-    reqs = _requests(cfg, pt.CTRRequest)
+    reqs = _requests(cfg, pt.CTRRequest, REQUESTS, seed=2)
     eng = pt.DLRMEngine(params, cfg, batch_size=BATCH, device=DEV)
     for r in reqs:
         eng.submit(r)
-    scores, heads, ms, _, counts = _serve(eng, eg)
+    scores, heads, ms, _, counts, _ = _serve(eng, (eg, oa))
     log(f"  {len(scores)} requests in {len(heads)} flushes; launches "
         f"{counts}; flush ms {[round(m, 3) for m in ms]}, median "
         f"{statistics.median(ms):.3f} ms (CUDA events)")
@@ -304,7 +382,7 @@ def phase_uncached(pt, eg) -> dict:
     check(len(scores) == REQUESTS and np.isfinite(vals).all()
           and ((vals > 0) & (vals < 1)).all(), "8192 finite pCTRs in (0, 1)")
     check(counts == {"gather_pool": 0, "gather_pool_tbe": len(heads),
-                     "gather_pool_tbe_flat": 0},
+                     "gather_pool_tbe_flat": 0, "onesided_put_rows": 0},
           "one fused TBE launch per flush")
 
     # the plain score on the card: ref.py pooling + the model's own
@@ -332,10 +410,11 @@ def phase_uncached(pt, eg) -> dict:
                           batch_size=BATCH, device=DEV)
     for r in heads[0]:
         eng_u.submit(r)
-    scores_u, _, ms_u, _, counts_u = _serve(eng_u, eg)
+    scores_u, _, ms_u, _, counts_u, _ = _serve(eng_u, (eg, oa))
     log(f"  fused=False flush: launches {counts_u}, {ms_u[0]:.3f} ms")
     check(counts_u == {"gather_pool": cfg.num_sparse_features,
-                       "gather_pool_tbe": 0, "gather_pool_tbe_flat": 0},
+                       "gather_pool_tbe": 0, "gather_pool_tbe_flat": 0,
+                       "onesided_put_rows": 0},
           "fused=False flush is 26 single-table launches")
     check(all(scores_u[r.rid] == scores[r.rid] for r in heads[0]),
           "fused=False scores bitwise == fused")
@@ -347,7 +426,31 @@ def phase_uncached(pt, eg) -> dict:
                     "gather_pool"]})
 
 
-def phase_cached(pt, eg, unc) -> dict:
+COUNTERS = ("hits", "misses", "misses_host", "misses_remote", "evictions",
+            "fetch_host", "fetch_remote", "bytes_h2d", "bytes_remote")
+
+
+def _check_pooled(pt, eng, unc, label) -> None:
+    """The cached engine's pooled lookups bitwise-equal to the uncached
+    ``pooled_lookup_local`` over the full tables, batch by batch."""
+    ecfg = pt.CONFIG.embedding_config()
+    with torch.no_grad():
+        for head in unc["heads"]:
+            _, idx, lens = _padded(eng, head)
+            slots = eng.cache.prefetch_arrays(idx.cpu().numpy(),
+                                              lens.cpu().numpy())
+            got = eng.cache.device_lookup(
+                eng.cache.pool, torch.as_tensor(slots, device=idx.device),
+                lens, None)
+            want = pt.eb.pooled_lookup_local(
+                unc["params"]["tables"], pt.JaggedBatch(idx, lens), ecfg)
+            check(torch.equal(got, want),
+                  f"{label} pooled bitwise == uncached")
+    log(f"  {label} pooled lookups bitwise equal to uncached "
+        f"({len(unc['heads'])} batches)")
+
+
+def phase_cached(pt, eg, oa, unc) -> dict:
     log("== 4. cached engine at full width (65,536 slots/table, LFU, host "
         "cold tier)")
     cache = pt.CacheConfig(rows=65536, policy="lfu", cold_tier="host")
@@ -360,8 +463,9 @@ def phase_cached(pt, eg, unc) -> dict:
         f"{eng.cache.cold.tables.numel() * 4 / 1e9:.1f} GB")
     for r in unc["reqs"]:
         eng.submit(r)
-    scores, heads, ms, splits, counts = _serve(eng, eg)
+    scores, heads, ms, splits, counts, fetched = _serve(eng, (eg, oa))
     st = eng.cache_stats()
+    counters = {k: getattr(st, k) for k in COUNTERS}
     log(f"  {len(scores)} requests in {len(heads)} flushes, {splits} "
         f"half-split(s); launches {counts}; flush ms "
         f"{[round(m, 3) for m in ms]}, median {statistics.median(ms):.3f} ms")
@@ -371,29 +475,19 @@ def phase_cached(pt, eg, unc) -> dict:
         f"forward {st.forward_s:.3f} s")
     hit_rate = st.hit_rate
     check(counts == {"gather_pool": 0, "gather_pool_tbe": 0,
-                     "gather_pool_tbe_flat": len(heads)},
+                     "gather_pool_tbe_flat": len(heads),
+                     "onesided_put_rows": 0},
           "one fused flat TBE launch per cached flush")
+    log(f"  rows fetched from the cold tier per flush: {fetched}")
     check(sorted(scores) == sorted(unc["scores"])
           and all(scores[k] == unc["scores"][k] for k in scores),
           "cached scores bitwise == uncached")
     log("  cached scores bitwise equal to uncached")
-    ecfg = pt.CONFIG.embedding_config()
-    with torch.no_grad():
-        for head in unc["heads"]:
-            _, idx, lens = _padded(eng, head)
-            slots = eng.cache.prefetch_arrays(idx.cpu().numpy(),
-                                              lens.cpu().numpy())
-            got = eng.cache.device_lookup(
-                eng.cache.pool, torch.as_tensor(slots, device=idx.device),
-                lens, None)
-            want = pt.eb.pooled_lookup_local(
-                unc["params"]["tables"], pt.JaggedBatch(idx, lens), ecfg)
-            check(torch.equal(got, want), "cached pooled bitwise == uncached")
-    log(f"  cached pooled lookups bitwise equal to uncached "
-        f"({len(unc['heads'])} batches)")
+    _check_pooled(pt, eng, unc, "cached")
     _profile_flush(eng, unc["heads"][1], statistics.median(ms), "cached")
     return dict(launches=counts["gather_pool_tbe_flat"], flush_ms=ms,
-                splits=splits, hit_rate=hit_rate)
+                splits=splits, hit_rate=hit_rate, fetched=fetched,
+                counters=counters)
 
 
 # ---------------------------------------------------------------------------
@@ -431,9 +525,45 @@ def _bound(addr, w, t_, d_, itemsize):
                                        else "operations")
 
 
-def phase_times(eg, x) -> dict:
-    log("== 5. times at the phase-2 shapes (f32; median of 20 launches per "
-        "version, in turns plain, kernel, library, library, kernel, plain)")
+def _pow2(m: int) -> int:
+    return 1 << (m - 1).bit_length()
+
+
+def _times_puts(oa, m_pad, scratch) -> dict:
+    """The row puts of one fetch (4 launches, one per simulated host) at
+    ``m_pad`` padded rows, against the plain exchange and the one PyTorch
+    call that computes it; checked bitwise first."""
+    g = torch.Generator(device=DEV).manual_seed(5)
+    c = _contribs(g, HOSTS, m_pad, D, torch.float32, torch.device(DEV))
+    err = _check_puts(oa, c, f"H={HOSTS} M_pad={m_pad} D={D} f32")
+    kern = lambda: oa.onesided_put_rows(c)
+    plain = lambda: oa.onesided_put_rows_ref(c)
+    lib = lambda: c.transpose(0, 1).contiguous()
+    check(torch.equal(_bits(lib()), _bits(plain())),
+          "onesided_put_rows: library yardstick computes the same exchange")
+    p1 = _times(plain, 10, scratch)
+    k1 = _times(kern, 10, scratch)
+    l1 = _times(lib, 20, scratch)
+    k2 = _times(kern, 10, scratch)
+    p2 = _times(plain, 10, scratch)
+    # each put reads one row and writes it once: 2 * H * (H * M_pad * D)
+    # elements; no arithmetic
+    bound_ms = 2 * HOSTS * HOSTS * m_pad * D * 4 / HBM_BYTES_PER_S * 1e3
+    out = dict(ms=statistics.median(k1 + k2),
+               plain_ms=statistics.median(p1 + p2),
+               library_ms=statistics.median(l1), bound_ms=bound_ms,
+               bound_by="bytes", max_abs_err=err)
+    log(f"  onesided_put_rows (H={HOSTS}, M_pad={m_pad}, D={D}, one fetch = "
+        f"{HOSTS} launches): kernel {out['ms']:.4f} ms, plain "
+        f"{out['plain_ms']:.4f} ms, library {out['library_ms']:.4f} ms, "
+        f"bound {bound_ms:.4f} ms (bytes); kernel at "
+        f"{100 * bound_ms / out['ms']:.1f}% of the bound")
+    return out
+
+
+def phase_times(eg, oa, x, m_pad) -> dict:
+    log("== 5. times (f32; median of 20 launches per version, in turns "
+        "plain, kernel, library, library, kernel, plain)")
     F = torch.nn.functional
     tables, idx, w, mask = x["tables"], x["idx"], x["w"], x["mask"]
     flat = tables.view(T * R, D)
@@ -486,6 +616,102 @@ def phase_times(eg, x) -> dict:
             f"{out[name]['library_ms']:.4f} ms, bound {bound_ms:.4f} ms "
             f"({bound_by}); kernel at {100 * bound_ms / out[name]['ms']:.1f}%"
             f" of the bound")
+    out["onesided_put_rows"] = _times_puts(oa, m_pad, scratch)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 6. the remote cold tier
+# ---------------------------------------------------------------------------
+
+def _serve_remote(pt, eg, oa, unc, cached, backend) -> dict:
+    """The phase-4 cache over the remote tier on ``backend``: serve the
+    phase-3 requests, check them, profile one flush of fresh requests."""
+    cache = pt.CacheConfig(rows=65536, policy="lfu", cold_tier="remote",
+                           remote_hosts=HOSTS, remote_backend=backend)
+    cfg = dataclasses.replace(pt.CONFIG, cache=cache)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = pt.DLRMEngine(unc["params"], cfg, batch_size=BATCH, device=DEV)
+    torch.cuda.synchronize()
+    cold = eng.cache.cold
+    check(isinstance(cold, pt.RemoteStore) and cold.hosts == HOSTS
+          and cold.shards.device.type == "cuda"
+          and eng.params["tables"] is None,
+          "the engine holds only the slot pool and the shards on the card")
+    log(f"  [{backend}] cache built in {time.perf_counter() - t0:.1f} s: "
+        f"pool {eng.cache.pool_bytes / 1e6:.0f} MB and {HOSTS} shards of "
+        f"{cold.shards.shape[1]} x {cold.shards.shape[2]} rows "
+        f"({cold.shards.numel() * 4 / 1e9:.1f} GB) on the card")
+    for r in unc["reqs"]:
+        eng.submit(r)
+    fetches = []
+    prev = pt.comm.set_event_sink(fetches.append)
+    try:
+        scores, heads, ms, splits, counts, fetched = _serve(eng, (eg, oa))
+    finally:
+        pt.comm.set_event_sink(prev)
+    st = eng.cache_stats()
+    counters = {k: getattr(st, k) for k in COUNTERS}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    m_pads = [ev.bytes_in // (HOSTS * D * 4) for ev in fetches]
+    fetch_ms = [1e3 * (ev.t1 - ev.t0) for ev in fetches]
+    log(f"  [{backend}] {len(scores)} requests in {len(heads)} flushes, "
+        f"{splits} half-split(s); launches {counts}; flush ms "
+        f"{[round(m, 3) for m in ms]}, median {statistics.median(ms):.3f} ms")
+    log(f"  [{backend}] {len(fetches)} fetches: rows {fetched}, padded "
+        f"{m_pads}, fetch ms {[round(m, 3) for m in fetch_ms]} (host clock, "
+        f"to the payloads on the host); misses host {st.misses_host} / "
+        f"remote {st.misses_remote}, {st.bytes_h2d / 1e6:.1f} MB h2d, "
+        f"{st.bytes_remote / 1e6:.1f} MB remote; prefetch "
+        f"{st.prefetch_s:.3f} s, scatter {st.scatter_s:.3f} s, forward "
+        f"{st.forward_s:.3f} s; peak device memory {peak_gb:.1f} GB")
+    check(counts["gather_pool_tbe_flat"] == len(heads)
+          and counts["gather_pool"] == counts["gather_pool_tbe"] == 0,
+          f"[{backend}] one fused flat TBE launch per flush")
+    check(len(fetches) == sum(f > 0 for f in fetched) > 0,
+          f"[{backend}] one fetch per flush that missed")
+    want_puts = HOSTS * len(fetches) if backend == "onesided" else 0
+    check(counts["onesided_put_rows"] == want_puts,
+          f"[{backend}] {want_puts} put launches (4 per non-empty fetch)")
+    # the same admission decisions as the host tier: the same fetches
+    check(fetched == cached["fetched"]
+          and m_pads == [_pow2(f) for f in fetched if f],
+          f"[{backend}] the host tier's fetches, padded to powers of two")
+    host = cached["counters"]
+    check(all(counters[k] == host[k] for k in
+              ("hits", "misses", "evictions"))
+          and st.misses_host + st.misses_remote == host["misses"]
+          and st.fetch_host + st.fetch_remote == host["fetch_host"],
+          f"[{backend}] the host tier's counters, split by owner")
+    row_bytes = eng.cache.row_bytes
+    check(st.misses_remote > 0
+          and st.bytes_remote == st.fetch_remote * row_bytes
+          and st.bytes_h2d == st.fetch_host * row_bytes,
+          f"[{backend}] remote misses, bytes == fetched rows x row bytes")
+    check(sorted(scores) == sorted(unc["scores"])
+          and all(scores[k] == unc["scores"][k] for k in scores),
+          f"[{backend}] remote-tier scores bitwise == uncached")
+    log(f"  [{backend}] scores bitwise equal to uncached")
+    _check_pooled(pt, eng, unc, f"[{backend}] remote-tier")
+    # a flush of fresh requests, so that the profiled flush fetches
+    fresh = _requests(pt.CONFIG, pt.CTRRequest, BATCH, seed=3)
+    idle = _profile_flush(
+        eng, fresh, statistics.median(ms), f"remote {backend}",
+        ("tbe_gather_pool_kernel",) + (
+            ("put_rows_kernel",) if backend == "onesided" else ()))
+    return dict(flush_ms=ms, launches=counts["onesided_put_rows"],
+                fetches=len(fetches), m_pads=m_pads, fetch_ms=fetch_ms,
+                counters=counters, idle=idle, peak_gb=peak_gb)
+
+
+def phase_remote(pt, eg, oa, unc, cached) -> dict:
+    log(f"== 6. cached engine over the remote cold tier (65,536 slots/table,"
+        f" LFU, tables row-split over {HOSTS} simulated hosts on the card)")
+    out = {}
+    for backend in ("bulk", "onesided"):
+        out[backend] = _serve_remote(pt, eg, oa, unc, cached, backend)
+        torch.cuda.empty_cache()        # the shards of this engine go
     return out
 
 
@@ -496,9 +722,12 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import build
     from repro_torch.kernels import embedding_gather as eg
+    from repro_torch.kernels import onesided_a2a as oa
 
     class pt:   # the port's entry points, one namespace
+        from repro_torch.cache import RemoteStore
         from repro_torch.configs.dlrm import CONFIG
+        from repro_torch.core import comm
         from repro_torch.core import embedding_bag as eb
         from repro_torch.core.cache_config import CacheConfig
         from repro_torch.core.jagged import JaggedBatch
@@ -512,23 +741,38 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     card = phase_environment(build)
-    x = phase_kernels(eg)
-    unc = phase_uncached(pt, eg)
-    cached = phase_cached(pt, eg, unc)
+    x = phase_kernels(eg, oa)
+    unc = phase_uncached(pt, eg, oa)
+    cached = phase_cached(pt, eg, oa, unc)
+    # the rows of the last flush's fetch, padded: a steady-state flush
+    times = phase_times(eg, oa, x, _pow2(cached["fetched"][-1]))
+    errs = x["errs"]
+    del x                       # phase 2's tables: 13.3 GB
+    torch.cuda.empty_cache()
+    remote = phase_remote(pt, eg, oa, unc, cached)
     del unc["params"]
-    times = phase_times(eg, x)
 
-    log("== 6. summary")
-    launches = {**unc["launches"], "gather_pool_tbe_flat": cached["launches"]}
-    kernels = [dict(name=name, route="cuda", source=SOURCE,
-                    replaces=REPLACES[name], launches=launches[name],
-                    max_abs_err=x["errs"][name], **times[name])
-               for name in ("gather_pool_tbe_flat", "gather_pool_tbe",
-                            "gather_pool")]
+    log("== 7. summary")
+    launches = {**unc["launches"], "gather_pool_tbe_flat": cached["launches"],
+                "onesided_put_rows": remote["onesided"]["launches"]}
+    kernels = []
+    for name in ("gather_pool_tbe_flat", "gather_pool_tbe", "gather_pool",
+                 "onesided_put_rows"):
+        t = dict(times[name])
+        err = max(errs[name], t.pop("max_abs_err", 0.0))
+        kernels.append(dict(name=name, route="cuda", source=SOURCES[name],
+                            replaces=REPLACES[name], launches=launches[name],
+                            max_abs_err=err, **t))
     log(f"uncached median flush {statistics.median(unc['flush_ms']):.3f} ms,"
         f" cached median flush {statistics.median(cached['flush_ms']):.3f} "
-        f"ms, cached hit rate {cached['hit_rate']:.4f}; total "
-        f"{time.perf_counter() - t_start:.1f} s")
+        f"ms, cached hit rate {cached['hit_rate']:.4f}")
+    for backend, r in remote.items():
+        log(f"remote {backend}: median flush "
+            f"{statistics.median(r['flush_ms']):.3f} ms, profiled flush idle "
+            f"{r['idle']:.1f}%, {r['fetches']} fetches, median fetch "
+            f"{statistics.median(r['fetch_ms']):.3f} ms, put launches "
+            f"{r['launches']}, peak device memory {r['peak_gb']:.1f} GB")
+    log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

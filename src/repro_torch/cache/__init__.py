@@ -1,1 +1,6 @@
-"""Tiered embedding cache: device slot pool over a host cold tier."""
+"""Tiered embedding cache: device slot pool over a host or remote cold
+tier."""
+from repro_torch.cache.tiers import HostStore, RemoteStore, SlotPool, \
+    TableStore
+
+__all__ = ["HostStore", "RemoteStore", "SlotPool", "TableStore"]

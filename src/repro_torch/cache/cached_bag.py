@@ -1,5 +1,5 @@
 """``CachedEmbeddingBag`` -- tiered lookup: a device slot pool over a cold
-tier.
+tier (the serving host's memory, or row shards of simulated remote hosts).
 
 The counterpart of ``repro.cache.cached_bag`` for one serving device.  The
 serving protocol has two explicit steps:
@@ -26,7 +26,8 @@ import torch
 
 from repro_torch.cache.manager import PrefetchPlan, SlotPoolManager
 from repro_torch.cache.stats import CacheStats
-from repro_torch.cache.tiers import HostStore, SlotPool, TableStore
+from repro_torch.cache.tiers import HostStore, RemoteStore, SlotPool, \
+    TableStore
 from repro_torch.core.cache_config import CacheConfig
 from repro_torch.core.embedding_bag import EmbeddingBagConfig
 from repro_torch.core.jagged import JaggedBatch
@@ -44,15 +45,15 @@ def _valid_mask(indices: np.ndarray, lengths: Optional[np.ndarray]):
     return indices, np.arange(L) < np.asarray(lengths)[..., None]
 
 
-def make_cold_store(tables: torch.Tensor, cache: CacheConfig) -> TableStore:
-    """Build the cold tier named by ``cache.cold_tier``."""
+def make_cold_store(tables: torch.Tensor, cache: CacheConfig, *,
+                    device=None) -> TableStore:
+    """Build the cold tier named by ``cache.cold_tier``; a remote tier's
+    shards live on ``device`` (None: the card)."""
     if cache.cold_tier == "host":
         return HostStore(tables)
     if cache.cold_tier == "remote":
-        raise NotImplementedError(
-            "cold_tier='remote' is not ported yet: it comes with the remote "
-            "cold tier and onesided_fetch_rows (ROADMAP, Queue 1, the "
-            "distributed paths)")
+        return RemoteStore(tables, hosts=cache.remote_hosts or None,
+                           backend=cache.remote_backend, device=device)
     raise ValueError(
         f"unknown cold_tier {cache.cold_tier!r}; pick 'host' or 'remote'")
 
@@ -70,7 +71,7 @@ class CachedEmbeddingBag:
         if tables.dim() != 3:
             raise ValueError(
                 f"tables must be (T, R, D), got {tuple(tables.shape)}")
-        self.cold = make_cold_store(tables, cc)
+        self.cold = make_cold_store(tables, cc, device=self.device)
         T, R, D = tables.shape
         self.dtype = tables.dtype
         # slot sizing: the per-table vector wins over the uniform scalar

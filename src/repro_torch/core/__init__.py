@@ -1,1 +1,2 @@
-"""Single-device embedding bag, jagged batches and the cache config."""
+"""Single-device embedding bag, jagged batches, the cache config and the
+remote cold tier's row fetch."""

@@ -20,9 +20,10 @@ import numpy as np
 class CacheConfig:
     """``rows``: uniform per-table slot count S (0 disables the cache).
     ``rows_per_table``: per-table slot vector S_t, overriding ``rows``.
-    ``policy``: "lfu" | "lru".  ``cold_tier``: "host" | "remote" (the
-    remote tier and its ``remote_hosts``/``remote_backend`` knobs are not
-    ported yet).  ``warmup_freqs``: offline per-row
+    ``policy``: "lfu" | "lru".  ``cold_tier``: "host" (the serving host's
+    memory) | "remote" (row-split over ``remote_hosts`` simulated hosts,
+    fetched by ``comm.fetch_rows`` over the ``remote_backend`` transport:
+    "bulk" | "onesided").  ``warmup_freqs``: offline per-row
     frequencies seeding LFU and pre-admitting the top rows (data, excluded
     from equality).  ``pipeline_depth``: 1 = serialized serving."""
 
@@ -30,6 +31,8 @@ class CacheConfig:
     rows_per_table: Optional[Tuple[int, ...]] = None
     policy: str = "lfu"
     cold_tier: str = "host"
+    remote_hosts: int = 0
+    remote_backend: str = "bulk"
     pipeline_depth: int = 1
     warmup_freqs: Optional[object] = dataclasses.field(
         default=None, compare=False, repr=False)

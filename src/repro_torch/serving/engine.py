@@ -67,8 +67,8 @@ class DLRMEngine:
                     f"always fits the slot pool (CacheConfig.rows)")
             self.cache = make_cache(params["tables"], cfg.embedding_config(),
                                     device=self.device)
-            # the cold tier now lives host-side inside the cache: serving
-            # holds only the slot pool on the device
+            # the cold tier now lives inside the cache (host memory, or the
+            # remote tier's row shards): serving keeps no full tables
             self.params = {**params, "tables": None}
 
     def submit(self, req: CTRRequest) -> None:

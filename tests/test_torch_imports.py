@@ -41,7 +41,8 @@ def test_forbidden_name_matching():
 
 def test_importing_every_port_module_loads_no_jax_and_no_repro():
     mods = list(_port_modules())
-    assert "repro_torch.serving.engine" in mods
+    assert {"repro_torch.serving.engine", "repro_torch.core.comm",
+            "repro_torch.kernels.onesided_a2a"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"
@@ -78,6 +79,26 @@ def test_ast_scan_finds_no_jax_or_repro_import():
            for p in files for line, name in _imports(p)
            if _forbidden(name)]
     assert bad == []
+
+
+def test_every_cuda_source_is_plain_c_bound_and_smoked():
+    """Each ``csrc/*.cu`` is a plain-C library (no PyTorch headers, an
+    ``extern "C"`` launcher), loaded by a kernel module of the package,
+    and built by ``chip_smoke.py``."""
+    sources = sorted((PORT / "csrc").glob("*.cu"))
+    assert {p.stem for p in sources} >= {"tbe_gather_pool",
+                                         "onesided_put_rows"}
+    loaders = "".join(p.read_text()
+                      for p in (PORT / "kernels").glob("*.py"))
+    smoke = SMOKE.read_text()
+    for src in sources:
+        text = src.read_text()
+        includes = [ln for ln in text.splitlines()
+                    if ln.startswith("#include")]
+        assert not any("torch" in ln or "ATen" in ln for ln in includes)
+        assert 'extern "C"' in text, src.name
+        assert f'_build.load("{src.stem}")' in loaders, src.name
+        assert f"src/repro_torch/csrc/{src.name}" in smoke, src.name
 
 
 def test_chip_smoke_fails_without_a_card_and_alone(tmp_path):

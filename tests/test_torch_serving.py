@@ -211,8 +211,14 @@ def test_capacity_error_and_remote_tier():
                         torch.full((1, 2), 4, dtype=torch.int32))
     with pytest.raises(CacheCapacityError):
         cache.lookup(batch)
-    with pytest.raises(NotImplementedError, match="remote"):
-        make_cold_store(tables, CacheConfig(rows=3, cold_tier="remote"))
+    # the remote tier: one simulated host per device by default, and the
+    # CPU is one host -- too few; remote_hosts=4 builds it
+    with pytest.raises(ValueError, match="remote|hosts"):
+        make_cold_store(tables, CacheConfig(rows=3, cold_tier="remote"),
+                        device="cpu")
+    assert make_cold_store(
+        tables, CacheConfig(rows=3, cold_tier="remote", remote_hosts=4),
+        device="cpu").tier == "remote"
     with pytest.raises(ValueError, match="cold_tier"):
         make_cold_store(tables, CacheConfig(rows=3, cold_tier="disk"))
 
