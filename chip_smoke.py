@@ -13,9 +13,9 @@ Phases:
      uniform ids over R=1,000,000 rows, random lengths including 0, -1
      padding, in f32 and bf16, plus D=10 (the scalar path) and D=96;
      stacked and flat over a copy of the same rows bitwise-equal; the
-     one-sided row puts on 4 simulated hosts' contributions of 2**18 rows
-     (the padded fetch of every flush of phase 6) at D=128 and of 1000
-     rows at D=10, f32 and bf16, bitwise;
+     row fetch's one-sided exchange (the chunk-put kernel) on 4 simulated
+     hosts' contributions of 2**18 rows (the padded fetch of every flush
+     of phase 6) at D=128 and of 1000 rows at D=10, f32 and bf16, bitwise;
   3. the uncached engine at full width (CONFIG: 26 x 1,000,000 x 128 fp32
      tables) serving 8192 requests in flushes of 2048: scores against a
      plain score on the card, one TBE launch per flush, and 26
@@ -23,14 +23,24 @@ Phases:
   4. the cached engine (65,536 slots per table, LFU, host cold tier) on
      the same requests: scores and pooled lookups bitwise-equal to phase 3;
   5. kernel, plain-version and library times: the TBE wrappers at the
-     phase-2 shapes, the row puts at the padded fetch of a steady-state
-     flush of phase 4, beside each kernel's bound;
+     phase-2 shapes, the row fetch's puts at the padded fetch of a
+     steady-state flush of phase 4, beside each kernel's bound;
   6. the cached engine over the REMOTE cold tier (the same cache, the
      tables row-split over 4 simulated hosts on the card), once with the
      bulk and once with the one-sided transport, on the same requests:
      scores and pooled lookups bitwise-equal to phase 3, the one-sided run
      4 put launches per non-empty fetch and the bulk run none;
-  7. the card line, one JSON line of the kernels, and last the result line.
+  7. the distributed embedding bag over 4 simulated ranks on the card
+     (table-wise over 2), on phase 3's tables: the chunk-put kernel's
+     all-to-all, reduce-scatter and ring permute bitwise against their
+     plain versions at the a2a pipeline's shapes; phase 3's requests
+     served by DLRMEngine with a ParallelContext for row/allgather (within
+     tolerance of phase 3), row/a2a on both backends (dropped lookups per
+     flush, 16 put launches per one-sided flush) and column / table
+     (bitwise phase 3); a no-drop traffic (uniform ids, every length 32)
+     where a2a drops nothing and agrees with uncached; flush medians, one
+     profiled a2a flush, the kernels' times beside their bounds;
+  8. the card line, one JSON line of the kernels, and last the result line.
 
 Any failed check raises: the script exits non-zero and prints no result
 line.  It also fails without a CUDA card, and without the port's sources
@@ -53,13 +63,19 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 ROOT = Path(__file__).resolve().parent
 TBE_SOURCE = "src/repro_torch/csrc/tbe_gather_pool.cu"
-PUT_SOURCE = "src/repro_torch/csrc/onesided_put_rows.cu"
+A2A_SOURCE = "src/repro_torch/csrc/onesided_a2a.cu"
 SOURCES = {"gather_pool_tbe_flat": TBE_SOURCE, "gather_pool_tbe": TBE_SOURCE,
-           "gather_pool": TBE_SOURCE, "onesided_put_rows": PUT_SOURCE}
+           "gather_pool": TBE_SOURCE, "onesided_put_rows": A2A_SOURCE,
+           "onesided_all_to_all": A2A_SOURCE,
+           "onesided_reduce_scatter": A2A_SOURCE,
+           "onesided_ring_permute": A2A_SOURCE}
 REPLACES = {"gather_pool_tbe_flat": "src/repro/kernels/embedding_gather.py:150",
             "gather_pool_tbe": "src/repro/kernels/embedding_gather.py:215",
             "gather_pool": "src/repro/kernels/embedding_gather.py:95",
-            "onesided_put_rows": "src/repro/kernels/onesided_a2a.py:116"}
+            "onesided_put_rows": "src/repro/kernels/onesided_a2a.py:116",
+            "onesided_all_to_all": "src/repro/kernels/onesided_a2a.py:57",
+            "onesided_reduce_scatter": "src/repro/kernels/onesided_a2a.py:77",
+            "onesided_ring_permute": "src/repro/kernels/onesided_a2a.py:145"}
 # H100 SXM peaks (NVIDIA data sheet), at a 700 W power limit
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
@@ -75,6 +91,9 @@ T, B, L, D, R = 26, 2048, 32, 128, 1_000_000
 REQUESTS, BATCH = 8192, 2048
 HOSTS = 4                  # simulated hosts of the remote cold tier
 PUT_ROWS = 2 ** 18         # the padded rows of each of phase 6's fetches
+RANKS = 4                  # simulated ranks of phase 7's model axis
+CAPACITY_FACTOR = 2.0      # the a2a buckets' (DLRMConfig passes none)
+SPIN_CYCLES = 2_000_000    # ~1 ms of the card's clock before a timed launch
 
 
 def log(msg: str) -> None:
@@ -84,6 +103,11 @@ def log(msg: str) -> None:
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"check failed: {what}")
+
+
+def _launches(**nonzero) -> dict:
+    """Every kernel's launch count: 0 but for ``nonzero``."""
+    return {name: nonzero.get(name, 0) for name in SOURCES}
 
 
 def compare(name, got, want, tol) -> float:
@@ -120,7 +144,7 @@ def phase_environment(build) -> str:
     log(f"torch.cuda: {torch.cuda.get_device_name(0)}, "
         f"{torch.cuda.device_count()} device(s)")
     t0 = time.perf_counter()
-    names = ["tbe_gather_pool", "onesided_put_rows"]
+    names = ["tbe_gather_pool", "onesided_a2a"]
     recs = build.build(names)          # one nvcc per source, in parallel
     for name in names:
         build.load(name)
@@ -199,7 +223,7 @@ def _bits(x):
 
 
 def _check_puts(oa, c, tag) -> float:
-    """The put kernel's exchange and row fetch against their plain versions
+    """The row fetch's exchange and fetched rows against their plain versions
     on the same contributions: bitwise; returns the max abs error."""
     exch = oa.onesided_put_rows(c)
     want = oa.onesided_put_rows_ref(c)
@@ -253,8 +277,8 @@ def phase_kernels(eg, oa) -> dict:
         f"{'bitwise equal' if same else 'DIFFER'}")
     check(same, "stacked and flat pool bitwise-equal")
 
-    # the row puts: 4 simulated hosts, D=128 (16-byte vectors) and D=10
-    # (the scalar path), f32 and bf16
+    # the row fetch's puts: 4 simulated hosts, D=128 and D=10, f32 and
+    # bf16
     put_err = 0.0
     for m, d in ((PUT_ROWS, D), (1000, 10)):
         for dtype in (torch.float32, torch.bfloat16):
@@ -381,8 +405,7 @@ def phase_uncached(pt, eg, oa) -> dict:
     vals = np.array(list(scores.values()))
     check(len(scores) == REQUESTS and np.isfinite(vals).all()
           and ((vals > 0) & (vals < 1)).all(), "8192 finite pCTRs in (0, 1)")
-    check(counts == {"gather_pool": 0, "gather_pool_tbe": len(heads),
-                     "gather_pool_tbe_flat": 0, "onesided_put_rows": 0},
+    check(counts == _launches(gather_pool_tbe=len(heads)),
           "one fused TBE launch per flush")
 
     # the plain score on the card: ref.py pooling + the model's own
@@ -412,9 +435,7 @@ def phase_uncached(pt, eg, oa) -> dict:
         eng_u.submit(r)
     scores_u, _, ms_u, _, counts_u, _ = _serve(eng_u, (eg, oa))
     log(f"  fused=False flush: launches {counts_u}, {ms_u[0]:.3f} ms")
-    check(counts_u == {"gather_pool": cfg.num_sparse_features,
-                       "gather_pool_tbe": 0, "gather_pool_tbe_flat": 0,
-                       "onesided_put_rows": 0},
+    check(counts_u == _launches(gather_pool=cfg.num_sparse_features),
           "fused=False flush is 26 single-table launches")
     check(all(scores_u[r.rid] == scores[r.rid] for r in heads[0]),
           "fused=False scores bitwise == fused")
@@ -474,9 +495,7 @@ def phase_cached(pt, eg, oa, unc) -> dict:
         f"prefetch {st.prefetch_s:.3f} s, scatter {st.scatter_s:.3f} s, "
         f"forward {st.forward_s:.3f} s")
     hit_rate = st.hit_rate
-    check(counts == {"gather_pool": 0, "gather_pool_tbe": 0,
-                     "gather_pool_tbe_flat": len(heads),
-                     "onesided_put_rows": 0},
+    check(counts == _launches(gather_pool_tbe_flat=len(heads)),
           "one fused flat TBE launch per cached flush")
     log(f"  rows fetched from the cold tier per flush: {fetched}")
     check(sorted(scores) == sorted(unc["scores"])
@@ -496,10 +515,14 @@ def phase_cached(pt, eg, oa, unc) -> dict:
 
 def _times(fn, reps, scratch):
     """Per-launch CUDA-event times (ms), L2 evicted before each launch by
-    writing a buffer five times its size."""
+    writing a buffer five times its size.  The card spins for about a
+    millisecond before each timed region, so that the host has enqueued
+    all of ``fn``'s launches before the card reaches them: the time is the
+    card's, not the rate at which the host issues launches."""
     evs = []
     for _ in range(reps):
         scratch.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -530,7 +553,7 @@ def _pow2(m: int) -> int:
 
 
 def _times_puts(oa, m_pad, scratch) -> dict:
-    """The row puts of one fetch (4 launches, one per simulated host) at
+    """The puts of one row fetch (4 launches, one per simulated host) at
     ``m_pad`` padded rows, against the plain exchange and the one PyTorch
     call that computes it; checked bitwise first."""
     g = torch.Generator(device=DEV).manual_seed(5)
@@ -563,7 +586,8 @@ def _times_puts(oa, m_pad, scratch) -> dict:
 
 def phase_times(eg, oa, x, m_pad) -> dict:
     log("== 5. times (f32; median of 20 launches per version, in turns "
-        "plain, kernel, library, library, kernel, plain)")
+        "plain, kernel, library, library, kernel, plain; the card's time, "
+        "the host's launches enqueued ahead)")
     F = torch.nn.functional
     tables, idx, w, mask = x["tables"], x["idx"], x["w"], x["mask"]
     flat = tables.view(T * R, D)
@@ -699,7 +723,7 @@ def _serve_remote(pt, eg, oa, unc, cached, backend) -> dict:
     idle = _profile_flush(
         eng, fresh, statistics.median(ms), f"remote {backend}",
         ("tbe_gather_pool_kernel",) + (
-            ("put_rows_kernel",) if backend == "onesided" else ()))
+            ("put_chunks_kernel",) if backend == "onesided" else ()))
     return dict(flush_ms=ms, launches=counts["onesided_put_rows"],
                 fetches=len(fetches), m_pads=m_pads, fetch_ms=fetch_ms,
                 counters=counters, idle=idle, peak_gb=peak_gb)
@@ -712,6 +736,345 @@ def phase_remote(pt, eg, oa, unc, cached) -> dict:
     for backend in ("bulk", "onesided"):
         out[backend] = _serve_remote(pt, eg, oa, unc, cached, backend)
         torch.cuda.empty_cache()        # the shards of this engine go
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 7. the distributed embedding bag
+# ---------------------------------------------------------------------------
+
+# (label, DLRMConfig fields, ranks of the model axis); table-wise over 2
+# ranks because 26 % 4 != 0
+STRATEGIES = (
+    ("row/allgather/bulk", dict(sharding="row"), RANKS),
+    ("row/a2a/bulk", dict(sharding="row", rw_impl="a2a"), RANKS),
+    ("row/a2a/onesided", dict(sharding="row", rw_impl="a2a",
+                              rw_backend="onesided"), RANKS),
+    ("column", dict(sharding="column"), RANKS),
+    ("table", dict(sharding="table"), 2),
+)
+
+
+def _a2a_shapes():
+    """The a2a pipeline's per-flush shapes at full width: the phase-1
+    bucket capacity C and the phase-3 rows Bl * T."""
+    bl = BATCH // RANKS
+    n = bl * T * L
+    return min(max(1, int(n / RANKS * CAPACITY_FACTOR)), n), bl * T
+
+
+def _same_bits(got, want) -> bool:
+    return got.dtype == want.dtype and got.shape == want.shape \
+        and torch.equal(_bits(got), _bits(want))
+
+
+def _check_chunk(name, got, want, tag) -> float:
+    torch.cuda.synchronize()
+    err = float((got.double() - want.double()).abs().max())
+    ok = _same_bits(got, want)
+    log(f"  {name} {tag}: {'bitwise equal' if ok else 'DIFFER'} "
+        f"(max_abs_err {err:.3e})")
+    check(ok, f"{name} {tag} bitwise == plain version")
+    return err
+
+
+def _check_chunk_kernels(pt, oa) -> dict:
+    """The chunk-put kernel's three wrappers against their plain versions
+    at the a2a pipeline's shapes (phase 1 int32, phase 3 f32 and bf16) and
+    at shapes that are not 16-byte aligned, bitwise; the bulk routes
+    launch nothing.  Returns each wrapper's largest error."""
+    dev = torch.device(DEV)
+    g = torch.Generator(device=dev).manual_seed(7)
+    cap, rows = _a2a_shapes()
+    ids = torch.randint(-T, R * T, (RANKS, RANKS, cap), generator=g,
+                        device=dev, dtype=torch.int32)
+    part = torch.randn((RANKS, RANKS, rows, D), generator=g, device=dev)
+    odd = torch.randn((RANKS, RANKS, 1001), generator=g, device=dev)
+    errs = dict.fromkeys(("onesided_all_to_all", "onesided_reduce_scatter",
+                          "onesided_ring_permute"), 0.0)
+    for tag, x in ((f"phase 1 int32 {tuple(ids.shape)}", ids),
+                   (f"phase 3 f32 {tuple(part.shape)}", part),
+                   (f"phase 3 bf16 {tuple(part.shape)}",
+                    part.to(torch.bfloat16)),
+                   ("unaligned bf16 (4, 4, 1001)", odd.to(torch.bfloat16)),
+                   ("unaligned int32 (4, 4, 7, 3)", ids[..., :21].reshape(
+                       RANKS, RANKS, 7, 3).contiguous())):
+        errs["onesided_all_to_all"] = max(
+            errs["onesided_all_to_all"], _check_chunk(
+                "onesided_all_to_all", oa.onesided_all_to_all(x),
+                oa.onesided_all_to_all_ref(x), tag))
+    for tag, x in ((f"phase 3 f32 {tuple(part.shape)}", part),
+                   (f"phase 3 bf16 {tuple(part.shape)}",
+                    part.to(torch.bfloat16)),
+                   ("unaligned f32 (4, 4, 1001)", odd)):
+        got = oa.onesided_reduce_scatter(x)
+        errs["onesided_reduce_scatter"] = max(
+            errs["onesided_reduce_scatter"], _check_chunk(
+                "onesided_reduce_scatter", got,
+                oa.onesided_reduce_scatter_ref(x), tag))
+        _check_chunk("onesided_reduce_scatter", got, x.sum(0),
+                     tag + " vs the bulk route x.sum(0)")
+    ring = part[0]
+    for tag, x in ((f"f32 {tuple(ring.shape)}", ring),
+                   ("unaligned bf16 (4, 1001)", odd[0].to(torch.bfloat16))):
+        for shift in (1, 3):
+            got = oa.onesided_ring_permute(x, shift)
+            errs["onesided_ring_permute"] = max(
+                errs["onesided_ring_permute"], _check_chunk(
+                    "onesided_ring_permute", got,
+                    oa.onesided_ring_permute_ref(x, shift),
+                    f"{tag} shift {shift}"))
+            _check_chunk("onesided_ring_permute", got,
+                         torch.roll(x, shift, 0),
+                         f"{tag} shift {shift} vs torch.roll")
+    oa.reset_launch_counts()
+    pt.comm.all_to_all(ids, backend="bulk")
+    pt.comm.reduce_scatter(part, backend="bulk")
+    pt.comm.reduce_scatter(part, backend="bulk", emulate_with_a2a=True)
+    pt.comm.permute_ring(ring, backend="bulk")
+    torch.cuda.synchronize()
+    check(set(oa.LAUNCH_COUNTS.values()) == {0},
+          "the bulk routes launch no put kernel")
+    log("  bulk all_to_all / reduce_scatter / permute_ring: 0 put launches")
+    return errs
+
+
+def _uniform_requests(cfg, CTRRequest, n, seed):
+    """The no-drop traffic: uniform ids, every length L."""
+    rng = np.random.default_rng(seed)
+    t_, l_ = cfg.num_sparse_features, cfg.pooling
+    ids = rng.integers(0, cfg.rows_per_table, (n, t_, l_)).astype(np.int32)
+    dense = rng.standard_normal(
+        (n, cfg.num_dense_features)).astype(np.float32)
+    lengths = np.full((n, t_), l_, np.int32)
+    return [CTRRequest(rid=i, dense=dense[i], indices=ids[i],
+                       lengths=lengths[i]) for i in range(n)]
+
+
+def _pooled_pairs(pt, eng, unc, heads, ecfg):
+    """(sharded, uncached) pooled vectors of each head, batch by batch."""
+    with torch.no_grad():
+        for head in heads:
+            _, idx, lens = _padded(eng, head)
+            batch = pt.JaggedBatch(idx, lens)
+            yield (pt.eb.pooled_lookup_sharded(eng.params["tables"], batch,
+                                               ecfg),
+                   pt.eb.pooled_lookup_local(unc["params"]["tables"], batch,
+                                             pt.CONFIG.embedding_config()))
+
+
+def _dropped(pt, eng, heads, ecfg):
+    """Dropped lookups per rank of each flush's batch."""
+    out = []
+    with torch.no_grad():
+        for head in heads:
+            _, idx, lens = _padded(eng, head)
+            _, d = pt.eb.pooled_lookup_rw_a2a_with_stats(
+                eng.params["tables"], pt.JaggedBatch(idx, lens), ecfg)
+            out.append(d.tolist())
+    return out
+
+
+def _serve_strategy(pt, eg, oa, unc, label, fields, ranks, nodrop) -> dict:
+    cfg = dataclasses.replace(pt.CONFIG, **fields)
+    ecfg = cfg.embedding_config()
+    t0 = time.perf_counter()
+    eng = pt.DLRMEngine(unc["params"], cfg, batch_size=BATCH,
+                        ctx=pt.make_context(tp_size=ranks), device=DEV)
+    torch.cuda.synchronize()
+    log(f"  [{label}] {ranks} ranks; tables sharded in "
+        f"{time.perf_counter() - t0:.2f} s")
+    for r in unc["reqs"]:
+        eng.submit(r)
+    scores, heads, ms, _, counts, _ = _serve(eng, (eg, oa))
+    n = len(heads)
+    log(f"  [{label}] {len(scores)} requests in {n} flushes; launches "
+        f"{ {k: v for k, v in counts.items() if v} }; flush ms "
+        f"{[round(m, 3) for m in ms]}, median {statistics.median(ms):.3f} ms")
+    vals = np.array([scores[k] for k in sorted(scores)])
+    check(sorted(scores) == sorted(unc["scores"]) and np.isfinite(vals).all()
+          and ((vals > 0) & (vals < 1)).all(),
+          f"[{label}] 8192 finite pCTRs in (0, 1)")
+    want = np.array([unc["scores"][k] for k in sorted(scores)])
+    out = dict(flush_ms=ms, counts=counts, scores=scores, heads=heads,
+               pctr_err=float(np.abs(vals - want).max()))
+    if label == "row/allgather/bulk":
+        check(counts == _launches(gather_pool_tbe_flat=ranks * n),
+              f"[{label}] one fused flat TBE launch per rank per flush")
+        check(bool(np.allclose(vals, want, **PCTR_TOL)),
+              f"[{label}] pCTR within tolerance of uncached")
+        err = 0.0
+        for got, ref in _pooled_pairs(pt, eng, unc, heads, ecfg):
+            err = max(err, compare(f"[{label}] pooled vs uncached", got, ref,
+                                   POOL_TOL))
+        log(f"  [{label}] pCTR vs uncached max_abs_err "
+            f"{out['pctr_err']:.3e} (rtol={PCTR_TOL['rtol']} "
+            f"atol={PCTR_TOL['atol']}); pooled max_abs_err {err:.3e}")
+    elif label.startswith("row/a2a"):
+        puts = dict(onesided_all_to_all=3 * ranks * n,
+                    onesided_reduce_scatter=ranks * n) \
+            if label.endswith("onesided") else {}
+        check(counts == _launches(**puts),
+              f"[{label}] {sum(puts.values()) // n} put launches per flush, "
+              f"no TBE launch")
+        out["dropped"] = _dropped(pt, eng, heads, ecfg)
+        live = [int(lens.sum()) for lens in (
+            _padded(eng, h)[2] for h in heads)]
+        log(f"  [{label}] dropped lookups per flush (per rank): "
+            f"{out['dropped']}; of {live} live lookups")
+        # the no-drop traffic: nothing dropped, and uncached's scores
+        for r in nodrop["reqs"]:
+            eng.submit(r)
+        s_nd, h_nd, _, _, c_nd, _ = _serve(eng, (eg, oa))
+        d_nd = _dropped(pt, eng, h_nd, ecfg)
+        check(all(v == 0 for d in d_nd for v in d),
+              f"[{label}] no lookup dropped on the no-drop traffic")
+        check(c_nd == _launches(**{k: v // n for k, v in puts.items()}),
+              f"[{label}] the no-drop flush's launches")
+        got = np.array([s_nd[k] for k in sorted(s_nd)])
+        ref = np.array([nodrop["scores"][k] for k in sorted(s_nd)])
+        check(bool(np.allclose(got, ref, **PCTR_TOL)),
+              f"[{label}] no-drop pCTR within tolerance of uncached")
+        err = 0.0
+        for g_, w_ in _pooled_pairs(pt, eng, unc, h_nd, ecfg):
+            err = max(err, compare(f"[{label}] no-drop pooled vs uncached",
+                                   g_, w_, POOL_TOL))
+        log(f"  [{label}] no-drop traffic: dropped {d_nd}; pCTR vs "
+            f"uncached max_abs_err {float(np.abs(got - ref).max()):.3e}; "
+            f"pooled max_abs_err {err:.3e}")
+        out["nodrop_err"] = float(np.abs(got - ref).max())
+        out["eng"] = eng
+    else:
+        check(counts == _launches(gather_pool_tbe=ranks * n),
+              f"[{label}] one fused TBE launch per rank per flush")
+        check(all(scores[k] == unc["scores"][k] for k in scores),
+              f"[{label}] scores bitwise == uncached")
+        for got, ref in _pooled_pairs(pt, eng, unc, heads, ecfg):
+            check(torch.equal(got, ref), f"[{label}] pooled bitwise == "
+                                         f"uncached")
+        log(f"  [{label}] scores and pooled lookups bitwise equal to "
+            f"uncached")
+    return out
+
+
+def _times_chunks(pt, oa) -> dict:
+    """The three wrappers at the shapes the a2a pipeline gives them (one
+    exchange = 4 launches): the all-to-all at phase 1's int32 buckets, the
+    reduce-scatter at phase 3's f32 partials, the ring at a rank's block of
+    them; against the plain version, the one PyTorch call that computes the
+    same function, and the bytes bound.  The all-to-all alone at phase 3's
+    shape is timed too (logged, not in the kernels line)."""
+    dev = torch.device(DEV)
+    g = torch.Generator(device=dev).manual_seed(8)
+    cap, rows = _a2a_shapes()
+    part = torch.randn((RANKS, RANKS, rows, D), generator=g, device=dev)
+    ids = torch.randint(0, R * T, (RANKS, RANKS, cap), generator=g,
+                        device=dev, dtype=torch.int32)
+    ring = part[0]
+    scratch = torch.empty(256 * 2 ** 20 // 4, device=dev)
+    nbytes = part.numel() * 4
+    cases = {
+        "onesided_all_to_all": (
+            lambda: oa.onesided_all_to_all(ids),
+            lambda: oa.onesided_all_to_all_ref(ids),
+            lambda: ids.transpose(0, 1).contiguous(),
+            2 * ids.numel() * 4, 0),
+        "onesided_reduce_scatter": (
+            lambda: oa.onesided_reduce_scatter(part),
+            lambda: oa.onesided_reduce_scatter_ref(part),
+            lambda: part.sum(0),
+            nbytes + nbytes // RANKS, part.numel() - part[0].numel()),
+        "onesided_ring_permute": (
+            lambda: oa.onesided_ring_permute(ring, 1),
+            lambda: oa.onesided_ring_permute_ref(ring, 1),
+            lambda: torch.roll(ring, 1, 0),
+            2 * ring.numel() * 4, 0),
+        "phase-3 all-to-all alone (f32)": (
+            lambda: oa.onesided_all_to_all(part),
+            lambda: oa.onesided_all_to_all_ref(part),
+            lambda: part.transpose(0, 1).contiguous(),
+            2 * nbytes, 0),
+    }
+    out = {}
+    for name, (kern, plain, lib, moved, flops) in cases.items():
+        check(_same_bits(lib(), plain()),
+              f"{name}: library yardstick computes the same function")
+        kern()
+        p1 = _times(plain, 10, scratch)
+        k1 = _times(kern, 10, scratch)
+        l1 = _times(lib, 20, scratch)
+        k2 = _times(kern, 10, scratch)
+        p2 = _times(plain, 10, scratch)
+        t_bytes = moved / HBM_BYTES_PER_S
+        t_ops = flops / FP32_FLOPS_PER_S
+        out[name] = dict(ms=statistics.median(k1 + k2),
+                         plain_ms=statistics.median(p1 + p2),
+                         library_ms=statistics.median(l1),
+                         bound_ms=max(t_bytes, t_ops) * 1e3,
+                         bound_by="bytes" if t_bytes >= t_ops
+                         else "operations")
+        r = out[name]
+        log(f"  {name} ({moved / 1e6:.1f} MB moved): kernel {r['ms']:.4f} "
+            f"ms, plain {r['plain_ms']:.4f} ms, library "
+            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}); kernel at "
+            f"{100 * r['bound_ms'] / r['ms']:.1f}% of the bound")
+    return out
+
+
+def phase_distributed(pt, eg, oa, unc) -> dict:
+    log(f"== 7. the distributed embedding bag ({RANKS} simulated ranks on "
+        f"the card, table-wise over 2; phase 3's tables)")
+    torch.cuda.reset_peak_memory_stats()
+    errs = _check_chunk_kernels(pt, oa)
+    # the no-drop traffic's uncached scores
+    nd_reqs = _uniform_requests(pt.CONFIG, pt.CTRRequest, BATCH, seed=4)
+    eng = pt.DLRMEngine(unc["params"], pt.CONFIG, batch_size=BATCH,
+                        device=DEV)
+    for r in nd_reqs:
+        eng.submit(r)
+    nodrop = dict(reqs=nd_reqs, scores=eng.run_to_completion())
+    del eng
+    out = {}
+    for label, fields, ranks in STRATEGIES:
+        out[label] = _serve_strategy(pt, eg, oa, unc, label, fields, ranks,
+                                     nodrop)
+        torch.cuda.empty_cache()            # the column copy goes
+    bulk, ones = out["row/a2a/bulk"], out["row/a2a/onesided"]
+    check(bulk["dropped"] == ones["dropped"],
+          "both backends drop the same lookups")
+    same = all(bulk["scores"][k] == ones["scores"][k]
+               for k in bulk["scores"])
+    err = max(abs(bulk["scores"][k] - ones["scores"][k])
+              for k in bulk["scores"])
+    log(f"  row/a2a onesided vs bulk scores: "
+        f"{'bitwise equal' if same else 'not bitwise'} (max_abs_err "
+        f"{err:.3e})")
+    check(same or err <= PCTR_TOL["atol"],
+          "onesided a2a scores within tolerance of bulk")
+    out["a2a_bitwise"] = same
+    out["idle"] = _profile_flush(
+        ones["eng"], unc["heads"][1],
+        statistics.median(ones["flush_ms"]), "row/a2a/onesided",
+        ("put_chunks_kernel",))
+    del bulk["eng"], ones["eng"]
+    times = _times_chunks(pt, oa)
+    # the ring collective through its comm entry point (no serving path
+    # calls it, in the reference either): one put launch per rank
+    oa.reset_launch_counts()
+    x = torch.randn((RANKS, _a2a_shapes()[1], D), device=DEV)
+    got = pt.comm.permute_ring(x, shift=1, backend="onesided")
+    ring_launches = oa.LAUNCH_COUNTS["onesided_ring_permute"]
+    check(ring_launches == RANKS and _same_bits(got, torch.roll(x, 1, 0)),
+          "comm.permute_ring(backend='onesided'): one launch per rank")
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  comm.permute_ring(backend='onesided'): {ring_launches} launches;"
+        f" peak device memory in this phase {out['peak_gb']:.1f} GB")
+    out["errs"], out["times"] = errs, times
+    out["launches"] = dict(
+        onesided_all_to_all=ones["counts"]["onesided_all_to_all"],
+        onesided_reduce_scatter=ones["counts"]["onesided_reduce_scatter"],
+        onesided_ring_permute=ring_launches)
     return out
 
 
@@ -731,6 +1094,7 @@ def main() -> int:
         from repro_torch.core import embedding_bag as eb
         from repro_torch.core.cache_config import CacheConfig
         from repro_torch.core.jagged import JaggedBatch
+        from repro_torch.core.parallel import make_context
         from repro_torch.kernels import ref
         from repro_torch.models import dlrm
         from repro_torch.models.dlrm import init_params
@@ -750,14 +1114,17 @@ def main() -> int:
     del x                       # phase 2's tables: 13.3 GB
     torch.cuda.empty_cache()
     remote = phase_remote(pt, eg, oa, unc, cached)
+    dist = phase_distributed(pt, eg, oa, unc)
     del unc["params"]
 
-    log("== 7. summary")
+    log("== 8. summary")
     launches = {**unc["launches"], "gather_pool_tbe_flat": cached["launches"],
-                "onesided_put_rows": remote["onesided"]["launches"]}
+                "onesided_put_rows": remote["onesided"]["launches"],
+                **dist["launches"]}
+    times.update(dist["times"])
+    errs.update(dist["errs"])
     kernels = []
-    for name in ("gather_pool_tbe_flat", "gather_pool_tbe", "gather_pool",
-                 "onesided_put_rows"):
+    for name in SOURCES:
         t = dict(times[name])
         err = max(errs[name], t.pop("max_abs_err", 0.0))
         kernels.append(dict(name=name, route="cuda", source=SOURCES[name],
@@ -772,6 +1139,13 @@ def main() -> int:
             f"{r['idle']:.1f}%, {r['fetches']} fetches, median fetch "
             f"{statistics.median(r['fetch_ms']):.3f} ms, put launches "
             f"{r['launches']}, peak device memory {r['peak_gb']:.1f} GB")
+    log("distributed (median flush ms): " + ", ".join(
+        f"{label} {statistics.median(dist[label]['flush_ms']):.3f}"
+        for label, _, _ in STRATEGIES))
+    log(f"distributed: row/a2a dropped per flush {dist['row/a2a/bulk']['dropped']}"
+        f", onesided vs bulk {'bitwise' if dist['a2a_bitwise'] else 'within tolerance'}, "
+        f"profiled a2a flush idle {dist['idle']:.1f}%, peak device memory "
+        f"{dist['peak_gb']:.1f} GB")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

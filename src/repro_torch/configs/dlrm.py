@@ -24,6 +24,10 @@ class DLRMConfig:
     pooling: int = 32                    # max lookups per table per sample
     bottom_mlp: Tuple[int, ...] = (512, 256, 128)
     top_mlp: Tuple[int, ...] = (1024, 1024, 512, 256, 1)
+    # the distributed embedding bag, with a ParallelContext
+    sharding: str = "row"                # row | column | table | replicated
+    rw_impl: str = "allgather"           # allgather | a2a (paper-faithful)
+    rw_backend: str = "bulk"             # bulk | onesided
     dtype: str = "float32"
     fused: bool = True                   # ONE TBE launch for all tables
     cache: Optional[CacheConfig] = None  # tiered cache; CacheConfig() = off
@@ -42,6 +46,9 @@ class DLRMConfig:
             num_tables=self.num_sparse_features,
             rows_per_table=self.rows_per_table,
             dim=self.embedding_dim,
+            sharding=self.sharding,
+            rw_impl=self.rw_impl,
+            rw_backend=self.rw_backend,
             dtype=self.dtype,
             fused=self.fused,
             cache=self.cache,

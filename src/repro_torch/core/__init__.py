@@ -1,2 +1,2 @@
-"""Single-device embedding bag, jagged batches, the cache config and the
-remote cold tier's row fetch."""
+"""The embedding bag (local and sharded over simulated ranks), jagged
+batches, the cache config, the simulated mesh and the collectives."""

@@ -1,35 +1,50 @@
-"""Collective communication for the remote cold tier, simulated on one
-device.
+"""Collective communication over simulated ranks on one device.
 
-The counterpart of ``repro.core.comm`` for this slice of the port: its
-instrumentation (:class:`CollectiveEvent`, :func:`instrument`,
-:func:`set_event_sink`, :func:`record_runtime`) and the batched row fetch
+The counterpart of ``repro.core.comm``: its instrumentation
+(:class:`CollectiveEvent`, :func:`instrument`, :func:`set_event_sink`,
+:func:`record_runtime`), the collectives of the distributed embedding bag
+(:func:`all_to_all`, :func:`all_gather`, :func:`all_reduce`,
+:func:`reduce_scatter`, :func:`permute_ring`) and the batched row fetch
 :func:`fetch_rows` of the tiered cache.  The paper's two transports keep
 their names:
 
-  * ``"bulk"`` -- the NCCL analogue: one bulk reduce-scatter of the
-    stacked contributions (the reference's ``psum_scatter``), here a sum
-    over the source rank with stock torch ops;
-  * ``"onesided"`` -- the NVSHMEM analogue: one put per embedding row from
-    inside a kernel (``kernels/onesided_a2a.onesided_fetch_rows``, a
+  * ``"bulk"`` -- the NCCL analogue: host-launched bulk collectives, here
+    stock torch ops over the stacked ranks (a transpose, a sum);
+  * ``"onesided"`` -- the NVSHMEM analogue: puts issued from inside a
+    kernel (``kernels/onesided_a2a.py``: whole chunks for the all-to-all,
+    the reduce-scatter and the ring, single rows for the row fetch; a
     hand-written CUDA kernel on a card, its plain version on the CPU).
 
-The H hosts are simulated in one process, their row shards stacked in one
-``(H, rows_local, D)`` tensor on one device, as the reference's CPU tests
-back its hosts with forced host devices of one process.  The other
-collectives (``all_to_all``, ``reduce_scatter``, ``all_gather``,
-``permute_ring``) come with the distributed slice.
+The ranks of one mesh axis are simulated in one process on one device, as
+the reference's CPU tests back their ranks with forced host devices of one
+process.  Per-rank values are stacked on a leading rank axis, and a
+collective takes the stack: ``all_to_all`` maps ``(E_src, E_dst, ...)`` to
+``(E_dst, E_src, ...)``, ``reduce_scatter`` ``(E_src, E_dst, M, ...)`` to
+``(E_dst, M, ...)``, ``permute_ring`` ``(E, ...)`` to ``(E, ...)``.  A
+collective whose result every rank holds alike (``all_gather``,
+``all_reduce``) returns that result once.  Each call records one
+:class:`CollectiveEvent` with the reference's ``bytes_in`` -- ONE rank's
+payload -- and ``axis_size = E``.  There is no one-sided mode switch: the
+device of the tensors picks the route.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import threading
+import time
 from typing import Callable, List, Optional
 
 import torch
 
-from repro_torch.kernels.onesided_a2a import onesided_fetch_rows
+from repro_torch.kernels.onesided_a2a import (
+    onesided_all_to_all,
+    onesided_fetch_rows,
+    onesided_reduce_scatter,
+    onesided_ring_permute,
+)
+
+BACKENDS = ("bulk", "onesided")
 
 # ---------------------------------------------------------------------------
 # Instrumentation
@@ -37,8 +52,9 @@ from repro_torch.kernels.onesided_a2a import onesided_fetch_rows
 
 @dataclasses.dataclass
 class CollectiveEvent:
-    op: str            # fetch_rows (the other ops come with later slices)
-    bytes_in: int      # payload bytes entering the collective
+    op: str            # all_to_all | all_gather | reduce_scatter | all_reduce
+    #                  # | permute | fetch_rows
+    bytes_in: int      # one rank's payload bytes entering the collective
     axis_size: int
     backend: str
     # ``time.perf_counter`` stamps of the measured interval; 0.0/0.0 marks
@@ -85,6 +101,21 @@ def _emit(ev: CollectiveEvent):
         _SINK(ev)
 
 
+def _record(op: str, x: torch.Tensor, backend: str) -> None:
+    """One event for a collective over the stacked ``x``: one rank's
+    payload (``x[0]``) and the axis size ``E = x.shape[0]``, stamped once
+    (``t0 == t1``: the event carries no time), as the reference records at
+    trace time."""
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; want one of "
+                         f"{BACKENDS}")
+    if _LOG.events is None and _SINK is None:
+        return
+    t = time.perf_counter()
+    _emit(CollectiveEvent(op, x[0].numel() * x.element_size(),
+                          int(x.shape[0]), backend, t, t))
+
+
 def record_runtime(op: str, nbytes: int, n_devices: int, backend: str,
                    t0: float, t1: float):
     """Record a collective timed at run time (``t1 > t0``), as
@@ -93,6 +124,68 @@ def record_runtime(op: str, nbytes: int, n_devices: int, backend: str,
         return
     _emit(CollectiveEvent(op, int(nbytes), int(n_devices), backend,
                           float(t0), float(t1)))
+
+
+# ---------------------------------------------------------------------------
+# Collectives over the stacked ranks
+# ---------------------------------------------------------------------------
+
+def all_to_all(x: torch.Tensor, *, backend: str = "bulk") -> torch.Tensor:
+    """All-to-all: ``(E_src, E_dst, C, ...)`` -> ``(E_dst, E_src, C,
+    ...)``; rank d receives every rank's chunk for d, in rank order.
+    ``"onesided"`` puts whole chunks from inside a kernel (one launch per
+    source rank); ``"bulk"`` transposes with stock torch ops."""
+    _record("all_to_all", x, backend)
+    if backend == "onesided":
+        return onesided_all_to_all(x)
+    return x.transpose(0, 1).contiguous()
+
+
+def all_gather(x: torch.Tensor, *, axis: int = 0, tiled: bool = False,
+               backend: str = "bulk") -> torch.Tensor:
+    """All-gather of the E ranks' ``x[r]``: stacked along a new ``axis``,
+    or concatenated along ``axis`` when ``tiled``.  Every rank holds the
+    same result; it is returned once."""
+    _record("all_gather", x, backend)
+    parts = x.unbind(0)
+    return torch.cat(parts, dim=axis) if tiled else torch.stack(parts,
+                                                                dim=axis)
+
+
+def all_reduce(x: torch.Tensor, *, backend: str = "bulk") -> torch.Tensor:
+    """Sum of the E ranks' ``x[r]`` (the reference's ``psum``), returned
+    once."""
+    _record("all_reduce", x, backend)
+    return x.sum(dim=0)
+
+
+def reduce_scatter(x: torch.Tensor, *, backend: str = "bulk",
+                   emulate_with_a2a: bool = False) -> torch.Tensor:
+    """Reduce-scatter over the leading per-rank dimension: ``(E_src, E_dst,
+    M, ...)`` -> ``(E_dst, M, ...)``, rank d's sum over sources of their
+    ``[d]``.
+
+    ``"onesided"`` always takes the paper's NVSHMEM 2.9 workaround (§4.4):
+    the one-sided all-to-all, then a local sum.  ``emulate_with_a2a`` takes
+    the same route on ``"bulk"``; otherwise the bulk route is one sum over
+    sources (the reference's ``psum_scatter``)."""
+    _record("reduce_scatter", x, backend)
+    if backend == "onesided":
+        return onesided_reduce_scatter(x)
+    if emulate_with_a2a:
+        return x.transpose(0, 1).contiguous().sum(dim=1)
+    return x.sum(dim=0)
+
+
+def permute_ring(x: torch.Tensor, *, shift: int = 1,
+                 backend: str = "bulk") -> torch.Tensor:
+    """Ring collective-permute: ``(n, ...)`` -> ``(n, ...)``, rank ``(r +
+    shift) % n`` receives rank r's block.  ``"onesided"`` puts each block
+    from inside a kernel; ``"bulk"`` is ``torch.roll``."""
+    _record("permute", x, backend)
+    if backend == "onesided":
+        return onesided_ring_permute(x, shift)
+    return torch.roll(x, shift, dims=0)
 
 
 # ---------------------------------------------------------------------------

@@ -1,3 +1,3 @@
-"""The port's kernels: the CUDA TBE gather+pool kernel and the one-sided
-row-put kernel of the remote cold tier, their plain versions, and the ops
-over them."""
+"""The port's kernels: the CUDA TBE gather+pool kernel, the one-sided
+chunk-put kernel of the remote cold tier and the distributed embedding
+bag, their plain versions, and the ops over them."""

@@ -1,29 +1,39 @@
-"""One-sided row puts -- the remote cold tier's row-fetch kernel: wrapper
-and plain versions.
+"""One-sided puts -- the NVSHMEM analogue's kernel: wrappers and plain
+versions.
 
-The counterpart of ``onesided_fetch_rows`` in
-``repro.kernels.onesided_a2a``, the repo's NVSHMEM analogue: every
-embedding row a fetch moves is one put issued from inside a kernel.  The
-hand-written CUDA kernel ``csrc/onesided_put_rows.cu`` does one simulated
-rank's puts per launch, into H exchange buffers named by a device-side
-pointer table:
+The counterpart of ``repro.kernels.onesided_a2a``, the repo's NVSHMEM
+analogue: every put is issued from inside a kernel, one launch per
+simulated source rank, into the ranks' receive buffers named by a
+device-side pointer table.  One hand-written CUDA kernel,
+``csrc/onesided_a2a.cu``, puts whole contiguous CHUNKS, int32, f32 or
+bf16, and serves every exchange of the package:
 
-  * :func:`onesided_put_rows` -- the exchange.  ``contribs`` is the
-    ``(H_src, H_dst, M, D)`` stack of the H ranks' contributions;
-    ``out[q, r] = contribs[r, q]``: rank r's rows for requester q land in
-    q's buffer at ``[r]``.  H launches, one per source rank, on one stream;
-  * :func:`onesided_fetch_rows` -- the exchange, then each requester's sum
-    over owners, ``(H, M, D)``: ``out[q]`` is rank q's fetched rows.  The
-    sum lies outside the kernel, as in the reference, and is ``torch.sum``
-    over the source axis of ``(H_dst, H_src, M, D)``.  Each row has one
-    owner and the other ranks contribute ``0 * row`` (``-0.0`` for a
+  * :func:`onesided_all_to_all` -- ``(E_src, E_dst, C, ...)`` ->
+    ``(E_dst, E_src, C, ...)``: rank r's chunk for d lands in d's buffer
+    at ``[r]``, the reference's ``out[i]`` on rank j ``== x[j]`` from rank
+    i.  E launches, one per source rank;
+  * :func:`onesided_reduce_scatter` -- the all-to-all, then ``torch.sum``
+    over sources outside the kernel, as in the reference: ``(E_src, E_dst,
+    M, ...)`` -> ``(E_dst, M, ...)``;
+  * :func:`onesided_ring_permute` -- ``(n, ...)`` -> ``(n, ...)``: rank
+    ``(r + shift) % n`` receives rank r's block.  n launches;
+  * :func:`onesided_put_rows` -- the remote cold tier's row exchange,
+    ``(H_src, H_dst, M, D)`` -> ``(H_dst, H_src, M, D)``: rank r's M rows
+    for requester q land in q's buffer at ``[r]``.  The reference issues
+    one put per row; those M rows are contiguous on both sides, so here
+    they are one chunk put.  H launches;
+  * :func:`onesided_fetch_rows` -- the row exchange, then each requester's
+    sum over owners, ``(H, M, D)``: ``out[q]`` is rank q's fetched rows.
+    The sum lies outside the kernel, as in the reference.  Each row has
+    one owner and the other ranks contribute ``0 * row`` (``-0.0`` for a
     negative value), so every element adds the owner's value to zeros and
     the sum returns it bit for bit, in whatever order it is taken.
 
-The wrapper dispatches on the device of the tensor it is given: a CPU
+Every wrapper dispatches on the device of the tensor it is given: a CPU
 tensor takes the plain version beside it (``*_ref``), a CUDA tensor
 launches the kernel, anything else raises.  Each kernel launch adds one to
-``LAUNCH_COUNTS["onesided_put_rows"]``; the plain versions count nothing.
+the wrapper's entry in :data:`LAUNCH_COUNTS`; the plain versions count
+nothing.
 """
 from __future__ import annotations
 
@@ -33,9 +43,10 @@ import torch
 
 from repro_torch.kernels import build as _build
 
-LAUNCH_COUNTS = {"onesided_put_rows": 0}
+LAUNCH_COUNTS = {"onesided_put_rows": 0, "onesided_all_to_all": 0,
+                 "onesided_reduce_scatter": 0, "onesided_ring_permute": 0}
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.int32: 0, torch.float32: 1, torch.bfloat16: 2}
 
 
 def reset_launch_counts() -> None:
@@ -44,28 +55,41 @@ def reset_launch_counts() -> None:
 
 
 def _kernel():
-    lib = _build.load("onesided_put_rows")
-    fn = lib.onesided_put_rows
-    if fn.argtypes is None:
+    lib = _build.load("onesided_a2a")
+    if lib.onesided_a2a_put.argtypes is None:
         P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [P, P, I, I, LL, LL, I, I, P]
-        fn.restype = I
-        lib.put_rows_error_string.argtypes = [I]
-        lib.put_rows_error_string.restype = ctypes.c_char_p
+        lib.onesided_a2a_put.argtypes = [P, P, I, I, LL, I, I, P]
+        lib.onesided_a2a_put.restype = I
+        lib.onesided_ring_put.argtypes = [P, P, I, I, I, LL, I, I, P]
+        lib.onesided_ring_put.restype = I
+        lib.a2a_error_string.argtypes = [I]
+        lib.a2a_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _check_device(x: torch.Tensor, what: str) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(
+            f"the {what} kernel runs on CUDA tensors (got {x.device}); CPU "
+            f"tensors take the plain version")
 
 
 # --- plain versions (what CPU tensors take) ---------------------------------
 
-def onesided_put_rows_ref(contribs: torch.Tensor) -> torch.Tensor:
-    """Plain exchange: ``out[dst][r] = contribs[r][dst]`` for every
-    (r, dst), by indexing."""
-    H = contribs.shape[0]
-    out = torch.empty_like(contribs)
-    for r in range(H):
-        for dst in range(H):
-            out[dst][r] = contribs[r][dst]
+def onesided_all_to_all_ref(x: torch.Tensor) -> torch.Tensor:
+    """Plain all-to-all: ``out[d][r] = x[r][d]`` for every (r, d), by
+    indexing."""
+    E = x.shape[0]
+    out = torch.empty_like(x)
+    for r in range(E):
+        for d in range(E):
+            out[d][r] = x[r][d]
     return out
+
+
+def onesided_put_rows_ref(contribs: torch.Tensor) -> torch.Tensor:
+    """Plain row exchange: the plain all-to-all of the contributions."""
+    return onesided_all_to_all_ref(contribs)
 
 
 def onesided_fetch_rows_ref(contribs: torch.Tensor) -> torch.Tensor:
@@ -73,51 +97,151 @@ def onesided_fetch_rows_ref(contribs: torch.Tensor) -> torch.Tensor:
     return onesided_put_rows_ref(contribs).sum(dim=1)
 
 
+def onesided_reduce_scatter_ref(x: torch.Tensor) -> torch.Tensor:
+    """Plain reduce-scatter: the plain all-to-all, then the sum over
+    sources."""
+    return onesided_all_to_all_ref(x).sum(dim=1)
+
+
+def onesided_ring_permute_ref(x: torch.Tensor, shift: int = 1
+                              ) -> torch.Tensor:
+    """Plain ring permute: ``out[(r + shift) % n] = x[r]``, by indexing."""
+    n = x.shape[0]
+    out = torch.empty_like(x)
+    for r in range(n):
+        out[(r + shift) % n] = x[r]
+    return out
+
+
 # --- wrappers ---------------------------------------------------------------
 
-def onesided_put_rows(contribs: torch.Tensor) -> torch.Tensor:
-    """The exchange of the row fetch: ``(H_src, H_dst, M, D)`` f32/bf16
-    contributions -> ``(H_dst, H_src, M, D)``, one kernel launch per source
-    rank, each putting its H * M rows into the requesters' buffers."""
-    if contribs.device.type == "cpu":
-        return onesided_put_rows_ref(contribs)
-    if contribs.device.type != "cuda":
-        raise ValueError(
-            f"the put kernel runs on CUDA tensors (got {contribs.device}); "
-            f"CPU tensors take the plain version")
-    if contribs.dtype not in _DTYPE_CODES:
-        raise TypeError(f"contribs must be one of {tuple(_DTYPE_CODES)}, "
-                        f"got {contribs.dtype}")
-    if contribs.dim() != 4 or contribs.shape[0] != contribs.shape[1]:
-        raise ValueError(f"contribs must be (H, H, M, D), got "
-                         f"{tuple(contribs.shape)}")
-    if not contribs.is_contiguous():
-        raise ValueError("contribs must be contiguous")
-    H, _, M, D = contribs.shape
-    out = torch.empty_like(contribs)
-    if M == 0 or D == 0:
-        return out
-    item = contribs.element_size()
-    # the H destination buffers' addresses, a table on the card; it is
-    # referenced until the launches below are enqueued, and any later reuse
-    # of its memory is ordered after them on the same stream
-    ptrs = torch.tensor([out[q].data_ptr() for q in range(H)],
-                        dtype=torch.int64, device=contribs.device)
-    vec = (D * item) % 16 == 0 and contribs.data_ptr() % 16 == 0 \
+def _check_chunks(x: torch.Tensor, min_dim: int, what: str) -> None:
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{what} takes one of {tuple(_DTYPE_CODES)}, "
+                        f"got {x.dtype}")
+    if x.dim() < min_dim:
+        raise ValueError(f"{what} needs at least {min_dim} dimensions, got "
+                         f"{tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{what} needs a contiguous tensor")
+
+
+def _put_table(out: torch.Tensor) -> torch.Tensor:
+    """The receive buffers' addresses, one per rank, as a table on the card.
+    It is referenced until the launches that read it are enqueued, and any
+    later reuse of its memory is ordered after them on the same stream.
+    The copy goes from pinned memory without blocking: a copy from pageable
+    memory would hold the host until the stream had drained up to it."""
+    host = torch.tensor([out[d].data_ptr() for d in range(out.shape[0])],
+                        dtype=torch.int64).pin_memory()
+    return host.to(out.device, non_blocking=True)
+
+
+def _aligned(x: torch.Tensor, out: torch.Tensor, chunk: int) -> bool:
+    """16-byte units: the chunk's bytes and both tensors' bases aligned
+    (every rank's buffer then is too)."""
+    return (chunk * x.element_size()) % 16 == 0 and x.data_ptr() % 16 == 0 \
         and out.data_ptr() % 16 == 0
+
+
+def _launch_all_to_all(x: torch.Tensor, counter: str) -> torch.Tensor:
+    """E chunk-put launches, one per source rank, counted under
+    ``counter``."""
+    E = x.shape[0]
+    out = torch.empty((E, E) + tuple(x.shape[2:]), dtype=x.dtype,
+                      device=x.device)
+    chunk = x[0, 0].numel()
+    if chunk == 0:
+        return out
+    ptrs = _put_table(out)
+    vec = _aligned(x, out, chunk)
     lib = _kernel()
-    with torch.cuda.device(contribs.device):
-        stream = torch.cuda.current_stream(contribs.device).cuda_stream
-        for r in range(H):
-            rc = lib.onesided_put_rows(
-                contribs[r].data_ptr(), ptrs.data_ptr(), r, H, M, D,
-                _DTYPE_CODES[contribs.dtype], int(vec), stream)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        for r in range(E):
+            rc = lib.onesided_a2a_put(
+                x[r].data_ptr(), ptrs.data_ptr(), r, E, chunk,
+                _DTYPE_CODES[x.dtype], int(vec), stream)
             if rc != 0:
                 raise RuntimeError(
-                    f"onesided_put_rows launch failed: "
-                    f"{lib.put_rows_error_string(rc).decode()} ({rc})")
-            LAUNCH_COUNTS["onesided_put_rows"] += 1
+                    f"{counter} launch failed: "
+                    f"{lib.a2a_error_string(rc).decode()} ({rc})")
+            LAUNCH_COUNTS[counter] += 1
     return out
+
+
+def _check_square(x: torch.Tensor, what: str) -> None:
+    _check_chunks(x, 2, what)
+    if x.shape[0] != x.shape[1]:
+        raise ValueError(f"{what} takes (E, E, ...), got "
+                         f"{tuple(x.shape)}")
+
+
+def onesided_all_to_all(x: torch.Tensor) -> torch.Tensor:
+    """All-to-all of the stacked send buffers: ``(E_src, E_dst, C, ...)``
+    int32/f32/bf16 -> ``(E_dst, E_src, C, ...)``, one kernel launch per
+    source rank, each putting its E chunks into the ranks' buffers."""
+    if x.device.type == "cpu":
+        return onesided_all_to_all_ref(x)
+    _check_device(x, "all-to-all")
+    _check_square(x, "onesided_all_to_all")
+    return _launch_all_to_all(x, "onesided_all_to_all")
+
+
+def onesided_reduce_scatter(x: torch.Tensor) -> torch.Tensor:
+    """The paper's reduce-scatter workaround (NVSHMEM 2.9 had none): the
+    one-sided all-to-all, then the local sum over sources, ``(E_src, E_dst,
+    M, ...)`` -> ``(E_dst, M, ...)``.  The sum runs after the puts on the
+    same stream, so it starts once every chunk has landed."""
+    if x.device.type == "cpu":
+        return onesided_reduce_scatter_ref(x)
+    _check_device(x, "reduce-scatter")
+    _check_square(x, "onesided_reduce_scatter")
+    return _launch_all_to_all(x, "onesided_reduce_scatter").sum(dim=1)
+
+
+def onesided_ring_permute(x: torch.Tensor, shift: int = 1) -> torch.Tensor:
+    """One-sided ring shift of the stacked blocks: ``(n, ...)`` -> ``(n,
+    ...)``, rank ``(r + shift) % n`` receives rank r's block; one kernel
+    launch per source rank."""
+    if x.device.type == "cpu":
+        return onesided_ring_permute_ref(x, shift)
+    _check_device(x, "ring permute")
+    _check_chunks(x, 1, "onesided_ring_permute")
+    n = x.shape[0]
+    out = torch.empty_like(x)
+    chunk = x[0].numel()
+    if chunk == 0:
+        return out
+    ptrs = _put_table(out)
+    vec = _aligned(x, out, chunk)
+    lib = _kernel()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        for r in range(n):
+            rc = lib.onesided_ring_put(
+                x[r].data_ptr(), ptrs.data_ptr(), r, n, shift % n, chunk,
+                _DTYPE_CODES[x.dtype], int(vec), stream)
+            if rc != 0:
+                raise RuntimeError(
+                    f"onesided_ring_permute launch failed: "
+                    f"{lib.a2a_error_string(rc).decode()} ({rc})")
+            LAUNCH_COUNTS["onesided_ring_permute"] += 1
+    return out
+
+
+def onesided_put_rows(contribs: torch.Tensor) -> torch.Tensor:
+    """The exchange of the row fetch: ``(H_src, H_dst, M, D)``
+    contributions -> ``(H_dst, H_src, M, D)``, one kernel launch per source
+    rank, each putting its M rows for every requester, one chunk each."""
+    if contribs.device.type == "cpu":
+        return onesided_put_rows_ref(contribs)
+    _check_device(contribs, "put")
+    _check_square(contribs, "onesided_put_rows")
+    if contribs.dim() != 4:
+        raise ValueError(f"contribs must be (H, H, M, D), got "
+                         f"{tuple(contribs.shape)}")
+    return _launch_all_to_all(contribs, "onesided_put_rows")
 
 
 def onesided_fetch_rows(contribs: torch.Tensor) -> torch.Tensor:

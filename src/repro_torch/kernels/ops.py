@@ -154,15 +154,38 @@ def embedding_bag_batched_flat(flat_tables: torch.Tensor,
     return _combine(out, eff_w, combiner, flat_tables.dtype)
 
 
+def _flat_rows(tables: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A ``(rows, D)`` view over the storage of ``(T, R, D)`` tables whose
+    rows are contiguous, and the ``(T,)`` int32 row of each table's first
+    row in it.  A row shard of stacked tables (rows ``[a, b)`` of every
+    table) is such a strided view, so it is read in place; any other layout
+    is copied first."""
+    T, R, D = tables.shape
+    if tables.stride(2) != 1 or tables.stride(1) != D \
+            or tables.stride(0) % max(D, 1):
+        tables = tables.contiguous()
+    step = tables.stride(0) // max(D, 1)
+    flat = tables.as_strided(((T - 1) * step + R, D), (D, 1))
+    starts = torch.arange(T, device=tables.device, dtype=torch.int32) * step
+    return flat, starts
+
+
 def embedding_bag_rw_partial_batched(table_shards: torch.Tensor, row_offset,
                                      indices: torch.Tensor,
                                      lengths: Optional[torch.Tensor] = None,
                                      weights: Optional[torch.Tensor] = None,
                                      *, fused: bool = True) -> torch.Tensor:
     """Table-batched row-wise-parallel partial pool -> (T, B, D): the
-    batched :func:`embedding_bag_rw_partial`, one fused launch (or T)."""
+    batched :func:`embedding_bag_rw_partial`, one fused launch (or T).
+
+    ``table_shards`` may be the strided view of a row shard of stacked
+    ``(T, R, D)`` tables: the fused launch reads it in place through the
+    flat TBE entry, with per-table offsets into the tables' storage."""
     safe, eff_w = _premask_rw(table_shards.shape[1], row_offset, indices,
                               lengths, weights)
-    out = (gather_pool_tbe(table_shards, safe, eff_w) if fused
-           else _per_table(table_shards, safe, eff_w))
+    if fused:
+        flat, starts = _flat_rows(table_shards)
+        out = gather_pool_tbe_flat(flat, starts, safe, eff_w)
+    else:
+        out = _per_table(table_shards, safe, eff_w)
     return out.to(table_shards.dtype)

@@ -1,6 +1,8 @@
 """DLRM -- bottom MLP, pooled embedding lookup, dot interaction, top MLP.
 
-The counterpart of the single-device path of ``repro.models.dlrm``.
+The counterpart of ``repro.models.dlrm``.  With a ``ParallelContext`` the
+pooling runs the distributed embedding bag over the context's simulated
+model axis (``core/embedding_bag.pooled_lookup_sharded``).
 Parameters are a plain dict of tensors in the reference's layout,
 ``{"tables": (T, R, D), "bottom": [{"w": (in, out), "b": (out,)}, ...],
 "top": [...]}``, applied as ``x @ w + b``, so weights carry across from the
@@ -8,13 +10,14 @@ JAX ``init_params`` pytree without a transpose (``utils.convert``).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import torch
 
 from repro_torch.configs.dlrm import DLRMConfig
 from repro_torch.core import embedding_bag as eb
 from repro_torch.core.jagged import JaggedBatch
+from repro_torch.core.parallel import ParallelContext
 from repro_torch.utils.device import resolve_device
 
 
@@ -67,22 +70,56 @@ def dot_interaction(dense_vec: torch.Tensor,
     return torch.cat([dense_vec, gram[:, iu, ju]], dim=1)
 
 
+def _pooled_sharded(tables, batch: JaggedBatch, ecfg,
+                    ctx: ParallelContext) -> torch.Tensor:
+    """The distributed pooled lookup: the tables sharded per
+    ``ecfg.sharding`` over the context's model axis (unless they already
+    are), the batch split over its data-parallel groups, which run one
+    after another."""
+    if not isinstance(tables, eb.ShardedTables):
+        tables = eb.shard_tables(tables, ecfg, ctx.tp_size)
+    if tables.num_shards != ctx.tp_size:
+        raise ValueError(f"tables sharded over {tables.num_shards} ranks, "
+                         f"the context's model axis has {ctx.tp_size}")
+    groups = ctx.dp_groups(batch.batch_size)
+    if groups == 1:
+        return eb.pooled_lookup_sharded(tables, batch, ecfg)
+    parts = []
+    for g in range(groups):
+        size = batch.batch_size // groups
+        sl = slice(g * size, (g + 1) * size)
+        parts.append(eb.pooled_lookup_sharded(tables, JaggedBatch(
+            batch.indices[:, sl], batch.lengths[:, sl],
+            None if batch.weights is None else batch.weights[:, sl]),
+            ecfg))
+    return torch.cat(parts)
+
+
 def forward(params, dense: torch.Tensor, batch: JaggedBatch,
-            cfg: DLRMConfig) -> torch.Tensor:
+            cfg: DLRMConfig,
+            ctx: Optional[ParallelContext] = None) -> torch.Tensor:
     """dense (B, num_dense), batch: sparse lookups -> CTR logit (B,).
 
     ``params["tables"]`` is the stacked (T, R, D) tables or the tiered
-    cache's flat slot pool (then ``batch`` holds slot ids)."""
-    pooled = eb.pooled_lookup_local(params["tables"], batch,
-                                    cfg.embedding_config())
+    cache's flat slot pool (then ``batch`` holds slot ids).  With a
+    ``ctx`` the pooling runs the distributed embedding bag, over
+    ``params["tables"]`` sharded per ``cfg.sharding`` (stacked tables are
+    sharded on the call; an engine passes the ``ShardedTables`` it built
+    once)."""
+    ecfg = cfg.embedding_config()
+    if ctx is None:
+        pooled = eb.pooled_lookup_local(params["tables"], batch, ecfg)
+    else:
+        pooled = _pooled_sharded(params["tables"], batch, ecfg, ctx)
     bot = _mlp_apply(params["bottom"], dense, final_act=True)   # (B, D)
     feats = dot_interaction(bot, pooled.to(bot.dtype))
     return _mlp_apply(params["top"], feats)[:, 0]
 
 
 def bce_loss(params, dense, batch: JaggedBatch, labels: torch.Tensor,
-             cfg: DLRMConfig) -> torch.Tensor:
-    logit = forward(params, dense, batch, cfg)
+             cfg: DLRMConfig,
+             ctx: Optional[ParallelContext] = None) -> torch.Tensor:
+    logit = forward(params, dense, batch, cfg, ctx)
     z = torch.nn.functional.logsigmoid(logit)
     zn = torch.nn.functional.logsigmoid(-logit)
     return -torch.mean(labels * z + (1.0 - labels) * zn)

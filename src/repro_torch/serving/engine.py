@@ -6,7 +6,10 @@ runs one forward whose embedding pooling is one fused TBE kernel launch
 for all tables (``cfg.fused``).  With ``cfg.cache.enabled`` the tables live
 behind the tiered cache: ``flush`` first prefetches the micro-batch's
 working set into the device slot pool, and a micro-batch whose working set
-overflows the pool is split in half until it fits.
+overflows the pool is split in half until it fits.  With a
+``ParallelContext`` the pooling runs the distributed embedding bag over the
+context's simulated model axis; the engine shards the tables once, at
+construction.
 
 Float32 products run in full float32 on the card (TF32 off), as in the
 reference.  The pipelined engine (``pipeline_depth >= 2``) and telemetry
@@ -16,15 +19,16 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.cache.manager import CacheCapacityError
 from repro_torch.configs.dlrm import DLRMConfig
-from repro_torch.core.embedding_bag import make_cache
+from repro_torch.core.embedding_bag import make_cache, shard_tables
 from repro_torch.core.jagged import JaggedBatch
+from repro_torch.core.parallel import ParallelContext
 from repro_torch.models import dlrm as dlrm_mod
 from repro_torch.utils.device import resolve_device
 
@@ -40,10 +44,11 @@ class CTRRequest:
 
 class DLRMEngine:
     """Micro-batching CTR inference over the DLRM forward on ``device``
-    (None: the card; the parameters must live there)."""
+    (None: the card; the parameters must live there), distributed over
+    ``ctx``'s simulated model axis when one is given."""
 
-    def __init__(self, params, cfg: DLRMConfig, batch_size: int, *,
-                 device=None):
+    def __init__(self, params, cfg: DLRMConfig, batch_size: int,
+                 ctx: Optional[ParallelContext] = None, *, device=None):
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             # full-fp32 MLP products, like the reference's
@@ -52,10 +57,21 @@ class DLRMEngine:
         if on.type != self.device.type:
             raise ValueError(f"parameters are on {on}, the engine on "
                              f"{self.device}")
-        self.params, self.cfg = params, cfg
+        self.params, self.cfg, self.ctx = params, cfg, ctx
         self.batch_size = batch_size
         self.queue: List[CTRRequest] = []
         self.cache = None
+        if cfg.cache.enabled and ctx is not None:
+            raise NotImplementedError(
+                "DLRMEngine: the tiered cache path scores on a single "
+                "serving device (an enabled cfg.cache with a "
+                "ParallelContext is not supported) -- a cluster-wide cold "
+                "tier is cache.cold_tier='remote'")
+        if ctx is not None:
+            # the sharded tables, built once: row and table shards are
+            # views of params["tables"], column shards one copy
+            self.params = {**params, "tables": shard_tables(
+                params["tables"], cfg.embedding_config(), ctx.tp_size)}
         if cfg.cache.enabled:
             slots = (cfg.cache.rows_per_table
                      if cfg.cache.rows_per_table is not None
@@ -155,7 +171,7 @@ class DLRMEngine:
         with torch.no_grad():
             logits = dlrm_mod.forward(
                 params, torch.as_tensor(dense, device=self.device), batch,
-                self.cfg)
+                self.cfg, self.ctx)
             p = torch.sigmoid(logits).cpu().numpy()
         if self.cache is not None:
             self.cache.stats.add_time("forward", time.perf_counter() - t0)
@@ -173,7 +189,8 @@ class DLRMEngine:
         return out
 
 
-def make_dlrm_engine(params, cfg: DLRMConfig, batch_size: int, *,
+def make_dlrm_engine(params, cfg: DLRMConfig, batch_size: int,
+                     ctx: Optional[ParallelContext] = None, *,
                      device=None) -> DLRMEngine:
     """Build the engine ``cfg.cache.pipeline_depth`` selects: 1 is the
     serialized :class:`DLRMEngine`; the pipelined engine (>= 2) is not
@@ -183,4 +200,4 @@ def make_dlrm_engine(params, cfg: DLRMConfig, batch_size: int, *,
             f"pipeline_depth={cfg.cache.pipeline_depth}: the pipelined "
             f"engine is not ported yet (ROADMAP, Queue 1, pipelined "
             f"serving); use pipeline_depth=1")
-    return DLRMEngine(params, cfg, batch_size, device=device)
+    return DLRMEngine(params, cfg, batch_size, ctx, device=device)

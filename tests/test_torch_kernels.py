@@ -119,6 +119,11 @@ def test_tbe_rw_premasked_shards_reconstruct(T):
         unfused = tops.embedding_bag_rw_partial_batched(
             _t(shard), e * Rs, _t(idx), _t(lens), fused=False)
         np.testing.assert_allclose(_np(unfused), _np(part), **F32)
+        # the shard as a strided view of the stacked tables, read in place
+        view = _t(tables)[:, e * Rs:(e + 1) * Rs]
+        assert not view.is_contiguous() or E == 1 or T == 1
+        assert torch.equal(tops.embedding_bag_rw_partial_batched(
+            view, e * Rs, _t(idx), _t(lens)), part)
         acc = acc + part
     np.testing.assert_allclose(_np(acc), _np(full), rtol=1e-5, atol=1e-5)
 

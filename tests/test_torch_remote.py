@@ -345,7 +345,8 @@ def test_cpu_path_launches_nothing():
                         device="cpu")
     store.fetch([0, 1], [5, 50])
     oa.onesided_put_rows(torch.randn((H, H, 2, D)))
-    assert oa.LAUNCH_COUNTS == {"onesided_put_rows": 0}
+    assert oa.LAUNCH_COUNTS["onesided_put_rows"] == 0
+    assert set(oa.LAUNCH_COUNTS.values()) == {0}
 
 
 def test_put_rows_refuses_other_devices():
@@ -358,14 +359,15 @@ def test_put_rows_refuses_other_devices():
 
 
 def test_put_rows_build_needs_nvcc(monkeypatch, tmp_path):
-    path = build.library_path("onesided_put_rows")
-    assert path.name.startswith("onesided_put_rows-")
+    # the row puts are the chunk-put kernel's
+    path = build.library_path("onesided_a2a")
+    assert path.name.startswith("onesided_a2a-")
     assert path != build.library_path("tbe_gather_pool")
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setattr("torch.utils.cpp_extension.CUDA_HOME", None)
     with pytest.raises(RuntimeError, match="nvcc"):
-        build.build(["onesided_put_rows"])
+        build.build(["onesided_a2a"])
 
 
 @pytest.mark.parametrize("m, want", [(1, [0]), (5, [0, 1, 2, 3, 4, 4, 4, 4]),
