@@ -16,6 +16,9 @@ Phases:
      row fetch's one-sided exchange (the chunk-put kernel) on 4 simulated
      hosts' contributions of 2**18 rows (the padded fetch of every flush
      of phase 6) at D=128 and of 1000 rows at D=10, f32 and bf16, bitwise;
+     (2b) the flash-attention kernel at tests/test_kernels.py's four
+     shapes in f32 and bf16, and at granite-8b's layer (1, 16384, 32/8,
+     128) causal and (1, 9000, 32/8, 128) under a 4096 window, bf16;
   3. the uncached engine at full width (CONFIG: 26 x 1,000,000 x 128 fp32
      tables) serving 8192 requests in flushes of 2048: scores against a
      plain score on the card, one TBE launch per flush, and 26
@@ -24,7 +27,8 @@ Phases:
      the same requests: scores and pooled lookups bitwise-equal to phase 3;
   5. kernel, plain-version and library times: the TBE wrappers at the
      phase-2 shapes, the row fetch's puts at the padded fetch of a
-     steady-state flush of phase 4, beside each kernel's bound;
+     steady-state flush of phase 4, the flash kernel at granite-8b's layer
+     (SDPA the library call), beside each kernel's bound;
   6. the cached engine over the REMOTE cold tier (the same cache, the
      tables row-split over 4 simulated hosts on the card), once with the
      bulk and once with the one-sided transport, on the same requests:
@@ -40,7 +44,14 @@ Phases:
      (bitwise phase 3); a no-drop traffic (uniform ids, every length 32)
      where a2a drops nothing and agrees with uncached; flush medians, one
      profiled a2a flush, the kernels' times beside their bounds;
-  8. the card line, one JSON line of the kernels, and last the result line.
+  8. LM serving: granite-8b at full width in bf16 (random weights from a
+     seed) through ContinuousBatcher (4 slots of 16,416 positions) over 8
+     requests, 2 prompts of 16,384 tokens (the flash kernel: 36 launches
+     each) and 6 of 256-2,048 (full attention: none), 32 new tokens each:
+     launches per step, the kernel against its plain version on layer 0's
+     real q/k/v, decode-matches-forward at full width, prefill and decode
+     times, tokens/s, peak device memory;
+  9. the card line, one JSON line of the kernels, and last the result line.
 
 Any failed check raises: the script exits non-zero and prints no result
 line.  It also fails without a CUDA card, and without the port's sources
@@ -64,27 +75,44 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 ROOT = Path(__file__).resolve().parent
 TBE_SOURCE = "src/repro_torch/csrc/tbe_gather_pool.cu"
 A2A_SOURCE = "src/repro_torch/csrc/onesided_a2a.cu"
+FLASH_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
 SOURCES = {"gather_pool_tbe_flat": TBE_SOURCE, "gather_pool_tbe": TBE_SOURCE,
            "gather_pool": TBE_SOURCE, "onesided_put_rows": A2A_SOURCE,
            "onesided_all_to_all": A2A_SOURCE,
            "onesided_reduce_scatter": A2A_SOURCE,
-           "onesided_ring_permute": A2A_SOURCE}
-REPLACES = {"gather_pool_tbe_flat": "src/repro/kernels/embedding_gather.py:150",
+           "onesided_ring_permute": A2A_SOURCE,
+           "flash_attention": FLASH_SOURCE}
+REPLACES = {"gather_pool_tbe_flat":
+            "src/repro/kernels/embedding_gather.py:150",
             "gather_pool_tbe": "src/repro/kernels/embedding_gather.py:215",
             "gather_pool": "src/repro/kernels/embedding_gather.py:95",
             "onesided_put_rows": "src/repro/kernels/onesided_a2a.py:116",
             "onesided_all_to_all": "src/repro/kernels/onesided_a2a.py:57",
             "onesided_reduce_scatter": "src/repro/kernels/onesided_a2a.py:77",
-            "onesided_ring_permute": "src/repro/kernels/onesided_a2a.py:145"}
+            "onesided_ring_permute": "src/repro/kernels/onesided_a2a.py:145",
+            "flash_attention": "src/repro/kernels/flash_attention.py:103"}
 # H100 SXM peaks (NVIDIA data sheet), at a 700 W power limit
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12      # dense tensor cores
 # kernel vs plain pooling: two f32 summation orders of <= 32 terms differ by
 # at most 32 * 2**-24 * sum|w * x| ~ 2e-6 * sum|w * x|, and sum|w * x| < 2
 # here (rows ~ N(0, 1/128), weights in [0, 1)), so 1e-5 holds with margin
 POOL_TOL = dict(rtol=1e-5, atol=1e-5)
 # pCTR: the pooled vectors' f32 differences carried through the MLPs
 PCTR_TOL = dict(rtol=1e-4, atol=1e-5)
+# flash kernel vs its plain version: in f32 two orders of the same f32
+# softmax sums (tests/test_kernels.py's bound for the Pallas kernel); in
+# bf16 both compute in f32 and round the output to bf16, where the two may
+# land one bf16 ulp (2**-8 relative) apart
+FLASH_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
+             torch.bfloat16: dict(rtol=1e-2, atol=1e-2)}
+# SDPA (the library yardstick) against the plain version: its flash
+# backend rounds the probabilities to bf16 before P.V, a few bf16 ulps
+SDPA_TOL = dict(rtol=3e-2, atol=3e-2)
+# decode-matches-forward at full width in bf16: relative L2 of the last
+# hidden state (the check of tests/test_models.py, at the working type)
+DECODE_REL_L2 = 2e-2
 
 DEV = "cuda"
 T, B, L, D, R = 26, 2048, 32, 128, 1_000_000
@@ -94,6 +122,15 @@ PUT_ROWS = 2 ** 18         # the padded rows of each of phase 6's fetches
 RANKS = 4                  # simulated ranks of phase 7's model axis
 CAPACITY_FACTOR = 2.0      # the a2a buckets' (DLRMConfig passes none)
 SPIN_CYCLES = 2_000_000    # ~1 ms of the card's clock before a timed launch
+# flash checks: tests/test_kernels.py's four (B, S, H, KH, hd, causal,
+# window); then granite-8b's layer at the long prompt and at a 9000-token
+# prompt under a 4096 window (neither a multiple of the 64-row tiles)
+FLASH_SHAPES = ((2, 128, 4, 2, 32, True, None), (1, 256, 4, 4, 64, True, 64),
+                (2, 96, 2, 1, 16, False, None), (1, 64, 8, 2, 128, True, None))
+LONG_PROMPT = 16_384       # over attn_chunk_threshold: the flash kernel runs
+SHORT_PROMPTS = (256, 2048)  # the short prompts' lengths: full attention
+WINDOWED = (9000, 4096)
+LM_SLOTS, LM_MAX_LEN, LM_MAX_NEW = 4, 16_416, 32
 
 
 def log(msg: str) -> None:
@@ -144,7 +181,7 @@ def phase_environment(build) -> str:
     log(f"torch.cuda: {torch.cuda.get_device_name(0)}, "
         f"{torch.cuda.device_count()} device(s)")
     t0 = time.perf_counter()
-    names = ["tbe_gather_pool", "onesided_a2a"]
+    names = list(build.SOURCES)
     recs = build.build(names)          # one nvcc per source, in parallel
     for name in names:
         build.load(name)
@@ -291,6 +328,47 @@ def phase_kernels(eg, oa) -> dict:
     return x
 
 
+def _qkv(g, b, s, h, kh, hd, dtype):
+    """N(0, 1) q (b, s, h, hd), k and v (b, s, kh, hd) of ``dtype``."""
+    return tuple(torch.randn((b, s, n, hd), generator=g, device=DEV).to(dtype)
+                 for n in (h, kh, kh))
+
+
+def _flash_case(fa, q, k, v, causal, window, tag) -> float:
+    """The flash kernel against its plain version on the same inputs."""
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_ref(q, k, v, causal=causal, window=window)
+    check(got.dtype == q.dtype and got.shape == q.shape,
+          f"flash_attention {tag}: output of q's dtype and shape")
+    return compare(f"flash_attention {tag}", got.float(), want.float(),
+                   FLASH_TOL[q.dtype])
+
+
+def check_flash(pt) -> float:
+    """The flash kernel against its plain version at the test shapes (f32
+    and bf16) and at granite-8b's layer, causal and windowed (bf16);
+    returns the largest error."""
+    log("== 2b. flash attention against its plain version")
+    cfg = pt.LM_CONFIG
+    g = torch.Generator(device=DEV).manual_seed(9)
+    err = 0.0
+    for b, s, h, kh, hd, causal, window in FLASH_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = _qkv(g, b, s, h, kh, hd, dtype)
+            err = max(err, _flash_case(
+                pt.fa, q, k, v, causal, window,
+                f"({b}, {s}, {h}/{kh}, {hd}) causal={causal} "
+                f"window={window} {str(dtype)[6:]}"))
+    H, KH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    for s, window in ((LONG_PROMPT, None), WINDOWED):
+        q, k, v = _qkv(g, 1, s, H, KH, hd, torch.bfloat16)
+        err = max(err, _flash_case(
+            pt.fa, q, k, v, True, window,
+            f"granite (1, {s}, {H}/{KH}, {hd}) causal window={window} bf16"))
+    return err
+
+
 # ---------------------------------------------------------------------------
 # 3. / 4. the engine at full width
 # ---------------------------------------------------------------------------
@@ -398,7 +476,7 @@ def phase_uncached(pt, eg, oa) -> dict:
     eng = pt.DLRMEngine(params, cfg, batch_size=BATCH, device=DEV)
     for r in reqs:
         eng.submit(r)
-    scores, heads, ms, _, counts, _ = _serve(eng, (eg, oa))
+    scores, heads, ms, _, counts, _ = _serve(eng, (eg, oa, pt.fa))
     log(f"  {len(scores)} requests in {len(heads)} flushes; launches "
         f"{counts}; flush ms {[round(m, 3) for m in ms]}, median "
         f"{statistics.median(ms):.3f} ms (CUDA events)")
@@ -433,7 +511,7 @@ def phase_uncached(pt, eg, oa) -> dict:
                           batch_size=BATCH, device=DEV)
     for r in heads[0]:
         eng_u.submit(r)
-    scores_u, _, ms_u, _, counts_u, _ = _serve(eng_u, (eg, oa))
+    scores_u, _, ms_u, _, counts_u, _ = _serve(eng_u, (eg, oa, pt.fa))
     log(f"  fused=False flush: launches {counts_u}, {ms_u[0]:.3f} ms")
     check(counts_u == _launches(gather_pool=cfg.num_sparse_features),
           "fused=False flush is 26 single-table launches")
@@ -484,7 +562,7 @@ def phase_cached(pt, eg, oa, unc) -> dict:
         f"{eng.cache.cold.tables.numel() * 4 / 1e9:.1f} GB")
     for r in unc["reqs"]:
         eng.submit(r)
-    scores, heads, ms, splits, counts, fetched = _serve(eng, (eg, oa))
+    scores, heads, ms, splits, counts, fetched = _serve(eng, (eg, oa, pt.fa))
     st = eng.cache_stats()
     counters = {k: getattr(st, k) for k in COUNTERS}
     log(f"  {len(scores)} requests in {len(heads)} flushes, {splits} "
@@ -644,6 +722,67 @@ def phase_times(eg, oa, x, m_pad) -> dict:
     return out
 
 
+def _attn_pairs(s, causal, window) -> int:
+    """(query, key) pairs that the masks leave at sequence length s."""
+    pos = torch.arange(s)
+    hi = pos + 1 if causal else torch.full_like(pos, s)
+    lo = (pos - window + 1).clamp(min=0) if window else torch.zeros_like(pos)
+    return int((hi - lo).sum())
+
+
+def times_flash(pt) -> dict:
+    """The flash kernel at granite-8b's layer (1, 16,384, 32/8, 128) bf16
+    causal, against its plain version, SDPA (the one PyTorch call that
+    computes the same function) and the bound: the products QK^T and P.V
+    of the live (query, key) pairs over the bf16 tensor-core peak, or q,
+    k, v read and o written once over HBM.  The windowed shape is timed
+    too (logged; SDPA has no window)."""
+    fa, cfg = pt.fa, pt.LM_CONFIG
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    g = torch.Generator(device=DEV).manual_seed(10)
+    scratch = torch.empty(256 * 2 ** 20 // 4, device=DEV)
+    H, KH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    out = {}
+    for s, window in ((LONG_PROMPT, None), WINDOWED):
+        q, k, v = _qkv(g, 1, s, H, KH, hd, torch.bfloat16)
+        kern = lambda: fa.flash_attention(q, k, v, causal=True, window=window)
+        plain = lambda: fa.flash_attention_ref(q, k, v, causal=True,
+                                               window=window)
+        lib = lambda: sdpa(q.transpose(1, 2), k.transpose(1, 2),
+                           v.transpose(1, 2), is_causal=True,
+                           enable_gqa=True)
+        kern()
+        p1 = _times(plain, 1, scratch)
+        k1 = _times(kern, 2, scratch)
+        l1 = []
+        if window is None:
+            check(bool(torch.allclose(lib().transpose(1, 2).float(),
+                                      plain().float(), **SDPA_TOL)),
+                  "flash_attention: SDPA computes the same function")
+            l1 = _times(lib, 5, scratch)
+        k2 = _times(kern, 2, scratch)
+        p2 = _times(plain, 1, scratch)
+        t_ops = 4 * _attn_pairs(s, True, window) * H * hd / BF16_FLOPS_PER_S
+        t_bytes = 2 * (2 * q.numel() + k.numel() + v.numel()) / HBM_BYTES_PER_S
+        r = dict(ms=statistics.median(k1 + k2),
+                 plain_ms=statistics.median(p1 + p2),
+                 library_ms=statistics.median(l1) if l1 else None,
+                 bound_ms=max(t_ops, t_bytes) * 1e3,
+                 bound_by="operations" if t_ops >= t_bytes else "bytes")
+        lib_txt = (f"SDPA {r['library_ms']:.4f} ms, " if l1 else "")
+        log(f"  flash_attention (1, {s}, {H}/{KH}, {hd}) bf16 causal "
+            f"window={window} (medians of 4 kernel, 2 plain, 5 SDPA "
+            f"launches): kernel {r['ms']:.3f} ms, plain "
+            f"{r['plain_ms']:.3f} ms, {lib_txt}bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}); kernel at "
+            f"{100 * r['bound_ms'] / r['ms']:.2f}% of the bound, "
+            f"{4 * _attn_pairs(s, True, window) * H * hd / r['ms'] / 1e9:.1f}"
+            f" TFLOP/s")
+        if window is None:
+            out["flash_attention"] = r
+    return out
+
+
 # ---------------------------------------------------------------------------
 # 6. the remote cold tier
 # ---------------------------------------------------------------------------
@@ -672,7 +811,8 @@ def _serve_remote(pt, eg, oa, unc, cached, backend) -> dict:
     fetches = []
     prev = pt.comm.set_event_sink(fetches.append)
     try:
-        scores, heads, ms, splits, counts, fetched = _serve(eng, (eg, oa))
+        scores, heads, ms, splits, counts, fetched = _serve(
+            eng, (eg, oa, pt.fa))
     finally:
         pt.comm.set_event_sink(prev)
     st = eng.cache_stats()
@@ -886,7 +1026,7 @@ def _serve_strategy(pt, eg, oa, unc, label, fields, ranks, nodrop) -> dict:
         f"{time.perf_counter() - t0:.2f} s")
     for r in unc["reqs"]:
         eng.submit(r)
-    scores, heads, ms, _, counts, _ = _serve(eng, (eg, oa))
+    scores, heads, ms, _, counts, _ = _serve(eng, (eg, oa, pt.fa))
     n = len(heads)
     log(f"  [{label}] {len(scores)} requests in {n} flushes; launches "
         f"{ {k: v for k, v in counts.items() if v} }; flush ms "
@@ -925,7 +1065,7 @@ def _serve_strategy(pt, eg, oa, unc, label, fields, ranks, nodrop) -> dict:
         # the no-drop traffic: nothing dropped, and uncached's scores
         for r in nodrop["reqs"]:
             eng.submit(r)
-        s_nd, h_nd, _, _, c_nd, _ = _serve(eng, (eg, oa))
+        s_nd, h_nd, _, _, c_nd, _ = _serve(eng, (eg, oa, pt.fa))
         d_nd = _dropped(pt, eng, h_nd, ecfg)
         check(all(v == 0 for d in d_nd for v in d),
               f"[{label}] no lookup dropped on the no-drop traffic")
@@ -1078,6 +1218,160 @@ def phase_distributed(pt, eg, oa, unc) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 8. LM serving
+# ---------------------------------------------------------------------------
+
+def _lm_requests(pt, cfg) -> list:
+    """Two long prompts (the flash kernel) and six of 256-2,048 tokens
+    (full attention), uniform ids over the vocabulary."""
+    rng = np.random.default_rng(12)
+    short = rng.integers(SHORT_PROMPTS[0], SHORT_PROMPTS[1] + 1, 6).tolist()
+    lens = [LONG_PROMPT] + short[:3] + [LONG_PROMPT] + short[3:]
+    return [pt.Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, n)
+                       .astype(np.int32), max_new=LM_MAX_NEW)
+            for i, n in enumerate(lens)]
+
+
+def phase_lm(pt, kmods) -> dict:
+    cfg = pt.LM_CONFIG
+    log(f"== 8. LM serving: {cfg.name} at full width ({cfg.num_layers} "
+        f"layers, d {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads,"
+        f" d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}), "
+        f"ContinuousBatcher({LM_SLOTS} slots x {LM_MAX_LEN} positions)")
+    fa, lm, dec = pt.fa, pt.lm, pt.dec
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_params(torch.Generator(device=DEV).manual_seed(11), cfg,
+                            device=DEV)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"  init_params: {n_params / 1e9:.3f} B parameters "
+        f"({n_params * 2 / 1e9:.1f} GB bf16) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    reqs = _lm_requests(pt, cfg)
+
+    # layer 0's real q/k/v of the first long prompt: kernel vs plain
+    tokens = torch.as_tensor(reqs[0].prompt[None], device=DEV)
+    pl = lm.layer(params["blocks"], 0)
+    x = lm._norm(lm.embed_tokens(params, tokens, cfg), pl["ln1"], cfg)
+    q, k, v = lm._gqa_qkv(pl["attn"], x, torch.arange(
+        LONG_PROMPT, device=DEV)[None], cfg)
+    err = _flash_case(fa, q, k, v, True, cfg.window,
+                      f"layer 0 of a {LONG_PROMPT}-token prompt (real q/k/v)")
+    del x, q, k, v
+
+    eng = pt.ContinuousBatcher(params, cfg, num_slots=LM_SLOTS,
+                               max_len=LM_MAX_LEN, eos_id=-1, device=DEV)
+    for r in reqs:
+        eng.submit(r)
+    for mod in kmods:
+        mod.reset_launch_counts()
+    steps = []
+    t0 = time.perf_counter()
+    while eng.queue or any(r is not None for r in eng.slots):
+        n0 = len(eng.timings["prefill"])
+        c0 = fa.LAUNCH_COUNTS["flash_attention"]
+        eng.step()
+        steps.append(([n for n, _ in eng.timings["prefill"][n0:]],
+                      fa.LAUNCH_COUNTS["flash_attention"] - c0))
+    serve_s = time.perf_counter() - t0
+    counts = {k: v for mod in kmods for k, v in mod.LAUNCH_COUNTS.items()}
+    thr, nl = cfg.attn_chunk_threshold, cfg.num_layers
+    for lens, n in steps:
+        want = nl * sum(s > thr for s in lens)
+        check(n == want, f"{n} flash launches in a step admitting prompts "
+                         f"of {lens} tokens: want {nl} per prompt over "
+                         f"{thr}, none per short prefill or decode step")
+    n_long = sum(len(r.prompt) > thr for r in reqs)
+    check(counts == _launches(flash_attention=nl * n_long),
+          f"the LM path launched the flash kernel {nl} x {n_long} times "
+          f"and nothing else")
+    done = eng.done
+    check(sorted(done) == [r.rid for r in reqs]
+          and all(len(r.generated) == LM_MAX_NEW
+                  and 0 <= min(r.generated)
+                  and max(r.generated) < cfg.vocab_size
+                  for r in done.values()),
+          f"{len(reqs)} requests served, {LM_MAX_NEW} ids each, in the "
+          f"vocabulary")
+    tokens_out = sum(len(r.generated) for r in done.values())
+    prefill, decode = eng.timings["prefill"], eng.timings["decode"]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  {len(done)} requests, {tokens_out} tokens in {len(steps)} steps,"
+        f" {serve_s:.3f} s: {tokens_out / serve_s:.2f} tokens/s; flash "
+        f"launches {counts['flash_attention']} ({nl} x {n_long} long "
+        f"prefills; per step {[n for _, n in steps if n]})")
+    for n, sec in prefill:
+        log(f"  prefill of {n} tokens: {1e3 * sec:.1f} ms")
+    log(f"  decode step ({LM_SLOTS} slots): median "
+        f"{1e3 * statistics.median(decode):.3f} ms, min "
+        f"{1e3 * min(decode):.3f}, max {1e3 * max(decode):.3f} over "
+        f"{len(decode)} steps; peak device memory {peak_gb:.1f} GB")
+    # where the time goes: one decode step and one short prefill profiled
+    # (the slots' cache as the loop left it; its rows are scratch now)
+    kv = {k: v[:, :1] for k, v in eng.cache["blocks"].items()}
+    short = torch.as_tensor(reqs[1].prompt[None], device=DEV)
+    prof = dict(
+        decode=_profile_lm(lambda: dec.decode_step(
+            params, eng.cache, eng.tokens, cfg), "decode step",
+            statistics.median(decode) * 1e3),
+        prefill=_profile_lm(lambda: dec._prefill_into(
+            params, short, cfg, kv), f"prefill of {short.shape[1]} tokens",
+            prefill[1][1] * 1e3))
+    del eng, kv
+    torch.cuda.empty_cache()
+
+    # decode matches forward at full width: prefill(prompt[:-1]) +
+    # decode_step(prompt[-1]) against the forward's last hidden state
+    h_full, _ = lm.forward(params, tokens, cfg)
+    last = h_full[0, -1].float()
+    del h_full
+    cache, _ = dec.prefill(params, tokens[:, :-1], cfg, max_len=LONG_PROMPT)
+    cache, h_dec = dec.decode_step(params, cache, tokens[:, -1], cfg)
+    rel = float((h_dec[0].float() - last).norm() / last.norm())
+    check(bool(torch.isfinite(h_dec).all() and torch.isfinite(last).all()),
+          "finite hidden states")
+    log(f"  decode matches forward ({LONG_PROMPT} tokens): relative L2 "
+        f"{rel:.3e} (bound {DECODE_REL_L2})")
+    check(rel < DECODE_REL_L2, "decode_step after prefill matches forward")
+    del cache, params
+    torch.cuda.empty_cache()
+    return dict(launches=counts["flash_attention"], err=err, rel=rel,
+                prefill=prefill, decode=decode, serve_s=serve_s,
+                tokens=tokens_out, peak_gb=peak_gb, prof=prof)
+
+
+def _profile_lm(fn, label, unprofiled_ms) -> dict:
+    """One call of ``fn`` under torch.profiler: the device's busy time by
+    kernel, and its busy share of the same work's unprofiled time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0
+              and not e.key.startswith("Activity Buffer")]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    idle = 100 - 100 * busy_ms / unprofiled_ms
+    log(f"  profiled {label}: device busy {busy_ms:.3f} ms of "
+        f"{unprofiled_ms:.3f} ms unprofiled (host clock); idle {idle:.1f}%")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]:
+        log(f"    {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<4d} "
+            f"{e.key[:90]}")
+    return dict(busy_ms=busy_ms, idle=idle)
+
+
+def _leaves(tree):
+    for v in tree.values():
+        yield from (_leaves(v) if isinstance(v, dict) else (v,))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1095,10 +1389,15 @@ def main() -> int:
         from repro_torch.core.cache_config import CacheConfig
         from repro_torch.core.jagged import JaggedBatch
         from repro_torch.core.parallel import make_context
+        from repro_torch.kernels import flash_attention as fa
         from repro_torch.kernels import ref
-        from repro_torch.models import dlrm
+        from repro_torch.models import decode as dec
+        from repro_torch.models import dlrm, lm
         from repro_torch.models.dlrm import init_params
-        from repro_torch.serving.engine import CTRRequest, DLRMEngine
+        from repro_torch.serving.engine import (ContinuousBatcher,
+                                                CTRRequest, DLRMEngine,
+                                                Request)
+        from repro_torch.configs.granite_8b import CONFIG as LM_CONFIG
 
     # full fp32 products on the card, as in the reference
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1106,23 +1405,28 @@ def main() -> int:
     t_start = time.perf_counter()
     card = phase_environment(build)
     x = phase_kernels(eg, oa)
+    flash_err = check_flash(pt)
     unc = phase_uncached(pt, eg, oa)
     cached = phase_cached(pt, eg, oa, unc)
     # the rows of the last flush's fetch, padded: a steady-state flush
     times = phase_times(eg, oa, x, _pow2(cached["fetched"][-1]))
+    times.update(times_flash(pt))
     errs = x["errs"]
     del x                       # phase 2's tables: 13.3 GB
     torch.cuda.empty_cache()
     remote = phase_remote(pt, eg, oa, unc, cached)
     dist = phase_distributed(pt, eg, oa, unc)
-    del unc["params"]
+    del unc["params"]           # phase 3's tables: 13.3 GB
+    torch.cuda.empty_cache()
+    lm = phase_lm(pt, (eg, oa, pt.fa))
 
-    log("== 8. summary")
+    log("== 9. summary")
     launches = {**unc["launches"], "gather_pool_tbe_flat": cached["launches"],
                 "onesided_put_rows": remote["onesided"]["launches"],
-                **dist["launches"]}
+                **dist["launches"], "flash_attention": lm["launches"]}
     times.update(dist["times"])
     errs.update(dist["errs"])
+    errs["flash_attention"] = max(flash_err, lm["err"])
     kernels = []
     for name in SOURCES:
         t = dict(times[name])
@@ -1146,6 +1450,15 @@ def main() -> int:
         f", onesided vs bulk {'bitwise' if dist['a2a_bitwise'] else 'within tolerance'}, "
         f"profiled a2a flush idle {dist['idle']:.1f}%, peak device memory "
         f"{dist['peak_gb']:.1f} GB")
+    log(f"LM serving ({pt.LM_CONFIG.name}): {lm['tokens']} tokens in "
+        f"{lm['serve_s']:.3f} s ({lm['tokens'] / lm['serve_s']:.2f} tokens/s),"
+        f" prefill ms by length "
+        f"{[(n, round(1e3 * t, 1)) for n, t in lm['prefill']]}, median "
+        f"decode step {1e3 * statistics.median(lm['decode']):.3f} ms, "
+        f"flash launches {lm['launches']}, decode vs forward relative L2 "
+        f"{lm['rel']:.3e}, peak device memory {lm['peak_gb']:.1f} GB, "
+        f"device idle {lm['prof']['decode']['idle']:.1f}% of a decode step, "
+        f"{lm['prof']['prefill']['idle']:.1f}% of a short prefill")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -1,4 +1,5 @@
-"""PyTorch / CUDA port of the ``repro`` DLRM embedding-bag system.
+"""PyTorch / CUDA port of the ``repro`` DLRM embedding-bag system and of
+its dense-family LM serving path.
 
 A second package beside ``repro`` (the JAX reference, which it never
 imports).  Module names mirror ``repro``'s.  Entry points take

@@ -25,6 +25,8 @@ from pathlib import Path
 from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
+# every csrc/<name>.cu of the port, each loaded by one kernel module
+SOURCES = ("tbe_gather_pool", "onesided_a2a", "flash_attention")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

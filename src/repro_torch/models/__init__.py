@@ -1,1 +1,1 @@
-"""Models built on the embedding bag."""
+"""Models: the DLRM built on the embedding bag, and the dense LM."""

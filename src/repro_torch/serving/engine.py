@@ -1,15 +1,24 @@
-"""DLRM CTR scoring engine -- the port's serving entry point.
+"""Batched inference engines: the port's serving entry points.
 
-The counterpart of ``DLRMEngine`` in ``repro.serving.engine``: requests
-queue up, ``flush`` pads up to ``batch_size`` of them to fixed shapes and
-runs one forward whose embedding pooling is one fused TBE kernel launch
-for all tables (``cfg.fused``).  With ``cfg.cache.enabled`` the tables live
-behind the tiered cache: ``flush`` first prefetches the micro-batch's
-working set into the device slot pool, and a micro-batch whose working set
-overflows the pool is split in half until it fits.  With a
-``ParallelContext`` the pooling runs the distributed embedding bag over the
-context's simulated model axis; the engine shards the tables once, at
-construction.
+LM serving (the counterpart of ``repro.serving.engine``'s LM half):
+``generate`` is the simple API (one batch of prompts, greedy or
+temperature sampling); ``ContinuousBatcher`` is the serving loop, a fixed
+pool of cache slots at possibly different lengths.  Finished sequences
+are evicted and queued requests admitted into free slots; one
+``decode_step`` advances every slot.  Admission prefills the request
+alone and writes its K/V straight into its slot of the shared cache (the
+reference splices a separately prefilled, zero-padded cache); positions
+past a slot's length hold stale rows, which decode attention masks.
+
+DLRM CTR scoring: ``DLRMEngine``: requests queue up, ``flush`` pads up to
+``batch_size`` of them to fixed shapes and runs one forward whose
+embedding pooling is one fused TBE kernel launch for all tables
+(``cfg.fused``).  With ``cfg.cache.enabled`` the tables live behind the
+tiered cache: ``flush`` first prefetches the micro-batch's working set
+into the device slot pool, and a micro-batch whose working set overflows
+the pool is split in half until it fits.  With a ``ParallelContext`` the
+pooling runs the distributed embedding bag over the context's simulated
+model axis; the engine shards the tables once, at construction.
 
 Float32 products run in full float32 on the card (TF32 off), as in the
 reference.  The pipelined engine (``pipeline_depth >= 2``) and telemetry
@@ -25,13 +34,168 @@ import numpy as np
 import torch
 
 from repro_torch.cache.manager import CacheCapacityError
+from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.dlrm import DLRMConfig
 from repro_torch.core.embedding_bag import make_cache, shard_tables
 from repro_torch.core.jagged import JaggedBatch
 from repro_torch.core.parallel import ParallelContext
+from repro_torch.models import decode as dec
 from repro_torch.models import dlrm as dlrm_mod
+from repro_torch.models import lm
 from repro_torch.utils.device import resolve_device
 
+
+# ---------------------------------------------------------------------------
+# LM serving
+# ---------------------------------------------------------------------------
+
+def _mask_vocab(logits: torch.Tensor, vocab_size: int) -> torch.Tensor:
+    """-inf on the padded vocabulary rows past ``vocab_size``."""
+    pad = torch.arange(logits.shape[-1], device=logits.device) >= vocab_size
+    return logits.masked_fill(pad, -torch.inf)
+
+
+def _sample(logits: torch.Tensor, gen: Optional[torch.Generator],
+            temperature: float) -> torch.Tensor:
+    """Greedy at temperature 0, else one draw per row from ``gen``."""
+    if temperature == 0.0:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    probs = torch.softmax(logits.float() / temperature, dim=-1)
+    return torch.multinomial(probs, 1, generator=gen)[:, 0].to(torch.int32)
+
+
+def generate(params, cfg: ModelConfig, prompts, max_new: int, ctx=None, *,
+             temperature: float = 0.0, seed: int = 0,
+             device=None) -> torch.Tensor:
+    """prompts (B, S) -> (B, max_new) generated ids (greedy by default) on
+    ``device`` (None: the card; the parameters must live there)."""
+    device = resolve_device(device)
+    prompts = torch.as_tensor(prompts, device=device)
+    B, S = prompts.shape
+    gen = torch.Generator(device=device).manual_seed(seed)
+    cache, hidden = dec.prefill(params, prompts, cfg, ctx,
+                                max_len=S + max_new)
+    logits = lm.lm_logits(params, hidden[:, -1:], cfg, ctx)[:, 0]
+    tok = _sample(_mask_vocab(logits, cfg.vocab_size), gen, temperature)
+    outs = [tok]
+    for _ in range(max_new - 1):
+        cache, h = dec.decode_step(params, cache, tok, cfg, ctx)
+        lg = lm.lm_logits(params, h[:, None], cfg, ctx)[:, 0]
+        tok = _sample(_mask_vocab(lg, cfg.vocab_size), gen, temperature)
+        outs.append(tok)
+    return torch.stack(outs, dim=1)
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray
+    max_new: int
+    generated: List[int] = dataclasses.field(default_factory=list)
+
+
+class ContinuousBatcher:
+    """Slot-based continuous batching over one decode_step per step, on
+    ``device`` (None: the card; the parameters must live there).
+
+    The batch dimension of the shared cache is the slot pool.  Admission
+    prefills the request alone, writing its K/V into its slot in place;
+    eviction zeroes the slot's length.  One decode_step advances every
+    slot, empty ones included, as in the reference.  ``timings`` keeps,
+    on the host clock, each admission's ``(prompt length, seconds)`` and
+    each decode step's seconds, both up to the token on the host."""
+
+    def __init__(self, params, cfg: ModelConfig, num_slots: int,
+                 max_len: int, ctx=None, eos_id: int = 1, *, device=None):
+        lm._require_local(ctx)
+        self.device = resolve_device(device)
+        on = params["embed"].device
+        if on.type != self.device.type:
+            raise ValueError(f"parameters are on {on}, the batcher on "
+                             f"{self.device}")
+        self.params, self.cfg, self.ctx = params, cfg, ctx
+        self.num_slots, self.max_len, self.eos = num_slots, max_len, eos_id
+        self.cache = dec.init_cache(cfg, num_slots, max_len,
+                                    dtype=params["embed"].dtype,
+                                    device=self.device)
+        self.slots: List[Optional[Request]] = [None] * num_slots
+        self.tokens = torch.zeros((num_slots,), dtype=torch.int32,
+                                  device=self.device)
+        self.queue: List[Request] = []
+        self.done: Dict[int, Request] = {}
+        self.timings: Dict[str, list] = {"prefill": [], "decode": []}
+
+    def submit(self, req: Request) -> None:
+        n = len(req.prompt)
+        if not 0 < n <= self.max_len:
+            raise ValueError(f"request {req.rid}: prompt of {n} tokens, "
+                             f"the slots hold 1 to {self.max_len}")
+        self.queue.append(req)
+
+    def _head(self, hidden: torch.Tensor) -> torch.Tensor:
+        return lm.lm_logits(self.params, hidden[:, None], self.cfg)[:, 0]
+
+    # -- internal ----------------------------------------------------------
+    def _admit(self) -> None:
+        for i in range(self.num_slots):
+            if self.slots[i] is None and self.queue:
+                req = self.queue.pop(0)
+                t0 = time.perf_counter()
+                prompt = torch.as_tensor(req.prompt[None, :],
+                                         device=self.device)
+                kv = {k: v[:, i:i + 1]
+                      for k, v in self.cache["blocks"].items()}
+                hidden = dec._prefill_into(self.params, prompt, self.cfg, kv)
+                self.cache["length"][i] = prompt.shape[1]
+                lg = self._head(hidden[:, -1])
+                first = int(torch.argmax(lg[0, : self.cfg.vocab_size]))
+                self.timings["prefill"].append(
+                    (prompt.shape[1], time.perf_counter() - t0))
+                req.generated.append(first)
+                self.tokens[i] = first
+                self.slots[i] = req
+
+    def _evict(self) -> None:
+        for i, req in enumerate(self.slots):
+            if req is None:
+                continue
+            if (len(req.generated) >= req.max_new or
+                    (req.generated and req.generated[-1] == self.eos)):
+                self.done[req.rid] = req
+                self.slots[i] = None
+                self.cache["length"][i] = 0
+
+    def step(self) -> bool:
+        """Admit, decode one token for all slots, evict finished."""
+        self._admit()
+        if not any(s is not None for s in self.slots):
+            return False
+        t0 = time.perf_counter()
+        self.cache, hidden = dec.decode_step(self.params, self.cache,
+                                             self.tokens, self.cfg)
+        logits = _mask_vocab(self._head(hidden), self.cfg.vocab_size)
+        self.tokens = torch.argmax(logits, dim=-1).to(torch.int32)
+        host = self.tokens.cpu().numpy()
+        self.timings["decode"].append(time.perf_counter() - t0)
+        for i, req in enumerate(self.slots):
+            if req is not None:
+                req.generated.append(int(host[i]))
+        self._evict()
+        return True
+
+    def run_to_completion(self, max_steps: int = 10_000) -> Dict[int, Request]:
+        steps = 0
+        while (self.queue or any(s is not None for s in self.slots)) \
+                and steps < max_steps:
+            if not self.step():
+                break
+            steps += 1
+        return self.done
+
+
+# ---------------------------------------------------------------------------
+# DLRM CTR scoring engine (fused-TBE consumer)
+# ---------------------------------------------------------------------------
 
 @dataclasses.dataclass
 class CTRRequest:

@@ -4,7 +4,9 @@ The reference's ``init_params`` pytree, turned into numpy arrays (for
 example with ``jax.tree_util.tree_map(np.asarray, params)``), has the
 layout the port uses -- ``{"tables", "bottom": [{"w", "b"}, ...],
 "top": [...]}`` with ``(in, out)`` weights applied as ``x @ w + b`` -- so
-the conversion copies each array, without a transpose.
+the conversion copies each array, without a transpose.  The same holds
+for the reference's LM ``init_params`` (``lm_params_from_numpy``): stacked
+``(num_layers, ...)`` blocks, ``(in, out)`` weights.
 """
 from __future__ import annotations
 
@@ -39,6 +41,22 @@ def params_from_numpy(params: Dict[str, Any], *,
     return {"tables": _tensor(params["tables"], device),
             "bottom": mlp(params["bottom"]),
             "top": mlp(params["top"])}
+
+
+def lm_params_from_numpy(params: Dict[str, Any], *,
+                         device=None) -> Dict[str, Any]:
+    """LM parameters (the reference's ``lm.init_params`` tree as numpy
+    arrays, nested dicts) -> the same tree of tensors on ``device`` (None:
+    the card).  bfloat16 arrays (``ml_dtypes``) pass through float32,
+    which holds every bfloat16 value exactly."""
+    device = resolve_device(device)
+
+    def conv(tree):
+        if isinstance(tree, dict):
+            return {k: conv(v) for k, v in tree.items()}
+        return _tensor(tree, device)
+
+    return conv(params)
 
 
 def batch_from_numpy(dense: np.ndarray, indices: np.ndarray,

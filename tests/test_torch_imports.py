@@ -43,7 +43,9 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
     mods = list(_port_modules())
     assert {"repro_torch.serving.engine", "repro_torch.core.comm",
             "repro_torch.core.parallel",
-            "repro_torch.kernels.onesided_a2a"} <= set(mods)
+            "repro_torch.kernels.onesided_a2a",
+            "repro_torch.models.lm", "repro_torch.models.decode",
+            "repro_torch.kernels.flash_attention"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"
@@ -88,7 +90,7 @@ def test_every_cuda_source_is_plain_c_bound_and_smoked():
     and built by ``chip_smoke.py``."""
     sources = sorted((PORT / "csrc").glob("*.cu"))
     assert {p.stem for p in sources} >= {"tbe_gather_pool",
-                                         "onesided_a2a"}
+                                         "onesided_a2a", "flash_attention"}
     loaders = "".join(p.read_text()
                       for p in (PORT / "kernels").glob("*.py"))
     smoke = SMOKE.read_text()
