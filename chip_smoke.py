@@ -7,7 +7,9 @@ Phases:
   1. environment: torch, CUDA, nvcc, triton, the card's name and power
      limit; builds the port's CUDA kernels from this checkout (one nvcc per
      source, all started together, into build/) and prints the build's
-     seconds;
+     seconds, each flash kernel's ptxas registers and spills, and the
+     HGMMA and UTMALDG instructions in the wgmma flash library's SASS
+     (cuobjdump; fails if either is absent);
   2. each kernel wrapper against its plain PyTorch version at the main
      path's shapes: the TBE wrappers at T=26 tables, B=2048, L=32, D=128,
      uniform ids over R=1,000,000 rows, random lengths including 0, -1
@@ -16,9 +18,11 @@ Phases:
      row fetch's one-sided exchange (the chunk-put kernel) on 4 simulated
      hosts' contributions of 2**18 rows (the padded fetch of every flush
      of phase 6) at D=128 and of 1000 rows at D=10, f32 and bf16, bitwise;
-     (2b) the flash-attention kernel at tests/test_kernels.py's four
+     (2b) the flash-attention wrapper at tests/test_kernels.py's four
      shapes in f32 and bf16, and at granite-8b's layer (1, 16384, 32/8,
-     128) causal and (1, 9000, 32/8, 128) under a 4096 window, bf16;
+     128) causal and (1, 9000, 32/8, 128) under a 4096 window, bf16,
+     each case on the route the wrapper chose: bf16 at hd 64/128 on the
+     wgmma kernel, f32 and hd 16/32 on the SIMT kernel;
   3. the uncached engine at full width (CONFIG: 26 x 1,000,000 x 128 fp32
      tables) serving 8192 requests in flushes of 2048: scores against a
      plain score on the card, one TBE launch per flush, and 26
@@ -28,7 +32,8 @@ Phases:
   5. kernel, plain-version and library times: the TBE wrappers at the
      phase-2 shapes, the row fetch's puts at the padded fetch of a
      steady-state flush of phase 4, the flash kernel at granite-8b's layer
-     (SDPA the library call), beside each kernel's bound;
+     (SDPA the library call; the SIMT kernel timed beside it at the same
+     shapes), beside each kernel's bound;
   6. the cached engine over the REMOTE cold tier (the same cache, the
      tables row-split over 4 simulated hosts on the card), once with the
      bulk and once with the one-sided transport, on the same requests:
@@ -47,10 +52,12 @@ Phases:
   8. LM serving: granite-8b at full width in bf16 (random weights from a
      seed) through ContinuousBatcher (4 slots of 16,416 positions) over 8
      requests, 2 prompts of 16,384 tokens (the flash kernel: 36 launches
-     each) and 6 of 256-2,048 (full attention: none), 32 new tokens each:
-     launches per step, the kernel against its plain version on layer 0's
-     real q/k/v, decode-matches-forward at full width, prefill and decode
-     times, tokens/s, peak device memory;
+     each, all on the wgmma route) and 6 of 256-2,048 (full attention:
+     none), 32 new tokens each: launches per step and per route, the
+     kernel against its plain version on layer 0's real q/k/v,
+     decode-matches-forward at full width, prefill and decode times,
+     tokens/s, peak device memory, and a profiled decode step, short
+     prefill and 16,384-token prefill;
   9. the card line, one JSON line of the kernels, and last the result line.
 
 Any failed check raises: the script exits non-zero and prints no result
@@ -60,6 +67,8 @@ beside it.
 import dataclasses
 import json
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -75,7 +84,10 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 ROOT = Path(__file__).resolve().parent
 TBE_SOURCE = "src/repro_torch/csrc/tbe_gather_pool.cu"
 A2A_SOURCE = "src/repro_torch/csrc/onesided_a2a.cu"
-FLASH_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
+# the flash wrapper's two kernels: bf16 at hd 64/128 (every call of the
+# main path) on the tensor cores; f32 and hd 16/32 on the CUDA cores
+FLASH_SOURCE = "src/repro_torch/csrc/flash_attention_wgmma.cu"
+FLASH_SIMT_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
 SOURCES = {"gather_pool_tbe_flat": TBE_SOURCE, "gather_pool_tbe": TBE_SOURCE,
            "gather_pool": TBE_SOURCE, "onesided_put_rows": A2A_SOURCE,
            "onesided_all_to_all": A2A_SOURCE,
@@ -101,14 +113,17 @@ BF16_FLOPS_PER_S = 989e12      # dense tensor cores
 POOL_TOL = dict(rtol=1e-5, atol=1e-5)
 # pCTR: the pooled vectors' f32 differences carried through the MLPs
 PCTR_TOL = dict(rtol=1e-4, atol=1e-5)
-# flash kernel vs its plain version: in f32 two orders of the same f32
-# softmax sums (tests/test_kernels.py's bound for the Pallas kernel); in
-# bf16 both compute in f32 and round the output to bf16, where the two may
-# land one bf16 ulp (2**-8 relative) apart
+# flash kernel vs its plain version: in f32 (the SIMT kernel) two orders of
+# the same f32 softmax sums (tests/test_kernels.py's bound for the Pallas
+# kernel); in bf16 the wgmma kernel rounds the probabilities to bf16 before
+# P.V, as SDPA does, where the plain version keeps them in f32, and both
+# round the output to bf16: about one bf16 ulp (2**-8 relative) of the
+# output (tests/test_torch_flash.py emulates the rounding on the CPU)
 FLASH_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
              torch.bfloat16: dict(rtol=1e-2, atol=1e-2)}
 # SDPA (the library yardstick) against the plain version: its flash
-# backend rounds the probabilities to bf16 before P.V, a few bf16 ulps
+# backend rounds the probabilities to bf16 before P.V, as the wgmma kernel
+# does, and sums in its own order: a few bf16 ulps
 SDPA_TOL = dict(rtol=3e-2, atol=3e-2)
 # decode-matches-forward at full width in bf16: relative L2 of the last
 # hidden state (the check of tests/test_models.py, at the working type)
@@ -192,7 +207,53 @@ def phase_environment(build) -> str:
         for line in rec.log.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"    {line.strip()}")
+    for name, source in (("flash_attention_wgmma", FLASH_SOURCE),
+                         ("flash_attention", FLASH_SIMT_SOURCE)):
+        for kernel, regs, stores, loads in _ptxas_kernels(recs[name].log):
+            log(f"  ptxas {kernel} ({source}): {regs} registers, {stores} "
+                f"bytes spill stores, {loads} bytes spill loads")
+    sass = _sass(recs["flash_attention_wgmma"].path)
+    counts = {op: len(re.findall(rf"\b{op}\b", sass))
+              for op in ("HGMMA", "UTMALDG")}
+    log(f"  {recs['flash_attention_wgmma'].path.name} SASS: "
+        f"{counts['HGMMA']} HGMMA, {counts['UTMALDG']} UTMALDG")
+    check(all(counts.values()), "the wgmma flash library holds HGMMA and "
+                                "UTMALDG instructions")
     return card
+
+
+def _ptxas_kernels(ptxas_log: str) -> list:
+    """(kernel, registers, spill-store bytes, spill-load bytes) of each
+    flash entry function in an ``nvcc -Xptxas -v`` log."""
+    out, name, spill = [], None, (0, 0)
+    for line in ptxas_log.splitlines():
+        m = re.search(r"Function properties for \S*\d(flash_[a-z]+_kernel)I"
+                      r"(\w*)", line)
+        if m:
+            dtype = "f32" if m.group(2).startswith("f") else "bf16"
+            hd = re.search(r"Li(\d+)E", m.group(2)).group(1)
+            name = f"{m.group(1)}<{dtype}, hd {hd}>"
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append((name, int(m.group(1)), *spill))
+            name = None
+    return out
+
+
+def _sass(path) -> str:
+    """``cuobjdump -sass`` of a built library (cuobjdump on the PATH or
+    under CUDA_HOME/bin)."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    tool = shutil.which("cuobjdump") or os.path.join(CUDA_HOME or "", "bin",
+                                                      "cuobjdump")
+    check(os.path.exists(tool), "cuobjdump found (PATH or CUDA_HOME/bin)")
+    return subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
 
 
 # ---------------------------------------------------------------------------
@@ -334,21 +395,34 @@ def _qkv(g, b, s, h, kh, hd, dtype):
                  for n in (h, kh, kh))
 
 
+def _flash_route(dtype, hd) -> str:
+    """The kernel the wrapper must choose: the tensor-core one for bf16 at
+    hd 64 and 128, the SIMT one for the rest."""
+    return "wgmma" if dtype == torch.bfloat16 and hd in (64, 128) else "simt"
+
+
 def _flash_case(fa, q, k, v, causal, window, tag) -> float:
-    """The flash kernel against its plain version on the same inputs."""
+    """The flash wrapper against its plain version on the same inputs, and
+    the one launch it made on the route that dtype and hd choose."""
+    want_route = _flash_route(q.dtype, q.shape[-1])
+    before = dict(fa.ROUTE_COUNTS)
     got = fa.flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
+    ran = {r: n - before[r] for r, n in fa.ROUTE_COUNTS.items()}
+    check(ran == {r: int(r == want_route) for r in ran},
+          f"flash_attention {tag}: one launch on the {want_route} route "
+          f"(got {ran})")
     want = fa.flash_attention_ref(q, k, v, causal=causal, window=window)
     check(got.dtype == q.dtype and got.shape == q.shape,
           f"flash_attention {tag}: output of q's dtype and shape")
-    return compare(f"flash_attention {tag}", got.float(), want.float(),
-                   FLASH_TOL[q.dtype])
+    return compare(f"flash_attention {tag} [{want_route}]", got.float(),
+                   want.float(), FLASH_TOL[q.dtype])
 
 
 def check_flash(pt) -> float:
-    """The flash kernel against its plain version at the test shapes (f32
-    and bf16) and at granite-8b's layer, causal and windowed (bf16);
-    returns the largest error."""
+    """The flash wrapper against its plain version at the test shapes (f32
+    and bf16) and at granite-8b's layer, causal and windowed (bf16), each
+    case on its route; returns the largest error."""
     log("== 2b. flash attention against its plain version")
     cfg = pt.LM_CONFIG
     g = torch.Generator(device=DEV).manual_seed(9)
@@ -733,10 +807,12 @@ def _attn_pairs(s, causal, window) -> int:
 def times_flash(pt) -> dict:
     """The flash kernel at granite-8b's layer (1, 16,384, 32/8, 128) bf16
     causal, against its plain version, SDPA (the one PyTorch call that
-    computes the same function) and the bound: the products QK^T and P.V
-    of the live (query, key) pairs over the bf16 tensor-core peak, or q,
-    k, v read and o written once over HBM.  The windowed shape is timed
-    too (logged; SDPA has no window)."""
+    computes the same function), the SIMT kernel (the other route, forced
+    through ``_launch``, which counts nothing, so that both kernels are
+    timed on one card) and the bound: the products QK^T and P.V of the
+    live (query, key) pairs over the bf16 tensor-core peak, or q, k, v
+    read and o written once over HBM.  The windowed shape is timed too
+    (logged; SDPA has no window)."""
     fa, cfg = pt.fa, pt.LM_CONFIG
     sdpa = torch.nn.functional.scaled_dot_product_attention
     g = torch.Generator(device=DEV).manual_seed(10)
@@ -746,38 +822,46 @@ def times_flash(pt) -> dict:
     for s, window in ((LONG_PROMPT, None), WINDOWED):
         q, k, v = _qkv(g, 1, s, H, KH, hd, torch.bfloat16)
         kern = lambda: fa.flash_attention(q, k, v, causal=True, window=window)
+        simt = lambda: fa._launch(q, k, v, True, window, route="simt")
         plain = lambda: fa.flash_attention_ref(q, k, v, causal=True,
                                                window=window)
         lib = lambda: sdpa(q.transpose(1, 2), k.transpose(1, 2),
                            v.transpose(1, 2), is_causal=True,
                            enable_gqa=True)
         kern()
+        compare(f"flash_attention SIMT kernel (1, {s}, {H}/{KH}, {hd}) "
+                f"window={window}", simt().float(), plain().float(),
+                FLASH_TOL[torch.bfloat16])
         p1 = _times(plain, 1, scratch)
-        k1 = _times(kern, 2, scratch)
+        k1 = _times(kern, 10, scratch)
+        s1 = _times(simt, 1, scratch)
         l1 = []
         if window is None:
             check(bool(torch.allclose(lib().transpose(1, 2).float(),
                                       plain().float(), **SDPA_TOL)),
                   "flash_attention: SDPA computes the same function")
-            l1 = _times(lib, 5, scratch)
-        k2 = _times(kern, 2, scratch)
+            l1 = _times(lib, 10, scratch)
+        s2 = _times(simt, 1, scratch)
+        k2 = _times(kern, 10, scratch)
         p2 = _times(plain, 1, scratch)
-        t_ops = 4 * _attn_pairs(s, True, window) * H * hd / BF16_FLOPS_PER_S
+        flops = 4 * _attn_pairs(s, True, window) * H * hd
+        t_ops = flops / BF16_FLOPS_PER_S
         t_bytes = 2 * (2 * q.numel() + k.numel() + v.numel()) / HBM_BYTES_PER_S
         r = dict(ms=statistics.median(k1 + k2),
                  plain_ms=statistics.median(p1 + p2),
                  library_ms=statistics.median(l1) if l1 else None,
                  bound_ms=max(t_ops, t_bytes) * 1e3,
-                 bound_by="operations" if t_ops >= t_bytes else "bytes")
+                 bound_by="operations" if t_ops >= t_bytes else "bytes",
+                 simt_ms=statistics.median(s1 + s2))
         lib_txt = (f"SDPA {r['library_ms']:.4f} ms, " if l1 else "")
         log(f"  flash_attention (1, {s}, {H}/{KH}, {hd}) bf16 causal "
-            f"window={window} (medians of 4 kernel, 2 plain, 5 SDPA "
-            f"launches): kernel {r['ms']:.3f} ms, plain "
-            f"{r['plain_ms']:.3f} ms, {lib_txt}bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']}); kernel at "
+            f"window={window} (medians of 20 kernel, 2 SIMT, 2 plain, 10 "
+            f"SDPA launches): kernel {r['ms']:.4f} ms, SIMT kernel "
+            f"{r['simt_ms']:.3f} ms ({r['simt_ms'] / r['ms']:.1f}x the "
+            f"kernel), plain {r['plain_ms']:.3f} ms, {lib_txt}bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}); kernel at "
             f"{100 * r['bound_ms'] / r['ms']:.2f}% of the bound, "
-            f"{4 * _attn_pairs(s, True, window) * H * hd / r['ms'] / 1e9:.1f}"
-            f" TFLOP/s")
+            f"{flops / r['ms'] / 1e9:.1f} TFLOP/s")
         if window is None:
             out["flash_attention"] = r
     return out
@@ -1287,6 +1371,9 @@ def phase_lm(pt, kmods) -> dict:
     check(counts == _launches(flash_attention=nl * n_long),
           f"the LM path launched the flash kernel {nl} x {n_long} times "
           f"and nothing else")
+    check(fa.ROUTE_COUNTS == {"wgmma": nl * n_long, "simt": 0},
+          f"every flash launch of the LM path on the wgmma route "
+          f"({fa.ROUTE_COUNTS})")
     done = eng.done
     check(sorted(done) == [r.rid for r in reqs]
           and all(len(r.generated) == LM_MAX_NEW
@@ -1301,15 +1388,17 @@ def phase_lm(pt, kmods) -> dict:
     log(f"  {len(done)} requests, {tokens_out} tokens in {len(steps)} steps,"
         f" {serve_s:.3f} s: {tokens_out / serve_s:.2f} tokens/s; flash "
         f"launches {counts['flash_attention']} ({nl} x {n_long} long "
-        f"prefills; per step {[n for _, n in steps if n]})")
+        f"prefills; per step {[n for _, n in steps if n]}; by route "
+        f"{fa.ROUTE_COUNTS})")
     for n, sec in prefill:
         log(f"  prefill of {n} tokens: {1e3 * sec:.1f} ms")
     log(f"  decode step ({LM_SLOTS} slots): median "
         f"{1e3 * statistics.median(decode):.3f} ms, min "
         f"{1e3 * min(decode):.3f}, max {1e3 * max(decode):.3f} over "
         f"{len(decode)} steps; peak device memory {peak_gb:.1f} GB")
-    # where the time goes: one decode step and one short prefill profiled
-    # (the slots' cache as the loop left it; its rows are scratch now)
+    # where the time goes: one decode step, one short and one long prefill
+    # profiled (the slots' cache as the loop left it; its rows are scratch
+    # now)
     kv = {k: v[:, :1] for k, v in eng.cache["blocks"].items()}
     short = torch.as_tensor(reqs[1].prompt[None], device=DEV)
     prof = dict(
@@ -1318,7 +1407,10 @@ def phase_lm(pt, kmods) -> dict:
             statistics.median(decode) * 1e3),
         prefill=_profile_lm(lambda: dec._prefill_into(
             params, short, cfg, kv), f"prefill of {short.shape[1]} tokens",
-            prefill[1][1] * 1e3))
+            prefill[1][1] * 1e3),
+        long_prefill=_profile_lm(lambda: dec._prefill_into(
+            params, tokens, cfg, kv), f"prefill of {LONG_PROMPT} tokens",
+            prefill[0][1] * 1e3))
     del eng, kv
     torch.cuda.empty_cache()
 
@@ -1458,7 +1550,9 @@ def main() -> int:
         f"flash launches {lm['launches']}, decode vs forward relative L2 "
         f"{lm['rel']:.3e}, peak device memory {lm['peak_gb']:.1f} GB, "
         f"device idle {lm['prof']['decode']['idle']:.1f}% of a decode step, "
-        f"{lm['prof']['prefill']['idle']:.1f}% of a short prefill")
+        f"{lm['prof']['prefill']['idle']:.1f}% of a short prefill, "
+        f"{lm['prof']['long_prefill']['idle']:.1f}% of a "
+        f"{LONG_PROMPT}-token prefill")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -9,8 +9,11 @@ git-ignored ``build/`` directory::
 
 The file name carries a hash of the source and the flags, so an edited
 source builds anew and an unchanged one is loaded as it is.  Nothing but
-the repository's own sources goes into a build.  A missing ``nvcc`` or a
-failed compile raises: there is no fallback to a plain version.
+the repository's own sources goes into a build, and no library is linked
+beyond the CUDA runtime: a source that needs a libcuda function (the TMA
+tensor maps of ``flash_attention_wgmma.cu``) looks it up at run time with
+``cudaGetDriverEntryPoint``.  A missing ``nvcc`` or a failed compile
+raises: there is no fallback to a plain version.
 """
 from __future__ import annotations
 
@@ -26,7 +29,8 @@ from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 # every csrc/<name>.cu of the port, each loaded by one kernel module
-SOURCES = ("tbe_gather_pool", "onesided_a2a", "flash_attention")
+SOURCES = ("tbe_gather_pool", "onesided_a2a", "flash_attention",
+           "flash_attention_wgmma")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

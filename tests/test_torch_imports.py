@@ -90,7 +90,8 @@ def test_every_cuda_source_is_plain_c_bound_and_smoked():
     and built by ``chip_smoke.py``."""
     sources = sorted((PORT / "csrc").glob("*.cu"))
     assert {p.stem for p in sources} >= {"tbe_gather_pool",
-                                         "onesided_a2a", "flash_attention"}
+                                         "onesided_a2a", "flash_attention",
+                                         "flash_attention_wgmma"}
     loaders = "".join(p.read_text()
                       for p in (PORT / "kernels").glob("*.py"))
     smoke = SMOKE.read_text()
