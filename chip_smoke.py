@@ -38,14 +38,17 @@ Phases:
      tables row-split over 4 simulated hosts on the card), once with the
      bulk and once with the one-sided transport, on the same requests:
      scores and pooled lookups bitwise-equal to phase 3, the one-sided run
-     4 put launches per non-empty fetch and the bulk run none;
+     one put launch per non-empty fetch and the bulk run none;
   7. the distributed embedding bag over 4 simulated ranks on the card
-     (table-wise over 2), on phase 3's tables: the chunk-put kernel's
-     all-to-all, reduce-scatter and ring permute bitwise against their
-     plain versions at the a2a pipeline's shapes; phase 3's requests
+     (table-wise over 2), on phase 3's tables: the chunk kernels'
+     all-to-all, reduce-scatter (the pull-sum kernel) and ring permute
+     bitwise against their plain versions at the a2a pipeline's shapes, and
+     at 1, 2, 3 and 8 ranks, with int32 sums that wrap, -0.0 sources and
+     exact cancellations; phase 3's requests
      served by DLRMEngine with a ParallelContext for row/allgather (within
      tolerance of phase 3), row/a2a on both backends (dropped lookups per
-     flush, 16 put launches per one-sided flush) and column / table
+     flush, 3 all-to-all launches and 1 reduce-scatter launch per
+     one-sided flush) and column / table
      (bitwise phase 3); a no-drop traffic (uniform ids, every length 32)
      where a2a drops nothing and agrees with uncached; flush medians, one
      profiled a2a flush, the kernels' times beside their bounds;
@@ -515,8 +518,11 @@ def _profile_flush(eng, head, median_ms, label,
               and e.self_device_time_total > 0
               and not e.key.startswith("Activity Buffer")]
     for kernel in kernels:
-        check(any(kernel in e.key for e in events),
-              f"the profiled {label} flush ran {kernel}")
+        mine = [e for e in events if kernel in e.key]
+        check(bool(mine), f"the profiled {label} flush ran {kernel}")
+        log(f"  profiled {label} flush: {kernel} "
+            f"{sum(e.self_device_time_total for e in mine) / 1e3:.4f} ms of "
+            f"device time over {sum(e.count for e in mine)} launch(es)")
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     log(f"  profiled {label} flush: device busy {busy_ms:.3f} ms = "
         f"{100 * busy_ms / median_ms:.1f}% of the median flush "
@@ -705,7 +711,7 @@ def _pow2(m: int) -> int:
 
 
 def _times_puts(oa, m_pad, scratch) -> dict:
-    """The puts of one row fetch (4 launches, one per simulated host) at
+    """The puts of one row fetch (one launch for the 4 simulated hosts) at
     ``m_pad`` padded rows, against the plain exchange and the one PyTorch
     call that computes it; checked bitwise first."""
     g = torch.Generator(device=DEV).manual_seed(5)
@@ -729,7 +735,7 @@ def _times_puts(oa, m_pad, scratch) -> dict:
                library_ms=statistics.median(l1), bound_ms=bound_ms,
                bound_by="bytes", max_abs_err=err)
     log(f"  onesided_put_rows (H={HOSTS}, M_pad={m_pad}, D={D}, one fetch = "
-        f"{HOSTS} launches): kernel {out['ms']:.4f} ms, plain "
+        f"one launch): kernel {out['ms']:.4f} ms, plain "
         f"{out['plain_ms']:.4f} ms, library {out['library_ms']:.4f} ms, "
         f"bound {bound_ms:.4f} ms (bytes); kernel at "
         f"{100 * bound_ms / out['ms']:.1f}% of the bound")
@@ -919,9 +925,9 @@ def _serve_remote(pt, eg, oa, unc, cached, backend) -> dict:
           f"[{backend}] one fused flat TBE launch per flush")
     check(len(fetches) == sum(f > 0 for f in fetched) > 0,
           f"[{backend}] one fetch per flush that missed")
-    want_puts = HOSTS * len(fetches) if backend == "onesided" else 0
+    want_puts = len(fetches) if backend == "onesided" else 0
     check(counts["onesided_put_rows"] == want_puts,
-          f"[{backend}] {want_puts} put launches (4 per non-empty fetch)")
+          f"[{backend}] {want_puts} put launches (1 per non-empty fetch)")
     # the same admission decisions as the host tier: the same fetches
     check(fetched == cached["fetched"]
           and m_pads == [_pow2(f) for f in fetched if f],
@@ -1003,10 +1009,12 @@ def _check_chunk(name, got, want, tag) -> float:
 
 
 def _check_chunk_kernels(pt, oa) -> dict:
-    """The chunk-put kernel's three wrappers against their plain versions
-    at the a2a pipeline's shapes (phase 1 int32, phase 3 f32 and bf16) and
-    at shapes that are not 16-byte aligned, bitwise; the bulk routes
-    launch nothing.  Returns each wrapper's largest error."""
+    """The chunk kernels' three wrappers against their plain versions at
+    the a2a pipeline's shapes (phase 1 int32, phase 3 f32 and bf16), at
+    shapes that are not 16-byte aligned, at 1, 2, 3 and 8 ranks, on int32
+    sums that overflow and on f32 sources of -0.0 and exact cancellations,
+    bitwise; the bulk routes launch nothing.  Returns each wrapper's
+    largest error."""
     dev = torch.device(DEV)
     g = torch.Generator(device=dev).manual_seed(7)
     cap, rows = _a2a_shapes()
@@ -1038,6 +1046,50 @@ def _check_chunk_kernels(pt, oa) -> dict:
                 oa.onesided_reduce_scatter_ref(x), tag))
         _check_chunk("onesided_reduce_scatter", got, x.sum(0),
                      tag + " vs the bulk route x.sum(0)")
+    # other rank counts at a ragged chunk, every dtype: bitwise at any E,
+    # since the pull-sum keeps PyTorch's four partial sums
+    for e in (1, 2, 3, 8):
+        f = torch.randn((e, e, 1001), generator=g, device=dev)
+        i32 = torch.randint(-2**31, 2**31 - 1, (e, e, 1001), generator=g,
+                            device=dev, dtype=torch.int32)
+        for x in (f, f.to(torch.bfloat16), i32):
+            tag = f"E={e} {str(x.dtype)[6:]} {tuple(x.shape)}"
+            errs["onesided_all_to_all"] = max(
+                errs["onesided_all_to_all"], _check_chunk(
+                    "onesided_all_to_all", oa.onesided_all_to_all(x),
+                    oa.onesided_all_to_all_ref(x), tag))
+            got = oa.onesided_reduce_scatter(x)
+            errs["onesided_reduce_scatter"] = max(
+                errs["onesided_reduce_scatter"], _check_chunk(
+                    "onesided_reduce_scatter", got,
+                    oa.onesided_reduce_scatter_ref(x), tag))
+            _check_chunk("onesided_reduce_scatter", got,
+                         x.sum(0, dtype=x.dtype), tag + " vs x.sum(0)")
+    # int32 partials over the whole range at phase 1's shape: the sums wrap
+    wrap = torch.randint(-2**31, 2**31 - 1, tuple(ids.shape), generator=g,
+                         device=dev, dtype=torch.int32)
+    wide = wrap.long().sum(0)
+    check(bool((wide != wide.int().long()).any()), "the int32 sums overflow")
+    got = oa.onesided_reduce_scatter(wrap)
+    _check_chunk("onesided_reduce_scatter", got,
+                 oa.onesided_reduce_scatter_ref(wrap),
+                 f"int32 {tuple(wrap.shape)} that wraps")
+    check(torch.equal(got.long(), (wide + 2**31) % 2**32 - 2**31),
+          "the int32 reduce-scatter wraps modulo 2**32")
+    # f32 sources: rank 1 cancels rank 0 exactly, ranks 2 and 3 hold -0.0;
+    # in the first 64 elements every source is -0.0
+    zeros = torch.full((RANKS, RANKS, 4096), -0.0, device=dev)
+    zeros[0] = torch.randn((RANKS, 4096), generator=g, device=dev)
+    zeros[1] = -zeros[0]
+    zeros[..., :64] = -0.0
+    got = oa.onesided_reduce_scatter(zeros)
+    _check_chunk("onesided_reduce_scatter", got,
+                 oa.onesided_reduce_scatter_ref(zeros),
+                 "f32 -0.0 and cancellations")
+    _check_chunk("onesided_reduce_scatter", got, zeros.sum(0),
+                 "f32 -0.0 and cancellations vs x.sum(0)")
+    check(_same_bits(got, torch.zeros_like(got)),
+          "-0.0 sources and exact cancellations sum to +0.0")
     ring = part[0]
     for tag, x in ((f"f32 {tuple(ring.shape)}", ring),
                    ("unaligned bf16 (4, 1001)", odd[0].to(torch.bfloat16))):
@@ -1135,12 +1187,12 @@ def _serve_strategy(pt, eg, oa, unc, label, fields, ranks, nodrop) -> dict:
             f"{out['pctr_err']:.3e} (rtol={PCTR_TOL['rtol']} "
             f"atol={PCTR_TOL['atol']}); pooled max_abs_err {err:.3e}")
     elif label.startswith("row/a2a"):
-        puts = dict(onesided_all_to_all=3 * ranks * n,
-                    onesided_reduce_scatter=ranks * n) \
+        # one launch per collective call: 3 all-to-alls, 1 reduce-scatter
+        puts = dict(onesided_all_to_all=3 * n, onesided_reduce_scatter=n) \
             if label.endswith("onesided") else {}
         check(counts == _launches(**puts),
-              f"[{label}] {sum(puts.values()) // n} put launches per flush, "
-              f"no TBE launch")
+              f"[{label}] {sum(puts.values()) // n} chunk-kernel launches "
+              f"per flush, no TBE launch")
         out["dropped"] = _dropped(pt, eng, heads, ecfg)
         live = [int(lens.sum()) for lens in (
             _padded(eng, h)[2] for h in heads)]
@@ -1183,11 +1235,11 @@ def _serve_strategy(pt, eg, oa, unc, label, fields, ranks, nodrop) -> dict:
 
 def _times_chunks(pt, oa) -> dict:
     """The three wrappers at the shapes the a2a pipeline gives them (one
-    exchange = 4 launches): the all-to-all at phase 1's int32 buckets, the
-    reduce-scatter at phase 3's f32 partials, the ring at a rank's block of
-    them; against the plain version, the one PyTorch call that computes the
-    same function, and the bytes bound.  The all-to-all alone at phase 3's
-    shape is timed too (logged, not in the kernels line)."""
+    launch each, the ring's 4): the all-to-all at phase 1's int32 buckets,
+    the reduce-scatter at phase 3's f32 partials, the ring at a rank's
+    block of them; against the plain version, the one PyTorch call that
+    computes the same function, and the bytes bound.  The all-to-all alone
+    at phase 3's shape is timed too (logged, not in the kernels line)."""
     dev = torch.device(DEV)
     g = torch.Generator(device=dev).manual_seed(8)
     cap, rows = _a2a_shapes()
@@ -1280,7 +1332,7 @@ def phase_distributed(pt, eg, oa, unc) -> dict:
     out["idle"] = _profile_flush(
         ones["eng"], unc["heads"][1],
         statistics.median(ones["flush_ms"]), "row/a2a/onesided",
-        ("put_chunks_kernel",))
+        ("put_chunks_kernel", "sum_chunks_kernel"))
     del bulk["eng"], ones["eng"]
     times = _times_chunks(pt, oa)
     # the ring collective through its comm entry point (no serving path

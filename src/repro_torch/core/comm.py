@@ -10,10 +10,11 @@ their names:
 
   * ``"bulk"`` -- the NCCL analogue: host-launched bulk collectives, here
     stock torch ops over the stacked ranks (a transpose, a sum);
-  * ``"onesided"`` -- the NVSHMEM analogue: puts issued from inside a
-    kernel (``kernels/onesided_a2a.py``: whole chunks for the all-to-all,
-    the reduce-scatter and the ring, single rows for the row fetch; a
-    hand-written CUDA kernel on a card, its plain version on the CPU).
+  * ``"onesided"`` -- the NVSHMEM analogue: puts and gets issued from
+    inside a kernel (``kernels/onesided_a2a.py``: whole chunks put for the
+    all-to-all, the ring and the row fetch, whole chunks read and summed
+    for the reduce-scatter; hand-written CUDA kernels on a card, their
+    plain versions on the CPU).
 
 The ranks of one mesh axis are simulated in one process on one device, as
 the reference's CPU tests back their ranks with forced host devices of one
@@ -133,8 +134,8 @@ def record_runtime(op: str, nbytes: int, n_devices: int, backend: str,
 def all_to_all(x: torch.Tensor, *, backend: str = "bulk") -> torch.Tensor:
     """All-to-all: ``(E_src, E_dst, C, ...)`` -> ``(E_dst, E_src, C,
     ...)``; rank d receives every rank's chunk for d, in rank order.
-    ``"onesided"`` puts whole chunks from inside a kernel (one launch per
-    source rank); ``"bulk"`` transposes with stock torch ops."""
+    ``"onesided"`` puts whole chunks from inside a kernel (one launch for
+    all source ranks); ``"bulk"`` transposes with stock torch ops."""
     _record("all_to_all", x, backend)
     if backend == "onesided":
         return onesided_all_to_all(x)
@@ -154,27 +155,30 @@ def all_gather(x: torch.Tensor, *, axis: int = 0, tiled: bool = False,
 
 def all_reduce(x: torch.Tensor, *, backend: str = "bulk") -> torch.Tensor:
     """Sum of the E ranks' ``x[r]`` (the reference's ``psum``), returned
-    once."""
+    once, in ``x``'s dtype (an int32 sum wraps modulo 2**32, as the
+    reference's does)."""
     _record("all_reduce", x, backend)
-    return x.sum(dim=0)
+    return x.sum(dim=0, dtype=x.dtype)
 
 
 def reduce_scatter(x: torch.Tensor, *, backend: str = "bulk",
                    emulate_with_a2a: bool = False) -> torch.Tensor:
     """Reduce-scatter over the leading per-rank dimension: ``(E_src, E_dst,
     M, ...)`` -> ``(E_dst, M, ...)``, rank d's sum over sources of their
-    ``[d]``.
+    ``[d]``, in ``x``'s dtype.
 
-    ``"onesided"`` always takes the paper's NVSHMEM 2.9 workaround (§4.4):
-    the one-sided all-to-all, then a local sum.  ``emulate_with_a2a`` takes
-    the same route on ``"bulk"``; otherwise the bulk route is one sum over
+    ``"onesided"`` always takes the paper's NVSHMEM 2.9 workaround (§4.4),
+    the one-sided all-to-all and then a local sum, fused into one kernel
+    that reads every source's chunk and sums it in registers.
+    ``emulate_with_a2a`` takes the workaround's two passes on ``"bulk"``
+    (a transpose, then a sum); otherwise the bulk route is one sum over
     sources (the reference's ``psum_scatter``)."""
     _record("reduce_scatter", x, backend)
     if backend == "onesided":
         return onesided_reduce_scatter(x)
     if emulate_with_a2a:
-        return x.transpose(0, 1).contiguous().sum(dim=1)
-    return x.sum(dim=0)
+        return x.transpose(0, 1).contiguous().sum(dim=1, dtype=x.dtype)
+    return x.sum(dim=0, dtype=x.dtype)
 
 
 def permute_ring(x: torch.Tensor, *, shift: int = 1,

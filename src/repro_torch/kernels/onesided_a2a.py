@@ -1,27 +1,33 @@
-"""One-sided puts -- the NVSHMEM analogue's kernel: wrappers and plain
-versions.
+"""One-sided puts and gets -- the NVSHMEM analogue's kernels: wrappers and
+plain versions.
 
 The counterpart of ``repro.kernels.onesided_a2a``, the repo's NVSHMEM
-analogue: every put is issued from inside a kernel, one launch per
-simulated source rank, into the ranks' receive buffers named by a
-device-side pointer table.  One hand-written CUDA kernel,
-``csrc/onesided_a2a.cu``, puts whole contiguous CHUNKS, int32, f32 or
-bf16, and serves every exchange of the package:
+analogue: every exchange is issued from inside a kernel, over the ranks'
+buffers named by a table of their addresses, handed to the kernel by
+value among its parameters (at most :data:`MAX_RANKS` ranks).  One
+hand-written CUDA source, ``csrc/onesided_a2a.cu``, moves whole
+contiguous CHUNKS, int32, f32 or bf16, and serves every exchange of the
+package with two kernels:
 
   * :func:`onesided_all_to_all` -- ``(E_src, E_dst, C, ...)`` ->
     ``(E_dst, E_src, C, ...)``: rank r's chunk for d lands in d's buffer
     at ``[r]``, the reference's ``out[i]`` on rank j ``== x[j]`` from rank
-    i.  E launches, one per source rank;
-  * :func:`onesided_reduce_scatter` -- the all-to-all, then ``torch.sum``
-    over sources outside the kernel, as in the reference: ``(E_src, E_dst,
-    M, ...)`` -> ``(E_dst, M, ...)``;
+    i.  One launch of the put kernel for all E source ranks;
+  * :func:`onesided_reduce_scatter` -- ``(E_src, E_dst, M, ...)`` ->
+    ``(E_dst, M, ...)``, rank d's sum over sources of their ``[d]``, in
+    ``x``'s dtype.  The reference's workaround is the all-to-all, then a
+    local sum; here one launch of the pull-sum kernel fuses the two: each
+    destination reads its chunk from every source's buffer and sums in
+    registers, in the order of ``x.sum(0)`` on the card, so no exchange
+    buffer is written;
   * :func:`onesided_ring_permute` -- ``(n, ...)`` -> ``(n, ...)``: rank
-    ``(r + shift) % n`` receives rank r's block.  n launches;
+    ``(r + shift) % n`` receives rank r's block.  n launches of the put
+    kernel, one per source rank;
   * :func:`onesided_put_rows` -- the remote cold tier's row exchange,
     ``(H_src, H_dst, M, D)`` -> ``(H_dst, H_src, M, D)``: rank r's M rows
     for requester q land in q's buffer at ``[r]``.  The reference issues
     one put per row; those M rows are contiguous on both sides, so here
-    they are one chunk put.  H launches;
+    they are one chunk put.  One launch for all H source ranks;
   * :func:`onesided_fetch_rows` -- the row exchange, then each requester's
     sum over owners, ``(H, M, D)``: ``out[q]`` is rank q's fetched rows.
     The sum lies outside the kernel, as in the reference.  Each row has
@@ -38,6 +44,7 @@ nothing.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -47,6 +54,9 @@ LAUNCH_COUNTS = {"onesided_put_rows": 0, "onesided_all_to_all": 0,
                  "onesided_reduce_scatter": 0, "onesided_ring_permute": 0}
 
 _DTYPE_CODES = {torch.int32: 0, torch.float32: 1, torch.bfloat16: 2}
+# the ranks a launch's table of buffers holds (kMaxRanks of the .cu): the
+# table goes to the kernel by value, among its 4 KB of parameters
+MAX_RANKS = 480
 
 
 def reset_launch_counts() -> None:
@@ -58,9 +68,12 @@ def _kernel():
     lib = _build.load("onesided_a2a")
     if lib.onesided_a2a_put.argtypes is None:
         P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.onesided_a2a_put.argtypes = [P, P, I, I, LL, I, I, P]
+        TAB = ctypes.POINTER(LL)
+        lib.onesided_a2a_put.argtypes = [P, TAB, I, I, I, LL, I, I, P]
         lib.onesided_a2a_put.restype = I
-        lib.onesided_ring_put.argtypes = [P, P, I, I, I, LL, I, I, P]
+        lib.onesided_rs_pull.argtypes = [TAB, P, I, I, I, LL, I, I, P]
+        lib.onesided_rs_pull.restype = I
+        lib.onesided_ring_put.argtypes = [P, TAB, I, I, I, LL, I, I, P]
         lib.onesided_ring_put.restype = I
         lib.a2a_error_string.argtypes = [I]
         lib.a2a_error_string.restype = ctypes.c_char_p
@@ -99,8 +112,9 @@ def onesided_fetch_rows_ref(contribs: torch.Tensor) -> torch.Tensor:
 
 def onesided_reduce_scatter_ref(x: torch.Tensor) -> torch.Tensor:
     """Plain reduce-scatter: the plain all-to-all, then the sum over
-    sources."""
-    return onesided_all_to_all_ref(x).sum(dim=1)
+    sources in ``x``'s dtype (an int32 sum wraps modulo 2**32, as the
+    reference's does)."""
+    return onesided_all_to_all_ref(x).sum(dim=1, dtype=x.dtype)
 
 
 def onesided_ring_permute_ref(x: torch.Tensor, shift: int = 1
@@ -124,17 +138,17 @@ def _check_chunks(x: torch.Tensor, min_dim: int, what: str) -> None:
                          f"{tuple(x.shape)}")
     if not x.is_contiguous():
         raise ValueError(f"{what} needs a contiguous tensor")
+    if x.shape[0] > MAX_RANKS:
+        raise ValueError(f"{what} takes at most {MAX_RANKS} ranks, got "
+                         f"{x.shape[0]}")
 
 
-def _put_table(out: torch.Tensor) -> torch.Tensor:
-    """The receive buffers' addresses, one per rank, as a table on the card.
-    It is referenced until the launches that read it are enqueued, and any
-    later reuse of its memory is ordered after them on the same stream.
-    The copy goes from pinned memory without blocking: a copy from pageable
-    memory would hold the host until the stream had drained up to it."""
-    host = torch.tensor([out[d].data_ptr() for d in range(out.shape[0])],
-                        dtype=torch.int64).pin_memory()
-    return host.to(out.device, non_blocking=True)
+def _rank_table(bufs: torch.Tensor) -> ctypes.Array:
+    """The addresses of the ranks' buffers ``bufs[r]``, one per rank, as a
+    host table.  The launcher hands it to the kernel by value, so nothing
+    is copied to the card."""
+    n = bufs.shape[0]
+    return (ctypes.c_longlong * n)(*(bufs[r].data_ptr() for r in range(n)))
 
 
 def _aligned(x: torch.Tensor, out: torch.Tensor, chunk: int) -> bool:
@@ -144,29 +158,59 @@ def _aligned(x: torch.Tensor, out: torch.Tensor, chunk: int) -> bool:
         and out.data_ptr() % 16 == 0
 
 
-def _launch_all_to_all(x: torch.Tensor, counter: str) -> torch.Tensor:
-    """E chunk-put launches, one per source rank, counted under
-    ``counter``."""
+def _check_rc(lib, rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed: "
+                           f"{lib.a2a_error_string(rc).decode()} ({rc})")
+
+
+def _launch_all_to_all(x: torch.Tensor, counter: str, first: int = 0,
+                       count: Optional[int] = None) -> torch.Tensor:
+    """One chunk-put launch for source ranks ``first .. first + count -
+    1`` (all E by default), counted under ``counter``.  A range short of
+    all E fills only those sources' rows ``out[:, first:first + count]``
+    of the returned ``(E, E, ...)`` buffer."""
     E = x.shape[0]
+    count = E - first if count is None else count
     out = torch.empty((E, E) + tuple(x.shape[2:]), dtype=x.dtype,
                       device=x.device)
     chunk = x[0, 0].numel()
     if chunk == 0:
         return out
-    ptrs = _put_table(out)
+    ptrs = _rank_table(out)
     vec = _aligned(x, out, chunk)
     lib = _kernel()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        for r in range(E):
-            rc = lib.onesided_a2a_put(
-                x[r].data_ptr(), ptrs.data_ptr(), r, E, chunk,
-                _DTYPE_CODES[x.dtype], int(vec), stream)
-            if rc != 0:
-                raise RuntimeError(
-                    f"{counter} launch failed: "
-                    f"{lib.a2a_error_string(rc).decode()} ({rc})")
-            LAUNCH_COUNTS[counter] += 1
+        _check_rc(lib, lib.onesided_a2a_put(
+            x[first].data_ptr(), ptrs, first, count, E, chunk,
+            _DTYPE_CODES[x.dtype], int(vec), stream), counter)
+    LAUNCH_COUNTS[counter] += 1
+    return out
+
+
+def _launch_pull_sum(x: torch.Tensor, first: int = 0,
+                     count: Optional[int] = None) -> torch.Tensor:
+    """One pull-sum launch for destinations ``first .. first + count - 1``
+    (all E by default): ``(count, ...)``, destination ``first + j``'s sum
+    over sources at ``[j]``."""
+    E = x.shape[0]
+    count = E - first if count is None else count
+    out = torch.empty((count,) + tuple(x.shape[2:]), dtype=x.dtype,
+                      device=x.device)
+    chunk = x[0, 0].numel()
+    if chunk == 0:
+        return out
+    ptrs = _rank_table(x)
+    vec = _aligned(x, out, chunk)
+    lib = _kernel()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        _check_rc(lib, lib.onesided_rs_pull(
+            ptrs, out.data_ptr(), E, first, count, chunk,
+            _DTYPE_CODES[x.dtype], int(vec), stream),
+            "onesided_reduce_scatter")
+    LAUNCH_COUNTS["onesided_reduce_scatter"] += 1
     return out
 
 
@@ -179,8 +223,8 @@ def _check_square(x: torch.Tensor, what: str) -> None:
 
 def onesided_all_to_all(x: torch.Tensor) -> torch.Tensor:
     """All-to-all of the stacked send buffers: ``(E_src, E_dst, C, ...)``
-    int32/f32/bf16 -> ``(E_dst, E_src, C, ...)``, one kernel launch per
-    source rank, each putting its E chunks into the ranks' buffers."""
+    int32/f32/bf16 -> ``(E_dst, E_src, C, ...)``, one kernel launch in
+    which every source rank puts its E chunks into the ranks' buffers."""
     if x.device.type == "cpu":
         return onesided_all_to_all_ref(x)
     _check_device(x, "all-to-all")
@@ -189,15 +233,16 @@ def onesided_all_to_all(x: torch.Tensor) -> torch.Tensor:
 
 
 def onesided_reduce_scatter(x: torch.Tensor) -> torch.Tensor:
-    """The paper's reduce-scatter workaround (NVSHMEM 2.9 had none): the
-    one-sided all-to-all, then the local sum over sources, ``(E_src, E_dst,
-    M, ...)`` -> ``(E_dst, M, ...)``.  The sum runs after the puts on the
-    same stream, so it starts once every chunk has landed."""
+    """The paper's reduce-scatter workaround (NVSHMEM 2.9 had none), the
+    one-sided all-to-all and then the local sum over sources, fused into
+    one kernel launch: ``(E_src, E_dst, M, ...)`` -> ``(E_dst, M, ...)``,
+    each destination's chunks read from every source's buffer and summed
+    in registers, in ``x``'s dtype and in the order of ``x.sum(0)``."""
     if x.device.type == "cpu":
         return onesided_reduce_scatter_ref(x)
     _check_device(x, "reduce-scatter")
     _check_square(x, "onesided_reduce_scatter")
-    return _launch_all_to_all(x, "onesided_reduce_scatter").sum(dim=1)
+    return _launch_pull_sum(x)
 
 
 def onesided_ring_permute(x: torch.Tensor, shift: int = 1) -> torch.Tensor:
@@ -213,27 +258,25 @@ def onesided_ring_permute(x: torch.Tensor, shift: int = 1) -> torch.Tensor:
     chunk = x[0].numel()
     if chunk == 0:
         return out
-    ptrs = _put_table(out)
+    ptrs = _rank_table(out)
     vec = _aligned(x, out, chunk)
     lib = _kernel()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         for r in range(n):
-            rc = lib.onesided_ring_put(
-                x[r].data_ptr(), ptrs.data_ptr(), r, n, shift % n, chunk,
-                _DTYPE_CODES[x.dtype], int(vec), stream)
-            if rc != 0:
-                raise RuntimeError(
-                    f"onesided_ring_permute launch failed: "
-                    f"{lib.a2a_error_string(rc).decode()} ({rc})")
+            _check_rc(lib, lib.onesided_ring_put(
+                x[r].data_ptr(), ptrs, r, n, shift % n, chunk,
+                _DTYPE_CODES[x.dtype], int(vec), stream),
+                "onesided_ring_permute")
             LAUNCH_COUNTS["onesided_ring_permute"] += 1
     return out
 
 
 def onesided_put_rows(contribs: torch.Tensor) -> torch.Tensor:
     """The exchange of the row fetch: ``(H_src, H_dst, M, D)``
-    contributions -> ``(H_dst, H_src, M, D)``, one kernel launch per source
-    rank, each putting its M rows for every requester, one chunk each."""
+    contributions -> ``(H_dst, H_src, M, D)``, one kernel launch in which
+    every source rank puts its M rows for every requester, one chunk
+    each."""
     if contribs.device.type == "cpu":
         return onesided_put_rows_ref(contribs)
     _check_device(contribs, "put")

@@ -134,6 +134,9 @@ def _inputs() -> dict:
                                 (ENGINE_REQS, tt, ll)).astype(np.int32)
     x["req_lens"] = rng.integers(0, ll + 1, (ENGINE_REQS, tt)).astype(
         np.int32)
+    # int32 partials over the whole range: their sums over 4 ranks overflow
+    x["rs_int32"] = rng.integers(-2**31, 2**31, (E, E, 5, 3)).astype(
+        np.int32)
     return x
 
 
@@ -182,8 +185,11 @@ def _jax_reference(inputs: Path, outputs: Path) -> None:
             v, "model", interpret=True), a)
         out[f"a2a_{dt}"] = got.astype(np.float32) if dt == "bfloat16" \
             else got
-    out["rs_float32"] = per_rank(lambda v: joa.onesided_reduce_scatter(
-        v, "model", interpret=True), x["rs_float32"])
+    for dt in ("float32", "int32"):
+        out[f"rs_{dt}"] = per_rank(lambda v: joa.onesided_reduce_scatter(
+            v, "model", interpret=True), x[f"rs_{dt}"])
+    out["ar_int32"] = per_rank(lambda v: jcomm.all_reduce(v, "model"),
+                               x["rs_int32"][:, 0])
     for shift in (1, 3):
         out[f"ring_{shift}"] = per_rank(
             lambda v, s=shift: joa.onesided_ring_permute(
@@ -337,6 +343,36 @@ def test_onesided_reduce_scatter_matches_jax(ref):
     for kw in (dict(backend="bulk"), dict(backend="onesided"),
                dict(backend="bulk", emulate_with_a2a=True)):
         assert torch.equal(comm.reduce_scatter(a, **kw), got), kw
+
+
+RS_INT32_ROUTES = {
+    "onesided": lambda a: oa.onesided_reduce_scatter(a),
+    "plain": lambda a: oa.onesided_reduce_scatter_ref(a),
+    "comm_onesided": lambda a: comm.reduce_scatter(a, backend="onesided"),
+    "comm_bulk": lambda a: comm.reduce_scatter(a, backend="bulk"),
+    "comm_bulk_emulate": lambda a: comm.reduce_scatter(
+        a, backend="bulk", emulate_with_a2a=True),
+}
+
+
+@pytest.mark.parametrize("route", list(RS_INT32_ROUTES))
+def test_int32_reduce_scatter_matches_jax(ref, route):
+    """An int32 sum over ranks stays int32 and wraps modulo 2**32, as the
+    reference's does: the partials' sums overflow."""
+    x, want = ref
+    a = _t(x["rs_int32"])
+    assert not torch.equal(a.long().sum(0), a.long().sum(0).int().long())
+    got = RS_INT32_ROUTES[route](a)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want["rs_int32"])
+
+
+def test_int32_all_reduce_matches_jax(ref):
+    x, want = ref
+    got = comm.all_reduce(_t(x["rs_int32"][:, 0]))
+    assert got.dtype == torch.int32
+    for r in range(E):          # every rank holds the same sum
+        np.testing.assert_array_equal(got.numpy(), want["ar_int32"][r])
 
 
 @pytest.mark.parametrize("shift", [1, 3])
