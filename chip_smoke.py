@@ -7,15 +7,21 @@ Phases:
   1. environment: torch, CUDA, nvcc, triton, the card's name and power
      limit; builds the port's CUDA kernels from this checkout (one nvcc per
      source, all started together, into build/) and prints the build's
-     seconds, each flash kernel's ptxas registers and spills, and the
-     HGMMA and UTMALDG instructions in the wgmma flash library's SASS
+     seconds, each flash and TBE kernel's ptxas registers and spills, and
+     the HGMMA and UTMALDG instructions in the wgmma flash library's SASS
      (cuobjdump; fails if either is absent);
   2. each kernel wrapper against its plain PyTorch version at the main
      path's shapes: the TBE wrappers at T=26 tables, B=2048, L=32, D=128,
      uniform ids over R=1,000,000 rows, random lengths including 0, -1
-     padding, in f32 and bf16, plus D=10 (the scalar path) and D=96;
-     stacked and flat over a copy of the same rows bitwise-equal; the
-     row fetch's one-sided exchange (the chunk-put kernel) on 4 simulated
+     padding, in f32 and bf16, plus D=10 (the scalar path) and D=96, and
+     one table (T=1, B=2048) at L in {0, 1, 31, 32, 33, 64} with bags of
+     live ids and zero weights; stacked, flat (offsets as an array) and
+     one table alone bitwise-equal, and stacked and flat over a copy of
+     the same rows; the SHA-256 of those outputs (equal digests from two
+     checkouts mean bitwise-equal kernels); under torch.profiler, each
+     call of gather_pool, gather_pool_tbe, gather_pool_tbe_flat and
+     onesided_ring_permute one device kernel; the row fetch's one-sided
+     exchange (the chunk-put kernel) on 4 simulated
      hosts' contributions of 2**18 rows (the padded fetch of every flush
      of phase 6) at D=128 and of 1000 rows at D=10, f32 and bf16, bitwise;
      (2b) the flash-attention wrapper at tests/test_kernels.py's four
@@ -26,7 +32,8 @@ Phases:
   3. the uncached engine at full width (CONFIG: 26 x 1,000,000 x 128 fp32
      tables) serving 8192 requests in flushes of 2048: scores against a
      plain score on the card, one TBE launch per flush, and 26
-     single-table launches for one flush under fused=False;
+     single-table launches for one flush under fused=False; one flush
+     profiled each way: the TBE device time as one launch and as 26;
   4. the cached engine (65,536 slots per table, LFU, host cold tier) on
      the same requests: scores and pooled lookups bitwise-equal to phase 3;
   5. kernel, plain-version and library times: the TBE wrappers at the
@@ -42,6 +49,7 @@ Phases:
   7. the distributed embedding bag over 4 simulated ranks on the card
      (table-wise over 2), on phase 3's tables: the chunk kernels'
      all-to-all, reduce-scatter (the pull-sum kernel) and ring permute
+     (one launch per call)
      bitwise against their plain versions at the a2a pipeline's shapes, and
      at 1, 2, 3 and 8 ranks, with int32 sums that wrap, -0.0 sources and
      exact cancellations; phase 3's requests
@@ -68,6 +76,7 @@ line.  It also fails without a CUDA card, and without the port's sources
 beside it.
 """
 import dataclasses
+import hashlib
 import json
 import os
 import re
@@ -138,6 +147,8 @@ REQUESTS, BATCH = 8192, 2048
 HOSTS = 4                  # simulated hosts of the remote cold tier
 PUT_ROWS = 2 ** 18         # the padded rows of each of phase 6's fetches
 RANKS = 4                  # simulated ranks of phase 7's model axis
+T1_POOLINGS = (0, 1, 31, 32, 33, 64)   # phase 2's one-table lengths
+T1_ROWS = 100_000          # rows of phase 2's one-table checks
 CAPACITY_FACTOR = 2.0      # the a2a buckets' (DLRMConfig passes none)
 SPIN_CYCLES = 2_000_000    # ~1 ms of the card's clock before a timed launch
 # flash checks: tests/test_kernels.py's four (B, S, H, KH, hd, causal,
@@ -210,9 +221,13 @@ def phase_environment(build) -> str:
         for line in rec.log.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"    {line.strip()}")
-    for name, source in (("flash_attention_wgmma", FLASH_SOURCE),
+    for name, source in (("tbe_gather_pool", TBE_SOURCE),
+                         ("flash_attention_wgmma", FLASH_SOURCE),
                          ("flash_attention", FLASH_SIMT_SOURCE)):
-        for kernel, regs, stores, loads in _ptxas_kernels(recs[name].log):
+        kernels = _ptxas_kernels(recs[name].log)
+        check(bool(kernels) or recs[name].seconds == 0.0,
+              f"ptxas reported the kernels of {source}")
+        for kernel, regs, stores, loads in kernels:
             log(f"  ptxas {kernel} ({source}): {regs} registers, {stores} "
                 f"bytes spill stores, {loads} bytes spill loads")
     sass = _sass(recs["flash_attention_wgmma"].path)
@@ -227,15 +242,18 @@ def phase_environment(build) -> str:
 
 def _ptxas_kernels(ptxas_log: str) -> list:
     """(kernel, registers, spill-store bytes, spill-load bytes) of each
-    flash entry function in an ``nvcc -Xptxas -v`` log."""
+    flash and TBE entry function in an ``nvcc -Xptxas -v`` log."""
     out, name, spill = [], None, (0, 0)
     for line in ptxas_log.splitlines():
-        m = re.search(r"Function properties for \S*\d(flash_[a-z]+_kernel)I"
-                      r"(\w*)", line)
+        m = re.search(r"Function properties for \S*\d(flash_[a-z]+_kernel|"
+                      r"tbe_gather_pool_kernel)I(\w*)", line)
         if m:
             dtype = "f32" if m.group(2).startswith("f") else "bf16"
-            hd = re.search(r"Li(\d+)E", m.group(2)).group(1)
-            name = f"{m.group(1)}<{dtype}, hd {hd}>"
+            num = re.search(r"Li(\d+)E", m.group(2)).group(1)
+            kind = (f"hd {num}" if m.group(1).startswith("flash")
+                    else f"vector, {num} rows a group" if "Lb1E"
+                    in m.group(2) else "scalar")
+            name = f"{m.group(1)}<{dtype}, {kind}>"
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m:
@@ -284,8 +302,12 @@ def _inputs(g, t, b, lp, r, d, dev):
     return dict(tables=tables, idx=idx, w=w, mask=mask, off=off, idx_r=idx_r)
 
 
-def _check_all(eg, x, tag, one=5) -> dict:
-    """The three wrappers against their plain versions; returns errors."""
+def _check_all(eg, x, tag, digest, one=5) -> dict:
+    """The three wrappers against their plain versions, and the layouts of
+    the same rows bitwise-equal: the stacked tables (table t at row t * R,
+    passed as a stride), the flat view with the same offsets passed as an
+    array, and one table alone.  Every output goes into ``digest``; returns
+    the errors."""
     tables, idx, w = x["tables"], x["idx"], x["w"]
     t_, r_, d_ = tables.shape
     flat = tables.view(t_ * r_, d_)
@@ -294,10 +316,13 @@ def _check_all(eg, x, tag, one=5) -> dict:
     errs["gather_pool_tbe"] = compare(
         f"gather_pool_tbe {tag}", stacked,
         eg.gather_pool_tbe_ref(tables, idx, w), POOL_TOL)
+    ragged = eg.gather_pool_tbe_flat(flat, x["off"], x["idx_r"], w)
     errs["gather_pool_tbe_flat"] = compare(
-        f"gather_pool_tbe_flat ragged {tag}",
-        eg.gather_pool_tbe_flat(flat, x["off"], x["idx_r"], w),
+        f"gather_pool_tbe_flat ragged {tag}", ragged,
         eg.gather_pool_tbe_flat_ref(flat, x["off"], x["idx_r"], w), POOL_TOL)
+    starts = (torch.arange(t_, device=flat.device) * r_).to(torch.int32)
+    check(torch.equal(eg.gather_pool_tbe_flat(flat, starts, idx, w), stacked),
+          f"flat with offsets t * R bitwise == stacked {tag}")
     one = min(one, t_ - 1)
     single = eg.gather_pool(tables[one], idx[one], w[one])
     errs["gather_pool"] = compare(
@@ -305,7 +330,39 @@ def _check_all(eg, x, tag, one=5) -> dict:
         eg.gather_pool_ref(tables[one], idx[one], w[one]), POOL_TOL)
     check(torch.equal(single, stacked[one]),
           f"single-table launch bitwise == fused TBE table {one} {tag}")
+    for out in (stacked, ragged, single):
+        digest.update(out.cpu().numpy().tobytes())
     return errs
+
+
+def _one_kernel_per_call(calls, tries=3) -> None:
+    """Each call under torch.profiler: the device kernels it ran.  Each
+    must be exactly one launch of the named kernel.  The profiler now and
+    then records no kernel of a call at all; such a call is profiled
+    again, up to ``tries`` times.  A call that shows any other kernel, or
+    more than one launch, fails at once."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for label, kernel, fn in calls:
+        for attempt in range(1, tries + 1):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            ran = [(e.key, e.count) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0
+                   and not e.key.startswith("Activity Buffer")]
+            ok = len(ran) == 1 and ran[0][1] == 1 and kernel in ran[0][0]
+            log(f"  {label}: {sum(n for _, n in ran)} device kernel(s) "
+                f"{[(k[:60], n) for k, n in ran]} "
+                f"{'ok' if ok else 'NOT ONE'}"
+                f"{f' (profiled {attempt} times)' if attempt > 1 else ''}")
+            if ran:
+                break
+        check(ok, f"{label} is one {kernel} launch and nothing else")
 
 
 def _contribs(g, h, m, d, dtype, dev):
@@ -345,19 +402,37 @@ def phase_kernels(eg, oa) -> dict:
     log("== 2. kernels against their plain versions")
     dev = torch.device(DEV)
     g = torch.Generator(device=dev).manual_seed(0)
+    digest = hashlib.sha256()
     x = _inputs(g, T, B, L, R, D, dev)
     log(f"  T={T} B={B} L={L} D={D} R={R}: "
         f"{int(x['mask'].sum())} valid lookups of {T * B * L}")
-    errs = _check_all(eg, x, "f32")
+    errs = _check_all(eg, x, "f32", digest)
     bf = dict(x, tables=x["tables"].to(torch.bfloat16))
-    for k, v in _check_all(eg, bf, "bf16").items():
+    for k, v in _check_all(eg, bf, "bf16", digest).items():
         errs[k] = max(errs[k], v)
     del bf
     for d_small in (10, 96):
         small = _inputs(g, 3, 64, 7, 1000, d_small, dev)
-        _check_all(eg, small, f"D={d_small} f32", one=1)
+        _check_all(eg, small, f"D={d_small} f32", digest, one=1)
         _check_all(eg, dict(small, tables=small["tables"].to(
-            torch.bfloat16)), f"D={d_small} bf16", one=1)
+            torch.bfloat16)), f"D={d_small} bf16", digest, one=1)
+    # one table (the unfused baseline's launch) at the pooling lengths
+    # around the kernel's 32-slot windows and 8-row groups, with bags whose
+    # ids are live and weights all zero
+    for lp in T1_POOLINGS:
+        one = _inputs(g, 1, B, lp, T1_ROWS, D, dev)
+        one["w"][:, ::5] = 0.0          # live ids, no weight: +0.0, no read
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = f"T=1 L={lp} {str(dtype)[6:]}"
+            y = dict(one, tables=one["tables"].to(dtype))
+            _check_all(eg, y, tag, digest, one=0)
+            zeros = eg.gather_pool(y["tables"][0], y["idx"][0],
+                                   y["w"][0])[::5]
+            check(torch.equal(_bits(zeros), torch.zeros_like(_bits(zeros))),
+                  f"zero-weight bags pool to +0.0 {tag}")
+    x["digest"] = digest.hexdigest()
+    log(f"  phase-2 TBE digest (sha256 of every output above, f32 and "
+        f"bf16, all three wrappers): {x['digest']}")
 
     # stacked tables and a compact flat pool holding the same rows (the
     # slot-pool layout): the same kernel pools them bitwise-equal
@@ -377,6 +452,20 @@ def phase_kernels(eg, oa) -> dict:
     log(f"  stacked vs flat pool of the same {pool.shape[0]} rows: "
         f"{'bitwise equal' if same else 'DIFFER'}")
     check(same, "stacked and flat pool bitwise-equal")
+    del pool, rows
+
+    # no device work beside the kernel: each wrapper call is one launch
+    ring = torch.randn((RANKS, 1000, D), generator=g, device=dev)
+    _one_kernel_per_call((
+        ("gather_pool", "tbe_gather_pool_kernel",
+         lambda: eg.gather_pool(tables[5], idx[5], w[5])),
+        ("gather_pool_tbe", "tbe_gather_pool_kernel",
+         lambda: eg.gather_pool_tbe(tables, idx, w)),
+        ("gather_pool_tbe_flat", "tbe_gather_pool_kernel",
+         lambda: eg.gather_pool_tbe_flat(tables.view(T * R, D), x["off"],
+                                         x["idx_r"], w)),
+        ("onesided_ring_permute", "put_chunks_kernel",
+         lambda: oa.onesided_ring_permute(ring, 1))))
 
     # the row fetch's puts: 4 simulated hosts, D=128 and D=10, f32 and
     # bf16
@@ -497,11 +586,12 @@ def _serve(eng, kmods):
 
 
 def _profile_flush(eng, head, median_ms, label,
-                   kernels=("tbe_gather_pool_kernel",)):
+                   kernels=("tbe_gather_pool_kernel",), require=True):
     """One more flush of ``head`` under torch.profiler (after the launch
     counts were read): device time by kernel and the device's busy share
-    of the median unprofiled flush; checks that each of ``kernels`` ran.
-    Returns the idle share in percent."""
+    of the median unprofiled flush; checks (``require``) that each of
+    ``kernels`` ran.  Returns the idle share in percent and, for each of
+    ``kernels``, its device ms and launches."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -517,12 +607,15 @@ def _profile_flush(eng, head, median_ms, label,
               if e.device_type == DeviceType.CUDA
               and e.self_device_time_total > 0
               and not e.key.startswith("Activity Buffer")]
+    ran = {}
     for kernel in kernels:
         mine = [e for e in events if kernel in e.key]
-        check(bool(mine), f"the profiled {label} flush ran {kernel}")
-        log(f"  profiled {label} flush: {kernel} "
-            f"{sum(e.self_device_time_total for e in mine) / 1e3:.4f} ms of "
-            f"device time over {sum(e.count for e in mine)} launch(es)")
+        if require:
+            check(bool(mine), f"the profiled {label} flush ran {kernel}")
+        ran[kernel] = (sum(e.self_device_time_total for e in mine) / 1e3,
+                       sum(e.count for e in mine))
+        log(f"  profiled {label} flush: {kernel} {ran[kernel][0]:.4f} ms of "
+            f"device time over {ran[kernel][1]} launch(es)")
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     log(f"  profiled {label} flush: device busy {busy_ms:.3f} ms = "
         f"{100 * busy_ms / median_ms:.1f}% of the median flush "
@@ -530,7 +623,7 @@ def _profile_flush(eng, head, median_ms, label,
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]:
         log(f"    {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<3d} "
             f"{e.key[:90]}")
-    return 100 - 100 * busy_ms / median_ms
+    return 100 - 100 * busy_ms / median_ms, ran
 
 
 def _padded(eng, head):
@@ -598,11 +691,30 @@ def phase_uncached(pt, eg, oa) -> dict:
     check(all(scores_u[r.rid] == scores[r.rid] for r in heads[0]),
           "fused=False scores bitwise == fused")
     log("  fused=False scores bitwise equal to fused")
-    _profile_flush(eng, heads[1], statistics.median(ms), "uncached")
+    # the paper's fused-against-per-table comparison on the card: the same
+    # flush's TBE device time as one launch and as T launches.  The
+    # profiler now and then records no kernel at all; a flush whose profile
+    # shows none is profiled again, up to 3 times, and any other count
+    # fails at once
+    tbe = "tbe_gather_pool_kernel"
+    for _ in range(3):
+        _, fused = _profile_flush(eng, heads[1], statistics.median(ms),
+                                  "uncached", require=False)
+        _, per_table = _profile_flush(eng_u, heads[1], ms_u[0],
+                                      "fused=False", require=False)
+        if fused[tbe][1] and per_table[tbe][1]:
+            break
+    check(fused[tbe][1] == 1 and per_table[tbe][1] == cfg.num_sparse_features,
+          "the profiled flushes: 1 fused launch, 26 single-table launches")
+    log(f"  TBE device time of one flush: fused {fused[tbe][0]:.4f} ms "
+        f"(1 launch), fused=False {per_table[tbe][0]:.4f} ms "
+        f"({per_table[tbe][1]} gather_pool launches)")
     return dict(params=params, reqs=reqs, scores=scores, heads=heads,
-                flush_ms=ms, launches={"gather_pool_tbe": counts[
-                    "gather_pool_tbe"], "gather_pool": counts_u[
-                    "gather_pool"]})
+                flush_ms=ms, unfused_ms=ms_u[0],
+                tbe_device_ms=dict(fused=fused[tbe][0],
+                                   unfused=per_table[tbe][0]),
+                launches={"gather_pool_tbe": counts["gather_pool_tbe"],
+                          "gather_pool": counts_u["gather_pool"]})
 
 
 COUNTERS = ("hits", "misses", "misses_host", "misses_remote", "evictions",
@@ -743,6 +855,8 @@ def _times_puts(oa, m_pad, scratch) -> dict:
 
 
 def phase_times(eg, oa, x, m_pad) -> dict:
+    """The TBE wrappers' times at the phase-2 shapes and the row fetch's
+    puts' at ``m_pad`` padded rows."""
     log("== 5. times (f32; median of 20 launches per version, in turns "
         "plain, kernel, library, library, kernel, plain; the card's time, "
         "the host's launches enqueued ahead)")
@@ -950,7 +1064,7 @@ def _serve_remote(pt, eg, oa, unc, cached, backend) -> dict:
     _check_pooled(pt, eng, unc, f"[{backend}] remote-tier")
     # a flush of fresh requests, so that the profiled flush fetches
     fresh = _requests(pt.CONFIG, pt.CTRRequest, BATCH, seed=3)
-    idle = _profile_flush(
+    idle, _ = _profile_flush(
         eng, fresh, statistics.median(ms), f"remote {backend}",
         ("tbe_gather_pool_kernel",) + (
             ("put_chunks_kernel",) if backend == "onesided" else ()))
@@ -1235,11 +1349,11 @@ def _serve_strategy(pt, eg, oa, unc, label, fields, ranks, nodrop) -> dict:
 
 def _times_chunks(pt, oa) -> dict:
     """The three wrappers at the shapes the a2a pipeline gives them (one
-    launch each, the ring's 4): the all-to-all at phase 1's int32 buckets,
-    the reduce-scatter at phase 3's f32 partials, the ring at a rank's
-    block of them; against the plain version, the one PyTorch call that
-    computes the same function, and the bytes bound.  The all-to-all alone
-    at phase 3's shape is timed too (logged, not in the kernels line)."""
+    launch each): the all-to-all at phase 1's int32 buckets, the
+    reduce-scatter at phase 3's f32 partials, the ring at a rank's block of
+    them; against the plain version, the one PyTorch call that computes the
+    same function, and the bytes bound.  The all-to-all alone at phase 3's
+    shape is timed too (logged, not in the kernels line)."""
     dev = torch.device(DEV)
     g = torch.Generator(device=dev).manual_seed(8)
     cap, rows = _a2a_shapes()
@@ -1329,20 +1443,20 @@ def phase_distributed(pt, eg, oa, unc) -> dict:
     check(same or err <= PCTR_TOL["atol"],
           "onesided a2a scores within tolerance of bulk")
     out["a2a_bitwise"] = same
-    out["idle"] = _profile_flush(
+    out["idle"], _ = _profile_flush(
         ones["eng"], unc["heads"][1],
         statistics.median(ones["flush_ms"]), "row/a2a/onesided",
         ("put_chunks_kernel", "sum_chunks_kernel"))
     del bulk["eng"], ones["eng"]
     times = _times_chunks(pt, oa)
     # the ring collective through its comm entry point (no serving path
-    # calls it, in the reference either): one put launch per rank
+    # calls it, in the reference either): one put launch for all ranks
     oa.reset_launch_counts()
     x = torch.randn((RANKS, _a2a_shapes()[1], D), device=DEV)
     got = pt.comm.permute_ring(x, shift=1, backend="onesided")
     ring_launches = oa.LAUNCH_COUNTS["onesided_ring_permute"]
-    check(ring_launches == RANKS and _same_bits(got, torch.roll(x, 1, 0)),
-          "comm.permute_ring(backend='onesided'): one launch per rank")
+    check(ring_launches == 1 and _same_bits(got, torch.roll(x, 1, 0)),
+          "comm.permute_ring(backend='onesided'): one launch per call")
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     log(f"  comm.permute_ring(backend='onesided'): {ring_launches} launches;"
         f" peak device memory in this phase {out['peak_gb']:.1f} GB")
@@ -1555,7 +1669,7 @@ def main() -> int:
     # the rows of the last flush's fetch, padded: a steady-state flush
     times = phase_times(eg, oa, x, _pow2(cached["fetched"][-1]))
     times.update(times_flash(pt))
-    errs = x["errs"]
+    errs, digest = x["errs"], x["digest"]
     del x                       # phase 2's tables: 13.3 GB
     torch.cuda.empty_cache()
     remote = phase_remote(pt, eg, oa, unc, cached)
@@ -1580,7 +1694,12 @@ def main() -> int:
                             max_abs_err=err, **t))
     log(f"uncached median flush {statistics.median(unc['flush_ms']):.3f} ms,"
         f" cached median flush {statistics.median(cached['flush_ms']):.3f} "
-        f"ms, cached hit rate {cached['hit_rate']:.4f}")
+        f"ms, cached hit rate {cached['hit_rate']:.4f}; fused=False flush "
+        f"{unc['unfused_ms']:.3f} ms; TBE device time of a flush "
+        f"{unc['tbe_device_ms']['fused']:.4f} ms fused, "
+        f"{unc['tbe_device_ms']['unfused']:.4f} ms in "
+        f"{unc['launches']['gather_pool']} launches")
+    log(f"phase-2 TBE digest {digest}")
     for backend, r in remote.items():
         log(f"remote {backend}: median flush "
             f"{statistics.median(r['flush_ms']):.3f} ms, profiled flush idle "

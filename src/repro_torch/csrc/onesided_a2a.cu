@@ -47,9 +47,11 @@
 //     i in the rotated schedule) x (source rank), so ONE launch covers every
 //     source's every put: at phase 1's int32 shape (4, 4, 212,992) that is
 //     832 blocks of 256 threads, one wave, where one launch per source
-//     would be four serial waves of 208 blocks.  Each thread moves kUnroll
-//     units of its tile, neighbouring threads on neighbouring units, all
-//     loads before the stores.
+//     would be four serial waves of 208 blocks.  The ring is the same grid
+//     with one put per source: at (4, 13,312, 128) f32, 4 x 416 blocks in
+//     one launch instead of four launches of 416.  Each thread moves
+//     kUnroll units of its tile, neighbouring threads on neighbouring
+//     units, all loads before the stores.
 //   * The sum reads E * E * C units and writes E * C: at phase 3's f32
 //     shape 136 MB, 1.33x the bytes of the all-to-all alone, where an
 //     all-to-all and then a sum move 3.3x.  The grid is (tiles of a chunk)
@@ -377,16 +379,19 @@ extern "C" int onesided_a2a_put(const void* src, const long long* out_ptrs,
                        vec, stream);
 }
 
-// The ring put of rank my_id: its whole block of C elements lands in the
-// receive buffer of rank (my_id + shift) % num_ranks; 0 <= shift.
-// out_ptrs: the host table of the receive buffers' addresses.
+// The ring puts of ranks first_src .. first_src + num_src - 1, one launch:
+// rank r's whole block of C elements lands in the receive buffer of rank
+// (r + shift) % num_ranks; 0 <= shift.  src: rank first_src's block; rank
+// first_src + j's lies j * C elements further (the stacked ranks of one
+// card).  out_ptrs: the host table of the receive buffers' addresses.
 extern "C" int onesided_ring_put(const void* src, const long long* out_ptrs,
-                                 int my_id, int num_ranks, int shift,
-                                 long long chunk, int dtype, int vec,
-                                 void* stream) {
+                                 int first_src, int num_src, int num_ranks,
+                                 int shift, long long chunk, int dtype,
+                                 int vec, void* stream) {
   if (num_ranks <= 0 || shift < 0) return (int)cudaErrorInvalidValue;
-  return dispatch_puts(src, out_ptrs, num_ranks, my_id, 1, shift % num_ranks,
-                       1, chunk, 0, 0, 0, dtype, vec, stream);
+  return dispatch_puts(src, out_ptrs, num_ranks, first_src, num_src,
+                       shift % num_ranks, 1, chunk, chunk, 0, 0, dtype, vec,
+                       stream);
 }
 
 // The reduce-scatter of destinations first_dst .. first_dst + num_dst - 1,

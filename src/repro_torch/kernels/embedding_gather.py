@@ -11,7 +11,8 @@ launch.  Three wrappers mirror the three Pallas entry points of
   * :func:`gather_pool_tbe_flat` -- ragged per-table row counts described
     by ``(T,)`` offsets: the tiered cache's ``(sum S_t, D)`` slot pool;
   * :func:`gather_pool_tbe` -- stacked ``(T, R, D)`` tables, the same
-    kernel over the ``(T * R, D)`` view with ``off[t] = t * R``;
+    kernel over the ``(T * R, D)`` view with ``off[t] = t * R``, passed as
+    a stride and not as an array, so the call is one device kernel;
   * :func:`gather_pool` -- one ``(R, D)`` table, the kernel with ``T = 1``
     (the unfused per-table baseline launches it once per table).
 
@@ -26,6 +27,7 @@ reads the row of a zero-weight slot.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -47,8 +49,8 @@ def _kernel():
     lib = _build.load("tbe_gather_pool")
     fn = lib.tbe_gather_pool
     if fn.argtypes is None:
-        P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P, I, P, P, P, P, I, I, I, I, I, P]
+        P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [P, I, P, LL, P, P, P, I, I, I, I, I, P]
         fn.restype = ctypes.c_int
         lib.tbe_error_string.argtypes = [I]
         lib.tbe_error_string.restype = ctypes.c_char_p
@@ -66,23 +68,28 @@ def _check(name: str, t: torch.Tensor, dtype, ndim: int, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _launch(flat: torch.Tensor, row_offsets: torch.Tensor,
-            indices: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
-    """Launch the kernel on the current stream; returns (T, B, D) f32."""
+def _launch(flat: torch.Tensor, row_offsets: Optional[torch.Tensor],
+            indices: torch.Tensor, weights: torch.Tensor,
+            rows_per_table: int = 0) -> torch.Tensor:
+    """Launch the kernel on the current stream; returns (T, B, D) f32.
+    Table t starts at row ``row_offsets[t]``, or at ``t * rows_per_table``
+    when ``row_offsets`` is None: then the launch is the only device work
+    of the call."""
     device = flat.device
     if device.type != "cuda":
         raise ValueError(
             f"the TBE kernel runs on CUDA tensors (got {device}); CPU "
             f"tensors take the plain version")
     _check("flat_tables", flat, tuple(_DTYPE_CODES), 2, device)
-    _check("row_offsets", row_offsets, torch.int32, 1, device)
     _check("indices", indices, torch.int32, 3, device)
     _check("weights", weights, torch.float32, 3, device)
     T, B, L = indices.shape
     D = flat.shape[1]
-    if row_offsets.shape != (T,):
-        raise ValueError(
-            f"row_offsets must be (T,)=({T},), got {tuple(row_offsets.shape)}")
+    if row_offsets is not None:
+        _check("row_offsets", row_offsets, torch.int32, 1, device)
+        if row_offsets.shape != (T,):
+            raise ValueError(f"row_offsets must be (T,)=({T},), got "
+                             f"{tuple(row_offsets.shape)}")
     if weights.shape != indices.shape:
         raise ValueError(f"weights {tuple(weights.shape)} != indices "
                          f"{tuple(indices.shape)}")
@@ -92,9 +99,10 @@ def _launch(flat: torch.Tensor, row_offsets: torch.Tensor,
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.tbe_gather_pool(
-            flat.data_ptr(), _DTYPE_CODES[flat.dtype], row_offsets.data_ptr(),
-            indices.data_ptr(), weights.data_ptr(), out.data_ptr(),
-            T, B, L, D, int(vec), stream)
+            flat.data_ptr(), _DTYPE_CODES[flat.dtype],
+            None if row_offsets is None else row_offsets.data_ptr(),
+            rows_per_table, indices.data_ptr(), weights.data_ptr(),
+            out.data_ptr(), T, B, L, D, int(vec), stream)
     if rc != 0:
         raise RuntimeError(f"tbe_gather_pool launch failed: "
                            f"{lib.tbe_error_string(rc).decode()} ({rc})")
@@ -143,7 +151,8 @@ def gather_pool_tbe_flat(flat_tables: torch.Tensor, row_offsets: torch.Tensor,
 def gather_pool_tbe(tables: torch.Tensor, indices: torch.Tensor,
                     weights: torch.Tensor) -> torch.Tensor:
     """Fused pooled lookup over stacked ``(T, R, D)`` tables -> (T, B, D)
-    f32: the flat kernel over the ``(T * R, D)`` view, one launch."""
+    f32: the flat kernel over the ``(T * R, D)`` view with table t at row
+    ``t * R``, one launch and no other device work."""
     if tables.device.type == "cpu":
         return gather_pool_tbe_ref(tables, indices, weights)
     T, R, D = tables.shape
@@ -151,11 +160,10 @@ def gather_pool_tbe(tables: torch.Tensor, indices: torch.Tensor,
         raise ValueError(f"tables T={T} != indices T={indices.shape[0]}")
     if not tables.is_contiguous():
         raise ValueError("tables must be contiguous")
-    offsets = torch.arange(T, dtype=torch.int64, device=tables.device) * R
     if T * R > torch.iinfo(torch.int32).max:
         raise ValueError(f"{T} x {R} rows overflow the int32 row offsets")
-    out = _launch(tables.view(T * R, D), offsets.to(torch.int32), indices,
-                  weights)
+    out = _launch(tables.view(T * R, D), None, indices, weights,
+                  rows_per_table=R)
     LAUNCH_COUNTS["gather_pool_tbe"] += 1
     return out
 
@@ -163,12 +171,11 @@ def gather_pool_tbe(tables: torch.Tensor, indices: torch.Tensor,
 def gather_pool(table: torch.Tensor, indices: torch.Tensor,
                 weights: torch.Tensor) -> torch.Tensor:
     """Single-table pooled lookup, ``(R, D) x (B, L) -> (B, D)`` f32: the
-    kernel with T = 1, one launch."""
+    kernel with T = 1, one launch and no other device work."""
     if table.device.type == "cpu":
         return gather_pool_ref(table, indices, weights)
     if indices.dim() != 2:
         raise ValueError(f"indices must be (B, L), got {tuple(indices.shape)}")
-    offsets = torch.zeros(1, dtype=torch.int32, device=table.device)
-    out = _launch(table, offsets, indices[None], weights[None])
+    out = _launch(table, None, indices[None], weights[None])
     LAUNCH_COUNTS["gather_pool"] += 1
     return out[0]

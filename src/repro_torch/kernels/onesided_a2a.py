@@ -21,8 +21,8 @@ package with two kernels:
     registers, in the order of ``x.sum(0)`` on the card, so no exchange
     buffer is written;
   * :func:`onesided_ring_permute` -- ``(n, ...)`` -> ``(n, ...)``: rank
-    ``(r + shift) % n`` receives rank r's block.  n launches of the put
-    kernel, one per source rank;
+    ``(r + shift) % n`` receives rank r's block.  One launch of the put
+    kernel for all n source ranks;
   * :func:`onesided_put_rows` -- the remote cold tier's row exchange,
     ``(H_src, H_dst, M, D)`` -> ``(H_dst, H_src, M, D)``: rank r's M rows
     for requester q land in q's buffer at ``[r]``.  The reference issues
@@ -73,7 +73,7 @@ def _kernel():
         lib.onesided_a2a_put.restype = I
         lib.onesided_rs_pull.argtypes = [TAB, P, I, I, I, LL, I, I, P]
         lib.onesided_rs_pull.restype = I
-        lib.onesided_ring_put.argtypes = [P, TAB, I, I, I, LL, I, I, P]
+        lib.onesided_ring_put.argtypes = [P, TAB, I, I, I, I, LL, I, I, P]
         lib.onesided_ring_put.restype = I
         lib.a2a_error_string.argtypes = [I]
         lib.a2a_error_string.restype = ctypes.c_char_p
@@ -245,15 +245,13 @@ def onesided_reduce_scatter(x: torch.Tensor) -> torch.Tensor:
     return _launch_pull_sum(x)
 
 
-def onesided_ring_permute(x: torch.Tensor, shift: int = 1) -> torch.Tensor:
-    """One-sided ring shift of the stacked blocks: ``(n, ...)`` -> ``(n,
-    ...)``, rank ``(r + shift) % n`` receives rank r's block; one kernel
-    launch per source rank."""
-    if x.device.type == "cpu":
-        return onesided_ring_permute_ref(x, shift)
-    _check_device(x, "ring permute")
-    _check_chunks(x, 1, "onesided_ring_permute")
+def _launch_ring(x: torch.Tensor, shift: int, first: int = 0,
+                 count: Optional[int] = None) -> torch.Tensor:
+    """One ring-put launch for source ranks ``first .. first + count - 1``
+    (all n by default).  A range short of all n fills only the blocks
+    ``out[(r + shift) % n]`` of those sources."""
     n = x.shape[0]
+    count = n - first if count is None else count
     out = torch.empty_like(x)
     chunk = x[0].numel()
     if chunk == 0:
@@ -263,13 +261,22 @@ def onesided_ring_permute(x: torch.Tensor, shift: int = 1) -> torch.Tensor:
     lib = _kernel()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        for r in range(n):
-            _check_rc(lib, lib.onesided_ring_put(
-                x[r].data_ptr(), ptrs, r, n, shift % n, chunk,
-                _DTYPE_CODES[x.dtype], int(vec), stream),
-                "onesided_ring_permute")
-            LAUNCH_COUNTS["onesided_ring_permute"] += 1
+        _check_rc(lib, lib.onesided_ring_put(
+            x[first].data_ptr(), ptrs, first, count, n, shift % n, chunk,
+            _DTYPE_CODES[x.dtype], int(vec), stream), "onesided_ring_permute")
+    LAUNCH_COUNTS["onesided_ring_permute"] += 1
     return out
+
+
+def onesided_ring_permute(x: torch.Tensor, shift: int = 1) -> torch.Tensor:
+    """One-sided ring shift of the stacked blocks: ``(n, ...)`` -> ``(n,
+    ...)``, rank ``(r + shift) % n`` receives rank r's block; one kernel
+    launch in which every source rank puts its block."""
+    if x.device.type == "cpu":
+        return onesided_ring_permute_ref(x, shift)
+    _check_device(x, "ring permute")
+    _check_chunks(x, 1, "onesided_ring_permute")
+    return _launch_ring(x, shift)
 
 
 def onesided_put_rows(contribs: torch.Tensor) -> torch.Tensor:

@@ -9,6 +9,10 @@ emulation that lives in this file, not as a mode of the package:
     all-to-all exactly once, from the right element, for 1 to 8 ranks,
     chunks of 0, 1, 7 and 1001 elements and 16-byte-aligned ones, and for
     launches over a range of source ranks;
+  * the same grid with the arguments the ring entry passes (one put per
+    source, the source blocks a chunk apart) is the ring permute of all n
+    ranks in one launch, ``out[(r + shift) % n] = x[r]``, for shifts up to
+    n + 1, and over ranges of source ranks;
   * the pull-sum grid (tile, destination) writes every output element
     exactly once, and its arithmetic -- four partial sums ``acc[s % 4]``
     from +0.0, sources in rank order, combined left to right, rounded once
@@ -162,6 +166,68 @@ def test_put_grid_writes_each_element_once(e, c, itemsize):
     us = np.concatenate([s[2] for s in seen])
     keys = (rs * e + ds) * max(units, 1) + us
     assert len(np.unique(keys)) == len(keys) == e * e * units
+
+
+def _ring_args():
+    """The put-grid arguments ``onesided_ring_put`` passes to
+    ``dispatch_puts`` after the table: (first put, puts, source-rank step,
+    source step, destination step), as source text."""
+    body = SOURCE[SOURCE.index('extern "C" int onesided_ring_put'):]
+    call = re.search(r"dispatch_puts\(([^;]*)\);", body).group(1)
+    args = [a.strip() for a in call.split(",")]
+    return args[5], args[6], args[8], args[9], args[10]
+
+
+def _ring_grid(n, first, count, units, shift):
+    """Every (source r, destination d, source unit, destination unit) of
+    one ring launch, by the put kernel's arithmetic with the arguments the
+    ring entry passes: block (x, y, z) is source r = first + z, put y to
+    d = (r + first_put + y) % n, reading src + z * src_rank_step + d *
+    src_step + u (src = rank first's block) and writing buffer d at r *
+    dst_step + u."""
+    first_put, puts, rank_step, src_step, dst_step = _ring_args()
+    assert (first_put, puts) == ("shift % num_ranks", "1")
+    assert (rank_step, src_step, dst_step) == ("chunk", "0", "0")
+    tiles = -(-units // (THREADS * UNROLL))
+    z, y, bx, t, k = np.meshgrid(np.arange(count), np.arange(1),
+                                 np.arange(tiles), np.arange(THREADS),
+                                 np.arange(UNROLL), indexing="ij")
+    r = first + z
+    d = (r + shift % n + y) % n
+    u = bx * THREADS * UNROLL + t + k * THREADS
+    live = u < units
+    src_u = first * units + z * units + u       # rank r's block, unit u
+    return r[live], d[live], src_u[live], u[live]
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("c", CHUNKS)
+@pytest.mark.parametrize("n", range(1, 9))
+def test_ring_grid_is_one_launch_for_all_ranks(n, c, itemsize):
+    """One ring launch over all n sources writes every unit of every
+    destination block exactly once, from the block of the rank that puts
+    there: out[(r + shift) % n] = x[r], for shifts 0 .. n + 1; launches
+    over ranges of sources that tile [0, n) write disjoint parts of the
+    same whole (one rank per card passes (r, 1))."""
+    units, per = _units(c, itemsize)
+    x = np.arange(n * c).reshape(n, c)
+    for shift in range(n + 2):
+        r, d, su, du = _ring_grid(n, 0, n, units, shift)
+        assert len(r) == n * units
+        target = d * units + du
+        assert len(np.unique(target)) == len(target) == n * units
+        elems = np.arange(per)
+        out = np.full(n * c, -1)
+        out[(target[:, None] * per + elems).reshape(-1)] = x.reshape(-1)[
+            (su[:, None] * per + elems).reshape(-1)]
+        np.testing.assert_array_equal(out.reshape(n, c), np.roll(x, shift, 0))
+        cuts = sorted({0, n // 3, n // 2, n})
+        parts = [_ring_grid(n, a, b - a, units, shift)
+                 for a, b in zip(cuts, cuts[1:]) if b > a]
+        keys = np.concatenate([p[1] * units + p[3] for p in parts])
+        assert len(np.unique(keys)) == len(keys) == n * units
+        for p in parts:
+            assert ((p[0] + shift) % n == p[1]).all()
 
 
 # ---------------------------------------------------------------------------

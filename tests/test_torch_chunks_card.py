@@ -11,8 +11,9 @@ from the repository root:
 The cases are the edges that ``chip_smoke.py``'s main-path shapes do not
 reach: 1 to 8 ranks, chunks of 0, 1 and odd lengths beside 16-byte-aligned
 ones, views whose base is not 16-byte aligned, bf16 sums that cancel,
-int32 sums that wrap, ``-0.0`` sources, and launches over a range of ranks
-short of all E.  Every comparison is bitwise: the puts copy bits, and the
+int32 sums that wrap, ``-0.0`` sources, launches over a range of ranks
+short of all E, and the ring permute (one launch for all ranks) at every
+shift up to n + 1 and over ranges of source ranks.  Every comparison is bitwise: the puts copy bits, and the
 pull-sum adds in the order of PyTorch's CUDA sum over an outer dimension
 (four partial sums, combined left to right), for any E.  One exception:
 with chunks of ONE element the plain version's sum over sources runs over
@@ -183,8 +184,8 @@ def test_ranged_launch_matches_the_slice(card, e, first, count, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("e", [1, 3, 4])
 def test_put_rows_and_ring_launches(card, e):
-    """The row exchange is one launch for all hosts; the ring keeps one
-    launch per rank."""
+    """The row exchange is one launch for all hosts, and so is the ring for
+    all ranks."""
     g = torch.Generator(device=card).manual_seed(e)
     c = torch.randn((e, e, 33, 10), generator=g, device=card)
     oa.reset_launch_counts()
@@ -195,10 +196,62 @@ def test_put_rows_and_ring_launches(card, e):
     assert oa.LAUNCH_COUNTS == {"onesided_put_rows": 2,
                                 "onesided_all_to_all": 0,
                                 "onesided_reduce_scatter": 0,
-                                "onesided_ring_permute": e}
+                                "onesided_ring_permute": 1}
     assert _same(got, oa.onesided_put_rows_ref(c))
     assert _same(fetched, oa.onesided_fetch_rows_ref(c))
     assert _same(ring, torch.roll(c[0], 1, 0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("c", CHUNKS)
+@pytest.mark.parametrize("e", RANKS + [7])
+def test_ring_matches_plain_version(card, e, c, dtype):
+    """The ring, one launch for all ranks, bitwise with its plain version
+    and torch.roll, for every shift up to n + 1, on 16-byte units and on
+    element units (a base that is not 16-byte aligned)."""
+    g = torch.Generator(device=card).manual_seed(300 * e + c)
+    x = _chunks(g, 1, e * c, dtype, card).reshape(e, c)
+    for src in ((x, _misaligned(x)) if c else (x,)):
+        for shift in range(e + 2):
+            oa.reset_launch_counts()
+            got = oa.onesided_ring_permute(src, shift)
+            torch.cuda.synchronize()
+            assert oa.LAUNCH_COUNTS["onesided_ring_permute"] == (
+                1 if c else 0)
+            assert _same(got, oa.onesided_ring_permute_ref(src, shift))
+            assert _same(got, torch.roll(src, shift, 0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("e, first, count", [(1, 0, 1), (2, 1, 1),
+                                             (3, 0, 2), (4, 1, 2),
+                                             (4, 3, 1), (5, 2, 3),
+                                             (8, 0, 3), (8, 5, 3)])
+def test_ranged_ring_fills_its_sources_blocks(card, e, first, count, dtype):
+    """A ring launch over sources first .. first + count - 1 (one rank per
+    card would pass (r, 1)) fills exactly the blocks those sources put,
+    out[(r + shift) % n], and tiles with the other ranges into the
+    whole."""
+    g = torch.Generator(device=card).manual_seed(e + 10 * first)
+    for c in (1001, 1024):
+        x = _chunks(g, 1, e * c, dtype, card).reshape(e, c)
+        for shift in (1, e + 1):
+            want = oa.onesided_ring_permute_ref(x, shift)
+            part = oa._launch_ring(x, shift, first, count)
+            torch.cuda.synchronize()
+            dst = [(r + shift) % e for r in range(first, first + count)]
+            assert _same(part[dst], want[dst])
+            whole = torch.empty_like(x)
+            for a, n in ((0, first), (first, count),
+                         (first + count, e - first - count)):
+                if n:
+                    got = oa._launch_ring(x, shift, a, n)
+                    rows = [(r + shift) % e for r in range(a, a + n)]
+                    whole[rows] = got[rows]
+            torch.cuda.synchronize()
+            assert _same(whole, want)
 
 
 @pytest.mark.cuda
@@ -212,6 +265,8 @@ def test_launcher_refuses_bad_ranges(card):
         oa._launch_pull_sum(x, 3, 2)
     with pytest.raises(RuntimeError, match="invalid argument"):
         oa._launch_all_to_all(x, "onesided_all_to_all", 2, 3)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        oa._launch_ring(x[0], 1, 2, 3)
     many = torch.zeros((oa.MAX_RANKS + 1, oa.MAX_RANKS + 1, 1), device=card)
     for fn in (oa.onesided_all_to_all, oa.onesided_reduce_scatter):
         with pytest.raises(ValueError, match=f"at most {oa.MAX_RANKS}"):
