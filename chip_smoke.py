@@ -46,6 +46,17 @@ Phases:
      bulk and once with the one-sided transport, on the same requests:
      scores and pooled lookups bitwise-equal to phase 3, the one-sided run
      one put launch per non-empty fetch and the bulk run none;
+  6b. pipelined serving (depth 2: two slot pools, the next micro-batch's
+     prefetch on a side CUDA stream) through make_dlrm_engine, on the same
+     requests: (a) over the host tier, (b) over the remote tier with the
+     one-sided transport, (c) with pools that half of the micro-batches
+     overflow (the head-of-line fallback): scores bitwise-equal to phase
+     3, one TBE launch per micro-batch (and one put launch per non-empty
+     fetch), at least one fallback in (c), the port's check_timeline and
+     check_scheduler_source clean; wall time beside phases 4 and 6,
+     overlap, stage totals, hit rate, pool bytes, peak device memory;
+     (d) one profiled run: the streams of the scatters and of the TBE
+     launches, and the side-stream device time under forward kernels;
   7. the distributed embedding bag over 4 simulated ranks on the card
      (table-wise over 2), on phase 3's tables: the chunk kernels'
      all-to-all, reduce-scatter (the pull-sum kernel) and ring permute
@@ -76,6 +87,7 @@ line.  It also fails without a CUDA card, and without the port's sources
 beside it.
 """
 import dataclasses
+import gc
 import hashlib
 import json
 import os
@@ -84,6 +96,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1084,6 +1097,217 @@ def phase_remote(pt, eg, oa, unc, cached) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 6b. pipelined serving
+# ---------------------------------------------------------------------------
+
+def _serve_pipelined(pt, kmods, eng, reqs):
+    """``run_to_completion`` of ``reqs`` on a pipelined engine, every
+    kernel module's launch counts set to 0 just before and read just
+    after.  Wall time on the host clock, up to the last scores on the host
+    (the drain's copy waits for the main stream, which waited on the side
+    stream's events).  Also returns the remote fetches it made."""
+    for r in reqs:
+        eng.submit(r)
+    fetches = []
+    prev = pt.comm.set_event_sink(fetches.append)
+    for mod in kmods:
+        mod.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        scores = eng.run_to_completion()
+    finally:
+        pt.comm.set_event_sink(prev)
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    counts = {k: v for mod in kmods for k, v in mod.LAUNCH_COUNTS.items()}
+    return scores, wall_ms, counts, fetches
+
+
+def _pipelined_engine(pt, unc, label, **cache):
+    cfg = dataclasses.replace(pt.CONFIG, cache=pt.CacheConfig(
+        policy="lfu", pipeline_depth=2, **cache))
+    t0 = time.perf_counter()
+    eng = pt.make_dlrm_engine(unc["params"], cfg, BATCH, device=DEV)
+    torch.cuda.synchronize()
+    ring = eng.cache
+    check(isinstance(eng, pt.PipelinedDLRMEngine) and ring.depth == 2
+          and isinstance(eng.scheduler.side, torch.cuda.Stream)
+          and all(b.cold is ring.buffers[0].cold for b in ring.buffers)
+          and all(b.stats is ring.stats for b in ring.buffers),
+          f"[{label}] make_dlrm_engine built a depth-2 ring over one cold "
+          f"tier, with a side stream")
+    log(f"  [{label}] engine built in {time.perf_counter() - t0:.1f} s: "
+        f"{ring.depth} pools of {ring.buffers[0].pool_bytes / 1e6:.0f} MB "
+        f"({ring.pool_bytes / 1e9:.3f} GB) on the card, one "
+        f"{type(ring.buffers[0].cold).__name__} cold tier")
+    return eng
+
+
+def _check_pipelined(pt, eng, unc, scores, label) -> None:
+    check(sorted(scores) == sorted(unc["scores"])
+          and all(scores[k] == unc["scores"][k] for k in scores),
+          f"[{label}] depth-2 scores bitwise == uncached")
+    log(f"  [{label}] {len(scores)} scores bitwise equal to phase 3")
+    spans = eng.trace.spans
+    race = pt.check_timeline(spans, depth=2)
+    static = pt.check_scheduler_source()
+    log(f"  [{label}] check_timeline over {len(spans)} spans: "
+        f"{[str(v) for v in race] or 'clean'}; check_scheduler_source: "
+        f"{[str(v) for v in static] or 'clean'}")
+    check(not race and not static, f"[{label}] the epoch protocol holds")
+
+
+def _stage_log(pt, eng, label) -> dict:
+    st, tr = eng.cache_stats(), eng.trace
+    stages = {s: tr.total(s) for s in pt.STAGES}
+    prefetch_ms = [round(1e3 * sum(s.seconds for s in tr.spans
+                                   if s.batch == k
+                                   and s.stage in ("admit", "fetch")), 3)
+                   for k in sorted({s.batch for s in tr.spans})]
+    log(f"  [{label}] stage totals (s, host clock): "
+        + ", ".join(f"{s} {t:.4f}" for s, t in stages.items())
+        + f"; overlap_s {tr.overlap_s():.4f}, overlap_fraction "
+        f"{tr.overlap_fraction():.4f}; hit rate {st.hit_rate:.4f} "
+        f"({st.misses} misses), {st.fetch_host + st.fetch_remote} rows "
+        f"fetched, {st.evictions} evictions, fallbacks "
+        f"{eng.scheduler.fallbacks}; admit + fetch ms by batch "
+        f"{prefetch_ms}")
+    return dict(stages=stages, overlap_s=tr.overlap_s(),
+                overlap_fraction=tr.overlap_fraction(),
+                hit_rate=st.hit_rate, misses=st.misses,
+                fetched=st.fetch_host + st.fetch_remote)
+
+
+def _stream_overlap(pt_prof) -> dict:
+    """Device kernels and copies of a profiled pipelined run, by stream:
+    the streams of the scatter's ``index_copy_`` kernels and of the TBE
+    launches, and the device time in which a side-stream kernel or copy
+    ran while a kernel of the TBE's (main) stream ran."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        pt_prof.export_chrome_trace(path)
+        with open(path) as fh:
+            events = json.load(fh)["traceEvents"]
+    dev = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy")
+           and "stream" in e.get("args", {})]
+    streams = lambda key: sorted({e["args"]["stream"] for e in dev
+                                  if key in e.get("name", "")})
+    scatter, tbe = streams("index_copy"), streams("tbe_gather_pool_kernel")
+    main = set(tbe)
+    fwd = sorted((e["ts"], e["ts"] + e["dur"]) for e in dev
+                 if e["args"]["stream"] in main and e["cat"] == "kernel")
+    side = [e for e in dev if e["args"]["stream"] not in main]
+    both_us, hits = 0.0, 0
+    for e in side:
+        s0, s1 = e["ts"], e["ts"] + e["dur"]
+        inside = sum(max(0.0, min(s1, f1) - max(s0, f0)) for f0, f1 in fwd)
+        both_us += inside
+        hits += inside > 0
+    return dict(scatter_streams=scatter, tbe_streams=tbe,
+                side_events=len(side), side_overlapping=hits,
+                overlap_ms=both_us / 1e3)
+
+
+def phase_pipelined(pt, eg, oa, unc, cached, remote) -> dict:
+    log("== 6b. pipelined serving (depth 2: two slot pools, prefetch on a "
+        "side CUDA stream), phase 3's requests")
+    kmods = (eg, oa, pt.fa)
+    n_batches = -(-REQUESTS // BATCH)
+    out = {}
+    # (a) the host cold tier, as phase 4
+    eng = _pipelined_engine(pt, unc, "host", rows=65536, cold_tier="host")
+    scores, wall, counts, _ = _serve_pipelined(pt, kmods, eng, unc["reqs"])
+    serial_ms = sum(cached["flush_ms"])
+    log(f"  [host] run_to_completion {wall:.3f} ms (host clock) against "
+        f"phase 4's flushes summed {serial_ms:.3f} ms "
+        f"({wall / serial_ms:.3f}x); launches {counts}")
+    check(counts == _launches(gather_pool_tbe_flat=n_batches),
+          "[host] one fused flat TBE launch per micro-batch")
+    _check_pipelined(pt, eng, unc, scores, "host")
+    out["host"] = dict(wall_ms=wall, serial_ms=serial_ms,
+                       pool_bytes=eng.cache.pool_bytes,
+                       **_stage_log(pt, eng, "host"))
+    log(f"  [host] hit rate {out['host']['hit_rate']:.4f} against phase 4's "
+        f"{cached['hit_rate']:.4f} (each pool sees every other batch); "
+        f"misses {out['host']['misses']} against "
+        f"{cached['counters']['misses']}, rows fetched "
+        f"{out['host']['fetched']} against {sum(cached['fetched'])} "
+        f"({cached['fetched']} by flush)")
+    # (d) one profiled depth-2 run of fresh requests on the same engine
+    from torch.profiler import ProfilerActivity, profile
+
+    for r in _requests(pt.CONFIG, pt.CTRRequest, REQUESTS, seed=3):
+        eng.submit(r)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng.run_to_completion()
+    ov = _stream_overlap(prof)
+    log(f"  [profiled] index_copy_ (scatter) kernels on stream(s) "
+        f"{ov['scatter_streams']}, TBE launches on stream(s) "
+        f"{ov['tbe_streams']}; {ov['side_events']} kernels/copies off the "
+        f"TBE's stream, {ov['side_overlapping']} of them ran while a "
+        f"kernel of that stream ran ({ov['overlap_ms']:.3f} ms of device "
+        f"time)")
+    out["profile"] = ov
+    del eng, scores
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (b) the remote tier, one-sided, as phase 6
+    torch.cuda.reset_peak_memory_stats()
+    eng = _pipelined_engine(pt, unc, "remote onesided", rows=65536,
+                            cold_tier="remote", remote_hosts=HOSTS,
+                            remote_backend="onesided")
+    scores, wall, counts, fetches = _serve_pipelined(pt, kmods, eng,
+                                                     unc["reqs"])
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    serial_ms = sum(remote["onesided"]["flush_ms"])
+    log(f"  [remote onesided] run_to_completion {wall:.3f} ms against "
+        f"phase 6's one-sided flushes summed {serial_ms:.3f} ms "
+        f"({wall / serial_ms:.3f}x); launches {counts}; {len(fetches)} "
+        f"fetches; peak device memory {peak_gb:.1f} GB (phase 6: "
+        f"{remote['onesided']['peak_gb']:.1f} GB)")
+    check(counts["gather_pool_tbe_flat"] == n_batches
+          and counts["onesided_put_rows"] == len(fetches) > 0,
+          "[remote onesided] one TBE launch per micro-batch, one put launch "
+          "per non-empty fetch")
+    _check_pipelined(pt, eng, unc, scores, "remote onesided")
+    out["remote"] = dict(wall_ms=wall, serial_ms=serial_ms, peak_gb=peak_gb,
+                         puts=counts["onesided_put_rows"],
+                         **_stage_log(pt, eng, "remote onesided"))
+    del eng, scores
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (c) a pool that half of the micro-batches overflow: the largest
+    # per-table working set of each batch, the pool one of the smaller ones
+    ws = []
+    for head in unc["heads"]:
+        idx = np.stack([r.indices for r in head])        # (B, T, L)
+        ws.append(max(len(np.unique(idx[:, t][idx[:, t] >= 0]))
+                      for t in range(idx.shape[1])))
+    slots = sorted(ws)[(len(ws) - 1) // 2]
+    eng = _pipelined_engine(pt, unc, "overflow", rows=slots,
+                            cold_tier="host")
+    scores, wall, counts, _ = _serve_pipelined(pt, kmods, eng, unc["reqs"])
+    fallbacks = eng.scheduler.fallbacks
+    log(f"  [overflow] {slots} slots a table against the micro-batches' "
+        f"largest per-table working sets {ws} (numpy {np.__version__}'s "
+        f"draws): {fallbacks} fallback(s), "
+        f"{counts['gather_pool_tbe_flat']} TBE launches, run_to_completion "
+        f"{wall:.3f} ms")
+    check(len(scores) == REQUESTS and not eng.queue and fallbacks >= 1,
+          "[overflow] every request scored, at least one fallback")
+    _check_pipelined(pt, eng, unc, scores, "overflow")
+    out["overflow"] = dict(slots=slots, working_sets=ws, fallbacks=fallbacks,
+                           wall_ms=wall,
+                           launches=counts["gather_pool_tbe_flat"],
+                           **_stage_log(pt, eng, "overflow"))
+    del eng, scores
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # 7. the distributed embedding bag
 # ---------------------------------------------------------------------------
 
@@ -1652,9 +1876,13 @@ def main() -> int:
         from repro_torch.models import decode as dec
         from repro_torch.models import dlrm, lm
         from repro_torch.models.dlrm import init_params
+        from repro_torch.analysis import (check_scheduler_source,
+                                          check_timeline)
+        from repro_torch.pipeline import STAGES
         from repro_torch.serving.engine import (ContinuousBatcher,
                                                 CTRRequest, DLRMEngine,
-                                                Request)
+                                                PipelinedDLRMEngine, Request,
+                                                make_dlrm_engine)
         from repro_torch.configs.granite_8b import CONFIG as LM_CONFIG
 
     # full fp32 products on the card, as in the reference
@@ -1673,6 +1901,7 @@ def main() -> int:
     del x                       # phase 2's tables: 13.3 GB
     torch.cuda.empty_cache()
     remote = phase_remote(pt, eg, oa, unc, cached)
+    piped = phase_pipelined(pt, eg, oa, unc, cached, remote)
     dist = phase_distributed(pt, eg, oa, unc)
     del unc["params"]           # phase 3's tables: 13.3 GB
     torch.cuda.empty_cache()
@@ -1706,6 +1935,20 @@ def main() -> int:
             f"{r['idle']:.1f}%, {r['fetches']} fetches, median fetch "
             f"{statistics.median(r['fetch_ms']):.3f} ms, put launches "
             f"{r['launches']}, peak device memory {r['peak_gb']:.1f} GB")
+    for label, r in (("host", piped["host"]),
+                     ("remote onesided", piped["remote"])):
+        log(f"pipelined depth 2, {label}: run_to_completion "
+            f"{r['wall_ms']:.3f} ms against {r['serial_ms']:.3f} ms of "
+            f"serialized flushes, overlap_fraction "
+            f"{r['overlap_fraction']:.4f}, hit rate {r['hit_rate']:.4f}")
+    log(f"pipelined depth 2: pools {piped['host']['pool_bytes'] / 1e9:.3f} "
+        f"GB, remote peak device memory {piped['remote']['peak_gb']:.1f} GB,"
+        f" {piped['overflow']['fallbacks']} fallback(s) at "
+        f"{piped['overflow']['slots']} slots, profiled scatter streams "
+        f"{piped['profile']['scatter_streams']} vs TBE streams "
+        f"{piped['profile']['tbe_streams']}, "
+        f"{piped['profile']['overlap_ms']:.3f} ms of side work under forward"
+        f" kernels")
     log("distributed (median flush ms): " + ", ".join(
         f"{label} {statistics.median(dist[label]['flush_ms']):.3f}"
         for label, _, _ in STRATEGIES))

@@ -59,8 +59,13 @@ def make_cold_store(tables: torch.Tensor, cache: CacheConfig, *,
 
 
 class CachedEmbeddingBag:
+    """``cold_store``/``stats`` share another bag's cold tier and counters:
+    the pipeline's later buffers reuse the first buffer's (one host copy
+    of the tables, one set of remote shards, one ``CacheStats``)."""
+
     def __init__(self, tables: torch.Tensor, cfg: EmbeddingBagConfig, *,
-                 device=None):
+                 device=None, cold_store: Optional[TableStore] = None,
+                 stats: Optional[CacheStats] = None):
         if cfg.combiner not in ("sum", "mean"):
             raise NotImplementedError(
                 f"CachedEmbeddingBag: combiner {cfg.combiner!r} is not "
@@ -71,7 +76,8 @@ class CachedEmbeddingBag:
         if tables.dim() != 3:
             raise ValueError(
                 f"tables must be (T, R, D), got {tuple(tables.shape)}")
-        self.cold = make_cold_store(tables, cc, device=self.device)
+        self.cold = cold_store if cold_store is not None \
+            else make_cold_store(tables, cc, device=self.device)
         T, R, D = tables.shape
         self.dtype = tables.dtype
         # slot sizing: the per-table vector wins over the uniform scalar
@@ -91,7 +97,7 @@ class CachedEmbeddingBag:
         # the kernel's per-table slot offsets, on the device once
         self._row_offsets = torch.as_tensor(
             self.mgr.slot_offsets[:-1], dtype=torch.int32, device=self.device)
-        self.stats = CacheStats()
+        self.stats = stats if stats is not None else CacheStats()
         self.row_bytes = D * tables.element_size()
         if cc.warmup_freqs is not None:
             self.mgr.seed_frequencies(np.asarray(cc.warmup_freqs))

@@ -13,7 +13,10 @@ the repository's own sources goes into a build, and no library is linked
 beyond the CUDA runtime: a source that needs a libcuda function (the TMA
 tensor maps of ``flash_attention_wgmma.cu``) looks it up at run time with
 ``cudaGetDriverEntryPoint``.  A missing ``nvcc`` or a failed compile
-raises: there is no fallback to a plain version.
+raises: there is no fallback to a plain version.  ``build`` and ``load``
+hold one lock, so threads of one process (the pipelined engine's worker
+beside the main thread) never compile the same source twice or write the
+same temporary file.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Sequence
@@ -48,6 +52,7 @@ class BuildRecord:
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 RECORDS: Dict[str, BuildRecord] = {}
+_LOCK = threading.Lock()      # guards _LIBS, RECORDS and build/ (see build)
 
 
 def nvcc() -> str:
@@ -76,6 +81,11 @@ def build(names: Sequence[str]) -> Dict[str, BuildRecord]:
     """Compile every named source that has no current build, all ``nvcc``
     processes started together, and wait for them.  Raises on the first
     failed compile, with its output."""
+    with _LOCK:
+        return _build(names)
+
+
+def _build(names: Sequence[str]) -> Dict[str, BuildRecord]:
     todo = {n: library_path(n) for n in names}
     todo = {n: p for n, p in todo.items() if not p.exists()}
     if todo:
@@ -84,7 +94,10 @@ def build(names: Sequence[str]) -> Dict[str, BuildRecord]:
         t0 = time.perf_counter()
         procs = {}
         for name, path in todo.items():
-            tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+            # the process and thread in the name: other processes may build
+            # into the same directory
+            tmp = path.with_name(
+                f"{path.name}.{os.getpid()}.{threading.get_ident()}.tmp")
             cmd = [compiler, *NVCC_FLAGS, "-o", str(tmp),
                    str(CSRC / f"{name}.cu")]
             procs[name] = (tmp, subprocess.Popen(
@@ -107,8 +120,9 @@ def build(names: Sequence[str]) -> Dict[str, BuildRecord]:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
-    lib = _LIBS.get(name)
-    if lib is None:
-        build([name])
-        lib = _LIBS[name] = ctypes.CDLL(str(library_path(name)))
-    return lib
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            _build([name])
+            lib = _LIBS[name] = ctypes.CDLL(str(library_path(name)))
+        return lib

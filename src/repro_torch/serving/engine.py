@@ -20,9 +20,16 @@ the pool is split in half until it fits.  With a ``ParallelContext`` the
 pooling runs the distributed embedding bag over the context's simulated
 model axis; the engine shards the tables once, at construction.
 
+``PipelinedDLRMEngine`` (``cfg.cache.pipeline_depth >= 2``) serves the
+same requests as a software pipeline over a ring of slot pools
+(``repro_torch.pipeline``): the next micro-batch's admission, cold fetch,
+scatter and operand staging run on a worker thread, on a side CUDA stream
+on the card, while the current micro-batch's forward runs on the main
+stream; events order the two streams.  Its scores are bitwise equal to
+``DLRMEngine``'s.
+
 Float32 products run in full float32 on the card (TF32 off), as in the
-reference.  The pipelined engine (``pipeline_depth >= 2``) and telemetry
-come with later slices of the port.
+reference.  Telemetry comes with a later slice of the port.
 """
 from __future__ import annotations
 
@@ -42,6 +49,8 @@ from repro_torch.core.parallel import ParallelContext
 from repro_torch.models import decode as dec
 from repro_torch.models import dlrm as dlrm_mod
 from repro_torch.models import lm
+from repro_torch.pipeline import (DoubleBufferedSlotPool, PipelineScheduler,
+                                  PipelineTrace)
 from repro_torch.utils.device import resolve_device
 
 
@@ -245,11 +254,16 @@ class DLRMEngine:
                     f"cache rows ({min(slots)}) must be >= pooling "
                     f"({cfg.pooling}) so a single request's working set "
                     f"always fits the slot pool (CacheConfig.rows)")
-            self.cache = make_cache(params["tables"], cfg.embedding_config(),
-                                    device=self.device)
+            self.cache = self._make_cache(params["tables"],
+                                          cfg.embedding_config())
             # the cold tier now lives inside the cache (host memory, or the
             # remote tier's row shards): serving keeps no full tables
             self.params = {**params, "tables": None}
+
+    def _make_cache(self, tables: torch.Tensor, ecfg):
+        """The tiered cache over ``tables`` on the engine's device; the
+        pipelined engine builds its ring of slot pools here instead."""
+        return make_cache(tables, ecfg, device=self.device)
 
     def submit(self, req: CTRRequest) -> None:
         T = self.cfg.num_sparse_features
@@ -353,15 +367,127 @@ class DLRMEngine:
         return out
 
 
+class PipelinedDLRMEngine(DLRMEngine):
+    """DLRM scoring as a software pipeline over double-buffered pools.
+
+    ``run_to_completion`` carves the queue into micro-batches and drives
+    the ``admit -> fetch -> scatter -> forward -> swap`` scheduler
+    (``repro_torch.pipeline``): batch k+1's cold fetch and pool scatter
+    target the shadow buffer while batch k's fused-TBE forward reads the
+    live one.  On the card the prefetch stages run on the scheduler's side
+    stream and the forward on the caller's current stream, ordered by
+    events.  Scores are BITWISE equal to the serialized
+    :class:`DLRMEngine`'s: only the latency structure changes.
+
+    ``flush`` stays the SERIALIZED path against the live buffer: it is
+    both the one-micro-batch API and the pipeline's head-of-line fallback
+    (a batch whose working set overflows the shadow buffer takes the
+    inherited split-on-``CacheCapacityError`` loop).
+
+    ``self.trace`` holds every stage's wall-clock span; the shared
+    ``cache_stats()`` record carries the same prefetch/scatter/forward
+    timers as the serialized engine's, plus the measured ``overlap_s``.
+    """
+
+    def __init__(self, params, cfg: DLRMConfig, batch_size: int,
+                 ctx: Optional[ParallelContext] = None, *, device=None):
+        if cfg.cache.pipeline_depth < 2:
+            raise ValueError(
+                f"PipelinedDLRMEngine needs pipeline_depth >= 2 (got "
+                f"{cfg.cache.pipeline_depth}); depth 1 is the serialized "
+                f"DLRMEngine -- use make_dlrm_engine to pick by config")
+        if not cfg.cache.enabled:
+            raise ValueError(
+                "PipelinedDLRMEngine requires the tiered cache (an enabled "
+                "cfg.cache: CacheConfig.rows > 0, formerly cache_rows): with "
+                "fully device-resident tables there is no prefetch stage to "
+                "overlap; a cfg.sharding_plan, the reference's other way "
+                "in, is not ported yet (ROADMAP, Queue 1 item 8)")
+        super().__init__(params, cfg, batch_size, ctx, device=device)
+        self.trace = PipelineTrace(label="dlrm_pipelined")
+        self.scheduler = PipelineScheduler(
+            self.cache, forward=self._pipeline_forward,
+            collect=self._pipeline_collect, fallback=self._pipeline_fallback,
+            prestage=self._pipeline_prestage, trace=self.trace)
+
+    def _make_cache(self, tables: torch.Tensor, ecfg):
+        return DoubleBufferedSlotPool(tables, ecfg,
+                                      depth=self.cfg.cache.pipeline_depth,
+                                      device=self.device)
+
+    # -- scheduler hooks -----------------------------------------------------
+
+    def _pipeline_prestage(self, payload, remapped, lengths):
+        """The forward's device operands (dense, slot ids, lengths); runs
+        on the scheduler's worker, hidden under the in-flight forward."""
+        _, dense = payload
+        return (torch.as_tensor(dense, device=self.device),
+                torch.as_tensor(remapped, device=self.device),
+                torch.as_tensor(lengths, device=self.device))
+
+    def _pipeline_forward(self, payload, remapped, lengths, pool, *,
+                          staged):
+        """Dispatch one micro-batch's forward over ``pool`` on the current
+        stream, from the operands ``_pipeline_prestage`` staged; returns
+        the device pCTRs."""
+        dense, idx, lens = staged
+        params = {**self.params, "tables": pool}
+        with torch.no_grad():
+            return torch.sigmoid(dlrm_mod.forward(
+                params, dense, JaggedBatch(indices=idx, lengths=lens),
+                self.cfg, self.ctx))
+
+    def _pipeline_collect(self, payload, host_scores) -> Dict[int, float]:
+        todo, _ = payload
+        return {req.rid: float(host_scores[i])
+                for i, req in enumerate(todo)}
+
+    def _pipeline_fallback(self, payload) -> Dict[int, float]:
+        """Serialized split flush for an overflowing micro-batch: requeue
+        just this batch and reuse the inherited CacheCapacityError split
+        loop against the LIVE buffer."""
+        todo, _ = payload
+        rest = self.queue
+        self.queue = list(todo)
+        try:
+            scores: Dict[int, float] = {}
+            while self.queue:
+                scores.update(DLRMEngine.flush(self))
+        finally:
+            self.queue = rest
+        return scores
+
+    # -- pipelined serving ---------------------------------------------------
+
+    def run_to_completion(self) -> Dict[int, float]:
+        """Score the whole queue through the stage pipeline.
+
+        If the pipeline dies mid-run (e.g. a cold-tier fetch failure, its
+        residency already rolled back), every submitted request goes back
+        on the queue: the raising call delivered no scores, so a retry
+        scores them all (deterministically the same)."""
+        batches, submitted = [], []
+        while self.queue:
+            todo = self.queue[: self.batch_size]
+            self.queue = self.queue[len(todo):]
+            submitted.extend(todo)
+            dense, idx, lens = self._pad_batch(todo)
+            batches.append(((todo, dense), idx, lens))
+        out: Dict[int, float] = {}
+        try:
+            self.scheduler.run(batches, out)
+        except BaseException:
+            self.queue = submitted + self.queue
+            raise
+        return out
+
+
 def make_dlrm_engine(params, cfg: DLRMConfig, batch_size: int,
                      ctx: Optional[ParallelContext] = None, *,
                      device=None) -> DLRMEngine:
-    """Build the engine ``cfg.cache.pipeline_depth`` selects: 1 is the
-    serialized :class:`DLRMEngine`; the pipelined engine (>= 2) is not
-    ported yet and raises."""
-    if cfg.cache.pipeline_depth > 1:
-        raise NotImplementedError(
-            f"pipeline_depth={cfg.cache.pipeline_depth}: the pipelined "
-            f"engine is not ported yet (ROADMAP, Queue 1, pipelined "
-            f"serving); use pipeline_depth=1")
-    return DLRMEngine(params, cfg, batch_size, ctx, device=device)
+    """Build the engine ``cfg.cache.pipeline_depth`` selects on ``device``
+    (None: the card): 1 is the serialized :class:`DLRMEngine`, >= 2 the
+    :class:`PipelinedDLRMEngine` over a ``pipeline_depth``-deep ring of
+    slot pools."""
+    cls = PipelinedDLRMEngine if cfg.cache.pipeline_depth > 1 else DLRMEngine
+    return cls(params, cfg, batch_size, ctx, device=device)

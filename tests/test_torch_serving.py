@@ -25,7 +25,8 @@ from repro_torch.configs import dlrm as tcfg_mod
 from repro_torch.core import embedding_bag as teb
 from repro_torch.core.cache_config import CacheConfig
 from repro_torch.core.jagged import JaggedBatch
-from repro_torch.serving.engine import CTRRequest, DLRMEngine, make_dlrm_engine
+from repro_torch.serving.engine import (CTRRequest, DLRMEngine,
+                                        PipelinedDLRMEngine, make_dlrm_engine)
 from repro_torch.utils.convert import params_from_numpy
 
 PCTR = dict(rtol=1e-4, atol=1e-5)
@@ -294,7 +295,8 @@ def test_cache_smaller_than_pooling_rejected(models):
 
 def test_entry_points_need_a_card_or_an_explicit_cpu(models):
     """device=None means the card: without one every entry point raises,
-    and depth >= 2 (the pipelined engine) is not ported yet."""
+    the pipelined engine (depth >= 2) too; on an explicit CPU depth 2
+    builds the pipelined engine."""
     _, _, tcfg, params = models
     with pytest.raises(RuntimeError, match="CUDA"):
         DLRMEngine(params, tcfg, 2)
@@ -305,8 +307,10 @@ def test_entry_points_need_a_card_or_an_explicit_cpu(models):
         teb.make_cache(params["tables"], cached.embedding_config())
     piped = dataclasses.replace(tcfg, cache=CacheConfig(rows=8,
                                                         pipeline_depth=2))
-    with pytest.raises(NotImplementedError, match="pipeline"):
-        make_dlrm_engine(params, piped, 2, device="cpu")
+    assert isinstance(make_dlrm_engine(params, piped, 2, device="cpu"),
+                      PipelinedDLRMEngine)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_dlrm_engine(params, piped, 2)
     assert isinstance(make_dlrm_engine(params, cached, 2, device="cpu"),
                       DLRMEngine)
     with pytest.raises(ValueError, match="parameters"):
