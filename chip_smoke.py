@@ -57,6 +57,21 @@ Phases:
      overlap, stage totals, hit rate, pool bytes, peak device memory;
      (d) one profiled run: the streams of the scatters and of the TBE
      launches, and the side-stream device time under forward kernels;
+  6c. the planner -> engine round trip with telemetry, on the same
+     requests: sharding_plan.plan over CONFIG's 26 tables (H100_DGX, Zipf
+     1.05, host tier, 2048 a shard); (a) plan A (2 shards, 0.5 GB: 8 pools
+     of 200,000 slots, 2 of 100,000, 16 "row" tables at phase 4's 65,536)
+     on the serialized engine over the host tier: S_t the config's vector,
+     the pool's bytes exactly slot_pool_bytes (1,458,470,912), scores and
+     pooled lookups bitwise phase 3's, one TBE launch per flush; (b) plan B
+     (16 shards, 0.2 GB: all 26 cached) with cache.rows = 0 on the
+     pipelined engine over the remote tier, one-sided: two pools of
+     2,150,400,000 B, scores bitwise phase 3's, 4 TBE launches, one put
+     launch per non-empty fetch from the side stream, check_timeline
+     clean; both with a Telemetry: request latency p50/p99, each Chrome
+     trace exported to chiprun_out/ and validated, its lanes checked,
+     hit_rate_t beside est_hit_rate, and the spans fitted back into the
+     perf model (calibrate; constants beside H100_DGX's, stage_time_error);
   7. the distributed embedding bag over 4 simulated ranks on the card
      (table-wise over 2), on phase 3's tables: the chunk kernels'
      all-to-all, reduce-scatter (the pull-sum kernel) and ring permute
@@ -1308,6 +1323,259 @@ def phase_pipelined(pt, eg, oa, unc, cached, remote) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 6c. the planner -> engine round trip, with telemetry
+# ---------------------------------------------------------------------------
+
+PLAN_ZIPF = 1.05             # the traffic skew the planner prices
+PLAN_A = dict(num_shards=2, hbm_budget_bytes=0.5e9)   # 10 cached, 16 row
+PLAN_B = dict(num_shards=16, hbm_budget_bytes=0.2e9)  # all 26 cached
+PLAN_FALLBACK_ROWS = 65_536  # plan A's "row" tables: phase 4's pool
+
+
+def _plan(pt, **kw):
+    """sharding_plan.plan over CONFIG's 26 tables (H100_DGX, Zipf 1.05,
+    host tier, flushes of 2048 a shard); returns the plan and its log."""
+    cfg = pt.CONFIG
+    specs = [pt.sp.TableSpec(f"t{i}", rows=cfg.rows_per_table,
+                             dim=cfg.embedding_dim, pooling=cfg.pooling)
+             for i in range(cfg.num_sparse_features)]
+    t0 = time.perf_counter()
+    p = pt.sp.plan(specs, batch_per_shard=BATCH, hw=pt.pm.H100_DGX,
+                   zipf_a=PLAN_ZIPF, **kw)
+    took = time.perf_counter() - t0
+    pools = {}
+    for pl in p.placements:
+        key = (pl.strategy, pl.cache_rows, round(pl.est_hit_rate, 4))
+        pools[key] = pools.get(key, 0) + 1
+    return p, (f"planned in {took:.2f} s (host CPU): "
+               + ", ".join(f"{n} x {k[0]}" + (f" {k[1]} slots est_hit_rate "
+                                              f"{k[2]}" if k[1] else "")
+                           for k, n in sorted(pools.items())))
+
+
+def _hit_gaps(p, stats) -> list:
+    """(table, est_hit_rate, measured hit_rate_t) of each cached table."""
+    hr = stats.hit_rate_t
+    return [(pl.index, pl.est_hit_rate, float(hr[pl.index]))
+            for pl in sorted(p.placements, key=lambda q: q.index)
+            if pl.strategy == "cached"]
+
+
+def _log_gaps(label, gaps) -> None:
+    err = [m - e for _, e, m in gaps]
+    log(f"  [{label}] hit_rate_t against est_hit_rate (logged, not gated): "
+        + ", ".join(f"t{t} {m:.4f}/{e:.4f}" for t, e, m in gaps))
+    log(f"  [{label}] measured - est: mean {statistics.mean(err):+.4f}, "
+        f"min {min(err):+.4f}, max {max(err):+.4f}")
+
+
+def _telemetry_readout(pt, tel, name, label, lanes) -> dict:
+    """Latency quantiles, the Chrome trace (exported to chiprun_out/ and
+    validated) and its lanes; each of ``lanes`` must hold spans."""
+    h = tel.request_latency(name)
+    log(f"  [{label}] request latency (enqueue -> score, host clock): "
+        f"{h.count} requests, p50 {1e3 * h.p50:.3f} ms, p99 "
+        f"{1e3 * h.p99:.3f} ms, max {1e3 * h.max:.3f} ms")
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    path = tel.export_trace(
+        str(out / f"trace_6c_{label.replace(' ', '_')}.json"))
+    with open(path) as fh:
+        n = pt.obs.validate_chrome_trace(json.load(fh))
+    by_lane = {lane: len(tel.tracer.spans(lane=lane))
+               for lane in pt.obs.LANES}
+    log(f"  [{label}] Chrome trace {os.path.relpath(path, ROOT)}: {n} "
+        f"events, valid; spans by lane {by_lane}")
+    check(all(by_lane[lane] > 0 for lane in lanes),
+          f"[{label}] the {', '.join(lanes)} lanes hold spans")
+    return dict(count=h.count, p50=h.p50, p99=h.p99, lanes=by_lane)
+
+
+def _fit_log(pt, label, res, samples) -> dict:
+    """The fitted constants beside H100_DGX's, and stage_time_error for the
+    base and the fitted model, on the run's own samples."""
+    base, hw = res.base, res.hw
+    t_name = "onesided" if res.onesided else "bulk"
+    bt, ft = getattr(base, t_name), getattr(hw, t_name)
+    err_base = pt.pm.stage_time_error(samples, base, onesided=res.onesided)
+    err_fit = res.error(samples)
+    log(f"  [{label}] calibrate: {res.n_h2d} h2d and {res.n_remote} "
+        f"fetch_remote samples; gather_overhead_s {hw.gather_overhead_s:.6g}"
+        f" (H100_DGX {base.gather_overhead_s:.6g}), host_Bps "
+        f"{hw.host_Bps:.6g} ({base.host_Bps:.6g}); {t_name} alpha_s "
+        f"{ft.alpha_s:.6g} ({bt.alpha_s:.6g}), beta_Bps {ft.beta_Bps:.6g} "
+        f"({bt.beta_Bps:.6g})")
+    log(f"  [{label}] stage_time_error: H100_DGX "
+        f"{ {k: round(v, 4) for k, v in err_base.items()} }, fitted "
+        f"{ {k: round(v, 4) for k, v in err_fit.items()} }")
+    for name, v in (("gather_overhead_s", hw.gather_overhead_s),
+                    ("alpha_s", ft.alpha_s)):
+        # a negative intercept is clamped to 0 (the reference's rule)
+        check(v >= 0 and np.isfinite(v), f"[{label}] fitted {name} >= 0")
+    for name, v in (("host_Bps", hw.host_Bps), ("beta_Bps", ft.beta_Bps)):
+        # a zero slope pins the rate to inf (the reference's rule)
+        check(v > 0, f"[{label}] fitted {name} > 0 or inf")
+    return dict(gather_overhead_s=hw.gather_overhead_s, host_Bps=hw.host_Bps,
+                alpha_s=ft.alpha_s, beta_Bps=ft.beta_Bps, n_h2d=res.n_h2d,
+                n_remote=res.n_remote, err_base=err_base, err_fit=err_fit)
+
+
+def phase_planned(pt, eg, oa, unc, cached) -> dict:
+    log("== 6c. planner -> engine round trip (sharding_plan.plan at full "
+        "width) with telemetry, phase 3's requests")
+    t_phase = time.perf_counter()
+    kmods = (eg, oa, pt.fa)
+    n_batches = -(-REQUESTS // BATCH)
+    out = {}
+    # (a) plan A on the serialized engine, host tier
+    p, msg = _plan(pt, **PLAN_A)
+    log(f"  [plan A] {PLAN_A}: {msg}")
+    cfg = dataclasses.replace(pt.CONFIG, sharding_plan=p, cache=pt.CacheConfig(
+        rows=PLAN_FALLBACK_ROWS, policy="lfu", cold_tier="host"))
+    vec = cfg.cache_rows_vector()
+    tel = pt.Telemetry()
+    t0 = time.perf_counter()
+    eng = pt.DLRMEngine(unc["params"], cfg, batch_size=BATCH, device=DEV,
+                        telemetry=tel)
+    torch.cuda.synchronize()
+    pool = eng.cache.pool
+    want_bytes = (8 * 200_000 + 2 * 100_000 + 16 * PLAN_FALLBACK_ROWS) * D * 4
+    log(f"  [plan A] engine built in {time.perf_counter() - t0:.1f} s: S_t "
+        f"{eng.cache.mgr.slots_per_table.tolist()}; pool "
+        f"{tuple(pool.shape)}, "
+        f"{pool.numel() * pool.element_size()} B")
+    check(type(eng) is pt.DLRMEngine
+          and list(eng.cache.mgr.slots_per_table) == list(vec)
+          and eng.params["tables"] is None,
+          "[plan A] a serialized engine whose S_t is cfg.cache_rows_vector()")
+    check(pool.numel() * pool.element_size() == want_bytes == 1_458_470_912
+          == pt.pm.slot_pool_bytes(vec, D) == eng.cache.pool_bytes,
+          "[plan A] pool bytes == slot_pool_bytes == 1,458,470,912")
+    for r in unc["reqs"]:
+        eng.submit(r)
+    scores, heads, ms, splits, counts, fetched = _serve(eng, kmods)
+    st = eng.cache_stats()
+    hit_rate = st.hit_rate
+    log(f"  [plan A] {len(scores)} requests in {len(heads)} flushes, "
+        f"{splits} half-split(s); launches {counts}; flush ms "
+        f"{[round(m, 3) for m in ms]}, median {statistics.median(ms):.3f} ms "
+        f"(phase 4, same run: {statistics.median(cached['flush_ms']):.3f} "
+        f"ms); hit rate {st.hit_rate:.4f} (phase 4 {cached['hit_rate']:.4f}),"
+        f" rows fetched {fetched}")
+    check(counts == _launches(gather_pool_tbe_flat=len(heads)),
+          "[plan A] one fused flat TBE launch per flush")
+    check(sorted(scores) == sorted(unc["scores"])
+          and all(scores[k] == unc["scores"][k] for k in scores),
+          "[plan A] scores bitwise == phase 3")
+    log("  [plan A] scores bitwise equal to phase 3")
+    gaps = _hit_gaps(p, st)
+    _log_gaps("plan A", gaps)
+    lat = _telemetry_readout(pt, tel, eng.obs_name, "plan A serialized",
+                             ("engine", "cache", "request"))
+    samples = tel.tracer.stage_samples()
+    res = pt.pm.calibrate(samples)
+    check(res.n_h2d >= 4, "[plan A] at least 4 h2d samples")
+    fit = _fit_log(pt, "plan A", res, samples)
+    _check_pooled(pt, eng, unc, "[plan A]")
+    out["a"] = dict(flush_ms=ms, launches=counts["gather_pool_tbe_flat"],
+                    splits=splits, hit_rate=hit_rate, gaps=gaps,
+                    latency=lat, fit=fit, pool_bytes=want_bytes)
+    del eng, pool, scores
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) plan B (no cache.rows) on the pipelined engine, remote one-sided
+    p, msg = _plan(pt, **PLAN_B)
+    log(f"  [plan B] {PLAN_B}: {msg}")
+    log("  [plan B] priced for the host tier: under 4 one-sided hosts the "
+        "planner caches nothing at this width, and the hit-rate prices do "
+        "not depend on the tier")
+    cfg = dataclasses.replace(pt.CONFIG, sharding_plan=p, cache=pt.CacheConfig(
+        rows=0, pipeline_depth=2, cold_tier="remote", remote_hosts=HOSTS,
+        remote_backend="onesided"))
+    vec = cfg.cache_rows_vector()
+    tel = pt.Telemetry()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = pt.make_dlrm_engine(unc["params"], cfg, BATCH, device=DEV,
+                              telemetry=tel)
+    torch.cuda.synchronize()
+    ring = eng.cache
+    log(f"  [plan B] engine built in {time.perf_counter() - t0:.1f} s: "
+        f"{ring.depth} pools of {ring.buffers[0].pool_bytes} B, S_t "
+        f"{sorted(set(vec))} ({sum(vec)} slots a pool)")
+    check(isinstance(eng, pt.PipelinedDLRMEngine) and ring.depth == 2
+          and cfg.cache.rows == 0
+          and all(list(b.mgr.slots_per_table) == list(vec)
+                  for b in ring.buffers)
+          and all(b.pool_bytes == pt.pm.slot_pool_bytes(vec, D)
+                  == 2_150_400_000 for b in ring.buffers),
+          "[plan B] make_dlrm_engine built the pipelined engine, both pools "
+          "of the plan's S_t (2 x 2,150,400,000 B)")
+    for r in unc["reqs"]:
+        eng.submit(r)
+    # each put launch's stream, read by a wrapper of the chunk-put launcher
+    # (it launches nothing itself)
+    put_streams, launch = [], oa._launch_all_to_all
+
+    def _recording(x, counter, *args, **kw):
+        if counter == "onesided_put_rows":
+            put_streams.append(torch.cuda.current_stream(x.device).cuda_stream)
+        return launch(x, counter, *args, **kw)
+
+    oa._launch_all_to_all = _recording
+    tel.tracer.install_comm_sink()
+    for mod in kmods:
+        mod.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        scores = eng.run_to_completion()
+    finally:
+        tel.tracer.remove_comm_sink()
+        oa._launch_all_to_all = launch
+    wall = 1e3 * (time.perf_counter() - t0)
+    counts = {k: v for mod in kmods for k, v in mod.LAUNCH_COUNTS.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    fetches = tel.tracer.spans(lane="comm", name="fetch_rows")
+    side = getattr(eng.scheduler.side, "cuda_stream", None)
+    log(f"  [plan B] run_to_completion {wall:.3f} ms (host clock); launches "
+        f"{counts}; {len(fetches)} fetches, fetch ms "
+        f"{[round(1e3 * f.seconds, 3) for f in fetches]}; put launches on "
+        f"stream(s) {sorted(set(put_streams))}, the side stream {side}; peak "
+        f"device memory {peak_gb:.1f} GB")
+    check(counts == _launches(gather_pool_tbe_flat=n_batches,
+                              onesided_put_rows=len(fetches))
+          and len(fetches) > 0,
+          "[plan B] one TBE launch per micro-batch, one put launch per "
+          "non-empty fetch")
+    check(len(put_streams) == len(fetches)
+          and set(put_streams) == {side},
+          "[plan B] every put launch issued from the side stream")
+    _check_pipelined(pt, eng, unc, scores, "plan B")
+    st = eng.cache_stats()
+    stages = _stage_log(pt, eng, "plan B")
+    gaps = _hit_gaps(p, st)
+    _log_gaps("plan B", gaps)
+    lat = _telemetry_readout(pt, tel, eng.obs_name, "plan B pipelined",
+                             ("request", "pipeline", "comm"))
+    samples = tel.tracer.stage_samples()
+    res = pt.pm.calibrate(samples, onesided=True)
+    check(res.n_remote >= 1, "[plan B] at least 1 fetch_remote sample")
+    fit = _fit_log(pt, "plan B", res, samples)
+    out["b"] = dict(wall_ms=wall, launches=counts, fetches=len(fetches),
+                    hit_rate=st.hit_rate, gaps=gaps, latency=lat, fit=fit,
+                    peak_gb=peak_gb, pool_bytes=ring.pool_bytes,
+                    stages=stages)
+    del eng, ring, scores
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 6c took {out['seconds']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # 7. the distributed embedding bag
 # ---------------------------------------------------------------------------
 
@@ -1884,6 +2152,10 @@ def main() -> int:
                                                 PipelinedDLRMEngine, Request,
                                                 make_dlrm_engine)
         from repro_torch.configs.granite_8b import CONFIG as LM_CONFIG
+        from repro_torch import obs
+        from repro_torch.obs import Telemetry
+        from repro_torch.core import perf_model as pm
+        from repro_torch.core import sharding_plan as sp
 
     # full fp32 products on the card, as in the reference
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1902,6 +2174,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     remote = phase_remote(pt, eg, oa, unc, cached)
     piped = phase_pipelined(pt, eg, oa, unc, cached, remote)
+    planned = phase_planned(pt, eg, oa, unc, cached)
     dist = phase_distributed(pt, eg, oa, unc)
     del unc["params"]           # phase 3's tables: 13.3 GB
     torch.cuda.empty_cache()
@@ -1949,6 +2222,20 @@ def main() -> int:
         f"{piped['profile']['tbe_streams']}, "
         f"{piped['profile']['overlap_ms']:.3f} ms of side work under forward"
         f" kernels")
+    pa, pb = planned["a"], planned["b"]
+    log(f"planned (6c): A serialized median flush "
+        f"{statistics.median(pa['flush_ms']):.3f} ms (phase 4 "
+        f"{statistics.median(cached['flush_ms']):.3f}), hit rate "
+        f"{pa['hit_rate']:.4f}, latency p50/p99 "
+        f"{1e3 * pa['latency']['p50']:.3f}/{1e3 * pa['latency']['p99']:.3f} "
+        f"ms; B pipelined run {pb['wall_ms']:.3f} ms, hit rate "
+        f"{pb['hit_rate']:.4f}, latency p50/p99 "
+        f"{1e3 * pb['latency']['p50']:.3f}/{1e3 * pb['latency']['p99']:.3f} "
+        f"ms, {pb['fetches']} fetches, peak {pb['peak_gb']:.1f} GB")
+    log(f"planned (6c) fit: A gather_overhead_s "
+        f"{pa['fit']['gather_overhead_s']:.6g}, host_Bps "
+        f"{pa['fit']['host_Bps']:.6g}; B one-sided alpha_s "
+        f"{pb['fit']['alpha_s']:.6g}, beta_Bps {pb['fit']['beta_Bps']:.6g}")
     log("distributed (median flush ms): " + ", ".join(
         f"{label} {statistics.median(dist[label]['flush_ms']):.3f}"
         for label, _, _ in STRATEGIES))

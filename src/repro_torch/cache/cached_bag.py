@@ -18,6 +18,7 @@ weights, same summation order, same row payloads.
 """
 from __future__ import annotations
 
+import itertools
 import time
 from typing import Optional
 
@@ -43,6 +44,12 @@ def _valid_mask(indices: np.ndarray, lengths: Optional[np.ndarray]):
         return indices, np.ones(indices.shape, bool)
     L = indices.shape[-1]
     return indices, np.arange(L) < np.asarray(lengths)[..., None]
+
+
+# process-wide prefetch sequence: tags each prefetch's cache-lane spans so
+# the obs tracer can group one prefetch's fetch + scatter into one
+# calibration sample even when several bags share a timeline
+_PREFETCH_SEQ = itertools.count()
 
 
 def make_cold_store(tables: torch.Tensor, cache: CacheConfig, *,
@@ -98,6 +105,9 @@ class CachedEmbeddingBag:
         self._row_offsets = torch.as_tensor(
             self.mgr.slot_offsets[:-1], dtype=torch.int32, device=self.device)
         self.stats = stats if stats is not None else CacheStats()
+        # optional obs tracer (anything with add_span): the engine attaches
+        # it so admit/fetch/scatter land on the timeline's cache lane
+        self.tracer = None
         self.row_bytes = D * tables.element_size()
         if cc.warmup_freqs is not None:
             self.mgr.seed_frequencies(np.asarray(cc.warmup_freqs))
@@ -126,6 +136,17 @@ class CachedEmbeddingBag:
             except BaseException:
                 self.mgr.invalidate_fetch(plan)
                 raise
+            if self.tracer is not None:
+                # one seq per prefetch: the tracer groups this pair into
+                # one calibration sample (Tracer.stage_samples)
+                args = {"seq": next(_PREFETCH_SEQ),
+                        "bytes": int(rows.numel() * rows.element_size()),
+                        "tier": self.cold.tier}
+                self.tracer.add_span("cache.fetch", t0, ts, lane="cache",
+                                     cat="cache", args=args)
+                self.tracer.add_span("cache.scatter", ts, ts + scatter_s,
+                                     lane="cache", cat="cache",
+                                     args=dict(args))
         self.stats.add_time("prefetch", time.perf_counter() - t0 - scatter_s)
         self.stats.add_time("scatter", scatter_s)
         self.stats.update(**plan.stats_kwargs(self.row_bytes),
@@ -140,7 +161,11 @@ class CachedEmbeddingBag:
         ``lengths`` None means every slot is valid."""
         t0 = time.perf_counter()
         plan = self.mgr.prepare(*_valid_mask(indices, lengths))
-        self.stats.add_time("prefetch", time.perf_counter() - t0)
+        t1 = time.perf_counter()
+        self.stats.add_time("prefetch", t1 - t0)
+        if self.tracer is not None:
+            self.tracer.add_span("cache.admit", t0, t1, lane="cache",
+                                 cat="cache", args={"tier": self.cold.tier})
         self._apply_fetch(plan, count_batch=True)
         return plan.remapped
 

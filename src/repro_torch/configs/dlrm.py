@@ -4,7 +4,8 @@ The counterpart of ``repro.configs.dlrm``: 13 dense features -> bottom MLP
 (512, 256, 128); 26 sparse features -> 26 embedding tables of 1,000,000
 rows x 128; dot-product feature interaction; top MLP (1024, 1024, 512,
 256, 1).  ``CONFIG`` is the full-width inference configuration,
-``smoke()`` the CPU test size.
+``smoke()`` the CPU test size.  ``sharding_plan`` carries a planner's
+per-table slot pools into the engines, as in the reference.
 """
 from __future__ import annotations
 
@@ -31,6 +32,15 @@ class DLRMConfig:
     dtype: str = "float32"
     fused: bool = True                   # ONE TBE launch for all tables
     cache: Optional[CacheConfig] = None  # tiered cache; CacheConfig() = off
+    # planner -> engine round trip: a core.sharding_plan.ShardingPlan whose
+    # "cached" placements size HETEROGENEOUS slot pools (one flat
+    # (sum S_t, D) device pool; capacity and eviction per table).
+    # Placements map to tables by POSITION (Placement.index), never by
+    # name.  Tables the planner did not price as "cached" fall back to
+    # cache.rows (or to pooling when cache.rows == 0).  Data, not
+    # architecture: excluded from equality and hashing.
+    sharding_plan: object = dataclasses.field(
+        default=None, compare=False, repr=False)
 
     def __post_init__(self):
         if self.bottom_mlp[-1] != self.embedding_dim:
@@ -41,7 +51,22 @@ class DLRMConfig:
         if self.cache is None:
             object.__setattr__(self, "cache", CacheConfig())
 
+    def cache_rows_vector(self) -> Optional[Tuple[int, ...]]:
+        """Per-table slot counts the tiered store should use, or None
+        when no plan is attached (the uniform ``cache.rows`` path)."""
+        if self.sharding_plan is None:
+            return None
+        fallback = self.cache.rows if self.cache.rows > 0 else self.pooling
+        return tuple(self.sharding_plan.cache_rows_vector(
+            self.num_sparse_features, default=fallback))
+
     def embedding_config(self) -> EmbeddingBagConfig:
+        """The embedding bag's config; a plan's slot vector is folded into
+        ``cache.rows_per_table``."""
+        cache = self.cache
+        per_table = self.cache_rows_vector()
+        if per_table is not None:
+            cache = dataclasses.replace(cache, rows_per_table=per_table)
         return EmbeddingBagConfig(
             num_tables=self.num_sparse_features,
             rows_per_table=self.rows_per_table,
@@ -51,7 +76,7 @@ class DLRMConfig:
             rw_backend=self.rw_backend,
             dtype=self.dtype,
             fused=self.fused,
-            cache=self.cache,
+            cache=cache,
         )
 
     @property

@@ -28,8 +28,14 @@ on the card, while the current micro-batch's forward runs on the main
 stream; events order the two streams.  Its scores are bitwise equal to
 ``DLRMEngine``'s.
 
+A ``cfg.sharding_plan`` (``core.sharding_plan.plan``) sizes the slot pools
+per table, in both engines, as in the reference; the pipelined engine then
+needs no ``cache.rows``.  ``telemetry=`` (``repro_torch.obs.Telemetry``)
+puts each engine on one host-clock timeline with latency histograms and
+the windowed hit-rate instruments the SLO monitor and drift detector read.
+
 Float32 products run in full float32 on the card (TF32 off), as in the
-reference.  Telemetry comes with a later slice of the port.
+reference.
 """
 from __future__ import annotations
 
@@ -218,10 +224,23 @@ class CTRRequest:
 class DLRMEngine:
     """Micro-batching CTR inference over the DLRM forward on ``device``
     (None: the card; the parameters must live there), distributed over
-    ``ctx``'s simulated model axis when one is given."""
+    ``ctx``'s simulated model axis when one is given.
+
+    ``telemetry`` (a :class:`repro_torch.obs.Telemetry`) puts the engine
+    on the unified timeline: ``submit`` stamps each request's enqueue
+    time, ``flush`` records prefetch/forward spans on the engine lane and
+    one enqueue->score latency observation per scored request
+    (``<obs_name>.request_latency_s`` histogram + request-lane span), the
+    cache's admit/fetch/scatter spans land on the cache lane, and the
+    engine's ``CacheStats`` joins ``telemetry.metrics`` as the
+    ``<obs_name>.cache`` producer.  None (the default) costs one attribute
+    check per flush."""
+
+    OBS_NAME = "dlrm"
 
     def __init__(self, params, cfg: DLRMConfig, batch_size: int,
-                 ctx: Optional[ParallelContext] = None, *, device=None):
+                 ctx: Optional[ParallelContext] = None, *, device=None,
+                 telemetry=None, obs_name: Optional[str] = None):
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             # full-fp32 MLP products, like the reference's
@@ -233,8 +252,20 @@ class DLRMEngine:
         self.params, self.cfg, self.ctx = params, cfg, ctx
         self.batch_size = batch_size
         self.queue: List[CTRRequest] = []
+        self.telemetry = telemetry
+        self.obs_name = obs_name if obs_name is not None else self.OBS_NAME
+        # rid -> perf_counter enqueue stamp, popped at scoring, so a
+        # pipeline failure's requeued requests keep their ORIGINAL stamps
+        self._enqueue_t: Dict[int, float] = {}
+        # rid -> dequeue stamp (the micro-batch carve): splits latency into
+        # queue wait and service time; a capacity split's survivors are
+        # stamped again at their next carve
+        self._dequeue_t: Dict[int, float] = {}
+        # cache counters at the last batch tick (windowed hit-rate deltas)
+        self._cache_counter_state = None
         self.cache = None
-        if cfg.cache.enabled and ctx is not None:
+        cached = cfg.cache.enabled or cfg.sharding_plan is not None
+        if cached and ctx is not None:
             raise NotImplementedError(
                 "DLRMEngine: the tiered cache path scores on a single "
                 "serving device (an enabled cfg.cache with a "
@@ -245,20 +276,43 @@ class DLRMEngine:
             # views of params["tables"], column shards one copy
             self.params = {**params, "tables": shard_tables(
                 params["tables"], cfg.embedding_config(), ctx.tp_size)}
-        if cfg.cache.enabled:
-            slots = (cfg.cache.rows_per_table
-                     if cfg.cache.rows_per_table is not None
-                     else (cfg.cache.rows,))
-            if min(slots) < cfg.pooling:
-                raise ValueError(
-                    f"cache rows ({min(slots)}) must be >= pooling "
-                    f"({cfg.pooling}) so a single request's working set "
-                    f"always fits the slot pool (CacheConfig.rows)")
+        if cached:
+            per_table = cfg.cache_rows_vector()
+            if per_table is not None:
+                # plan-sized heterogeneous pools: EVERY table's own S_t
+                # must hold one request's working set
+                small = [(t, s) for t, s in enumerate(per_table)
+                         if s < cfg.pooling]
+                if small:
+                    raise ValueError(
+                        f"sharding_plan slot pools {small} are smaller "
+                        f"than pooling ({cfg.pooling}) — every table's "
+                        f"cache_rows must fit one request's working set")
+            else:
+                slots = (cfg.cache.rows_per_table
+                         if cfg.cache.rows_per_table is not None
+                         else (cfg.cache.rows,))
+                if min(slots) < cfg.pooling:
+                    raise ValueError(
+                        f"cache rows ({min(slots)}) must be >= pooling "
+                        f"({cfg.pooling}) so a single request's working "
+                        f"set always fits the slot pool (CacheConfig.rows)")
             self.cache = self._make_cache(params["tables"],
                                           cfg.embedding_config())
             # the cold tier now lives inside the cache (host memory, or the
             # remote tier's row shards): serving keeps no full tables
             self.params = {**params, "tables": None}
+            if self.telemetry is not None:
+                # cache-lane spans: every bag of the (possibly
+                # double-buffered) pool records onto the one timeline
+                bags = getattr(self.cache, "buffers", [self.cache])
+                for bag in bags:
+                    bag.tracer = self.telemetry.tracer
+                self.telemetry.metrics.register_producer(
+                    f"{self.obs_name}.cache", self.cache.stats.as_dict,
+                    replace=True)
+                self._cache_counter_state = \
+                    self.cache.stats.counter_state()
 
     def _make_cache(self, tables: torch.Tensor, ecfg):
         """The tiered cache over ``tables`` on the engine's device; the
@@ -301,6 +355,10 @@ class DLRMEngine:
             raise ValueError(
                 f"request {req.rid}: indices must be in [0, {R})")
         self.queue.append(req)
+        if self.telemetry is not None:
+            self._enqueue_t[req.rid] = time.perf_counter()
+            self.telemetry.metrics.gauge(
+                f"{self.obs_name}.queue_depth").set(len(self.queue))
 
     def _pad_batch(self, todo: List[CTRRequest]
                    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -325,6 +383,7 @@ class DLRMEngine:
         # peek, don't pop: the cached path's prefetch can refuse the batch
         # (working set over the slot pool) and the requests must survive
         todo = self.queue[: self.batch_size]
+        self._stamp_dequeue(todo)
         while True:
             dense, idx, lens = self._pad_batch(todo)
             params = self.params
@@ -333,6 +392,7 @@ class DLRMEngine:
                 # pool and score against the pool (ids become slot ids); a
                 # refused working set splits the micro-batch -- a single
                 # request always fits (cache rows >= pooling)
+                p0 = time.perf_counter()
                 try:
                     idx = self.cache.prefetch_arrays(idx, lens)
                 except CacheCapacityError:
@@ -340,6 +400,11 @@ class DLRMEngine:
                         raise
                     todo = todo[: len(todo) // 2]
                     continue
+                if self.telemetry is not None:
+                    self.telemetry.tracer.add_span(
+                        f"{self.obs_name}.prefetch", p0, time.perf_counter(),
+                        lane="engine", cat="engine",
+                        args={"engine": self.obs_name, "batch": len(todo)})
                 params = {**self.params, "tables": self.cache.pool}
             break
         batch = JaggedBatch(
@@ -351,10 +416,90 @@ class DLRMEngine:
                 params, torch.as_tensor(dense, device=self.device), batch,
                 self.cfg, self.ctx)
             p = torch.sigmoid(logits).cpu().numpy()
+        t1 = time.perf_counter()
         if self.cache is not None:
-            self.cache.stats.add_time("forward", time.perf_counter() - t0)
+            self.cache.stats.add_time("forward", t1 - t0)
+        if self.telemetry is not None:
+            self.telemetry.tracer.add_span(
+                f"{self.obs_name}.forward", t0, t1, lane="engine",
+                cat="engine",
+                args={"engine": self.obs_name, "batch": len(todo)})
         self.queue = self.queue[len(todo):]
+        self._record_scored(todo, t1)
         return {req.rid: float(p[i]) for i, req in enumerate(todo)}
+
+    def _stamp_dequeue(self, todo) -> None:
+        """Stamp each carved request's dequeue time (the split between
+        queue wait and service time) and sample the queue depth into the
+        gauge and its windowed histogram."""
+        if self.telemetry is None or not todo:
+            return
+        t = time.perf_counter()
+        for req in todo:
+            self._dequeue_t[req.rid] = t
+        m = self.telemetry.metrics
+        depth = len(self.queue)
+        m.gauge(f"{self.obs_name}.queue_depth").set(depth)
+        m.windowed_histogram(
+            f"{self.obs_name}.queue_depth", unit="1",
+            window=self.telemetry.window, lo=0.5, hi=1e7,
+            buckets_per_decade=5).observe(depth)
+
+    def _observe_cache_window(self) -> None:
+        """Fold this micro-batch's cache counter movement into the windowed
+        hit-rate instruments: the rolling window hits/lookups (their ratio
+        is the windowed hit rate the SLO monitor reads) and the per-table
+        EWMA ``hit_rate_t`` (the drift detector's measured side).  Under
+        the pipelined engine the next batch's prefetch may already have
+        landed when batch k is collected: one batch of attribution skew,
+        as in the reference."""
+        if self.cache is None:
+            return
+        stats = self.cache.stats
+        delta = stats.delta_since(self._cache_counter_state)
+        self._cache_counter_state = stats.counter_state()
+        if delta.lookups == 0:
+            return
+        m = self.telemetry.metrics
+        w = self.telemetry.window
+        m.rolling_counter(f"{self.obs_name}.window.hits",
+                          window=w).inc(delta.hits)
+        m.rolling_counter(f"{self.obs_name}.window.lookups",
+                          window=w).inc(delta.lookups)
+        lt = delta.lookups_t
+        if lt is not None:
+            mask = lt > 0
+            rate = np.where(mask, delta.hits_t / np.maximum(lt, 1), 0.0)
+            m.ewma(f"{self.obs_name}.hit_rate_t").update(rate, mask=mask)
+
+    def _record_scored(self, reqs, t_scored: float) -> None:
+        """Close each scored request's enqueue->score latency span, feed
+        the windowed instruments, and tick the window over: one scored
+        micro-batch is one tick (SLO listeners fire, then the engine's
+        windows rotate)."""
+        if self.telemetry is None:
+            return
+        m = self.telemetry.metrics
+        w = self.telemetry.window
+        lat = m.windowed_histogram(f"{self.obs_name}.request_latency_s",
+                                   unit="s", window=w)
+        wait = m.windowed_histogram(f"{self.obs_name}.queue_wait_s",
+                                    unit="s", window=w)
+        service = m.windowed_histogram(f"{self.obs_name}.service_s",
+                                       unit="s", window=w)
+        for req in reqs:
+            t_enq = self._enqueue_t.pop(req.rid, None)
+            if t_enq is None:
+                continue
+            self.telemetry.record_request(self.obs_name, req.rid,
+                                          t_enq, t_scored)
+            lat.observe(max(0.0, t_scored - t_enq))
+            t_deq = self._dequeue_t.pop(req.rid, None)
+            if t_deq is not None:
+                wait.observe(max(0.0, t_deq - t_enq))
+                service.observe(max(0.0, t_scored - t_deq))
+        self._observe_cache_window()
+        self.telemetry.batch_tick(self.obs_name)
 
     def cache_stats(self):
         """The tiered cache's CacheStats (None when the cache is off)."""
@@ -384,27 +529,36 @@ class PipelinedDLRMEngine(DLRMEngine):
     (a batch whose working set overflows the shadow buffer takes the
     inherited split-on-``CacheCapacityError`` loop).
 
-    ``self.trace`` holds every stage's wall-clock span; the shared
-    ``cache_stats()`` record carries the same prefetch/scatter/forward
-    timers as the serialized engine's, plus the measured ``overlap_s``.
+    ``self.trace`` holds every stage's wall-clock span (mirrored onto the
+    telemetry's pipeline lane and per-stage windowed histograms when one
+    is given); the shared ``cache_stats()`` record carries the same
+    prefetch/scatter/forward timers as the serialized engine's, plus the
+    measured ``overlap_s``.
     """
 
+    OBS_NAME = "dlrm_pipelined"
+
     def __init__(self, params, cfg: DLRMConfig, batch_size: int,
-                 ctx: Optional[ParallelContext] = None, *, device=None):
+                 ctx: Optional[ParallelContext] = None, *, device=None,
+                 telemetry=None, obs_name: Optional[str] = None):
         if cfg.cache.pipeline_depth < 2:
             raise ValueError(
                 f"PipelinedDLRMEngine needs pipeline_depth >= 2 (got "
                 f"{cfg.cache.pipeline_depth}); depth 1 is the serialized "
                 f"DLRMEngine -- use make_dlrm_engine to pick by config")
-        if not cfg.cache.enabled:
+        if not cfg.cache.enabled and cfg.sharding_plan is None:
             raise ValueError(
                 "PipelinedDLRMEngine requires the tiered cache (an enabled "
-                "cfg.cache: CacheConfig.rows > 0, formerly cache_rows): with "
-                "fully device-resident tables there is no prefetch stage to "
-                "overlap; a cfg.sharding_plan, the reference's other way "
-                "in, is not ported yet (ROADMAP, Queue 1 item 8)")
-        super().__init__(params, cfg, batch_size, ctx, device=device)
-        self.trace = PipelineTrace(label="dlrm_pipelined")
+                "cfg.cache -- CacheConfig.rows > 0, formerly cache_rows -- "
+                "or a cfg.sharding_plan): with fully device-resident tables "
+                "there is no prefetch stage to overlap")
+        super().__init__(params, cfg, batch_size, ctx, device=device,
+                         telemetry=telemetry, obs_name=obs_name)
+        self.trace = PipelineTrace(
+            tracer=None if telemetry is None else telemetry.tracer,
+            label=self.obs_name,
+            metrics=None if telemetry is None else telemetry.metrics,
+            window=32 if telemetry is None else telemetry.window)
         self.scheduler = PipelineScheduler(
             self.cache, forward=self._pipeline_forward,
             collect=self._pipeline_collect, fallback=self._pipeline_fallback,
@@ -439,6 +593,7 @@ class PipelinedDLRMEngine(DLRMEngine):
 
     def _pipeline_collect(self, payload, host_scores) -> Dict[int, float]:
         todo, _ = payload
+        self._record_scored(todo, time.perf_counter())
         return {req.rid: float(host_scores[i])
                 for i, req in enumerate(todo)}
 
@@ -469,6 +624,7 @@ class PipelinedDLRMEngine(DLRMEngine):
         batches, submitted = [], []
         while self.queue:
             todo = self.queue[: self.batch_size]
+            self._stamp_dequeue(todo)
             self.queue = self.queue[len(todo):]
             submitted.extend(todo)
             dense, idx, lens = self._pad_batch(todo)
@@ -484,10 +640,13 @@ class PipelinedDLRMEngine(DLRMEngine):
 
 def make_dlrm_engine(params, cfg: DLRMConfig, batch_size: int,
                      ctx: Optional[ParallelContext] = None, *,
-                     device=None) -> DLRMEngine:
+                     device=None, telemetry=None,
+                     obs_name: Optional[str] = None) -> DLRMEngine:
     """Build the engine ``cfg.cache.pipeline_depth`` selects on ``device``
     (None: the card): 1 is the serialized :class:`DLRMEngine`, >= 2 the
     :class:`PipelinedDLRMEngine` over a ``pipeline_depth``-deep ring of
-    slot pools."""
+    slot pools.  ``telemetry``/``obs_name`` go to the engine (see
+    :class:`DLRMEngine`)."""
     cls = PipelinedDLRMEngine if cfg.cache.pipeline_depth > 1 else DLRMEngine
-    return cls(params, cfg, batch_size, ctx, device=device)
+    return cls(params, cfg, batch_size, ctx, device=device,
+               telemetry=telemetry, obs_name=obs_name)

@@ -45,7 +45,11 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
             "repro_torch.core.parallel",
             "repro_torch.kernels.onesided_a2a",
             "repro_torch.models.lm", "repro_torch.models.decode",
-            "repro_torch.kernels.flash_attention"} <= set(mods)
+            "repro_torch.kernels.flash_attention",
+            "repro_torch.core.perf_model", "repro_torch.core.sharding_plan",
+            "repro_torch.obs", "repro_torch.obs.metrics",
+            "repro_torch.obs.timeseries", "repro_torch.obs.trace",
+            "repro_torch.obs.slo", "repro_torch.obs.export"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"

@@ -356,12 +356,13 @@ def test_engine_selection_and_guards(models):
     assert isinstance(piped, PipelinedDLRMEngine)
     assert isinstance(piped.cache, DoubleBufferedSlotPool)
     assert piped.cache.depth == 3 and piped.scheduler.side is None
-    # a pipeline without a cache has no prefetch stage to overlap
+    # a pipeline without a cache (and without a plan sizing one) has no
+    # prefetch stage to overlap
     with pytest.raises(ValueError, match="cache_rows") as err:
         PipelinedDLRMEngine(params, _with_cache(tcfg, rows=0,
                                                 pipeline_depth=2), 2,
                             device="cpu")
-    assert "Queue 1 item 8" in str(err.value)
+    assert "sharding_plan" in str(err.value)
     with pytest.raises(ValueError, match="pipeline_depth"):
         PipelinedDLRMEngine(params, base, 2, device="cpu")
     with pytest.raises(ValueError, match="pipeline_depth"):
