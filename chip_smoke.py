@@ -29,6 +29,13 @@ Phases:
      128) causal and (1, 9000, 32/8, 128) under a 4096 window, bf16,
      each case on the route the wrapper chose: bf16 at hd 64/128 on the
      wgmma kernel, f32 and hd 16/32 on the SIMT kernel;
+  2c. every attached kernel contract (repro_torch.analysis.fixtures) on
+     the card: each fixture's one call under set_sync_debug_mode("error")
+     and a dispatch-mode census, its wrapper calls, LAUNCH_COUNTS deltas
+     and the profiler's TBE device kernels within the contract's launch
+     bounds (one TBE kernel for the fused, flat and device_lookup
+     contracts), no collective, no host transfer, no f64, the scatter in
+     place;
   3. the uncached engine at full width (CONFIG: 26 x 1,000,000 x 128 fp32
      tables) serving 8192 requests in flushes of 2048: scores against a
      plain score on the card, one TBE launch per flush, and 26
@@ -86,6 +93,19 @@ Phases:
      (bitwise phase 3); a no-drop traffic (uniform ids, every length 32)
      where a2a drops nothing and agrees with uncached; flush medians, one
      profiled a2a flush, the kernels' times beside their bounds;
+  7t. DLRM training at full width (phase 3's tables freed first; fresh
+     tables from a seed): at a small size, the fused, unfused and flat
+     ops' gradients (tables and weights) against autograd of the plain
+     versions; then the test_dlrm flow on one Zipf batch of 2048 from
+     dlrm_batches (-1 past each length), the flow's 20 steps of row-wise
+     Adagrad on the tables and SGD on the MLPs at lr 0.05: the forward's pooled
+     output bitwise the wrapper's, each forward one gather_pool_tbe launch
+     and the backward and update none, d tables within n * 2**-24 *
+     sum|c| of a float64 host sum of the same contributions and zero
+     elsewhere (also through fused=False: 26 launches), the two-run
+     backward difference, untouched rows bitwise unchanged and accum
+     zero there, the loss down; stage times (CUDA events), a profiled
+     step's TBE kernels and idle share, peak device memory;
   8. LM serving: granite-8b at full width in bf16 (random weights from a
      seed) through ContinuousBatcher (4 slots of 16,416 positions) over 8
      requests, 2 prompts of 16,384 tokens (the flash kernel: 36 launches
@@ -561,6 +581,66 @@ def check_flash(pt) -> float:
             pt.fa, q, k, v, True, window,
             f"granite (1, {s}, {H}/{KH}, {hd}) causal window={window} bf16"))
     return err
+
+
+# ---------------------------------------------------------------------------
+# 2c. kernel contracts on the card
+# ---------------------------------------------------------------------------
+
+# the contracts whose fixture must show one TBE kernel in its profile
+ONE_TBE_KERNEL = ("kernels.ops.embedding_bag_batched[fused]",
+                  "kernels.ops.embedding_bag_batched_flat",
+                  "cache.cached_bag.device_lookup")
+
+
+def phase_contracts(pt) -> dict:
+    """Every attached kernel contract against its fixture on the card
+    (``repro_torch.analysis.fixtures.run_all``): each fixture's one call
+    runs under set_sync_debug_mode("error") and a dispatch-mode census,
+    with its kernel-wrapper calls, LAUNCH_COUNTS deltas and the profiler's
+    TBE device kernels held to the contract's launch bounds."""
+    log("== 2c. kernel contracts on the card (fixtures at the reference's "
+        "shapes; sync debug mode 'error'; TBE kernels by the profiler)")
+    t0 = time.perf_counter()
+    reports = pt.fixtures.run_all(device=DEV, device_kernel=pt.TBE_KERNEL)
+    check(len(reports) == len(pt.repo_contracts()),
+          "a fixture for every attached contract")
+    out = {}
+    for r in reports:
+        c = r.census
+        log(f"  {r.contract.name}: {'ok' if r.ok else 'FAIL'}; wrapper "
+            f"calls {c.calls}, launches {c.launches}, TBE device kernels "
+            f"{c.device_kernels}, collectives {c.collectives or 'none'}, "
+            f"host transfers {c.host_transfers or 'none'}, float dtypes "
+            f"{sorted(c.float_dtypes)}")
+        for v in r.violations:
+            log(f"    - {v}")
+        check(r.ok, f"contract {r.contract.name} holds on the card")
+        out[r.contract.name] = c.device_kernels
+    for name in ONE_TBE_KERNEL:
+        check(out[name] == 1, f"{name}: one TBE device kernel per call")
+    # injected faults on the card: a .item() (the dispatch census and the
+    # sync mode both see it), and a pageable host-to-device copy inside
+    # torch.as_tensor, which no dispatch mode sees
+    contract = pt.kops.KERNEL_CONTRACTS["tbe_fused"]
+    x = torch.randn(64, 16, device=DEV)
+    faults = {
+        ".item()": lambda v: v * float(v.abs().max().item()),
+        "torch.as_tensor(numpy, device=cuda)": lambda v: v + torch.as_tensor(
+            np.arange(16, dtype=np.float32), device=v.device),
+    }
+    for label, fn in faults.items():
+        r = pt.audit(fn, (x,), dataclasses.replace(contract, min_launches=0,
+                                                   max_launches=0))
+        # caught as a host transfer and as nothing else
+        caught = bool(r.census.host_transfers) and bool(r.violations) and \
+            all(v.startswith("host transfer ") for v in r.violations)
+        log(f"  injected {label}: {'caught' if caught else 'NOT CAUGHT'} "
+            f"{r.census.host_transfers}; violations {r.violations}")
+        check(caught, f"the audit on the card catches an injected {label} "
+                      f"as a host transfer")
+    log(f"  phase 2c: {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1961,6 +2041,382 @@ def phase_distributed(pt, eg, oa, unc) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 7t. DLRM training at full width
+# ---------------------------------------------------------------------------
+
+# the test_dlrm flow's steps on its one batch: at CONFIG's width and lr
+# 0.05 the loss first rises (the first row-wise Adagrad step moves each
+# touched element by about lr), in the reference as well
+# (tests/test_torch_train.py), and falls under its start by step 20
+TRAIN_STEPS = 20
+TRAIN_LR = 0.05
+TRAIN_SEED = 11
+# the card's gradient against a float64 sum of the same f32 contributions
+# on the host: n terms summed in f32 in any order are within
+# n * 2**-24 * sum|c| of the exact sum (each of the n - 1 additions rounds
+# once; the host sum's own error is ~1e-16 relative)
+SEGSUM_ULP = 2.0 ** -24
+# small-size backwards on the card against autograd of the plain versions:
+# two f32 orders of a few terms
+GRAD_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _mlp_leaves(params) -> list:
+    return [layer[k] for group in ("bottom", "top")
+            for layer in params[group] for k in ("w", "b")]
+
+
+def _all_counts(kmods) -> dict:
+    return {k: v for mod in kmods for k, v in mod.LAUNCH_COUNTS.items()}
+
+
+def _find_node(root, name):
+    """The autograd node named ``name`` in the graph under ``root``."""
+    seen, todo = set(), [root]
+    while todo:
+        node = todo.pop()
+        if node is None or node in seen:
+            continue
+        seen.add(node)
+        if node.name() == name:
+            return node
+        todo.extend(n for n, _ in node.next_functions)
+    raise RuntimeError(f"no {name} node in the graph")
+
+
+def _segsum_host(g, flat_ids, live):
+    """The float64 segment sum on the host of the live slots' f32
+    contributions ``g[t, b]`` (weight 1) into their flat rows: (rows,
+    sums, |terms| sums, term counts), rows sorted."""
+    t_i, b_i, _ = torch.nonzero(live, as_tuple=True)
+    contrib = g[t_i, b_i].double().cpu().numpy()           # (n_live, D)
+    ids = flat_ids[live].cpu().numpy()
+    order = np.argsort(ids, kind="stable")
+    ids, contrib = ids[order], contrib[order]
+    starts = np.flatnonzero(np.r_[True, ids[1:] != ids[:-1]])
+    rows = ids[starts]
+    sums = np.add.reduceat(contrib, starts, axis=0)
+    abs_sums = np.add.reduceat(np.abs(contrib), starts, axis=0)
+    counts = np.diff(np.r_[starts, ids.size])
+    return rows, sums, abs_sums, counts
+
+
+def _check_segsum(label, d_flat, host) -> float:
+    """The card's gradient rows against the host's float64 sums, each
+    element within ``n * 2**-24 * sum|c|``; returns the largest error."""
+    rows, sums, abs_sums, counts = host
+    got = d_flat[torch.as_tensor(rows, device=d_flat.device)].double(
+        ).cpu().numpy()
+    err = np.abs(got - sums)
+    bound = counts[:, None] * SEGSUM_ULP * abs_sums
+    ok = bool((err <= bound).all())
+    log(f"  {label}: {rows.size} live rows (up to {int(counts.max())} "
+        f"terms a row) against the float64 host sum: max_abs_err "
+        f"{err.max():.3e}, largest share of its bound "
+        f"{float((err / np.maximum(bound, 1e-300)).max()):.3f} "
+        f"{'ok' if ok else 'FAIL'}")
+    check(ok, f"{label} within n * 2**-24 * sum|c| of the float64 sum")
+    return float(err.max())
+
+
+def _small_backwards(pt, eg) -> None:
+    """At a small size on the card: the fused, unfused and flat ops'
+    gradients (tables and weights) against autograd of the plain
+    versions on the same inputs."""
+    dev = torch.device(DEV)
+    g = torch.Generator(device=dev).manual_seed(TRAIN_SEED + 1)
+    t_, r_, d_, b_, l_ = 4, 1000, D, 64, 8
+    tables = torch.randn((t_, r_, d_), generator=g, device=dev)
+    lens = torch.randint(0, l_ + 1, (t_, b_), generator=g, device=dev,
+                         dtype=torch.int32)
+    live = torch.arange(l_, device=dev) < lens[..., None]
+    idx = torch.where(live, torch.randint(0, r_, (t_, b_, l_), generator=g,
+                                          device=dev, dtype=torch.int32), -1)
+    w = torch.rand((t_, b_, l_), generator=g, device=dev)
+    flat = tables.view(t_ * r_, d_)
+    off = (torch.arange(t_, device=dev) * r_).to(torch.int32)
+    cases = {
+        "fused": (lambda tb, ww: pt.kops.embedding_bag_batched(
+            tb, idx, lens, ww, fused=True), tables),
+        "unfused": (lambda tb, ww: pt.kops.embedding_bag_batched(
+            tb, idx, lens, ww, fused=False), tables),
+        "flat": (lambda tb, ww: pt.kops.embedding_bag_batched_flat(
+            tb, off, idx, lens, ww), flat),
+    }
+    plain = {
+        "fused": lambda tb, ww: pt.ref.embedding_bag_batched_ref(
+            tb, torch.where(live, idx, 0), lens, ww),
+        "unfused": lambda tb, ww: torch.stack([
+            pt.ref.embedding_bag_ref(tb[t], torch.where(live[t], idx[t], 0),
+                                     lens[t], ww[t]) for t in range(t_)]),
+        "flat": lambda tb, ww: pt.ref.embedding_bag_batched_flat_ref(
+            tb, off, torch.where(live, idx, 0), lens, ww),
+    }
+    expect = {"fused": {"gather_pool_tbe": 1}, "unfused": {"gather_pool": t_},
+              "flat": {"gather_pool_tbe_flat": 1}}
+    for name, (fn, base) in cases.items():
+        grads = []
+        for f in (fn, plain[name]):
+            tb = base.clone().requires_grad_()
+            ww = w.clone().requires_grad_()
+            eg.reset_launch_counts()
+            out = f(tb, ww)
+            grads.append(torch.autograd.grad((out ** 2).sum(), (tb, ww)))
+            if f is fn:
+                launches = {k: v for k, v in eg.LAUNCH_COUNTS.items() if v}
+        for what, got, want in zip(("d tables", "d eff_w"), *grads):
+            compare(f"{name} backward {what} (T={t_}, R={r_}, B={b_}, "
+                    f"L={l_})", got, want, GRAD_TOL)
+        log(f"    {name}: launches of the forward and backward {launches}")
+        check(launches == expect[name],
+              f"{name}: the forward's launches, none in the backward")
+
+
+class _GradProbe:
+    """Step 0's checks, between its backward and its update: the upstream
+    gradient of the TBE forward (taken by a prehook on its backward node)
+    summed per row in float64 on the host against the card's d tables;
+    zero rows; a second backward on the same graph; and the same step's
+    gradient through the unfused path (26 single-table launches)."""
+
+    def __init__(self, pt, kmods, params, flat_ids, live, touched, inputs):
+        self.pt, self.kmods, self.params = pt, kmods, params
+        self.flat_ids, self.live, self.touched = flat_ids, live, touched
+        self.inputs = inputs
+        self.g, self.out = [], {}
+
+    def attach(self, loss) -> None:
+        node = _find_node(loss.grad_fn, "_PooledLookupTBEBackward")
+        node.register_prehook(lambda grad_out: self.g.append(grad_out[0]))
+
+    def check(self, loss, leaves, grads) -> None:
+        pt, out = self.pt, self.out
+        T_, R_, D_ = leaves[0].shape
+        d_flat = grads[0].view(T_ * R_, D_)
+        host = _segsum_host(self.g[0], self.flat_ids, self.live)
+        out["max_abs_err"] = _check_segsum("d tables (fused)", d_flat, host)
+        check(not bool(((d_flat != 0).any(-1) & ~self.touched).any()),
+              "d tables exactly zero on every untouched row")
+        log("  d tables: exactly zero on every untouched row")
+        # the same backward again on the same graph: the atomic adds land
+        # in another order
+        (again,) = torch.autograd.grad(loss, [leaves[0]])
+        rows = torch.as_tensor(host[0], device=d_flat.device)
+        out["run_diff"] = float((again.view(T_ * R_, D_)[rows]
+                                 - d_flat[rows]).abs().max())
+        log(f"  two backward runs on identical inputs: max_abs_diff "
+            f"{out['run_diff']:.3e} over the live rows "
+            f"({'bitwise equal' if out['run_diff'] == 0 else 'not bitwise'})")
+        del again
+        # the unfused path at full width: T single-table launches forward,
+        # none backward, the same gradient within the same bound
+        dense, batch, labels, cfg = self.inputs
+        for mod in self.kmods:
+            mod.reset_launch_counts()
+        loss_u = pt.dlrm.bce_loss(self.params, dense, batch, labels,
+                                  dataclasses.replace(cfg, fused=False))
+        fwd = _all_counts(self.kmods)
+        (d_u,) = torch.autograd.grad(loss_u, [leaves[0]])
+        check(fwd == _launches(gather_pool=T_)
+              and _all_counts(self.kmods) == fwd,
+              "fused=False training: T gather_pool launches forward, none "
+              "backward")
+        out["unfused_launches"] = fwd["gather_pool"]
+        out["unfused_err"] = _check_segsum("d tables (fused=False)",
+                                           d_u.view(T_ * R_, D_), host)
+        del d_u, loss_u
+
+
+def _train_step(pt, kmods, params, accum, inputs, probe=None):
+    """One step of the flow: the loss (``dlrm.bce_loss``), the gradients of
+    the tables and every MLP leaf (``torch.autograd.grad``), row-wise
+    Adagrad on the tables and SGD on the MLPs.  Returns the loss, the new
+    tables, accum and MLP leaves (the caller commits them), the stages'
+    CUDA-event times and each stage's own launches (forward, backward,
+    update).  ``probe`` runs between the backward and the update, outside
+    the timed stages and the counts."""
+    leaves = [params["tables"]] + _mlp_leaves(params)
+    for p in leaves:
+        p.requires_grad_()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    for mod in kmods:
+        mod.reset_launch_counts()
+    ev[0].record()
+    loss = pt.dlrm.bce_loss(params, *inputs)
+    ev[1].record()
+    marks = [_all_counts(kmods)]
+    if probe is not None:
+        probe.attach(loss)
+    grads = torch.autograd.grad(loss, leaves,
+                                retain_graph=probe is not None)
+    ev[2].record()
+    marks.append(_all_counts(kmods))
+    if probe is not None:
+        probe.check(loss, leaves, grads)
+    value = loss.detach()
+    del loss
+    marks.append(_all_counts(kmods))
+    ev[3].record()
+    with torch.no_grad():
+        new, accum = pt.rowwise_adagrad_update(
+            params["tables"].detach(), accum, grads[0], lr=TRAIN_LR)
+        mlp = [p.detach() - TRAIN_LR * gg
+               for p, gg in zip(leaves[1:], grads[1:])]
+    ev[4].record()
+    marks.append(_all_counts(kmods))
+    counts = [marks[0]] + [{k: b[k] - a[k] for k in a}
+                           for a, b in ((marks[0], marks[1]),
+                                        (marks[2], marks[3]))]
+    del grads
+    torch.cuda.synchronize()
+    ms = dict(forward=ev[0].elapsed_time(ev[1]),
+              backward=ev[1].elapsed_time(ev[2]),
+              update=ev[3].elapsed_time(ev[4]))
+    return value, new, accum, mlp, ms, counts
+
+
+def _commit(params, new, mlp) -> None:
+    params["tables"] = new
+    for layer, (w, b) in zip([layer for group in ("bottom", "top")
+                              for layer in params[group]],
+                             zip(mlp[0::2], mlp[1::2])):
+        layer["w"], layer["b"] = w, b
+
+
+def _profile_step(pt, kmods, params, accum, inputs, step_ms) -> dict:
+    """One more step under torch.profiler, its results dropped: the TBE
+    device kernels it ran, the device's busy time and its idle share of
+    the median unprofiled step.  A profile with no device event at all is
+    taken again, up to 3 times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            out = _train_step(pt, kmods, params, accum, inputs)
+        del out
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and e.self_device_time_total > 0
+                  and not e.key.startswith("Activity Buffer")]
+        if events:
+            break
+    tbe = sum(e.count for e in events if "tbe_gather_pool_kernel" in e.key)
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    idle = 100 - 100 * busy / step_ms
+    log(f"  profiled step: {tbe} TBE device kernel(s); device busy "
+        f"{busy:.3f} ms of the median step's {step_ms:.3f} ms; idle "
+        f"{idle:.1f}%")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"    {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<4d} "
+            f"{e.key[:90]}")
+    check(tbe == 1, "the profiled step ran one TBE device kernel")
+    return dict(tbe_kernels=tbe, busy_ms=busy, idle=idle)
+
+
+def phase_train(pt, eg, oa) -> dict:
+    """The test_dlrm training flow at CONFIG's full width on the card:
+    fresh tables from a seed (phase 3's are freed before; no later check
+    reads the trained ones), one Zipf(1.05) batch of B=2048 from
+    dlrm_batches with -1 past each length, TRAIN_STEPS steps of row-wise
+    Adagrad on the tables and SGD on the MLPs at lr 0.05."""
+    cfg = pt.CONFIG
+    T_, R_, D_, L_ = (cfg.num_sparse_features, cfg.rows_per_table,
+                      cfg.embedding_dim, cfg.pooling)
+    log(f"== 7t. DLRM training at full width ({T_} x {R_} x {D_} "
+        f"{cfg.dtype}, B={BATCH}, {TRAIN_STEPS} steps, lr {TRAIN_LR})")
+    kmods = (eg, oa, pt.fa)
+    dev = torch.device(DEV)
+    t0 = time.perf_counter()
+    _small_backwards(pt, eg)
+    torch.cuda.empty_cache()
+    log(f"  device memory held by earlier phases: "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    torch.cuda.reset_peak_memory_stats()
+    params = pt.init_params(torch.Generator(device=dev).manual_seed(
+        TRAIN_SEED), cfg, device=dev)
+    data = next(pt.dlrm_batches(cfg, BATCH, seed=TRAIN_SEED, zipf_a=1.05,
+                                fixed_pooling=False, device=dev))
+    lens = data["batch"].lengths
+    live = torch.arange(L_, device=dev) < lens[..., None]
+    batch = pt.JaggedBatch(torch.where(live, data["batch"].indices, -1)
+                           .to(torch.int32), lens)
+    inputs = (data["dense"], batch, data["labels"], cfg)
+    flat_ids = (torch.where(live, batch.indices, 0).long()
+                + torch.arange(T_, device=dev)[:, None, None] * R_)
+    touched = torch.zeros(T_ * R_, dtype=torch.bool, device=dev)
+    touched[flat_ids[live]] = True
+    log(f"  {int(live.sum())} live lookups of {T_ * BATCH * L_}, "
+        f"{int(touched.sum())} touched rows of {T_ * R_}")
+
+    # the forward with the tables requiring grad: bitwise the wrapper's
+    ecfg = cfg.embedding_config()
+    tables = params["tables"].requires_grad_()
+    trained = pt.eb.pooled_lookup_local(tables, batch, ecfg)
+    with torch.no_grad():
+        served = pt.eb.pooled_lookup_local(tables, batch, ecfg)
+        wrapper = eg.gather_pool_tbe(
+            tables, pt.kops._safe_ids(batch.indices, lens),
+            pt.kops._effective_weights(batch.indices, lens, None))
+    check(trained.requires_grad and torch.equal(trained.detach(), served)
+          and torch.equal(served, wrapper.transpose(0, 1)),
+          "the training forward's pooled output bitwise == the wrapper's")
+    log("  pooled output with grad, without, and the wrapper's: bitwise "
+        "equal")
+    del trained, served, wrapper, tables
+
+    accum = pt.rowwise_adagrad_init(params["tables"])
+    probe = _GradProbe(pt, kmods, params, flat_ids, live, touched, inputs)
+    losses, stages, fwd_launches = [], [], 0
+    for step in range(TRAIN_STEPS):
+        loss, new, accum, mlp, ms, counts = _train_step(
+            pt, kmods, params, accum, inputs,
+            probe=probe if step == 0 else None)
+        old = params["tables"].detach()
+        moved = (new.view(torch.int32) != old.view(torch.int32)).any(-1)
+        check(not bool((moved.view(-1) & ~touched).any()),
+              f"step {step}: every untouched row bitwise unchanged")
+        check(not bool(((accum != 0).view(-1) & ~touched).any()),
+              f"step {step}: accum non-zero only on touched rows")
+        del moved, old
+        _commit(params, new, mlp)
+        del new, mlp
+        fwd, bwd, upd = counts
+        check(fwd == _launches(gather_pool_tbe=1),
+              f"step {step}: the forward is one gather_pool_tbe launch")
+        check(bwd == upd == _launches(),
+              f"step {step}: the backward and the update launch nothing")
+        fwd_launches += fwd["gather_pool_tbe"]
+        losses.append(float(loss))
+        stages.append(ms)
+        log(f"  step {step}: loss {losses[-1]:.6f}; forward "
+            f"{ms['forward']:.3f} ms, backward {ms['backward']:.3f} ms, "
+            f"update {ms['update']:.3f} ms (CUDA events); launches: "
+            f"forward 1 gather_pool_tbe, backward +0, update +0")
+    with torch.no_grad():
+        last = float(pt.dlrm.bce_loss(params, *inputs))
+    log(f"  loss before the first step {losses[0]:.6f}, after the last "
+        f"{last:.6f}")
+    check(np.isfinite(losses + [last]).all() and last < losses[0],
+          "the loss after the last step is under the loss before the first")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_ms = statistics.median(sum(s.values()) for s in stages)
+    prof = _profile_step(pt, kmods, params, accum, inputs, step_ms)
+    med = {k: statistics.median(s[k] for s in stages)
+           for k in ("forward", "backward", "update")}
+    log(f"  median stage ms over {TRAIN_STEPS} steps: forward "
+        f"{med['forward']:.3f}, backward {med['backward']:.3f}, update "
+        f"{med['update']:.3f}; peak device memory {peak_gb:.1f} GB; phase "
+        f"7t: {time.perf_counter() - t0:.1f} s")
+    out = dict(probe.out, losses=losses + [last], stages=stages,
+               median=med, peak_gb=peak_gb, prof=prof, launches=fwd_launches)
+    del params, accum, probe
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # 8. LM serving
 # ---------------------------------------------------------------------------
 
@@ -2156,6 +2612,12 @@ def main() -> int:
         from repro_torch.obs import Telemetry
         from repro_torch.core import perf_model as pm
         from repro_torch.core import sharding_plan as sp
+        from repro_torch.analysis import audit, fixtures, repo_contracts
+        from repro_torch.analysis.contracts import TBE_KERNEL
+        from repro_torch.data.synthetic import dlrm_batches
+        from repro_torch.kernels import ops as kops
+        from repro_torch.optim import (rowwise_adagrad_init,
+                                       rowwise_adagrad_update)
 
     # full fp32 products on the card, as in the reference
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2164,6 +2626,7 @@ def main() -> int:
     card = phase_environment(build)
     x = phase_kernels(eg, oa)
     flash_err = check_flash(pt)
+    contracts = phase_contracts(pt)
     unc = phase_uncached(pt, eg, oa)
     cached = phase_cached(pt, eg, oa, unc)
     # the rows of the last flush's fetch, padded: a steady-state flush
@@ -2178,12 +2641,29 @@ def main() -> int:
     dist = phase_distributed(pt, eg, oa, unc)
     del unc["params"]           # phase 3's tables: 13.3 GB
     torch.cuda.empty_cache()
+    train = phase_train(pt, eg, oa)
     lm = phase_lm(pt, (eg, oa, pt.fa))
 
     log("== 9. summary")
-    launches = {**unc["launches"], "gather_pool_tbe_flat": cached["launches"],
-                "onesided_put_rows": remote["onesided"]["launches"],
-                **dist["launches"], "flash_attention": lm["launches"]}
+    # each main path's launches, read from its own run with the counts
+    # at 0 just before it; a kernel's `launches` is their sum over the
+    # paths that run it, `launches_by_path` keeps each path's own count
+    by_path = {
+        "gather_pool_tbe": {
+            "3 serving uncached": unc["launches"]["gather_pool_tbe"],
+            "7t training": train["launches"]},
+        "gather_pool": {
+            "3 serving uncached, fused=False":
+                unc["launches"]["gather_pool"],
+            "7t training, fused=False": train["unfused_launches"]},
+        "gather_pool_tbe_flat": {"4 serving cached": cached["launches"]},
+        "onesided_put_rows": {
+            "6 serving remote": remote["onesided"]["launches"]},
+        **{name: {"7 distributed": n} for name, n in dist["launches"].items()},
+        "flash_attention": {"8 LM serving": lm["launches"]},
+    }
+    check(all(n > 0 for paths in by_path.values() for n in paths.values()),
+          "every kernel launched on each main path that runs it")
     times.update(dist["times"])
     errs.update(dist["errs"])
     errs["flash_attention"] = max(flash_err, lm["err"])
@@ -2192,7 +2672,9 @@ def main() -> int:
         t = dict(times[name])
         err = max(errs[name], t.pop("max_abs_err", 0.0))
         kernels.append(dict(name=name, route="cuda", source=SOURCES[name],
-                            replaces=REPLACES[name], launches=launches[name],
+                            replaces=REPLACES[name],
+                            launches=sum(by_path[name].values()),
+                            launches_by_path=by_path[name],
                             max_abs_err=err, **t))
     log(f"uncached median flush {statistics.median(unc['flush_ms']):.3f} ms,"
         f" cached median flush {statistics.median(cached['flush_ms']):.3f} "
@@ -2243,6 +2725,17 @@ def main() -> int:
         f", onesided vs bulk {'bitwise' if dist['a2a_bitwise'] else 'within tolerance'}, "
         f"profiled a2a flush idle {dist['idle']:.1f}%, peak device memory "
         f"{dist['peak_gb']:.1f} GB")
+    log(f"contracts (2c): all {len(contracts)} hold on the card; TBE device "
+        f"kernels per fixture {contracts}")
+    med = train["median"]
+    log(f"training (7t): losses {[round(v, 6) for v in train['losses']]}, "
+        f"median forward {med['forward']:.3f} ms, backward "
+        f"{med['backward']:.3f} ms, update {med['update']:.3f} ms, device "
+        f"idle {train['prof']['idle']:.1f}% of a step, peak device memory "
+        f"{train['peak_gb']:.1f} GB, d tables vs float64 max_abs_err "
+        f"{train['max_abs_err']:.3e} (fused=False "
+        f"{train['unfused_err']:.3e}), two-run backward difference "
+        f"{train['run_diff']:.3e}")
     log(f"LM serving ({pt.LM_CONFIG.name}): {lm['tokens']} tokens in "
         f"{lm['serve_s']:.3f} s ({lm['tokens'] / lm['serve_s']:.2f} tokens/s),"
         f" prefill ms by length "

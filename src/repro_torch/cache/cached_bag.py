@@ -25,6 +25,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.analysis.contracts import KernelContract
 from repro_torch.cache.manager import PrefetchPlan, SlotPoolManager
 from repro_torch.cache.stats import CacheStats
 from repro_torch.cache.tiers import HostStore, RemoteStore, SlotPool, \
@@ -198,3 +199,17 @@ class CachedEmbeddingBag:
     @property
     def pool_bytes(self) -> int:
         return self.hot.nbytes
+
+
+# ---------------------------------------------------------------------------
+# Kernel contracts (audited by repro_torch.analysis)
+# ---------------------------------------------------------------------------
+
+KERNEL_CONTRACTS = {
+    "device_lookup": KernelContract(
+        name="cache.cached_bag.device_lookup",
+        note="the cached hot path is ONE fused gather+pool TBE launch "
+             "over the flat slot pool — no collectives, no host "
+             "transfers; every miss byte moved by the explicit prefetch "
+             "instead"),
+}

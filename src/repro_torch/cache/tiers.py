@@ -5,8 +5,8 @@ The counterpart of ``repro.cache.tiers`` for one serving device:
   * :class:`SlotPool` -- tier "hbm": the flat ``(sum S_t, D)`` device
     tensor the fused TBE kernel reads through per-table slot offsets.
     Allocated once and never reallocated; a prefetch writes its rows in
-    place with one ``index_copy_`` (the reference's donated
-    ``_scatter_rows``).
+    place with one ``index_copy_`` (:func:`_scatter_rows`, the
+    reference's donated ``_scatter_rows``).
   * :class:`HostStore` -- tier "host": the full ``(T, R, D)`` tables as a
     CPU tensor; a fetch gathers rows there and the scatter copies them to
     the device.
@@ -33,6 +33,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.analysis.contracts import KernelContract
 from repro_torch.core import comm
 from repro_torch.utils.device import resolve_device
 
@@ -47,6 +48,16 @@ def _pad_pow2(arrays):
         return arrays
     return [np.concatenate([a, np.repeat(a[-1:], pad, axis=0)])
             for a in arrays]
+
+
+def _scatter_rows(pool: torch.Tensor, addr: torch.Tensor,
+                  rows: torch.Tensor) -> torch.Tensor:
+    """Write (M, D) ``rows`` into the flat pool at the (M,) int64 ``addr``
+    rows, in place, and return the pool: O(M * D) writes per prefetch,
+    never a copy of the whole pool (the reference jits its
+    ``_scatter_rows`` with the pool donated for the same reason).
+    ``addr`` and ``rows`` are on the pool's device, in its dtype."""
+    return pool.index_copy_(0, addr, rows)
 
 
 class TableStore(abc.ABC):
@@ -117,9 +128,9 @@ class SlotPool(TableStore):
         addresses (``PrefetchPlan.flat_addr``), in place."""
         addr = torch.as_tensor(np.asarray(flat_addr, np.int64),
                                device=self.array.device)
-        self.array.index_copy_(
-            0, addr, rows.to(device=self.array.device,
-                             dtype=self.array.dtype))
+        _scatter_rows(self.array, addr,
+                      rows.to(device=self.array.device,
+                              dtype=self.array.dtype))
 
 
 class HostStore(TableStore):
@@ -211,3 +222,18 @@ class RemoteStore(TableStore):
             * self.shards.element_size(),
             self.hosts, self.backend, t0, time.perf_counter())
         return result
+
+
+# ---------------------------------------------------------------------------
+# Kernel contracts (audited by repro_torch.analysis)
+# ---------------------------------------------------------------------------
+
+KERNEL_CONTRACTS = {
+    "scatter_rows": KernelContract(
+        name="cache.tiers.scatter_rows",
+        min_launches=0, max_launches=0,
+        in_place_argnums=(0,),
+        note="the slot-pool admission scatter is an in-place index_copy_ "
+             "(argnum 0 written where it lies) — an out-of-place copy "
+             "would copy the whole pool every prefetch"),
+}

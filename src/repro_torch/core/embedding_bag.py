@@ -36,8 +36,10 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
+from repro_torch.analysis.contracts import KernelContract
 from repro_torch.core import comm
 from repro_torch.core.cache_config import CacheConfig
 from repro_torch.core.jagged import JaggedBatch
@@ -107,6 +109,24 @@ def init_tables(generator: torch.Generator, cfg: EmbeddingBagConfig, *,
     return tables.mul_(cfg.dim ** -0.5).to(cfg.torch_dtype)
 
 
+# (device, offsets) -> a flat pool's (T,) int32 slot offsets on the device:
+# each geometry's offsets are copied from the host once, so a lookup over
+# the pool moves nothing between host and device after its first
+_POOL_OFFSETS: dict = {}
+
+
+def _pool_offsets(cfg: "EmbeddingBagConfig",
+                  device: torch.device) -> torch.Tensor:
+    offsets = cfg.cache.slot_offsets(cfg.num_tables,
+                                     cfg.rows_per_table)[:-1]
+    offsets = offsets.astype(np.int32)
+    key = (device, offsets.tobytes())
+    out = _POOL_OFFSETS.get(key)
+    if out is None:
+        out = _POOL_OFFSETS[key] = torch.as_tensor(offsets, device=device)
+    return out
+
+
 def pooled_lookup_local(tables: torch.Tensor, batch: JaggedBatch,
                         cfg: EmbeddingBagConfig) -> torch.Tensor:
     """Tables x JaggedBatch -> (B, T, D), no communication.
@@ -117,11 +137,8 @@ def pooled_lookup_local(tables: torch.Tensor, batch: JaggedBatch,
     the geometry the slot pool was sized with.  A flat pool is always one
     fused launch; stacked tables follow ``cfg.fused``."""
     if tables.dim() == 2:
-        offsets = cfg.cache.slot_offsets(cfg.num_tables,
-                                         cfg.rows_per_table)[:-1]
         out = kops.embedding_bag_batched_flat(
-            tables, torch.as_tensor(offsets, dtype=torch.int32,
-                                    device=tables.device),
+            tables, _pool_offsets(cfg, tables.device),
             batch.indices, batch.lengths, batch.weights,
             combiner=cfg.combiner)
     else:
@@ -472,3 +489,15 @@ def pooled_lookup_cached(cache, batch: JaggedBatch) -> torch.Tensor:
     TBE launch over the slot pool; bitwise-equal to
     :func:`pooled_lookup_local` over the full tables."""
     return cache.lookup(batch)
+
+
+# ---------------------------------------------------------------------------
+# Kernel contracts (audited by repro_torch.analysis)
+# ---------------------------------------------------------------------------
+
+KERNEL_CONTRACTS = {
+    "pooled_lookup_local": KernelContract(
+        name="core.embedding_bag.pooled_lookup_local",
+        note="replicated-table lookup (2-D flat pool or 3-D stacked) "
+             "stays ONE fused TBE launch regardless of layout"),
+}

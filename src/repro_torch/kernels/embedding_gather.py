@@ -20,6 +20,8 @@ Each wrapper dispatches on the device of the tensors it is given: a CPU
 tensor takes the plain PyTorch version beside it (``*_ref``), a CUDA tensor
 launches the kernel, anything else raises.  A kernel launch adds one to the
 wrapper's entry in :data:`LAUNCH_COUNTS`; the plain versions count nothing.
+Every call of a wrapper, on either device, adds one to its entry in
+:data:`CALL_COUNTS`.
 
 Ids must lie in the table wherever the weight is non-zero; the kernel never
 reads the row of a zero-weight slot.
@@ -36,6 +38,10 @@ from repro_torch.kernels.ref import _pool_rows
 
 LAUNCH_COUNTS = {"gather_pool": 0, "gather_pool_tbe": 0,
                  "gather_pool_tbe_flat": 0}
+# calls of each wrapper, on any device (a CPU tensor's plain version
+# too): the launch census of ``repro_torch.analysis.contracts``, which a
+# dispatch mode cannot take, since the ctypes launch dispatches nothing
+CALL_COUNTS = dict.fromkeys(LAUNCH_COUNTS, 0)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -43,6 +49,11 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 def reset_launch_counts() -> None:
     for name in LAUNCH_COUNTS:
         LAUNCH_COUNTS[name] = 0
+
+
+def reset_call_counts() -> None:
+    for name in CALL_COUNTS:
+        CALL_COUNTS[name] = 0
 
 
 def _kernel():
@@ -140,6 +151,7 @@ def gather_pool_tbe_flat(flat_tables: torch.Tensor, row_offsets: torch.Tensor,
     ``flat_tables`` (N, D) f32/bf16, ``row_offsets`` (T,) int32 start of
     each table's rows, ``indices`` (T, B, L) int32 table-local ids,
     ``weights`` (T, B, L) f32 with 0 on masked slots.  One launch."""
+    CALL_COUNTS["gather_pool_tbe_flat"] += 1
     if flat_tables.device.type == "cpu":
         return gather_pool_tbe_flat_ref(flat_tables, row_offsets, indices,
                                         weights)
@@ -153,6 +165,7 @@ def gather_pool_tbe(tables: torch.Tensor, indices: torch.Tensor,
     """Fused pooled lookup over stacked ``(T, R, D)`` tables -> (T, B, D)
     f32: the flat kernel over the ``(T * R, D)`` view with table t at row
     ``t * R``, one launch and no other device work."""
+    CALL_COUNTS["gather_pool_tbe"] += 1
     if tables.device.type == "cpu":
         return gather_pool_tbe_ref(tables, indices, weights)
     T, R, D = tables.shape
@@ -172,6 +185,7 @@ def gather_pool(table: torch.Tensor, indices: torch.Tensor,
                 weights: torch.Tensor) -> torch.Tensor:
     """Single-table pooled lookup, ``(R, D) x (B, L) -> (B, D)`` f32: the
     kernel with T = 1, one launch and no other device work."""
+    CALL_COUNTS["gather_pool"] += 1
     if table.device.type == "cpu":
         return gather_pool_ref(table, indices, weights)
     if indices.dim() != 2:

@@ -24,9 +24,11 @@ takes the plain version :func:`flash_attention_ref`, which is
 :func:`chunked_attention`, the port of ``repro.models.layers
 .chunked_attention`` (the reference's oracle of the Pallas kernel); a CUDA
 tensor launches its route's kernel and adds one to ``LAUNCH_COUNTS
-["flash_attention"]`` and to ``ROUTE_COUNTS[route]``, or raises.  There is
-no fallback: a build or launch failure of either kernel raises, and an
-input that breaks TMA's rules raises rather than taking the SIMT route.
+["flash_attention"]`` and to ``ROUTE_COUNTS[route]``, or raises (every
+call, on either device, adds one to ``CALL_COUNTS["flash_attention"]``).
+There is no fallback: a build or launch failure of either kernel raises,
+and an input that breaks TMA's rules raises rather than taking the SIMT
+route.
 """
 from __future__ import annotations
 
@@ -39,6 +41,10 @@ from repro_torch.kernels import build as _build
 
 LAUNCH_COUNTS = {"flash_attention": 0}
 ROUTE_COUNTS = {"wgmma": 0, "simt": 0}
+# calls of each wrapper, on any device (a CPU tensor's plain version
+# too): the launch census of ``repro_torch.analysis.contracts``, which a
+# dispatch mode cannot take, since the ctypes launch dispatches nothing
+CALL_COUNTS = dict.fromkeys(LAUNCH_COUNTS, 0)
 
 HEAD_DIMS = (16, 32, 64, 128)
 WGMMA_HEAD_DIMS = (64, 128)
@@ -228,6 +234,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q (B, S, H, hd); k, v (B, S, KH, hd) -> (B, S, H, hd) in q's dtype,
     scale ``hd ** -0.5``.  One launch of :func:`pick_route`'s kernel on a
     CUDA tensor; the plain version on a CPU tensor."""
+    CALL_COUNTS["flash_attention"] += 1
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window)
     route = pick_route(q.dtype, q.shape[-1])

@@ -39,7 +39,9 @@ Every wrapper dispatches on the device of the tensor it is given: a CPU
 tensor takes the plain version beside it (``*_ref``), a CUDA tensor
 launches the kernel, anything else raises.  Each kernel launch adds one to
 the wrapper's entry in :data:`LAUNCH_COUNTS`; the plain versions count
-nothing.
+nothing.  Every call of a wrapper, on either device, adds one to its entry
+in :data:`CALL_COUNTS` (``onesided_fetch_rows`` counts as the
+``onesided_put_rows`` call it makes).
 """
 from __future__ import annotations
 
@@ -52,6 +54,10 @@ from repro_torch.kernels import build as _build
 
 LAUNCH_COUNTS = {"onesided_put_rows": 0, "onesided_all_to_all": 0,
                  "onesided_reduce_scatter": 0, "onesided_ring_permute": 0}
+# calls of each wrapper, on any device (a CPU tensor's plain version
+# too): the launch census of ``repro_torch.analysis.contracts``, which a
+# dispatch mode cannot take, since the ctypes launch dispatches nothing
+CALL_COUNTS = dict.fromkeys(LAUNCH_COUNTS, 0)
 
 _DTYPE_CODES = {torch.int32: 0, torch.float32: 1, torch.bfloat16: 2}
 # the ranks a launch's table of buffers holds (kMaxRanks of the .cu): the
@@ -225,6 +231,7 @@ def onesided_all_to_all(x: torch.Tensor) -> torch.Tensor:
     """All-to-all of the stacked send buffers: ``(E_src, E_dst, C, ...)``
     int32/f32/bf16 -> ``(E_dst, E_src, C, ...)``, one kernel launch in
     which every source rank puts its E chunks into the ranks' buffers."""
+    CALL_COUNTS["onesided_all_to_all"] += 1
     if x.device.type == "cpu":
         return onesided_all_to_all_ref(x)
     _check_device(x, "all-to-all")
@@ -238,6 +245,7 @@ def onesided_reduce_scatter(x: torch.Tensor) -> torch.Tensor:
     one kernel launch: ``(E_src, E_dst, M, ...)`` -> ``(E_dst, M, ...)``,
     each destination's chunks read from every source's buffer and summed
     in registers, in ``x``'s dtype and in the order of ``x.sum(0)``."""
+    CALL_COUNTS["onesided_reduce_scatter"] += 1
     if x.device.type == "cpu":
         return onesided_reduce_scatter_ref(x)
     _check_device(x, "reduce-scatter")
@@ -272,6 +280,7 @@ def onesided_ring_permute(x: torch.Tensor, shift: int = 1) -> torch.Tensor:
     """One-sided ring shift of the stacked blocks: ``(n, ...)`` -> ``(n,
     ...)``, rank ``(r + shift) % n`` receives rank r's block; one kernel
     launch in which every source rank puts its block."""
+    CALL_COUNTS["onesided_ring_permute"] += 1
     if x.device.type == "cpu":
         return onesided_ring_permute_ref(x, shift)
     _check_device(x, "ring permute")
@@ -284,6 +293,7 @@ def onesided_put_rows(contribs: torch.Tensor) -> torch.Tensor:
     contributions -> ``(H_dst, H_src, M, D)``, one kernel launch in which
     every source rank puts its M rows for every requester, one chunk
     each."""
+    CALL_COUNTS["onesided_put_rows"] += 1
     if contribs.device.type == "cpu":
         return onesided_put_rows_ref(contribs)
     _check_device(contribs, "put")

@@ -15,12 +15,25 @@ weights gives the effective weights, the mean combiner divides by
 masked slots are replaced by 0 before the gather (requests may pad beyond
 ``lengths`` with anything, ``-1`` included, and torch indexing raises on
 ids out of range where jnp clamps them).
+
+Every op is differentiable in the tables and the weights, on both devices:
+the wrappers are called through three ``torch.autograd.Function``s, the
+counterparts of the reference's ``custom_vjp``s (``_pooled_lookup_pallas``,
+``_pooled_lookup_tbe``, ``_pooled_lookup_tbe_flat``).  Their forward is the
+wrapper, so an op that nothing differentiates returns the wrapper's output
+bitwise, after the same launches; their backward is stock torch, as the
+reference's is XLA: ``index_add_`` (the gather's transpose) of ``w * g``
+into the flat row space, and ``<row, g>`` for the weights only when asked.
+A masked slot (id 0, weight 0) adds +-0.0 to row 0 of its table.  On the
+card ``index_add_`` adds with atomics, so the order of a row's terms, and
+its last bits, vary from run to run.
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels.embedding_gather import (
     gather_pool,
@@ -83,6 +96,107 @@ def _combine(out: torch.Tensor, eff_w: torch.Tensor, combiner: str,
     return out.to(dtype)
 
 
+# --- the differentiable lookups --------------------------------------------
+
+def _rows_grad(n_rows: int, flat_idx: torch.Tensor, eff_w: torch.Tensor,
+               g: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """d rows ``(n_rows, D)``: each slot's ``w * g`` added into row
+    ``flat_idx`` (a scatter-add, the transpose of the kernel's gather), in
+    f32, then cast to the rows' dtype."""
+    D = g.shape[-1]
+    contrib = (eff_w[..., None] * g[..., None, :]).reshape(-1, D)
+    d_rows = torch.zeros((n_rows, D), dtype=torch.float32, device=g.device)
+    return d_rows.index_add_(0, flat_idx, contrib).to(dtype)
+
+
+def _weights_grad(flat: torch.Tensor, flat_idx: torch.Tensor,
+                  eff_w: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """d eff_w ``[..., l] = <flat[flat_idx[..., l]], g[...]>`` in f32."""
+    rows = flat[flat_idx].reshape(*eff_w.shape, flat.shape[-1])
+    return torch.einsum("...ld,...d->...l", rows.to(torch.float32), g)
+
+
+class _PooledLookup(torch.autograd.Function):
+    """One table through :func:`gather_pool`: ``(R, D) x (B, L) -> (B, D)``
+    f32 (the reference's ``_pooled_lookup_pallas``)."""
+
+    @staticmethod
+    def forward(ctx, table, indices, eff_w):
+        ctx.save_for_backward(table, indices, eff_w)
+        return gather_pool(table, indices, eff_w)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        table, indices, eff_w = ctx.saved_tensors
+        flat_idx = indices.long().reshape(-1)
+        d_table = d_w = None
+        if ctx.needs_input_grad[0]:
+            d_table = _rows_grad(table.shape[0], flat_idx, eff_w, g,
+                                 table.dtype)
+        if ctx.needs_input_grad[2]:
+            d_w = _weights_grad(table, flat_idx, eff_w, g)
+        return d_table, None, d_w
+
+
+class _PooledLookupTBE(torch.autograd.Function):
+    """Stacked ``(T, R, D)`` tables through :func:`gather_pool_tbe`, one
+    launch (the reference's ``_pooled_lookup_tbe``); the backward adds
+    into the ``(T * R, D)`` row space at ``t * R + id``."""
+
+    @staticmethod
+    def forward(ctx, tables, indices, eff_w):
+        ctx.save_for_backward(tables, indices, eff_w)
+        return gather_pool_tbe(tables, indices, eff_w)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        tables, indices, eff_w = ctx.saved_tensors
+        T, R, D = tables.shape
+        offs = torch.arange(T, device=indices.device)[:, None, None] * R
+        flat_idx = (indices.long() + offs).reshape(-1)
+        d_tables = d_w = None
+        if ctx.needs_input_grad[0]:
+            d_tables = _rows_grad(T * R, flat_idx, eff_w, g,
+                                  tables.dtype).view(T, R, D)
+        if ctx.needs_input_grad[2]:
+            d_w = _weights_grad(tables.reshape(T * R, D), flat_idx, eff_w,
+                                g)
+        return d_tables, None, d_w
+
+
+class _PooledLookupTBEFlat(torch.autograd.Function):
+    """A flat ragged ``(N, D)`` row space through
+    :func:`gather_pool_tbe_flat`, one launch (the reference's
+    ``_pooled_lookup_tbe_flat``); the backward adds into it at
+    ``row_offsets[t] + id``."""
+
+    @staticmethod
+    def forward(ctx, flat_tables, row_offsets, indices, eff_w):
+        ctx.save_for_backward(flat_tables, row_offsets, indices, eff_w)
+        return gather_pool_tbe_flat(flat_tables, row_offsets, indices, eff_w)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        flat_tables, row_offsets, indices, eff_w = ctx.saved_tensors
+        offs = row_offsets.long()[:, None, None]
+        flat_idx = (indices.long() + offs).reshape(-1)
+        d_flat = d_w = None
+        if ctx.needs_input_grad[0]:
+            d_flat = _rows_grad(flat_tables.shape[0], flat_idx, eff_w, g,
+                                flat_tables.dtype)
+        if ctx.needs_input_grad[3]:
+            d_w = _weights_grad(flat_tables, flat_idx, eff_w, g)
+        return d_flat, None, None, d_w
+
+
+_pooled_lookup = _PooledLookup.apply
+_pooled_lookup_tbe = _PooledLookupTBE.apply
+_pooled_lookup_tbe_flat = _PooledLookupTBEFlat.apply
+
+
 # --- single table ------------------------------------------------------------
 
 def embedding_bag(table: torch.Tensor, indices: torch.Tensor,
@@ -92,7 +206,7 @@ def embedding_bag(table: torch.Tensor, indices: torch.Tensor,
     """Pooled embedding lookup, ``(R, D) x (B, L) -> (B, D)``."""
     _check_combiner(combiner)
     eff_w = _effective_weights(indices, lengths, weights)
-    out = gather_pool(table, _safe_ids(indices, lengths), eff_w)
+    out = _pooled_lookup(table, _safe_ids(indices, lengths), eff_w)
     return _combine(out, eff_w, combiner, table.dtype)
 
 
@@ -106,15 +220,17 @@ def embedding_bag_rw_partial(table_shard: torch.Tensor, row_offset,
     over shards gives the full pooled output."""
     safe, eff_w = _premask_rw(table_shard.shape[0], row_offset, indices,
                               lengths, weights)
-    return gather_pool(table_shard, safe, eff_w).to(table_shard.dtype)
+    return _pooled_lookup(table_shard, safe, eff_w).to(table_shard.dtype)
 
 
 # --- table-batched -------------------------------------------------------------
 
 def _per_table(tables, safe, eff_w) -> torch.Tensor:
-    """Unfused baseline: one single-table launch per table (T launches)."""
-    return torch.stack([gather_pool(tables[t], safe[t], eff_w[t])
-                        for t in range(tables.shape[0])])
+    """Unfused baseline: one single-table launch per table (T launches).
+    ``unbind`` keeps the backward one stack of the T table gradients (T
+    ``tables[t]`` selects would each scatter into a dense (T, R, D))."""
+    return torch.stack([_pooled_lookup(table, ids, w) for table, ids, w
+                        in zip(tables.unbind(0), safe, eff_w)])
 
 
 def embedding_bag_batched(tables: torch.Tensor, indices: torch.Tensor,
@@ -129,7 +245,7 @@ def embedding_bag_batched(tables: torch.Tensor, indices: torch.Tensor,
     _check_combiner(combiner)
     eff_w = _effective_weights(indices, lengths, weights)
     safe = _safe_ids(indices, lengths)
-    out = (gather_pool_tbe(tables, safe, eff_w) if fused
+    out = (_pooled_lookup_tbe(tables, safe, eff_w) if fused
            else _per_table(tables, safe, eff_w))
     return _combine(out, eff_w, combiner, tables.dtype)
 
@@ -148,7 +264,7 @@ def embedding_bag_batched_flat(flat_tables: torch.Tensor,
     table."""
     _check_combiner(combiner)
     eff_w = _effective_weights(indices, lengths, weights)
-    out = gather_pool_tbe_flat(
+    out = _pooled_lookup_tbe_flat(
         flat_tables, row_offsets.to(torch.int32).contiguous(),
         _safe_ids(indices, lengths), eff_w)
     return _combine(out, eff_w, combiner, flat_tables.dtype)
@@ -185,7 +301,31 @@ def embedding_bag_rw_partial_batched(table_shards: torch.Tensor, row_offset,
                               lengths, weights)
     if fused:
         flat, starts = _flat_rows(table_shards)
-        out = gather_pool_tbe_flat(flat, starts, safe, eff_w)
+        out = _pooled_lookup_tbe_flat(flat, starts, safe, eff_w)
     else:
         out = _per_table(table_shards, safe, eff_w)
     return out.to(table_shards.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Kernel contracts (audited by repro_torch.analysis)
+# ---------------------------------------------------------------------------
+
+from repro_torch.analysis.contracts import KernelContract  # noqa: E402
+
+# The paper's structural claims for this module, as declarative specs:
+# tests, chip_smoke.py and `python -m repro_torch.analysis --contracts`
+# audit against THESE objects.
+KERNEL_CONTRACTS = {
+    "tbe_fused": KernelContract(
+        name="kernels.ops.embedding_bag_batched[fused]",
+        note="ALL T tables' gather+pool execute in ONE TBE launch "
+             "(flattened (T*R, D) row space, table t at row t * R)"),
+    "tbe_flat": KernelContract(
+        name="kernels.ops.embedding_bag_batched_flat",
+        note="the flat (sum S_t, D) slot-pool TBE stays one launch"),
+    "rw_partial_fused": KernelContract(
+        name="kernels.ops.embedding_bag_rw_partial_batched[fused]",
+        note="the row-wise-sharded partial pool stays one launch; "
+             "reduction across shards happens OUTSIDE the kernel"),
+}

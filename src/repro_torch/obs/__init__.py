@@ -1,7 +1,10 @@
 """``repro_torch.obs`` — the unified telemetry subsystem.
 
-The counterpart of ``repro.obs`` (its ``bench`` gate is not ported yet).
-One bundle (:class:`Telemetry`) carries the two halves of observability:
+The counterpart of ``repro.obs``; its BenchRecord gate is
+:mod:`repro_torch.obs.bench` (``python -m repro_torch.obs.bench
+compare|bless``), which, as in the reference, this package does not
+re-export.  One bundle (:class:`Telemetry`) carries the two halves of
+observability:
 
   * :class:`~repro_torch.obs.metrics.MetricsRegistry` — counters, gauges,
     and log-bucketed latency histograms (p50/p95/p99) behind one

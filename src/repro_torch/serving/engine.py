@@ -46,6 +46,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.analysis.contracts import KernelContract
 from repro_torch.cache.manager import CacheCapacityError
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.dlrm import DLRMConfig
@@ -650,3 +651,17 @@ def make_dlrm_engine(params, cfg: DLRMConfig, batch_size: int,
     cls = PipelinedDLRMEngine if cfg.cache.pipeline_depth > 1 else DLRMEngine
     return cls(params, cfg, batch_size, ctx, device=device,
                telemetry=telemetry, obs_name=obs_name)
+
+
+# ---------------------------------------------------------------------------
+# Kernel contracts (audited by repro_torch.analysis)
+# ---------------------------------------------------------------------------
+
+KERNEL_CONTRACTS = {
+    "tiered_forward": KernelContract(
+        name="serving.engine.tiered_forward",
+        note="the tiered serving program (flat-pool DLRM forward + "
+             "sigmoid) runs ONE fused TBE launch with ZERO collectives "
+             "and ZERO host transfers — all cold-tier traffic happens in "
+             "the explicit prefetch phase"),
+}

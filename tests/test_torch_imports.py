@@ -49,7 +49,12 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
             "repro_torch.core.perf_model", "repro_torch.core.sharding_plan",
             "repro_torch.obs", "repro_torch.obs.metrics",
             "repro_torch.obs.timeseries", "repro_torch.obs.trace",
-            "repro_torch.obs.slo", "repro_torch.obs.export"} <= set(mods)
+            "repro_torch.obs.slo", "repro_torch.obs.export",
+            "repro_torch.obs.bench", "repro_torch.optim",
+            "repro_torch.optim.rowwise_adagrad",
+            "repro_torch.analysis.contracts",
+            "repro_torch.analysis.fixtures", "repro_torch.analysis.lint",
+            "repro_torch.analysis.__main__"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"
