@@ -112,9 +112,25 @@ Phases:
      each, all on the wgmma route) and 6 of 256-2,048 (full attention:
      none), 32 new tokens each: launches per step and per route, the
      kernel against its plain version on layer 0's real q/k/v,
-     decode-matches-forward at full width, prefill and decode times,
-     tokens/s, peak device memory, and a profiled decode step, short
-     prefill and 16,384-token prefill;
+     decode-matches-forward at full width (on a long and a short
+     prompt), prefill and decode times, tokens/s, peak device memory,
+     and a profiled decode step, short prefill and 16,384-token prefill;
+  8m. MoE serving, after phase 8's weights and cache are freed (checked):
+     moonshot-v1-16b-a3b at full width in bf16 (28,325,838,848
+     parameters, random from a seed): the flash kernel against its plain
+     version on the dense layer 0's real q/k/v at (1, 16384, 16/16, 128)
+     (group size 1, wgmma); layer 1's moe_ffn on 2,048 real hidden rows
+     against a dense masked scan over all 64 experts in f32, the expert
+     loads, moe_dropped 0; ContinuousBatcher (2 slots of 16,416
+     positions) over 4 requests, 1 prompt of 16,384 tokens (48 flash
+     launches, wgmma) and 3 of 256-2,048 (none), 32 new tokens each,
+     one moe_ffn call per MoE layer per prefill and decode step, one
+     host sync per 4,096 tokens of it; prefill and decode times,
+     tokens/s, peak device memory, a profiled decode step and
+     16,384-token prefill; decode against forward on a short prompt,
+     free-running (logged: each MoE layer's routing flips between the
+     two paths, per-layer divergence) and on the forward's expert
+     choices (held to 2e-2);
   9. the card line, one JSON line of the kernels, and last the result line.
 
 Any failed check raises: the script exits non-zero and prints no result
@@ -2420,47 +2436,39 @@ def phase_train(pt, eg, oa) -> dict:
 # 8. LM serving
 # ---------------------------------------------------------------------------
 
-def _lm_requests(pt, cfg) -> list:
-    """Two long prompts (the flash kernel) and six of 256-2,048 tokens
-    (full attention), uniform ids over the vocabulary."""
+def _lm_requests(pt, cfg, n=8) -> list:
+    """The first ``n`` of phase 8's 8 requests (uniform ids over the
+    vocabulary, LM_MAX_NEW new tokens each): two long prompts (the flash
+    kernel), each followed by three of 256-2,048 tokens (full
+    attention)."""
     rng = np.random.default_rng(12)
     short = rng.integers(SHORT_PROMPTS[0], SHORT_PROMPTS[1] + 1, 6).tolist()
     lens = [LONG_PROMPT] + short[:3] + [LONG_PROMPT] + short[3:]
-    return [pt.Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, n)
+    return [pt.Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, s)
                        .astype(np.int32), max_new=LM_MAX_NEW)
-            for i, n in enumerate(lens)]
+            for i, s in enumerate(lens)][:n]
 
 
-def phase_lm(pt, kmods) -> dict:
-    cfg = pt.LM_CONFIG
-    log(f"== 8. LM serving: {cfg.name} at full width ({cfg.num_layers} "
-        f"layers, d {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads,"
-        f" d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}), "
-        f"ContinuousBatcher({LM_SLOTS} slots x {LM_MAX_LEN} positions)")
-    fa, lm, dec = pt.fa, pt.lm, pt.dec
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    params = lm.init_params(torch.Generator(device=DEV).manual_seed(11), cfg,
-                            device=DEV)
-    torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _leaves(params))
-    log(f"  init_params: {n_params / 1e9:.3f} B parameters "
-        f"({n_params * 2 / 1e9:.1f} GB bf16) in "
-        f"{time.perf_counter() - t0:.1f} s")
-    reqs = _lm_requests(pt, cfg)
-
-    # layer 0's real q/k/v of the first long prompt: kernel vs plain
-    tokens = torch.as_tensor(reqs[0].prompt[None], device=DEV)
-    pl = lm.layer(params["blocks"], 0)
+def _layer0_flash(pt, params, stack, cfg, prompt) -> float:
+    """The flash wrapper against its plain version on layer 0's real
+    q/k/v of ``prompt``."""
+    lm, S = pt.lm, len(prompt)
+    tokens = torch.as_tensor(prompt[None], device=DEV)
+    pl = lm.layer(params[stack], 0)
     x = lm._norm(lm.embed_tokens(params, tokens, cfg), pl["ln1"], cfg)
-    q, k, v = lm._gqa_qkv(pl["attn"], x, torch.arange(
-        LONG_PROMPT, device=DEV)[None], cfg)
-    err = _flash_case(fa, q, k, v, True, cfg.window,
-                      f"layer 0 of a {LONG_PROMPT}-token prompt (real q/k/v)")
-    del x, q, k, v
+    q, k, v = lm._gqa_qkv(pl["attn"], x, torch.arange(S, device=DEV)[None],
+                          cfg)
+    return _flash_case(pt.fa, q, k, v, True, cfg.window,
+                       f"layer 0 of a {S}-token prompt (real q/k/v, "
+                       f"{cfg.num_heads}/{cfg.num_kv_heads} heads)")
 
-    eng = pt.ContinuousBatcher(params, cfg, num_slots=LM_SLOTS,
-                               max_len=LM_MAX_LEN, eos_id=-1, device=DEV)
+
+def _serve_lm(pt, eng, reqs, kmods, cfg, slots) -> dict:
+    """Drive ``eng`` over ``reqs`` to the end from launch counts at 0:
+    each step's flash launches are the layers times the prompts over the
+    threshold it admitted, all on the wgmma route, and nothing else
+    launches.  Logs and returns the counts, timings and throughput."""
+    fa, nl = pt.fa, cfg.num_layers
     for r in reqs:
         eng.submit(r)
     for mod in kmods:
@@ -2475,7 +2483,7 @@ def phase_lm(pt, kmods) -> dict:
                       fa.LAUNCH_COUNTS["flash_attention"] - c0))
     serve_s = time.perf_counter() - t0
     counts = {k: v for mod in kmods for k, v in mod.LAUNCH_COUNTS.items()}
-    thr, nl = cfg.attn_chunk_threshold, cfg.num_layers
+    thr = cfg.attn_chunk_threshold
     for lens, n in steps:
         want = nl * sum(s > thr for s in lens)
         check(n == want, f"{n} flash launches in a step admitting prompts "
@@ -2506,14 +2514,50 @@ def phase_lm(pt, kmods) -> dict:
         f"{fa.ROUTE_COUNTS})")
     for n, sec in prefill:
         log(f"  prefill of {n} tokens: {1e3 * sec:.1f} ms")
-    log(f"  decode step ({LM_SLOTS} slots): median "
+    log(f"  decode step ({slots} slots): median "
         f"{1e3 * statistics.median(decode):.3f} ms, min "
         f"{1e3 * min(decode):.3f}, max {1e3 * max(decode):.3f} over "
         f"{len(decode)} steps; peak device memory {peak_gb:.1f} GB")
+    return dict(launches=counts["flash_attention"], prefill=prefill,
+                decode=decode, serve_s=serve_s, tokens=tokens_out,
+                peak_gb=peak_gb)
+
+
+def _slot0(pt, cache) -> dict:
+    """Slot 0 of every layer stack of a batcher's cache (scratch rows)."""
+    return {name: {k: v[:, :1] for k, v in st.items()}
+            for name, st in pt.dec.kv_stacks(cache).items()}
+
+
+def phase_lm(pt, kmods) -> dict:
+    cfg = pt.LM_CONFIG
+    log(f"== 8. LM serving: {cfg.name} at full width ({cfg.num_layers} "
+        f"layers, d {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads,"
+        f" d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}), "
+        f"ContinuousBatcher({LM_SLOTS} slots x {LM_MAX_LEN} positions)")
+    lm, dec = pt.lm, pt.dec
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_params(torch.Generator(device=DEV).manual_seed(11), cfg,
+                            device=DEV)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"  init_params: {n_params / 1e9:.3f} B parameters "
+        f"({n_params * 2 / 1e9:.1f} GB bf16) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    reqs = _lm_requests(pt, cfg)
+    # layer 0's real q/k/v of the first long prompt: kernel vs plain
+    err = _layer0_flash(pt, params, "blocks", cfg, reqs[0].prompt)
+    tokens = torch.as_tensor(reqs[0].prompt[None], device=DEV)
+
+    eng = pt.ContinuousBatcher(params, cfg, num_slots=LM_SLOTS,
+                               max_len=LM_MAX_LEN, eos_id=-1, device=DEV)
+    out = _serve_lm(pt, eng, reqs, kmods, cfg, LM_SLOTS)
+    prefill, decode = out["prefill"], out["decode"]
     # where the time goes: one decode step, one short and one long prefill
     # profiled (the slots' cache as the loop left it; its rows are scratch
     # now)
-    kv = {k: v[:, :1] for k, v in eng.cache["blocks"].items()}
+    kv = _slot0(pt, eng.cache)
     short = torch.as_tensor(reqs[1].prompt[None], device=DEV)
     prof = dict(
         decode=_profile_lm(lambda: dec.decode_step(
@@ -2530,22 +2574,307 @@ def phase_lm(pt, kmods) -> dict:
 
     # decode matches forward at full width: prefill(prompt[:-1]) +
     # decode_step(prompt[-1]) against the forward's last hidden state
-    h_full, _ = lm.forward(params, tokens, cfg)
-    last = h_full[0, -1].float()
-    del h_full
-    cache, _ = dec.prefill(params, tokens[:, :-1], cfg, max_len=LONG_PROMPT)
-    cache, h_dec = dec.decode_step(params, cache, tokens[:, -1], cfg)
-    rel = float((h_dec[0].float() - last).norm() / last.norm())
-    check(bool(torch.isfinite(h_dec).all() and torch.isfinite(last).all()),
-          "finite hidden states")
-    log(f"  decode matches forward ({LONG_PROMPT} tokens): relative L2 "
-        f"{rel:.3e} (bound {DECODE_REL_L2})")
-    check(rel < DECODE_REL_L2, "decode_step after prefill matches forward")
-    del cache, params
+    rel = _decode_vs_forward(pt, params, cfg, tokens)
+    # and on the short prompt phase 8m compares (the dense yardstick)
+    rel_short = _decode_vs_forward(pt, params, cfg, short)
+    check(max(rel, rel_short) < DECODE_REL_L2,
+          "decode_step after prefill matches forward")
+    del params
     torch.cuda.empty_cache()
-    return dict(launches=counts["flash_attention"], err=err, rel=rel,
-                prefill=prefill, decode=decode, serve_s=serve_s,
-                tokens=tokens_out, peak_gb=peak_gb, prof=prof)
+    return dict(out, err=err, rel=rel, rel_short=rel_short,
+                short_len=short.shape[1], prof=prof)
+
+
+def _forward_last(pt, params, cfg, tokens):
+    """The forward's last hidden state (d,) in f32."""
+    h_full, _ = pt.lm.forward(params, tokens, cfg)
+    return h_full[0, -1].float()
+
+
+def _decoded_last(pt, params, cfg, tokens):
+    """prefill(tokens[:, :-1]) + decode_step(tokens[:, -1]): the decoded
+    hidden state (d,) in f32."""
+    dec = pt.dec
+    cache, _ = dec.prefill(params, tokens[:, :-1], cfg,
+                           max_len=tokens.shape[1])
+    cache, h_dec = dec.decode_step(params, cache, tokens[:, -1], cfg)
+    return h_dec[0].float()
+
+
+def _rel_l2(got, want, label) -> float:
+    check(bool(torch.isfinite(got).all() and torch.isfinite(want).all()),
+          f"{label}: finite hidden states")
+    rel = float((got - want).norm() / want.norm())
+    log(f"  {label}: relative L2 {rel:.3e} (bound {DECODE_REL_L2})")
+    return rel
+
+
+def _decode_vs_forward(pt, params, cfg, tokens) -> float:
+    """prefill(tokens[:, :-1]) + decode_step(tokens[:, -1]) against the
+    forward's last hidden state: relative L2 (the caller holds it to
+    DECODE_REL_L2)."""
+    last = _forward_last(pt, params, cfg, tokens)
+    return _rel_l2(_decoded_last(pt, params, cfg, tokens), last,
+                   f"decode matches forward ({tokens.shape[1]} tokens)")
+
+
+# ---------------------------------------------------------------------------
+# 8m. MoE serving
+# ---------------------------------------------------------------------------
+
+# layer 1's moe_ffn (bf16, routed) against a dense masked scan over all
+# experts in f32 on the same rows and routing: the output passes through
+# about seven bf16 roundings (gate and up products, the activation, their
+# product, the down product, the weight's product, the running sum), about
+# 2.5-3 unit roundoffs (2**-9) in quadrature; 1e-2 is five (a CPU run at
+# full width with 12 experts gave 4.6e-3)
+MOE_REL_L2 = 1e-2
+MOE_ROWS = 2048              # the hidden rows of the layer-1 check
+MOE_SLOTS = 2                # 2 x 16,416 positions: 12.91 GB of KV cache
+MOE_PARAMS = 28_325_838_848  # the reference's param_count()
+
+
+def _moe_dense_scan(pt, p, x, cfg):
+    """The reference's moe_ffn in f32: every expert on every row, the
+    outputs combined through the (N, k) routing mask, in expert order,
+    then the shared experts.  Routing as the port's router_topk (f32
+    logits of the same rows)."""
+    w, topi, _ = pt.moe.router_topk(x, p["router"], cfg.experts_per_token)
+    xf = x.float()
+    act = pt.layers.activation_fn(cfg.activation)
+    out = torch.zeros_like(xf)
+    for e in range(cfg.num_experts):
+        h = act(xf @ p["gate"][e].float()) * (xf @ p["up"][e].float())
+        sel = ((topi == e).float() * w).sum(-1, keepdim=True)
+        out += (h @ p["down"][e].float()) * sel
+    s = p["shared"]
+    out += (act(xf @ s["gate"].float()) * (xf @ s["up"].float())) \
+        @ s["down"].float()
+    return out, topi
+
+
+def _check_moe_layer(pt, params, cfg, prompt) -> dict:
+    """Layer 1's moe_ffn on the real hidden rows of a MOE_ROWS-token
+    prompt against the dense f32 scan; the expert loads; its time."""
+    lm, moe = pt.lm, pt.moe
+    tokens = torch.as_tensor(prompt[None, :MOE_ROWS], device=DEV)
+    pos = torch.arange(MOE_ROWS, device=DEV)[None]
+    h = lm.embed_tokens(params, tokens, cfg)
+    h, _, _ = lm._block(lm.layer(params["dense_blocks"], 0), h, pos, cfg)
+    pl = lm.layer(params["moe_blocks"], 0)
+    a, _ = lm.gqa_attention(pl["attn"], lm._norm(h, pl["ln1"], cfg), pos,
+                            cfg)
+    x = lm._norm(h + a, pl["ln2"], cfg).reshape(-1, cfg.d_model)
+    out, aux = moe.moe_ffn(pl["moe"], x, cfg)
+    want, topi = _moe_dense_scan(pt, pl["moe"], x, cfg)
+    rel = float((out.float() - want).norm() / want.norm())
+    err = float((out.float() - want).abs().max())
+    load = torch.bincount(topi.reshape(-1).long(),
+                          minlength=cfg.num_experts)
+    ms = _times(lambda: moe.moe_ffn(pl["moe"], x, cfg), 5,
+                torch.empty(64 * 2 ** 20 // 4, device=DEV))
+    log(f"  layer 1 moe_ffn on {MOE_ROWS} real hidden rows (bf16) against "
+        f"the dense f32 scan over {cfg.num_experts} experts: relative L2 "
+        f"{rel:.3e} (bound {MOE_REL_L2}), max_abs_err {err:.3e}; expert "
+        f"load max {int(load.max())} (the buckets' cap), mean "
+        f"{float(load.float().mean()):.1f}, min {int(load.min())}; "
+        f"moe_dropped {int(aux['moe_dropped'])}, moe_aux "
+        f"{float(aux['moe_aux']):.4f}; moe_ffn {statistics.median(ms):.3f} "
+        f"ms (median of 5, CUDA events)")
+    check(out.dtype == torch.bfloat16 and out.shape == x.shape
+          and bool(torch.isfinite(out).all()), "moe_ffn: finite, x's shape")
+    check(rel < MOE_REL_L2, "moe_ffn within its bound of the dense f32 scan")
+    check(int(aux["moe_dropped"]) == 0, "moe_ffn dropped nothing")
+    return dict(rel=rel, err=err, cap=int(load.max()),
+                mean_load=float(load.float().mean()),
+                ms=statistics.median(ms))
+
+
+def _patched(obj, name, make):
+    """Replace ``obj.name`` by ``make(original)``; returns a restorer."""
+    real = getattr(obj, name)
+    setattr(obj, name, make(real))
+    return lambda: setattr(obj, name, real)
+
+
+def _recording(real, log_to, pick):
+    def wrapper(*args, **kw):
+        out = real(*args, **kw)
+        log_to.append(pick(out))
+        return out
+    return wrapper
+
+
+def _forced_router(real, ids):
+    """router_topk with the expert choice taken from ``ids`` (one (N, k)
+    tensor per call, in call order) and the weights the softmax of this
+    call's own f32 logits at those experts: the same routed function on
+    another path's discrete decisions."""
+    queue = list(ids)
+
+    def router_topk(x, router_w, k):
+        _, _, stats = real(x, router_w, k)
+        forced = queue.pop(0).long()
+        logits = x.float() @ router_w
+        w = torch.softmax(logits.gather(1, forced), dim=-1)
+        return w, forced.to(torch.int32), stats
+    return router_topk
+
+
+def _moe_decode_vs_forward(pt, params, cfg, tokens) -> dict:
+    """Decode against forward for the MoE, recorded: each MoE layer's
+    expert choices and each layer's last hidden row on both paths.  The
+    free-running decode (its own routing) may pick another top-k on a
+    near-tie of the router's logits, and then it computes another
+    function; so the same decode runs again with every token's experts
+    forced to the forward's choice (weights from its own logits), and
+    that run is held to DECODE_REL_L2.  Logs per MoE layer how many of
+    the prompt's tokens chose another expert set, the layers where the
+    last token did, and the per-layer relative L2 of both runs."""
+    lm, dec, moe = pt.lm, pt.dec, pt.moe
+    n = cfg.num_layers - cfg.first_k_dense
+    S = tokens.shape[1]
+    ids, rows = {"fwd": [], "free": []}, {"fwd": [], "free": [],
+                                          "aligned": []}
+    row = lambda out: out[0][0, -1].float()
+    restore = [_patched(moe, "router_topk", lambda r: _recording(
+                   r, ids["fwd"], lambda out: out[1])),
+               _patched(lm, "_block", lambda r: _recording(
+                   r, rows["fwd"], row))]
+    try:
+        last = _forward_last(pt, params, cfg, tokens)
+    finally:
+        for undo in restore:
+            undo()
+    outs = {}
+    for run in ("free", "aligned"):
+        if run == "free":
+            make = lambda r: _recording(r, ids["free"], lambda out: out[1])
+        else:     # the forward's choices: prefill's S - 1 rows, decode's 1
+            forced = [t[:S - 1] for t in ids["fwd"]] + \
+                [t[S - 1:] for t in ids["fwd"]]
+            make = lambda r: _forced_router(r, forced)
+        restore = [_patched(moe, "router_topk", make),
+                   _patched(dec, "_ffn_or_moe", lambda r: _recording(
+                       r, rows[run], row))]
+        try:
+            outs[run] = _decoded_last(pt, params, cfg, tokens)
+        finally:
+            for undo in restore:
+                undo()
+    check(len(ids["fwd"]) == n and len(ids["free"]) == 2 * n,
+          f"router calls: {len(ids['fwd'])} forward, {len(ids['free'])} "
+          f"prefill + decode; want {n} and 2 x {n}")
+    check(all(len(r) == cfg.num_layers for r in rows.values()),
+          "one recorded row per layer and path")
+    flips, last_flips = [], []
+    for i in range(n):
+        fwd = ids["fwd"][i].sort(-1).values
+        inc = torch.cat([ids["free"][i], ids["free"][n + i]]).sort(-1).values
+        differ = (fwd != inc).any(-1)
+        flips.append(int(differ.sum()))
+        if bool(differ[-1]):
+            last_flips.append(i + cfg.first_k_dense)
+    per_layer = {run: [float((d - f).norm() / f.norm())
+                       for f, d in zip(rows["fwd"], rows[run])]
+                 for run in ("free", "aligned")}
+    log(f"  routing: tokens of the {S}-token prompt whose expert set "
+        f"differs between forward and prefill + decode_step, per MoE "
+        f"layer: {flips} (total {sum(flips)}; the decoded token in layers "
+        f"{last_flips})")
+    for run in ("free", "aligned"):
+        log(f"  last row, relative L2 to the forward after each layer "
+            f"({run} routing): "
+            + " ".join(f"{r:.2e}" for r in per_layer[run]))
+    rel = {run: _rel_l2(outs[run], last,
+                        f"decode ({run} routing) against forward ({S} "
+                        f"tokens)") for run in ("free", "aligned")}
+    return dict(rel=rel["aligned"], rel_free=rel["free"], flips=flips,
+                last_flips=last_flips, layer_rel=per_layer)
+
+
+def phase_moe(pt, kmods) -> dict:
+    cfg = pt.MOE_CONFIG
+    n_moe = cfg.num_layers - cfg.first_k_dense
+    log(f"== 8m. MoE serving: {cfg.name} at full width ({cfg.num_layers} "
+        f"layers, {cfg.first_k_dense} dense, d {cfg.d_model}, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads, {cfg.num_experts} "
+        f"experts top-{cfg.experts_per_token} + {cfg.num_shared_experts} "
+        f"shared, moe_d_ff {cfg.moe_d_ff}, vocab {cfg.vocab_size}, "
+        f"{cfg.dtype}), ContinuousBatcher({MOE_SLOTS} slots x {LM_MAX_LEN} "
+        f"positions)")
+    lm, dec, moe = pt.lm, pt.dec, pt.moe
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_params(torch.Generator(device=DEV).manual_seed(13), cfg,
+                            device=DEV)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = list(_leaves(params))
+    norms = [t for name in ("dense_blocks", "moe_blocks")
+             for key in ("ln1", "ln2") for t in _leaves(params[name][key])]
+    norms += list(_leaves(params["final_norm"]))
+    n_params = sum(t.numel() for t in leaves) - sum(t.numel() for t in norms)
+    nbytes = sum(t.numel() * t.element_size() for t in leaves)
+    routers = params["moe_blocks"]["moe"]["router"]
+    log(f"  init_params: {n_params:,} parameters (param_count "
+        f"{cfg.param_count():,}; norms {sum(t.numel() for t in norms):,} "
+        f"more), {nbytes / 1e9:.2f} GB on the card, in {init_s:.1f} s")
+    check(n_params == cfg.param_count() == MOE_PARAMS,
+          f"{MOE_PARAMS:,} parameters")
+    check(routers.dtype == torch.float32
+          and all(t.dtype == torch.bfloat16 for t in leaves
+                  if t is not routers), "bf16 weights, the routers f32")
+    reqs = _lm_requests(pt, cfg, 4)
+
+    # the flash kernel at group size 1 on the dense layer's real q/k/v
+    err = _layer0_flash(pt, params, "dense_blocks", cfg, reqs[0].prompt)
+    layer = _check_moe_layer(pt, params, cfg, reqs[0].prompt)
+
+    eng = pt.ContinuousBatcher(params, cfg, num_slots=MOE_SLOTS,
+                               max_len=LM_MAX_LEN, eos_id=-1, device=DEV)
+    calls, syncs = [], []
+    restore = [_patched(moe, "moe_ffn", lambda r: _recording(
+                   r, calls, lambda out: 1)),
+               _patched(moe.routing, "fixed_capacity_bucket",
+                        lambda r: _recording(r, syncs, lambda out: 1))]
+    try:
+        out = _serve_lm(pt, eng, reqs, kmods, cfg, MOE_SLOTS)
+    finally:
+        for undo in restore:
+            undo()
+    runs = len(out["prefill"]) + len(out["decode"])
+    chunks = sum(-(-n // moe.CHUNK_ROWS) for n, _ in out["prefill"]) \
+        + len(out["decode"])
+    check(len(calls) == n_moe * runs and len(syncs) == n_moe * chunks,
+          f"{len(calls)} moe_ffn calls and {len(syncs)} dispatches (one "
+          f"host sync each): want {n_moe} x {runs} and {n_moe} x {chunks}")
+    log(f"  host syncs for the buckets' capacity: {len(syncs)} in "
+        f"{len(calls)} moe_ffn calls: {n_moe} per decode step, {n_moe} x "
+        f"{-(-LONG_PROMPT // moe.CHUNK_ROWS)} per {LONG_PROMPT}-token "
+        f"prefill ({moe.CHUNK_ROWS} tokens a dispatch)")
+    kv = _slot0(pt, eng.cache)
+    tokens = torch.as_tensor(reqs[0].prompt[None], device=DEV)
+    prof = dict(
+        decode=_profile_lm(lambda: dec.decode_step(
+            params, eng.cache, eng.tokens, cfg), "decode step",
+            statistics.median(out["decode"]) * 1e3),
+        long_prefill=_profile_lm(lambda: dec._prefill_into(
+            params, tokens, cfg, kv), f"prefill of {LONG_PROMPT} tokens",
+            out["prefill"][0][1] * 1e3))
+    del eng, kv
+    torch.cuda.empty_cache()
+
+    # decode matches forward at full width on a short prompt: on the
+    # forward's routing within the bound; free-running with the flips
+    short = torch.as_tensor(reqs[1].prompt[None], device=DEV)
+    dvf = _moe_decode_vs_forward(pt, params, cfg, short)
+    check(dvf["rel"] < DECODE_REL_L2, "decode_step after prefill matches "
+                                      "forward on the forward's routing")
+    del params
+    torch.cuda.empty_cache()
+    return dict(out, **dvf, err=err, layer=layer, prof=prof,
+                n_params=n_params, nbytes=nbytes, init_s=init_s)
 
 
 def _profile_lm(fn, label, unprofiled_ms) -> dict:
@@ -2598,7 +2927,7 @@ def main() -> int:
         from repro_torch.kernels import flash_attention as fa
         from repro_torch.kernels import ref
         from repro_torch.models import decode as dec
-        from repro_torch.models import dlrm, lm
+        from repro_torch.models import dlrm, layers, lm, moe
         from repro_torch.models.dlrm import init_params
         from repro_torch.analysis import (check_scheduler_source,
                                           check_timeline)
@@ -2608,6 +2937,8 @@ def main() -> int:
                                                 PipelinedDLRMEngine, Request,
                                                 make_dlrm_engine)
         from repro_torch.configs.granite_8b import CONFIG as LM_CONFIG
+        from repro_torch.configs.moonshot_v1_16b_a3b import \
+            CONFIG as MOE_CONFIG
         from repro_torch import obs
         from repro_torch.obs import Telemetry
         from repro_torch.core import perf_model as pm
@@ -2642,7 +2973,14 @@ def main() -> int:
     del unc["params"]           # phase 3's tables: 13.3 GB
     torch.cuda.empty_cache()
     train = phase_train(pt, eg, oa)
+    held = torch.cuda.memory_allocated()
     lm = phase_lm(pt, (eg, oa, pt.fa))
+    # phase 8's granite weights and cache are freed before phase 8m
+    after = torch.cuda.memory_allocated()
+    log(f"== phase 8 freed: {after / 1e9:.3f} GB allocated after it, "
+        f"{held / 1e9:.3f} GB before it (peak {lm['peak_gb']:.1f} GB in it)")
+    check(after <= held + 2 ** 26, "phase 8's weights and cache freed")
+    moe = phase_moe(pt, (eg, oa, pt.fa))
 
     log("== 9. summary")
     # each main path's launches, read from its own run with the counts
@@ -2660,13 +2998,14 @@ def main() -> int:
         "onesided_put_rows": {
             "6 serving remote": remote["onesided"]["launches"]},
         **{name: {"7 distributed": n} for name, n in dist["launches"].items()},
-        "flash_attention": {"8 LM serving": lm["launches"]},
+        "flash_attention": {"8 LM serving": lm["launches"],
+                            "8m MoE serving": moe["launches"]},
     }
     check(all(n > 0 for paths in by_path.values() for n in paths.values()),
           "every kernel launched on each main path that runs it")
     times.update(dist["times"])
     errs.update(dist["errs"])
-    errs["flash_attention"] = max(flash_err, lm["err"])
+    errs["flash_attention"] = max(flash_err, lm["err"], moe["err"])
     kernels = []
     for name in SOURCES:
         t = dict(times[name])
@@ -2742,11 +3081,30 @@ def main() -> int:
         f"{[(n, round(1e3 * t, 1)) for n, t in lm['prefill']]}, median "
         f"decode step {1e3 * statistics.median(lm['decode']):.3f} ms, "
         f"flash launches {lm['launches']}, decode vs forward relative L2 "
-        f"{lm['rel']:.3e}, peak device memory {lm['peak_gb']:.1f} GB, "
+        f"{lm['rel']:.3e} ({LONG_PROMPT} tokens), {lm['rel_short']:.3e} "
+        f"({lm['short_len']} tokens), peak device memory "
+        f"{lm['peak_gb']:.1f} GB, "
         f"device idle {lm['prof']['decode']['idle']:.1f}% of a decode step, "
         f"{lm['prof']['prefill']['idle']:.1f}% of a short prefill, "
         f"{lm['prof']['long_prefill']['idle']:.1f}% of a "
         f"{LONG_PROMPT}-token prefill")
+    ml = moe["layer"]
+    log(f"MoE serving ({pt.MOE_CONFIG.name}, {moe['n_params']:,} parameters, "
+        f"{moe['nbytes'] / 1e9:.2f} GB): {moe['tokens']} tokens in "
+        f"{moe['serve_s']:.3f} s ({moe['tokens'] / moe['serve_s']:.2f} "
+        f"tokens/s), prefill ms by length "
+        f"{[(n, round(1e3 * t, 1)) for n, t in moe['prefill']]}, median "
+        f"decode step {1e3 * statistics.median(moe['decode']):.3f} ms, "
+        f"flash launches {moe['launches']}, layer-1 moe_ffn relative L2 "
+        f"{ml['rel']:.3e} (cap {ml['cap']}, {ml['ms']:.3f} ms at "
+        f"{MOE_ROWS} rows), decode vs forward relative L2 {moe['rel']:.3e} "
+        f"on the forward's routing, {moe['rel_free']:.3e} free-running "
+        f"with {sum(moe['flips'])} routing flips (the decoded token in "
+        f"layers {moe['last_flips']}), peak device memory "
+        f"{moe['peak_gb']:.1f} GB, device idle "
+        f"{moe['prof']['decode']['idle']:.1f}% of a decode step, "
+        f"{moe['prof']['long_prefill']['idle']:.1f}% of a {LONG_PROMPT}-token"
+        f" prefill")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -2,8 +2,9 @@
 registry, ``get_config("<arch-id>")`` / ``get_smoke_config``.
 
 ``ARCH_IDS`` is the reference's list of architectures.  The port serves
-the dense family (granite-8b, starcoder2-15b, yi-34b, nemotron-4-340b);
-asking for any other raises ``NotImplementedError``.
+``PORTED_ARCH_IDS``: the dense family (granite-8b, starcoder2-15b, yi-34b,
+nemotron-4-340b) and the GQA MoE moonshot-v1-16b-a3b; asking for any
+other raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -26,16 +27,18 @@ ARCH_IDS = [
 
 # the dense family: what the port's LM path runs
 DENSE_ARCH_IDS = ["starcoder2-15b", "yi-34b", "granite-8b", "nemotron-4-340b"]
+# every arch the port's LM path runs: the dense family and the GQA MoE
+PORTED_ARCH_IDS = DENSE_ARCH_IDS + ["moonshot-v1-16b-a3b"]
 
 
 def _module(name: str):
     if name not in ARCH_IDS:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCH_IDS)}")
-    if name not in DENSE_ARCH_IDS:
+    if name not in PORTED_ARCH_IDS:
         raise NotImplementedError(
-            f"{name}: only the dense family ({', '.join(DENSE_ARCH_IDS)}) "
-            f"is ported; MoE, MLA, hybrid, ssm, audio and vlm wait in "
-            f"ROADMAP Queue 1 item 13")
+            f"{name}: only {', '.join(PORTED_ARCH_IDS)} are ported; MLA "
+            f"(item 13.2), hybrid, ssm, audio and vlm wait in ROADMAP "
+            f"Queue 1 item 13")
     return importlib.import_module(
         "repro_torch.configs." + name.replace("-", "_").replace(".", "_"))
 

@@ -1,13 +1,15 @@
-"""Serving launcher: continuous-batching decode over a dense LM config.
+"""Serving launcher: continuous-batching decode over a dense or MoE LM
+config (``--arch``: ``configs.PORTED_ARCH_IDS``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \\
         --smoke --device cpu --requests 8 --prompt-len 12 --max-new 8
 
 Builds random parameters from ``--seed`` (a full-width config needs the
-card: granite-8b is 16.5 GB in bfloat16), submits prompts of uniform ids,
-runs the slot loop to completion and reports the prefill time per prompt,
-the per-token decode latency and the tokens per second, all on the host
-clock (``time.perf_counter``) up to the tokens on the host.
+card: granite-8b is 16.5 GB in bfloat16, moonshot-v1-16b-a3b 56.7 GB),
+submits prompts of uniform ids, runs the slot loop to completion and
+reports the prefill time per prompt, the per-token decode latency and the
+tokens per second, all on the host clock (``time.perf_counter``) up to
+the tokens on the host.
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ from repro_torch.utils.device import resolve_device
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True, choices=configs.DENSE_ARCH_IDS)
+    ap.add_argument("--arch", required=True, choices=configs.PORTED_ARCH_IDS)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--device", default=None,
                     help="cpu, or a CUDA device (default: the card)")

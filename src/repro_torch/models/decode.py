@@ -1,9 +1,11 @@
-"""KV-cache decode for the dense family: the counterpart of
+"""KV-cache decode for the dense and MoE families: the counterpart of
 ``repro.models.decode``'s ``init_cache`` / ``prefill`` / ``decode_step``.
 
-Cache layout as in the reference: ``{"length": (B,) int32, "blocks":
-{"k", "v": (num_layers, B, max_len, KH, hd)}}``, per-sample ``length`` for
-continuous batching (slots at different positions).  The reference is
+Cache layout as in the reference: ``{"length": (B,) int32}`` and one
+``{"k", "v": (layers, B, max_len, KH, hd)}`` per layer stack of
+``lm.block_stacks`` (``"blocks"``; for MoE ``"dense_blocks"`` and
+``"moe_blocks"``), per-sample ``length`` for continuous batching (slots
+at different positions).  The reference is
 pure and returns new caches; here the cache is updated IN PLACE
 (``decode_step`` writes one K/V row per sample, ``prefill`` its prompt's
 rows), so a full-width cache is never copied.  Single device only
@@ -19,11 +21,13 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers
 from repro_torch.models.lm import (
-    _dense_block,
+    _block,
     _gqa_qkv,
+    _moe_apply,
     _norm,
-    _require_dense,
     _require_local,
+    _require_ported,
+    block_stacks,
     embed_tokens,
     layer,
     torch_dtype,
@@ -35,13 +39,23 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, *,
                device=None) -> Dict[str, Any]:
     """A zero cache of ``batch`` slots of ``max_len`` positions on
     ``device`` (None: the card)."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     device = resolve_device(device)
     dtype = dtype or torch_dtype(cfg.dtype)
-    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
-    return {"length": torch.zeros((batch,), dtype=torch.int32, device=device),
-            "blocks": {"k": torch.zeros(shape, dtype=dtype, device=device),
-                       "v": torch.zeros(shape, dtype=dtype, device=device)}}
+    cache: Dict[str, Any] = {
+        "length": torch.zeros((batch,), dtype=torch.int32, device=device)}
+    for name, n, _ in block_stacks(cfg):
+        shape = (n, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+        cache[name] = {"k": torch.zeros(shape, dtype=dtype, device=device),
+                       "v": torch.zeros(shape, dtype=dtype, device=device)}
+    return cache
+
+
+def kv_stacks(cache: Dict[str, Any]) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The cache's layer-stacked K/V, ``{stack: {"k", "v"}}``: every
+    nested dict, each with the batch at axis 1 (the reference's
+    structural rule)."""
+    return {name: st for name, st in cache.items() if isinstance(st, dict)}
 
 
 # ===========================================================================
@@ -86,8 +100,8 @@ def _gqa_decode_block(pl, h, lc, length, cfg, ctx=None, *, window=None):
 
 def _ffn_or_moe(pl, h, cfg):
     if "moe" in pl:
-        raise NotImplementedError(
-            "MoE layers wait for the MoE slice (ROADMAP Queue 1 item 13)")
+        out, aux = _moe_apply(pl["moe"], _norm(h, pl["ln2"], cfg), cfg)
+        return h + out, aux
     return h + layers.apply_ffn(pl["ffn"], _norm(h, pl["ln2"], cfg),
                                 cfg.activation), {}
 
@@ -100,14 +114,15 @@ def decode_step(params, cache, tokens: torch.Tensor, cfg: ModelConfig,
                 ctx=None) -> Tuple[Dict[str, Any], torch.Tensor]:
     """tokens (B,) -> (cache, hidden (B, d)).  Writes every slot's new K/V
     row in place and returns the cache with ``length + 1``."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     length = cache["length"]
     h = embed_tokens(params, tokens[:, None], cfg, ctx)         # (B, 1, d)
-    for i in range(cfg.num_layers):
-        pl = layer(params["blocks"], i)
-        h = _gqa_decode_block(pl, h, layer(cache["blocks"], i), length, cfg,
-                              ctx, window=cfg.window)
-        h, _ = _ffn_or_moe(pl, h, cfg)
+    for name, n, window in block_stacks(cfg):
+        for i in range(n):
+            pl = layer(params[name], i)
+            h = _gqa_decode_block(pl, h, layer(cache[name], i), length, cfg,
+                                  ctx, window=window)
+            h, _ = _ffn_or_moe(pl, h, cfg)
     h = _norm(h, layer(params["final_norm"], 0), cfg)
     cache["length"] = length + 1
     return cache, h[:, 0]
@@ -118,19 +133,21 @@ def decode_step(params, cache, tokens: torch.Tensor, cfg: ModelConfig,
 # ===========================================================================
 
 def _prefill_into(params, tokens: torch.Tensor, cfg: ModelConfig,
-                  kv: Dict[str, torch.Tensor]) -> torch.Tensor:
+                  kv: Dict[str, Dict[str, torch.Tensor]]) -> torch.Tensor:
     """Run the prompt ``tokens`` (B, S) and write each layer's K/V into
-    positions ``[0, S)`` of ``kv["k"]``, ``kv["v"]`` ((num_layers, B,
-    >= S, KH, hd), possibly views of a larger cache).  Returns the hidden
-    states (B, S, d) after the final norm."""
+    positions ``[0, S)`` of ``kv[stack]["k"]``, ``kv[stack]["v"]``
+    ((layers, B, >= S, KH, hd) for every stack of ``lm.block_stacks``,
+    possibly views of a larger cache).  Returns the hidden states (B, S,
+    d) after the final norm."""
     B, S = tokens.shape
     h = embed_tokens(params, tokens, cfg)
     positions = torch.arange(S, device=h.device).expand(B, S)
-    for i in range(cfg.num_layers):
-        h, (k, v) = _dense_block(layer(params["blocks"], i), h, positions,
-                                 cfg, window=cfg.window)
-        kv["k"][i, :, :S] = k
-        kv["v"][i, :, :S] = v
+    for name, n, window in block_stacks(cfg):
+        for i in range(n):
+            h, (k, v), _ = _block(layer(params[name], i), h, positions, cfg,
+                                  window=window)
+            kv[name]["k"][i, :, :S] = k
+            kv[name]["v"][i, :, :S] = v
     return _norm(h, layer(params["final_norm"], 0), cfg)
 
 
@@ -139,7 +156,7 @@ def prefill(params, tokens: torch.Tensor, cfg: ModelConfig, ctx=None, *,
             ) -> Tuple[Dict[str, Any], torch.Tensor]:
     """tokens (B, S) -> (a cache of ``max_len`` positions at length S,
     hidden (B, S, d)), on the tokens' device."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     _require_local(ctx)
     B, S = tokens.shape
     max_len = max_len or S
@@ -147,6 +164,6 @@ def prefill(params, tokens: torch.Tensor, cfg: ModelConfig, ctx=None, *,
         raise ValueError(f"max_len {max_len} < prompt length {S}")
     cache = init_cache(cfg, B, max_len, dtype=params["embed"].dtype,
                        device=tokens.device)
-    h = _prefill_into(params, tokens, cfg, cache["blocks"])
+    h = _prefill_into(params, tokens, cfg, kv_stacks(cache))
     cache["length"].fill_(S)
     return cache, h

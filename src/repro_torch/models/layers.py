@@ -29,18 +29,26 @@ from repro_torch.kernels.flash_attention import (  # noqa: F401
 # Param init helpers
 # ---------------------------------------------------------------------------
 
+def stacked_init(gen: torch.Generator, n: int, shape, fan_in: int, *,
+                 dtype=torch.float32, device=None) -> torch.Tensor:
+    """(n, *shape) truncated-normal (-2, 2) draws scaled by
+    ``fan_in ** -0.5``, drawn one layer at a time in f32 so the
+    temporaries stay one layer's size."""
+    shape = tuple(shape)
+    out = torch.empty((n,) + shape, dtype=dtype, device=device)
+    tmp = torch.empty(shape, dtype=torch.float32, device=device)
+    for i in range(n):
+        torch.nn.init.trunc_normal_(tmp, 0.0, 1.0, -2.0, 2.0, generator=gen)
+        out[i] = tmp.mul_(fan_in ** -0.5)
+    return out
+
+
 def stacked_dense_init(gen: torch.Generator, n: int, in_dim: int,
                        out_dim: int, *, dtype=torch.float32,
                        device=None) -> torch.Tensor:
-    """(n, in, out) matrices, truncated-normal (-2, 2) fan-in init, drawn
-    one (in, out) matrix at a time in f32 so the temporaries stay one
-    layer's size."""
-    out = torch.empty((n, in_dim, out_dim), dtype=dtype, device=device)
-    tmp = torch.empty((in_dim, out_dim), dtype=torch.float32, device=device)
-    for i in range(n):
-        torch.nn.init.trunc_normal_(tmp, 0.0, 1.0, -2.0, 2.0, generator=gen)
-        out[i] = tmp.mul_(in_dim ** -0.5)
-    return out
+    """(n, in, out) matrices at fan-in scale (:func:`stacked_init`)."""
+    return stacked_init(gen, n, (in_dim, out_dim), in_dim, dtype=dtype,
+                        device=device)
 
 
 # ---------------------------------------------------------------------------

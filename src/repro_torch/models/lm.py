@@ -1,16 +1,21 @@
-"""The LM zoo's dense family: the counterpart of ``repro.models.lm``.
+"""The LM zoo's dense and MoE families: the counterpart of
+``repro.models.lm``.
 
-Llama-style GQA stacks (granite, starcoder2, yi, nemotron): init,
-embedding, the full-sequence forward and the logits head, with the
-reference's parameter layout -- per-layer tensors STACKED on a leading
-``num_layers`` axis, ``(in, out)`` weights applied as ``x @ w`` -- so a
-numpy copy of the reference's ``init_params`` converts without a
-transpose (``utils/convert.lm_params_from_numpy``).  The layers run in a
-Python loop (the reference scans them).
+Llama-style GQA stacks (granite, starcoder2, yi, nemotron) and the GQA
+mixture-of-experts family (moonshot: ``first_k_dense`` dense layers, then
+layers whose FFN is ``models/moe.moe_ffn``): init, embedding, the
+full-sequence forward and the logits head, with the reference's parameter
+layout -- per-layer tensors STACKED on a leading layer axis (``blocks``
+for the dense family; ``dense_blocks`` and ``moe_blocks`` for MoE),
+``(in, out)`` weights applied as ``x @ w`` -- so a numpy copy of the
+reference's ``init_params`` converts without a transpose
+(``utils/convert.lm_params_from_numpy``).  The layers run in a Python
+loop (the reference scans them).
 
 Single device only: ``ctx`` (the vocabulary through the row-wise sharded
-embedding bag, GSPMD constraints) must be None, and a family other than
-dense raises ``NotImplementedError`` (ROADMAP Queue 1 item 13).
+embedding bag, GSPMD constraints, expert parallelism) must be None; MLA
+(ROADMAP Queue 1 item 13.2) and the other families (item 13) raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -20,6 +25,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers
+from repro_torch.models import moe as moe_mod
 from repro_torch.utils.device import resolve_device
 
 
@@ -30,12 +36,28 @@ def padded_vocab(cfg: ModelConfig, tp_size: int) -> int:
     return -(-V // tp_size) * tp_size
 
 
-def _require_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.attention != "gqa" or cfg.mtp_depth:
+def _require_ported(cfg: ModelConfig) -> None:
+    if cfg.attention == "mla":
+        raise NotImplementedError(
+            f"{cfg.name}: MLA attention is not ported yet (ROADMAP Queue 1 "
+            f"item 13.2)")
+    if cfg.family not in ("dense", "moe") or cfg.attention != "gqa" \
+            or cfg.mtp_depth:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} / attention "
-            f"{cfg.attention!r}: the port runs the dense GQA family only "
-            f"(ROADMAP Queue 1 item 13)")
+            f"{cfg.attention!r}: the port runs the dense and MoE GQA "
+            f"families only (ROADMAP Queue 1 item 13)")
+
+
+def block_stacks(cfg: ModelConfig):
+    """The layer stacks in order, as ``(name, layers, window)``: the dense
+    family's ``blocks``; MoE's ``dense_blocks`` (if ``first_k_dense``)
+    then ``moe_blocks``, both without a window, as in the reference."""
+    if cfg.family == "dense":
+        return [("blocks", cfg.num_layers, cfg.window)]
+    nk = cfg.first_k_dense
+    return ([("dense_blocks", nk, None)] if nk else []) + [
+        ("moe_blocks", cfg.num_layers - nk, None)]
 
 
 def _require_local(ctx) -> None:
@@ -70,20 +92,40 @@ def _init_gqa(gen, n, cfg: ModelConfig, dtype, device):
             "wo": init(gen, n, H * hd, d, dtype=dtype, device=device)}
 
 
+def _init_block_stack(gen, n, cfg: ModelConfig, dtype, device, *,
+                      with_moe=False):
+    """One stack of ``n`` layers: norms, attention, then the FFN or (with
+    ``with_moe``) the MoE block."""
+    p: Dict[str, Any] = {
+        "ln1": _init_norm(n, cfg.d_model, cfg, dtype, device),
+        "ln2": _init_norm(n, cfg.d_model, cfg, dtype, device),
+        "attn": _init_gqa(gen, n, cfg, dtype, device),
+    }
+    if with_moe:
+        p["moe"] = moe_mod.init_moe_params(gen, n, cfg, dtype, device)
+    else:
+        p["ffn"] = layers.init_ffn(gen, n, cfg.d_model, cfg.d_ff,
+                                   gated=cfg.gated_ffn, dtype=dtype,
+                                   device=device)
+    return p
+
+
 def init_params(gen: torch.Generator, cfg: ModelConfig, *, tp_size: int = 1,
                 dtype: Optional[torch.dtype] = None,
                 device=None) -> Dict[str, Any]:
-    """Random dense-family parameters on ``device`` (None: the card), drawn
-    from ``gen`` (a generator on that device) one layer at a time:
-    ``{"embed" (1, Vp, d), "final_norm", "head" (d, Vp) unless tied,
-    "blocks": {"ln1", "ln2", "attn": {wq, wk, wv, wo}, "ffn": {up, down,
-    gate}}}`` with ``(num_layers, ...)`` blocks.  The draws are
-    ``torch.Generator``'s, not ``jax.random``'s: tests convert the
-    reference's parameters instead."""
-    _require_dense(cfg)
+    """Random parameters on ``device`` (None: the card), drawn from
+    ``gen`` (a generator on that device) one layer at a time:
+    ``{"embed" (1, Vp, d), "final_norm", "head" (d, Vp) unless tied}``
+    and the layer stacks of :func:`block_stacks`, each ``{"ln1", "ln2",
+    "attn": {wq, wk, wv, wo}, "ffn": {up, down, gate}}`` with a leading
+    layer axis (``"moe"``, ``models/moe.init_moe_params``, in place of
+    ``"ffn"`` in ``moe_blocks``).  The draws are ``torch.Generator``'s,
+    not ``jax.random``'s: tests convert the reference's parameters
+    instead."""
+    _require_ported(cfg)
     device = resolve_device(device)
     dtype = dtype or torch_dtype(cfg.dtype)
-    Vp, d, n = padded_vocab(cfg, tp_size), cfg.d_model, cfg.num_layers
+    Vp, d = padded_vocab(cfg, tp_size), cfg.d_model
     embed = torch.empty((1, Vp, d), dtype=dtype, device=device)
     tmp = torch.empty((Vp, d), dtype=torch.float32, device=device)
     embed[0] = tmp.normal_(generator=gen).mul_(d ** -0.5)
@@ -94,13 +136,9 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *, tp_size: int = 1,
     if not cfg.tie_embeddings:
         params["head"] = layers.stacked_dense_init(
             gen, 1, d, Vp, dtype=dtype, device=device)[0]
-    params["blocks"] = {
-        "ln1": _init_norm(n, d, cfg, dtype, device),
-        "ln2": _init_norm(n, d, cfg, dtype, device),
-        "attn": _init_gqa(gen, n, cfg, dtype, device),
-        "ffn": layers.init_ffn(gen, n, d, cfg.d_ff, gated=cfg.gated_ffn,
-                               dtype=dtype, device=device),
-    }
+    for name, n, _ in block_stacks(cfg):
+        params[name] = _init_block_stack(gen, n, cfg, dtype, device,
+                                         with_moe=name == "moe_blocks")
     return params
 
 
@@ -176,15 +214,46 @@ def _dense_block(pl, h, positions, cfg, *, window=None, causal=True):
                                 cfg.activation), kv
 
 
+def _moe_apply(p_moe, h, cfg: ModelConfig):
+    """h (B, S, d) -> (out (B, S, d), aux): ``moe_ffn`` over the B * S
+    rows (``ctx=None``; expert parallelism is item 13.6)."""
+    B, S, d = h.shape
+    out, aux = moe_mod.moe_ffn(p_moe, h.reshape(-1, d), cfg)
+    return out.reshape(B, S, d), aux
+
+
+def _block(pl, h, positions, cfg, *, window=None):
+    """One pre-norm layer of any stack.  Returns (h, (k, v), aux): aux is
+    the MoE's ``{"moe_aux", "moe_dropped"}``, {} for a dense layer."""
+    if "moe" not in pl:
+        h, kv = _dense_block(pl, h, positions, cfg, window=window)
+        return h, kv, {}
+    attn_out, kv = gqa_attention(pl["attn"], _norm(h, pl["ln1"], cfg),
+                                 positions, cfg, window=window)
+    h = h + attn_out
+    out, aux = _moe_apply(pl["moe"], _norm(h, pl["ln2"], cfg), cfg)
+    return h + out, kv, aux
+
+
 def forward(params, tokens: torch.Tensor, cfg: ModelConfig, ctx=None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """tokens (B, S) -> hidden (B, S, d) after the final norm, aux ({} for
-    the dense family)."""
-    _require_dense(cfg)
+    """tokens (B, S) -> hidden (B, S, d) after the final norm, aux: {} for
+    the dense family; for MoE ``moe_aux``, the mean over the MoE layers,
+    and ``moe_dropped``, their sum."""
+    _require_ported(cfg)
     B, S = tokens.shape
     h = embed_tokens(params, tokens, cfg, ctx)
     positions = torch.arange(S, device=h.device).expand(B, S)
-    for i in range(cfg.num_layers):
-        h, _ = _dense_block(layer(params["blocks"], i), h, positions, cfg,
-                            window=cfg.window)
-    return _norm(h, layer(params["final_norm"], 0), cfg), {}
+    auxes = []
+    for name, n, window in block_stacks(cfg):
+        for i in range(n):
+            h, _, a = _block(layer(params[name], i), h, positions, cfg,
+                             window=window)
+            if a:
+                auxes.append(a)
+    aux = {}
+    if auxes:
+        aux = {"moe_aux": torch.stack([a["moe_aux"] for a in auxes]).mean(),
+               "moe_dropped": torch.stack(
+                   [a["moe_dropped"] for a in auxes]).sum(dtype=torch.int32)}
+    return _norm(h, layer(params["final_norm"], 0), cfg), aux

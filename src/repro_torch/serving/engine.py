@@ -159,8 +159,8 @@ class ContinuousBatcher:
                 t0 = time.perf_counter()
                 prompt = torch.as_tensor(req.prompt[None, :],
                                          device=self.device)
-                kv = {k: v[:, i:i + 1]
-                      for k, v in self.cache["blocks"].items()}
+                kv = {name: {k: v[:, i:i + 1] for k, v in st.items()}
+                      for name, st in dec.kv_stacks(self.cache).items()}
                 hidden = dec._prefill_into(self.params, prompt, self.cfg, kv)
                 self.cache["length"][i] = prompt.shape[1]
                 lg = self._head(hidden[:, -1])
@@ -226,6 +226,15 @@ class DLRMEngine:
     """Micro-batching CTR inference over the DLRM forward on ``device``
     (None: the card; the parameters must live there), distributed over
     ``ctx``'s simulated model axis when one is given.
+
+    Cache sizes: without a ``cfg.sharding_plan``, EVERY table's slot
+    count (``cache.rows_per_table`` when given, else ``cache.rows``) must
+    be at least ``pooling``, so one request's working set always fits;
+    it is the rule the plan branch applies to the plan's vector.  The
+    reference checks the uniform ``cache.rows`` even when
+    ``rows_per_table`` overrides it, so it refuses ``rows_per_table``
+    with ``rows`` 0 and accepts a vector entry under ``pooling``: a
+    difference on purpose (``tests/test_torch_serving.py`` pins both).
 
     ``telemetry`` (a :class:`repro_torch.obs.Telemetry`) puts the engine
     on the unified timeline: ``submit`` stamps each request's enqueue

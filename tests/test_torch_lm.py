@@ -1,5 +1,6 @@
-"""The port's dense-family LM serving path against the JAX reference, on
-the CPU (where the flash-attention wrapper takes its plain version).
+"""The port's LM serving path (the dense family and the GQA MoE,
+moonshot) against the JAX reference, on the CPU (where the
+flash-attention wrapper takes its plain version).
 
 The same numpy inputs, from ``np.random.default_rng(seed)``, go through
 ``repro`` and through ``repro_torch``; parameters come from the
@@ -13,7 +14,8 @@ Tolerances:
   * layers: ``1e-5`` (the same f32 arithmetic, other summation orders);
   * hidden states after 2 layers: ``1e-4`` (f32 matmuls of width <= 256
     in other orders, carried through the residual stream);
-  * greedy tokens and integer cache lengths: equal.
+  * the MoE's ``moe_aux``: ``1e-6``; ``moe_dropped``, greedy tokens and
+    integer cache lengths: equal.
 """
 import dataclasses
 
@@ -42,6 +44,8 @@ from repro_torch.utils.convert import lm_params_from_numpy
 LAYER = dict(rtol=1e-5, atol=1e-5)
 HIDDEN = dict(rtol=1e-4, atol=1e-4)
 DENSE = ["granite-8b", "starcoder2-15b", "yi-34b", "nemotron-4-340b"]
+MOE = "moonshot-v1-16b-a3b"
+PORTED = DENSE + [MOE]
 FLASH_SHAPES = [
     (2, 128, 4, 2, 32, True, None),
     (1, 256, 4, 4, 64, True, 64),
@@ -81,7 +85,7 @@ def _setup(arch, **replace):
 # configs
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", PORTED)
 def test_configs_mirror_reference(arch):
     for get in ("get_config", "get_smoke_config"):
         want = getattr(jconfigs, get)(arch)
@@ -91,12 +95,25 @@ def test_configs_mirror_reference(arch):
 
 
 def test_non_dense_archs_raise():
+    """Every arch not yet ported raises, naming its Queue 1 item; MLA
+    (deepseek-v3) names item 13.2, also in the model code."""
     assert tconfigs.ARCH_IDS == jconfigs.ARCH_IDS
-    for arch in set(tconfigs.ARCH_IDS) - set(DENSE):
+    assert sorted(tconfigs.PORTED_ARCH_IDS) == sorted(PORTED)
+    unported = set(tconfigs.ARCH_IDS) - set(PORTED)
+    assert "deepseek-v3-671b" in unported
+    for arch in unported:
         with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
             tconfigs.get_config(arch)
+    with pytest.raises(NotImplementedError, match="13.2"):
+        tconfigs.get_config("deepseek-v3-671b")
     with pytest.raises(KeyError):
         tconfigs.get_config("gpt-2")
+    ref = jconfigs.get_smoke_config("deepseek-v3-671b")
+    mla = tconfigs.ModelConfig(**{
+        f.name: getattr(ref, f.name) for f in dataclasses.fields(ref)})
+    with pytest.raises(NotImplementedError, match="item 13.2"):
+        tlm.init_params(torch.Generator(), mla, device="cpu")
+    assert tconfigs.get_config(MOE).param_count() == 28_325_838_848
 
 
 # ---------------------------------------------------------------------------
@@ -254,7 +271,7 @@ def test_decode_attention_partial_and_combine_match_jax(window, kv_offset):
 # forward, prefill, decode
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", PORTED)
 @pytest.mark.parametrize("threshold,S", [(None, 16), (16, 40)])
 def test_forward_matches_jax(arch, threshold, S):
     """At the default threshold (full attention) and at a lowered one with
@@ -271,8 +288,13 @@ def test_forward_matches_jax(arch, threshold, S):
         got, aux = tlm.forward(tp, torch.as_tensor(tokens), tcfg)
     finally:
         tlayers.flash_attention = real
-    want, _ = jlm.forward(jp, jnp.asarray(tokens), jcfg)
-    assert aux == {}
+    want, jaux = jlm.forward(jp, jnp.asarray(tokens), jcfg)
+    assert sorted(aux) == sorted(jaux)
+    if aux:
+        np.testing.assert_allclose(float(aux["moe_aux"]),
+                                   float(jaux["moe_aux"]), rtol=1e-6,
+                                   atol=1e-6)
+        assert int(aux["moe_dropped"]) == int(jaux["moe_dropped"]) == 0
     assert len(calls) == (0 if threshold is None else jcfg.num_layers)
     np.testing.assert_allclose(_np(got), _np(want), **HIDDEN)
     np.testing.assert_allclose(
@@ -281,7 +303,7 @@ def test_forward_matches_jax(arch, threshold, S):
         **HIDDEN)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", PORTED)
 def test_prefill_and_decode_step_match_jax(arch):
     jcfg, tcfg, jp, tp = _setup(arch, attn_chunk_threshold=8)
     B, S = 2, 16
@@ -298,13 +320,16 @@ def test_prefill_and_decode_step_match_jax(arch):
     np.testing.assert_allclose(_np(th), _np(jh), **HIDDEN)
     np.testing.assert_array_equal(tcache["length"].numpy(),
                                   np.asarray(jcache["length"]))
-    for kv in ("k", "v"):
-        np.testing.assert_allclose(_np(tcache["blocks"][kv][:, :, :S]),
-                                   _np(jcache["blocks"][kv][:, :, :S]),
-                                   **HIDDEN)
+    stacks = tdec.kv_stacks(tcache)
+    assert sorted(stacks) == sorted(k for k in jcache if k != "length")
+    for name in stacks:
+        for kv in ("k", "v"):
+            np.testing.assert_allclose(_np(stacks[name][kv][:, :, :S]),
+                                       _np(jcache[name][kv][:, :, :S]),
+                                       **HIDDEN)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", PORTED)
 def test_port_decode_matches_forward(arch):
     """The port's own prefill + decode_step reproduce its forward's last
     hidden state (``tests/test_models.py``'s check, same bound)."""
@@ -360,11 +385,12 @@ def _requests(module, prompts, max_new):
             for i, p in enumerate(prompts)]
 
 
-def test_continuous_batcher_matches_jax_and_generate():
+@pytest.mark.parametrize("arch", ["granite-8b", MOE])
+def test_continuous_batcher_matches_jax_and_generate(arch):
     """3 requests on 2 slots (slot reuse), the middle prompt over the
     lowered threshold (its prefill takes the flash wrapper): the same
     tokens as the reference's batcher and as the port's generate."""
-    jcfg, tcfg, jp, tp = _setup("granite-8b", attn_chunk_threshold=16)
+    jcfg, tcfg, jp, tp = _setup(arch, attn_chunk_threshold=16)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, jcfg.vocab_size, n).astype(np.int32)
                for n in (6, 24, 9)]
@@ -421,6 +447,14 @@ def test_serve_cli_on_cpu(capsys):
     assert "served 3 requests, 9 tokens" in out and "tokens/s" in out
 
 
+def test_serve_cli_moe_on_cpu(capsys):
+    assert tserve.main(["--arch", MOE, "--smoke", "--device", "cpu",
+                        "--requests", "3", "--slots", "2",
+                        "--max-new", "3"]) == 0
+    out = capsys.readouterr().out
+    assert "moonshot-smoke on cpu: served 3 requests, 9 tokens" in out
+
+
 # ---------------------------------------------------------------------------
 # weights and devices
 # ---------------------------------------------------------------------------
@@ -443,7 +477,34 @@ def test_lm_params_round_trip_exactly(dtype):
                                       np.asarray(leaf, np.float32))
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_params_round_trip_exactly(dtype):
+    """A moonshot tree (dense_blocks, moe_blocks with the expert stacks,
+    the shared experts) converts leaf for leaf; the router stays f32."""
+    jcfg = jconfigs.get_smoke_config(MOE)
+    jp = jlm.init_params(jax.random.key(2), jcfg, dtype=getattr(jnp, dtype))
+    tp = lm_params_from_numpy(jax.tree_util.tree_map(np.asarray, jp),
+                              device="cpu")
+    jl = jax.tree_util.tree_leaves_with_path(jp)
+    assert len(jl) == len(jax.tree_util.tree_leaves(
+        tp, is_leaf=lambda x: isinstance(x, torch.Tensor)))
+    assert tp["moe_blocks"]["moe"]["router"].dtype == torch.float32
+    for path, leaf in jl:
+        t = tp
+        for key in path:
+            t = t[key.key]
+        assert t.dtype == _torch_dtype(leaf.dtype), path
+        assert t.shape == leaf.shape
+        np.testing.assert_array_equal(t.float().numpy(),
+                                      np.asarray(leaf, np.float32))
+
+
+def _torch_dtype(jax_dtype):
+    return {"float32": torch.float32,
+            "bfloat16": torch.bfloat16}[np.dtype(jax_dtype).name]
+
+
+@pytest.mark.parametrize("arch", PORTED)
 def test_init_params_layout_matches_reference(arch):
     jcfg = jconfigs.get_smoke_config(arch)
     tcfg = tconfigs.get_smoke_config(arch)
@@ -458,7 +519,8 @@ def test_init_params_layout_matches_reference(arch):
         for key in path:
             t = t[key.key]
         assert tuple(t.shape) == leaf.shape, path
-        assert t.dtype == torch.bfloat16 and torch.isfinite(t.float()).all()
+        assert t.dtype == _torch_dtype(leaf.dtype), path
+        assert torch.isfinite(t.float()).all()
 
 
 def test_lm_entry_points_need_a_card(monkeypatch):

@@ -293,6 +293,45 @@ def test_cache_smaller_than_pooling_rejected(models):
                        device="cpu")
 
 
+def test_cache_size_guard_differs_from_reference_on_purpose(models):
+    """Without a plan the port holds EVERY entry of
+    ``cache.rows_per_table`` to ``pooling`` (the rule both engines' plan
+    branch applies to a vector); the reference checks the uniform
+    ``cache.rows`` even when ``rows_per_table`` overrides it.  Both cases
+    pinned as each package behaves, and the vector the port serves
+    scores as the reference's uncached engine does."""
+    jcfg, jparams, tcfg, params = models
+    T = tcfg.num_sparse_features
+    assert T == 8 and tcfg.pooling == 4
+    # (1) rows 0, every table 8 slots: the reference refuses, the port serves
+    vec = [8] * T
+    with pytest.raises(ValueError, match=r"cache rows \(0\) must be >= "
+                                         r"pooling"):
+        JEngine(jparams, dataclasses.replace(
+            jcfg, cache=JCacheConfig(rows_per_table=vec)), batch_size=4)
+    teng = DLRMEngine(params, dataclasses.replace(
+        tcfg, cache=CacheConfig(rows_per_table=vec)), 4, device="cpu")
+    assert teng.cache is not None
+    reqs = _requests(tcfg, 6, seed=8)
+    want = _merged(_serve(JEngine(jparams, jcfg, batch_size=4), JRequest,
+                          reqs))
+    got = _merged(_serve(teng, CTRRequest, reqs))
+    assert sorted(got) == sorted(want) == list(range(6))
+    for rid in want:
+        np.testing.assert_allclose(got[rid], want[rid], **PCTR)
+    # (2) rows 8, one table of 3 slots: the reference accepts, the port
+    # refuses
+    vec = [8] * (T - 1) + [3]
+    jeng = JEngine(jparams, dataclasses.replace(
+        jcfg, cache=JCacheConfig(rows=8, rows_per_table=vec)), batch_size=4)
+    assert jeng.cache is not None
+    with pytest.raises(ValueError, match=r"cache rows \(3\) must be >= "
+                                         r"pooling"):
+        DLRMEngine(params, dataclasses.replace(
+            tcfg, cache=CacheConfig(rows=8, rows_per_table=vec)), 4,
+            device="cpu")
+
+
 def test_entry_points_need_a_card_or_an_explicit_cpu(models):
     """device=None means the card: without one every entry point raises,
     the pipelined engine (depth >= 2) too; on an explicit CPU depth 2

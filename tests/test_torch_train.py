@@ -8,6 +8,11 @@
   the reference's ``custom_vjp``s: ``rtol=1e-5, atol=1e-5`` (two f32
   summation orders of a few terms; the reference's own gradient tests
   hold 1e-4).
+* The row-wise partial pools (``embedding_bag_rw_partial`` and
+  ``embedding_bag_rw_partial_batched``, fused through the strided shard
+  view and unfused, 3 uneven row shards) the same way, at the same
+  tolerance; the shards' gradients summed are the full fused op's
+  bitwise (one owner per row; out-of-shard lookups add +-0.0).
 * Row-wise Adagrad against the reference's: ``rtol=1e-6, atol=1e-7``
   (the same f32 arithmetic; ``sqrt`` and division may round apart by an
   ulp), rows with a zero gradient bitwise unchanged.
@@ -179,6 +184,88 @@ def test_weights_grad_only_when_asked():
     finally:
         tops._weights_grad = orig
     assert calls == [] and g.shape == t.shape
+
+
+# the row-wise partial pools: 3 uneven row shards of R = 32 rows
+SHARDS = ((0, 11), (11, 22), (22, 32))
+
+
+@pytest.mark.parametrize("shard", SHARDS)
+def test_embedding_bag_rw_partial_grads_match_reference(shard):
+    """One shard's partial pool over GLOBAL ids (lookups outside the shard
+    pool nothing), against ``jax.grad`` through the reference's
+    ``custom_vjp`` in interpret mode."""
+    tables, idx, lens, w = _inputs(71, 1)
+    a, b = shard
+    args = (tables[0, a:b], w[0], a, idx[0], lens[0])
+    _close(_torch_grads(tops.embedding_bag_rw_partial, *args),
+           _jax_grads(jops.embedding_bag_rw_partial, *args), GRAD)
+
+
+def _shard_grads(tables, w, idx, lens, shard, fused):
+    """Gradients of ``sum(out**2)`` through the batched partial pool of
+    the shard VIEW ``tables[:, a:b]`` (the fused launch reads it in place
+    through ``_flat_rows``): (d tables (T, R, D), d w)."""
+    a, b = shard
+    t = torch.tensor(tables, requires_grad=True)
+    ww = torch.tensor(w, requires_grad=True)
+    view = t[:, a:b]
+    assert not view.is_contiguous()
+    out = tops.embedding_bag_rw_partial_batched(
+        view, a, torch.as_tensor(idx), torch.as_tensor(lens), ww,
+        fused=fused)
+    return [g.numpy() for g in torch.autograd.grad((out ** 2).sum(),
+                                                   (t, ww))]
+
+
+@pytest.mark.parametrize("shard", SHARDS)
+@pytest.mark.parametrize("fused", [True, False])
+def test_embedding_bag_rw_partial_batched_grads_match_reference(fused,
+                                                                shard):
+    """The batched partial pool over a row shard of 3 stacked tables,
+    fused and unfused, against ``jax.grad`` of the reference's op on the
+    same (contiguous) shard; rows outside the shard get exactly zero."""
+    tables, idx, lens, w = _inputs(72, 3)
+    a, b = shard
+    d_tables, d_w = _shard_grads(tables, w, idx, lens, shard, fused)
+    want = _jax_grads(jops.embedding_bag_rw_partial_batched,
+                      tables[:, a:b], w, a, idx, lens, fused=fused)
+    _close([d_tables[:, a:b], d_w], want, GRAD)
+    outside = np.ones(tables.shape[1], bool)
+    outside[a:b] = False
+    assert np.all(d_tables[:, outside] == 0.0)
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_rw_partial_shard_grads_sum_to_the_full_ops(fused):
+    """Under one fixed cotangent the 3 shards' gradients, summed, are the
+    full fused op's bitwise (batched, and the single-table op against
+    ``embedding_bag``): each row has one owner, and a lookup outside a
+    shard adds only +-0.0 there."""
+    tables, idx, lens, w = _inputs(73, 3)
+    g = torch.as_tensor(np.random.default_rng(74).standard_normal(
+        (3, idx.shape[1], tables.shape[2])).astype(np.float32))
+    i, ln = torch.as_tensor(idx), torch.as_tensor(lens)
+
+    def grads(fn, cot):
+        t = torch.tensor(tables, requires_grad=True)
+        ww = torch.tensor(w, requires_grad=True)
+        return torch.autograd.grad((fn(t, ww) * cot).sum(), (t, ww))
+
+    def summed(fn, cot):
+        parts = [grads(lambda t, ww: fn(t, ww, a, b), cot)
+                 for a, b in SHARDS]
+        return [sum(p[k] for p in parts) for k in range(2)]
+
+    full = grads(lambda t, ww: tops.embedding_bag_batched(t, i, ln, ww), g)
+    parts = summed(lambda t, ww, a, b: tops.embedding_bag_rw_partial_batched(
+        t[:, a:b], a, i, ln, ww, fused=fused), g)
+    assert all(torch.equal(p, f) for p, f in zip(parts, full))
+    full = grads(lambda t, ww: tops.embedding_bag(t[0], i[0], ln[0], ww[0]),
+                 g[0])
+    parts = summed(lambda t, ww, a, b: tops.embedding_bag_rw_partial(
+        t[0, a:b], a, i[0], ln[0], ww[0]), g[0])
+    assert all(torch.equal(p, f) for p, f in zip(parts, full))
 
 
 @pytest.mark.parametrize("fused", [True, False])
