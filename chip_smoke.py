@@ -131,6 +131,28 @@ Phases:
      free-running (logged: each MoE layer's routing flips between the
      two paths, per-layer divergence) and on the forward's expert
      choices (held to 2e-2);
+  8d. MLA serving, after phase 8m's weights and cache are freed (checked):
+     deepseek-v3-671b at its published widths in bf16, cut to 5 layers (3
+     dense MLA layers, 2 MoE layers of 256 experts top-8 + 1 shared;
+     26,618,298,368 parameters and the MTP head, random from a seed):
+     (a) layer 0's mla_attention on the 16,384 real hidden rows of the
+     long prompt takes chunked_attention once by shape (q/k at hd 192, v
+     at 128) and launches no flash kernel, its last 512 rows within
+     relative L2 2e-3 of an explicit f32 softmax over all keys, a bound
+     that the same softmax at a planted wrong scale (128 ** -0.5) must
+     exceed; (b) layer
+     3's moe_ffn on 2,048 real rows against the dense f32 scan over all
+     256 experts, the expert loads, moe_dropped 0; (c) ContinuousBatcher
+     (2 slots of 16,416 positions) over 4 requests, 1 prompt of 16,384
+     tokens (5 chunked_attention calls, no flash launch) and 3 of
+     256-2,048 (full attention), 16 new tokens each, one moe_ffn call per
+     MoE layer per prefill and decode step; prefill and decode times,
+     tokens/s, peak device memory (the draw's, the checks', serving's), a
+     profiled decode step and 16,384-token prefill; (d) decode against
+     forward on the 1,354-token prompt, free-running (logged with its
+     routing flips) and on the forward's expert choices (held to 2e-2);
+     (e) the latent cache exactly 189,112,320 B, and the phase's memory
+     freed after it;
   9. the card line, one JSON line of the kernels, and last the result line.
 
 Any failed check raises: the script exits non-zero and prints no result
@@ -2436,16 +2458,16 @@ def phase_train(pt, eg, oa) -> dict:
 # 8. LM serving
 # ---------------------------------------------------------------------------
 
-def _lm_requests(pt, cfg, n=8) -> list:
+def _lm_requests(pt, cfg, n=8, max_new=LM_MAX_NEW) -> list:
     """The first ``n`` of phase 8's 8 requests (uniform ids over the
-    vocabulary, LM_MAX_NEW new tokens each): two long prompts (the flash
+    vocabulary, ``max_new`` new tokens each): two long prompts (the flash
     kernel), each followed by three of 256-2,048 tokens (full
     attention)."""
     rng = np.random.default_rng(12)
     short = rng.integers(SHORT_PROMPTS[0], SHORT_PROMPTS[1] + 1, 6).tolist()
     lens = [LONG_PROMPT] + short[:3] + [LONG_PROMPT] + short[3:]
     return [pt.Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, s)
-                       .astype(np.int32), max_new=LM_MAX_NEW)
+                       .astype(np.int32), max_new=max_new)
             for i, s in enumerate(lens)][:n]
 
 
@@ -2465,60 +2487,75 @@ def _layer0_flash(pt, params, stack, cfg, prompt) -> float:
 
 def _serve_lm(pt, eng, reqs, kmods, cfg, slots) -> dict:
     """Drive ``eng`` over ``reqs`` to the end from launch counts at 0:
-    each step's flash launches are the layers times the prompts over the
-    threshold it admitted, all on the wgmma route, and nothing else
+    each step's long attentions are the layers times the prompts over the
+    threshold it admitted, flash launches all on the wgmma route for GQA,
+    ``chunked_attention`` calls for MLA (by shape), and nothing else
     launches.  Logs and returns the counts, timings and throughput."""
     fa, nl = pt.fa, cfg.num_layers
+    chunked = pt.layers.CALL_COUNTS
+    mla = cfg.attention == "mla"
     for r in reqs:
         eng.submit(r)
     for mod in kmods:
         mod.reset_launch_counts()
+    pt.layers.reset_call_counts()
     steps = []
     t0 = time.perf_counter()
     while eng.queue or any(r is not None for r in eng.slots):
         n0 = len(eng.timings["prefill"])
         c0 = fa.LAUNCH_COUNTS["flash_attention"]
+        k0 = chunked["chunked_attention"]
         eng.step()
         steps.append(([n for n, _ in eng.timings["prefill"][n0:]],
-                      fa.LAUNCH_COUNTS["flash_attention"] - c0))
+                      fa.LAUNCH_COUNTS["flash_attention"] - c0,
+                      chunked["chunked_attention"] - k0))
     serve_s = time.perf_counter() - t0
     counts = {k: v for mod in kmods for k, v in mod.LAUNCH_COUNTS.items()}
     thr = cfg.attn_chunk_threshold
-    for lens, n in steps:
+    for lens, n, k in steps:
         want = nl * sum(s > thr for s in lens)
-        check(n == want, f"{n} flash launches in a step admitting prompts "
-                         f"of {lens} tokens: want {nl} per prompt over "
-                         f"{thr}, none per short prefill or decode step")
+        got = (0, want) if mla else (want, 0)
+        check((n, k) == got,
+              f"{n} flash launches and {k} chunked_attention calls in a "
+              f"step admitting prompts of {lens} tokens: want {got} ({nl} "
+              f"per prompt over {thr}, none per short prefill or decode "
+              f"step)")
     n_long = sum(len(r.prompt) > thr for r in reqs)
-    check(counts == _launches(flash_attention=nl * n_long),
-          f"the LM path launched the flash kernel {nl} x {n_long} times "
-          f"and nothing else")
-    check(fa.ROUTE_COUNTS == {"wgmma": nl * n_long, "simt": 0},
+    n_flash = 0 if mla else nl * n_long
+    check(counts == _launches(flash_attention=n_flash)
+          and chunked["chunked_attention"] == nl * n_long - n_flash,
+          f"the LM path launched the flash kernel {n_flash} times and "
+          f"nothing else, and called chunked_attention "
+          f"{chunked['chunked_attention']} times")
+    check(fa.ROUTE_COUNTS == {"wgmma": n_flash, "simt": 0},
           f"every flash launch of the LM path on the wgmma route "
           f"({fa.ROUTE_COUNTS})")
     done = eng.done
     check(sorted(done) == [r.rid for r in reqs]
-          and all(len(r.generated) == LM_MAX_NEW
+          and all(len(r.generated) == r.max_new
                   and 0 <= min(r.generated)
                   and max(r.generated) < cfg.vocab_size
                   for r in done.values()),
-          f"{len(reqs)} requests served, {LM_MAX_NEW} ids each, in the "
+          f"{len(reqs)} requests served, each its max_new ids, in the "
           f"vocabulary")
     tokens_out = sum(len(r.generated) for r in done.values())
     prefill, decode = eng.timings["prefill"], eng.timings["decode"]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     log(f"  {len(done)} requests, {tokens_out} tokens in {len(steps)} steps,"
         f" {serve_s:.3f} s: {tokens_out / serve_s:.2f} tokens/s; flash "
-        f"launches {counts['flash_attention']} ({nl} x {n_long} long "
-        f"prefills; per step {[n for _, n in steps if n]}; by route "
-        f"{fa.ROUTE_COUNTS})")
+        f"launches {counts['flash_attention']} (per step "
+        f"{[n for _, n, _ in steps if n]}; by route {fa.ROUTE_COUNTS}), "
+        f"chunked_attention calls {chunked['chunked_attention']} (per step "
+        f"{[k for _, _, k in steps if k]}); {n_long} long prefills of {nl} "
+        f"layers")
     for n, sec in prefill:
         log(f"  prefill of {n} tokens: {1e3 * sec:.1f} ms")
     log(f"  decode step ({slots} slots): median "
         f"{1e3 * statistics.median(decode):.3f} ms, min "
         f"{1e3 * min(decode):.3f}, max {1e3 * max(decode):.3f} over "
         f"{len(decode)} steps; peak device memory {peak_gb:.1f} GB")
-    return dict(launches=counts["flash_attention"], prefill=prefill,
+    return dict(launches=counts["flash_attention"],
+                chunked=chunked["chunked_attention"], prefill=prefill,
                 decode=decode, serve_s=serve_s, tokens=tokens_out,
                 peak_gb=peak_gb)
 
@@ -2654,16 +2691,17 @@ def _moe_dense_scan(pt, p, x, cfg):
 
 
 def _check_moe_layer(pt, params, cfg, prompt) -> dict:
-    """Layer 1's moe_ffn on the real hidden rows of a MOE_ROWS-token
-    prompt against the dense f32 scan; the expert loads; its time."""
+    """The first MoE layer's moe_ffn on the real hidden rows of a
+    MOE_ROWS-token prompt (through the dense layers and the layer's own
+    attention) against the dense f32 scan; the expert loads; its time."""
     lm, moe = pt.lm, pt.moe
     tokens = torch.as_tensor(prompt[None, :MOE_ROWS], device=DEV)
     pos = torch.arange(MOE_ROWS, device=DEV)[None]
     h = lm.embed_tokens(params, tokens, cfg)
-    h, _, _ = lm._block(lm.layer(params["dense_blocks"], 0), h, pos, cfg)
+    for i in range(cfg.first_k_dense):
+        h, _, _ = lm._block(lm.layer(params["dense_blocks"], i), h, pos, cfg)
     pl = lm.layer(params["moe_blocks"], 0)
-    a, _ = lm.gqa_attention(pl["attn"], lm._norm(h, pl["ln1"], cfg), pos,
-                            cfg)
+    a, _ = lm._attention(pl["attn"], lm._norm(h, pl["ln1"], cfg), pos, cfg)
     x = lm._norm(h + a, pl["ln2"], cfg).reshape(-1, cfg.d_model)
     out, aux = moe.moe_ffn(pl["moe"], x, cfg)
     want, topi = _moe_dense_scan(pt, pl["moe"], x, cfg)
@@ -2673,7 +2711,8 @@ def _check_moe_layer(pt, params, cfg, prompt) -> dict:
                           minlength=cfg.num_experts)
     ms = _times(lambda: moe.moe_ffn(pl["moe"], x, cfg), 5,
                 torch.empty(64 * 2 ** 20 // 4, device=DEV))
-    log(f"  layer 1 moe_ffn on {MOE_ROWS} real hidden rows (bf16) against "
+    log(f"  layer {cfg.first_k_dense} moe_ffn on {MOE_ROWS} real hidden rows "
+        f"(bf16) against "
         f"the dense f32 scan over {cfg.num_experts} experts: relative L2 "
         f"{rel:.3e} (bound {MOE_REL_L2}), max_abs_err {err:.3e}; expert "
         f"load max {int(load.max())} (the buckets' cap), mean "
@@ -2793,9 +2832,42 @@ def _moe_decode_vs_forward(pt, params, cfg, tokens) -> dict:
                 last_flips=last_flips, layer_rel=per_layer)
 
 
+def _init_moe_lm(pt, cfg, seed, want) -> dict:
+    """Random bf16 parameters of ``cfg`` from ``seed`` on the card: their
+    count less the norms (the stacks' 2-D leaves and the final norm) and
+    the MTP head is ``cfg.param_count()`` and ``want``; bf16 but the f32
+    routers.  Logs and returns them with their count, bytes, seconds and
+    the peak device memory of the draw."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = pt.lm.init_params(torch.Generator(device=DEV).manual_seed(seed),
+                               cfg, device=DEV)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = list(_leaves(params))
+    norms = [t for name in ("dense_blocks", "moe_blocks")
+             for t in _leaves(params[name]) if t.dim() == 2]
+    norms += list(_leaves(params["final_norm"]))
+    n_norms = sum(t.numel() for t in norms)
+    n_mtp = sum(t.numel() for t in _leaves(params.get("mtp", {})))
+    n_params = sum(t.numel() for t in leaves) - n_norms - n_mtp
+    nbytes = sum(t.numel() * t.element_size() for t in leaves)
+    routers = params["moe_blocks"]["moe"]["router"]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  init_params: {n_params:,} parameters (param_count "
+        f"{cfg.param_count():,}; norms {n_norms:,} and the MTP head "
+        f"{n_mtp:,} more), {nbytes / 1e9:.2f} GB on the card, in "
+        f"{init_s:.1f} s, peak device memory of the draw {peak_gb:.1f} GB")
+    check(n_params == cfg.param_count() == want, f"{want:,} parameters")
+    check(routers.dtype == torch.float32
+          and all(t.dtype == torch.bfloat16 for t in leaves
+                  if t is not routers), "bf16 weights, the routers f32")
+    return dict(params=params, n_params=n_params, n_mtp=n_mtp,
+                nbytes=nbytes, init_s=init_s, init_peak_gb=peak_gb)
+
+
 def phase_moe(pt, kmods) -> dict:
     cfg = pt.MOE_CONFIG
-    n_moe = cfg.num_layers - cfg.first_k_dense
     log(f"== 8m. MoE serving: {cfg.name} at full width ({cfg.num_layers} "
         f"layers, {cfg.first_k_dense} dense, d {cfg.d_model}, "
         f"{cfg.num_heads}/{cfg.num_kv_heads} heads, {cfg.num_experts} "
@@ -2803,36 +2875,43 @@ def phase_moe(pt, kmods) -> dict:
         f"shared, moe_d_ff {cfg.moe_d_ff}, vocab {cfg.vocab_size}, "
         f"{cfg.dtype}), ContinuousBatcher({MOE_SLOTS} slots x {LM_MAX_LEN} "
         f"positions)")
-    lm, dec, moe = pt.lm, pt.dec, pt.moe
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    params = lm.init_params(torch.Generator(device=DEV).manual_seed(13), cfg,
-                            device=DEV)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    leaves = list(_leaves(params))
-    norms = [t for name in ("dense_blocks", "moe_blocks")
-             for key in ("ln1", "ln2") for t in _leaves(params[name][key])]
-    norms += list(_leaves(params["final_norm"]))
-    n_params = sum(t.numel() for t in leaves) - sum(t.numel() for t in norms)
-    nbytes = sum(t.numel() * t.element_size() for t in leaves)
-    routers = params["moe_blocks"]["moe"]["router"]
-    log(f"  init_params: {n_params:,} parameters (param_count "
-        f"{cfg.param_count():,}; norms {sum(t.numel() for t in norms):,} "
-        f"more), {nbytes / 1e9:.2f} GB on the card, in {init_s:.1f} s")
-    check(n_params == cfg.param_count() == MOE_PARAMS,
-          f"{MOE_PARAMS:,} parameters")
-    check(routers.dtype == torch.float32
-          and all(t.dtype == torch.bfloat16 for t in leaves
-                  if t is not routers), "bf16 weights, the routers f32")
+    init = _init_moe_lm(pt, cfg, 13, MOE_PARAMS)
+    params = init.pop("params")
     reqs = _lm_requests(pt, cfg, 4)
 
     # the flash kernel at group size 1 on the dense layer's real q/k/v
     err = _layer0_flash(pt, params, "dense_blocks", cfg, reqs[0].prompt)
     layer = _check_moe_layer(pt, params, cfg, reqs[0].prompt)
 
+    out = _serve_moe(pt, params, cfg, reqs, kmods)
+
+    # decode matches forward at full width on a short prompt: on the
+    # forward's routing within the bound; free-running with the flips
+    short = torch.as_tensor(reqs[1].prompt[None], device=DEV)
+    dvf = _moe_decode_vs_forward(pt, params, cfg, short)
+    check(dvf["rel"] < DECODE_REL_L2, "decode_step after prefill matches "
+                                      "forward on the forward's routing")
+    del params
+    torch.cuda.empty_cache()
+    return dict(out, **dvf, **init, err=err, layer=layer)
+
+
+def _serve_moe(pt, params, cfg, reqs, kmods) -> dict:
+    """Serve ``reqs`` through ContinuousBatcher(MOE_SLOTS slots x
+    LM_MAX_LEN positions) (:func:`_serve_lm`), counting moe_ffn calls and
+    their dispatches, one host sync each: one call per MoE layer per
+    prefill and decode step, one dispatch per CHUNK_ROWS tokens of each.
+    Then one decode step and the long prefill profiled (the slots' cache
+    as the loop left it; its rows are scratch now).  Returns
+    :func:`_serve_lm`'s dict with the profiles, the cache's bytes and
+    the syncs."""
+    dec, moe = pt.dec, pt.moe
+    n_moe = cfg.num_layers - cfg.first_k_dense
     eng = pt.ContinuousBatcher(params, cfg, num_slots=MOE_SLOTS,
                                max_len=LM_MAX_LEN, eos_id=-1, device=DEV)
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for st in dec.kv_stacks(eng.cache).values()
+                      for t in st.values())
     calls, syncs = [], []
     restore = [_patched(moe, "moe_ffn", lambda r: _recording(
                    r, calls, lambda out: 1)),
@@ -2864,17 +2943,140 @@ def phase_moe(pt, kmods) -> dict:
             out["prefill"][0][1] * 1e3))
     del eng, kv
     torch.cuda.empty_cache()
+    return dict(out, prof=prof, cache_bytes=cache_bytes, syncs=len(syncs))
 
-    # decode matches forward at full width on a short prompt: on the
-    # forward's routing within the bound; free-running with the flips
+
+# ---------------------------------------------------------------------------
+# 8d. MLA serving
+# ---------------------------------------------------------------------------
+
+# deepseek-v3-671b at its published widths, cut to 5 layers (3 dense MLA
+# layers, then 2 MoE): 26,618,298,368 parameters (param_count) and the MTP
+# head, 54.6 GB in bf16; a 6th layer would not fit on an 80 GB card
+DS_LAYERS = 5
+DS_PARAMS = 26_618_298_368
+DS_MAX_NEW = 16
+# 2 slots x 16,416 positions x 5 layers x (512 + 64) latent values x 2 B
+DS_CACHE_BYTES = 189_112_320
+DS_CHECK_ROWS = 512          # the last query rows held to the f32 softmax
+# the chunked route (f32 scores, online softmax) against one explicit f32
+# softmax over all keys: both round the same f32 context to bf16 before
+# w_o, and their f32 sums differ in order only, so the bf16 output rows,
+# its GEMM and that rounding set the bound (a few 1e-4).  With random
+# weights over 16K keys the attention is nearly uniform, so a fault moves
+# the output little: the bound sits under the reading of a planted fault,
+# the softmax scaled by hd_v ** -0.5 (128) in place of hd ** -0.5 (192),
+# and the phase checks that this fault lands above it
+MLA_REL_L2 = 2e-3
+MLA_FAULT_SCALE = 128 ** -0.5
+
+
+def _check_mla_layer(pt, params, cfg, prompt) -> dict:
+    """Layer 0's mla_attention on the real hidden rows of ``prompt`` (over
+    the threshold): one chunked_attention call and no flash launch, and
+    its last DS_CHECK_ROWS output rows against an explicit f32 softmax
+    over all keys from the same projections, through the same w_o."""
+    lm, mla, layers, fa = pt.lm, pt.mla, pt.layers, pt.fa
+    S, R = len(prompt), DS_CHECK_ROWS
+    m, H = cfg.mla, cfg.num_heads
+    tokens = torch.as_tensor(prompt[None], device=DEV)
+    pos = torch.arange(S, device=DEV)[None]
+    pl = lm.layer(params["dense_blocks"], 0)
+    p = pl["attn"]
+    x = lm._norm(lm.embed_tokens(params, tokens, cfg), pl["ln1"], cfg)
+    fa.reset_launch_counts()
+    layers.reset_call_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, _ = mla.mla_attention(p, x, pos, cfg)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    calls = (fa.LAUNCH_COUNTS["flash_attention"],
+             layers.CALL_COUNTS["chunked_attention"])
+    got = out[0, -R:].float()
+    del out
+    q_nope, q_rope = mla._project_q(p, x, cfg, pos)
+    c_kv, k_rope = mla.latent_kv(p, x, cfg, pos)
+    k_nope = torch.einsum("bsk,khn->bshn", c_kv, p["w_uk"])
+    v = torch.einsum("bsk,khv->bshv", c_kv, p["w_uv"])
+    s = torch.einsum("bqhn,bkhn->bhqk", q_nope[:, -R:].float(),
+                     k_nope.float())
+    s += torch.einsum("bqhr,bkr->bhqk", q_rope[:, -R:].float(),
+                      k_rope.float())
+    scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+    s *= scale
+    qpos = torch.arange(S - R, S, device=DEV)
+    s.masked_fill_(pos[0][None, :] > qpos[:, None], -1e30)
+
+    def softmax_rows(s):
+        o = torch.einsum("bhqk,bkhv->bqhv", torch.softmax(s, dim=-1),
+                         v.float())
+        return (o.to(x.dtype).reshape(1, R, H * m.v_head_dim)
+                @ p["w_o"])[0].float()
+
+    want = softmax_rows(s)
+    s *= MLA_FAULT_SCALE / scale
+    fault = softmax_rows(s)
+    del s
+    rel = float((got - want).norm() / want.norm())
+    err = float((got - want).abs().max())
+    rel_fault = float((fault - want).norm() / want.norm())
+    log(f"  layer 0 mla_attention on {S} real hidden rows: {ms:.1f} ms (host"
+        f" clock, one call); flash launches {calls[0]}, chunked_attention "
+        f"calls {calls[1]}; its last {R} rows against an explicit f32 "
+        f"softmax over all keys: relative L2 {rel:.3e} (bound {MLA_REL_L2}),"
+        f" max_abs_err {err:.3e}; a planted fault (scale "
+        f"{MLA_FAULT_SCALE:.5f} for {scale:.5f}) reads {rel_fault:.3e}")
+    check(calls == (0, 1), "the long MLA attention took chunked_attention "
+                           "once and launched no flash kernel")
+    check(bool(torch.isfinite(got).all()), "mla_attention: finite rows")
+    check(rel < MLA_REL_L2, "chunked MLA attention within its bound of the "
+                            "f32 softmax")
+    check(rel_fault > MLA_REL_L2, "the planted scale fault lands above the "
+                                  "bound")
+    return dict(rel=rel, err=err, ms=ms, rel_fault=rel_fault)
+
+
+def phase_mla(pt, kmods) -> dict:
+    cfg = pt.MLA_CONFIG
+    m = cfg.mla
+    log(f"== 8d. MLA serving: {cfg.name} at full width, {cfg.num_layers} "
+        f"layers ({cfg.first_k_dense} dense, then MoE), d {cfg.d_model}, "
+        f"{cfg.num_heads} heads, q_lora {m.q_lora_rank}, kv_lora "
+        f"{m.kv_lora_rank}, nope {m.qk_nope_head_dim} + rope "
+        f"{m.qk_rope_head_dim}, v {m.v_head_dim}, d_ff {cfg.d_ff}, "
+        f"{cfg.num_experts} experts top-{cfg.experts_per_token} + "
+        f"{cfg.num_shared_experts} shared of {cfg.moe_d_ff}, vocab "
+        f"{cfg.vocab_size}, {cfg.dtype}; ContinuousBatcher({MOE_SLOTS} "
+        f"slots x {LM_MAX_LEN} positions)")
+    init = _init_moe_lm(pt, cfg, 17, DS_PARAMS)
+    params = init.pop("params")
+    reqs = _lm_requests(pt, cfg, 4, DS_MAX_NEW)
+    # (a) the chunked route on layer 0's real rows; (b) the first MoE
+    # layer against the dense f32 scan over all its experts
+    attn = _check_mla_layer(pt, params, cfg, reqs[0].prompt)
+    layer = _check_moe_layer(pt, params, cfg, reqs[0].prompt)
+    # (c) serving; (e) the latent cache's bytes
+    checks_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    out = _serve_moe(pt, params, cfg, reqs, kmods)
+    gqa = 2 * 2 * MOE_SLOTS * LM_MAX_LEN * cfg.num_layers * cfg.num_heads \
+        * cfg.head_dim
+    log(f"  latent cache: {out['cache_bytes']:,} B (want {DS_CACHE_BYTES:,};"
+        f" a bf16 GQA K/V cache of {cfg.num_heads} heads of {cfg.head_dim} "
+        f"would take {gqa:,} B); peak device memory of checks (a)-(b) "
+        f"{checks_peak_gb:.1f} GB, of serving {out['peak_gb']:.1f} GB")
+    check(out["cache_bytes"] == DS_CACHE_BYTES, "the latent cache's bytes")
+    # (d) decode matches forward on a short prompt, on the forward's
+    # routing; free-running with the flips
     short = torch.as_tensor(reqs[1].prompt[None], device=DEV)
     dvf = _moe_decode_vs_forward(pt, params, cfg, short)
     check(dvf["rel"] < DECODE_REL_L2, "decode_step after prefill matches "
                                       "forward on the forward's routing")
     del params
     torch.cuda.empty_cache()
-    return dict(out, **dvf, err=err, layer=layer, prof=prof,
-                n_params=n_params, nbytes=nbytes, init_s=init_s)
+    return dict(out, **dvf, **init, attn=attn, layer=layer,
+                checks_peak_gb=checks_peak_gb)
 
 
 def _profile_lm(fn, label, unprofiled_ms) -> dict:
@@ -2939,6 +3141,8 @@ def main() -> int:
         from repro_torch.configs.granite_8b import CONFIG as LM_CONFIG
         from repro_torch.configs.moonshot_v1_16b_a3b import \
             CONFIG as MOE_CONFIG
+        from repro_torch.configs import deepseek_v3_671b
+        from repro_torch.models import mla
         from repro_torch import obs
         from repro_torch.obs import Telemetry
         from repro_torch.core import perf_model as pm
@@ -2980,7 +3184,20 @@ def main() -> int:
     log(f"== phase 8 freed: {after / 1e9:.3f} GB allocated after it, "
         f"{held / 1e9:.3f} GB before it (peak {lm['peak_gb']:.1f} GB in it)")
     check(after <= held + 2 ** 26, "phase 8's weights and cache freed")
+    held = torch.cuda.memory_allocated()
     moe = phase_moe(pt, (eg, oa, pt.fa))
+    # phase 8m's moonshot weights are freed before phase 8d
+    after = torch.cuda.memory_allocated()
+    log(f"== phase 8m freed: {after / 1e9:.3f} GB allocated after it, "
+        f"{held / 1e9:.3f} GB before it (peak {moe['peak_gb']:.1f} GB in it)")
+    check(after <= held + 2 ** 26, "phase 8m's weights and cache freed")
+    pt.MLA_CONFIG = dataclasses.replace(pt.deepseek_v3_671b.CONFIG,
+                                        num_layers=DS_LAYERS)
+    ds = phase_mla(pt, (eg, oa, pt.fa))
+    after_ds = torch.cuda.memory_allocated()
+    log(f"== phase 8d freed: {after_ds / 1e9:.3f} GB allocated after it "
+        f"(peak {ds['peak_gb']:.1f} GB in it)")
+    check(after_ds <= held + 2 ** 26, "phase 8d's weights and cache freed")
 
     log("== 9. summary")
     # each main path's launches, read from its own run with the counts
@@ -3104,6 +3321,28 @@ def main() -> int:
         f"{moe['peak_gb']:.1f} GB, device idle "
         f"{moe['prof']['decode']['idle']:.1f}% of a decode step, "
         f"{moe['prof']['long_prefill']['idle']:.1f}% of a {LONG_PROMPT}-token"
+        f" prefill")
+    dl, da = ds["layer"], ds["attn"]
+    log(f"MLA serving ({ds['n_params']:,} parameters and the MTP head's "
+        f"{ds['n_mtp']:,}, {ds['nbytes'] / 1e9:.2f} GB): {ds['tokens']} "
+        f"tokens in {ds['serve_s']:.3f} s ({ds['tokens'] / ds['serve_s']:.2f}"
+        f" tokens/s), prefill ms by length "
+        f"{[(n, round(1e3 * t, 1)) for n, t in ds['prefill']]}, median "
+        f"decode step {1e3 * statistics.median(ds['decode']):.3f} ms, "
+        f"chunked_attention calls {ds['chunked']}, flash launches "
+        f"{ds['launches']}, layer-0 chunked route relative L2 "
+        f"{da['rel']:.3e} (planted scale fault {da['rel_fault']:.3e}), "
+        f"layer-{pt.MLA_CONFIG.first_k_dense} moe_ffn "
+        f"relative L2 {dl['rel']:.3e} (cap {dl['cap']}, {dl['ms']:.3f} ms "
+        f"at {MOE_ROWS} rows), decode vs forward relative L2 "
+        f"{ds['rel']:.3e} on the forward's routing, {ds['rel_free']:.3e} "
+        f"free-running with {sum(ds['flips'])} routing flips (the decoded "
+        f"token in layers {ds['last_flips']}), latent cache "
+        f"{ds['cache_bytes']:,} B, peak device memory {ds['init_peak_gb']:.1f}"
+        f" GB in init, {ds['checks_peak_gb']:.1f} in checks, "
+        f"{ds['peak_gb']:.1f} serving, device idle "
+        f"{ds['prof']['decode']['idle']:.1f}% of a decode step, "
+        f"{ds['prof']['long_prefill']['idle']:.1f}% of a {LONG_PROMPT}-token"
         f" prefill")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)

@@ -3,8 +3,9 @@ registry, ``get_config("<arch-id>")`` / ``get_smoke_config``.
 
 ``ARCH_IDS`` is the reference's list of architectures.  The port serves
 ``PORTED_ARCH_IDS``: the dense family (granite-8b, starcoder2-15b, yi-34b,
-nemotron-4-340b) and the GQA MoE moonshot-v1-16b-a3b; asking for any
-other raises ``NotImplementedError``.
+nemotron-4-340b), the GQA MoE moonshot-v1-16b-a3b and the MLA MoE
+deepseek-v3-671b; asking for any other raises ``NotImplementedError``
+naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -27,8 +28,19 @@ ARCH_IDS = [
 
 # the dense family: what the port's LM path runs
 DENSE_ARCH_IDS = ["starcoder2-15b", "yi-34b", "granite-8b", "nemotron-4-340b"]
-# every arch the port's LM path runs: the dense family and the GQA MoE
-PORTED_ARCH_IDS = DENSE_ARCH_IDS + ["moonshot-v1-16b-a3b"]
+# every arch the port's LM path runs: the dense family and the MoE family
+# (GQA and MLA attention)
+PORTED_ARCH_IDS = DENSE_ARCH_IDS + ["moonshot-v1-16b-a3b", "deepseek-v3-671b"]
+# every arch not yet ported: its family and the ROADMAP Queue 1 item it
+# waits for
+WAITING = {"hymba-1.5b": ("hybrid", "13.3"), "rwkv6-1.6b": ("ssm", "13.3"),
+           "whisper-base": ("audio", "13.4"), "internvl2-2b": ("vlm", "13.5")}
+
+
+def waiting_item(family: str) -> str:
+    """The Queue 1 item an unported family waits for ("13" if none)."""
+    return next((item for fam, item in WAITING.values() if fam == family),
+                "13")
 
 
 def _module(name: str):
@@ -36,9 +48,9 @@ def _module(name: str):
         raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCH_IDS)}")
     if name not in PORTED_ARCH_IDS:
         raise NotImplementedError(
-            f"{name}: only {', '.join(PORTED_ARCH_IDS)} are ported; MLA "
-            f"(item 13.2), hybrid, ssm, audio and vlm wait in ROADMAP "
-            f"Queue 1 item 13")
+            f"{name}: only {', '.join(PORTED_ARCH_IDS)} are ported; the "
+            f"{WAITING[name][0]} family waits for ROADMAP Queue 1 item "
+            f"{WAITING[name][1]}")
     return importlib.import_module(
         "repro_torch.configs." + name.replace("-", "_").replace(".", "_"))
 

@@ -10,7 +10,9 @@ Parameters are nested dicts of tensors, every module an ``init_*`` /
   * long sequences: :func:`attention` sends self-attention over more than
     ``chunk_threshold`` keys to the flash kernel
     (``kernels/flash_attention.py``; on a CPU tensor its plain version,
-    :func:`chunked_attention`)
+    :func:`chunked_attention`), except a shape the kernel does not take
+    (MLA's hd_v != hd), which goes to :func:`chunked_attention` on any
+    device, as every long shape does in the reference
 """
 from __future__ import annotations
 
@@ -146,21 +148,33 @@ def full_attention(q, k, v, *, causal: bool = True,
     return out.to(q.dtype)
 
 
+# calls of :func:`attention`'s chunked route (the flash kernel counts its
+# own launches in ``kernels/flash_attention.LAUNCH_COUNTS``)
+CALL_COUNTS = {"chunked_attention": 0}
+
+
+def reset_call_counts() -> None:
+    for name in CALL_COUNTS:
+        CALL_COUNTS[name] = 0
+
+
 def attention(q, k, v, *, causal=True, window=None, q_offset: int = 0,
               scale=None, chunk_threshold: int = 8192):
     """The reference's dispatch: full attention for at most
-    ``chunk_threshold`` keys (or a q shorter than k), the flash kernel
-    beyond.  The kernel takes the default scale and hd_v == hd only."""
+    ``chunk_threshold`` keys (or a q shorter than k), beyond it the
+    flash kernel, which takes ``scale = hd ** -0.5`` and ``hd_v == hd``.
+    Any other long shape (MLA's q/k at hd 192 against v at 128) goes to
+    :func:`chunked_attention` by its shape, on either device, and adds
+    one to ``CALL_COUNTS["chunked_attention"]``."""
     Sk = k.shape[1]
     if Sk <= chunk_threshold or q.shape[1] != Sk:
         return full_attention(q, k, v, causal=causal, window=window,
                               q_offset=q_offset, scale=scale)
     hd = q.shape[-1]
     if (scale is not None and scale != hd ** -0.5) or v.shape[-1] != hd:
-        raise NotImplementedError(
-            "the flash kernel takes scale = hd ** -0.5 and hd_v == hd; "
-            "MLA's explicit scale and hd_v != hd wait for the MLA slice "
-            "(ROADMAP Queue 1 item 13)")
+        CALL_COUNTS["chunked_attention"] += 1
+        return chunked_attention(q, k, v, causal=causal, window=window,
+                                 scale=scale)
     return flash_attention(q, k, v, causal=causal, window=window)
 
 

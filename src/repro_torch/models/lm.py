@@ -1,21 +1,23 @@
 """The LM zoo's dense and MoE families: the counterpart of
 ``repro.models.lm``.
 
-Llama-style GQA stacks (granite, starcoder2, yi, nemotron) and the GQA
-mixture-of-experts family (moonshot: ``first_k_dense`` dense layers, then
-layers whose FFN is ``models/moe.moe_ffn``): init, embedding, the
-full-sequence forward and the logits head, with the reference's parameter
-layout -- per-layer tensors STACKED on a leading layer axis (``blocks``
-for the dense family; ``dense_blocks`` and ``moe_blocks`` for MoE),
-``(in, out)`` weights applied as ``x @ w`` -- so a numpy copy of the
-reference's ``init_params`` converts without a transpose
-(``utils/convert.lm_params_from_numpy``).  The layers run in a Python
-loop (the reference scans them).
+Llama-style GQA stacks (granite, starcoder2, yi, nemotron) and the
+mixture-of-experts family (``first_k_dense`` dense layers, then layers
+whose FFN is ``models/moe.moe_ffn``) with GQA attention (moonshot) or
+MLA (deepseek-v3, ``models/mla.py``): init, embedding, the full-sequence
+forward and the logits head, with the reference's parameter layout --
+per-layer tensors STACKED on a leading layer axis (``blocks`` for the
+dense family; ``dense_blocks`` and ``moe_blocks`` for MoE; deepseek's
+MTP head under ``mtp``), ``(in, out)`` weights applied as ``x @ w`` --
+so a numpy copy of the reference's ``init_params`` converts without a
+transpose (``utils/convert.lm_params_from_numpy``).  The layers run in a
+Python loop (the reference scans them).
 
 Single device only: ``ctx`` (the vocabulary through the row-wise sharded
-embedding bag, GSPMD constraints, expert parallelism) must be None; MLA
-(ROADMAP Queue 1 item 13.2) and the other families (item 13) raise
-``NotImplementedError``.
+embedding bag, GSPMD constraints, expert parallelism) must be None.  The
+hybrid, ssm, audio and vlm families (ROADMAP Queue 1 items 13.3-13.5)
+raise ``NotImplementedError``.  Serving ignores the MTP head, as the
+reference does; its loss belongs to LM training (item 13.7).
 """
 from __future__ import annotations
 
@@ -23,8 +25,9 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.configs import waiting_item
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import layers
+from repro_torch.models import layers, mla
 from repro_torch.models import moe as moe_mod
 from repro_torch.utils.device import resolve_device
 
@@ -37,16 +40,13 @@ def padded_vocab(cfg: ModelConfig, tp_size: int) -> int:
 
 
 def _require_ported(cfg: ModelConfig) -> None:
-    if cfg.attention == "mla":
-        raise NotImplementedError(
-            f"{cfg.name}: MLA attention is not ported yet (ROADMAP Queue 1 "
-            f"item 13.2)")
-    if cfg.family not in ("dense", "moe") or cfg.attention != "gqa" \
-            or cfg.mtp_depth:
+    if cfg.family not in ("dense", "moe") or cfg.attention not in (
+            "gqa", "mla") or (cfg.attention == "mla" and cfg.family != "moe"):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} / attention "
-            f"{cfg.attention!r}: the port runs the dense and MoE GQA "
-            f"families only (ROADMAP Queue 1 item 13)")
+            f"{cfg.attention!r} waits for ROADMAP Queue 1 item "
+            f"{waiting_item(cfg.family)}; the port runs the dense "
+            f"family and the MoE family with GQA or MLA attention")
 
 
 def block_stacks(cfg: ModelConfig):
@@ -94,12 +94,13 @@ def _init_gqa(gen, n, cfg: ModelConfig, dtype, device):
 
 def _init_block_stack(gen, n, cfg: ModelConfig, dtype, device, *,
                       with_moe=False):
-    """One stack of ``n`` layers: norms, attention, then the FFN or (with
-    ``with_moe``) the MoE block."""
+    """One stack of ``n`` layers: norms, attention (GQA or MLA), then the
+    FFN or (with ``with_moe``) the MoE block."""
+    init_attn = mla.init_mla_params if cfg.attention == "mla" else _init_gqa
     p: Dict[str, Any] = {
         "ln1": _init_norm(n, cfg.d_model, cfg, dtype, device),
         "ln2": _init_norm(n, cfg.d_model, cfg, dtype, device),
-        "attn": _init_gqa(gen, n, cfg, dtype, device),
+        "attn": init_attn(gen, n, cfg, dtype, device),
     }
     if with_moe:
         p["moe"] = moe_mod.init_moe_params(gen, n, cfg, dtype, device)
@@ -118,9 +119,12 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *, tp_size: int = 1,
     ``{"embed" (1, Vp, d), "final_norm", "head" (d, Vp) unless tied}``
     and the layer stacks of :func:`block_stacks`, each ``{"ln1", "ln2",
     "attn": {wq, wk, wv, wo}, "ffn": {up, down, gate}}`` with a leading
-    layer axis (``"moe"``, ``models/moe.init_moe_params``, in place of
-    ``"ffn"`` in ``moe_blocks``).  The draws are ``torch.Generator``'s,
-    not ``jax.random``'s: tests convert the reference's parameters
+    layer axis (``"attn"`` from ``models/mla.init_mla_params`` for MLA;
+    ``"moe"``, ``models/moe.init_moe_params``, in place of ``"ffn"`` in
+    ``moe_blocks``); with ``cfg.mtp_depth``, ``"mtp": {"proj" (2d, d),
+    "norm_h", "norm_e", "block"}``, one dense layer, as the reference
+    builds it.  The draws are ``torch.Generator``'s, not
+    ``jax.random``'s: tests convert the reference's parameters
     instead."""
     _require_ported(cfg)
     device = resolve_device(device)
@@ -139,6 +143,13 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *, tp_size: int = 1,
     for name, n, _ in block_stacks(cfg):
         params[name] = _init_block_stack(gen, n, cfg, dtype, device,
                                          with_moe=name == "moe_blocks")
+    if cfg.mtp_depth:
+        params["mtp"] = {
+            "proj": layers.stacked_dense_init(gen, 1, 2 * d, d, dtype=dtype,
+                                              device=device)[0],
+            "norm_h": _init_norm(1, d, cfg, dtype, device),
+            "norm_e": _init_norm(1, d, cfg, dtype, device),
+            "block": _init_block_stack(gen, 1, cfg, dtype, device)}
     return params
 
 
@@ -180,6 +191,20 @@ def gqa_attention(p, h, positions, cfg: ModelConfig, *, causal=True,
     return o.reshape(B, S, -1) @ p["wo"], (k, v)
 
 
+def _attention(p, x, positions, cfg: ModelConfig, *, window=None,
+               causal=True):
+    """The layer's attention, GQA or MLA.  Returns (out (B, S, d), the
+    layer's cache entry): ``{"k", "v"}`` for GQA, ``{"c_kv", "k_rope"}``
+    for MLA."""
+    if cfg.attention == "mla":
+        out, (c_kv, k_rope) = mla.mla_attention(p, x, positions, cfg,
+                                                causal=causal)
+        return out, {"c_kv": c_kv, "k_rope": k_rope}
+    out, (k, v) = gqa_attention(p, x, positions, cfg, causal=causal,
+                                window=window)
+    return out, {"k": k, "v": v}
+
+
 # ===========================================================================
 # Embedding and head
 # ===========================================================================
@@ -204,14 +229,14 @@ def lm_logits(params, hidden: torch.Tensor, cfg: ModelConfig,
 # ===========================================================================
 
 def _dense_block(pl, h, positions, cfg, *, window=None, causal=True):
-    """One pre-norm block.  Returns (h, (k, v)): the block's K/V are what
-    prefill writes into the cache."""
+    """One pre-norm block.  Returns (h, entry): the block's cache entry
+    (:func:`_attention`) is what prefill writes into the cache."""
     x = _norm(h, pl["ln1"], cfg)
-    attn_out, kv = gqa_attention(pl["attn"], x, positions, cfg,
+    attn_out, entry = _attention(pl["attn"], x, positions, cfg,
                                  causal=causal, window=window)
     h = h + attn_out
     return h + layers.apply_ffn(pl["ffn"], _norm(h, pl["ln2"], cfg),
-                                cfg.activation), kv
+                                cfg.activation), entry
 
 
 def _moe_apply(p_moe, h, cfg: ModelConfig):
@@ -223,16 +248,17 @@ def _moe_apply(p_moe, h, cfg: ModelConfig):
 
 
 def _block(pl, h, positions, cfg, *, window=None):
-    """One pre-norm layer of any stack.  Returns (h, (k, v), aux): aux is
-    the MoE's ``{"moe_aux", "moe_dropped"}``, {} for a dense layer."""
+    """One pre-norm layer of any stack.  Returns (h, entry, aux): the
+    layer's cache entry (:func:`_attention`) and the MoE's ``{"moe_aux",
+    "moe_dropped"}``, {} for a dense layer."""
     if "moe" not in pl:
-        h, kv = _dense_block(pl, h, positions, cfg, window=window)
-        return h, kv, {}
-    attn_out, kv = gqa_attention(pl["attn"], _norm(h, pl["ln1"], cfg),
+        h, entry = _dense_block(pl, h, positions, cfg, window=window)
+        return h, entry, {}
+    attn_out, entry = _attention(pl["attn"], _norm(h, pl["ln1"], cfg),
                                  positions, cfg, window=window)
     h = h + attn_out
     out, aux = _moe_apply(pl["moe"], _norm(h, pl["ln2"], cfg), cfg)
-    return h + out, kv, aux
+    return h + out, entry, aux
 
 
 def forward(params, tokens: torch.Tensor, cfg: ModelConfig, ctx=None

@@ -6,8 +6,8 @@ temperature sampling); ``ContinuousBatcher`` is the serving loop, a fixed
 pool of cache slots at possibly different lengths.  Finished sequences
 are evicted and queued requests admitted into free slots; one
 ``decode_step`` advances every slot.  Admission prefills the request
-alone and writes its K/V straight into its slot of the shared cache (the
-reference splices a separately prefilled, zero-padded cache); positions
+alone and writes its cache rows (K/V, or MLA's latent ``c_kv``/``k_rope``)
+straight into its slot of the shared cache (the reference splices a separately prefilled, zero-padded cache); positions
 past a slot's length hold stale rows, which decode attention masks.
 
 DLRM CTR scoring: ``DLRMEngine``: requests queue up, ``flush`` pads up to
@@ -115,9 +115,9 @@ class ContinuousBatcher:
     ``device`` (None: the card; the parameters must live there).
 
     The batch dimension of the shared cache is the slot pool.  Admission
-    prefills the request alone, writing its K/V into its slot in place;
-    eviction zeroes the slot's length.  One decode_step advances every
-    slot, empty ones included, as in the reference.  ``timings`` keeps,
+    prefills the request alone, writing its cache rows into its slot in
+    place; eviction zeroes the slot's length.  One decode_step advances
+    every slot, empty ones included, as in the reference.  ``timings`` keeps,
     on the host clock, each admission's ``(prompt length, seconds)`` and
     each decode step's seconds, both up to the token on the host."""
 

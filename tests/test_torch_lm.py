@@ -1,6 +1,7 @@
-"""The port's LM serving path (the dense family and the GQA MoE,
-moonshot) against the JAX reference, on the CPU (where the
-flash-attention wrapper takes its plain version).
+"""The port's LM serving path (the dense family, the GQA MoE moonshot and
+the MLA MoE deepseek-v3) against the JAX reference, on the CPU (where the
+flash-attention wrapper takes its plain version; ``tests/test_torch_mla.py``
+holds MLA's own functions and its bf16 path).
 
 The same numpy inputs, from ``np.random.default_rng(seed)``, go through
 ``repro`` and through ``repro_torch``; parameters come from the
@@ -45,7 +46,8 @@ LAYER = dict(rtol=1e-5, atol=1e-5)
 HIDDEN = dict(rtol=1e-4, atol=1e-4)
 DENSE = ["granite-8b", "starcoder2-15b", "yi-34b", "nemotron-4-340b"]
 MOE = "moonshot-v1-16b-a3b"
-PORTED = DENSE + [MOE]
+MLA = "deepseek-v3-671b"
+PORTED = DENSE + [MOE, MLA]
 FLASH_SHAPES = [
     (2, 128, 4, 2, 32, True, None),
     (1, 256, 4, 4, 64, True, 64),
@@ -95,25 +97,27 @@ def test_configs_mirror_reference(arch):
 
 
 def test_non_dense_archs_raise():
-    """Every arch not yet ported raises, naming its Queue 1 item; MLA
-    (deepseek-v3) names item 13.2, also in the model code."""
+    """Every arch not yet ported raises, naming its Queue 1 item (hybrid
+    and ssm 13.3, audio 13.4, vlm 13.5), in the registry and in the model
+    code; MLA (deepseek-v3) is ported."""
     assert tconfigs.ARCH_IDS == jconfigs.ARCH_IDS
     assert sorted(tconfigs.PORTED_ARCH_IDS) == sorted(PORTED)
-    unported = set(tconfigs.ARCH_IDS) - set(PORTED)
-    assert "deepseek-v3-671b" in unported
-    for arch in unported:
-        with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
+    assert set(tconfigs.ARCH_IDS) - set(PORTED) == set(tconfigs.WAITING)
+    for arch, (family, item) in tconfigs.WAITING.items():
+        assert jconfigs.get_config(arch).family == family
+        with pytest.raises(NotImplementedError,
+                           match=f"Queue 1 item {item}"):
             tconfigs.get_config(arch)
-    with pytest.raises(NotImplementedError, match="13.2"):
-        tconfigs.get_config("deepseek-v3-671b")
+        ref = jconfigs.get_smoke_config(arch)
+        cfg = tconfigs.ModelConfig(**{
+            f.name: getattr(ref, f.name) for f in dataclasses.fields(ref)})
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
+            tlm.init_params(torch.Generator(), cfg, device="cpu")
     with pytest.raises(KeyError):
         tconfigs.get_config("gpt-2")
-    ref = jconfigs.get_smoke_config("deepseek-v3-671b")
-    mla = tconfigs.ModelConfig(**{
-        f.name: getattr(ref, f.name) for f in dataclasses.fields(ref)})
-    with pytest.raises(NotImplementedError, match="item 13.2"):
-        tlm.init_params(torch.Generator(), mla, device="cpu")
     assert tconfigs.get_config(MOE).param_count() == 28_325_838_848
+    assert tconfigs.get_config(MLA).param_count() == \
+        jconfigs.get_config(MLA).param_count()
 
 
 # ---------------------------------------------------------------------------
@@ -195,8 +199,17 @@ def test_attention_dispatch_follows_the_threshold(monkeypatch):
         np.testing.assert_allclose(_np(got), _np(want), rtol=2e-5,
                                    atol=2e-5)
         assert len(calls) == n
-    with pytest.raises(NotImplementedError, match="MLA"):
-        tlayers.attention(tq, tk, tk, scale=0.1, chunk_threshold=8)
+    # a scale other than hd ** -0.5, or hd_v != hd (MLA's shapes), goes to
+    # chunked_attention by shape, never to the flash wrapper
+    jv, tv = _pair(rng.standard_normal((1, 24, 2, 8)).astype(np.float32))
+    for scale, (jvv, tvv) in ((0.1, (jk, tk)), (None, (jv, tv))):
+        tlayers.reset_call_counts()
+        got = tlayers.attention(tq, tk, tvv, scale=scale, chunk_threshold=8)
+        want = jlayers.attention(jq, jk, jvv, scale=scale, chunk_threshold=8)
+        np.testing.assert_allclose(_np(got), _np(want), rtol=2e-5,
+                                   atol=2e-5)
+        assert tlayers.CALL_COUNTS["chunked_attention"] == 1
+        assert len(calls) == 1
 
 
 # ---------------------------------------------------------------------------
@@ -280,6 +293,7 @@ def test_forward_matches_jax(arch, threshold, S):
     jcfg, tcfg, jp, tp = _setup(arch, **rep)
     tokens = np.random.default_rng(4).integers(0, jcfg.vocab_size, (2, S))
     tflash.reset_launch_counts()
+    tlayers.reset_call_counts()
     calls = []
     real = tlayers.flash_attention
     tlayers.flash_attention = lambda *a, **kw: calls.append(1) or real(
@@ -295,7 +309,12 @@ def test_forward_matches_jax(arch, threshold, S):
                                    float(jaux["moe_aux"]), rtol=1e-6,
                                    atol=1e-6)
         assert int(aux["moe_dropped"]) == int(jaux["moe_dropped"]) == 0
-    assert len(calls) == (0 if threshold is None else jcfg.num_layers)
+    # over the threshold every layer takes the flash wrapper (GQA) or
+    # chunked_attention (MLA's hd_v != hd)
+    long = 0 if threshold is None else jcfg.num_layers
+    mla = jcfg.attention == "mla"
+    assert len(calls) == (0 if mla else long)
+    assert tlayers.CALL_COUNTS["chunked_attention"] == (long if mla else 0)
     np.testing.assert_allclose(_np(got), _np(want), **HIDDEN)
     np.testing.assert_allclose(
         _np(tlm.lm_logits(tp, got, tcfg)), _np(jlm.lm_logits(jp, want, jcfg,
@@ -323,9 +342,10 @@ def test_prefill_and_decode_step_match_jax(arch):
     stacks = tdec.kv_stacks(tcache)
     assert sorted(stacks) == sorted(k for k in jcache if k != "length")
     for name in stacks:
-        for kv in ("k", "v"):
-            np.testing.assert_allclose(_np(stacks[name][kv][:, :, :S]),
-                                       _np(jcache[name][kv][:, :, :S]),
+        assert sorted(stacks[name]) == sorted(jcache[name])
+        for key in stacks[name]:
+            np.testing.assert_allclose(_np(stacks[name][key][:, :, :S]),
+                                       _np(jcache[name][key][:, :, :S]),
                                        **HIDDEN)
 
 
@@ -345,13 +365,19 @@ def test_port_decode_matches_forward(arch):
 
 def test_write_kv_drops_positions_past_the_cache():
     """As the reference's scatter: a slot whose length ran past the cache
-    (an empty slot keeps decoding) writes nothing."""
+    (an empty slot keeps decoding) writes nothing; K/V rows and MLA's
+    latent rows alike."""
     ck = torch.zeros((2, 4, 1, 2))
     cv = torch.zeros((2, 4, 1, 2))
     new = torch.ones((2, 1, 1, 2))
-    tdec._write_kv(ck, cv, new, 2 * new, torch.tensor([1, 4]))
+    tdec._write_rows({"k": ck, "v": cv}, {"k": new, "v": 2 * new},
+                     torch.tensor([1, 4]))
     assert ck[0, 1].eq(1).all() and cv[0, 1].eq(2).all()
     assert ck.sum() == 2 and cv.sum() == 4
+    c_kv = torch.zeros((2, 4, 3))
+    tdec._write_rows({"c_kv": c_kv}, {"c_kv": torch.ones((2, 1, 3))},
+                     torch.tensor([4, 2]))
+    assert c_kv[1, 2].eq(1).all() and c_kv.sum() == 3
 
 
 # ---------------------------------------------------------------------------
@@ -385,11 +411,12 @@ def _requests(module, prompts, max_new):
             for i, p in enumerate(prompts)]
 
 
-@pytest.mark.parametrize("arch", ["granite-8b", MOE])
+@pytest.mark.parametrize("arch", ["granite-8b", MOE, MLA])
 def test_continuous_batcher_matches_jax_and_generate(arch):
     """3 requests on 2 slots (slot reuse), the middle prompt over the
-    lowered threshold (its prefill takes the flash wrapper): the same
-    tokens as the reference's batcher and as the port's generate."""
+    lowered threshold (its prefill takes the flash wrapper, or MLA's
+    chunked_attention): the same tokens as the reference's batcher and as
+    the port's generate."""
     jcfg, tcfg, jp, tp = _setup(arch, attn_chunk_threshold=16)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, jcfg.vocab_size, n).astype(np.int32)
@@ -407,13 +434,18 @@ def test_continuous_batcher_matches_jax_and_generate(arch):
     real = tlayers.flash_attention
     tlayers.flash_attention = lambda *a, **kw: calls.append(1) or real(
         *a, **kw)
+    tlayers.reset_call_counts()
     try:
         tdone = teng.run_to_completion()
     finally:
         tlayers.flash_attention = real
     jdone = jeng.run_to_completion()
     assert sorted(tdone) == sorted(jdone) == [0, 1, 2]
-    assert len(calls) == tcfg.num_layers          # the 24-token prefill
+    # the 24-token prefill: every layer over the threshold, through the
+    # flash wrapper (GQA) or chunked_attention (MLA), never the other
+    L = tcfg.num_layers
+    assert (len(calls), tlayers.CALL_COUNTS["chunked_attention"]) == (
+        (0, L) if tcfg.attention == "mla" else (L, 0))
     assert [n for n, _ in teng.timings["prefill"]] == [6, 24, 9]
     for rid, p in enumerate(prompts):
         assert tdone[rid].generated == jdone[rid].generated
