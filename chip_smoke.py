@@ -153,15 +153,51 @@ Phases:
      routing flips) and on the forward's expert choices (held to 2e-2);
      (e) the latent cache exactly 189,112,320 B, and the phase's memory
      freed after it;
+  8h. hybrid serving, after phase 8d's memory is freed (checked):
+     hymba-1.5b at CONFIG, all 32 layers, bf16 (1,662,264,000 parameters,
+     random from a seed): (a) the flash kernel against its plain version
+     on the real q/k/v of layer 0 (global: window 1 << 30) and layer 1
+     (window 1024) of the 16,384-token prompt, (1, 16384, 25/5, 64) on
+     the wgmma route; (b) layer 0's mamba_forward on 2,048 real rows
+     against the recurrence stepped token by token on its own
+     projections (h_final within relative L2 1e-5, the output within
+     1e-2) and against a loop of mamba_decode_step (the output within
+     1e-2), and that loop with a planted fault (the carried conv state
+     rotated by one row) above the bound; (c) ContinuousBatcher (4 slots of 16,416 positions) over 1
+     prompt of 16,384 tokens (32 flash launches, wgmma) and 3 of
+     256-2,048 (none), 32 new tokens each: the cache's row and state
+     bytes, prefill and decode times, tokens/s, peak device memory, a
+     profiled decode step and 16,384-token prefill; (d) decode against
+     forward on the short and the long prompt (the states' handoff);
+  8r. ssm serving, after phase 8h's memory is freed (checked):
+     rwkv6-1.6b at CONFIG, all 24 layers, bf16 (1,584,091,136
+     parameters): (a) layer 0's rwkv_time_mix_chunked (chunk 1024)
+     against rwkv_time_mix on 4,096 real rows in f32, output and final
+     state within 1e-4 (the reference's bound), finite, the chunks'
+     largest -log P logged; (b) the same batcher run, no flash launch;
+     (c) decode against forward on the short and the long prompt; times,
+     tokens/s, peak memory and profiles as in 8h; the phase's memory
+     freed after it;
   9. the card line, one JSON line of the kernels, and last the result line.
+
+A profile whose device records a check or a DLRM idle share reads traces
+the host and the card (``contracts.profile_complete``): it opens with 16
+device spins of its own, since the profiler now and then drops a
+profile's first device records, and it is read only when each of the
+call's kernel launches has its record, or misses the same ones as an
+earlier profile of the call; else it is taken again, up to 5 times, each
+one logged.  The LM profiles trace the card alone, which cannot be
+checked so.
 
 Any failed check raises: the script exits non-zero and prints no result
 line.  It also fails without a CUDA card, and without the port's sources
 beside it.
 """
+import contextlib
 import dataclasses
 import gc
 import hashlib
+import itertools
 import json
 import os
 import re
@@ -175,6 +211,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 # one cuBLAS workspace layout, so equal GEMMs stay bitwise-equal
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -421,33 +458,59 @@ def _check_all(eg, x, tag, digest, one=5) -> dict:
     return errs
 
 
-def _one_kernel_per_call(calls, tries=3) -> None:
-    """Each call under torch.profiler: the device kernels it ran.  Each
-    must be exactly one launch of the named kernel.  The profiler now and
-    then records no kernel of a call at all; such a call is profiled
-    again, up to ``tries`` times.  A call that shows any other kernel, or
-    more than one launch, fails at once."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def _profiled(fn, label):
+    """``fn()`` under torch.profiler until a profile of it can be read
+    (``contracts.profile_complete``: a lead-in of device spins, then the
+    call, whose kernel launches must each have their record, or miss the
+    same ones as an earlier profile of it, with no stray record); logs
+    each profile taken before it, the lead-in records the profiler
+    dropped and the call's records the one read lacks.  Fails if none
+    could be read."""
+    from repro_torch.analysis.contracts import profile_complete
 
+    try:
+        prof, gaps, earlier = profile_complete(fn)
+    except RuntimeError as e:
+        check(False, f"a readable profile of {label}: {e}")
+    for g in earlier:
+        log(f"  {label}: a profile taken again ({g.launches} kernel "
+            f"launches, {g.lost} without a record, in {list(g.lost_in)}; "
+            f"{g.stray} records without a launch)")
+    dropped = [g.lead_in_lost for g in earlier + [gaps]]
+    if any(dropped):
+        log(f"  {label}: lead-in records the profiler dropped, by profile: "
+            f"{dropped}")
+    if gaps.lost:
+        log(f"  {label}: {gaps.lost} of {gaps.launches} kernel launches "
+            f"without a record in this profile and an earlier one, in "
+            f"{list(gaps.lost_in)}")
+    return prof
+
+
+def _device_events(prof) -> list:
+    """A profile's device-side rows (kernels, copies, fills): the CPU ops'
+    rows repeat their kernels' time, and neither the profiler's own buffer
+    requests nor a profile's lead-in spins are work of the profiled
+    call."""
+    from torch.autograd import DeviceType
+    from repro_torch.analysis.contracts import LEAD_IN_KERNEL
+
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0
+            and not e.key.startswith("Activity Buffer")
+            and LEAD_IN_KERNEL not in e.key]
+
+
+def _one_kernel_per_call(calls) -> None:
+    """Each call under torch.profiler (a complete profile): the device
+    kernels it ran.  Each must be exactly one launch of the named
+    kernel."""
     for label, kernel, fn in calls:
-        for attempt in range(1, tries + 1):
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                fn()
-                torch.cuda.synchronize()
-            ran = [(e.key, e.count) for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA
-                   and e.self_device_time_total > 0
-                   and not e.key.startswith("Activity Buffer")]
-            ok = len(ran) == 1 and ran[0][1] == 1 and kernel in ran[0][0]
-            log(f"  {label}: {sum(n for _, n in ran)} device kernel(s) "
-                f"{[(k[:60], n) for k, n in ran]} "
-                f"{'ok' if ok else 'NOT ONE'}"
-                f"{f' (profiled {attempt} times)' if attempt > 1 else ''}")
-            if ran:
-                break
+        ran = [(e.key, e.count) for e in _device_events(_profiled(fn, label))]
+        ok = len(ran) == 1 and ran[0][1] == 1 and kernel in ran[0][0]
+        log(f"  {label}: {sum(n for _, n in ran)} device kernel(s) "
+            f"{[(k[:60], n) for k, n in ran]} {'ok' if ok else 'NOT ONE'}")
         check(ok, f"{label} is one {kernel} launch and nothing else")
 
 
@@ -731,33 +794,25 @@ def _serve(eng, kmods):
     return scores, heads, ms, splits, counts, fetched
 
 
-def _profile_flush(eng, head, median_ms, label,
-                   kernels=("tbe_gather_pool_kernel",), require=True):
-    """One more flush of ``head`` under torch.profiler (after the launch
-    counts were read): device time by kernel and the device's busy share
-    of the median unprofiled flush; checks (``require``) that each of
-    ``kernels`` ran.  Returns the idle share in percent and, for each of
-    ``kernels``, its device ms and launches."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def _profile_flush(eng, heads, median_ms, label,
+                   kernels=("tbe_gather_pool_kernel",)):
+    """One more flush under torch.profiler (after the launch counts were
+    read), of the next requests of the iterator ``heads`` each time a
+    profile is taken (``_profiled``): device time by kernel and the
+    device's busy share of the median unprofiled flush; checks that each
+    of ``kernels`` ran.  Returns the idle share in percent and, for each
+    of ``kernels``, its device ms and launches."""
 
-    for r in head:
-        eng.submit(r)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    def flush():
+        for r in next(heads):
+            eng.submit(r)
         eng.flush()
-    # device-side rows only (kernels, copies); the CPU ops' rows repeat
-    # their kernels' time, and the profiler's own buffer requests are not
-    # work of the flush
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA
-              and e.self_device_time_total > 0
-              and not e.key.startswith("Activity Buffer")]
+
+    events = _device_events(_profiled(flush, f"the {label} flush"))
     ran = {}
     for kernel in kernels:
         mine = [e for e in events if kernel in e.key]
-        if require:
-            check(bool(mine), f"the profiled {label} flush ran {kernel}")
+        check(bool(mine), f"the profiled {label} flush ran {kernel}")
         ran[kernel] = (sum(e.self_device_time_total for e in mine) / 1e3,
                        sum(e.count for e in mine))
         log(f"  profiled {label} flush: {kernel} {ran[kernel][0]:.4f} ms of "
@@ -838,18 +893,12 @@ def phase_uncached(pt, eg, oa) -> dict:
           "fused=False scores bitwise == fused")
     log("  fused=False scores bitwise equal to fused")
     # the paper's fused-against-per-table comparison on the card: the same
-    # flush's TBE device time as one launch and as T launches.  The
-    # profiler now and then records no kernel at all; a flush whose profile
-    # shows none is profiled again, up to 3 times, and any other count
-    # fails at once
+    # flush's TBE device time as one launch and as T launches
     tbe = "tbe_gather_pool_kernel"
-    for _ in range(3):
-        _, fused = _profile_flush(eng, heads[1], statistics.median(ms),
-                                  "uncached", require=False)
-        _, per_table = _profile_flush(eng_u, heads[1], ms_u[0],
-                                      "fused=False", require=False)
-        if fused[tbe][1] and per_table[tbe][1]:
-            break
+    _, fused = _profile_flush(eng, itertools.repeat(heads[1]),
+                              statistics.median(ms), "uncached")
+    _, per_table = _profile_flush(eng_u, itertools.repeat(heads[1]),
+                                  ms_u[0], "fused=False")
     check(fused[tbe][1] == 1 and per_table[tbe][1] == cfg.num_sparse_features,
           "the profiled flushes: 1 fused launch, 26 single-table launches")
     log(f"  TBE device time of one flush: fused {fused[tbe][0]:.4f} ms "
@@ -919,7 +968,8 @@ def phase_cached(pt, eg, oa, unc) -> dict:
           "cached scores bitwise == uncached")
     log("  cached scores bitwise equal to uncached")
     _check_pooled(pt, eng, unc, "cached")
-    _profile_flush(eng, unc["heads"][1], statistics.median(ms), "cached")
+    _profile_flush(eng, itertools.repeat(unc["heads"][1]),
+                   statistics.median(ms), "cached")
     return dict(launches=counts["gather_pool_tbe_flat"], flush_ms=ms,
                 splits=splits, hit_rate=hit_rate, fetched=fetched,
                 counters=counters)
@@ -1208,8 +1258,10 @@ def _serve_remote(pt, eg, oa, unc, cached, backend) -> dict:
           f"[{backend}] remote-tier scores bitwise == uncached")
     log(f"  [{backend}] scores bitwise equal to uncached")
     _check_pooled(pt, eng, unc, f"[{backend}] remote-tier")
-    # a flush of fresh requests, so that the profiled flush fetches
-    fresh = _requests(pt.CONFIG, pt.CTRRequest, BATCH, seed=3)
+    # a flush of fresh requests, so that the profiled flush fetches (new
+    # ones for each profile taken)
+    fresh = (_requests(pt.CONFIG, pt.CTRRequest, BATCH, seed=seed)
+             for seed in itertools.count(3))
     idle, _ = _profile_flush(
         eng, fresh, statistics.median(ms), f"remote {backend}",
         ("tbe_gather_pool_kernel",) + (
@@ -2054,7 +2106,7 @@ def phase_distributed(pt, eg, oa, unc) -> dict:
           "onesided a2a scores within tolerance of bulk")
     out["a2a_bitwise"] = same
     out["idle"], _ = _profile_flush(
-        ones["eng"], unc["heads"][1],
+        ones["eng"], itertools.repeat(unc["heads"][1]),
         statistics.median(ones["flush_ms"]), "row/a2a/onesided",
         ("put_chunks_kernel", "sum_chunks_kernel"))
     del bulk["eng"], ones["eng"]
@@ -2322,24 +2374,13 @@ def _commit(params, new, mlp) -> None:
 
 
 def _profile_step(pt, kmods, params, accum, inputs, step_ms) -> dict:
-    """One more step under torch.profiler, its results dropped: the TBE
-    device kernels it ran, the device's busy time and its idle share of
-    the median unprofiled step.  A profile with no device event at all is
-    taken again, up to 3 times."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            out = _train_step(pt, kmods, params, accum, inputs)
-        del out
-        events = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA
-                  and e.self_device_time_total > 0
-                  and not e.key.startswith("Activity Buffer")]
-        if events:
-            break
+    """One more step under torch.profiler (a complete profile,
+    ``_profiled``), its results dropped: the TBE device kernels it ran,
+    the device's busy time and its idle share of the median unprofiled
+    step."""
+    events = _device_events(_profiled(
+        lambda: _train_step(pt, kmods, params, accum, inputs),
+        "the training step"))
     tbe = sum(e.count for e in events if "tbe_gather_pool_kernel" in e.key)
     busy = sum(e.self_device_time_total for e in events) / 1e3
     idle = 100 - 100 * busy / step_ms
@@ -2494,6 +2535,8 @@ def _serve_lm(pt, eng, reqs, kmods, cfg, slots) -> dict:
     fa, nl = pt.fa, cfg.num_layers
     chunked = pt.layers.CALL_COUNTS
     mla = cfg.attention == "mla"
+    # long attentions per long prefill: one a layer, none without attention
+    per = 0 if cfg.attention == "none" else nl
     for r in reqs:
         eng.submit(r)
     for mod in kmods:
@@ -2513,17 +2556,17 @@ def _serve_lm(pt, eng, reqs, kmods, cfg, slots) -> dict:
     counts = {k: v for mod in kmods for k, v in mod.LAUNCH_COUNTS.items()}
     thr = cfg.attn_chunk_threshold
     for lens, n, k in steps:
-        want = nl * sum(s > thr for s in lens)
+        want = per * sum(s > thr for s in lens)
         got = (0, want) if mla else (want, 0)
         check((n, k) == got,
               f"{n} flash launches and {k} chunked_attention calls in a "
-              f"step admitting prompts of {lens} tokens: want {got} ({nl} "
+              f"step admitting prompts of {lens} tokens: want {got} ({per} "
               f"per prompt over {thr}, none per short prefill or decode "
               f"step)")
     n_long = sum(len(r.prompt) > thr for r in reqs)
-    n_flash = 0 if mla else nl * n_long
+    n_flash = 0 if mla else per * n_long
     check(counts == _launches(flash_attention=n_flash)
-          and chunked["chunked_attention"] == nl * n_long - n_flash,
+          and chunked["chunked_attention"] == per * n_long - n_flash,
           f"the LM path launched the flash kernel {n_flash} times and "
           f"nothing else, and called chunked_attention "
           f"{chunked['chunked_attention']} times")
@@ -2638,21 +2681,23 @@ def _decoded_last(pt, params, cfg, tokens):
     return h_dec[0].float()
 
 
-def _rel_l2(got, want, label) -> float:
+def _rel_l2(got, want, label, bound=DECODE_REL_L2) -> float:
     check(bool(torch.isfinite(got).all() and torch.isfinite(want).all()),
           f"{label}: finite hidden states")
     rel = float((got - want).norm() / want.norm())
-    log(f"  {label}: relative L2 {rel:.3e} (bound {DECODE_REL_L2})")
+    log(f"  {label}: relative L2 {rel:.3e} (bound {bound})")
     return rel
 
 
-def _decode_vs_forward(pt, params, cfg, tokens) -> float:
+def _decode_vs_forward(pt, params, cfg, tokens, bound=DECODE_REL_L2,
+                       what="") -> float:
     """prefill(tokens[:, :-1]) + decode_step(tokens[:, -1]) against the
     forward's last hidden state: relative L2 (the caller holds it to
-    DECODE_REL_L2)."""
+    ``bound``)."""
     last = _forward_last(pt, params, cfg, tokens)
     return _rel_l2(_decoded_last(pt, params, cfg, tokens), last,
-                   f"decode matches forward ({tokens.shape[1]} tokens)")
+                   f"decode matches forward ({tokens.shape[1]} tokens"
+                   f"{', ' + what if what else ''})", bound)
 
 
 # ---------------------------------------------------------------------------
@@ -2932,18 +2977,27 @@ def _serve_moe(pt, params, cfg, reqs, kmods) -> dict:
         f"{len(calls)} moe_ffn calls: {n_moe} per decode step, {n_moe} x "
         f"{-(-LONG_PROMPT // moe.CHUNK_ROWS)} per {LONG_PROMPT}-token "
         f"prefill ({moe.CHUNK_ROWS} tokens a dispatch)")
+    prof = _profile_served(pt, params, cfg, eng, out, reqs[0].prompt)
+    del eng
+    torch.cuda.empty_cache()
+    return dict(out, prof=prof, cache_bytes=cache_bytes, syncs=len(syncs))
+
+
+def _profile_served(pt, params, cfg, eng, out, prompt) -> dict:
+    """One decode step of ``eng`` and the prefill of ``prompt`` (the
+    long one, the first admitted) profiled, into slot 0 of the cache as
+    the loop left it (its rows and states are scratch now); beside the
+    unprofiled times in ``out`` (:func:`_serve_lm`'s)."""
+    dec = pt.dec
     kv = _slot0(pt, eng.cache)
-    tokens = torch.as_tensor(reqs[0].prompt[None], device=DEV)
-    prof = dict(
+    tokens = torch.as_tensor(prompt[None], device=DEV)
+    return dict(
         decode=_profile_lm(lambda: dec.decode_step(
             params, eng.cache, eng.tokens, cfg), "decode step",
             statistics.median(out["decode"]) * 1e3),
         long_prefill=_profile_lm(lambda: dec._prefill_into(
-            params, tokens, cfg, kv), f"prefill of {LONG_PROMPT} tokens",
+            params, tokens, cfg, kv), f"prefill of {len(prompt)} tokens",
             out["prefill"][0][1] * 1e3))
-    del eng, kv
-    torch.cuda.empty_cache()
-    return dict(out, prof=prof, cache_bytes=cache_bytes, syncs=len(syncs))
 
 
 # ---------------------------------------------------------------------------
@@ -3079,21 +3133,439 @@ def phase_mla(pt, kmods) -> dict:
                 checks_peak_gb=checks_peak_gb)
 
 
+# ---------------------------------------------------------------------------
+# 8h. hybrid serving and 8r. ssm serving
+# ---------------------------------------------------------------------------
+
+# hymba-1.5b and rwkv6-1.6b at CONFIG, nothing cut: every parameter of
+# lm.init_params (param_count counts the attention, the FFNs and the
+# embeddings, not the Mamba heads, the RWKV time mix or the norms)
+HYMBA_PARAMS = 1_662_264_000
+RWKV_PARAMS = 1_584_091_136
+SSM_SLOTS = 4                # 4 x 16,416 positions, as phase 8
+MAMBA_ROWS = 2048            # the real rows of the layer-0 Mamba check
+RWKV_ROWS = 4096             # the real rows of the layer-0 RWKV check
+# layer 0's mamba_forward (chunked doubling scan) against the recurrence
+# stepped one token at a time on the forward's own projections, as
+# mamba_decode_step computes it: the same f32 products in another order,
+# so h_final (f32) is held to 1e-5 relative L2 and the output (rounded to
+# bf16, gated, through out_proj) to 1e-2, a few bf16 roundings.  Then
+# mamba_decode_step itself over the same rows (the conv state carried):
+# its output is held to the same 1e-2.  Its h_final is logged only: its
+# projections run over one row where the forward's run over 2,048, and
+# the bf16 GEMM outputs round to neighbouring values now and then (on an
+# H100, h_final read 3.169e-3 and the output 3.532e-3).
+# The planted fault, the carried conv state rotated by one row each
+# step, read ~1.
+MAMBA_H_REL, MAMBA_Y_REL = 1e-5, 1e-2
+# layer 0's rwkv_time_mix_chunked against rwkv_time_mix on 4,096 rows in
+# f32: the reference's bound for the two forms (tests/test_models.py),
+# largest absolute difference of the output and of the final state
+RWKV_ABS = 1e-4
+# decode against forward in f32, the same weights cast: f32 products in
+# other orders (the flash kernel's online softmax or the full softmax
+# against decode's, the doubling scan against the steps, the chunked time
+# mix against the scan) carried through every layer.  On an H100
+# hymba-1.5b read 2.663e-6 and 4.021e-6 (1,354 and 16,384 tokens); a
+# handoff fault reads ~1 (phase 8h's planted conv-state fault), bf16
+# noise ~1e-2
+DECODE_F32_REL = 1e-4
+# hymba-1.5b's bf16 decode leaves its bf16 forward by 2.2-2.4e-2 on an
+# H100, over the DECODE_REL_L2 that holds granite, moonshot and rwkv6,
+# where the f32 run reads 2.7e-6: the Mamba branch takes the drift in
+# from layer 0 (4.4e-3, the attention branch 9e-5), since a dt that the
+# one-row decode GEMMs round to a neighbouring bf16 value moves exp(dt A)
+# by up to ~4 % at |A| = 16.  Phase 8h holds its f32 run and logs the bf16
+# one with each branch's per-layer drift.
+
+
+@contextlib.contextmanager
+def _timed(laps: dict, name: str):
+    """Host seconds of the block, into ``laps[name]``."""
+    t0 = time.perf_counter()
+    yield
+    torch.cuda.synchronize()
+    laps[name] = time.perf_counter() - t0
+
+
+def _log_laps(phase, laps) -> float:
+    secs = sum(laps.values())
+    log(f"  phase {phase}: {secs:.1f} s (" + ", ".join(
+        f"{k} {v:.1f}" for k, v in laps.items()) + ")")
+    return secs
+
+
+def _init_state_lm(pt, cfg, seed, want) -> dict:
+    """Random bf16 parameters of ``cfg`` from ``seed`` on the card, every
+    one of ``want``.  Logs and returns them with their count, bytes and
+    seconds."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = pt.lm.init_params(torch.Generator(device=DEV).manual_seed(seed),
+                               cfg, device=DEV)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = list(_leaves(params))
+    n_params = sum(t.numel() for t in leaves)
+    nbytes = sum(t.numel() * t.element_size() for t in leaves)
+    log(f"  init_params: {n_params:,} parameters (param_count "
+        f"{cfg.param_count():,}), {nbytes / 1e9:.2f} GB on the card, in "
+        f"{init_s:.1f} s")
+    check(n_params == want, f"{want:,} parameters")
+    check(all(t.dtype == torch.bfloat16 for t in leaves), "bf16 weights")
+    return dict(params=params, n_params=n_params, nbytes=nbytes,
+                init_s=init_s)
+
+
+def _serve_states(pt, params, cfg, reqs, kmods) -> dict:
+    """Serve ``reqs`` through ContinuousBatcher(SSM_SLOTS slots x
+    LM_MAX_LEN positions) (:func:`_serve_lm`), then profile one decode
+    step and the long prefill (the slots' cache as the loop left it; its
+    rows and states are scratch now).  Returns :func:`_serve_lm`'s dict
+    with the profiles and the cache's bytes, rows and states apart."""
+    dec = pt.dec
+    eng = pt.ContinuousBatcher(params, cfg, num_slots=SSM_SLOTS,
+                               max_len=LM_MAX_LEN, eos_id=-1, device=DEV)
+    entries = [(k, t) for st in dec.kv_stacks(eng.cache).values()
+               for k, t in st.items()]
+    state_bytes = sum(t.numel() * t.element_size() for k, t in entries
+                      if k in dec.STATE_KEYS)
+    row_bytes = sum(t.numel() * t.element_size() for k, t in entries
+                    if k not in dec.STATE_KEYS)
+    log(f"  cache: {row_bytes:,} B of positional rows, {state_bytes:,} B "
+        f"of states ({sorted(k for k, _ in entries)})")
+    out = _serve_lm(pt, eng, reqs, kmods, cfg, SSM_SLOTS)
+    t0 = time.perf_counter()
+    prof = _profile_served(pt, params, cfg, eng, out, reqs[0].prompt)
+    prof_s = time.perf_counter() - t0
+    del eng
+    torch.cuda.empty_cache()
+    return dict(out, prof=prof, prof_s=prof_s, row_bytes=row_bytes,
+                state_bytes=state_bytes)
+
+
+def _decode_both(pt, params, cfg, reqs, *, hold=True) -> dict:
+    """Decode against forward on the first short prompt and on the long
+    one: the check on the states' handoff.  In the serving dtype (held to
+    DECODE_REL_L2 with ``hold``, else logged) and in f32 on the same
+    weights cast (held to DECODE_F32_REL).  Returns {"bf16": {length:
+    rel}, "f32": {length: rel}}."""
+    p32 = _cast(params, torch.float32)
+    rel = {"bf16": {}, "f32": {}}
+    for r in (reqs[1], reqs[0]):
+        tokens = torch.as_tensor(r.prompt[None], device=DEV)
+        rel["bf16"][len(r.prompt)] = _decode_vs_forward(pt, params, cfg,
+                                                        tokens)
+        rel["f32"][len(r.prompt)] = _decode_vs_forward(
+            pt, p32, cfg, tokens, bound=DECODE_F32_REL, what="in f32")
+    del p32
+    torch.cuda.empty_cache()
+    check(max(rel["f32"].values()) < DECODE_F32_REL,
+          "decode_step after prefill matches forward in f32")
+    if hold:
+        check(max(rel["bf16"].values()) < DECODE_REL_L2,
+              "decode_step after prefill matches forward")
+    return rel
+
+
+def _cast(tree, dtype):
+    return {k: _cast(v, dtype) if isinstance(v, dict) else v.to(dtype)
+            for k, v in tree.items()}
+
+
+def _hybrid_drift(pt, params, cfg, tokens) -> dict:
+    """Where hymba's bf16 decode leaves the forward: per layer, the last
+    token's relative L2 between the forward and prefill + decode_step of
+    the residual row after the layer, of the attention branch's output
+    (before ``wo``) and of the Mamba branch's output.  Logs and returns
+    the three lists."""
+    lm, dec, ssm, layers = pt.lm, pt.dec, pt.ssm, pt.layers
+    keys = ("residual", "attention", "mamba")
+    fwd, dcd = ({k: [] for k in keys} for _ in range(2))
+
+    def last(o):
+        return o[0, -1].float().reshape(-1).clone()
+
+    restore = [
+        _patched(lm, "_block", lambda r: _recording(
+            r, fwd["residual"], lambda o: last(o[0]))),
+        _patched(layers, "attention", lambda r: _recording(
+            r, fwd["attention"], last)),
+        _patched(ssm, "mamba_forward", lambda r: _recording(
+            r, fwd["mamba"], lambda o: last(o[0])))]
+    try:
+        lm.forward(params, tokens, cfg)
+    finally:
+        for undo in restore:
+            undo()
+    cache, _ = dec.prefill(params, tokens[:, :-1], cfg,
+                           max_len=tokens.shape[1])
+    restore = [
+        _patched(dec, "_hybrid_decode_block", lambda r: _recording(
+            r, dcd["residual"], last)),
+        _patched(dec, "_decode_attn", lambda r: _recording(
+            r, dcd["attention"], last)),
+        _patched(ssm, "mamba_decode_step", lambda r: _recording(
+            r, dcd["mamba"], lambda o: last(o[0])))]
+    try:
+        dec.decode_step(params, cache, tokens[:, -1], cfg)
+    finally:
+        for undo in restore:
+            undo()
+    del cache
+    drift = {k: [float((d - f).norm() / f.norm())
+                 for f, d in zip(fwd[k], dcd[k])] for k in keys}
+    check(all(len(fwd[k]) == len(dcd[k]) == cfg.num_layers for k in keys),
+          "one recorded row per layer, branch and path")
+    for k in keys:
+        log(f"  bf16 decode against forward ({tokens.shape[1]} tokens), "
+            f"the last token's {k} per layer: "
+            + " ".join(f"{v:.2e}" for v in drift[k]))
+    return drift
+
+
+def _hybrid_flash(pt, params, cfg, prompt) -> dict:
+    """The flash wrapper against its plain version on the real q/k/v of
+    layer 0 (global, window 1 << 30) and layer 1 (the sliding window) of
+    ``prompt``: layer 1's input is layer 0's output."""
+    lm = pt.lm
+    S = len(prompt)
+    tokens = torch.as_tensor(prompt[None], device=DEV)
+    pos = torch.arange(S, device=DEV)[None]
+    (_, _, windows), = lm.block_stacks(cfg)
+    h = lm.embed_tokens(params, tokens, cfg)
+    errs = {}
+    for i in (0, 1):
+        pl = lm.layer(params["blocks"], i)
+        q, k, v = lm._gqa_qkv(pl["attn"], lm._norm(h, pl["ln1"], cfg), pos,
+                              cfg)
+        errs[windows[i]] = _flash_case(
+            pt.fa, q, k, v, True, windows[i],
+            f"hymba layer {i} of a {S}-token prompt (real q/k/v, "
+            f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}, "
+            f"window {windows[i]})")
+        del q, k, v
+        if i == 0:
+            h, _, _ = lm._block(pl, h, pos, cfg, window=windows[0])
+    check(windows[0] == 1 << 30 and windows[1] == cfg.window,
+          "layer 0 global, layer 1 windowed")
+    return errs
+
+
+def _check_mamba_layer(pt, params, cfg, prompt) -> dict:
+    """Layer 0's mamba_forward on the real normed rows of MAMBA_ROWS
+    tokens (a) against the recurrence stepped token by token on the
+    forward's own projections (h_final within MAMBA_H_REL, the output
+    within MAMBA_Y_REL) and (b) against a loop of mamba_decode_step over
+    the same rows from zero states (h carried in f32, the conv state in
+    bf16; the output within MAMBA_Y_REL); then (b) with a planted fault,
+    the carried conv state rotated by one row each step, which must land
+    above the bound."""
+    lm, ssm = pt.lm, pt.ssm
+    R = MAMBA_ROWS
+    tokens = torch.as_tensor(prompt[None, :R], device=DEV)
+    pl = lm.layer(params["blocks"], 0)
+    p = pl["mamba"]
+    x = lm._norm(lm.embed_tokens(params, tokens, cfg), pl["ln1"], cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y, h = ssm.mamba_forward(p, x, cfg)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    di = cfg.ssm_expand * cfg.d_model
+
+    def rel(got, want):
+        return float((got.float() - want.float()).norm()
+                     / want.float().norm())
+
+    # (a) the recurrence on the forward's projections, one step at a time
+    xs, z = ssm._mamba_gates(p, x, cfg)
+    xs, _ = ssm._causal_conv(xs, p["conv_w"], p["conv_b"])
+    dt, Bc, Cc, A = ssm._mamba_ssm_inputs(p, xs, cfg)
+    hs = torch.zeros((1, di, cfg.ssm_state), device=DEV)
+    ys = []
+    for t in range(R):
+        a = torch.exp(dt[:, t, :, None].float() * A)
+        bx = (dt * xs)[:, t, :, None].float() * Bc[:, t, None, :].float()
+        hs = a * hs + bx
+        ys.append(torch.einsum("bdn,bn->bd", hs, Cc[:, t].float()))
+    ya = ((torch.stack(ys, dim=1) + xs * p["D"]).to(x.dtype) * F.silu(z)
+          ) @ p["out_proj"]
+
+    # (b) mamba_decode_step itself, with and without the planted fault
+    def steps(fault):
+        hd = torch.zeros((1, di, cfg.ssm_state), device=DEV)
+        conv = torch.zeros((1, cfg.ssm_conv - 1, di), dtype=x.dtype,
+                           device=DEV)
+        outs = []
+        for t in range(R):
+            o, hd, conv = ssm.mamba_decode_step(p, x[:, t:t + 1], cfg, hd,
+                                                conv)
+            if fault:
+                conv = conv.roll(1, dims=1)
+            outs.append(o)
+        return torch.cat(outs, dim=1), hd
+
+    t0 = time.perf_counter()
+    yb, hb = steps(False)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0)
+    yf, hf = steps(True)
+    out = dict(rel_h=rel(hs, h), rel_y=rel(ya, y), dec_h=rel(hb, h),
+               dec_y=rel(yb, y), fault_h=rel(hf, h), fault_y=rel(yf, y),
+               ms=ms, step_ms=step_ms)
+    log(f"  layer 0 mamba_forward on {R} real rows: {ms:.1f} ms (host "
+        f"clock, one call, {-(-R // 128)} chunks); (a) against the "
+        f"recurrence stepped on its projections: h_final relative L2 "
+        f"{out['rel_h']:.3e} (bound {MAMBA_H_REL}), output "
+        f"{out['rel_y']:.3e} (bound {MAMBA_Y_REL}); (b) against {R} "
+        f"mamba_decode_step calls ({step_ms:.1f} ms): output "
+        f"{out['dec_y']:.3e} (bound {MAMBA_Y_REL}), h_final "
+        f"{out['dec_h']:.3e}; the planted fault (conv state rotated by one "
+        f"row) reads {out['fault_y']:.3e} and {out['fault_h']:.3e}")
+    check(h.dtype == torch.float32 and y.dtype == x.dtype
+          and bool(torch.isfinite(h).all() and torch.isfinite(y).all()),
+          "mamba_forward: finite, h_final f32")
+    check(out["rel_h"] < MAMBA_H_REL and out["rel_y"] < MAMBA_Y_REL,
+          "mamba_forward within its bounds of the stepped recurrence")
+    check(out["dec_y"] < MAMBA_Y_REL,
+          "mamba_forward within its bound of the decode steps")
+    check(not out["fault_y"] <= MAMBA_Y_REL,
+          "the planted conv-state fault lands above the bound")
+    return out
+
+
+def phase_hybrid(pt, kmods) -> dict:
+    cfg = pt.HYBRID_CONFIG
+    log(f"== 8h. hybrid serving: {cfg.name} at full width and depth "
+        f"({cfg.num_layers} layers, d {cfg.d_model}, {cfg.num_heads}/"
+        f"{cfg.num_kv_heads} heads of {cfg.head_dim}, window {cfg.window} "
+        f"but layers {cfg.global_attn_layers}, Mamba d_inner "
+        f"{cfg.ssm_expand * cfg.d_model} state {cfg.ssm_state} conv "
+        f"{cfg.ssm_conv}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+        f"{cfg.dtype}), ContinuousBatcher({SSM_SLOTS} slots x {LM_MAX_LEN} "
+        f"positions)")
+    laps = {}
+    with _timed(laps, "init"):
+        init = _init_state_lm(pt, cfg, 19, HYMBA_PARAMS)
+    params = init.pop("params")
+    reqs = _lm_requests(pt, cfg, 4)
+    # (a) the flash kernel at hd 64, group 5, global and windowed
+    with _timed(laps, "(a) flash"):
+        flash = _hybrid_flash(pt, params, cfg, reqs[0].prompt)
+    # (b) the chunked scan against the decode steps
+    with _timed(laps, "(b) mamba"):
+        mamba = _check_mamba_layer(pt, params, cfg, reqs[0].prompt)
+    checks_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    # (c) serving
+    with _timed(laps, "(c) serving and profiles"):
+        out = _serve_states(pt, params, cfg, reqs, kmods)
+    # (d) decode against forward, short and long: held in f32; in bf16
+    # logged, with each branch's per-layer drift (DECODE_F32_REL's note)
+    with _timed(laps, "(d) decode vs forward"):
+        rel = _decode_both(pt, params, cfg, reqs, hold=False)
+        drift = _hybrid_drift(pt, params, cfg, torch.as_tensor(
+            reqs[1].prompt[None], device=DEV))
+    del params
+    torch.cuda.empty_cache()
+    log(f"  profiles: {out['prof_s']:.1f} s of (c)")
+    secs = _log_laps("8h", laps)
+    return dict(out, **init, flash=flash, mamba=mamba, rel=rel,
+                drift=drift, err=max(flash.values()),
+                checks_peak_gb=checks_peak_gb, secs=secs)
+
+
+def _check_rwkv_layer(pt, params, cfg, prompt) -> dict:
+    """Layer 0's rwkv_time_mix_chunked (chunk cfg.rwkv_chunk) against
+    rwkv_time_mix (the per-step scan) on the real normed rows of
+    RWKV_ROWS tokens, both in f32 (the layer's weights cast): output and
+    final state within RWKV_ABS, finite; the chunks' largest -log P (the
+    exponent exp(-log P) takes)."""
+    lm, ssm = pt.lm, pt.ssm
+    R = RWKV_ROWS
+    tokens = torch.as_tensor(prompt[None, :R], device=DEV)
+    pl = lm.layer(params["blocks"], 0)
+    p = {k: v.float() for k, v in pl["rwkv"].items()}
+    x = lm._norm(lm.embed_tokens(params, tokens, cfg), pl["ln1"],
+                 cfg).float()
+    C = cfg.rwkv_chunk
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y1, (s1, _) = ssm.rwkv_time_mix_chunked(p, x, cfg, chunk=C)
+    torch.cuda.synchronize()
+    chunk_ms = 1e3 * (time.perf_counter() - t0)
+    y2, (s2, _) = ssm.rwkv_time_mix(p, x, cfg)
+    torch.cuda.synchronize()
+    scan_ms = 1e3 * (time.perf_counter() - t0) - chunk_ms
+    w = ssm._rwkv_mix_inputs(p, x, ssm._shifted(x, None), cfg)[4]
+    nlogp = float(-torch.log(w.float()).reshape(1, -1, C, w.shape[2],
+                                                w.shape[3]).sum(2).max())
+    out = dict(err_y=float((y1 - y2).abs().max()),
+               err_s=float((s1 - s2).abs().max()), chunk_ms=chunk_ms,
+               scan_ms=scan_ms, nlogp=nlogp,
+               y_max=float(y2.abs().max()), s_max=float(s2.abs().max()))
+    log(f"  layer 0 rwkv_time_mix_chunked (chunk {C}) on {R} real rows in "
+        f"f32: {chunk_ms:.1f} ms; rwkv_time_mix (the scan): {scan_ms:.1f} "
+        f"ms (host clock, one call each); max_abs_err output "
+        f"{out['err_y']:.3e} (max |y| {out['y_max']:.3f}), final state "
+        f"{out['err_s']:.3e} (max |S| {out['s_max']:.3f}), bound {RWKV_ABS}; "
+        f"largest -log P over a chunk {nlogp:.3f}")
+    check(all(bool(torch.isfinite(t).all()) for t in (y1, s1, y2, s2)),
+          "rwkv time mix: finite outputs and states")
+    check(out["err_y"] < RWKV_ABS and out["err_s"] < RWKV_ABS,
+          "the chunked time mix within the reference's bound of the scan")
+    return out
+
+
+def phase_ssm(pt, kmods) -> dict:
+    cfg = pt.SSM_CONFIG
+    hs = cfg.rwkv_head_size
+    log(f"== 8r. ssm serving: {cfg.name} at full width and depth "
+        f"({cfg.num_layers} layers, d {cfg.d_model}, {cfg.d_model // hs} "
+        f"heads of {hs}, no attention, "
+        f"time-mix chunk {cfg.rwkv_chunk}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}, {cfg.dtype}), ContinuousBatcher({SSM_SLOTS} "
+        f"slots x {LM_MAX_LEN} positions)")
+    laps = {}
+    with _timed(laps, "init"):
+        init = _init_state_lm(pt, cfg, 23, RWKV_PARAMS)
+    params = init.pop("params")
+    reqs = _lm_requests(pt, cfg, 4)
+    # (a) the chunk-parallel time mix against the scan
+    with _timed(laps, "(a) rwkv"):
+        layer = _check_rwkv_layer(pt, params, cfg, reqs[0].prompt)
+    checks_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    # (b) serving: no attention, no flash launch
+    with _timed(laps, "(b) serving and profiles"):
+        out = _serve_states(pt, params, cfg, reqs, kmods)
+    # (c) decode against forward, short and long
+    with _timed(laps, "(c) decode vs forward"):
+        rel = _decode_both(pt, params, cfg, reqs)
+    del params
+    torch.cuda.empty_cache()
+    log(f"  profiles: {out['prof_s']:.1f} s of (b)")
+    secs = _log_laps("8r", laps)
+    return dict(out, **init, layer=layer, rel=rel,
+                checks_peak_gb=checks_peak_gb, secs=secs)
+
+
 def _profile_lm(fn, label, unprofiled_ms) -> dict:
     """One call of ``fn`` under torch.profiler: the device's busy time by
-    kernel, and its busy share of the same work's unprofiled time."""
-    from torch.autograd import DeviceType
+    kernel, and its busy share of the same work's unprofiled time.  The
+    device's activity only: tracing the host's ops too gives the same
+    device times and takes several times as long on hymba-1.5b's 16K
+    prefill (~300,000 launches).  Such a profile records no host call, so
+    its completeness cannot be checked (``contracts.profile_gaps``): where
+    the profiler dropped records, the busy time falls short."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA
-              and e.self_device_time_total > 0
-              and not e.key.startswith("Activity Buffer")]
+    events = _device_events(prof)
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     idle = 100 - 100 * busy_ms / unprofiled_ms
     log(f"  profiled {label}: device busy {busy_ms:.3f} ms of "
@@ -3142,7 +3614,9 @@ def main() -> int:
         from repro_torch.configs.moonshot_v1_16b_a3b import \
             CONFIG as MOE_CONFIG
         from repro_torch.configs import deepseek_v3_671b
-        from repro_torch.models import mla
+        from repro_torch.configs.hymba_1_5b import CONFIG as HYBRID_CONFIG
+        from repro_torch.configs.rwkv6_1_6b import CONFIG as SSM_CONFIG
+        from repro_torch.models import mla, ssm
         from repro_torch import obs
         from repro_torch.obs import Telemetry
         from repro_torch.core import perf_model as pm
@@ -3198,6 +3672,16 @@ def main() -> int:
     log(f"== phase 8d freed: {after_ds / 1e9:.3f} GB allocated after it "
         f"(peak {ds['peak_gb']:.1f} GB in it)")
     check(after_ds <= held + 2 ** 26, "phase 8d's weights and cache freed")
+    hy = phase_hybrid(pt, (eg, oa, pt.fa))
+    after = torch.cuda.memory_allocated()
+    log(f"== phase 8h freed: {after / 1e9:.3f} GB allocated after it "
+        f"(peak {hy['peak_gb']:.1f} GB in it)")
+    check(after <= held + 2 ** 26, "phase 8h's weights and cache freed")
+    rw = phase_ssm(pt, (eg, oa, pt.fa))
+    after = torch.cuda.memory_allocated()
+    log(f"== phase 8r freed: {after / 1e9:.3f} GB allocated after it "
+        f"(peak {rw['peak_gb']:.1f} GB in it)")
+    check(after <= held + 2 ** 26, "phase 8r's weights and cache freed")
 
     log("== 9. summary")
     # each main path's launches, read from its own run with the counts
@@ -3216,13 +3700,15 @@ def main() -> int:
             "6 serving remote": remote["onesided"]["launches"]},
         **{name: {"7 distributed": n} for name, n in dist["launches"].items()},
         "flash_attention": {"8 LM serving": lm["launches"],
-                            "8m MoE serving": moe["launches"]},
+                            "8m MoE serving": moe["launches"],
+                            "8h hybrid serving": hy["launches"]},
     }
     check(all(n > 0 for paths in by_path.values() for n in paths.values()),
           "every kernel launched on each main path that runs it")
     times.update(dist["times"])
     errs.update(dist["errs"])
-    errs["flash_attention"] = max(flash_err, lm["err"], moe["err"])
+    errs["flash_attention"] = max(flash_err, lm["err"], moe["err"],
+                                  hy["err"])
     kernels = []
     for name in SOURCES:
         t = dict(times[name])
@@ -3344,6 +3830,35 @@ def main() -> int:
         f"{ds['prof']['decode']['idle']:.1f}% of a decode step, "
         f"{ds['prof']['long_prefill']['idle']:.1f}% of a {LONG_PROMPT}-token"
         f" prefill")
+    for label, r in (("hybrid", hy), ("ssm", rw)):
+        cfg = pt.HYBRID_CONFIG if label == "hybrid" else pt.SSM_CONFIG
+        log(f"{label} serving ({cfg.name}, {r['n_params']:,} parameters, "
+            f"{r['nbytes'] / 1e9:.2f} GB): {r['tokens']} tokens in "
+            f"{r['serve_s']:.3f} s ({r['tokens'] / r['serve_s']:.2f} "
+            f"tokens/s), prefill ms by length "
+            f"{[(n, round(1e3 * t, 1)) for n, t in r['prefill']]}, median "
+            f"decode step {1e3 * statistics.median(r['decode']):.3f} ms, "
+            f"flash launches {r['launches']}, decode vs forward relative L2 "
+            + ", ".join(f"{v:.3e} ({n} tokens)"
+                        for n, v in r["rel"]["bf16"].items())
+            + " (f32: " + ", ".join(f"{v:.3e}"
+                                    for v in r["rel"]["f32"].values())
+            + f"), cache {r['row_bytes']:,} B of rows and {r['state_bytes']:,}"
+            f" B of states, peak device memory {r['checks_peak_gb']:.1f} GB "
+            f"in checks, {r['peak_gb']:.1f} serving, device idle "
+            f"{r['prof']['decode']['idle']:.1f}% of a decode step, "
+            f"{r['prof']['long_prefill']['idle']:.1f}% of a {LONG_PROMPT}-"
+            f"token prefill; phase {r['secs']:.1f} s")
+    mb, rl = hy["mamba"], rw["layer"]
+    log(f"hybrid checks: flash on real q/k/v max_abs_err "
+        + ", ".join(f"{e:.3e} (window {w})" for w, e in hy["flash"].items())
+        + f"; layer-0 mamba_forward vs the stepped recurrence relative L2 "
+        f"h_final {mb['rel_h']:.3e}, output {mb['rel_y']:.3e}; vs "
+        f"mamba_decode_step output {mb['dec_y']:.3e}, h_final "
+        f"{mb['dec_h']:.3e} (planted fault {mb['fault_y']:.3e}, "
+        f"{mb['fault_h']:.3e}); ssm check: layer-0 "
+        f"chunked vs scan max_abs_err output {rl['err_y']:.3e}, state "
+        f"{rl['err_s']:.3e}, largest -log P {rl['nlogp']:.3f}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -245,21 +245,30 @@ def _sync_errors(on: bool):
         torch.cuda.set_sync_debug_mode(prev)
 
 
-def _profiled_kernels(prof, kernel: str) -> Tuple[int, int]:
-    """(launches of device kernels named ``kernel``, all device events)."""
+def _profiled_kernels(prof, kernel: str) -> int:
+    """Launches of device kernels named ``kernel`` in a profile."""
     from torch.autograd import DeviceType
 
-    ran = [e for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA
-           and e.self_device_time_total > 0
-           and not e.key.startswith("Activity Buffer")]
-    return (sum(e.count for e in ran if kernel in e.key),
-            sum(e.count for e in ran))
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0 and kernel in e.key)
 
 
-# Profiles of one call taken before its device-kernel count is read as
-# zero; the profiler now and then records no device event of a call.
-_PROFILE_TRIES = 3
+# The host's kernel launches (the runtime's and the driver's), each with
+# one kernel record on the device; copies and fills are not counted.
+_LAUNCH_CALL = ("Launch", "Kernel")
+_NOT_KERNELS = ("Memcpy", "Memset")
+# Profiles of one call taken at most in search of a readable one.  The
+# profiler now and then drops device records of a call, a run of the first
+# ones or all of them, at times in several profiles in a row.
+PROFILE_TRIES = 5
+# Device spins (``torch.cuda._sleep``, kernel ``spin_kernel``) each
+# profile opens with, before the call: the records the profiler drops are
+# a profile's first, and these are not the call's.  A profiled call must
+# launch no spin of its own.
+PROFILE_LEAD_IN = 16
+LEAD_IN_KERNEL = "spin_kernel"
+_LEAD_IN_CYCLES = 100_000
 
 
 def _profile(on: bool):
@@ -270,16 +279,95 @@ def _profile(on: bool):
     return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
 
 
+@dataclasses.dataclass(frozen=True)
+class ProfileGaps:
+    """What a ``torch.profiler`` run that traced the CPU and CUDA
+    activities holds of a call's kernels: each kernel launch of the host
+    matched to its kernel record by CUPTI correlation id, the first
+    ``lead_in`` launches (the profile's own, :data:`PROFILE_LEAD_IN`) set
+    apart."""
+    launches: int        # the call's kernel launches
+    lost: int            # of them with no kernel record
+    stray: int           # kernel records with no launch
+    lost_in: Tuple[str, ...] = ()   # the op of each lost launch
+    lead_in_lost: int = 0           # lead-in launches with no record
+
+    @property
+    def complete(self) -> bool:
+        return self.launches > 0 and not self.lost and not self.stray
+
+
+def profile_gaps(prof, lead_in: int = 0) -> ProfileGaps:
+    """The :class:`ProfileGaps` of a profile whose first ``lead_in``
+    kernel launches are not the call's.  A profile of the CUDA activity
+    alone records no host call and cannot be judged."""
+    from torch.autograd import DeviceType
+
+    events = prof.profiler.kineto_results.events()
+    calls = sorted((e for e in events if e.device_type() == DeviceType.CPU
+                    and all(k in e.name() for k in _LAUNCH_CALL)),
+                   key=lambda e: e.correlation_id())
+    kernels = {e.correlation_id() for e in events
+               if e.device_type() == DeviceType.CUDA
+               and not e.name().startswith(_NOT_KERNELS)}
+    lead, own = calls[:lead_in], calls[lead_in:]
+    lost = [e for e in own if e.correlation_id() not in kernels]
+    # the profiled ops by id (the runtime's and the driver's calls, "cu*",
+    # are not ops); a launch links to the op that made it
+    ops = {e.correlation_id(): e.name() for e in events
+           if e.device_type() == DeviceType.CPU
+           and not e.name().startswith("cu")}
+    ops[0] = "(outside any op)"
+    return ProfileGaps(
+        launches=len(own), lost=len(lost),
+        stray=len(kernels - {e.correlation_id() for e in calls}),
+        lost_in=tuple(sorted(ops.get(e.linked_correlation_id(),
+                                     f"op {e.linked_correlation_id()}")
+                             for e in lost)),
+        lead_in_lost=sum(e.correlation_id() not in kernels for e in lead))
+
+
+def profile_complete(fn, *, tries: int = PROFILE_TRIES):
+    """Profile ``fn()`` (CPU and CUDA activities; the device synchronized
+    before it and inside the profile after it; :data:`PROFILE_LEAD_IN`
+    spins first) until a profile can be read, at most ``tries`` times: one
+    that is complete, or one whose missing kernel records (by op) are
+    those of an earlier profile of the call, with no stray record.  Most
+    drops vary from profile to profile; some repeat for a while (on the
+    H100, in some runs, the first kernel of every row/a2a flush or the
+    first four of a training step), and then the profile is read without
+    them.  Returns the profile read, its gaps and those of each one taken
+    before it; raises ``RuntimeError`` if none could be read.  ``fn`` must
+    be safe to run again."""
+    import torch
+
+    earlier = []
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with _profile(True) as prof:
+            for _ in range(PROFILE_LEAD_IN):
+                torch.cuda._sleep(_LEAD_IN_CYCLES)
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+        gaps = profile_gaps(prof, PROFILE_LEAD_IN)
+        if gaps.complete or (gaps.launches and not gaps.stray and any(
+                g.lost_in == gaps.lost_in for g in earlier)):
+            return prof, gaps, earlier
+        earlier.append(gaps)
+    raise RuntimeError(f"no readable profile in {tries} tries: {earlier}")
+
+
 def summarize(fn, args: Sequence, contract: Optional[KernelContract] = None,
               *, device_kernel: Optional[str] = None) -> Census:
     """Run ``fn(*args)`` once and take its :class:`Census`.
 
     ``contract`` says which arguments to watch for in-place writes and
     whether the card's sync errors are on.  ``device_kernel`` (card only)
-    profiles the call and counts device kernels of that name; the
-    profiler now and then records no device event of a call at all, and
-    then (only then) the call is profiled again, up to
-    :data:`_PROFILE_TRIES` times in all, for that count alone."""
+    profiles the call and counts device kernels of that name in a complete
+    profile (:func:`profile_gaps`): where the call's own profile is not,
+    the call is profiled again for that count alone
+    (:func:`profile_complete`)."""
     from repro_torch.core import comm
 
     contract = contract or KernelContract(name="summary")
@@ -331,15 +419,9 @@ def summarize(fn, args: Sequence, contract: Optional[KernelContract] = None,
             census.large_allocs.append((f"argnum {i} moved or resized",
                                         nbytes))
     if profiling:
-        n, seen = _profiled_kernels(prof, device_kernel)
-        for _ in range(_PROFILE_TRIES - 1):
-            if seen:
-                break
-            with _profile(True) as again:
-                fn(*args)
-                torch.cuda.synchronize()
-            n, seen = _profiled_kernels(again, device_kernel)
-        census.device_kernels = n
+        if not profile_gaps(prof).complete:
+            prof, _, _ = profile_complete(lambda: fn(*args))
+        census.device_kernels = _profiled_kernels(prof, device_kernel)
     return census
 
 

@@ -3,8 +3,9 @@ registry, ``get_config("<arch-id>")`` / ``get_smoke_config``.
 
 ``ARCH_IDS`` is the reference's list of architectures.  The port serves
 ``PORTED_ARCH_IDS``: the dense family (granite-8b, starcoder2-15b, yi-34b,
-nemotron-4-340b), the GQA MoE moonshot-v1-16b-a3b and the MLA MoE
-deepseek-v3-671b; asking for any other raises ``NotImplementedError``
+nemotron-4-340b), the GQA MoE moonshot-v1-16b-a3b, the MLA MoE
+deepseek-v3-671b, the hybrid hymba-1.5b (attention and mamba heads) and
+the ssm rwkv6-1.6b; asking for any other raises ``NotImplementedError``
 naming its ROADMAP item.
 """
 from __future__ import annotations
@@ -28,13 +29,13 @@ ARCH_IDS = [
 
 # the dense family: what the port's LM path runs
 DENSE_ARCH_IDS = ["starcoder2-15b", "yi-34b", "granite-8b", "nemotron-4-340b"]
-# every arch the port's LM path runs: the dense family and the MoE family
-# (GQA and MLA attention)
-PORTED_ARCH_IDS = DENSE_ARCH_IDS + ["moonshot-v1-16b-a3b", "deepseek-v3-671b"]
+# every arch the port's LM path runs: the dense family, the MoE family
+# (GQA and MLA attention), the hybrid and the ssm family
+PORTED_ARCH_IDS = DENSE_ARCH_IDS + ["moonshot-v1-16b-a3b", "deepseek-v3-671b",
+                                    "hymba-1.5b", "rwkv6-1.6b"]
 # every arch not yet ported: its family and the ROADMAP Queue 1 item it
 # waits for
-WAITING = {"hymba-1.5b": ("hybrid", "13.3"), "rwkv6-1.6b": ("ssm", "13.3"),
-           "whisper-base": ("audio", "13.4"), "internvl2-2b": ("vlm", "13.5")}
+WAITING = {"whisper-base": ("audio", "13.4"), "internvl2-2b": ("vlm", "13.5")}
 
 
 def waiting_item(family: str) -> str:

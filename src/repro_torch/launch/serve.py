@@ -1,6 +1,6 @@
-"""Serving launcher: continuous-batching decode over a dense or MoE LM
-config (``--arch``: ``configs.PORTED_ARCH_IDS``; the MoE with GQA or MLA
-attention).
+"""Serving launcher: continuous-batching decode over a dense, MoE, hybrid
+or ssm LM config (``--arch``: ``configs.PORTED_ARCH_IDS``; the MoE with
+GQA or MLA attention, hymba-1.5b, rwkv6-1.6b).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \\
         --smoke --device cpu --requests 8 --prompt-len 12 --max-new 8
@@ -9,7 +9,8 @@ attention).
 
 Builds random parameters from ``--seed`` (a full-width config needs the
 card: granite-8b is 16.5 GB in bfloat16, moonshot-v1-16b-a3b 56.7 GB;
-deepseek-v3-671b's full ``CONFIG``, 1.34 TB, fits on no single card),
+deepseek-v3-671b's full ``CONFIG``, 1.34 TB, fits on no single card;
+hymba-1.5b and rwkv6-1.6b take 3-4 GB),
 submits prompts of uniform ids, runs the slot loop to completion and
 reports the prefill time per prompt, the per-token decode latency and the
 tokens per second, all on the host clock (``time.perf_counter``) up to

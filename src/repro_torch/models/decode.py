@@ -1,18 +1,29 @@
-"""KV-cache decode for the dense and MoE families: the counterpart of
-``repro.models.decode``'s ``init_cache`` / ``prefill`` / ``decode_step``.
+"""The KV cache and the carried states, and decode, for the dense, MoE,
+hybrid and ssm families: the counterpart of ``repro.models.decode``'s
+``init_cache`` / ``prefill`` / ``decode_step``.
 
 Cache layout as in the reference: ``{"length": (B,) int32}`` and one
 dict of layer-stacked entries per layer stack of ``lm.block_stacks``
-(``"blocks"``; for MoE ``"dense_blocks"`` and ``"moe_blocks"``):
-``{"k", "v": (layers, B, max_len, KH, hd)}`` for GQA, the latent
-``{"c_kv": (layers, B, max_len, kv_lora), "k_rope": (layers, B,
-max_len, rope)}`` for MLA; per-sample ``length`` for continuous batching
-(slots at different positions).  The reference is pure and returns new
-caches; here the cache is updated IN PLACE (``decode_step`` writes one
-row of each entry per sample, ``prefill`` its prompt's rows), so a
-full-width cache is never copied.  Single device only (``ctx=None``):
-the sequence-sharded flash-decode comes with the LM with a
-``ParallelContext``.
+(``"blocks"``; for MoE ``"dense_blocks"`` and ``"moe_blocks"``), each
+with the batch (the slot) at axis 1.  An entry is one of two kinds:
+
+* positional rows, ``(layers, B, max_len, ...)``, one row per position:
+  ``{"k", "v": (.., KH, hd)}`` for GQA (the hybrid family's too), the
+  latent ``{"c_kv": (.., kv_lora), "k_rope": (.., rope)}`` for MLA;
+  prefill writes rows ``[0, S)``, decode one row per slot at its
+  ``length``;
+* whole states (:data:`STATE_KEYS`), one per slot, that carry all of
+  the prompt into decode: the hybrid family's Mamba ``ssm_h (layers, B,
+  di, N)`` f32 and ``conv (layers, B, K-1, di)``; the ssm family's RWKV
+  ``S (layers, B, H, hs, hs)`` f32, ``x_tm`` and ``x_cm (layers, B,
+  d)``; prefill and decode overwrite them whole.
+
+Per-sample ``length`` serves continuous batching (slots at different
+positions).  The reference is pure and returns new caches; here the
+cache is updated IN PLACE (decode writes its rows and states, prefill
+its prompt's), so a full-width cache is never copied.  Single device
+only (``ctx=None``): the sequence-sharded flash-decode comes with the
+LM with a ``ParallelContext``.
 """
 from __future__ import annotations
 
@@ -21,7 +32,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import layers, mla
+from repro_torch.models import layers, mla, ssm
 from repro_torch.models.lm import (
     _block,
     _gqa_qkv,
@@ -29,6 +40,7 @@ from repro_torch.models.lm import (
     _norm,
     _require_local,
     _require_ported,
+    _rwkv_block,
     block_stacks,
     embed_tokens,
     layer,
@@ -37,32 +49,60 @@ from repro_torch.models.lm import (
 from repro_torch.utils.device import resolve_device
 
 
+# the cache entries that hold one whole state per slot; every other entry
+# holds positional rows
+STATE_KEYS = frozenset({"ssm_h", "conv", "S", "x_tm", "x_cm"})
+
+
+def _entry_shapes(cfg: ModelConfig, dtype):
+    """``{key: (shape past (layers, B) or (layers, B, max_len), dtype)}``
+    of one layer stack's cache entries."""
+    d = cfg.d_model
+    if cfg.family == "ssm":
+        hs = cfg.rwkv_head_size
+        return {"S": ((d // hs, hs, hs), torch.float32),
+                "x_tm": ((d,), dtype), "x_cm": ((d,), dtype)}
+    if cfg.attention == "mla":
+        m = cfg.mla
+        return {"c_kv": ((m.kv_lora_rank,), dtype),
+                "k_rope": ((m.qk_rope_head_dim,), dtype)}
+    shapes = dict.fromkeys(("k", "v"), ((cfg.num_kv_heads, cfg.head_dim),
+                                        dtype))
+    if cfg.family == "hybrid":
+        di = cfg.ssm_expand * d
+        shapes["ssm_h"] = ((di, cfg.ssm_state), torch.float32)
+        shapes["conv"] = ((cfg.ssm_conv - 1, di), dtype)
+    return shapes
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, *,
                device=None) -> Dict[str, Any]:
     """A zero cache of ``batch`` slots of ``max_len`` positions on
     ``device`` (None: the card): K/V for GQA, the latent ``c_kv`` and
-    ``k_rope`` for MLA."""
+    ``k_rope`` for MLA, K/V and the Mamba states for the hybrid family,
+    the RWKV states for the ssm family (the states ``ssm_h`` and ``S`` in
+    f32 whatever ``dtype``)."""
     _require_ported(cfg)
     device = resolve_device(device)
     dtype = dtype or torch_dtype(cfg.dtype)
     cache: Dict[str, Any] = {
         "length": torch.zeros((batch,), dtype=torch.int32, device=device)}
-    if cfg.attention == "mla":
-        m = cfg.mla
-        widths = {"c_kv": (m.kv_lora_rank,), "k_rope": (m.qk_rope_head_dim,)}
-    else:
-        widths = dict.fromkeys(("k", "v"), (cfg.num_kv_heads, cfg.head_dim))
+    shapes = _entry_shapes(cfg, dtype)
     for name, n, _ in block_stacks(cfg):
-        cache[name] = {key: torch.zeros((n, batch, max_len) + w, dtype=dtype,
-                                        device=device)
-                       for key, w in widths.items()}
+        cache[name] = {
+            key: torch.zeros((n, batch) + (() if key in STATE_KEYS
+                                           else (max_len,)) + shape,
+                             dtype=dt, device=device)
+            for key, (shape, dt) in shapes.items()}
     return cache
 
 
 def kv_stacks(cache: Dict[str, Any]) -> Dict[str, Dict[str, torch.Tensor]]:
-    """The cache's layer-stacked entries, ``{stack: {"k", "v"}}`` (or
-    ``{"c_kv", "k_rope"}``): every nested dict, each with the batch at
-    axis 1 (the reference's structural rule)."""
+    """The cache's layer-stacked entries, ``{stack: {key: tensor}}``:
+    every nested dict, each entry with the batch at axis 1 (the
+    reference's structural rule), positional rows ``(layers, B, max_len,
+    ...)`` and whole states (:data:`STATE_KEYS`) alike, so slicing axis 1
+    takes a slot's rows and states together."""
     return {name: st for name, st in cache.items() if isinstance(st, dict)}
 
 
@@ -83,12 +123,18 @@ def _decode_attn(q, k_cache, v_cache, length, cfg: ModelConfig, ctx=None, *,
 
 def _write_rows(lc: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor],
                 length) -> None:
-    """Write one new (B, 1, ...) row of each entry of ``new`` into the
-    (B, S, ...) cache tensor ``lc[name]`` at per-sample positions, in
-    place.  A position past the cache is dropped, as the reference's
-    scatter drops it (an empty slot's length keeps growing).  Every entry
-    shares (B, S), so the indices and the mask are built once."""
-    B, S = next(iter(lc.values())).shape[:2]
+    """Write one new (B, 1, ...) row of each positional entry of ``new``
+    into the (B, S, ...) cache tensor ``lc[name]`` at per-sample
+    positions, in place.  A position past the cache is dropped, as the
+    reference's scatter drops it (an empty slot's length keeps growing).
+    The entries of ``new`` share (B, S), so the indices and the mask are
+    built once.  A whole state (:data:`STATE_KEYS`) has no positions and
+    raises."""
+    states = STATE_KEYS.intersection(new)
+    if states:
+        raise ValueError(f"{sorted(states)}: whole states, not positional "
+                         f"rows; decode overwrites them whole")
+    B, S = lc[next(iter(new))].shape[:2]
     bi = torch.arange(B, device=length.device)
     pos = length.long()
     inside = pos < S
@@ -134,6 +180,34 @@ def _mla_decode_block(pl, h, lc, length, cfg, ctx=None):
                                 length + 1, cfg, ctx)
 
 
+def _hybrid_decode_block(pl, h, lc, length, cfg, ctx=None, *, window):
+    """h (B, 1, d); lc = this layer's slice {"k", "v", "ssm_h", "conv"}:
+    the new K/V row written at ``length`` and windowed attention over
+    ``length + 1`` rows, beside one Mamba step on the carried states
+    (overwritten in place); h plus the normed mean of both."""
+    x = _norm(h, pl["ln1"], cfg)
+    q, k_new, v_new = _gqa_qkv(pl["attn"], x, length[:, None], cfg)
+    _write_rows(lc, {"k": k_new, "v": v_new}, length)
+    attn = _decode_attn(q, lc["k"], lc["v"], length + 1, cfg, ctx,
+                        window=window) @ pl["attn"]["wo"]
+    m_out, ssm_h, conv = ssm.mamba_decode_step(pl["mamba"], x, cfg,
+                                               lc["ssm_h"], lc["conv"])
+    lc["ssm_h"].copy_(ssm_h)
+    lc["conv"].copy_(conv)
+    return h + 0.5 * (_norm(attn, pl["ln_attn_out"], cfg) +
+                      _norm(m_out, pl["ln_mamba_out"], cfg))
+
+
+def _rwkv_decode_block(pl, h, lc, cfg):
+    """h (B, 1, d); lc = this layer's states {"S", "x_tm", "x_cm"}: one
+    step of the time mix's scan and the channel mix from the carried
+    states, overwritten in place.  Returns h."""
+    h, new = _rwkv_block(pl, h, cfg, state=lc)
+    for key, val in new.items():
+        lc[key].copy_(val)
+    return h
+
+
 def _ffn_or_moe(pl, h, cfg):
     if "moe" in pl:
         out, aux = _moe_apply(pl["moe"], _norm(h, pl["ln2"], cfg), cfg)
@@ -149,19 +223,26 @@ def _ffn_or_moe(pl, h, cfg):
 def decode_step(params, cache, tokens: torch.Tensor, cfg: ModelConfig,
                 ctx=None) -> Tuple[Dict[str, Any], torch.Tensor]:
     """tokens (B,) -> (cache, hidden (B, d)).  Writes every slot's new
-    cache row (K/V, or MLA's latent row) in place and returns the cache
-    with ``length + 1``."""
+    cache row (K/V, or MLA's latent row) and overwrites its states
+    (Mamba's, RWKV's) in place, and returns the cache with ``length +
+    1``."""
     _require_ported(cfg)
     length = cache["length"]
     h = embed_tokens(params, tokens[:, None], cfg, ctx)         # (B, 1, d)
-    for name, n, window in block_stacks(cfg):
+    for name, n, windows in block_stacks(cfg):
         for i in range(n):
             pl, lc = layer(params[name], i), layer(cache[name], i)
-            if cfg.attention == "mla":
+            if cfg.family == "ssm":
+                h = _rwkv_decode_block(pl, h, lc, cfg)
+                continue
+            if cfg.family == "hybrid":
+                h = _hybrid_decode_block(pl, h, lc, length, cfg, ctx,
+                                         window=windows[i])
+            elif cfg.attention == "mla":
                 h = _mla_decode_block(pl, h, lc, length, cfg, ctx)
             else:
                 h = _gqa_decode_block(pl, h, lc, length, cfg, ctx,
-                                      window=window)
+                                      window=windows[i])
             h, _ = _ffn_or_moe(pl, h, cfg)
     h = _norm(h, layer(params["final_norm"], 0), cfg)
     cache["length"] = length + 1
@@ -175,19 +256,23 @@ def decode_step(params, cache, tokens: torch.Tensor, cfg: ModelConfig,
 def _prefill_into(params, tokens: torch.Tensor, cfg: ModelConfig,
                   kv: Dict[str, Dict[str, torch.Tensor]]) -> torch.Tensor:
     """Run the prompt ``tokens`` (B, S) and write each layer's cache entry
-    into positions ``[0, S)`` of ``kv[stack][key]`` ((layers, B, >= S,
-    ...) for every stack of ``lm.block_stacks`` and every key of its
-    entry: K/V, or MLA's ``c_kv``/``k_rope``; possibly views of a larger
-    cache).  Returns the hidden states (B, S, d) after the final norm."""
+    into ``kv[stack][key]`` (``(layers, B, ...)`` for every stack of
+    ``lm.block_stacks`` and every key of its entry, possibly views of a
+    larger cache): positional rows (K/V, MLA's ``c_kv``/``k_rope``) into
+    positions ``[0, S)``, whole states (:data:`STATE_KEYS`) entire.
+    Returns the hidden states (B, S, d) after the final norm."""
     B, S = tokens.shape
     h = embed_tokens(params, tokens, cfg)
     positions = torch.arange(S, device=h.device).expand(B, S)
-    for name, n, window in block_stacks(cfg):
+    for name, n, windows in block_stacks(cfg):
         for i in range(n):
             h, entry, _ = _block(layer(params[name], i), h, positions, cfg,
-                                 window=window)
-            for key, rows in entry.items():
-                kv[name][key][i, :, :S] = rows
+                                 window=windows[i])
+            for key, val in entry.items():
+                if key in STATE_KEYS:
+                    kv[name][key][i] = val
+                else:
+                    kv[name][key][i, :, :S] = val
     return _norm(h, layer(params["final_norm"], 0), cfg)
 
 

@@ -7,8 +7,11 @@ pool of cache slots at possibly different lengths.  Finished sequences
 are evicted and queued requests admitted into free slots; one
 ``decode_step`` advances every slot.  Admission prefills the request
 alone and writes its cache rows (K/V, or MLA's latent ``c_kv``/``k_rope``)
-straight into its slot of the shared cache (the reference splices a separately prefilled, zero-padded cache); positions
-past a slot's length hold stale rows, which decode attention masks.
+and its whole states (Mamba's ``ssm_h``/``conv``, RWKV's ``S``/``x_tm``/
+``x_cm``) straight into its slot of the shared cache (the reference
+splices a separately prefilled, zero-padded cache); positions past a
+slot's length hold stale rows, which decode attention masks, and an
+evicted slot's states stay until the next admission overwrites them.
 
 DLRM CTR scoring: ``DLRMEngine``: requests queue up, ``flush`` pads up to
 ``batch_size`` of them to fixed shapes and runs one forward whose
@@ -115,8 +118,9 @@ class ContinuousBatcher:
     ``device`` (None: the card; the parameters must live there).
 
     The batch dimension of the shared cache is the slot pool.  Admission
-    prefills the request alone, writing its cache rows into its slot in
-    place; eviction zeroes the slot's length.  One decode_step advances
+    prefills the request alone, writing its cache rows and states into
+    its slot in place; eviction zeroes the slot's length only, as in the
+    reference.  One decode_step advances
     every slot, empty ones included, as in the reference.  ``timings`` keeps,
     on the host clock, each admission's ``(prompt length, seconds)`` and
     each decode step's seconds, both up to the token on the host."""
@@ -159,6 +163,8 @@ class ContinuousBatcher:
                 t0 = time.perf_counter()
                 prompt = torch.as_tensor(req.prompt[None, :],
                                          device=self.device)
+                # slot i of every entry, rows and states alike (batch
+                # at axis 1); prefill writes the states whole
                 kv = {name: {k: v[:, i:i + 1] for k, v in st.items()}
                       for name, st in dec.kv_stacks(self.cache).items()}
                 hidden = dec._prefill_into(self.params, prompt, self.cfg, kv)

@@ -4,6 +4,7 @@ reference's keys and names, and each injected fault is caught -- a second
 wrapper call, a collective, an out-of-place scatter, an f64 upcast, a
 ``.item()`` (the reference's ``tests/test_analysis.py`` cases, in PyTorch
 terms)."""
+import contextlib
 import dataclasses
 
 import pytest
@@ -17,6 +18,7 @@ from repro_torch.analysis import (
     repo_contracts,
     summarize,
 )
+from repro_torch.analysis.contracts import ProfileGaps, profile_gaps
 from repro_torch.analysis.fixtures import ALL_FIXTURES, run_all
 from repro_torch.cache import tiers
 from repro_torch.core import comm
@@ -192,3 +194,135 @@ def test_audit_counts_calls_on_both_devices_via_call_counts():
     assert eg.CALL_COUNTS == {"gather_pool": 1, "gather_pool_tbe": 1,
                               "gather_pool_tbe_flat": 0}
     assert set(eg.LAUNCH_COUNTS.values()) == {0}
+
+
+class _Event:
+    """A stand-in for one of the profiler's kineto events."""
+
+    def __init__(self, name, device, linked, start=0, corr=0):
+        self._name, self._device, self._linked = name, device, linked
+        self._start, self._corr = start, corr
+
+    def name(self):
+        return self._name
+
+    def device_type(self):
+        return self._device
+
+    def linked_correlation_id(self):
+        return self._linked
+
+    def correlation_id(self):
+        return self._corr
+
+    def start_ns(self):
+        return self._start
+
+
+def _fake_profile(events):
+    results = type("Results", (), {"events": lambda self: events})()
+    return type("Prof", (), {"profiler": type(
+        "Inner", (), {"kineto_results": results})()})()
+
+
+_CPU, _CUDA = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+# two profiled ops (ids 11 and 12) and four kernel launches (CUPTI ids
+# 101-105 in launch order): one in op 11, two and a fill in op 12, and a
+# wrapper's ctypes launch outside any op (linked id 0)
+_CALLS = [_Event("_PooledLookupTBE", _CPU, 0, corr=11),
+          _Event("aten::mm", _CPU, 0, corr=12),
+          _Event("cudaLaunchKernel", _CPU, 11, corr=101),
+          _Event("cuLaunchKernelEx", _CPU, 12, corr=102),
+          _Event("cudaLaunchKernelExC", _CPU, 12, corr=103),
+          _Event("cudaMemsetAsync", _CPU, 12, corr=104),  # not a launch
+          _Event("cudaLaunchKernel", _CPU, 0, corr=105),
+          _Event("cudaDeviceGetAttribute", _CPU, 14, corr=106)]
+_RECORDS = [_Event("tbe_gather_pool_kernel", _CUDA, 11, corr=101),
+            _Event("nvjet_gemm", _CUDA, 12, corr=102),
+            _Event("splitKreduce_kernel", _CUDA, 12, corr=103),
+            _Event("Memset (Device)", _CUDA, 12, corr=104),  # not a kernel
+            _Event("put_chunks_kernel", _CUDA, 0, corr=105)]
+_STRAY = _Event("k", _CUDA, 0, corr=999)
+# a lead-in of two spins launched before the call
+_LEAD = [_Event("cudaLaunchKernel", _CPU, 0, corr=91),
+         _Event("cudaLaunchKernel", _CPU, 0, corr=92)]
+_SPINS = [_Event("spin_kernel", _CUDA, 0, corr=91),
+          _Event("spin_kernel", _CUDA, 0, corr=92)]
+
+
+@pytest.mark.parametrize("events, lead_in, gaps", [
+    (_CALLS + _RECORDS, 0, (4, 0, 0, (), 0)),
+    (_CALLS + _RECORDS[1:], 0, (4, 1, 0, ("_PooledLookupTBE",), 0)),
+    (_CALLS + _RECORDS[3:], 0, (4, 3, 0, ("_PooledLookupTBE", "aten::mm",
+                                          "aten::mm"), 0)),
+    (_CALLS + _RECORDS[3:4], 0, (4, 4, 0, ("(outside any op)",
+                                           "_PooledLookupTBE", "aten::mm",
+                                           "aten::mm"), 0)),
+    (_CALLS + _RECORDS[:2] + _RECORDS[3:], 0, (4, 1, 0, ("aten::mm",), 0)),
+    (_CALLS + _RECORDS + [_STRAY], 0, (4, 0, 1, (), 0)),
+    (_CALLS[:2] + _CALLS[7:], 0, (0, 0, 0, (), 0)),
+    (_LEAD + _SPINS + _CALLS + _RECORDS, 2, (4, 0, 0, (), 0)),
+    (_LEAD + _CALLS + _RECORDS, 2, (4, 0, 0, (), 2)),
+    (_LEAD + _CALLS + _RECORDS[1:], 2, (4, 1, 0, ("_PooledLookupTBE",), 2)),
+], ids=["complete", "first_lost", "prefix_lost", "all_lost",
+        "one_of_an_ops_two_lost", "stray", "no_launch", "lead_in",
+        "lead_in_lost", "lead_in_and_first_lost"])
+def test_profile_gaps_links_launches_to_kernel_records(events, lead_in,
+                                                       gaps):
+    """Each kernel launch is matched to its kernel record by correlation
+    id (copies and fills are not counted), the lead-in's launches set
+    apart; a profile is complete when the call launched, and every launch
+    has its record and every record its launch."""
+    got = profile_gaps(_fake_profile(events), lead_in)
+    assert (got.launches, got.lost, got.stray, got.lost_in,
+            got.lead_in_lost) == gaps
+    assert got.complete is (gaps[0] > 0 and gaps[1] == gaps[2] == 0)
+
+
+def _gaps(lost_in=(), stray=0, launches=10):
+    return ProfileGaps(launches, len(lost_in), stray, tuple(lost_in), 0)
+
+
+@pytest.mark.parametrize("seq, read", [
+    ([_gaps()], 0),                                       # complete at once
+    ([_gaps(["a", "b"]), _gaps()], 1),                    # a drop, then none
+    ([_gaps(["a"]), _gaps(["a", "b"]), _gaps(["a"])], 2),  # "a" never taken
+    ([_gaps(["a"], stray=1), _gaps(["a"], stray=1)] * 3, None),
+    ([_gaps(["a"]), _gaps(["b"]), _gaps(["c"]), _gaps(["d"]),
+      _gaps(["e"])], None),                               # drops vary
+    ([_gaps(launches=0)] * 5, None),                      # nothing launched
+], ids=["complete", "retaken", "same_gap_twice", "stray", "varying",
+        "no_launch"])
+def test_profile_complete_reads_a_complete_or_a_repeated_profile(
+        monkeypatch, seq, read):
+    """A profile is read when complete, or when its missing records are
+    those of an earlier profile (a record the profiler never takes);
+    varying drops, stray records or no launch at all raise after
+    PROFILE_TRIES profiles."""
+    from repro_torch.analysis import contracts
+
+    taken = []
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(torch.cuda, "_sleep", lambda cycles: None)
+    monkeypatch.setattr(contracts, "_profile",
+                        lambda on: contextlib.nullcontext(len(taken)))
+    monkeypatch.setattr(contracts, "profile_gaps",
+                        lambda prof, lead_in: seq[prof])
+    if read is None:
+        with pytest.raises(RuntimeError, match="no readable profile"):
+            contracts.profile_complete(lambda: taken.append(1))
+        assert len(taken) == contracts.PROFILE_TRIES
+        return
+    prof, gaps, earlier = contracts.profile_complete(
+        lambda: taken.append(1))
+    assert prof == read and gaps == seq[read] and earlier == seq[:read]
+
+
+def test_profile_gaps_reads_a_real_cpu_profile():
+    """On the CPU the profiler's own results parse and hold no device
+    work."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _tbe_fused(*_tbe_args())
+    assert profile_gaps(prof) == ProfileGaps(0, 0, 0)

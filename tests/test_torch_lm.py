@@ -1,7 +1,8 @@
-"""The port's LM serving path (the dense family, the GQA MoE moonshot and
-the MLA MoE deepseek-v3) against the JAX reference, on the CPU (where the
-flash-attention wrapper takes its plain version; ``tests/test_torch_mla.py``
-holds MLA's own functions and its bf16 path).
+"""The port's LM serving path (the dense family, the GQA MoE moonshot, the
+MLA MoE deepseek-v3, the hybrid hymba and the ssm rwkv6) against the JAX
+reference, on the CPU (where the flash-attention wrapper takes its plain
+version; ``tests/test_torch_mla.py`` holds MLA's own functions and its
+bf16 path, ``tests/test_torch_ssm.py`` the Mamba and RWKV mixers).
 
 The same numpy inputs, from ``np.random.default_rng(seed)``, go through
 ``repro`` and through ``repro_torch``; parameters come from the
@@ -16,7 +17,10 @@ Tolerances:
   * hidden states after 2 layers: ``1e-4`` (f32 matmuls of width <= 256
     in other orders, carried through the residual stream);
   * the MoE's ``moe_aux``: ``1e-6``; ``moe_dropped``, greedy tokens and
-    integer cache lengths: equal.
+    integer cache lengths: equal;
+  * the cache after prefill and a decode step: ``1e-4``, K/V rows and the
+    carried states (Mamba's ``ssm_h``/``conv``, RWKV's ``S``/``x_tm``/
+    ``x_cm``) alike.
 """
 import dataclasses
 
@@ -39,6 +43,7 @@ from repro_torch.launch import serve as tserve
 from repro_torch.models import decode as tdec
 from repro_torch.models import layers as tlayers
 from repro_torch.models import lm as tlm
+from repro_torch.models import ssm as tssm
 from repro_torch.serving import engine as tengine
 from repro_torch.utils.convert import lm_params_from_numpy
 
@@ -47,7 +52,9 @@ HIDDEN = dict(rtol=1e-4, atol=1e-4)
 DENSE = ["granite-8b", "starcoder2-15b", "yi-34b", "nemotron-4-340b"]
 MOE = "moonshot-v1-16b-a3b"
 MLA = "deepseek-v3-671b"
-PORTED = DENSE + [MOE, MLA]
+HYBRID = "hymba-1.5b"
+SSM = "rwkv6-1.6b"
+PORTED = DENSE + [MOE, MLA, HYBRID, SSM]
 FLASH_SHAPES = [
     (2, 128, 4, 2, 32, True, None),
     (1, 256, 4, 4, 64, True, 64),
@@ -97,12 +104,13 @@ def test_configs_mirror_reference(arch):
 
 
 def test_non_dense_archs_raise():
-    """Every arch not yet ported raises, naming its Queue 1 item (hybrid
-    and ssm 13.3, audio 13.4, vlm 13.5), in the registry and in the model
-    code; MLA (deepseek-v3) is ported."""
+    """Every arch not yet ported raises, naming its Queue 1 item (audio
+    13.4, vlm 13.5), in the registry and in the model code; MLA
+    (deepseek-v3), hybrid (hymba) and ssm (rwkv6) are ported."""
     assert tconfigs.ARCH_IDS == jconfigs.ARCH_IDS
     assert sorted(tconfigs.PORTED_ARCH_IDS) == sorted(PORTED)
     assert set(tconfigs.ARCH_IDS) - set(PORTED) == set(tconfigs.WAITING)
+    assert {f for f, _ in tconfigs.WAITING.values()} == {"audio", "vlm"}
     for arch, (family, item) in tconfigs.WAITING.items():
         assert jconfigs.get_config(arch).family == family
         with pytest.raises(NotImplementedError,
@@ -288,7 +296,9 @@ def test_decode_attention_partial_and_combine_match_jax(window, kv_offset):
 @pytest.mark.parametrize("threshold,S", [(None, 16), (16, 40)])
 def test_forward_matches_jax(arch, threshold, S):
     """At the default threshold (full attention) and at a lowered one with
-    S = 40, where every layer's attention takes the flash wrapper."""
+    S = 40, where every layer's attention takes the flash wrapper (the
+    hybrid family's with its layer's window; the ssm family has no
+    attention)."""
     rep = {} if threshold is None else dict(attn_chunk_threshold=threshold)
     jcfg, tcfg, jp, tp = _setup(arch, **rep)
     tokens = np.random.default_rng(4).integers(0, jcfg.vocab_size, (2, S))
@@ -311,7 +321,8 @@ def test_forward_matches_jax(arch, threshold, S):
         assert int(aux["moe_dropped"]) == int(jaux["moe_dropped"]) == 0
     # over the threshold every layer takes the flash wrapper (GQA) or
     # chunked_attention (MLA's hd_v != hd)
-    long = 0 if threshold is None else jcfg.num_layers
+    long = 0 if threshold is None or jcfg.family == "ssm" \
+        else jcfg.num_layers
     mla = jcfg.attention == "mla"
     assert len(calls) == (0 if mla else long)
     assert tlayers.CALL_COUNTS["chunked_attention"] == (long if mla else 0)
@@ -343,10 +354,15 @@ def test_prefill_and_decode_step_match_jax(arch):
     assert sorted(stacks) == sorted(k for k in jcache if k != "length")
     for name in stacks:
         assert sorted(stacks[name]) == sorted(jcache[name])
-        for key in stacks[name]:
-            np.testing.assert_allclose(_np(stacks[name][key][:, :, :S]),
-                                       _np(jcache[name][key][:, :, :S]),
-                                       **HIDDEN)
+        for key, got in stacks[name].items():
+            want = jcache[name][key]
+            assert tuple(got.shape) == want.shape, (name, key)
+            assert got.dtype == _torch_dtype(want.dtype), (name, key)
+            # positional rows: the S written ones; states: whole
+            rows = slice(None) if key in tdec.STATE_KEYS else slice(S)
+            np.testing.assert_allclose(_np(got[:, :, rows]),
+                                       _np(want[:, :, rows]), **HIDDEN,
+                                       err_msg=f"{name}/{key}")
 
 
 @pytest.mark.parametrize("arch", PORTED)
@@ -380,6 +396,29 @@ def test_write_kv_drops_positions_past_the_cache():
     assert c_kv[1, 2].eq(1).all() and c_kv.sum() == 3
 
 
+def test_init_cache_holds_rows_and_states():
+    """Positional rows (layers, B, max_len, ...) in the model dtype beside
+    whole states (layers, B, ...): Mamba's ``ssm_h`` and RWKV's ``S`` in
+    f32 whatever the dtype; ``_write_rows`` refuses a state."""
+    for arch, want in (
+            (HYBRID, {"k": ((2, 3, 10, 2, 16), torch.bfloat16),
+                      "v": ((2, 3, 10, 2, 16), torch.bfloat16),
+                      "ssm_h": ((2, 3, 128, 4), torch.float32),
+                      "conv": ((2, 3, 3, 128), torch.bfloat16)}),
+            (SSM, {"S": ((2, 3, 4, 16, 16), torch.float32),
+                   "x_tm": ((2, 3, 64), torch.bfloat16),
+                   "x_cm": ((2, 3, 64), torch.bfloat16)})):
+        cache = tdec.init_cache(tconfigs.get_smoke_config(arch), 3, 10,
+                                device="cpu")
+        got = {k: (tuple(t.shape), t.dtype)
+               for k, t in tdec.kv_stacks(cache)["blocks"].items()}
+        assert got == want, arch
+    lc = tlm.layer(cache["blocks"], 0)
+    with pytest.raises(ValueError, match="whole states"):
+        tdec._write_rows(lc, {"x_tm": torch.ones((3, 1, 64))},
+                         torch.tensor([0, 1, 2]))
+
+
 # ---------------------------------------------------------------------------
 # serving
 # ---------------------------------------------------------------------------
@@ -411,12 +450,12 @@ def _requests(module, prompts, max_new):
             for i, p in enumerate(prompts)]
 
 
-@pytest.mark.parametrize("arch", ["granite-8b", MOE, MLA])
+@pytest.mark.parametrize("arch", ["granite-8b", MOE, MLA, HYBRID, SSM])
 def test_continuous_batcher_matches_jax_and_generate(arch):
     """3 requests on 2 slots (slot reuse), the middle prompt over the
     lowered threshold (its prefill takes the flash wrapper, or MLA's
-    chunked_attention): the same tokens as the reference's batcher and as
-    the port's generate."""
+    chunked_attention; the ssm family neither): the same tokens as the
+    reference's batcher and as the port's generate."""
     jcfg, tcfg, jp, tp = _setup(arch, attn_chunk_threshold=16)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, jcfg.vocab_size, n).astype(np.int32)
@@ -442,10 +481,11 @@ def test_continuous_batcher_matches_jax_and_generate(arch):
     jdone = jeng.run_to_completion()
     assert sorted(tdone) == sorted(jdone) == [0, 1, 2]
     # the 24-token prefill: every layer over the threshold, through the
-    # flash wrapper (GQA) or chunked_attention (MLA), never the other
+    # flash wrapper (GQA, hybrid) or chunked_attention (MLA), never the
+    # other; the ssm family through neither
     L = tcfg.num_layers
-    assert (len(calls), tlayers.CALL_COUNTS["chunked_attention"]) == (
-        (0, L) if tcfg.attention == "mla" else (L, 0))
+    want = {"mla": (0, L), "none": (0, 0)}.get(tcfg.attention, (L, 0))
+    assert (len(calls), tlayers.CALL_COUNTS["chunked_attention"]) == want
     assert [n for n, _ in teng.timings["prefill"]] == [6, 24, 9]
     for rid, p in enumerate(prompts):
         assert tdone[rid].generated == jdone[rid].generated
@@ -487,6 +527,94 @@ def test_serve_cli_moe_on_cpu(capsys):
     assert "moonshot-smoke on cpu: served 3 requests, 9 tokens" in out
 
 
+@pytest.mark.parametrize("arch,name", [(HYBRID, "hymba-smoke"),
+                                       (SSM, "rwkv6-smoke")])
+def test_serve_cli_hybrid_and_ssm_on_cpu(capsys, arch, name):
+    assert tserve.main(["--arch", arch, "--smoke", "--device", "cpu",
+                        "--requests", "3", "--slots", "2",
+                        "--max-new", "3"]) == 0
+    out = capsys.readouterr().out
+    assert f"{name} on cpu: served 3 requests, 9 tokens" in out
+
+
+# ---------------------------------------------------------------------------
+# the carried states: slot reuse, a planted fault, bf16 tokens
+# ---------------------------------------------------------------------------
+
+def _states(stacks):
+    return {(name, key): t for name, st in stacks.items()
+            for key, t in st.items() if key in tdec.STATE_KEYS}
+
+
+@pytest.mark.parametrize("arch", [HYBRID, SSM])
+def test_slot_reuse_leaks_no_state(arch):
+    """Serve A in the one slot and evict it (its states stay: eviction
+    zeroes the length only), then admit B into the same slot: B's
+    admission writes every state whole, equal to B's own prefill, and B's
+    tokens equal B served alone."""
+    _, tcfg, _, tp = _setup(arch)
+    rng = np.random.default_rng(21)
+    a, b = (rng.integers(0, tcfg.vocab_size, n).astype(np.int32)
+            for n in (11, 7))
+    eng = tengine.ContinuousBatcher(tp, tcfg, num_slots=1, max_len=24,
+                                    eos_id=-1, device="cpu")
+    eng.submit(tengine.Request(rid=0, prompt=a, max_new=5))
+    eng.run_to_completion()
+    assert eng.cache["length"].tolist() == [0]
+    left = _states(tdec.kv_stacks(eng.cache))
+    assert left and all(bool(t.abs().sum() > 0) for t in left.values())
+    eng.submit(tengine.Request(rid=1, prompt=b, max_new=5))
+    eng._admit()
+    fresh, _ = tdec.prefill(tp, torch.as_tensor(b[None]), tcfg, max_len=24)
+    want = _states(tdec.kv_stacks(fresh))
+    got = _states(tdec.kv_stacks(eng.cache))
+    assert sorted(got) == sorted(want)
+    for key, t in got.items():
+        assert torch.equal(t, want[key]), key
+    done = eng.run_to_completion()
+    for rid, p in enumerate((a, b)):
+        alone = tengine.generate(tp, tcfg, p[None], 5, device="cpu")
+        assert done[rid].generated == alone[0].tolist()
+
+
+def test_planted_conv_state_off_by_one_leaves_the_forward(monkeypatch):
+    """Hymba's prefill hands decode the last K-1 pre-conv inputs: decode
+    then meets the forward (``test_port_decode_matches_forward``'s bound),
+    and the same state one token late leaves it by far."""
+    _, tcfg, _, tp = _setup(HYBRID)
+    tokens = torch.as_tensor(
+        np.random.default_rng(6).integers(0, tcfg.vocab_size, (2, 16)))
+    h, _ = tlm.forward(tp, tokens, tcfg)
+
+    def decode_err():
+        cache, _ = tdec.prefill(tp, tokens[:, :-1], tcfg, max_len=20)
+        cache, h_dec = tdec.decode_step(tp, cache, tokens[:, -1], tcfg)
+        return float((h_dec - h[:, -1]).abs().max())
+
+    assert decode_err() < 2e-3
+    real = tssm.mamba_conv_state
+    monkeypatch.setattr(tssm, "mamba_conv_state",
+                        lambda p, x, cfg: real(p, x[:, :-1], cfg))
+    assert decode_err() > 10 * 2e-3
+
+
+@pytest.mark.parametrize("arch", [HYBRID, SSM])
+def test_bf16_greedy_tokens_match_jax(arch):
+    """bf16 weights on both sides (the serving dtype): the same greedy
+    tokens from ``generate``, a prompt over the lowered threshold (the
+    hybrid family's prefill through the flash wrapper's plain version)."""
+    rep = dict(attn_chunk_threshold=8)
+    jcfg = dataclasses.replace(jconfigs.get_smoke_config(arch), **rep)
+    tcfg = dataclasses.replace(tconfigs.get_smoke_config(arch), **rep)
+    jp = jlm.init_params(jax.random.key(3), jcfg, dtype=jnp.bfloat16)
+    tp = lm_params_from_numpy(jax.tree_util.tree_map(np.asarray, jp),
+                              device="cpu")
+    prompts = np.random.default_rng(9).integers(0, jcfg.vocab_size, (2, 12))
+    want = jengine.generate(jp, jcfg, jnp.asarray(prompts), max_new=6)
+    got = tengine.generate(tp, tcfg, prompts, max_new=6, device="cpu")
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
 # ---------------------------------------------------------------------------
 # weights and devices
 # ---------------------------------------------------------------------------
@@ -521,6 +649,31 @@ def test_moe_params_round_trip_exactly(dtype):
     assert len(jl) == len(jax.tree_util.tree_leaves(
         tp, is_leaf=lambda x: isinstance(x, torch.Tensor)))
     assert tp["moe_blocks"]["moe"]["router"].dtype == torch.float32
+    for path, leaf in jl:
+        t = tp
+        for key in path:
+            t = t[key.key]
+        assert t.dtype == _torch_dtype(leaf.dtype), path
+        assert t.shape == leaf.shape
+        np.testing.assert_array_equal(t.float().numpy(),
+                                      np.asarray(leaf, np.float32))
+
+
+@pytest.mark.parametrize("arch", [HYBRID, SSM])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_hybrid_and_ssm_params_round_trip_exactly(arch, dtype):
+    """A hymba tree (attention, the Mamba stacks and the two output norms
+    beside the FFN) and an rwkv6 tree (``ln1``, ``ln2``, ``rwkv``)
+    convert leaf for leaf."""
+    jcfg = jconfigs.get_smoke_config(arch)
+    jp = jlm.init_params(jax.random.key(4), jcfg, dtype=getattr(jnp, dtype))
+    tp = lm_params_from_numpy(jax.tree_util.tree_map(np.asarray, jp),
+                              device="cpu")
+    jl = jax.tree_util.tree_leaves_with_path(jp)
+    assert len(jl) == len(jax.tree_util.tree_leaves(
+        tp, is_leaf=lambda x: isinstance(x, torch.Tensor)))
+    want = {HYBRID: "mamba", SSM: "rwkv"}[arch]
+    assert want in tp["blocks"]
     for path, leaf in jl:
         t = tp
         for key in path:
