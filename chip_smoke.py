@@ -84,8 +84,11 @@ Phases:
      all-to-all, reduce-scatter (the pull-sum kernel) and ring permute
      (one launch per call)
      bitwise against their plain versions at the a2a pipeline's shapes, and
-     at 1, 2, 3 and 8 ranks, with int32 sums that wrap, -0.0 sources and
-     exact cancellations; phase 3's requests
+     at 1, 2, 3 and 8 ranks (the pull-sum also at 9, 16, 32 and 63 =
+     MAX_RANKS at a ragged chunk of 67 elements, f32, bf16 and int32, and
+     at 63 on rows of 4-element multiples), with
+     int32 sums that wrap, -0.0 sources and exact cancellations; phase
+     3's requests
      served by DLRMEngine with a ParallelContext for row/allgather (within
      tolerance of phase 3), row/a2a on both backends (dropped lookups per
      flush, 3 all-to-all launches and 1 reduce-scatter launch per
@@ -178,6 +181,32 @@ Phases:
      (c) decode against forward on the short and the long prompt; times,
      tokens/s, peak memory and profiles as in 8h; the phase's memory
      freed after it;
+  8w. audio serving, after phase 8r's memory is freed (checked):
+     whisper-base at CONFIG, 6 encoder + 6 decoder layers, bf16
+     (97,950,720 parameters, random from a seed; N(0, 1) frames):
+     (a) serving.engine.generate(frames=) over 16 clips of 1,500 frames,
+     4-token prompts, 224 new tokens each (228 positions): no kernel
+     launch and no chunked_attention call (every attention is at most
+     1,500 keys); tokens/s, the encoder's, the prefill's and 32 decode
+     steps' times, the cross K/V projections each decode step recomputes
+     (CUDA events) beside a profiled decode step's device busy time,
+     peak device memory; (b) prefill's cache["enc"] bitwise forward's
+     aux["encoder_out"] on one clip; (c) decode against forward on that
+     clip's 228 tokens, in bf16 (2e-2) and in f32 on the same weights
+     cast (1e-4);
+  8v. vlm, after phase 8w's memory is freed (checked): internvl2-2b at
+     CONFIG, 24 layers, bf16 (1,895,440,384 parameters): (a) the flash
+     kernel against its plain version on layer 0's real q/k/v of 256
+     projected patches and 16,128 tokens (1, 16384, 16/8, 128), the
+     projector in f32 against a float64 numpy evaluation of the
+     reference's formula (1e-5 relative L2), then lm.forward(patches=)
+     over the 16,384 positions: 24 flash launches, all wgmma, nothing
+     else; the last row's logits, time, peak memory, a profile; (b)
+     text-only serving through ContinuousBatcher (4 slots of 16,416
+     positions), 1 prompt of 16,384 tokens (24 flash launches) and 3 of
+     256-2,048 (none), 32 new tokens each, as in 8h; (c) decode against
+     prefill on the 1,354-token prompt (the forward needs patches, which
+     prefill refuses in both packages), bf16 (2e-2) and f32 (1e-4);
   9. the card line, one JSON line of the kernels, and last the result line.
 
 A profile whose device records a check or a DLRM idle share reads traces
@@ -1761,6 +1790,11 @@ STRATEGIES = (
 )
 
 
+# the pull-sum's rank counts past 8, up to the kernels' MAX_RANKS (63:
+# from 64 ranks PyTorch's x.sum(0) takes another order, csrc/onesided_a2a.cu)
+PULL_SUM_RANKS = (9, 16, 32, 63)
+
+
 def _a2a_shapes():
     """The a2a pipeline's per-flush shapes at full width: the phase-1
     bucket capacity C and the phase-3 rows Bl * T."""
@@ -1787,7 +1821,8 @@ def _check_chunk(name, got, want, tag) -> float:
 def _check_chunk_kernels(pt, oa) -> dict:
     """The chunk kernels' three wrappers against their plain versions at
     the a2a pipeline's shapes (phase 1 int32, phase 3 f32 and bf16), at
-    shapes that are not 16-byte aligned, at 1, 2, 3 and 8 ranks, on int32
+    shapes that are not 16-byte aligned, at 1, 2, 3 and 8 ranks (the
+    pull-sum also at PULL_SUM_RANKS, up to ``oa.MAX_RANKS``), on int32
     sums that overflow and on f32 sources of -0.0 and exact cancellations,
     bitwise; the bulk routes launch nothing.  Returns each wrapper's
     largest error."""
@@ -1834,6 +1869,25 @@ def _check_chunk_kernels(pt, oa) -> dict:
                 errs["onesided_all_to_all"], _check_chunk(
                     "onesided_all_to_all", oa.onesided_all_to_all(x),
                     oa.onesided_all_to_all_ref(x), tag))
+            got = oa.onesided_reduce_scatter(x)
+            errs["onesided_reduce_scatter"] = max(
+                errs["onesided_reduce_scatter"], _check_chunk(
+                    "onesided_reduce_scatter", got,
+                    oa.onesided_reduce_scatter_ref(x), tag))
+            _check_chunk("onesided_reduce_scatter", got,
+                         x.sum(0, dtype=x.dtype), tag + " vs x.sum(0)")
+    # the pull-sum beyond 8 ranks, up to MAX_RANKS, at a ragged chunk of
+    # 67 elements, and at MAX_RANKS on rows of 4-element multiples (chunk
+    # 68), where PyTorch's sum would split the sources first: its order
+    # stays x.sum(0)'s
+    check(PULL_SUM_RANKS[-1] == oa.MAX_RANKS,
+          f"the pull-sum checked up to MAX_RANKS ({oa.MAX_RANKS})")
+    for e, c in [(e, 67) for e in PULL_SUM_RANKS] + [(oa.MAX_RANKS, 68)]:
+        f = torch.randn((e, e, c), generator=g, device=dev)
+        i32 = torch.randint(-2**31, 2**31 - 1, (e, e, c), generator=g,
+                            device=dev, dtype=torch.int32)
+        for x in (f, f.to(torch.bfloat16), i32):
+            tag = f"E={e} {str(x.dtype)[6:]} {tuple(x.shape)}"
             got = oa.onesided_reduce_scatter(x)
             errs["onesided_reduce_scatter"] = max(
                 errs["onesided_reduce_scatter"], _check_chunk(
@@ -3551,6 +3605,329 @@ def phase_ssm(pt, kmods) -> dict:
                 checks_peak_gb=checks_peak_gb, secs=secs)
 
 
+# ---------------------------------------------------------------------------
+# 8w. audio serving, 8v. vlm forward and serving
+# ---------------------------------------------------------------------------
+
+# whisper-base and internvl2-2b at CONFIG, nothing cut: every parameter of
+# lm.init_params, as the reference's init_params tree counts them
+# (param_count leaves out cross attention, enc_pos, the norms and the
+# projector: 71,984,128 and 1,889,046,528)
+WHISPER_PARAMS = 97_950_720
+INTERNVL_PARAMS = 1_895_440_384
+# whisper's traffic: 16 clips of encoder_seq_len (1,500) frames, each a
+# 4-token prompt and 224 new tokens: 228 positions, within the 448 of
+# real whisper's decoder
+CLIPS, CLIP_PROMPT, CLIP_NEW = 16, 4, 224
+DECODE_STEPS = 32            # the decode steps timed one by one in 8w
+# the vlm projector in f32 against a float64 numpy evaluation of the
+# reference's formula: f32 products of width <= 2048 in other orders, a
+# few f32 roundings (2**-24) times sqrt(width); 1e-5 leaves a wide margin
+# and is far below the planted faults' (tests/test_torch_audio_vlm.py)
+PROJ_REL_L2 = 1e-5
+
+
+def _rel(got, want) -> float:
+    return float((got.double() - want.double()).norm() / want.double().norm())
+
+
+def _cross_kv_ms(pt, params, cfg, enc) -> float:
+    """Device ms of what a decode step recomputes for cross attention:
+    each decoder layer's K and V projections of the encoder output
+    (2 x layers GEMMs of (B * S_enc, d) x (d, d)), CUDA events, median
+    of 5 behind the spin."""
+    lm = pt.lm
+    ws = [lm.layer(params["blocks"], i)["cross"] for i in
+          range(cfg.num_layers)]
+
+    def run():
+        for w in ws:
+            enc @ w["wk"]
+            enc @ w["wv"]
+
+    run()
+    scratch = torch.empty(2 ** 26, dtype=torch.float32, device=DEV)
+    ms = statistics.median(_times(run, 5, scratch))
+    del scratch
+    return ms
+
+
+def _audio_decode_vs_forward(pt, params, cfg, tokens, frames, bound,
+                             what) -> dict:
+    """forward(tokens, frames=) against prefill(tokens[:, :-1], frames=)
+    + decode_step(tokens[:, -1]): the encoder outputs (prefill's
+    ``cache["enc"]`` and forward's ``aux["encoder_out"]``, the same ops on
+    the same shapes) bitwise equal, and the last hidden state's relative
+    L2 (the caller holds it to ``bound``)."""
+    lm, dec = pt.lm, pt.dec
+    h_full, aux = lm.forward(params, tokens, cfg, frames=frames)
+    cache, _ = dec.prefill(params, tokens[:, :-1], cfg,
+                           max_len=tokens.shape[1], frames=frames)
+    enc_equal = torch.equal(cache["enc"], aux["encoder_out"])
+    enc_err = float((cache["enc"].float()
+                     - aux["encoder_out"].float()).abs().max())
+    cache, h_dec = dec.decode_step(params, cache, tokens[:, -1], cfg)
+    rel = _rel_l2(h_dec[0].float(), h_full[0, -1].float(),
+                  f"decode matches forward ({tokens.shape[1]} tokens, "
+                  f"{what})", bound)
+    log(f"  prefill's cache['enc'] against forward's "
+        f"aux['encoder_out'] ({what}): "
+        f"{'bitwise equal' if enc_equal else 'DIFFER'} (max_abs_err "
+        f"{enc_err:.3e})")
+    return dict(rel=rel, enc_equal=enc_equal)
+
+
+def phase_audio(pt, kmods) -> dict:
+    cfg = pt.AUDIO_CONFIG
+    lm, dec = pt.lm, pt.dec
+    log(f"== 8w. audio serving: {cfg.name} at full width and depth "
+        f"({cfg.encoder_layers} encoder + {cfg.num_layers} decoder layers, "
+        f"d {cfg.d_model}, {cfg.num_heads} heads of {cfg.head_dim}, d_ff "
+        f"{cfg.d_ff}, {cfg.encoder_seq_len} frames, vocab "
+        f"{cfg.vocab_size}, {cfg.dtype}), generate(frames=) over {CLIPS} "
+        f"clips, {CLIP_PROMPT}-token prompts, {CLIP_NEW} new tokens each")
+    laps = {}
+    with _timed(laps, "init"):
+        init = _init_state_lm(pt, cfg, 29, WHISPER_PARAMS)
+    params = init.pop("params")
+    rng = np.random.default_rng(31)
+    frames = torch.as_tensor(rng.standard_normal(
+        (CLIPS, cfg.encoder_seq_len, cfg.d_model)).astype(np.float32),
+        device=DEV)
+    prompts = torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (CLIPS, CLIP_PROMPT)), device=DEV)
+    torch.cuda.reset_peak_memory_stats()
+
+    # (a) the main path: generate(frames=), from counts at 0
+    with _timed(laps, "(a) generate"):
+        for mod in kmods:
+            mod.reset_launch_counts()
+        pt.layers.reset_call_counts()
+        t0 = time.perf_counter()
+        out = pt.generate(params, cfg, prompts, CLIP_NEW, frames=frames,
+                          device=DEV)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+    counts = {k: v for mod in kmods for k, v in mod.LAUNCH_COUNTS.items()}
+    chunked = pt.layers.CALL_COUNTS["chunked_attention"]
+    check(counts == _launches() and chunked == 0,
+          f"generate(frames=) launched no kernel and called "
+          f"chunked_attention {chunked} times ({counts})")
+    check(tuple(out.shape) == (CLIPS, CLIP_NEW) and 0 <= int(out.min())
+          and int(out.max()) < cfg.vocab_size,
+          f"{CLIPS} x {CLIP_NEW} ids in the vocabulary")
+    gen_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    tokens_out = out.numel()
+    log(f"  generate(frames=): {tokens_out} tokens in {gen_s:.3f} s "
+        f"({tokens_out / gen_s:.2f} tokens/s, host clock, the encoder and "
+        f"the prefill included); flash launches 0, chunked_attention calls "
+        f"0; peak device memory {gen_peak_gb:.2f} GB")
+
+    # where the time goes: the encoder, the prefill (encoder included)
+    # and decode steps one by one (host clock to a synchronize), the
+    # cross K/V projections each step recomputes, one profiled step
+    with _timed(laps, "(a) times and profile"):
+        def host_ms(fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = fn()
+            torch.cuda.synchronize()
+            return 1e3 * (time.perf_counter() - t0), r
+
+        enc_ms = statistics.median(
+            host_ms(lambda: lm.encode(params, frames, cfg))[0]
+            for _ in range(3))
+        prefill_ms, (cache, hidden) = host_ms(lambda: dec.prefill(
+            params, prompts, cfg, max_len=CLIP_PROMPT + CLIP_NEW,
+            frames=frames))
+        tok = out[:, 0]
+        step_ms = []
+        for i in range(DECODE_STEPS):
+            ms, _ = host_ms(lambda: dec.decode_step(params, cache, tok, cfg))
+            step_ms.append(ms)
+            tok = out[:, i + 1]
+        step = statistics.median(step_ms)
+        cross_ms = _cross_kv_ms(pt, params, cfg, cache["enc"])
+        prof = _profile_lm(lambda: dec.decode_step(params, cache, tok, cfg),
+                           "decode step", step)
+        del cache, hidden
+    share = cross_ms / prof["busy_ms"] if prof["busy_ms"] else 0.0
+    log(f"  encoder ({CLIPS} x {cfg.encoder_seq_len} frames): {enc_ms:.3f} "
+        f"ms; prefill ({CLIP_PROMPT} tokens, encoder included): "
+        f"{prefill_ms:.3f} ms; decode step ({CLIPS} clips): median "
+        f"{step:.3f} ms, min {min(step_ms):.3f}, max {max(step_ms):.3f} "
+        f"over {DECODE_STEPS} steps (host clock)")
+    log(f"  the cross K/V projections a decode step recomputes "
+        f"({2 * cfg.num_layers} GEMMs of ({CLIPS * cfg.encoder_seq_len}, "
+        f"{cfg.d_model}) x ({cfg.d_model}, {cfg.d_model})): {cross_ms:.3f} "
+        f"ms of device time, {100 * share:.1f}% of a decode step's device "
+        f"busy {prof['busy_ms']:.3f} ms, {100 * cross_ms / step:.1f}% of its "
+        f"host-clock {step:.3f} ms")
+
+    # (b) and (c): one clip's whole sequence, prompt and generated tokens
+    with _timed(laps, "(b, c) decode vs forward"):
+        tokens = torch.cat([prompts[:1], out[:1]], dim=1)
+        bf = _audio_decode_vs_forward(pt, params, cfg, tokens, frames[:1],
+                                      DECODE_REL_L2, "bf16")
+        p32 = _cast(params, torch.float32)
+        f32 = _audio_decode_vs_forward(pt, p32, cfg, tokens, frames[:1],
+                                       DECODE_F32_REL, "f32")
+        del p32
+    check(bf["enc_equal"] and f32["enc_equal"],
+          "prefill's cache['enc'] bitwise forward's aux['encoder_out']")
+    check(bf["rel"] < DECODE_REL_L2 and f32["rel"] < DECODE_F32_REL,
+          "decode_step after prefill matches forward (bf16 and f32)")
+    del params, frames
+    torch.cuda.empty_cache()
+    secs = _log_laps("8w", laps)
+    return dict(init, tokens=tokens_out, gen_s=gen_s, enc_ms=enc_ms,
+                prefill_ms=prefill_ms, step_ms=step, cross_ms=cross_ms,
+                cross_share=share, prof=prof, rel=bf["rel"],
+                rel_f32=f32["rel"], peak_gb=gen_peak_gb, secs=secs,
+                seq=tokens.shape[1])
+
+
+def _projector_f64(pj, patches) -> np.ndarray:
+    """The reference's projector formula (repro/models/lm.py) in float64
+    numpy: LayerNorm with the population variance and eps 1e-6, fc1, the
+    tanh GELU, fc2."""
+    w = {k: v.double().cpu().numpy() for k, v in pj.items()}
+    x = patches.double().cpu().numpy()
+    mu = x.mean(-1, keepdims=True)
+    var = ((x - mu) ** 2).mean(-1, keepdims=True)
+    x = (x - mu) / np.sqrt(var + 1e-6) * w["ln_w"] + w["ln_b"]
+    y = x @ w["fc1"]
+    y = 0.5 * y * (1 + np.tanh(np.sqrt(2 / np.pi) * (y + 0.044715 * y ** 3)))
+    return y @ w["fc2"]
+
+
+def _vlm_layer0_flash(pt, params, cfg, tokens, patches) -> float:
+    """The flash wrapper against its plain version on layer 0's real
+    q/k/v of the prefixed sequence (the projected patches, then the
+    text; rotary positions over the whole sequence)."""
+    lm = pt.lm
+    h = lm.embed_tokens(params, tokens, cfg)
+    h = torch.cat([lm.project_patches(params["projector"], patches,
+                                      h.dtype), h], dim=1)
+    S = h.shape[1]
+    pl = lm.layer(params["blocks"], 0)
+    q, k, v = lm._gqa_qkv(pl["attn"], lm._norm(h, pl["ln1"], cfg),
+                          torch.arange(S, device=DEV)[None], cfg)
+    return _flash_case(pt.fa, q, k, v, True, cfg.window,
+                       f"internvl2 layer 0 of {cfg.vision_tokens} patches + "
+                       f"{tokens.shape[1]} tokens (real q/k/v, "
+                       f"{cfg.num_heads}/{cfg.num_kv_heads} heads of "
+                       f"{cfg.head_dim}, rope theta {cfg.rope_theta:g})")
+
+
+def _vlm_decode_vs_prefill(pt, params, cfg, tokens, bound, what) -> float:
+    """prefill(tokens[:, :-1]) + decode_step(tokens[:, -1]) against
+    prefill(tokens)'s last hidden state, text only (the vlm forward needs
+    patches, which prefill refuses in both packages)."""
+    dec = pt.dec
+    _, h = dec.prefill(params, tokens, cfg)
+    return _rel_l2(_decoded_last(pt, params, cfg, tokens), h[0, -1].float(),
+                   f"decode matches prefill ({tokens.shape[1]} text tokens, "
+                   f"{what})", bound)
+
+
+def phase_vlm(pt, kmods) -> dict:
+    cfg = pt.VLM_CONFIG
+    lm, fa = pt.lm, pt.fa
+    log(f"== 8v. vlm: {cfg.name} at full width and depth ({cfg.num_layers} "
+        f"layers, d {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads "
+        f"of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+        f"{cfg.vision_tokens} patches of {cfg.vision_dim}, {cfg.dtype}): "
+        f"lm.forward(patches=) over {LONG_PROMPT} positions, then text "
+        f"serving through ContinuousBatcher({SSM_SLOTS} slots x "
+        f"{LM_MAX_LEN} positions)")
+    laps = {}
+    with _timed(laps, "init"):
+        init = _init_state_lm(pt, cfg, 37, INTERNVL_PARAMS)
+    params = init.pop("params")
+    rng = np.random.default_rng(41)
+    patches = torch.as_tensor(rng.standard_normal(
+        (1, cfg.vision_tokens, cfg.vision_dim)).astype(np.float32),
+        device=DEV)
+    tokens = torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (1, LONG_PROMPT - cfg.vision_tokens)), device=DEV)
+
+    # (a) the checks, then the prefixed forward from counts at 0
+    with _timed(laps, "(a) checks"):
+        err = _vlm_layer0_flash(pt, params, cfg, tokens, patches)
+        pj32 = {k: v.float() for k, v in params["projector"].items()}
+        proj = _rel(lm.project_patches(pj32, patches, torch.float32),
+                    torch.as_tensor(_projector_f64(pj32, patches),
+                                    device=DEV))
+        del pj32
+    log(f"  projector in f32 against float64 numpy on the real patches: "
+        f"relative L2 {proj:.3e} (bound {PROJ_REL_L2})")
+    check(proj < PROJ_REL_L2, "the projector matches the reference's formula")
+    torch.cuda.reset_peak_memory_stats()
+    with _timed(laps, "(a) forward and profile"):
+        for mod in kmods:
+            mod.reset_launch_counts()
+        pt.layers.reset_call_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        h, _ = lm.forward(params, tokens, cfg, patches=patches)
+        torch.cuda.synchronize()
+        fwd_ms = 1e3 * (time.perf_counter() - t0)
+        counts = {k: v for mod in kmods for k, v in mod.LAUNCH_COUNTS.items()}
+        routes = dict(fa.ROUTE_COUNTS)
+        chunked = pt.layers.CALL_COUNTS["chunked_attention"]
+        logits = lm.lm_logits(params, h[:, -1], cfg)[0, : cfg.vocab_size]
+        fwd_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        check(tuple(h.shape) == (1, LONG_PROMPT, cfg.d_model)
+              and bool(torch.isfinite(h).all())
+              and bool(torch.isfinite(logits).all()),
+              "the prefixed forward: finite hidden states and logits of "
+              "the whole sequence's shape")
+        del h
+        prof = _profile_lm(lambda: lm.forward(params, tokens, cfg,
+                                              patches=patches),
+                           f"forward of {LONG_PROMPT} positions", fwd_ms)
+    n = cfg.num_layers
+    check(counts == _launches(flash_attention=n) and chunked == 0
+          and routes == {"wgmma": n, "simt": 0},
+          f"the prefixed forward launched the flash kernel {n} times on "
+          f"the wgmma route and nothing else ({counts}, {routes}, "
+          f"chunked_attention {chunked})")
+    top = torch.topk(logits.float(), 3)
+    log(f"  forward ({cfg.vision_tokens} patches + {tokens.shape[1]} "
+        f"tokens): {fwd_ms:.3f} ms (host clock), flash launches "
+        f"{counts['flash_attention']} ({routes}); the last row's logits: "
+        f"top ids {top.indices.tolist()} at "
+        f"{[round(v, 4) for v in top.values.tolist()]}, mean "
+        f"{float(logits.float().mean()):.4f}; peak device memory "
+        f"{fwd_peak_gb:.2f} GB")
+    del patches, tokens
+
+    # (b) text-only serving
+    reqs = _lm_requests(pt, cfg, 4)
+    torch.cuda.reset_peak_memory_stats()
+    with _timed(laps, "(b) serving and profiles"):
+        out = _serve_states(pt, params, cfg, reqs, kmods)
+    # (c) decode against prefill on a short text prompt
+    with _timed(laps, "(c) decode vs prefill"):
+        short = torch.as_tensor(reqs[1].prompt[None], device=DEV)
+        rel = _vlm_decode_vs_prefill(pt, params, cfg, short, DECODE_REL_L2,
+                                     "bf16")
+        p32 = _cast(params, torch.float32)
+        rel32 = _vlm_decode_vs_prefill(pt, p32, cfg, short, DECODE_F32_REL,
+                                       "f32")
+        del p32
+    check(rel < DECODE_REL_L2 and rel32 < DECODE_F32_REL,
+          "decode_step after prefill matches prefill (bf16 and f32)")
+    del params
+    torch.cuda.empty_cache()
+    secs = _log_laps("8v", laps)
+    return dict(out, **init, err=err, proj=proj, fwd_ms=fwd_ms,
+                fwd_launches=counts["flash_attention"], fwd_prof=prof,
+                fwd_peak_gb=fwd_peak_gb, rel=rel, rel_f32=rel32,
+                short_len=short.shape[1], secs=secs)
+
+
 def _profile_lm(fn, label, unprofiled_ms) -> dict:
     """One call of ``fn`` under torch.profiler: the device's busy time by
     kernel, and its busy share of the same work's unprofiled time.  The
@@ -3616,6 +3993,9 @@ def main() -> int:
         from repro_torch.configs import deepseek_v3_671b
         from repro_torch.configs.hymba_1_5b import CONFIG as HYBRID_CONFIG
         from repro_torch.configs.rwkv6_1_6b import CONFIG as SSM_CONFIG
+        from repro_torch.configs.whisper_base import CONFIG as AUDIO_CONFIG
+        from repro_torch.configs.internvl2_2b import CONFIG as VLM_CONFIG
+        from repro_torch.serving.engine import generate
         from repro_torch.models import mla, ssm
         from repro_torch import obs
         from repro_torch.obs import Telemetry
@@ -3682,6 +4062,16 @@ def main() -> int:
     log(f"== phase 8r freed: {after / 1e9:.3f} GB allocated after it "
         f"(peak {rw['peak_gb']:.1f} GB in it)")
     check(after <= held + 2 ** 26, "phase 8r's weights and cache freed")
+    wh = phase_audio(pt, (eg, oa, pt.fa))
+    after = torch.cuda.memory_allocated()
+    log(f"== phase 8w freed: {after / 1e9:.3f} GB allocated after it "
+        f"(peak {wh['peak_gb']:.1f} GB in it)")
+    check(after <= held + 2 ** 26, "phase 8w's weights and cache freed")
+    vl = phase_vlm(pt, (eg, oa, pt.fa))
+    after = torch.cuda.memory_allocated()
+    log(f"== phase 8v freed: {after / 1e9:.3f} GB allocated after it "
+        f"(peak {vl['peak_gb']:.1f} GB in it)")
+    check(after <= held + 2 ** 26, "phase 8v's weights and cache freed")
 
     log("== 9. summary")
     # each main path's launches, read from its own run with the counts
@@ -3701,14 +4091,16 @@ def main() -> int:
         **{name: {"7 distributed": n} for name, n in dist["launches"].items()},
         "flash_attention": {"8 LM serving": lm["launches"],
                             "8m MoE serving": moe["launches"],
-                            "8h hybrid serving": hy["launches"]},
+                            "8h hybrid serving": hy["launches"],
+                            "8v vlm forward": vl["fwd_launches"],
+                            "8v vlm serving": vl["launches"]},
     }
     check(all(n > 0 for paths in by_path.values() for n in paths.values()),
           "every kernel launched on each main path that runs it")
     times.update(dist["times"])
     errs.update(dist["errs"])
     errs["flash_attention"] = max(flash_err, lm["err"], moe["err"],
-                                  hy["err"])
+                                  hy["err"], vl["err"])
     kernels = []
     for name in SOURCES:
         t = dict(times[name])
@@ -3859,6 +4251,36 @@ def main() -> int:
         f"{mb['fault_h']:.3e}); ssm check: layer-0 "
         f"chunked vs scan max_abs_err output {rl['err_y']:.3e}, state "
         f"{rl['err_s']:.3e}, largest -log P {rl['nlogp']:.3f}")
+    log(f"audio serving ({pt.AUDIO_CONFIG.name}, {wh['n_params']:,} "
+        f"parameters, {wh['nbytes'] / 1e9:.3f} GB): generate(frames=) "
+        f"{wh['tokens']} tokens in {wh['gen_s']:.3f} s "
+        f"({wh['tokens'] / wh['gen_s']:.2f} tokens/s), encoder "
+        f"{wh['enc_ms']:.3f} ms, prefill {wh['prefill_ms']:.3f} ms, median "
+        f"decode step {wh['step_ms']:.3f} ms ({CLIPS} clips), the cross K/V "
+        f"projections {wh['cross_ms']:.3f} ms ({100 * wh['cross_share']:.1f}%"
+        f" of a step's device busy time), flash launches 0, decode vs "
+        f"forward relative L2 {wh['rel']:.3e} ({wh['seq']} tokens; f32 "
+        f"{wh['rel_f32']:.3e}), prefill's enc bitwise forward's, peak "
+        f"device memory {wh['peak_gb']:.2f} GB, device idle "
+        f"{wh['prof']['idle']:.1f}% of a decode step; phase "
+        f"{wh['secs']:.1f} s")
+    log(f"vlm ({pt.VLM_CONFIG.name}, {vl['n_params']:,} parameters, "
+        f"{vl['nbytes'] / 1e9:.2f} GB): forward(patches=) of {LONG_PROMPT} "
+        f"positions {vl['fwd_ms']:.3f} ms ({vl['fwd_launches']} flash "
+        f"launches, layer-0 kernel vs plain max_abs_err {vl['err']:.3e}, "
+        f"device idle {vl['fwd_prof']['idle']:.1f}%, peak "
+        f"{vl['fwd_peak_gb']:.2f} GB), projector vs float64 relative L2 "
+        f"{vl['proj']:.3e}; text serving {vl['tokens']} tokens in "
+        f"{vl['serve_s']:.3f} s ({vl['tokens'] / vl['serve_s']:.2f} "
+        f"tokens/s), prefill ms by length "
+        f"{[(n, round(1e3 * t, 1)) for n, t in vl['prefill']]}, median "
+        f"decode step {1e3 * statistics.median(vl['decode']):.3f} ms, "
+        f"flash launches {vl['launches']}, decode vs prefill relative L2 "
+        f"{vl['rel']:.3e} ({vl['short_len']} tokens; f32 "
+        f"{vl['rel_f32']:.3e}), peak device memory {vl['peak_gb']:.1f} GB "
+        f"serving, device idle {vl['prof']['decode']['idle']:.1f}% of a "
+        f"decode step, {vl['prof']['long_prefill']['idle']:.1f}% of a "
+        f"{LONG_PROMPT}-token prefill; phase {vl['secs']:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -5,8 +5,8 @@ built here and one built there describe the same model).
 Every architecture gets one ``repro_torch/configs/<id>.py`` exposing
 ``CONFIG`` (the published shape) and ``smoke()`` (a reduced same-family
 config for CPU tests); ``repro_torch.configs.get_config(name)`` is the
-registry.  The port serves the dense family; the MLA, MoE, SSM and
-encoder fields are kept as data.
+registry.  The port serves every family of the reference: dense, MoE
+(GQA and MLA), hybrid, ssm, audio and vlm.
 """
 from __future__ import annotations
 

@@ -92,9 +92,15 @@ constexpr int kThreads = 256;
 constexpr int kUnroll = 4;
 constexpr long long kTile = (long long)kThreads * kUnroll;
 constexpr int kParts = 4;       // the partial sums of PyTorch's reduction
-// 4 KB of kernel parameters, which every CUDA version takes, hold this many
-// addresses beside the other arguments
-constexpr int kMaxRanks = 480;
+// The ranks a launch takes.  4 KB of kernel parameters, which every CUDA
+// version takes, would hold 480 addresses beside the other arguments; the
+// pull-sum's order is x.sum(0)'s only up to 63 ranks: from 64 sources
+// PyTorch's sum over an outer dimension of rows it reads 4 elements at a
+// time splits the sources across 4 threads of a block (setReduceConfig in
+// ATen/native/cuda/Reduce.cuh), another order than the four partials here
+// (on an H100, f32, rows of 4-element multiples: equal up to 63, not from
+// 64; chip_smoke.py phase 7 and tests/test_torch_chunks_card.py hold 63)
+constexpr int kMaxRanks = 63;
 
 struct RankPtrs {
   long long p[kMaxRanks];

@@ -60,9 +60,10 @@ LAUNCH_COUNTS = {"onesided_put_rows": 0, "onesided_all_to_all": 0,
 CALL_COUNTS = dict.fromkeys(LAUNCH_COUNTS, 0)
 
 _DTYPE_CODES = {torch.int32: 0, torch.float32: 1, torch.bfloat16: 2}
-# the ranks a launch's table of buffers holds (kMaxRanks of the .cu): the
-# table goes to the kernel by value, among its 4 KB of parameters
-MAX_RANKS = 480
+# the ranks a launch takes (kMaxRanks of the .cu): the table goes to the
+# kernel by value, among its 4 KB of parameters, which would hold 480; the
+# pull-sum keeps x.sum(0)'s order only up to 63 sources (the .cu says why)
+MAX_RANKS = 63
 
 
 def reset_launch_counts() -> None:

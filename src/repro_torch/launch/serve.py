@@ -1,6 +1,8 @@
 """Serving launcher: continuous-batching decode over a dense, MoE, hybrid
 or ssm LM config (``--arch``: ``configs.PORTED_ARCH_IDS``; the MoE with
-GQA or MLA attention, hymba-1.5b, rwkv6-1.6b).
+GQA or MLA attention, hymba-1.5b, rwkv6-1.6b).  The vlm family exits as
+in the reference (its prompts need patch inputs), and so does the audio
+family (its prompts need frames: ``serving.engine.generate(frames=)``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \\
         --smoke --device cpu --requests 8 --prompt-len 12 --max-new 8
@@ -48,6 +50,12 @@ def main(argv=None) -> int:
 
     cfg = (configs.get_smoke_config(args.arch) if args.smoke
            else configs.get_config(args.arch))
+    if cfg.family == "vlm":
+        raise SystemExit("vlm serving needs patch inputs; run "
+                         "lm.forward(..., patches=)")
+    if cfg.family == "audio":
+        raise SystemExit("audio serving needs frame inputs; run "
+                         "serving.engine.generate(..., frames=)")
     device = resolve_device(args.device)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = lm.init_params(gen, cfg, device=device)

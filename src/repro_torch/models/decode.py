@@ -1,11 +1,14 @@
-"""The KV cache and the carried states, and decode, for the dense, MoE,
-hybrid and ssm families: the counterpart of ``repro.models.decode``'s
-``init_cache`` / ``prefill`` / ``decode_step``.
+"""The KV cache and the carried states, and decode, for every family:
+the counterpart of ``repro.models.decode``'s ``init_cache`` / ``prefill``
+/ ``decode_step``.
 
 Cache layout as in the reference: ``{"length": (B,) int32}`` and one
 dict of layer-stacked entries per layer stack of ``lm.block_stacks``
 (``"blocks"``; for MoE ``"dense_blocks"`` and ``"moe_blocks"``), each
-with the batch (the slot) at axis 1.  An entry is one of two kinds:
+with the batch (the slot) at axis 1; for the audio family also the
+encoder's output ``"enc" (B, encoder_seq_len, d)``, the one top-level
+tensor, batch first, which prefill writes once and every decode step's
+cross attention reads.  A stack's entry is one of two kinds:
 
 * positional rows, ``(layers, B, max_len, ...)``, one row per position:
   ``{"k", "v": (.., KH, hd)}`` for GQA (the hybrid family's too), the
@@ -42,7 +45,9 @@ from repro_torch.models.lm import (
     _require_ported,
     _rwkv_block,
     block_stacks,
+    cross_attention,
     embed_tokens,
+    encode,
     layer,
     torch_dtype,
 )
@@ -81,7 +86,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, *,
     ``device`` (None: the card): K/V for GQA, the latent ``c_kv`` and
     ``k_rope`` for MLA, K/V and the Mamba states for the hybrid family,
     the RWKV states for the ssm family (the states ``ssm_h`` and ``S`` in
-    f32 whatever ``dtype``)."""
+    f32 whatever ``dtype``), K/V and ``enc`` for the audio family."""
     _require_ported(cfg)
     device = resolve_device(device)
     dtype = dtype or torch_dtype(cfg.dtype)
@@ -94,6 +99,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, *,
                                            else (max_len,)) + shape,
                              dtype=dt, device=device)
             for key, (shape, dt) in shapes.items()}
+    if cfg.family == "audio":
+        cache["enc"] = torch.zeros((batch, cfg.encoder_seq_len, cfg.d_model),
+                                   dtype=dtype, device=device)
     return cache
 
 
@@ -102,7 +110,9 @@ def kv_stacks(cache: Dict[str, Any]) -> Dict[str, Dict[str, torch.Tensor]]:
     every nested dict, each entry with the batch at axis 1 (the
     reference's structural rule), positional rows ``(layers, B, max_len,
     ...)`` and whole states (:data:`STATE_KEYS`) alike, so slicing axis 1
-    takes a slot's rows and states together."""
+    takes a slot's rows and states together.  The top-level tensors
+    (``length``, the audio family's ``enc``) are no layer stack and are
+    left out."""
     return {name: st for name, st in cache.items() if isinstance(st, dict)}
 
 
@@ -146,15 +156,24 @@ def _write_rows(lc: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor],
                                      cache[bi, pos])
 
 
-def _gqa_decode_block(pl, h, lc, length, cfg, ctx=None, *, window=None):
+def _gqa_decode_block(pl, h, lc, length, cfg, ctx=None, *, window=None,
+                      cross_feats=None, rope=True):
     """h (B, 1, d); lc = this layer's cache slice {"k", "v"}, written in
-    place.  Returns h."""
+    place; with ``cross_feats`` (the audio family's ``cache["enc"]``)
+    cross attention after self attention, its K/V projected from the
+    encoder output again (as in the reference); ``rope`` False for the
+    audio family.  Returns h."""
     x = _norm(h, pl["ln1"], cfg)
-    q, k_new, v_new = _gqa_qkv(pl["attn"], x, length[:, None], cfg)
+    q, k_new, v_new = _gqa_qkv(pl["attn"], x, length[:, None], cfg,
+                               rope=rope)
     _write_rows(lc, {"k": k_new, "v": v_new}, length)
     attn = _decode_attn(q, lc["k"], lc["v"], length + 1, cfg, ctx,
                         window=window)
-    return h + attn @ pl["attn"]["wo"]
+    h = h + attn @ pl["attn"]["wo"]
+    if cross_feats is not None:
+        h = h + cross_attention(pl["cross"], _norm(h, pl["ln_cross"], cfg),
+                                cross_feats, cfg)
+    return h
 
 
 def _mla_decode_attn(p, x, c_kv, k_rope, length, cfg: ModelConfig,
@@ -225,9 +244,11 @@ def decode_step(params, cache, tokens: torch.Tensor, cfg: ModelConfig,
     """tokens (B,) -> (cache, hidden (B, d)).  Writes every slot's new
     cache row (K/V, or MLA's latent row) and overwrites its states
     (Mamba's, RWKV's) in place, and returns the cache with ``length +
-    1``."""
+    1``.  The audio family's layers cross-attend to ``cache["enc"]``."""
     _require_ported(cfg)
     length = cache["length"]
+    audio = cfg.family == "audio"
+    enc = cache["enc"] if audio else None
     h = embed_tokens(params, tokens[:, None], cfg, ctx)         # (B, 1, d)
     for name, n, windows in block_stacks(cfg):
         for i in range(n):
@@ -242,7 +263,8 @@ def decode_step(params, cache, tokens: torch.Tensor, cfg: ModelConfig,
                 h = _mla_decode_block(pl, h, lc, length, cfg, ctx)
             else:
                 h = _gqa_decode_block(pl, h, lc, length, cfg, ctx,
-                                      window=windows[i])
+                                      window=windows[i], cross_feats=enc,
+                                      rope=not audio)
             h, _ = _ffn_or_moe(pl, h, cfg)
     h = _norm(h, layer(params["final_norm"], 0), cfg)
     cache["length"] = length + 1
@@ -254,20 +276,23 @@ def decode_step(params, cache, tokens: torch.Tensor, cfg: ModelConfig,
 # ===========================================================================
 
 def _prefill_into(params, tokens: torch.Tensor, cfg: ModelConfig,
-                  kv: Dict[str, Dict[str, torch.Tensor]]) -> torch.Tensor:
+                  kv: Dict[str, Dict[str, torch.Tensor]], *,
+                  cross_feats=None) -> torch.Tensor:
     """Run the prompt ``tokens`` (B, S) and write each layer's cache entry
     into ``kv[stack][key]`` (``(layers, B, ...)`` for every stack of
     ``lm.block_stacks`` and every key of its entry, possibly views of a
     larger cache): positional rows (K/V, MLA's ``c_kv``/``k_rope``) into
     positions ``[0, S)``, whole states (:data:`STATE_KEYS`) entire.
-    Returns the hidden states (B, S, d) after the final norm."""
+    ``cross_feats``: the audio family's encoder output, which every layer
+    cross-attends to.  Returns the hidden states (B, S, d) after the
+    final norm."""
     B, S = tokens.shape
     h = embed_tokens(params, tokens, cfg)
     positions = torch.arange(S, device=h.device).expand(B, S)
     for name, n, windows in block_stacks(cfg):
         for i in range(n):
             h, entry, _ = _block(layer(params[name], i), h, positions, cfg,
-                                 window=windows[i])
+                                 window=windows[i], cross_feats=cross_feats)
             for key, val in entry.items():
                 if key in STATE_KEYS:
                     kv[name][key][i] = val
@@ -277,18 +302,29 @@ def _prefill_into(params, tokens: torch.Tensor, cfg: ModelConfig,
 
 
 def prefill(params, tokens: torch.Tensor, cfg: ModelConfig, ctx=None, *,
-            max_len: Optional[int] = None
+            max_len: Optional[int] = None, frames=None, patches=None
             ) -> Tuple[Dict[str, Any], torch.Tensor]:
     """tokens (B, S) -> (a cache of ``max_len`` positions at length S,
-    hidden (B, S, d)), on the tokens' device."""
+    hidden (B, S, d)), on the tokens' device.  audio: ``frames`` (B,
+    S_enc, d) run through the encoder once, into ``cache["enc"]``.  vlm:
+    text only; ``patches`` raises ``NotImplementedError``, as in the
+    reference (an image-prefixed prompt goes through ``lm.forward``)."""
     _require_ported(cfg)
     _require_local(ctx)
+    if cfg.family == "vlm" and patches is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: prefill with patches (an image-prefixed cache) "
+            f"is not in the reference either; lm.forward(..., patches=) "
+            f"runs the prefixed sequence")
     B, S = tokens.shape
     max_len = max_len or S
     if max_len < S:
         raise ValueError(f"max_len {max_len} < prompt length {S}")
     cache = init_cache(cfg, B, max_len, dtype=params["embed"].dtype,
                        device=tokens.device)
-    h = _prefill_into(params, tokens, cfg, kv_stacks(cache))
+    if cfg.family == "audio":
+        cache["enc"] = encode(params, frames, cfg)
+    h = _prefill_into(params, tokens, cfg, kv_stacks(cache),
+                      cross_feats=cache.get("enc"))
     cache["length"].fill_(S)
     return cache, h

@@ -1,5 +1,5 @@
-"""The LM zoo's dense, MoE, hybrid and ssm families: the counterpart of
-``repro.models.lm``.
+"""The LM zoo's dense, MoE, hybrid, ssm, audio and vlm families: the
+counterpart of ``repro.models.lm``.
 
 Llama-style GQA stacks (granite, starcoder2, yi, nemotron); the
 mixture-of-experts family (``first_k_dense`` dense layers, then layers
@@ -8,28 +8,33 @@ MLA (deepseek-v3, ``models/mla.py``); the hybrid family (hymba: GQA
 attention and Mamba heads in parallel on the same normed input, a
 sliding window on every layer but ``global_attn_layers``) and the ssm
 family (rwkv6: RWKV-6 time and channel mix, no attention), both through
-``models/ssm.py``: init, embedding, the full-sequence forward and the
-logits head, with the reference's parameter layout -- per-layer tensors
-STACKED on a leading layer axis (``blocks`` for the dense, hybrid and
-ssm families; ``dense_blocks`` and ``moe_blocks`` for MoE; deepseek's
-MTP head under ``mtp``), ``(in, out)`` weights applied as ``x @ w`` --
+``models/ssm.py``; the audio family (whisper: a non-causal encoder over
+precomputed frame embeddings, ``enc_blocks``, and a decoder whose layers
+cross-attend to its output, no rotary positions anywhere) and the vlm
+family (internvl2: precomputed patch embeddings through a LayerNorm-GELU
+projector, prepended to the text of a llama-style stack): init,
+embedding, the full-sequence forward and the logits head, with the
+reference's parameter layout -- per-layer tensors STACKED on a leading
+layer axis (``blocks`` for the dense, hybrid, ssm, vlm and audio
+decoder; ``enc_blocks`` for the audio encoder; ``dense_blocks`` and
+``moe_blocks`` for MoE; deepseek's MTP head under ``mtp``), ``(in,
+out)`` weights applied as ``x @ w`` --
 so a numpy copy of the reference's ``init_params`` converts without a
 transpose (``utils/convert.lm_params_from_numpy``).  The layers run in a
 Python loop (the reference scans them).
 
 Single device only: ``ctx`` (the vocabulary through the row-wise sharded
-embedding bag, GSPMD constraints, expert parallelism) must be None.  The
-audio and vlm families (ROADMAP Queue 1 items 13.4-13.5) raise
-``NotImplementedError``.  Serving ignores the MTP head, as the
-reference does; its loss belongs to LM training (item 13.7).
+embedding bag, GSPMD constraints, expert parallelism) must be None.
+Serving ignores the MTP head, as the reference does; its loss belongs to
+LM training (item 13.7).
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
-from repro_torch.configs import waiting_item
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers, mla, ssm
 from repro_torch.models import moe as moe_mod
@@ -45,7 +50,8 @@ def padded_vocab(cfg: ModelConfig, tp_size: int) -> int:
 
 # the (family, attention) pairs the port runs
 PORTED = {("dense", "gqa"), ("moe", "gqa"), ("moe", "mla"),
-          ("hybrid", "hybrid_parallel"), ("ssm", "none")}
+          ("hybrid", "hybrid_parallel"), ("ssm", "none"), ("audio", "gqa"),
+          ("vlm", "gqa")}
 # a window wider than any sequence: the global layers' (the reference's)
 GLOBAL_WINDOW = 1 << 30
 
@@ -54,10 +60,8 @@ def _require_ported(cfg: ModelConfig) -> None:
     if (cfg.family, cfg.attention) not in PORTED:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} / attention "
-            f"{cfg.attention!r} waits for ROADMAP Queue 1 item "
-            f"{waiting_item(cfg.family)}; the port runs the dense "
-            f"family, the MoE family with GQA or MLA attention, the "
-            f"hybrid family and the ssm family")
+            f"{cfg.attention!r} is no pair the reference runs; the port "
+            f"runs {sorted(PORTED)}")
 
 
 def _hymba_windows(cfg: ModelConfig) -> tuple:
@@ -70,14 +74,17 @@ def _hymba_windows(cfg: ModelConfig) -> tuple:
 
 
 def block_stacks(cfg: ModelConfig):
-    """The layer stacks in order, as ``(name, layers, windows)``, one
-    window per layer: the dense family's ``blocks`` (``cfg.window``);
+    """The layer stacks over the token stream in order, as ``(name,
+    layers, windows)``, one window per layer: the dense, vlm and audio
+    families' ``blocks`` (``cfg.window``; the audio decoder's, whose
+    encoder stack ``enc_blocks`` is a pass of its own over the frames,
+    :func:`encode`);
     the hybrid family's ``blocks`` (:func:`_hymba_windows`); the ssm
     family's ``blocks`` (no attention); MoE's ``dense_blocks`` (if
     ``first_k_dense``) then ``moe_blocks``, both without a window, as in
     the reference."""
     n = cfg.num_layers
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "vlm", "audio"):
         return [("blocks", n, (cfg.window,) * n)]
     if cfg.family == "hybrid":
         return [("blocks", n, _hymba_windows(cfg))]
@@ -121,10 +128,11 @@ def _init_gqa(gen, n, cfg: ModelConfig, dtype, device):
 
 
 def _init_block_stack(gen, n, cfg: ModelConfig, dtype, device, *,
-                      with_moe=False, with_mamba=False):
+                      with_moe=False, with_mamba=False, with_cross=False):
     """One stack of ``n`` layers: norms, attention (GQA or MLA), with
-    ``with_mamba`` the Mamba heads and their output norms, then the FFN
-    or (with ``with_moe``) the MoE block."""
+    ``with_mamba`` the Mamba heads and their output norms, with
+    ``with_cross`` the cross attention ``cross`` and its norm
+    ``ln_cross``, then the FFN or (with ``with_moe``) the MoE block."""
     init_attn = mla.init_mla_params if cfg.attention == "mla" else _init_gqa
     d = cfg.d_model
     p: Dict[str, Any] = {
@@ -136,6 +144,9 @@ def _init_block_stack(gen, n, cfg: ModelConfig, dtype, device, *,
         p["mamba"] = ssm.init_mamba_params(gen, n, cfg, dtype, device)
         p["ln_attn_out"] = _init_norm(n, d, cfg, dtype, device)
         p["ln_mamba_out"] = _init_norm(n, d, cfg, dtype, device)
+    if with_cross:
+        p["cross"] = _init_gqa(gen, n, cfg, dtype, device)
+        p["ln_cross"] = _init_norm(n, d, cfg, dtype, device)
     if with_moe:
         p["moe"] = moe_mod.init_moe_params(gen, n, cfg, dtype, device)
     else:
@@ -158,9 +169,14 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *, tp_size: int = 1,
     ``moe_blocks``; the hybrid family's ``blocks`` add ``"mamba"``
     (``models/ssm.init_mamba_params``), ``"ln_attn_out"`` and
     ``"ln_mamba_out"``; the ssm family's are ``{"ln1", "ln2", "rwkv"}``,
-    ``models/ssm.init_rwkv_params``); with ``cfg.mtp_depth``, ``"mtp": {"proj" (2d, d),
-    "norm_h", "norm_e", "block"}``, one dense layer, as the reference
-    builds it.  The draws are ``torch.Generator``'s, not
+    ``models/ssm.init_rwkv_params``; the audio decoder's ``blocks`` add
+    ``"cross"`` (GQA weights) and ``"ln_cross"``); for the audio family
+    the encoder, ``"enc_blocks"`` (``cfg.encoder_layers`` dense layers),
+    ``"enc_pos" (encoder_seq_len, d)`` (N(0, 0.01**2)) and
+    ``"enc_norm"``; for the vlm family ``"projector": {"ln_w", "ln_b"
+    (vision_dim,), "fc1" (vision_dim, d), "fc2" (d, d)}``; with
+    ``cfg.mtp_depth``, ``"mtp": {"proj" (2d, d), "norm_h", "norm_e",
+    "block"}``, one dense layer, as the reference builds it.  The draws are ``torch.Generator``'s, not
     ``jax.random``'s: tests convert the reference's parameters
     instead."""
     _require_ported(cfg)
@@ -186,7 +202,24 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *, tp_size: int = 1,
         else:
             params[name] = _init_block_stack(
                 gen, n, cfg, dtype, device, with_moe=name == "moe_blocks",
-                with_mamba=cfg.family == "hybrid")
+                with_mamba=cfg.family == "hybrid",
+                with_cross=cfg.family == "audio")
+    if cfg.family == "audio":
+        params["enc_blocks"] = _init_block_stack(gen, cfg.encoder_layers,
+                                                 cfg, dtype, device)
+        pos = torch.empty((cfg.encoder_seq_len, d), dtype=torch.float32,
+                          device=device)
+        params["enc_pos"] = pos.normal_(generator=gen).mul_(0.01).to(dtype)
+        params["enc_norm"] = _init_norm(1, d, cfg, dtype, device)
+    if cfg.family == "vlm":
+        v = cfg.vision_dim
+        params["projector"] = {
+            "ln_w": torch.ones((v,), dtype=dtype, device=device),
+            "ln_b": torch.zeros((v,), dtype=dtype, device=device),
+            "fc1": layers.stacked_dense_init(gen, 1, v, d, dtype=dtype,
+                                             device=device)[0],
+            "fc2": layers.stacked_dense_init(gen, 1, d, d, dtype=dtype,
+                                             device=device)[0]}
     if cfg.mtp_depth:
         params["mtp"] = {
             "proj": layers.stacked_dense_init(gen, 1, 2 * d, d, dtype=dtype,
@@ -239,14 +272,29 @@ def _attention(p, x, positions, cfg: ModelConfig, *, window=None,
                causal=True):
     """The layer's attention, GQA or MLA.  Returns (out (B, S, d), the
     layer's cache entry): ``{"k", "v"}`` for GQA, ``{"c_kv", "k_rope"}``
-    for MLA."""
+    for MLA.  The audio family rotates nothing (its positions live in
+    the learned ``enc_pos`` and, in the decoder, the cache's length)."""
     if cfg.attention == "mla":
         out, (c_kv, k_rope) = mla.mla_attention(p, x, positions, cfg,
                                                 causal=causal)
         return out, {"c_kv": c_kv, "k_rope": k_rope}
     out, (k, v) = gqa_attention(p, x, positions, cfg, causal=causal,
-                                window=window)
+                                window=window, rope=cfg.family != "audio")
     return out, {"k": k, "v": v}
+
+
+def cross_attention(p, h, kv_feats, cfg: ModelConfig):
+    """Decoder -> encoder cross attention (whisper): q from ``h`` (B, S,
+    d), K/V from ``kv_feats`` (B, S_enc, d), no rotation, no mask, full
+    attention whatever the lengths.  Returns (B, S, d)."""
+    B, S, _ = h.shape
+    H, KH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    Se = kv_feats.shape[1]
+    q = (h @ p["wq"]).reshape(B, S, H, hd)
+    k = (kv_feats @ p["wk"]).reshape(B, Se, KH, hd)
+    v = (kv_feats @ p["wv"]).reshape(B, Se, KH, hd)
+    o = layers.full_attention(q, k, v, causal=False)
+    return o.reshape(B, S, -1) @ p["wo"]
 
 
 # ===========================================================================
@@ -272,13 +320,19 @@ def lm_logits(params, hidden: torch.Tensor, cfg: ModelConfig,
 # Full-sequence forward
 # ===========================================================================
 
-def _dense_block(pl, h, positions, cfg, *, window=None, causal=True):
-    """One pre-norm block.  Returns (h, entry): the block's cache entry
-    (:func:`_attention`) is what prefill writes into the cache."""
+def _dense_block(pl, h, positions, cfg, *, window=None, causal=True,
+                 cross_feats=None):
+    """One pre-norm block; with ``cross_feats`` (the audio decoder's
+    encoder output) cross attention between self attention and the FFN.
+    Returns (h, entry): the block's cache entry (:func:`_attention`) is
+    what prefill writes into the cache."""
     x = _norm(h, pl["ln1"], cfg)
     attn_out, entry = _attention(pl["attn"], x, positions, cfg,
                                  causal=causal, window=window)
     h = h + attn_out
+    if cross_feats is not None:
+        h = h + cross_attention(pl["cross"], _norm(h, pl["ln_cross"], cfg),
+                                cross_feats, cfg)
     return h + layers.apply_ffn(pl["ffn"], _norm(h, pl["ln2"], cfg),
                                 cfg.activation), entry
 
@@ -328,8 +382,9 @@ def _rwkv_block(pl, h, cfg, state=None):
     return h + cm, {"S": S, "x_tm": x_tm, "x_cm": x_cm}
 
 
-def _block(pl, h, positions, cfg, *, window=None):
-    """One pre-norm layer of any stack.  Returns (h, entry, aux): the
+def _block(pl, h, positions, cfg, *, window=None, cross_feats=None):
+    """One pre-norm layer of any stack (``cross_feats``: the audio
+    decoder's, :func:`_dense_block`).  Returns (h, entry, aux): the
     layer's cache entry (:func:`_attention`'s rows; the hybrid layer's
     rows and Mamba states, :func:`_hybrid_block`; the RWKV layer's
     states, :func:`_rwkv_block`) and the MoE's ``{"moe_aux",
@@ -341,7 +396,8 @@ def _block(pl, h, positions, cfg, *, window=None):
         h, entry = _hybrid_block(pl, h, positions, cfg, window=window)
         return h, entry, {}
     if "moe" not in pl:
-        h, entry = _dense_block(pl, h, positions, cfg, window=window)
+        h, entry = _dense_block(pl, h, positions, cfg, window=window,
+                                cross_feats=cross_feats)
         return h, entry, {}
     attn_out, entry = _attention(pl["attn"], _norm(h, pl["ln1"], cfg),
                                  positions, cfg, window=window)
@@ -350,23 +406,69 @@ def _block(pl, h, positions, cfg, *, window=None):
     return h + out, entry, aux
 
 
-def forward(params, tokens: torch.Tensor, cfg: ModelConfig, ctx=None
+def encode(params, frames, cfg: ModelConfig) -> torch.Tensor:
+    """The audio family's encoder: ``frames`` (B, S_enc, d), precomputed
+    frame embeddings, cast to the parameters' dtype, plus ``enc_pos``,
+    through ``enc_blocks`` (non-causal, no rotation) and ``enc_norm``.
+    Returns (B, S_enc, d)."""
+    if frames is None:
+        raise ValueError(f"{cfg.name}: the audio family needs frames= "
+                         f"(B, S_enc, d) frame embeddings")
+    pos = params["enc_pos"]
+    enc = torch.as_tensor(frames, device=pos.device).to(pos.dtype)
+    enc = enc + pos[: enc.shape[1]]
+    for i in range(cfg.encoder_layers):
+        enc, _ = _dense_block(layer(params["enc_blocks"], i), enc, None,
+                              cfg, causal=False)
+    return _norm(enc, layer(params["enc_norm"], 0), cfg)
+
+
+def project_patches(pj, patches, dtype) -> torch.Tensor:
+    """The vlm family's projector: ``patches`` (B, P, vision_dim) in
+    ``dtype`` -> (B, P, d), the reference's formula in that dtype: a
+    LayerNorm of the population variance with its own eps 1e-6 (not
+    ``cfg.norm_eps``), then ``fc1``, the tanh GELU, ``fc2``."""
+    x = torch.as_tensor(patches, device=pj["fc1"].device).to(dtype)
+    mu = x.mean(-1, keepdim=True)
+    var = x.var(-1, keepdim=True, correction=0)
+    x = (x - mu) * torch.rsqrt(var + 1e-6) * pj["ln_w"] + pj["ln_b"]
+    return F.gelu(x @ pj["fc1"], approximate="tanh") @ pj["fc2"]
+
+
+def forward(params, tokens: torch.Tensor, cfg: ModelConfig, ctx=None, *,
+            frames=None, patches=None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """tokens (B, S) -> hidden (B, S, d) after the final norm, aux: {} for
-    the dense, hybrid and ssm families; for MoE ``moe_aux``, the mean
-    over the MoE layers, and ``moe_dropped``, their sum."""
+    """tokens (B, S) -> hidden (B, S_total, d) after the final norm, aux.
+
+    audio: ``frames`` (B, S_enc, d) precomputed frame embeddings through
+    :func:`encode` first; every decoder layer cross-attends to its output,
+    returned as ``aux["encoder_out"]``.  vlm: ``patches`` (B,
+    vision_tokens, vision_dim) through :func:`project_patches`, prepended
+    to the text, so S_total = vision_tokens + S and the text's positions
+    start at vision_tokens.  aux: for MoE ``moe_aux``, the mean over the
+    MoE layers, and ``moe_dropped``, their sum; {} for the dense, hybrid
+    and ssm families."""
     _require_ported(cfg)
-    B, S = tokens.shape
     h = embed_tokens(params, tokens, cfg, ctx)
+    aux: Dict[str, torch.Tensor] = {}
+    cross = None
+    if cfg.family == "vlm":
+        if patches is None:
+            raise ValueError(f"{cfg.name}: the vlm forward needs patches= "
+                             f"(B, {cfg.vision_tokens}, {cfg.vision_dim})")
+        h = torch.cat([project_patches(params["projector"], patches,
+                                       h.dtype), h], dim=1)
+    if cfg.family == "audio":
+        cross = aux["encoder_out"] = encode(params, frames, cfg)
+    B, S = h.shape[:2]
     positions = torch.arange(S, device=h.device).expand(B, S)
     auxes = []
     for name, n, windows in block_stacks(cfg):
         for i in range(n):
             h, _, a = _block(layer(params[name], i), h, positions, cfg,
-                             window=windows[i])
+                             window=windows[i], cross_feats=cross)
             if a:
                 auxes.append(a)
-    aux = {}
     if auxes:
         aux = {"moe_aux": torch.stack([a["moe_aux"] for a in auxes]).mean(),
                "moe_dropped": torch.stack(

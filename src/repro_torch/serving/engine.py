@@ -84,16 +84,18 @@ def _sample(logits: torch.Tensor, gen: Optional[torch.Generator],
 
 
 def generate(params, cfg: ModelConfig, prompts, max_new: int, ctx=None, *,
-             temperature: float = 0.0, seed: int = 0,
+             temperature: float = 0.0, seed: int = 0, frames=None,
              device=None) -> torch.Tensor:
     """prompts (B, S) -> (B, max_new) generated ids (greedy by default) on
-    ``device`` (None: the card; the parameters must live there)."""
+    ``device`` (None: the card; the parameters must live there).  The
+    audio family's ``frames`` (B, S_enc, d) go through its encoder once,
+    in the prefill."""
     device = resolve_device(device)
     prompts = torch.as_tensor(prompts, device=device)
     B, S = prompts.shape
     gen = torch.Generator(device=device).manual_seed(seed)
     cache, hidden = dec.prefill(params, prompts, cfg, ctx,
-                                max_len=S + max_new)
+                                max_len=S + max_new, frames=frames)
     logits = lm.lm_logits(params, hidden[:, -1:], cfg, ctx)[:, 0]
     tok = _sample(_mask_vocab(logits, cfg.vocab_size), gen, temperature)
     outs = [tok]
@@ -123,11 +125,20 @@ class ContinuousBatcher:
     reference.  One decode_step advances
     every slot, empty ones included, as in the reference.  ``timings`` keeps,
     on the host clock, each admission's ``(prompt length, seconds)`` and
-    each decode step's seconds, both up to the token on the host."""
+    each decode step's seconds, both up to the token on the host.
+
+    The audio family is refused: the reference's admission prefills
+    without frames and fails; whisper serves through ``generate(frames=)``.
+    The vlm family is served text only, as the reference's admission
+    prefills it."""
 
     def __init__(self, params, cfg: ModelConfig, num_slots: int,
                  max_len: int, ctx=None, eos_id: int = 1, *, device=None):
         lm._require_local(ctx)
+        if cfg.family == "audio":
+            raise ValueError(
+                f"{cfg.name}: the batcher admits prompts without frames; "
+                f"serve the audio family through generate(frames=)")
         self.device = resolve_device(device)
         on = params["embed"].device
         if on.type != self.device.type:

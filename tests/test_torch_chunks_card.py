@@ -13,9 +13,11 @@ reach: 1 to 8 ranks, chunks of 0, 1 and odd lengths beside 16-byte-aligned
 ones, views whose base is not 16-byte aligned, bf16 sums that cancel,
 int32 sums that wrap, ``-0.0`` sources, launches over a range of ranks
 short of all E, and the ring permute (one launch for all ranks) at every
-shift up to n + 1 and over ranges of source ranks.  Every comparison is bitwise: the puts copy bits, and the
-pull-sum adds in the order of PyTorch's CUDA sum over an outer dimension
-(four partial sums, combined left to right), for any E.  One exception:
+shift up to n + 1 and over ranges of source ranks, and the pull-sum at
+every rank count from 9 to ``MAX_RANKS``.  Every comparison is bitwise:
+the puts copy bits, and the pull-sum adds in the order of PyTorch's CUDA
+sum over an outer dimension (four partial sums, combined left to right),
+for any E up to ``MAX_RANKS``.  One exception:
 with chunks of ONE element the plain version's sum over sources runs over
 a contiguous dimension, where PyTorch's CUDA reduction takes another order,
 so there a float result is held to the plain version within two f32 orders'
@@ -121,6 +123,44 @@ def test_reduce_scatter_matches_plain_version(card, e, c, dtype):
     _check_rs(x)
     if c:
         _check_rs(_misaligned(x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [1, 16, 67, 68])
+def test_reduce_scatter_keeps_the_sum_order_up_to_max_ranks(card, c, dtype):
+    """Every rank count from 9 to ``MAX_RANKS`` (63): the pull-sum bitwise
+    ``x.sum(0)``, on rows of 4-element multiples (chunks 16 and 68; at 64
+    ranks PyTorch's sum splits the sources across threads there) and not
+    (1, 67)."""
+    g = torch.Generator(device=card).manual_seed(300 + c)
+    for e in range(9, oa.MAX_RANKS + 1):
+        x = _chunks(g, e, c, dtype, card)
+        assert _same(oa.onesided_reduce_scatter(x), x.sum(0, dtype=dtype)), e
+
+
+def _four_partials(x):
+    """The pull-sum's order in f32 elementwise adds: partial ``s % 4``
+    takes source s in rank order, then ((p0 + p1) + p2) + p3."""
+    acc = [torch.zeros_like(x[0], dtype=torch.float32) for _ in range(4)]
+    for s in range(x.shape[0]):
+        acc[s % 4] = acc[s % 4] + x[s].float()
+    return (((acc[0] + acc[1]) + acc[2]) + acc[3]).to(x.dtype)
+
+
+@pytest.mark.cuda
+def test_sum_order_parts_at_one_rank_past_max_ranks(card):
+    """Why ``MAX_RANKS`` is 63: on f32 rows of 4-element multiples the
+    pull-sum's order (emulated, and equal to the kernel's at 63 ranks)
+    is ``x.sum(0)``'s at 63 sources and not at 64, where PyTorch splits
+    the sources across 4 threads of a block."""
+    g = torch.Generator(device=card).manual_seed(401)
+    x = torch.randn((oa.MAX_RANKS,) * 2 + (68,), generator=g, device=card)
+    assert _same(_four_partials(x), oa.onesided_reduce_scatter(x))
+    assert _same(_four_partials(x), x.sum(0))
+    y = torch.randn((oa.MAX_RANKS + 1,) * 2 + (68,), generator=g,
+                    device=card)
+    assert not _same(_four_partials(y), y.sum(0))
 
 
 @pytest.mark.cuda

@@ -1,8 +1,12 @@
 """The port's LM serving path (the dense family, the GQA MoE moonshot, the
-MLA MoE deepseek-v3, the hybrid hymba and the ssm rwkv6) against the JAX
-reference, on the CPU (where the flash-attention wrapper takes its plain
-version; ``tests/test_torch_mla.py`` holds MLA's own functions and its
-bf16 path, ``tests/test_torch_ssm.py`` the Mamba and RWKV mixers).
+MLA MoE deepseek-v3, the hybrid hymba, the ssm rwkv6, the audio whisper
+and the vlm internvl2) against the JAX reference, on the CPU (where the
+flash-attention wrapper takes its plain version;
+``tests/test_torch_mla.py`` holds MLA's own functions and its bf16 path,
+``tests/test_torch_ssm.py`` the Mamba and RWKV mixers,
+``tests/test_torch_audio_vlm.py`` the encoder, cross attention, the
+projector and whisper's generate).  The audio family's forward and
+prefill take ``frames``, the vlm forward ``patches`` (:func:`_inputs`).
 
 The same numpy inputs, from ``np.random.default_rng(seed)``, go through
 ``repro`` and through ``repro_torch``; parameters come from the
@@ -54,7 +58,9 @@ MOE = "moonshot-v1-16b-a3b"
 MLA = "deepseek-v3-671b"
 HYBRID = "hymba-1.5b"
 SSM = "rwkv6-1.6b"
-PORTED = DENSE + [MOE, MLA, HYBRID, SSM]
+AUDIO = "whisper-base"
+VLM = "internvl2-2b"
+PORTED = DENSE + [MOE, MLA, HYBRID, SSM, AUDIO, VLM]
 FLASH_SHAPES = [
     (2, 128, 4, 2, 32, True, None),
     (1, 256, 4, 4, 64, True, 64),
@@ -73,6 +79,29 @@ def _pair(a, dtype="float32"):
     """The same numpy array as a JAX array and a torch tensor of dtype."""
     return (jnp.asarray(a, getattr(jnp, dtype)),
             torch.as_tensor(a).to(getattr(torch, dtype)))
+
+
+def _inputs(cfg, B, seed):
+    """The family's extra forward inputs as numpy, N(0, 1) from ``seed``
+    (as ``repro.data.synthetic`` draws them): ``frames`` (B,
+    encoder_seq_len, d) for audio, ``patches`` (B, vision_tokens,
+    vision_dim) for vlm, none for the rest."""
+    rng = np.random.default_rng(seed)
+    if cfg.family == "audio":
+        return {"frames": rng.standard_normal(
+            (B, cfg.encoder_seq_len, cfg.d_model)).astype(np.float32)}
+    if cfg.family == "vlm":
+        return {"patches": rng.standard_normal(
+            (B, cfg.vision_tokens, cfg.vision_dim)).astype(np.float32)}
+    return {}
+
+
+def _jax_kw(kw):
+    return {k: jnp.asarray(v) for k, v in kw.items()}
+
+
+def _torch_kw(kw):
+    return {k: torch.as_tensor(v) for k, v in kw.items()}
 
 
 _PARAMS = {}
@@ -104,25 +133,27 @@ def test_configs_mirror_reference(arch):
 
 
 def test_non_dense_archs_raise():
-    """Every arch not yet ported raises, naming its Queue 1 item (audio
-    13.4, vlm 13.5), in the registry and in the model code; MLA
-    (deepseek-v3), hybrid (hymba) and ssm (rwkv6) are ported."""
+    """Every arch of the reference is ported (the audio whisper and the
+    vlm internvl2 last), in the registry and in the model code; an
+    unknown arch raises ``KeyError``, and a family / attention pair the
+    reference does not run raises in the model code."""
     assert tconfigs.ARCH_IDS == jconfigs.ARCH_IDS
-    assert sorted(tconfigs.PORTED_ARCH_IDS) == sorted(PORTED)
-    assert set(tconfigs.ARCH_IDS) - set(PORTED) == set(tconfigs.WAITING)
-    assert {f for f, _ in tconfigs.WAITING.values()} == {"audio", "vlm"}
-    for arch, (family, item) in tconfigs.WAITING.items():
-        assert jconfigs.get_config(arch).family == family
-        with pytest.raises(NotImplementedError,
-                           match=f"Queue 1 item {item}"):
-            tconfigs.get_config(arch)
-        ref = jconfigs.get_smoke_config(arch)
-        cfg = tconfigs.ModelConfig(**{
-            f.name: getattr(ref, f.name) for f in dataclasses.fields(ref)})
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            tlm.init_params(torch.Generator(), cfg, device="cpu")
-    with pytest.raises(KeyError):
-        tconfigs.get_config("gpt-2")
+    assert sorted(tconfigs.PORTED_ARCH_IDS) == sorted(PORTED) \
+        == sorted(jconfigs.ARCH_IDS)
+    assert {tconfigs.get_config(a).family for a in PORTED} == {
+        "dense", "moe", "hybrid", "ssm", "audio", "vlm"}
+    for arch in PORTED:
+        cfg = tconfigs.get_smoke_config(arch)
+        assert (cfg.family, cfg.attention) in tlm.PORTED
+    for bad in ("gpt-2", "whisper-large"):
+        with pytest.raises(KeyError):
+            tconfigs.get_config(bad)
+        with pytest.raises(KeyError):
+            tconfigs.get_smoke_config(bad)
+    cfg = dataclasses.replace(tconfigs.get_smoke_config(AUDIO),
+                              attention="mla")
+    with pytest.raises(NotImplementedError, match="no pair the reference"):
+        tlm.init_params(torch.Generator(), cfg, device="cpu")
     assert tconfigs.get_config(MOE).param_count() == 28_325_838_848
     assert tconfigs.get_config(MLA).param_count() == \
         jconfigs.get_config(MLA).param_count()
@@ -298,10 +329,12 @@ def test_forward_matches_jax(arch, threshold, S):
     """At the default threshold (full attention) and at a lowered one with
     S = 40, where every layer's attention takes the flash wrapper (the
     hybrid family's with its layer's window; the ssm family has no
-    attention)."""
+    attention; the audio encoder's 32 frames, non-causal, too; the vlm's
+    8 + 40 prefixed positions; cross attention never)."""
     rep = {} if threshold is None else dict(attn_chunk_threshold=threshold)
     jcfg, tcfg, jp, tp = _setup(arch, **rep)
     tokens = np.random.default_rng(4).integers(0, jcfg.vocab_size, (2, S))
+    kw = _inputs(jcfg, 2, 14)
     tflash.reset_launch_counts()
     tlayers.reset_call_counts()
     calls = []
@@ -309,20 +342,25 @@ def test_forward_matches_jax(arch, threshold, S):
     tlayers.flash_attention = lambda *a, **kw: calls.append(1) or real(
         *a, **kw)
     try:
-        got, aux = tlm.forward(tp, torch.as_tensor(tokens), tcfg)
+        got, aux = tlm.forward(tp, torch.as_tensor(tokens), tcfg,
+                               **_torch_kw(kw))
     finally:
         tlayers.flash_attention = real
-    want, jaux = jlm.forward(jp, jnp.asarray(tokens), jcfg)
+    want, jaux = jlm.forward(jp, jnp.asarray(tokens), jcfg, **_jax_kw(kw))
     assert sorted(aux) == sorted(jaux)
-    if aux:
+    if "moe_aux" in aux:
         np.testing.assert_allclose(float(aux["moe_aux"]),
                                    float(jaux["moe_aux"]), rtol=1e-6,
                                    atol=1e-6)
         assert int(aux["moe_dropped"]) == int(jaux["moe_dropped"]) == 0
+    if "encoder_out" in aux:
+        np.testing.assert_allclose(_np(aux["encoder_out"]),
+                                   _np(jaux["encoder_out"]), **HIDDEN)
+    assert tuple(got.shape) == want.shape
     # over the threshold every layer takes the flash wrapper (GQA) or
-    # chunked_attention (MLA's hd_v != hd)
+    # chunked_attention (MLA's hd_v != hd); the audio encoder's layers too
     long = 0 if threshold is None or jcfg.family == "ssm" \
-        else jcfg.num_layers
+        else jcfg.num_layers + jcfg.encoder_layers
     mla = jcfg.attention == "mla"
     assert len(calls) == (0 if mla else long)
     assert tlayers.CALL_COUNTS["chunked_attention"] == (long if mla else 0)
@@ -335,13 +373,17 @@ def test_forward_matches_jax(arch, threshold, S):
 
 @pytest.mark.parametrize("arch", PORTED)
 def test_prefill_and_decode_step_match_jax(arch):
+    """Prefill then one decode step: hidden states and every cache entry,
+    the audio family's ``enc`` (batch first, no layer stack) too; the
+    vlm family text only, as the reference's prefill takes it."""
     jcfg, tcfg, jp, tp = _setup(arch, attn_chunk_threshold=8)
     B, S = 2, 16
     tokens = np.random.default_rng(5).integers(0, jcfg.vocab_size, (B, S))
+    kw = {k: v for k, v in _inputs(jcfg, B, 15).items() if k == "frames"}
     jcache, jh = jdec.prefill(jp, jnp.asarray(tokens[:, :-1]), jcfg,
-                              max_len=S + 4)
+                              max_len=S + 4, **_jax_kw(kw))
     tcache, th = tdec.prefill(tp, torch.as_tensor(tokens[:, :-1]), tcfg,
-                              max_len=S + 4)
+                              max_len=S + 4, **_torch_kw(kw))
     np.testing.assert_allclose(_np(th), _np(jh), **HIDDEN)
     jcache, jh = jdec.decode_step(jp, jcache, jnp.asarray(tokens[:, -1]),
                                   jcfg)
@@ -351,7 +393,15 @@ def test_prefill_and_decode_step_match_jax(arch):
     np.testing.assert_array_equal(tcache["length"].numpy(),
                                   np.asarray(jcache["length"]))
     stacks = tdec.kv_stacks(tcache)
-    assert sorted(stacks) == sorted(k for k in jcache if k != "length")
+    top = sorted(k for k in jcache if not isinstance(jcache[k], dict))
+    assert top == sorted(k for k in tcache if k not in stacks)
+    assert top == (["enc", "length"] if arch == AUDIO else ["length"])
+    if arch == AUDIO:
+        want = jcache["enc"]
+        assert tuple(tcache["enc"].shape) == want.shape == (
+            B, jcfg.encoder_seq_len, jcfg.d_model)
+        np.testing.assert_allclose(_np(tcache["enc"]), _np(want), **HIDDEN)
+    assert sorted(stacks) == sorted(k for k in jcache if k not in top)
     for name in stacks:
         assert sorted(stacks[name]) == sorted(jcache[name])
         for key, got in stacks[name].items():
@@ -368,12 +418,21 @@ def test_prefill_and_decode_step_match_jax(arch):
 @pytest.mark.parametrize("arch", PORTED)
 def test_port_decode_matches_forward(arch):
     """The port's own prefill + decode_step reproduce its forward's last
-    hidden state (``tests/test_models.py``'s check, same bound)."""
+    hidden state (``tests/test_models.py``'s check, same bound; the audio
+    family's with its frames).  The vlm forward needs patches, which
+    prefill refuses (as the reference's does, whose test leaves
+    internvl2 out): there decode is held to prefill over the whole text
+    instead."""
     _, tcfg, _, tp = _setup(arch)
     tokens = torch.as_tensor(
         np.random.default_rng(6).integers(0, tcfg.vocab_size, (2, 16)))
-    h, _ = tlm.forward(tp, tokens, tcfg)
-    cache, _ = tdec.prefill(tp, tokens[:, :-1], tcfg, max_len=20)
+    kw = _torch_kw(_inputs(tcfg, 2, 16))
+    if arch == VLM:
+        _, h = tdec.prefill(tp, tokens, tcfg)
+        kw = {}
+    else:
+        h, _ = tlm.forward(tp, tokens, tcfg, **kw)
+    cache, _ = tdec.prefill(tp, tokens[:, :-1], tcfg, max_len=20, **kw)
     cache, h_dec = tdec.decode_step(tp, cache, tokens[:, -1], tcfg)
     assert float((h_dec - h[:, -1]).abs().max()) < 2e-3
     assert cache["length"].tolist() == [16, 16]
@@ -450,12 +509,13 @@ def _requests(module, prompts, max_new):
             for i, p in enumerate(prompts)]
 
 
-@pytest.mark.parametrize("arch", ["granite-8b", MOE, MLA, HYBRID, SSM])
+@pytest.mark.parametrize("arch", ["granite-8b", MOE, MLA, HYBRID, SSM, VLM])
 def test_continuous_batcher_matches_jax_and_generate(arch):
     """3 requests on 2 slots (slot reuse), the middle prompt over the
     lowered threshold (its prefill takes the flash wrapper, or MLA's
     chunked_attention; the ssm family neither): the same tokens as the
-    reference's batcher and as the port's generate."""
+    reference's batcher and as the port's generate (the vlm family's
+    text-only path)."""
     jcfg, tcfg, jp, tp = _setup(arch, attn_chunk_threshold=16)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, jcfg.vocab_size, n).astype(np.int32)
