@@ -207,7 +207,36 @@ Phases:
      256-2,048 (none), 32 new tokens each, as in 8h; (c) decode against
      prefill on the 1,354-token prompt (the forward needs patches, which
      prefill refuses in both packages), bf16 (2e-2) and f32 (1e-4);
-  9. the card line, one JSON line of the kernels, and last the result line.
+  8t. LM training, after phase 8v's memory is freed (checked): (a)
+     granite-8b at CONFIG, all 36 layers, bf16 (8,254,689,280 parameters,
+     random from tc.seed), Trainer(device=None).run(4) with
+     TrainConfig(optimizer_state_dtype="int8", remat=True,
+     warmup_steps=1) on 1 x 4,096 tokens a step from lm_batches through
+     Prefetcher: the state's bytes exactly (parameters and gradients
+     16,509,378,560 B each, each int8 moment 8,254,689,280 B and
+     257,959,040 B of f32 scales), finite losses and gradient norms, no
+     kernel launch and no chunked_attention call (4,096 keys take
+     full_attention), step times, tokens/s, peak device memory, one more
+     step split by CUDA events into forward + backward and the update,
+     and a profiled step's idle share; (b) two f32 train steps of 2
+     layers at granite width with int8 moments on 128 tokens each (TF32
+     off), each against the CPU from a copy of the card's state before
+     it: each loss and global gradient norm (the clip) within 1e-5
+     relative, every gradient leaf within relative L2 1e-4, and after
+     the second update (which reads int8 moments) the parameters within
+     1e-4, the moments' codes differing on under 1 % of each leaf and
+     the decoded moments within 2e-3 (m) and 2.5e-2 (v); (c) 1 layer,
+     bf16, int8 moments: 3 steps with checkpoints every 2 into a temporary
+     directory, resumed from step 2 for 1 step, the state bitwise the
+     uninterrupted run's, the checkpoint's bytes on disk; (d) 2 layers,
+     bf16, one step over 16,384 tokens: chunked_attention in each
+     layer's forward and recompute (4 calls), no flash launch (the
+     kernel has no backward; the wrapper refuses a tensor that needs a
+     gradient), peak memory; and chunked_attention's q/k/v gradients
+     against full_attention's at (1, 4096, 32/8, 128) f32 causal, within
+     relative L2 1e-4;
+  9. the card line, one JSON line of the kernels (the flash kernel's
+     launches_by_path records LM training's 0), and last the result line.
 
 A profile whose device records a check or a DLRM idle share reads traces
 the host and the card (``contracts.profile_complete``): it opens with 16
@@ -3928,6 +3957,341 @@ def phase_vlm(pt, kmods) -> dict:
                 short_len=short.shape[1], secs=secs)
 
 
+# ---------------------------------------------------------------------------
+# 8t. LM training
+# ---------------------------------------------------------------------------
+
+TRAIN_PATH = "8t LM training"
+LMT_STEPS = 4                # (a): the Trainer's steps at full depth
+LMT_BATCH, LMT_SEQ = 1, 4096  # (a): tokens a step
+LMT_PARAMS = 8_254_689_280   # granite-8b's parameters (param_count)
+LMT_SCALE_BYTES = 257_959_040  # one int8 moment's f32 scales: params / 128 x 4
+GRAD_LAYERS, GRAD_STEPS = 2, 2  # (b): f32, int8 moments, card vs CPU
+GRAD_TOKENS = 128            # (b): tokens a step
+RESUME_TOKENS = 1024         # (c): 3 steps, resumed at 2
+LONG_TRAIN_TOKENS = 16_384   # (d): one step of 2 layers
+# (b) the same f32 steps on the card (TF32 off) and on the CPU: f32
+# products of width <= 49,152 in other orders; the CPU tests hold the
+# port to the reference at these bounds (tests/test_torch_lm_train.py)
+TRAIN_LOSS_REL, TRAIN_GRAD_REL = 1e-5, 1e-4
+# (b) after the steps, per leaf.  Parameters: an element whose gradient
+# lies within the two devices' difference of 0 may take the other sign
+# and move 2 lr apart, the rest agree to the gradients' order.  int8
+# moments: the codes may differ by a rounding on under 1 % of the
+# entries (the quantizer's bound in the CPU tests), so the decoded
+# moments are held to sqrt(1 %) x one code's step against the block's
+# rms: 0.1 x 2.6 / 127 for m ("sym", a block of 128 normals peaks near
+# 2.6 rms), 0.1 x (e**(27.631 / 127) - 1) for v ("log")
+TRAIN_PARAM_REL = 1e-4
+TRAIN_CODES_DIFFER = 0.01
+TRAIN_MOMENT_REL = {"m": 2e-3, "v": 2.5e-2}
+# (d) chunked_attention's q/k/v gradients against full_attention's, f32,
+# at granite's layer over 4,096 keys (B, S, H, KH, hd): two softmax orders
+CHUNKED_GRAD_SHAPE = (1, 4096, 32, 8, 128)
+CHUNKED_GRAD_REL = 1e-4
+
+
+def _tree_bytes(pt, tree) -> int:
+    return sum(t.numel() * t.element_size() for t in pt.leaves(tree)
+               if isinstance(t, torch.Tensor))
+
+
+def _moment_bytes(pt, tree) -> tuple:
+    """(int8 payload bytes, f32 scale bytes) of a tree of QuantizedTensor."""
+    qs = pt.leaves(tree)
+    return (sum(m.q.numel() * m.q.element_size() for m in qs),
+            sum(m.scale.numel() * m.scale.element_size() for m in qs))
+
+
+def _reset_counts(pt, kmods) -> None:
+    for mod in kmods:
+        mod.reset_launch_counts()
+    pt.layers.reset_call_counts()
+
+
+def _counts(pt, kmods) -> dict:
+    counts = {k: v for mod in kmods for k, v in mod.LAUNCH_COUNTS.items()}
+    return dict(counts, chunked=pt.layers.CALL_COUNTS["chunked_attention"])
+
+
+def _train_full(pt, kmods, cfg) -> dict:
+    """(a): Trainer(device=None).run(LMT_STEPS) at CONFIG, int8 moments."""
+    tc = pt.TrainConfig(optimizer_state_dtype="int8", remat=True,
+                        warmup_steps=1, total_steps=LMT_STEPS + 2)
+    data = pt.Prefetcher(pt.lm_batches(cfg, LMT_BATCH, LMT_SEQ, seed=0))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = pt.Trainer(cfg, tc, data)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    params, opt = tr.state["params"], tr.state["opt"]
+    n_params = sum(t.numel() for t in pt.leaves(params))
+    pbytes = _tree_bytes(pt, params)
+    mq, ms = _moment_bytes(pt, opt["m"])
+    vq, vs = _moment_bytes(pt, opt["v"])
+    log(f"  Trainer init: {n_params:,} parameters, {pbytes:,} B bf16, "
+        f"moments m {mq:,} + {ms:,} B, v {vq:,} + {vs:,} B (int8 + f32 "
+        f"scales), in {init_s:.1f} s")
+    check(n_params == LMT_PARAMS and pbytes == 2 * LMT_PARAMS
+          and all(t.dtype == torch.bfloat16 for t in pt.leaves(params)),
+          f"{LMT_PARAMS:,} bf16 parameters, {2 * LMT_PARAMS:,} B")
+    check((mq, ms, vq, vs) == (LMT_PARAMS, LMT_SCALE_BYTES) * 2,
+          "the int8 moments' payloads and scales to the byte")
+
+    _reset_counts(pt, kmods)
+    losses, gnorms = [], []
+    tr.run(LMT_STEPS, on_metrics=lambda s, m: log(
+        f"  step {s}: loss {m['loss']:.4f}, grad_norm {m['grad_norm']:.4f}, "
+        f"lr {m['lr']:.3e}, {m['step_time_s']:.3f} s"))
+    counts = _counts(pt, kmods)
+    for _, m in tr.metrics_log:
+        losses.append(m["loss"])
+        gnorms.append(m["grad_norm"])
+    step_s = [m["step_time_s"] for _, m in tr.metrics_log]
+    gbytes = _tree_bytes(pt, tr.step_fn.grads)
+    check(gbytes == 2 * LMT_PARAMS, f"gradients {2 * LMT_PARAMS:,} B")
+    state_bytes = pbytes + gbytes + mq + ms + vq + vs
+    check(all(np.isfinite(losses)) and all(np.isfinite(gnorms)),
+          "finite losses and gradient norms")
+    check(counts == dict(_launches(), chunked=0),
+          f"no kernel launch and no chunked_attention call in training at "
+          f"{LMT_SEQ} tokens ({counts})")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    med_s = statistics.median(step_s[1:])
+    tokens_s = LMT_BATCH * LMT_SEQ / med_s
+    log(f"  {LMT_STEPS} steps: median {med_s:.3f} s after the first "
+        f"({step_s[0]:.3f} s), {tokens_s:.1f} tokens/s; state "
+        f"{state_bytes / 1e9:.2f} GB, peak device memory {peak_gb:.2f} GB")
+
+    # one more step split by CUDA events: forward + backward, the update
+    batch = {k: torch.as_tensor(v, device=DEV)
+             for k, v in next(data).items()}
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    tr.step_fn.grad(params, batch)
+    ev[1].record()
+    pt.adamw_update(tr.step_fn.grads, opt, params, tc)
+    ev[2].record()
+    torch.cuda.synchronize()
+    fb_ms, upd_ms = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+    log(f"  a step split (CUDA events): forward + backward {fb_ms:.1f} ms, "
+        f"update {upd_ms:.1f} ms ({100 * upd_ms / (fb_ms + upd_ms):.1f} % "
+        f"of the step)")
+    prof = _profile_lm(lambda: tr.step_fn(tr.state, batch),
+                       "train step", fb_ms + upd_ms)
+    data.close()
+    del tr, params, opt, batch
+    torch.cuda.empty_cache()
+    return dict(n_params=n_params, init_s=init_s, losses=losses,
+                gnorms=gnorms, step_s=step_s, med_s=med_s, tokens_s=tokens_s,
+                peak_gb=peak_gb, state_bytes=state_bytes, fb_ms=fb_ms,
+                upd_ms=upd_ms, prof=prof, launches=counts["flash_attention"],
+                chunked=counts["chunked"])
+
+
+def _copy_to(tree, device):
+    """A copy on ``device`` of a tree of tensors and QuantizedTensors."""
+    if isinstance(tree, dict):
+        return {k: _copy_to(v, device) for k, v in tree.items()}
+    if dataclasses.is_dataclass(tree):
+        return dataclasses.replace(tree, q=_copy_to(tree.q, device),
+                                   scale=_copy_to(tree.scale, device))
+    return tree.to(device, copy=True)
+
+
+def _train_grad_vs_cpu(pt, cfg) -> dict:
+    """(b): GRAD_STEPS train steps of GRAD_LAYERS layers at granite width
+    in f32 with int8 moments on the card; each from a copy on the CPU of
+    the card's state before it, so that no difference carries over from
+    one step to the next.  Each step's loss and gradients against the
+    CPU's; at the last step (its moments int8 codes of the first's) the
+    CPU updates too: the parameters and the moments (codes and decoded)
+    against the CPU's.  The comparisons run on the card."""
+    cfg2 = dataclasses.replace(cfg, num_layers=GRAD_LAYERS, dtype="float32")
+    tc = pt.TrainConfig(optimizer_state_dtype="int8", warmup_steps=1)
+    params = pt.lm.init_params(torch.Generator(device=DEV).manual_seed(21),
+                               cfg2, device=DEV)
+    state = {"params": params, "opt": pt.adamw_init(params, tc)}
+    paths = [p for p, _ in pt.flatten_with_paths(params)]
+    card, cpu = (pt.tstep.make_train_step(cfg2, tc) for _ in range(2))
+    losses, norms, grel, secs = [], [], {}, [0.0, 0.0]
+    for s, batch in enumerate(itertools.islice(
+            pt.lm_batches(cfg2, 1, GRAD_TOKENS, seed=1), GRAD_STEPS)):
+        host = _copy_to(state, "cpu")
+        t0 = time.perf_counter()
+        state, m = card(state, {k: torch.as_tensor(v, device=DEV)
+                                for k, v in batch.items()})
+        loss = float(m["loss"])
+        t1 = time.perf_counter()
+        tb = {k: torch.as_tensor(v) for k, v in batch.items()}
+        if s == GRAD_STEPS - 1:
+            host, mc = cpu(host, tb)
+        else:
+            mc = cpu.grad(host["params"], tb)
+        secs[0] += t1 - t0
+        secs[1] += time.perf_counter() - t1
+        losses.append((loss, float(mc["loss"])))
+        norms.append((float(m["grad_norm"]), float(
+            mc["grad_norm"] if "grad_norm" in mc else
+            pt.global_norm(cpu.grads))))
+        grel.update({(s, p): _rel(g, gc.to(DEV)) for p, g, gc in zip(
+            paths, pt.leaves(card.grads), pt.leaves(cpu.grads))})
+    loss_rel = max(abs(a - b) / abs(b) for a, b in losses)
+    norm_rel = max(abs(a - b) / abs(b) for a, b in norms)
+    host = _copy_to(host, DEV)
+    prel = {p: _rel(a, b) for p, a, b in zip(
+        paths, pt.leaves(state["params"]), pt.leaves(host["params"]))}
+    mrel, differ = {}, {}
+    for name in ("m", "v"):
+        for p, a, b in zip(paths, pt.leaves(state["opt"][name]),
+                           pt.leaves(host["opt"][name])):
+            differ[name, p] = float((a.q != b.q).float().mean())
+            mrel[name, p] = _rel(pt.dequantize_blockwise(a),
+                                 pt.dequantize_blockwise(b))
+    worst = {k: max(d, key=d.get) for k, d in (
+        ("grad", grel), ("param", prel), ("m", {k: v for k, v in mrel.items()
+                                                if k[0] == "m"}),
+        ("v", {k: v for k, v in mrel.items() if k[0] == "v"}),
+        ("codes", differ))}
+    log(f"  (b) {GRAD_LAYERS} layers f32, int8 moments, {GRAD_STEPS} steps of"
+        f" {GRAD_TOKENS} tokens, each from the card's state: losses (card, "
+        f"CPU) {losses} (worst relative {loss_rel:.3e}, bound "
+        f"{TRAIN_LOSS_REL}); global gradient norms (card, CPU) {norms} "
+        f"(worst relative {norm_rel:.3e}, bound {TRAIN_LOSS_REL}); "
+        f"{len(paths)} leaves: gradients' worst relative "
+        f"L2 {grel[worst['grad']]:.3e} at step {worst['grad'][0] + 1} "
+        f"{worst['grad'][1]} (bound {TRAIN_GRAD_REL}); after step "
+        f"{GRAD_STEPS}'s update, parameters {prel[worst['param']]:.3e} at "
+        f"{worst['param']} (bound {TRAIN_PARAM_REL}), decoded m "
+        f"{mrel[worst['m']]:.3e} at {worst['m'][1]} (bound "
+        f"{TRAIN_MOMENT_REL['m']}), v {mrel[worst['v']]:.3e} at "
+        f"{worst['v'][1]} (bound {TRAIN_MOMENT_REL['v']}), int8 codes that "
+        f"differ at most {differ[worst['codes']]:.3e} of a leaf "
+        f"({worst['codes'][0]} {worst['codes'][1]}, bound "
+        f"{TRAIN_CODES_DIFFER}); {secs[0]:.2f} s on the card, {secs[1]:.2f} "
+        f"s on the CPU")
+    check(loss_rel < TRAIN_LOSS_REL, "the card's losses are the CPU's")
+    check(norm_rel < TRAIN_LOSS_REL,
+          "the card's global gradient norms (the clip) are the CPU's")
+    check(grel[worst["grad"]] < TRAIN_GRAD_REL,
+          "every gradient leaf the CPU's, at every step")
+    check(prel[worst["param"]] < TRAIN_PARAM_REL,
+          "every updated parameter leaf the CPU's")
+    check(all(mrel[k] < TRAIN_MOMENT_REL[k[0]] for k in mrel)
+          and differ[worst["codes"]] < TRAIN_CODES_DIFFER,
+          "the int8 moments the CPU's")
+    del params, state, host, card, cpu
+    torch.cuda.empty_cache()
+    return dict(loss_rel=loss_rel, norm_rel=norm_rel,
+                grad_rel=grel[worst["grad"]],
+                param_rel=prel[worst["param"]],
+                m_rel=mrel[worst["m"]], v_rel=mrel[worst["v"]],
+                codes_differ=differ[worst["codes"]])
+
+
+def _train_resume(pt, cfg) -> dict:
+    """(c): 3 steps with checkpoints every 2, resumed at 2 for 1 step:
+    the state bitwise the uninterrupted run's."""
+    cfg1 = dataclasses.replace(cfg, num_layers=1)
+    tc = pt.TrainConfig(optimizer_state_dtype="int8", warmup_steps=1,
+                        total_steps=3, checkpoint_every=2)
+    with tempfile.TemporaryDirectory() as d:
+        tr = pt.Trainer(cfg1, tc, pt.lm_batches(cfg1, 1, RESUME_TOKENS,
+                                                seed=2), ckpt_dir=d)
+        t0 = time.perf_counter()
+        tr.run(3)
+        run_s = time.perf_counter() - t0
+        step2 = os.path.join(d, "step_00000002")
+        disk = sum(os.path.getsize(os.path.join(step2, f))
+                   for f in os.listdir(step2))
+        check(sorted(os.listdir(d)) == ["step_00000002", "step_00000003"],
+              "checkpoints at steps 2 and 3")
+        shutil.rmtree(os.path.join(d, "step_00000003"))
+        tr2 = pt.Trainer(cfg1, tc, pt.lm_batches(cfg1, 1, RESUME_TOKENS,
+                                                 seed=2, start_step=2),
+                         ckpt_dir=d)
+        check(tr2.start_step == 2, "resumed at step 2")
+        tr2.run(1)
+        same = [torch.equal(a, b) for (_, a), (_, b) in zip(
+            pt.flatten_with_paths(tr.state),
+            pt.flatten_with_paths(tr2.state))]
+    log(f"  (c) 1 layer bf16, int8 moments, {RESUME_TOKENS} tokens: 3 steps "
+        f"with 2 checkpoints in {run_s:.2f} s; the checkpoint of step 2 "
+        f"{disk:,} B on disk; resumed at 2 for 1 step: {sum(same)} of "
+        f"{len(same)} state leaves bitwise the uninterrupted run's")
+    check(all(same), "the resumed state bitwise the uninterrupted one")
+    del tr, tr2
+    torch.cuda.empty_cache()
+    return dict(ckpt_bytes=disk)
+
+
+def _train_long(pt, kmods, cfg) -> dict:
+    """(d): one step of 2 layers over LONG_TRAIN_TOKENS (chunked_attention
+    under grad), then chunked_attention's gradients against
+    full_attention's."""
+    cfg2 = dataclasses.replace(cfg, num_layers=2)
+    tc = pt.TrainConfig(optimizer_state_dtype="int8", warmup_steps=1)
+    tr = pt.Trainer(cfg2, tc, pt.lm_batches(cfg2, 1, LONG_TRAIN_TOKENS,
+                                            seed=3))
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts(pt, kmods)
+    tr.run(1)
+    counts = _counts(pt, kmods)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    (_, m), = tr.metrics_log
+    log(f"  (d) 2 layers bf16, {LONG_TRAIN_TOKENS} tokens: loss "
+        f"{m['loss']:.4f}, {m['step_time_s']:.3f} s, chunked_attention "
+        f"calls {counts['chunked']} (2 layers, forward and recompute), "
+        f"flash launches {counts['flash_attention']}, peak device memory "
+        f"{peak_gb:.2f} GB")
+    check(np.isfinite(m["loss"]) and counts == dict(_launches(), chunked=4),
+          "the long step: finite, chunked_attention in each layer's forward"
+          " and recompute, no kernel launch")
+    del tr
+    torch.cuda.empty_cache()
+
+    g = torch.Generator(device=DEV).manual_seed(23)
+    q, k, v = _qkv(g, *CHUNKED_GRAD_SHAPE, torch.float32)
+    w = torch.randn(q.shape, generator=g, device=DEV)
+    grads = []
+    for fn in (pt.fa.chunked_attention, pt.layers.full_attention):
+        ts = [t.clone().requires_grad_() for t in (q, k, v)]
+        (fn(*ts, causal=True) * w).sum().backward()
+        grads.append([t.grad for t in ts])
+    rels = [_rel(a, b) for a, b in zip(*grads)]
+    log(f"  (d) chunked_attention's q/k/v gradients against full_attention's "
+        f"at {CHUNKED_GRAD_SHAPE} (B, S, H, KH, hd) f32 causal: relative L2 "
+        + ", ".join(f"{r:.3e}" for r in rels) + f" (bound {CHUNKED_GRAD_REL})")
+    check(max(rels) < CHUNKED_GRAD_REL,
+          "chunked_attention's gradients are full_attention's")
+    del q, k, v, w, grads
+    torch.cuda.empty_cache()
+    return dict(peak_gb=peak_gb, chunked=counts["chunked"],
+                launches=counts["flash_attention"], step_s=m["step_time_s"],
+                grad_rel=max(rels))
+
+
+def phase_lm_train(pt, kmods) -> dict:
+    cfg = pt.LMT_CONFIG
+    log(f"== 8t. LM training: {cfg.name} at full width and depth "
+        f"({cfg.num_layers} layers, d {cfg.d_model}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}, {cfg.dtype}), AdamW with int8 moments, remat, "
+        f"{LMT_BATCH} x {LMT_SEQ} tokens a step from lm_batches")
+    laps = {}
+    with _timed(laps, "(a) train"):
+        full = _train_full(pt, kmods, cfg)
+    with _timed(laps, "(b) card vs CPU"):
+        grad = _train_grad_vs_cpu(pt, cfg)
+    with _timed(laps, "(c) resume"):
+        resume = _train_resume(pt, cfg)
+    with _timed(laps, "(d) long"):
+        long = _train_long(pt, kmods, cfg)
+    secs = _log_laps("8t", laps)
+    return dict(full, grad=grad, resume=resume, long=long, secs=secs,
+                launches=full["launches"] + long["launches"])
+
+
 def _profile_lm(fn, label, unprofiled_ms) -> dict:
     """One call of ``fn`` under torch.profiler: the device's busy time by
     kernel, and its busy share of the same work's unprofiled time.  The
@@ -4005,8 +4369,17 @@ def main() -> int:
         from repro_torch.analysis.contracts import TBE_KERNEL
         from repro_torch.data.synthetic import dlrm_batches
         from repro_torch.kernels import ops as kops
-        from repro_torch.optim import (rowwise_adagrad_init,
+        from repro_torch.optim import (adamw_init, adamw_update,
+                                       dequantize_blockwise, global_norm,
+                                       rowwise_adagrad_init,
                                        rowwise_adagrad_update)
+        from repro_torch.configs.base import TrainConfig
+        from repro_torch.configs.granite_8b import CONFIG as LMT_CONFIG
+        from repro_torch.data import Prefetcher, lm_batches
+        from repro_torch.train import step as tstep
+        from repro_torch.train.loop import Trainer
+        from repro_torch.utils.tree import (flatten_with_paths, leaves,
+                                            map_leaves)
 
     # full fp32 products on the card, as in the reference
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4072,6 +4445,13 @@ def main() -> int:
     log(f"== phase 8v freed: {after / 1e9:.3f} GB allocated after it "
         f"(peak {vl['peak_gb']:.1f} GB in it)")
     check(after <= held + 2 ** 26, "phase 8v's weights and cache freed")
+    lt = phase_lm_train(pt, (eg, oa, pt.fa))
+    after = torch.cuda.memory_allocated()
+    log(f"== phase 8t freed: {after / 1e9:.3f} GB allocated after it "
+        f"(peak {lt['peak_gb']:.1f} GB in it)")
+    # held counts the two 32 MiB cuBLAS workspaces, the main thread's and
+    # the autograd engine's device thread's (phase 7t's backward made it)
+    check(after <= held + 2 ** 26, "phase 8t's state freed")
 
     log("== 9. summary")
     # each main path's launches, read from its own run with the counts
@@ -4093,9 +4473,13 @@ def main() -> int:
                             "8m MoE serving": moe["launches"],
                             "8h hybrid serving": hy["launches"],
                             "8v vlm forward": vl["fwd_launches"],
-                            "8v vlm serving": vl["launches"]},
+                            "8v vlm serving": vl["launches"],
+                            TRAIN_PATH: lt["launches"]},
     }
-    check(all(n > 0 for paths in by_path.values() for n in paths.values()),
+    # LM training runs no kernel: the flash kernel has no backward, and
+    # under grad attention takes chunked_attention (phase 8t checks 0)
+    check(all(n > 0 for paths in by_path.values()
+              for path, n in paths.items() if path != TRAIN_PATH),
           "every kernel launched on each main path that runs it")
     times.update(dist["times"])
     errs.update(dist["errs"])
@@ -4281,6 +4665,25 @@ def main() -> int:
         f"serving, device idle {vl['prof']['decode']['idle']:.1f}% of a "
         f"decode step, {vl['prof']['long_prefill']['idle']:.1f}% of a "
         f"{LONG_PROMPT}-token prefill; phase {vl['secs']:.1f} s")
+    lg, lr_, ll = lt["grad"], lt["resume"], lt["long"]
+    log(f"LM training ({pt.LMT_CONFIG.name}, {lt['n_params']:,} parameters,"
+        f" int8 moments, state {lt['state_bytes'] / 1e9:.2f} GB): losses "
+        f"{[round(v, 4) for v in lt['losses']]}, grad norms "
+        f"{[round(v, 4) for v in lt['gnorms']]}, median step "
+        f"{lt['med_s']:.3f} s ({lt['tokens_s']:.1f} tokens/s at "
+        f"{LMT_BATCH} x {LMT_SEQ}), forward + backward {lt['fb_ms']:.1f} ms,"
+        f" update {lt['upd_ms']:.1f} ms, device idle "
+        f"{lt['prof']['idle']:.1f}% of a step, peak device memory "
+        f"{lt['peak_gb']:.2f} GB, flash launches {lt['launches']}; card vs "
+        f"CPU loss {lg['loss_rel']:.3e}, gradient norm "
+        f"{lg['norm_rel']:.3e}, gradients {lg['grad_rel']:.3e}, "
+        f"parameters {lg['param_rel']:.3e}, moments m {lg['m_rel']:.3e} v "
+        f"{lg['v_rel']:.3e}, codes differing {lg['codes_differ']:.3e}; "
+        f"resume bitwise, checkpoint {lr_['ckpt_bytes']:,} B; "
+        f"{LONG_TRAIN_TOKENS} tokens: {ll['step_s']:.3f} s, chunked_attention"
+        f" calls {ll['chunked']}, flash launches {ll['launches']}, peak "
+        f"{ll['peak_gb']:.2f} GB, chunked vs full gradients "
+        f"{ll['grad_rel']:.3e}; phase {lt['secs']:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

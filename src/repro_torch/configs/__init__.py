@@ -13,7 +13,11 @@ from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import MLAConfig, ModelConfig  # noqa: F401
+from repro_torch.configs.base import (  # noqa: F401
+    MLAConfig,
+    ModelConfig,
+    TrainConfig,
+)
 
 ARCH_IDS = [
     "moonshot-v1-16b-a3b",

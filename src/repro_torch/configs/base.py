@@ -1,6 +1,7 @@
 """LM architecture configuration: the counterpart of ``repro.configs.base``'s
-``MLAConfig`` and ``ModelConfig`` (copied field for field, so a config
-built here and one built there describe the same model).
+``MLAConfig``, ``ModelConfig`` and ``TrainConfig`` (copied field for
+field, so a config built here and one built there describe the same
+model and the same training run).
 
 Every architecture gets one ``repro_torch/configs/<id>.py`` exposing
 ``CONFIG`` (the published shape) and ``smoke()`` (a reduced same-family
@@ -142,3 +143,23 @@ class ModelConfig:
         n_moe = self.num_layers - self.first_k_dense
         inactive = n_moe * (self.num_experts - self.experts_per_token) * per_expert
         return self.param_count() - inactive
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """LM training's knobs: the reference's ``TrainConfig``, field for
+    field."""
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    grad_accum: int = 1
+    optimizer_state_dtype: str = "float32"   # float32 | bfloat16 | int8
+    remat: bool = True
+    checkpoint_every: int = 50
+    keep_checkpoints: int = 3
+    seed: int = 0

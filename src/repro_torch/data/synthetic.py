@@ -1,21 +1,53 @@
-"""Deterministic synthetic DLRM batches (Criteo-like).
+"""Deterministic synthetic data: LM token batches and DLRM batches
+(Criteo-like).
 
-The counterpart of ``repro.data.synthetic.dlrm_batches`` and
-``dlrm_drift_batches``: the batch at step ``s`` is a pure function of
-``(seed, s)``, drawn with numpy exactly as the reference draws it, and
-yielded as tensors on the device asked for.
+The counterpart of ``repro.data.synthetic``'s ``lm_batches``,
+``dlrm_batches``, ``dlrm_drift_batches`` and ``Prefetcher``: the batch at
+step ``s`` is a pure function of ``(seed, s)``, drawn with numpy exactly
+as the reference draws it, so a trainer resumed at step k sees the same
+batches from step k on.  ``lm_batches`` yields numpy arrays, bitwise the
+reference's (the trainer moves them to its device); the DLRM streams
+yield tensors on the device asked for.  :class:`Prefetcher` runs any
+such iterator on a host thread behind a bounded queue.
 """
 from __future__ import annotations
 
+import queue
+import threading
 from typing import Dict, Iterator, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.dlrm import DLRMConfig
 from repro_torch.core.jagged import (JaggedBatch,
                                      random_jagged_batch, zipf_ranks)
 from repro_torch.utils.device import resolve_device
+
+
+def lm_batches(cfg: ModelConfig, batch: int, seq: int, *,
+               seed: int = 0, start_step: int = 0,
+               zipf_a: float = 1.2) -> Iterator[Dict[str, np.ndarray]]:
+    """Yields numpy ``{"tokens" (B, S), "labels" (B, S)}`` int32, Zipf
+    ranks clipped to the vocabulary (labels: the tokens shifted by one),
+    plus ``"frames"`` (B, encoder_seq_len, d) for the audio family and
+    ``"patches"`` (B, vision_tokens, vision_dim) for the vlm family,
+    N(0, 1) f32."""
+    step = start_step
+    while True:
+        rng = np.random.default_rng((seed, step))
+        ranks = rng.zipf(zipf_a, size=(batch, seq + 1)).astype(np.int64)
+        toks = np.minimum(ranks - 1, cfg.vocab_size - 1).astype(np.int32)
+        out = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        if cfg.family == "audio":
+            out["frames"] = rng.standard_normal(
+                (batch, cfg.encoder_seq_len, cfg.d_model)).astype(np.float32)
+        if cfg.family == "vlm":
+            out["patches"] = rng.standard_normal(
+                (batch, cfg.vision_tokens, cfg.vision_dim)).astype(np.float32)
+        yield out
+        step += 1
 
 
 def dlrm_batches(cfg: DLRMConfig, batch: int, *, seed: int = 0,
@@ -91,3 +123,35 @@ def dlrm_drift_batches(cfg: DLRMConfig, batch: int, *, seed: int = 0,
                "labels": torch.as_tensor(labels, device=device),
                "phase": phase}
         step += 1
+
+
+class Prefetcher:
+    """Bounded-queue host prefetch around any batch iterator: a daemon
+    thread fills a queue of ``depth`` batches; :meth:`close` stops it."""
+
+    def __init__(self, it: Iterator, depth: int = 2):
+        self._q: "queue.Queue" = queue.Queue(maxsize=depth)
+        self._stop = threading.Event()
+
+        def worker():
+            for item in it:
+                if self._stop.is_set():
+                    return
+                self._q.put(item)
+
+        self._t = threading.Thread(target=worker, daemon=True)
+        self._t.start()
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        return self._q.get()
+
+    def close(self):
+        self._stop.set()
+        try:
+            while True:
+                self._q.get_nowait()
+        except queue.Empty:
+            pass

@@ -29,13 +29,24 @@ call, on either device, adds one to ``CALL_COUNTS["flash_attention"]``).
 There is no fallback: a build or launch failure of either kernel raises,
 and an input that breaks TMA's rules raises rather than taking the SIMT
 route.
+
+The kernels compute the forward only (the reference's Pallas kernel has
+no backward either): on a CUDA tensor that needs a gradient, with grad
+enabled, the wrapper raises.  Training differentiates
+:func:`chunked_attention` instead, as the reference does
+(``models/layers.attention`` takes it under grad), each of its q blocks
+under ``torch.utils.checkpoint`` so that one block's intermediates are
+alive at a time in the backward.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
+
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import build as _build
 
@@ -102,6 +113,41 @@ def _kernel(route: str):
 
 # --- plain version (what CPU tensors take) ----------------------------------
 
+def _q_block(qt, kf, vf, q_lo: int, S: int, kb: int, nK: int, causal: bool,
+             window: Optional[int], scale: float, skip_masked_blocks: bool):
+    """One q block of :func:`chunked_attention`: qt (B, qn, KH, G, hd) f32
+    at rows ``q_lo``.., walking the kv blocks of kf/vf (B, S, KH, hd)
+    with the online softmax.  Returns (B, qn, KH * G, hd_v) f32."""
+    B, qn, KH, G, _ = qt.shape
+    hd_v = vf.shape[3]
+    dev = qt.device
+    qpos = q_lo + torch.arange(qn, device=dev)
+    m = torch.full((B, KH, G, qn), -torch.inf, device=dev)
+    l = torch.zeros((B, KH, G, qn), device=dev)
+    acc = torch.zeros((B, KH, G, qn, hd_v), device=dev)
+    for ki in range(nK):
+        k_lo = ki * kb
+        if causal and skip_masked_blocks and k_lo > q_lo + qn - 1:
+            break
+        kt, vt = kf[:, k_lo:k_lo + kb], vf[:, k_lo:k_lo + kb]
+        kpos = k_lo + torch.arange(kt.shape[1], device=dev)
+        s = torch.einsum("bqkgd,bskd->bkgqs", qt, kt) * scale
+        msk = (kpos < S)[None, :].expand(qn, -1)
+        if causal:
+            msk = msk & (kpos[None, :] <= qpos[:, None])
+        if window is not None:
+            msk = msk & (kpos[None, :] > qpos[:, None] - window)
+        s = s.masked_fill(~msk, -1e30)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bkgqs,bskd->bkgqd", p, vt)
+        m = m_new
+    o = acc / torch.clamp(l, min=1e-30)[..., None]        # (B, KH, G, qn, hd)
+    return o.permute(0, 3, 1, 2, 4).reshape(B, qn, KH * G, hd_v)
+
+
 def chunked_attention(q, k, v, *, causal: bool = True,
                       window: Optional[int] = None, q_block: int = 1024,
                       kv_block: int = 1024, scale: Optional[float] = None,
@@ -114,7 +160,9 @@ def chunked_attention(q, k, v, *, causal: bool = True,
     keys after the query (``causal``) and keys at or before ``query -
     window`` score -1e30.  With ``causal`` and ``skip_masked_blocks``, kv
     blocks wholly above the diagonal are not visited (the reference keeps
-    the old carry for them: the same result)."""
+    the old carry for them: the same result).  Under grad, with an input
+    that needs one, each q block runs under ``torch.utils.checkpoint``
+    (the same values; the backward recomputes one block at a time)."""
     B, S, H, hd = q.shape
     KH = k.shape[2]
     hd_v = v.shape[3]
@@ -122,41 +170,18 @@ def chunked_attention(q, k, v, *, causal: bool = True,
     scale = scale if scale is not None else hd ** -0.5
     qb, kb = min(q_block, S), min(kv_block, S)
     nQ, nK = -(-S // qb), -(-S // kb)
-    dev = q.device
     qf = q.float().reshape(B, S, KH, G, hd)
     kf, vf = k.float(), v.float()
-    out = torch.empty((B, S, H, hd_v), dtype=q.dtype, device=dev)
+    args = (S, kb, nK, causal, window, scale, skip_masked_blocks)
+    run = _q_block
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        run = functools.partial(checkpoint, _q_block, use_reentrant=False)
+    out = torch.empty((B, S, H, hd_v), dtype=q.dtype, device=q.device)
     for qi in range(nQ):
         q_lo = qi * qb
-        qt = qf[:, q_lo:q_lo + qb]                       # (B, qn, KH, G, hd)
-        qn = qt.shape[1]
-        qpos = q_lo + torch.arange(qb, device=dev)[:qn]
-        m = torch.full((B, KH, G, qn), -torch.inf, device=dev)
-        l = torch.zeros((B, KH, G, qn), device=dev)
-        acc = torch.zeros((B, KH, G, qn, hd_v), device=dev)
-        for ki in range(nK):
-            k_lo = ki * kb
-            if causal and skip_masked_blocks and k_lo > q_lo + qb - 1:
-                break
-            kt, vt = kf[:, k_lo:k_lo + kb], vf[:, k_lo:k_lo + kb]
-            kpos = k_lo + torch.arange(kt.shape[1], device=dev)
-            s = torch.einsum("bqkgd,bskd->bkgqs", qt, kt) * scale
-            msk = (kpos < S)[None, :].expand(qn, -1)
-            if causal:
-                msk = msk & (kpos[None, :] <= qpos[:, None])
-            if window is not None:
-                msk = msk & (kpos[None, :] > qpos[:, None] - window)
-            s = s.masked_fill(~msk, -1e30)
-            m_new = torch.maximum(m, s.amax(dim=-1))
-            p = torch.exp(s - m_new[..., None])
-            corr = torch.exp(m - m_new)
-            l = l * corr + p.sum(dim=-1)
-            acc = acc * corr[..., None] + torch.einsum("bkgqs,bskd->bkgqd",
-                                                       p, vt)
-            m = m_new
-        o = acc / torch.clamp(l, min=1e-30)[..., None]    # (B, KH, G, qn, hd)
-        out[:, q_lo:q_lo + qn] = o.permute(0, 3, 1, 2, 4).reshape(
-            B, qn, H, hd_v).to(q.dtype)
+        qt = qf[:, q_lo:q_lo + qb]
+        out[:, q_lo:q_lo + qt.shape[1]] = run(qt, kf, vf, q_lo,
+                                              *args).to(q.dtype)
     return out
 
 
@@ -233,10 +258,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     window: Optional[int] = None) -> torch.Tensor:
     """q (B, S, H, hd); k, v (B, S, KH, hd) -> (B, S, H, hd) in q's dtype,
     scale ``hd ** -0.5``.  One launch of :func:`pick_route`'s kernel on a
-    CUDA tensor; the plain version on a CPU tensor."""
+    CUDA tensor; the plain version on a CPU tensor.  The kernels have no
+    backward: a CUDA tensor that needs a gradient, with grad enabled,
+    raises."""
     CALL_COUNTS["flash_attention"] += 1
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention: the CUDA kernels compute the forward only and "
+            "q, k or v needs a gradient; differentiate chunked_attention "
+            "(models/layers.attention takes it under grad, as the reference "
+            "does: LM training, ROADMAP Queue 1 item 13.7)")
     route = pick_route(q.dtype, q.shape[-1])
     out = _launch(q, k, v, causal, window, route)
     LAUNCH_COUNTS["flash_attention"] += 1

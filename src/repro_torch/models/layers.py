@@ -11,8 +11,9 @@ Parameters are nested dicts of tensors, every module an ``init_*`` /
     ``chunk_threshold`` keys to the flash kernel
     (``kernels/flash_attention.py``; on a CPU tensor its plain version,
     :func:`chunked_attention`), except a shape the kernel does not take
-    (MLA's hd_v != hd), which goes to :func:`chunked_attention` on any
-    device, as every long shape does in the reference
+    (MLA's hd_v != hd) and any input that needs a gradient under grad
+    (the kernel has no backward), which go to :func:`chunked_attention`
+    on any device, as every long shape does in the reference
 """
 from __future__ import annotations
 
@@ -162,16 +163,21 @@ def attention(q, k, v, *, causal=True, window=None, q_offset: int = 0,
               scale=None, chunk_threshold: int = 8192):
     """The reference's dispatch: full attention for at most
     ``chunk_threshold`` keys (or a q shorter than k), beyond it the
-    flash kernel, which takes ``scale = hd ** -0.5`` and ``hd_v == hd``.
-    Any other long shape (MLA's q/k at hd 192 against v at 128) goes to
-    :func:`chunked_attention` by its shape, on either device, and adds
-    one to ``CALL_COUNTS["chunked_attention"]``."""
+    flash kernel, which takes ``scale = hd ** -0.5`` and ``hd_v == hd``
+    and computes no gradient.  Any other long shape (MLA's q/k at hd 192
+    against v at 128), and any long input that needs a gradient under
+    grad (training), goes to :func:`chunked_attention`, the reference's
+    formulation, on either device, and adds one to
+    ``CALL_COUNTS["chunked_attention"]``."""
     Sk = k.shape[1]
     if Sk <= chunk_threshold or q.shape[1] != Sk:
         return full_attention(q, k, v, causal=causal, window=window,
                               q_offset=q_offset, scale=scale)
     hd = q.shape[-1]
-    if (scale is not None and scale != hd ** -0.5) or v.shape[-1] != hd:
+    grad = torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (q, k, v))
+    if (grad or (scale is not None and scale != hd ** -0.5)
+            or v.shape[-1] != hd):
         CALL_COUNTS["chunked_attention"] += 1
         return chunked_attention(q, k, v, causal=causal, window=window,
                                  scale=scale)

@@ -25,8 +25,19 @@ Python loop (the reference scans them).
 
 Single device only: ``ctx`` (the vocabulary through the row-wise sharded
 embedding bag, GSPMD constraints, expert parallelism) must be None.
-Serving ignores the MTP head, as the reference does; its loss belongs to
-LM training (item 13.7).
+Serving ignores the MTP head, as the reference does; its loss is LM
+training's (``train/step.lm_loss``).
+
+Training: ``forward(..., remat=True)`` runs each block under
+``torch.utils.checkpoint`` (full recompute, MoE blocks too; the
+reference saves the MoE output through its policy, the same values at
+less cost).  Under grad, :func:`layer` slices a stacked parameter whose
+``.grad`` the caller preallocated (``train/step.TrainStep``) through
+:class:`_LayerSlice`, which adds the layer's gradient into that
+``.grad`` slice: indexing (``select``'s backward) would build a zero
+tensor the size of the whole stack for every layer.  Any other stacked
+leaf is indexed, so ``torch.autograd.grad`` and ``torch.func`` see its
+gradient.
 """
 from __future__ import annotations
 
@@ -34,6 +45,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers, mla, ssm
@@ -230,10 +242,50 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *, tp_size: int = 1,
     return params
 
 
+class _LayerSlice(torch.autograd.Function):
+    """``stack[i]`` of a leaf ``stack`` whose ``.grad`` is preallocated
+    (the train step's buffers): the view in the forward; the backward adds
+    the slice's gradient into ``stack.grad[i]`` and passes nothing on, so
+    no stack-sized zero tensor is built per layer.  Only ``.backward()``
+    into those buffers sees this gradient: :func:`_slice` takes it only
+    where the caller has allocated them."""
+
+    @staticmethod
+    def forward(ctx, stack, i):
+        ctx.set_materialize_grads(False)
+        ctx.stack, ctx.i = stack, i
+        return stack[i]
+
+    @staticmethod
+    def backward(ctx, g):
+        if g is not None:
+            ctx.stack.grad[ctx.i].add_(g)
+        return None, None
+
+
+def _slice(v: torch.Tensor, i: int) -> torch.Tensor:
+    if (torch.is_grad_enabled() and v.requires_grad and v.is_leaf
+            and v.grad is not None):
+        return _LayerSlice.apply(v, i)
+    return v[i]
+
+
 def layer(stack: Dict[str, Any], i: int) -> Dict[str, Any]:
-    """Layer ``i`` of a stacked parameter (or cache) tree: views."""
-    return {k: layer(v, i) if isinstance(v, dict) else v[i]
+    """Layer ``i`` of a stacked parameter (or cache) tree: views (under
+    grad, a leaf whose ``.grad`` is preallocated through
+    :class:`_LayerSlice`; any other leaf by indexing, which every form of
+    autograd differentiates)."""
+    return {k: layer(v, i) if isinstance(v, dict) else _slice(v, i)
             for k, v in stack.items()}
+
+
+def _run_block(remat: bool, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, under ``torch.utils.checkpoint`` with
+    ``remat`` when grad is enabled (the reference's ``jax.checkpoint``
+    of each scanned block)."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False, **kwargs)
+    return fn(*args, **kwargs)
 
 
 # ===========================================================================
@@ -406,11 +458,13 @@ def _block(pl, h, positions, cfg, *, window=None, cross_feats=None):
     return h + out, entry, aux
 
 
-def encode(params, frames, cfg: ModelConfig) -> torch.Tensor:
+def encode(params, frames, cfg: ModelConfig, *,
+           remat: bool = False) -> torch.Tensor:
     """The audio family's encoder: ``frames`` (B, S_enc, d), precomputed
     frame embeddings, cast to the parameters' dtype, plus ``enc_pos``,
-    through ``enc_blocks`` (non-causal, no rotation) and ``enc_norm``.
-    Returns (B, S_enc, d)."""
+    through ``enc_blocks`` (non-causal, no rotation; each under
+    ``torch.utils.checkpoint`` with ``remat`` under grad) and
+    ``enc_norm``.  Returns (B, S_enc, d)."""
     if frames is None:
         raise ValueError(f"{cfg.name}: the audio family needs frames= "
                          f"(B, S_enc, d) frame embeddings")
@@ -418,8 +472,9 @@ def encode(params, frames, cfg: ModelConfig) -> torch.Tensor:
     enc = torch.as_tensor(frames, device=pos.device).to(pos.dtype)
     enc = enc + pos[: enc.shape[1]]
     for i in range(cfg.encoder_layers):
-        enc, _ = _dense_block(layer(params["enc_blocks"], i), enc, None,
-                              cfg, causal=False)
+        enc, _ = _run_block(remat, _dense_block,
+                            layer(params["enc_blocks"], i), enc, None, cfg,
+                            causal=False)
     return _norm(enc, layer(params["enc_norm"], 0), cfg)
 
 
@@ -436,7 +491,7 @@ def project_patches(pj, patches, dtype) -> torch.Tensor:
 
 
 def forward(params, tokens: torch.Tensor, cfg: ModelConfig, ctx=None, *,
-            frames=None, patches=None
+            frames=None, patches=None, remat: bool = False
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """tokens (B, S) -> hidden (B, S_total, d) after the final norm, aux.
 
@@ -447,7 +502,8 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, ctx=None, *,
     to the text, so S_total = vision_tokens + S and the text's positions
     start at vision_tokens.  aux: for MoE ``moe_aux``, the mean over the
     MoE layers, and ``moe_dropped``, their sum; {} for the dense, hybrid
-    and ssm families."""
+    and ssm families.  ``remat``: each block (the encoder's too) under
+    ``torch.utils.checkpoint`` when grad is enabled, the same values."""
     _require_ported(cfg)
     h = embed_tokens(params, tokens, cfg, ctx)
     aux: Dict[str, torch.Tensor] = {}
@@ -459,14 +515,16 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, ctx=None, *,
         h = torch.cat([project_patches(params["projector"], patches,
                                        h.dtype), h], dim=1)
     if cfg.family == "audio":
-        cross = aux["encoder_out"] = encode(params, frames, cfg)
+        cross = aux["encoder_out"] = encode(params, frames, cfg,
+                                            remat=remat)
     B, S = h.shape[:2]
     positions = torch.arange(S, device=h.device).expand(B, S)
     auxes = []
     for name, n, windows in block_stacks(cfg):
         for i in range(n):
-            h, _, a = _block(layer(params[name], i), h, positions, cfg,
-                             window=windows[i], cross_feats=cross)
+            h, _, a = _run_block(remat, _block, layer(params[name], i), h,
+                                 positions, cfg, window=windows[i],
+                                 cross_feats=cross)
             if a:
                 auxes.append(a)
     if auxes:

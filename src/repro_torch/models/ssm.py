@@ -123,8 +123,19 @@ def _doubling_scan(a, b):
     returns (prod a_{<=t}, h_t), each like ``a``.  Log-depth (Hillis and
     Steele): at stride s every step t >= s combines with step t - s,
     (a_l, b_l) . (a_r, b_r) = (a_l a_r, b_l a_r + b_r), the reference's
-    ``associative_scan`` combine, into a second buffer."""
+    ``associative_scan`` combine, into a second buffer.  Under grad, with
+    an input that needs one, each stride's result is a new tensor (the
+    same values: autograd differentiates no ``out=`` op and no buffer
+    written after use)."""
     n = a.shape[1]
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        s = 1
+        while s < n:
+            a, b = (torch.cat([a[:, :s], a[:, :-s] * a[:, s:]], dim=1),
+                    torch.cat([b[:, :s], torch.addcmul(b[:, s:], b[:, :-s],
+                                                       a[:, s:])], dim=1))
+            s *= 2
+        return a, b
     a2, b2 = torch.empty_like(a), torch.empty_like(b)
     s = 1
     while s < n:

@@ -6,7 +6,8 @@ layout the port uses -- ``{"tables", "bottom": [{"w", "b"}, ...],
 "top": [...]}`` with ``(in, out)`` weights applied as ``x @ w + b`` -- so
 the conversion copies each array, without a transpose.  The same holds
 for the reference's LM ``init_params`` (``lm_params_from_numpy``): stacked
-``(num_layers, ...)`` blocks, ``(in, out)`` weights.
+``(num_layers, ...)`` blocks, ``(in, out)`` weights; and for its train
+state (``train_state_from_numpy``), int8 moments included.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.jagged import JaggedBatch
+from repro_torch.optim.quant import QuantizedTensor
 from repro_torch.utils.device import resolve_device
 
 
@@ -57,6 +59,28 @@ def lm_params_from_numpy(params: Dict[str, Any], *,
         return _tensor(tree, device)
 
     return conv(params)
+
+
+def train_state_from_numpy(state: Dict[str, Any], *,
+                           device=None) -> Dict[str, Any]:
+    """The reference's LM train state ``{"params", "opt": {"m", "v",
+    "step"}}`` as numpy (for example ``jax.tree_util.tree_map(np.asarray,
+    state)``, which keeps each ``QuantizedTensor`` with numpy ``q`` and
+    ``scale``) -> the port's state on ``device`` (None: the card): the
+    same trees of tensors, an int8 moment as the port's
+    ``QuantizedTensor``."""
+    device = resolve_device(device)
+
+    def conv(tree):
+        if isinstance(tree, dict):
+            return {k: conv(v) for k, v in tree.items()}
+        if hasattr(tree, "q") and hasattr(tree, "scale"):
+            return QuantizedTensor(_tensor(tree.q, device),
+                                   _tensor(tree.scale, device),
+                                   tuple(tree.shape), tree.mode)
+        return _tensor(tree, device)
+
+    return conv(state)
 
 
 def batch_from_numpy(dense: np.ndarray, indices: np.ndarray,

@@ -11,8 +11,10 @@ The shapes are the edges that ``chip_smoke.py``'s main-path shapes do
 not reach: sequences of 1 and 2 tokens, one short of and one past a
 128-row tile, windows of 1 and around a tile, non-causal windows, MHA
 and GQA, q/k/v as views of one fused projection.  Tolerance:
-``chip_smoke.py``'s FLASH_TOL for bf16, ``rtol = atol = 1e-2``.  This file
-imports no JAX, so that it runs where only PyTorch is installed.
+``chip_smoke.py``'s FLASH_TOL for bf16, ``rtol = atol = 1e-2``.  The
+wrapper refuses a q, k or v that needs a gradient (the kernel has no
+backward; training takes ``chunked_attention``).  This file imports no
+JAX, so that it runs where only PyTorch is installed.
 """
 import pytest
 import torch
@@ -76,3 +78,31 @@ def test_wgmma_kernel_refuses_a_misaligned_view(card):
     with pytest.raises(ValueError, match="16-byte aligned"):
         tflash.flash_attention(x, x, x, causal=True)
     assert tflash.ROUTE_COUNTS == {"wgmma": 0, "simt": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("needs_grad", ["q", "k", "v"])
+def test_wrapper_refuses_a_tensor_that_needs_a_gradient(card, needs_grad):
+    """The kernels have no backward: under grad, a q, k or v that needs a
+    gradient raises before any launch (naming chunked_attention), and
+    layers.attention takes chunked_attention instead, whose gradient
+    flows; without grad the same tensors launch the kernel."""
+    from repro_torch.models import layers
+
+    g = torch.Generator(device=card).manual_seed(11)
+    q, k, v = (_randn(g, (1, 300, n, 64), card) for n in (4, 2, 2))
+    qkv = {"q": q, "k": k, "v": v}
+    qkv[needs_grad].requires_grad_(True)
+    tflash.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="chunked_attention"):
+        tflash.flash_attention(q, k, v, causal=True)
+    assert tflash.LAUNCH_COUNTS["flash_attention"] == 0
+    layers.reset_call_counts()
+    out = layers.attention(q, k, v, causal=True, chunk_threshold=256)
+    assert layers.CALL_COUNTS["chunked_attention"] == 1
+    assert tflash.LAUNCH_COUNTS["flash_attention"] == 0
+    out.float().sum().backward()
+    assert torch.isfinite(qkv[needs_grad].grad.float()).all()
+    with torch.no_grad():
+        tflash.flash_attention(q, k, v, causal=True)
+    assert tflash.ROUTE_COUNTS == {"wgmma": 1, "simt": 0}
