@@ -118,6 +118,13 @@ Phases:
      decode-matches-forward at full width (on a long and a short
      prompt), prefill and decode times, tokens/s, peak device memory,
      and a profiled decode step, short prefill and 16,384-token prefill;
+     the ctx leg: the long and the first short request (16 new tokens
+     each, 2 slots) without a context and under make_context(4) (4
+     simulated ranks): each admission's logits bitwise the local run's
+     (the vocabulary through the row-wise sharded bag), decode steps
+     with equal inputs within 2e-2 of the local run's hidden rows (the
+     sequence-sharded flash-decode), greedy tokens that differ logged, 4
+     TBE launches per prefill and per decode step, 36 flash launches;
   8m. MoE serving, after phase 8's weights and cache are freed (checked):
      moonshot-v1-16b-a3b at full width in bf16 (28,325,838,848
      parameters, random from a seed): the flash kernel against its plain
@@ -133,7 +140,12 @@ Phases:
      16,384-token prefill; decode against forward on a short prompt,
      free-running (logged: each MoE layer's routing flips between the
      two paths, per-layer divergence) and on the forward's expert
-     choices (held to 2e-2);
+     choices (held to 2e-2); the ctx leg: layer 1's moe_ffn_ep over 4
+     ranks (16 experts each) on the 2,048 real rows, the card against
+     the CPU (relative L2 1e-2, drops equal), then the long prompt's
+     prefill and 16 greedy decode steps under make_context(4): moe_dropped
+     per prefill and per step, 4 TBE launches per prefill and per step,
+     48 flash launches, the prefill's time, decode tokens/s;
   8d. MLA serving, after phase 8m's weights and cache are freed (checked):
      deepseek-v3-671b at its published widths in bf16, cut to 5 layers (3
      dense MLA layers, 2 MoE layers of 256 experts top-8 + 1 shared;
@@ -155,7 +167,13 @@ Phases:
      forward on the 1,354-token prompt, free-running (logged with its
      routing flips) and on the forward's expert choices (held to 2e-2);
      (e) the latent cache exactly 189,112,320 B, and the phase's memory
-     freed after it;
+     freed after it; the ctx leg: 16 decode steps after the long prompt
+     under make_context(4) over the latent cache sharded along its
+     16,416 positions, on the local decode's tokens: each MLA layer's
+     sharded decode attention within 2e-2 of the whole cache's on the
+     same inputs, the hidden rows against the local decode's logged with
+     each step's moe_dropped (held to 2e-2 when nothing is dropped), 4
+     TBE launches a step;
   8h. hybrid serving, after phase 8d's memory is freed (checked):
      hymba-1.5b at CONFIG, all 32 layers, bf16 (1,662,264,000 parameters,
      random from a seed): (a) the flash kernel against its plain version
@@ -234,9 +252,12 @@ Phases:
      kernel has no backward; the wrapper refuses a tensor that needs a
      gradient), peak memory; and chunked_attention's q/k/v gradients
      against full_attention's at (1, 4096, 32/8, 128) f32 causal, within
-     relative L2 1e-4;
+     relative L2 1e-4; (a') one step of (a)'s run under make_context(4),
+     a Trainer from the same seed: the loss bitwise (a)'s step 1, 4 TBE
+     launches, peak device memory; (c') (c) under make_context(4);
   9. the card line, one JSON line of the kernels (the flash kernel's
-     launches_by_path records LM training's 0), and last the result line.
+     launches_by_path records LM training's 0; the ctx legs' launches are
+     paths of their own), and last the result line.
 
 A profile whose device records a check or a DLRM idle share reads traces
 the host and the card (``contracts.profile_complete``): it opens with 16
@@ -2582,6 +2603,333 @@ def phase_train(pt, eg, oa) -> dict:
 # 8. LM serving
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# The ctx legs of phases 8, 8m, 8d and 8t: the LM under a ParallelContext
+# of CTX_RANKS simulated ranks on the card, on the phase's own weights
+# ---------------------------------------------------------------------------
+
+CTX_RANKS = 4                # simulated ranks of the model axis
+CTX_SLOTS = 2                # the ctx legs' batchers: 2 slots x LM_MAX_LEN
+CTX_NEW = 16                 # new tokens a request; decode steps a leg
+TBE_FLAT = "gather_pool_tbe_flat"  # the row-wise partial lookup's wrapper
+
+
+def _greedy(pt, params, cfg, hidden, ctx):
+    """The head's greedy tokens (B,) of hidden (B, d) under ``ctx``."""
+    logits = pt.lm.lm_logits(params, hidden[:, None], cfg, ctx)[:, 0]
+    return torch.argmax(logits[:, :cfg.vocab_size], dim=-1).to(torch.int32)
+
+
+def _ctx_batcher_run(pt, params, cfg, reqs, kmods, ctx) -> dict:
+    """Serve ``reqs`` (CTX_NEW new tokens each) through
+    ContinuousBatcher(CTX_SLOTS x LM_MAX_LEN, ctx) from launch counts at
+    0, recording the head's input and output at each call: an admission's
+    last hidden row (1, d) and logits, a decode step's rows (CTX_SLOTS,
+    d) and logits.  Returns them with each step's admissions and
+    launches, the timings and the run's counts."""
+    eng = pt.ContinuousBatcher(params, cfg, num_slots=CTX_SLOTS,
+                               max_len=LM_MAX_LEN, ctx=ctx, eos_id=-1,
+                               device=DEV)
+    heads, real = [], eng._head
+
+    def head(hidden):
+        logits = real(hidden)
+        heads.append((hidden.float(), logits))
+        return logits
+    eng._head = head
+    for r in reqs:
+        eng.submit(pt.Request(rid=r.rid, prompt=r.prompt, max_new=CTX_NEW))
+    _reset_counts(pt, kmods)
+    steps = []
+    t0 = time.perf_counter()
+    while eng.queue or any(s is not None for s in eng.slots):
+        n0, c0 = len(eng.timings["prefill"]), _counts(pt, kmods)
+        eng.step()
+        c1 = _counts(pt, kmods)
+        steps.append((len(eng.timings["prefill"]) - n0,
+                      {k: c1[k] - c0[k] for k in c1}))
+    serve_s = time.perf_counter() - t0
+    out = dict(heads=heads, steps=steps, counts=_counts(pt, kmods),
+               serve_s=serve_s, prefill=list(eng.timings["prefill"]),
+               decode=list(eng.timings["decode"]),
+               tokens={rid: r.generated for rid, r in eng.done.items()})
+    # one more decode step profiled, into the finished slots (scratch)
+    out["prof"] = _profile_lm(
+        lambda: pt.dec.decode_step(params, eng.cache, eng.tokens, cfg, ctx),
+        f"decode step ({'local' if ctx is None else 'ctx'})",
+        statistics.median(out["decode"]) * 1e3)
+    # the recorder holds the engine's bound method: a cycle that would
+    # keep the engine's cache (and the weights) alive until a collection
+    del eng._head
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def _lm_ctx_leg(pt, params, cfg, reqs, kmods) -> dict:
+    """Phase 8's ctx leg: ``reqs`` (the long prompt and a short one)
+    through ContinuousBatcher without a context and with
+    make_context(CTX_RANKS), CTX_NEW new tokens each.  Each admission's
+    logits bitwise the local run's (the vocabulary through the row-wise
+    sharded bag is exact, nothing else changes before decode); each
+    decode step whose inputs agree (every earlier greedy token equal)
+    within DECODE_REL_L2 of the local run's hidden rows (the
+    sequence-sharded flash-decode combine); CTX_RANKS TBE launches per
+    prefill and per decode step under the context, none without, and
+    the flash kernel once a layer per long prefill in both.  Logs greedy
+    tokens that differ, the times and tokens/s."""
+    ctx = pt.make_context(CTX_RANKS)
+    runs = {label: _ctx_batcher_run(pt, params, cfg, reqs, kmods, c)
+            for label, c in (("local", None), ("ctx", ctx))}
+    loc, par = runs["local"], runs["ctx"]
+    n_long = sum(len(r.prompt) > cfg.attn_chunk_threshold for r in reqs)
+    n_flash = cfg.num_layers * n_long
+    for label, run in runs.items():
+        per = CTX_RANKS if label == "ctx" else 0
+        n_steps = len(run["steps"])
+        check(all(d[TBE_FLAT] == per * (adm + 1) for adm, d in run["steps"])
+              and run["counts"] == dict(_launches(
+                  flash_attention=n_flash,
+                  **{TBE_FLAT: per * (len(reqs) + n_steps)}), chunked=0),
+              f"8 {label}: {per} TBE launches per prefill and per decode "
+              f"step, {cfg.num_layers} flash launches per long prefill, "
+              f"nothing else ({run['counts']})")
+    adm = {label: [lg for h, lg in run["heads"] if h.shape[0] == 1]
+           for label, run in runs.items()}
+    check(len(adm["ctx"]) == len(reqs) and all(
+        torch.equal(a, b) for a, b in zip(adm["ctx"], adm["local"])),
+        "8 ctx: every admission's logits bitwise the local run's")
+    steps = {label: [(h, lg) for h, lg in run["heads"]
+                     if h.shape[0] == CTX_SLOTS]
+             for label, run in runs.items()}
+    rels, agree = [], True
+    for (hp, lp), (hl, ll) in zip(steps["ctx"], steps["local"]):
+        if not agree:
+            break
+        rels.append(float((hp - hl).norm() / hl.norm()))
+        agree = torch.equal(lp[:, :cfg.vocab_size].argmax(-1),
+                            ll[:, :cfg.vocab_size].argmax(-1))
+    differ = {rid: [i for i, (a, b) in enumerate(zip(
+        par["tokens"][rid], loc["tokens"][rid])) if a != b]
+        for rid in loc["tokens"]}
+    log(f"  ctx leg (make_context({CTX_RANKS}), {CTX_SLOTS} slots x "
+        f"{LM_MAX_LEN}, {len(reqs)} requests of "
+        f"{[len(r.prompt) for r in reqs]} tokens, {CTX_NEW} new each): "
+        f"admission logits bitwise the local run's; decode hidden rows "
+        f"relative L2 to the local run over the {len(rels)} steps with "
+        f"equal inputs: max {max(rels):.3e} (bound {DECODE_REL_L2}), "
+        f"per step " + " ".join(f"{r:.2e}" for r in rels)
+        + f"; greedy tokens that differ (index per request): {differ}")
+    for label, run in runs.items():
+        ntok = sum(len(t) for t in run["tokens"].values())
+        log(f"  ctx leg, {label}: prefill ms by length "
+            f"{[(n, round(1e3 * t, 1)) for n, t in run['prefill']]}, median "
+            f"decode step {1e3 * statistics.median(run['decode']):.3f} ms "
+            f"over {len(run['decode'])} steps, {ntok} tokens in "
+            f"{run['serve_s']:.3f} s ({ntok / run['serve_s']:.2f} tokens/s),"
+            f" launches {TBE_FLAT} {run['counts'][TBE_FLAT]}, "
+            f"flash_attention {run['counts']['flash_attention']}")
+    check(rels and max(rels) < DECODE_REL_L2,
+          "8 ctx: the sequence-sharded decode within the decode bound of "
+          "the local one")
+    return dict(launches=par["counts"][TBE_FLAT],
+                flash=par["counts"]["flash_attention"], rel=max(rels),
+                rel_steps=len(rels), differ=differ,
+                prefill={label: run["prefill"] for label, run in
+                         runs.items()},
+                decode={label: statistics.median(run["decode"])
+                        for label, run in runs.items()},
+                idle={label: run["prof"]["idle"] for label, run in
+                      runs.items()})
+
+
+def _moe_ep_vs_cpu(pt, params, cfg, prompt) -> dict:
+    """The first MoE layer's moe_ffn_ep over CTX_RANKS ranks on the
+    MOE_ROWS real hidden rows of ``prompt`` (MOE_ROWS / CTX_RANKS a
+    rank), on the card against the same function on the CPU on copies of
+    the same bf16 rows and weights: relative L2 within MOE_REL_L2 and
+    the drops equal."""
+    lm, moe = pt.lm, pt.moe
+    x = _moe_layer_rows(pt, params, cfg, prompt)
+    xe = x.reshape(CTX_RANKS, -1, cfg.d_model)
+    p = lm.layer(params["moe_blocks"], 0)["moe"]
+    t0 = time.perf_counter()
+    out, aux = moe.moe_ffn_ep(p, xe, cfg)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    p_cpu = _copy_to(p, "cpu")
+    t0 = time.perf_counter()
+    want, aux_cpu = moe.moe_ffn_ep(p_cpu, xe.cpu(), cfg)
+    cpu_s = time.perf_counter() - t0
+    got = out.cpu().float()
+    rel = float((got - want.float()).norm() / want.float().norm())
+    err = float((got - want.float()).abs().max())
+    drops = (int(aux["moe_dropped"]), int(aux_cpu["moe_dropped"]))
+    log(f"  ctx leg: layer {cfg.first_k_dense} moe_ffn_ep over {CTX_RANKS} "
+        f"ranks ({cfg.num_experts // CTX_RANKS} experts each) on "
+        f"{MOE_ROWS} real rows ({MOE_ROWS // CTX_RANKS} a rank), bf16, the "
+        f"card against the CPU: relative L2 {rel:.3e} (bound {MOE_REL_L2}),"
+        f" max_abs_err {err:.3e}; moe_dropped {drops[0]} on the card, "
+        f"{drops[1]} on the CPU; moe_aux {float(aux['moe_aux']):.6f} / "
+        f"{float(aux_cpu['moe_aux']):.6f}; {card_s:.3f} s on the card "
+        f"(first call), {cpu_s:.1f} s on the CPU")
+    check(rel < MOE_REL_L2 and drops[0] == drops[1],
+          "moe_ffn_ep on the card within its bound of the CPU, drops equal")
+    del p_cpu
+    return dict(rel=rel, err=err, dropped=drops[0])
+
+
+def _moe_ctx_decode(pt, params, cfg, prompt, kmods) -> dict:
+    """Phase 8m's ctx leg: ``prompt`` (the long one) prefilled under
+    make_context(CTX_RANKS) into a cache of LM_MAX_LEN positions, then
+    CTX_NEW greedy decode steps under it, from launch counts at 0:
+    moe_dropped per prefill and per step (summed over the MoE layers),
+    CTX_RANKS TBE launches per prefill and per step, the flash kernel
+    once a layer in the prefill, the prefill's time and the decode
+    tokens/s."""
+    dec, moe = pt.dec, pt.moe
+    ctx = pt.make_context(CTX_RANKS)
+    n_moe = cfg.num_layers - cfg.first_k_dense
+    tokens = torch.as_tensor(prompt[None], device=DEV)
+    drops = []
+    restore = _patched(moe, "moe_ffn_ep", lambda r: _recording(
+        r, drops, lambda out: out[1]["moe_dropped"]))
+    try:
+        _reset_counts(pt, kmods)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cache, h = dec.prefill(params, tokens, cfg, ctx, max_len=LM_MAX_LEN)
+        tok = _greedy(pt, params, cfg, h[:, -1], ctx)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        step_s, out = [], [int(tok[0])]
+        for _ in range(CTX_NEW):
+            t0 = time.perf_counter()
+            cache, h = dec.decode_step(params, cache, tok, cfg, ctx)
+            tok = _greedy(pt, params, cfg, h, ctx)
+            out.append(int(tok[0]))
+            step_s.append(time.perf_counter() - t0)
+        counts = _counts(pt, kmods)
+    finally:
+        restore()
+    del cache, h
+    torch.cuda.empty_cache()
+    per_call = [int(d) for d in drops]
+    check(len(per_call) == n_moe * (1 + CTX_NEW),
+          f"{len(per_call)} moe_ffn_ep calls: want {n_moe} x "
+          f"{1 + CTX_NEW}")
+    by_run = [sum(per_call[i * n_moe:(i + 1) * n_moe])
+              for i in range(1 + CTX_NEW)]
+    n_flash = cfg.num_layers * (len(prompt) > cfg.attn_chunk_threshold)
+    check(counts == dict(_launches(
+        flash_attention=n_flash,
+        **{TBE_FLAT: CTX_RANKS * (1 + CTX_NEW)}), chunked=0),
+        f"8m ctx: {CTX_RANKS} TBE launches per prefill and decode step, "
+        f"{n_flash} flash launches, nothing else ({counts})")
+    check(all(0 <= t < cfg.vocab_size for t in out),
+          "8m ctx: greedy tokens in the vocabulary")
+    log(f"  ctx leg: prefill of {len(prompt)} tokens under expert "
+        f"parallelism over {CTX_RANKS} ranks: {1e3 * prefill_s:.1f} ms, "
+        f"moe_dropped {by_run[0]} of {len(prompt) * cfg.experts_per_token}"
+        f" x {n_moe} assignments; {CTX_NEW} decode steps: median "
+        f"{1e3 * statistics.median(step_s):.3f} ms, "
+        f"{CTX_NEW / sum(step_s):.2f} tokens/s, moe_dropped per step "
+        f"{by_run[1:]} (of {cfg.experts_per_token} x {n_moe}); launches "
+        f"{TBE_FLAT} {counts[TBE_FLAT]}, flash_attention "
+        f"{counts['flash_attention']}")
+    return dict(launches=counts[TBE_FLAT], flash=counts["flash_attention"],
+                prefill_s=prefill_s, step_s=step_s,
+                tokens_s=CTX_NEW / sum(step_s), dropped=by_run)
+
+
+def _mla_ctx_decode(pt, params, cfg, prompt, kmods) -> dict:
+    """Phase 8d's ctx leg: ``prompt`` (the long one) prefilled without a
+    context into a cache of LM_MAX_LEN positions (CTX_RANKS slices of
+    LM_MAX_LEN / CTX_RANKS, all holding rows), then CTX_NEW decode steps
+    from a copy of it without a context (greedy) and under
+    make_context(CTX_RANKS) on the same tokens.  Every MLA layer's decode
+    attention under the context (the ranks' partials over their slices,
+    combined) against the whole-cache attention on the same inputs,
+    within DECODE_REL_L2; the context's hidden rows against the local
+    run's, logged with each step's moe_dropped (expert parallelism at
+    the config's capacity drops assignments of the one token that the
+    local MoE keeps: another function); CTX_RANKS TBE launches a step."""
+    lm, dec, moe = pt.lm, pt.dec, pt.moe
+    ctx = pt.make_context(CTX_RANKS)
+    n_moe = cfg.num_layers - cfg.first_k_dense
+    tokens = torch.as_tensor(prompt[None], device=DEV)
+    cache, h = dec.prefill(params, tokens, cfg, max_len=LM_MAX_LEN)
+    base = _copy_to(cache, DEV)
+    tok = _greedy(pt, params, cfg, h[:, -1], None)
+    feed, hid = [], []
+    for _ in range(CTX_NEW):
+        feed.append(tok)
+        cache, h = dec.decode_step(params, cache, tok, cfg)
+        hid.append(h.float())
+        tok = _greedy(pt, params, cfg, h, None)
+    del cache
+    attn_rel, drops = [], []
+
+    def attn(real):
+        def wrapper(p, x, c_kv, k_rope, length, cfg_, ctx_=None):
+            out = real(p, x, c_kv, k_rope, length, cfg_, ctx_)
+            whole = real(p, x, c_kv, k_rope, length, cfg_, None)
+            attn_rel.append(((out.float() - whole.float()).norm()
+                             / whole.float().norm()))
+            return out
+        return wrapper
+    restore = [_patched(dec, "_mla_decode_attn", attn),
+               _patched(moe, "moe_ffn_ep", lambda r: _recording(
+                   r, drops, lambda out: out[1]["moe_dropped"]))]
+    rels, step_s = [], []
+    try:
+        _reset_counts(pt, kmods)
+        for t, want in zip(feed, hid):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            base, h = dec.decode_step(params, base, t, cfg, ctx)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            rels.append(float((h.float() - want).norm() / want.norm()))
+        counts = _counts(pt, kmods)
+    finally:
+        for undo in restore:
+            undo()
+    del base
+    torch.cuda.empty_cache()
+    attn_rel = [float(r) for r in attn_rel]
+    by_step = [sum(int(d) for d in drops[i * n_moe:(i + 1) * n_moe])
+               for i in range(CTX_NEW)]
+    check(len(attn_rel) == cfg.num_layers * CTX_NEW
+          and len(drops) == n_moe * CTX_NEW,
+          f"{len(attn_rel)} sharded MLA decode attentions and {len(drops)} "
+          f"moe_ffn_ep calls: want {cfg.num_layers} and {n_moe} x {CTX_NEW}")
+    check(counts == dict(_launches(**{TBE_FLAT: CTX_RANKS * CTX_NEW}),
+                         chunked=0),
+          f"8d ctx: {CTX_RANKS} TBE launches per decode step, nothing else "
+          f"({counts})")
+    log(f"  ctx leg: {CTX_NEW} decode steps after the {len(prompt)}-token "
+        f"prompt over the cache of {LM_MAX_LEN} positions sharded over "
+        f"{CTX_RANKS} ranks: each MLA layer's sharded decode attention "
+        f"against the whole cache's on the same inputs, relative L2 max "
+        f"{max(attn_rel):.3e} (bound {DECODE_REL_L2}); hidden rows against "
+        f"the local decode on the same tokens, per step "
+        + " ".join(f"{r:.2e}" for r in rels)
+        + f"; moe_dropped per step {by_step} (of {cfg.experts_per_token} x "
+        f"{n_moe}); median step {1e3 * statistics.median(step_s):.3f} ms "
+        f"(the whole-cache attentions computed beside); launches "
+        f"{TBE_FLAT} {counts[TBE_FLAT]}")
+    check(max(attn_rel) < DECODE_REL_L2 and all(np.isfinite(rels)),
+          "8d ctx: the sequence-sharded MLA decode within the decode bound "
+          "of the local one, finite hidden rows")
+    if not any(by_step):
+        check(max(rels) < DECODE_REL_L2, "8d ctx: with nothing dropped, the "
+              "decode within its bound of the local one")
+    return dict(launches=counts[TBE_FLAT], attn_rel=max(attn_rel),
+                rel=rels, dropped=by_step,
+                step_ms=1e3 * statistics.median(step_s))
+
+
 def _lm_requests(pt, cfg, n=8, max_new=LM_MAX_NEW) -> list:
     """The first ``n`` of phase 8's 8 requests (uniform ids over the
     vocabulary, ``max_new`` new tokens each): two long prompts (the flash
@@ -2734,6 +3082,8 @@ def phase_lm(pt, kmods) -> dict:
             prefill[0][1] * 1e3))
     del eng, kv
     torch.cuda.empty_cache()
+    # the long and the first short request under a context of 4 ranks
+    ctx_leg = _lm_ctx_leg(pt, params, cfg, reqs[:2], kmods)
 
     # decode matches forward at full width: prefill(prompt[:-1]) +
     # decode_step(prompt[-1]) against the forward's last hidden state
@@ -2745,7 +3095,7 @@ def phase_lm(pt, kmods) -> dict:
     del params
     torch.cuda.empty_cache()
     return dict(out, err=err, rel=rel, rel_short=rel_short,
-                short_len=short.shape[1], prof=prof)
+                short_len=short.shape[1], prof=prof, ctx=ctx_leg)
 
 
 def _forward_last(pt, params, cfg, tokens):
@@ -2818,11 +3168,11 @@ def _moe_dense_scan(pt, p, x, cfg):
     return out, topi
 
 
-def _check_moe_layer(pt, params, cfg, prompt) -> dict:
-    """The first MoE layer's moe_ffn on the real hidden rows of a
-    MOE_ROWS-token prompt (through the dense layers and the layer's own
-    attention) against the dense f32 scan; the expert loads; its time."""
-    lm, moe = pt.lm, pt.moe
+def _moe_layer_rows(pt, params, cfg, prompt):
+    """The first MoE layer's input rows (MOE_ROWS, d) for the first
+    MOE_ROWS tokens of ``prompt``: through the dense layers and the
+    layer's own attention, normed."""
+    lm = pt.lm
     tokens = torch.as_tensor(prompt[None, :MOE_ROWS], device=DEV)
     pos = torch.arange(MOE_ROWS, device=DEV)[None]
     h = lm.embed_tokens(params, tokens, cfg)
@@ -2830,7 +3180,16 @@ def _check_moe_layer(pt, params, cfg, prompt) -> dict:
         h, _, _ = lm._block(lm.layer(params["dense_blocks"], i), h, pos, cfg)
     pl = lm.layer(params["moe_blocks"], 0)
     a, _ = lm._attention(pl["attn"], lm._norm(h, pl["ln1"], cfg), pos, cfg)
-    x = lm._norm(h + a, pl["ln2"], cfg).reshape(-1, cfg.d_model)
+    return lm._norm(h + a, pl["ln2"], cfg).reshape(-1, cfg.d_model)
+
+
+def _check_moe_layer(pt, params, cfg, prompt) -> dict:
+    """The first MoE layer's moe_ffn on the real hidden rows of a
+    MOE_ROWS-token prompt (through the dense layers and the layer's own
+    attention) against the dense f32 scan; the expert loads; its time."""
+    moe = pt.moe
+    x = _moe_layer_rows(pt, params, cfg, prompt)
+    pl = pt.lm.layer(params["moe_blocks"], 0)
     out, aux = moe.moe_ffn(pl["moe"], x, cfg)
     want, topi = _moe_dense_scan(pt, pl["moe"], x, cfg)
     rel = float((out.float() - want).norm() / want.norm())
@@ -3012,6 +3371,11 @@ def phase_moe(pt, kmods) -> dict:
     layer = _check_moe_layer(pt, params, cfg, reqs[0].prompt)
 
     out = _serve_moe(pt, params, cfg, reqs, kmods)
+    # expert parallelism over 4 ranks: layer 1 on the card against the
+    # CPU; the long prompt's prefill and 16 decode steps under the context
+    ep = _moe_ep_vs_cpu(pt, params, cfg, reqs[0].prompt)
+    ctx_leg = dict(_moe_ctx_decode(pt, params, cfg, reqs[0].prompt, kmods),
+                   ep=ep)
 
     # decode matches forward at full width on a short prompt: on the
     # forward's routing within the bound; free-running with the flips
@@ -3021,7 +3385,7 @@ def phase_moe(pt, kmods) -> dict:
                                       "forward on the forward's routing")
     del params
     torch.cuda.empty_cache()
-    return dict(out, **dvf, **init, err=err, layer=layer)
+    return dict(out, **dvf, **init, err=err, layer=layer, ctx=ctx_leg)
 
 
 def _serve_moe(pt, params, cfg, reqs, kmods) -> dict:
@@ -3204,6 +3568,8 @@ def phase_mla(pt, kmods) -> dict:
         f"would take {gqa:,} B); peak device memory of checks (a)-(b) "
         f"{checks_peak_gb:.1f} GB, of serving {out['peak_gb']:.1f} GB")
     check(out["cache_bytes"] == DS_CACHE_BYTES, "the latent cache's bytes")
+    # the sequence-sharded latent cache over 4 ranks, 16 decode steps
+    ctx_leg = _mla_ctx_decode(pt, params, cfg, reqs[0].prompt, kmods)
     # (d) decode matches forward on a short prompt, on the forward's
     # routing; free-running with the flips
     short = torch.as_tensor(reqs[1].prompt[None], device=DEV)
@@ -3213,7 +3579,7 @@ def phase_mla(pt, kmods) -> dict:
     del params
     torch.cuda.empty_cache()
     return dict(out, **dvf, **init, attn=attn, layer=layer,
-                checks_peak_gb=checks_peak_gb)
+                checks_peak_gb=checks_peak_gb, ctx=ctx_leg)
 
 
 # ---------------------------------------------------------------------------
@@ -4190,15 +4556,51 @@ def _train_grad_vs_cpu(pt, cfg) -> dict:
                 codes_differ=differ[worst["codes"]])
 
 
-def _train_resume(pt, cfg) -> dict:
+def _train_ctx_step(pt, kmods, cfg, want_loss) -> dict:
+    """(a'): one step of (a)'s run under make_context(CTX_RANKS): a
+    Trainer from the same seed (the vocabulary padded alike) on the same
+    first batch; its loss finite and bitwise (a)'s step 1 (a dense model,
+    the embedding through the sharded bag exact), CTX_RANKS TBE launches
+    (the forward's lookup; the backward and the update launch none),
+    peak device memory."""
+    check(pt.lm.padded_vocab(cfg, CTX_RANKS) == pt.lm.padded_vocab(cfg, 1),
+          "the vocabulary pads alike at 1 and 4 ranks: the same draws")
+    tc = pt.TrainConfig(optimizer_state_dtype="int8", remat=True,
+                        warmup_steps=1, total_steps=LMT_STEPS + 2)
+    torch.cuda.reset_peak_memory_stats()
+    tr = pt.Trainer(cfg, tc, pt.lm_batches(cfg, LMT_BATCH, LMT_SEQ, seed=0),
+                    ctx=pt.make_context(CTX_RANKS))
+    _reset_counts(pt, kmods)
+    tr.run(1)
+    counts = _counts(pt, kmods)
+    (_, m), = tr.metrics_log
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  (a') 1 step under make_context({CTX_RANKS}): loss "
+        f"{m['loss']!r} ((a)'s step 1 {want_loss!r}), grad_norm "
+        f"{m['grad_norm']:.4f}, {m['step_time_s']:.3f} s, launches "
+        f"{TBE_FLAT} {counts[TBE_FLAT]}, peak device memory {peak_gb:.2f} "
+        f"GB")
+    check(np.isfinite(m["loss"]) and m["loss"] == want_loss,
+          "the ctx step's loss bitwise the local step 1's")
+    check(counts == dict(_launches(**{TBE_FLAT: CTX_RANKS}), chunked=0),
+          f"the ctx step: {CTX_RANKS} TBE launches, nothing else ({counts})")
+    del tr
+    torch.cuda.empty_cache()
+    return dict(loss=m["loss"], step_s=m["step_time_s"], peak_gb=peak_gb,
+                launches=counts[TBE_FLAT])
+
+
+def _train_resume(pt, cfg, ctx=None) -> dict:
     """(c): 3 steps with checkpoints every 2, resumed at 2 for 1 step:
-    the state bitwise the uninterrupted run's."""
+    the state bitwise the uninterrupted run's; (c') the same under
+    ``ctx``."""
     cfg1 = dataclasses.replace(cfg, num_layers=1)
     tc = pt.TrainConfig(optimizer_state_dtype="int8", warmup_steps=1,
                         total_steps=3, checkpoint_every=2)
+    tag = "(c)" if ctx is None else f"(c') under make_context({CTX_RANKS})"
     with tempfile.TemporaryDirectory() as d:
         tr = pt.Trainer(cfg1, tc, pt.lm_batches(cfg1, 1, RESUME_TOKENS,
-                                                seed=2), ckpt_dir=d)
+                                                seed=2), ckpt_dir=d, ctx=ctx)
         t0 = time.perf_counter()
         tr.run(3)
         run_s = time.perf_counter() - t0
@@ -4210,13 +4612,13 @@ def _train_resume(pt, cfg) -> dict:
         shutil.rmtree(os.path.join(d, "step_00000003"))
         tr2 = pt.Trainer(cfg1, tc, pt.lm_batches(cfg1, 1, RESUME_TOKENS,
                                                  seed=2, start_step=2),
-                         ckpt_dir=d)
+                         ckpt_dir=d, ctx=ctx)
         check(tr2.start_step == 2, "resumed at step 2")
         tr2.run(1)
         same = [torch.equal(a, b) for (_, a), (_, b) in zip(
             pt.flatten_with_paths(tr.state),
             pt.flatten_with_paths(tr2.state))]
-    log(f"  (c) 1 layer bf16, int8 moments, {RESUME_TOKENS} tokens: 3 steps "
+    log(f"  {tag} 1 layer bf16, int8 moments, {RESUME_TOKENS} tokens: 3 steps "
         f"with 2 checkpoints in {run_s:.2f} s; the checkpoint of step 2 "
         f"{disk:,} B on disk; resumed at 2 for 1 step: {sum(same)} of "
         f"{len(same)} state leaves bitwise the uninterrupted run's")
@@ -4281,15 +4683,19 @@ def phase_lm_train(pt, kmods) -> dict:
     laps = {}
     with _timed(laps, "(a) train"):
         full = _train_full(pt, kmods, cfg)
+    with _timed(laps, "(a') ctx step"):
+        ctx_step = _train_ctx_step(pt, kmods, cfg, full["losses"][0])
     with _timed(laps, "(b) card vs CPU"):
         grad = _train_grad_vs_cpu(pt, cfg)
     with _timed(laps, "(c) resume"):
         resume = _train_resume(pt, cfg)
+    with _timed(laps, "(c') resume under ctx"):
+        _train_resume(pt, cfg, pt.make_context(CTX_RANKS))
     with _timed(laps, "(d) long"):
         long = _train_long(pt, kmods, cfg)
     secs = _log_laps("8t", laps)
     return dict(full, grad=grad, resume=resume, long=long, secs=secs,
-                launches=full["launches"] + long["launches"])
+                launches=full["launches"] + long["launches"], ctx=ctx_step)
 
 
 def _profile_lm(fn, label, unprofiled_ms) -> dict:
@@ -4465,12 +4871,19 @@ def main() -> int:
             "3 serving uncached, fused=False":
                 unc["launches"]["gather_pool"],
             "7t training, fused=False": train["unfused_launches"]},
-        "gather_pool_tbe_flat": {"4 serving cached": cached["launches"]},
+        "gather_pool_tbe_flat": {
+            "4 serving cached": cached["launches"],
+            "8 LM serving, ctx": lm["ctx"]["launches"],
+            "8m MoE serving, ctx": moe["ctx"]["launches"],
+            "8d MLA decode, ctx": ds["ctx"]["launches"],
+            "8t LM training, ctx": lt["ctx"]["launches"]},
         "onesided_put_rows": {
             "6 serving remote": remote["onesided"]["launches"]},
         **{name: {"7 distributed": n} for name, n in dist["launches"].items()},
         "flash_attention": {"8 LM serving": lm["launches"],
+                            "8 LM serving, ctx": lm["ctx"]["flash"],
                             "8m MoE serving": moe["launches"],
+                            "8m MoE serving, ctx": moe["ctx"]["flash"],
                             "8h hybrid serving": hy["launches"],
                             "8v vlm forward": vl["fwd_launches"],
                             "8v vlm serving": vl["launches"],
@@ -4684,6 +5097,24 @@ def main() -> int:
         f" calls {ll['chunked']}, flash launches {ll['launches']}, peak "
         f"{ll['peak_gb']:.2f} GB, chunked vs full gradients "
         f"{ll['grad_rel']:.3e}; phase {lt['secs']:.1f} s")
+    lc, mc, dc, tcx = lm["ctx"], moe["ctx"], ds["ctx"], lt["ctx"]
+    log(f"LM under make_context({CTX_RANKS}): granite prefill logits bitwise"
+        f" the local run's, decode relative L2 {lc['rel']:.3e} over "
+        f"{lc['rel_steps']} steps, greedy tokens that differ "
+        f"{lc['differ']}, prefill ms local/ctx "
+        f"{[round(1e3 * t, 1) for _, t in lc['prefill']['local']]}/"
+        f"{[round(1e3 * t, 1) for _, t in lc['prefill']['ctx']]}, median "
+        f"decode step local/ctx {1e3 * lc['decode']['local']:.3f}/"
+        f"{1e3 * lc['decode']['ctx']:.3f} ms (idle {lc['idle']['local']:.1f}"
+        f"/{lc['idle']['ctx']:.1f}%); moonshot moe_ffn_ep card vs "
+        f"CPU {mc['ep']['rel']:.3e} (drops {mc['ep']['dropped']}), "
+        f"{LONG_PROMPT}-token prefill {1e3 * mc['prefill_s']:.1f} ms "
+        f"(moe_dropped {mc['dropped'][0]}), decode {mc['tokens_s']:.2f} "
+        f"tokens/s (moe_dropped per step {mc['dropped'][1:]}); deepseek "
+        f"sharded MLA decode attention vs whole {dc['attn_rel']:.3e}, "
+        f"moe_dropped per step {dc['dropped']}; granite train step loss "
+        f"{tcx['loss']!r} bitwise, {tcx['step_s']:.3f} s, peak "
+        f"{tcx['peak_gb']:.2f} GB; resume under the context bitwise")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -110,8 +110,8 @@ def restore(template: Any, base: str, step: Optional[int] = None) -> Any:
     checkpoint of ``step`` (default: the newest) and return it.  Paths
     and shapes must match the template's; each leaf is cast to the
     template's dtype on its device.  One device: the reference's
-    ``shardings`` (an elastic reshard onto a mesh) has no counterpart
-    before ROADMAP Queue 1 item 13.6."""
+    ``shardings`` (an elastic reshard onto a mesh) has no counterpart;
+    simulated ranks share the card and its whole tensors."""
     step = step if step is not None else latest_step(base)
     if step is None:
         raise FileNotFoundError(f"no checkpoints under {base}")

@@ -16,6 +16,7 @@ import importlib
 from repro_torch.configs.base import (  # noqa: F401
     MLAConfig,
     ModelConfig,
+    ShardingConfig,
     TrainConfig,
 )
 

@@ -1,7 +1,7 @@
 """LM architecture configuration: the counterpart of ``repro.configs.base``'s
-``MLAConfig``, ``ModelConfig`` and ``TrainConfig`` (copied field for
-field, so a config built here and one built there describe the same
-model and the same training run).
+``MLAConfig``, ``ModelConfig``, ``TrainConfig`` and ``ShardingConfig``
+(copied field for field, so a config built here and one built there
+describe the same model, the same training run and the same mesh knobs).
 
 Every architecture gets one ``repro_torch/configs/<id>.py`` exposing
 ``CONFIG`` (the published shape) and ``smoke()`` (a reduced same-family
@@ -163,3 +163,24 @@ class TrainConfig:
     checkpoint_every: int = 50
     keep_checkpoints: int = 3
     seed: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardingConfig:
+    """The mesh-level knobs of a ``ParallelContext``: the reference's
+    ``ShardingConfig``, field for field.
+
+    On the simulated ranks of one card (``core/parallel.py``) only
+    ``decode_kv_seq_sharded`` changes what runs: True takes decode
+    attention's flash-decode over the ranks' slices of the cache, False
+    the local attention over the whole cache.  ``fsdp``,
+    ``sequence_parallel`` and ``logits_vocab_sharded`` are layouts in the
+    reference (parameter and activation sharding hints to GSPMD) that
+    change no value; the port keeps every tensor whole and models none of
+    them.  ``embed_rs_dtype`` has no reader in the reference either: a
+    field with no behaviour."""
+    fsdp: bool = True                 # shard params/opt-state over data axes
+    sequence_parallel: bool = True    # shard activations over model between blocks
+    embed_rs_dtype: str = "float32"   # reduce-scatter dtype for pooled embeds
+    logits_vocab_sharded: bool = True # never materialize replicated logits
+    decode_kv_seq_sharded: bool = True  # flash-decode over model axis

@@ -9,7 +9,9 @@ is built on the card (granite-8b: 16.5 GB of bf16 parameters, as much
 again of gradients, and with ``--opt-state-dtype int8`` 17 GB of moments).
 ``--device`` defaults to the card.  The reference's ``--production-mesh``,
 ``--multi-pod`` and ``--coordinator`` (TPU meshes, multi-host) are not
-here: one device only (ROADMAP Queue 1 items 13.6 and 13.8).
+here (ROADMAP Queue 1 item 13.8).  With one device the reference's
+launcher builds no context either; ``Trainer(ctx=)`` runs the simulated
+ranks from Python.
 """
 from __future__ import annotations
 

@@ -24,9 +24,17 @@ cross attention reads.  A stack's entry is one of two kinds:
 Per-sample ``length`` serves continuous batching (slots at different
 positions).  The reference is pure and returns new caches; here the
 cache is updated IN PLACE (decode writes its rows and states, prefill
-its prompt's), so a full-width cache is never copied.  Single device
-only (``ctx=None``): the sequence-sharded flash-decode comes with the
-LM with a ``ParallelContext``.
+its prompt's), so a full-width cache is never copied.
+
+Under a ``ParallelContext`` with ``config.decode_kv_seq_sharded`` the
+cache's sequence axis is sharded over the model axis's E simulated ranks
+(:func:`cache_specs`): the cache stays one tensor, rank r reads positions
+``[r Sc, (r + 1) Sc)`` (Sc = max_len / E), computes its flash-decode
+partial over them with ``kv_offset = r Sc``, and the partials combine
+across the ranks (``layers.combine_decode_partials(rank_dim=0)``), for
+GQA and MLA's latent cache alike.  max_len must divide by E.  The
+embedding and the MoE layers take the context too (``lm.embed_tokens``,
+``lm._moe_apply``), in prefill and decode.
 """
 from __future__ import annotations
 
@@ -35,16 +43,17 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.parallel import ParallelContext
 from repro_torch.models import layers, mla, ssm
 from repro_torch.models.lm import (
     _block,
     _gqa_qkv,
     _moe_apply,
     _norm,
-    _require_local,
     _require_ported,
     _rwkv_block,
     block_stacks,
+    check_context,
     cross_attention,
     embed_tokens,
     encode,
@@ -116,18 +125,75 @@ def kv_stacks(cache: Dict[str, Any]) -> Dict[str, Dict[str, torch.Tensor]]:
     return {name: st for name, st in cache.items() if isinstance(st, dict)}
 
 
+def cache_specs(cfg: ModelConfig, ctx: ParallelContext,
+                batch: int) -> Dict[str, Any]:
+    """Which axes of :func:`init_cache`'s entries the reference shards, as
+    a tree like the cache's of tuples of axis names (None: replicated),
+    the counterpart of its ``PartitionSpec``s: the batch (slots) over the
+    data axis when ``dp_size`` divides it, positional rows' sequence over
+    the model axis with ``decode_kv_seq_sharded``, the hybrid family's
+    ``ssm_h`` along its inner dim over the model axis.  On the simulated
+    ranks it is a statement, not a layout: the cache stays one tensor on
+    one device, and rank r of the sequence-sharded decode reads its slice
+    of positions (module docstring)."""
+    dpb = "data" if ctx.dp_for(batch) else None
+    seq = "model" if ctx.config.decode_kv_seq_sharded else None
+    stacked = {"ssm_h": (None, dpb, "model", None),
+               "conv": (None, dpb, None, None),
+               "S": (None, dpb, None, None, None),
+               "x_tm": (None, dpb, None), "x_cm": (None, dpb, None)}
+    shapes = _entry_shapes(cfg, torch.float32)
+    specs: Dict[str, Any] = {"length": (dpb,)}
+    for name, _, _ in block_stacks(cfg):
+        specs[name] = {
+            key: stacked[key] if key in STATE_KEYS
+            else (None, dpb, seq) + (None,) * len(shape)
+            for key, (shape, _) in shapes.items()}
+    if cfg.family == "audio":
+        specs["enc"] = (dpb, None, None)
+    return specs
+
+
 # ===========================================================================
 # Decode attention
 # ===========================================================================
 
+def _seq_sharded(ctx: Optional[ParallelContext], max_len: int) -> int:
+    """The ranks decode attention is sharded over: E under a context with
+    ``decode_kv_seq_sharded`` (``max_len`` must divide by E, else
+    ``ValueError``, where the reference's ``shard_map`` fails), else 0."""
+    if check_context(ctx) is None or not ctx.config.decode_kv_seq_sharded:
+        return 0
+    if max_len % ctx.tp_size:
+        raise ValueError(f"a cache of {max_len} positions does not divide "
+                         f"over {ctx.tp_size} ranks")
+    return ctx.tp_size
+
+
+def _rank_partials(partial, caches, length, ranks: int):
+    """``partial(*slices, length, kv_offset)`` over each rank's slice of
+    the (B, S, ...) ``caches``, combined across the ranks; one call over
+    the whole caches when ``ranks`` is 0."""
+    if not ranks:
+        return layers.combine_decode_partials(*partial(*caches, length, 0))
+    sc = caches[0].shape[1] // ranks
+    parts = [partial(*(c[:, r * sc:(r + 1) * sc] for c in caches), length,
+                     r * sc) for r in range(ranks)]
+    return layers.combine_decode_partials(
+        *(torch.stack(t) for t in zip(*parts)), rank_dim=0)
+
+
 def _decode_attn(q, k_cache, v_cache, length, cfg: ModelConfig, ctx=None, *,
                  window=None):
-    """q (B, 1, H, hd), caches (B, S, KH, hd).  Returns (B, 1, H * hd)."""
-    _require_local(ctx)
+    """q (B, 1, H, hd), caches (B, S, KH, hd).  Returns (B, 1, H * hd):
+    over the whole cache, or sequence-sharded over the context's ranks
+    (module docstring)."""
     B = q.shape[0]
-    o, m, l = layers.decode_attention_partial(
-        q, k_cache, v_cache, length[:, None], window=window)
-    out = layers.combine_decode_partials(o, m, l)
+    out = _rank_partials(
+        lambda k, v, n, off: layers.decode_attention_partial(
+            q, k, v, n, window=window, kv_offset=off),
+        (k_cache, v_cache), length[:, None],
+        _seq_sharded(ctx, k_cache.shape[1]))
     return out.reshape(B, 1, -1).to(q.dtype)
 
 
@@ -179,13 +245,14 @@ def _gqa_decode_block(pl, h, lc, length, cfg, ctx=None, *, window=None,
 def _mla_decode_attn(p, x, c_kv, k_rope, length, cfg: ModelConfig,
                      ctx=None):
     """x (B, 1, d), latent caches (B, S, .), ``length`` (B,) counting the
-    new row.  Returns (B, 1, d): the absorbed partial, its combine, the
-    output projection (the reference's local branch)."""
-    _require_local(ctx)
-    ctx_l, m, l = mla.mla_decode_partial(p, x, cfg, c_kv, k_rope,
-                                         length[:, None])
-    return mla.mla_decode_output(p, layers.combine_decode_partials(
-        ctx_l, m, l), x.dtype)
+    new row.  Returns (B, 1, d): the absorbed partials (over the whole
+    cache, or each rank's slice of it, module docstring), their combine,
+    the output projection."""
+    combined = _rank_partials(
+        lambda ck, kr, n, off: mla.mla_decode_partial(
+            p, x, cfg, ck, kr, n, kv_offset=off),
+        (c_kv, k_rope), length[:, None], _seq_sharded(ctx, c_kv.shape[1]))
+    return mla.mla_decode_output(p, combined, x.dtype)
 
 
 def _mla_decode_block(pl, h, lc, length, cfg, ctx=None):
@@ -227,9 +294,9 @@ def _rwkv_decode_block(pl, h, lc, cfg):
     return h
 
 
-def _ffn_or_moe(pl, h, cfg):
+def _ffn_or_moe(pl, h, cfg, ctx=None):
     if "moe" in pl:
-        out, aux = _moe_apply(pl["moe"], _norm(h, pl["ln2"], cfg), cfg)
+        out, aux = _moe_apply(pl["moe"], _norm(h, pl["ln2"], cfg), cfg, ctx)
         return h + out, aux
     return h + layers.apply_ffn(pl["ffn"], _norm(h, pl["ln2"], cfg),
                                 cfg.activation), {}
@@ -240,11 +307,14 @@ def _ffn_or_moe(pl, h, cfg):
 # ===========================================================================
 
 def decode_step(params, cache, tokens: torch.Tensor, cfg: ModelConfig,
-                ctx=None) -> Tuple[Dict[str, Any], torch.Tensor]:
+                ctx: Optional[ParallelContext] = None
+                ) -> Tuple[Dict[str, Any], torch.Tensor]:
     """tokens (B,) -> (cache, hidden (B, d)).  Writes every slot's new
     cache row (K/V, or MLA's latent row) and overwrites its states
     (Mamba's, RWKV's) in place, and returns the cache with ``length +
-    1``.  The audio family's layers cross-attend to ``cache["enc"]``."""
+    1``.  The audio family's layers cross-attend to ``cache["enc"]``.
+    ``ctx``: the embedding, the MoE layers and (sequence-sharded) decode
+    attention under the context (module docstring)."""
     _require_ported(cfg)
     length = cache["length"]
     audio = cfg.family == "audio"
@@ -265,7 +335,7 @@ def decode_step(params, cache, tokens: torch.Tensor, cfg: ModelConfig,
                 h = _gqa_decode_block(pl, h, lc, length, cfg, ctx,
                                       window=windows[i], cross_feats=enc,
                                       rope=not audio)
-            h, _ = _ffn_or_moe(pl, h, cfg)
+            h, _ = _ffn_or_moe(pl, h, cfg, ctx)
     h = _norm(h, layer(params["final_norm"], 0), cfg)
     cache["length"] = length + 1
     return cache, h[:, 0]
@@ -276,7 +346,7 @@ def decode_step(params, cache, tokens: torch.Tensor, cfg: ModelConfig,
 # ===========================================================================
 
 def _prefill_into(params, tokens: torch.Tensor, cfg: ModelConfig,
-                  kv: Dict[str, Dict[str, torch.Tensor]], *,
+                  kv: Dict[str, Dict[str, torch.Tensor]], ctx=None, *,
                   cross_feats=None) -> torch.Tensor:
     """Run the prompt ``tokens`` (B, S) and write each layer's cache entry
     into ``kv[stack][key]`` (``(layers, B, ...)`` for every stack of
@@ -284,15 +354,17 @@ def _prefill_into(params, tokens: torch.Tensor, cfg: ModelConfig,
     larger cache): positional rows (K/V, MLA's ``c_kv``/``k_rope``) into
     positions ``[0, S)``, whole states (:data:`STATE_KEYS`) entire.
     ``cross_feats``: the audio family's encoder output, which every layer
-    cross-attends to.  Returns the hidden states (B, S, d) after the
-    final norm."""
+    cross-attends to.  ``ctx``: the embedding and the MoE layers under
+    the context.  Returns the hidden states (B, S, d) after the final
+    norm."""
     B, S = tokens.shape
-    h = embed_tokens(params, tokens, cfg)
+    h = embed_tokens(params, tokens, cfg, ctx)
     positions = torch.arange(S, device=h.device).expand(B, S)
     for name, n, windows in block_stacks(cfg):
         for i in range(n):
             h, entry, _ = _block(layer(params[name], i), h, positions, cfg,
-                                 window=windows[i], cross_feats=cross_feats)
+                                 ctx, window=windows[i],
+                                 cross_feats=cross_feats)
             for key, val in entry.items():
                 if key in STATE_KEYS:
                     kv[name][key][i] = val
@@ -301,16 +373,18 @@ def _prefill_into(params, tokens: torch.Tensor, cfg: ModelConfig,
     return _norm(h, layer(params["final_norm"], 0), cfg)
 
 
-def prefill(params, tokens: torch.Tensor, cfg: ModelConfig, ctx=None, *,
+def prefill(params, tokens: torch.Tensor, cfg: ModelConfig,
+            ctx: Optional[ParallelContext] = None, *,
             max_len: Optional[int] = None, frames=None, patches=None
             ) -> Tuple[Dict[str, Any], torch.Tensor]:
     """tokens (B, S) -> (a cache of ``max_len`` positions at length S,
-    hidden (B, S, d)), on the tokens' device.  audio: ``frames`` (B,
+    hidden (B, S, d)), on the tokens' device; ``ctx``: the embedding and
+    the MoE layers under the context.  audio: ``frames`` (B,
     S_enc, d) run through the encoder once, into ``cache["enc"]``.  vlm:
     text only; ``patches`` raises ``NotImplementedError``, as in the
     reference (an image-prefixed prompt goes through ``lm.forward``)."""
     _require_ported(cfg)
-    _require_local(ctx)
+    check_context(ctx)
     if cfg.family == "vlm" and patches is not None:
         raise NotImplementedError(
             f"{cfg.name}: prefill with patches (an image-prefixed cache) "
@@ -324,7 +398,7 @@ def prefill(params, tokens: torch.Tensor, cfg: ModelConfig, ctx=None, *,
                        device=tokens.device)
     if cfg.family == "audio":
         cache["enc"] = encode(params, frames, cfg)
-    h = _prefill_into(params, tokens, cfg, kv_stacks(cache),
+    h = _prefill_into(params, tokens, cfg, kv_stacks(cache), ctx,
                       cross_feats=cache.get("enc"))
     cache["length"].fill_(S)
     return cache, h

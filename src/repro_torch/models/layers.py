@@ -226,13 +226,18 @@ def decode_attention_partial(q, k_cache, v_cache, length, *, scale=None,
     return o, m, l
 
 
-def combine_decode_partials(o, m, l, axis_name: Optional[str] = None):
-    """Normalise one flash-decode triple.  Combining across a mesh axis
-    (``axis_name``) comes with the sequence-sharded decode."""
-    if axis_name is not None:
-        raise NotImplementedError(
-            "combining decode partials across a mesh axis waits for the "
-            "LM with a ParallelContext (ROADMAP Queue 1 item 13)")
+def combine_decode_partials(o, m, l, rank_dim: Optional[int] = None):
+    """Normalise flash-decode triples.  With ``rank_dim`` the triples of
+    the simulated ranks are stacked along that dim of ``o``, ``m`` and
+    ``l`` (each rank's over its slice of the cache) and combine as the
+    reference's ``pmax``/``psum`` over the mesh axis do: ``m* = max m``,
+    ``l* = sum l e^(m - m*)``, ``o* = sum o e^(m - m*)``, then ``o* /
+    l*``."""
+    if rank_dim is not None:
+        m_star = m.amax(dim=rank_dim, keepdim=True)
+        scale = torch.exp(m - m_star)
+        l = (l * scale).sum(dim=rank_dim)
+        o = (o * scale[..., None]).sum(dim=rank_dim)
     return o / torch.clamp(l, min=1e-30)[..., None]
 
 

@@ -23,15 +23,27 @@ so a numpy copy of the reference's ``init_params`` converts without a
 transpose (``utils/convert.lm_params_from_numpy``).  The layers run in a
 Python loop (the reference scans them).
 
-Single device only: ``ctx`` (the vocabulary through the row-wise sharded
-embedding bag, GSPMD constraints, expert parallelism) must be None.
+With a ``ParallelContext`` (``core/parallel.py``: the ranks of the model
+axis simulated on one device, stacked on a leading rank axis as the
+distributed embedding bag's are) the tokens are looked up through the
+row-wise sharded embedding bag (:func:`embed_tokens`) and the MoE layers
+run expert-parallel over the ranks (:func:`_moe_apply`,
+``models/moe.moe_ffn_ep``), as in the reference.  The reference's GSPMD
+hints (activation constraints between blocks, sequence parallelism,
+vocabulary-sharded logits) place tensors and change no value; the port
+keeps every tensor whole and models none of them.
 Serving ignores the MTP head, as the reference does; its loss is LM
 training's (``train/step.lm_loss``).
 
 Training: ``forward(..., remat=True)`` runs each block under
-``torch.utils.checkpoint`` (full recompute, MoE blocks too; the
-reference saves the MoE output through its policy, the same values at
-less cost).  Under grad, :func:`layer` slices a stacked parameter whose
+``torch.utils.checkpoint``: full recompute, MoE blocks too.  On one
+device the reference recomputes every block whole as well: its policy
+saves the names ``"moe_out"``, which only the expert-parallel branch
+sets (``_moe_apply`` returns before it without a context).  Under a
+context the reference saves the EP output and its backward does not
+replay the all-to-alls and the expert matmuls; the port recomputes them,
+the same values at more cost (ROADMAP "Differences on purpose").
+Under grad, :func:`layer` slices a stacked parameter whose
 ``.grad`` the caller preallocated (``train/step.TrainStep``) through
 :class:`_LayerSlice`, which adds the layer's gradient into that
 ``.grad`` slice: indexing (``select``'s backward) would build a zero
@@ -48,6 +60,11 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.embedding_bag import (EmbeddingBagConfig,
+                                            pooled_lookup_sharded,
+                                            shard_tables)
+from repro_torch.core.jagged import JaggedBatch
+from repro_torch.core.parallel import ParallelContext
 from repro_torch.models import layers, mla, ssm
 from repro_torch.models import moe as moe_mod
 from repro_torch.utils.device import resolve_device
@@ -107,12 +124,25 @@ def block_stacks(cfg: ModelConfig):
         ("moe_blocks", n - nk, (None,) * (n - nk))]
 
 
-def _require_local(ctx) -> None:
-    if ctx is not None:
-        raise NotImplementedError(
-            "the LM with a ParallelContext (vocabulary through the "
-            "row-wise sharded embedding bag) is not ported yet (ROADMAP "
-            "Queue 1 item 13); pass ctx=None")
+def embedding_bag_config(cfg: ModelConfig,
+                         tp_size: int) -> EmbeddingBagConfig:
+    """The vocabulary as the embedding bag's one table of
+    :func:`padded_vocab` rows, sharded per ``cfg.vocab_sharding`` and
+    looked up per ``cfg.vocab_rw_impl``, as the reference builds it (its
+    ``rw_backend`` is always the bulk default)."""
+    return EmbeddingBagConfig(
+        num_tables=1, rows_per_table=padded_vocab(cfg, tp_size),
+        dim=cfg.d_model, sharding=cfg.vocab_sharding,
+        rw_impl=cfg.vocab_rw_impl, dtype=cfg.dtype)
+
+
+def check_context(ctx) -> Optional[ParallelContext]:
+    """``ctx`` if it is None or a ``ParallelContext``; anything else
+    raises ``TypeError``."""
+    if ctx is not None and not isinstance(ctx, ParallelContext):
+        raise TypeError(f"ctx must be a ParallelContext or None, got "
+                        f"{type(ctx).__name__}")
+    return ctx
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -354,16 +384,51 @@ def cross_attention(p, h, kv_feats, cfg: ModelConfig):
 # ===========================================================================
 
 def embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig,
-                 ctx=None) -> torch.Tensor:
-    """tokens (B, S) int -> (B, S, d): rows of the (1, Vp, d) table."""
-    _require_local(ctx)
-    return params["embed"][0][tokens.long()]
+                 ctx: Optional[ParallelContext] = None) -> torch.Tensor:
+    """tokens (B, S) int -> (B, S, d): rows of the (1, Vp, d) table.
+
+    Under a context with ``cfg.vocab_sharding == "row"`` the table is
+    sharded row-wise over the model axis and the N = B * S tokens are N
+    single-id bags of the embedding bag (``(1, N, 1)`` ids, unit
+    lengths) through ``pooled_lookup_sharded``: ``"allgather"`` pools
+    each rank's owned rows of every token (one TBE launch a rank) and
+    sums the E partials; ``"a2a"`` takes the paper's pipeline (N divisible
+    by E).  The flat tokens split into the context's data-parallel groups
+    when ``dp_size`` divides N, one after another.  One lookup of weight
+    1 plus E - 1 zero partials is the row itself, so the result is
+    bitwise the local gather's.  Rows that do not divide over the ranks,
+    and an unknown ``vocab_sharding`` or ``vocab_rw_impl``, raise
+    ``ValueError``, where the reference's ``shard_map`` fails.
+    ``"replicated"`` keeps the local gather."""
+    table = params["embed"]                                  # (1, Vp, d)
+    if check_context(ctx) is None or cfg.vocab_sharding == "replicated":
+        return table[0][tokens.long()]
+    if cfg.vocab_sharding != "row":
+        raise ValueError(f"vocab_sharding must be 'row' or 'replicated', "
+                         f"got {cfg.vocab_sharding!r}")
+    eb_cfg = embedding_bag_config(cfg, ctx.tp_size)
+    shards = shard_tables(table, eb_cfg, ctx.tp_size)
+    B, S = tokens.shape
+    flat = tokens.reshape(-1)
+    groups = ctx.dp_groups(flat.shape[0])
+    n = flat.shape[0] // groups
+    outs = []
+    for g in range(groups):
+        ids = flat[g * n:(g + 1) * n]
+        batch = JaggedBatch(
+            indices=ids.reshape(1, n, 1),
+            lengths=torch.ones((1, n), dtype=torch.int32,
+                               device=ids.device))
+        outs.append(pooled_lookup_sharded(shards, batch, eb_cfg)[:, 0])
+    return torch.cat(outs).reshape(B, S, cfg.d_model)
 
 
 def lm_logits(params, hidden: torch.Tensor, cfg: ModelConfig,
-              ctx=None) -> torch.Tensor:
-    """hidden (..., d) -> logits (..., Vp)."""
-    _require_local(ctx)
+              ctx: Optional[ParallelContext] = None) -> torch.Tensor:
+    """hidden (..., d) -> logits (..., Vp).  Under a context the same
+    product: the reference's vocabulary-sharded constraint on the logits
+    (``logits_vocab_sharded``) is a layout."""
+    check_context(ctx)
     head = params["embed"][0].T if cfg.tie_embeddings else params["head"]
     return hidden @ head
 
@@ -389,12 +454,47 @@ def _dense_block(pl, h, positions, cfg, *, window=None, causal=True,
                                 cfg.activation), entry
 
 
-def _moe_apply(p_moe, h, cfg: ModelConfig):
-    """h (B, S, d) -> (out (B, S, d), aux): ``moe_ffn`` over the B * S
-    rows (``ctx=None``; expert parallelism is item 13.6)."""
+def _moe_apply(p_moe, h, cfg: ModelConfig,
+               ctx: Optional[ParallelContext] = None):
+    """h (B, S, d) -> (out (B, S, d), aux).  Without a context
+    ``moe_ffn`` over the B * S rows.  Under one, ``moe_ffn_ep`` over the
+    model axis's E ranks, as the reference's ``shard_map`` splits the
+    tokens: ``P(dp, tp if S % E == 0 else None)``.  When E divides S
+    each rank takes its slice of the sequence (of every sample of its
+    data-parallel group); otherwise (every decode step: S = 1) each rank
+    holds the same tokens and dispatches them all, and the output is
+    rank 0's copy.  The data-parallel groups (``dp_size`` dividing B) run
+    one after another.  ``aux`` follows the reference's replicated
+    ``out_specs=P()``: its values are the first group's, while the
+    gradient of ``moe_aux`` is that of the mean over the groups (its
+    transpose hands each device 1 / (dp E) of the cotangent and sums over
+    the group's ranks).  Raises ``ValueError`` when E does not divide the
+    experts."""
     B, S, d = h.shape
-    out, aux = moe_mod.moe_ffn(p_moe, h.reshape(-1, d), cfg)
-    return out.reshape(B, S, d), aux
+    if check_context(ctx) is None:
+        out, aux = moe_mod.moe_ffn(p_moe, h.reshape(-1, d), cfg)
+        return out.reshape(B, S, d), aux
+    E = ctx.tp_size
+    seq = S % E == 0
+    groups = ctx.dp_groups(B)
+    b = B // groups
+    outs, auxes = [], []
+    for g in range(groups):
+        hg = h[g * b:(g + 1) * b]
+        if seq:          # rank r: rows [r S/E, (r + 1) S/E) of each sample
+            x = hg.reshape(b, E, S // E, d).transpose(0, 1).reshape(
+                E, b * S // E, d)
+        else:            # every rank: all of the group's tokens
+            x = hg.reshape(1, b * S, d).expand(E, b * S, d)
+        out, aux = moe_mod.moe_ffn_ep(p_moe, x, cfg)
+        outs.append(out.reshape(E, b, S // E, d).transpose(0, 1).reshape(
+            b, S, d) if seq else out[0].reshape(b, S, d))
+        auxes.append(aux)
+    aux = dict(auxes[0])
+    if groups > 1:
+        mean = torch.stack([a["moe_aux"] for a in auxes]).mean()
+        aux["moe_aux"] = mean + (aux["moe_aux"] - mean).detach()
+    return torch.cat(outs), aux
 
 
 def _hybrid_block(pl, h, positions, cfg, *, window):
@@ -434,7 +534,8 @@ def _rwkv_block(pl, h, cfg, state=None):
     return h + cm, {"S": S, "x_tm": x_tm, "x_cm": x_cm}
 
 
-def _block(pl, h, positions, cfg, *, window=None, cross_feats=None):
+def _block(pl, h, positions, cfg, ctx=None, *, window=None,
+           cross_feats=None):
     """One pre-norm layer of any stack (``cross_feats``: the audio
     decoder's, :func:`_dense_block`).  Returns (h, entry, aux): the
     layer's cache entry (:func:`_attention`'s rows; the hybrid layer's
@@ -454,7 +555,7 @@ def _block(pl, h, positions, cfg, *, window=None, cross_feats=None):
     attn_out, entry = _attention(pl["attn"], _norm(h, pl["ln1"], cfg),
                                  positions, cfg, window=window)
     h = h + attn_out
-    out, aux = _moe_apply(pl["moe"], _norm(h, pl["ln2"], cfg), cfg)
+    out, aux = _moe_apply(pl["moe"], _norm(h, pl["ln2"], cfg), cfg, ctx)
     return h + out, entry, aux
 
 
@@ -490,7 +591,8 @@ def project_patches(pj, patches, dtype) -> torch.Tensor:
     return F.gelu(x @ pj["fc1"], approximate="tanh") @ pj["fc2"]
 
 
-def forward(params, tokens: torch.Tensor, cfg: ModelConfig, ctx=None, *,
+def forward(params, tokens: torch.Tensor, cfg: ModelConfig,
+            ctx: Optional[ParallelContext] = None, *,
             frames=None, patches=None, remat: bool = False
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """tokens (B, S) -> hidden (B, S_total, d) after the final norm, aux.
@@ -503,7 +605,10 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, ctx=None, *,
     start at vision_tokens.  aux: for MoE ``moe_aux``, the mean over the
     MoE layers, and ``moe_dropped``, their sum; {} for the dense, hybrid
     and ssm families.  ``remat``: each block (the encoder's too) under
-    ``torch.utils.checkpoint`` when grad is enabled, the same values."""
+    ``torch.utils.checkpoint`` when grad is enabled, the same values.
+    ``ctx``: the embedding through the sharded bag and the MoE layers
+    expert-parallel (:func:`embed_tokens`, :func:`_moe_apply`); every
+    other layer computes what it computes without one."""
     _require_ported(cfg)
     h = embed_tokens(params, tokens, cfg, ctx)
     aux: Dict[str, torch.Tensor] = {}
@@ -523,7 +628,7 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, ctx=None, *,
     for name, n, windows in block_stacks(cfg):
         for i in range(n):
             h, _, a = _run_block(remat, _block, layer(params[name], i), h,
-                                 positions, cfg, window=windows[i],
+                                 positions, cfg, ctx, window=windows[i],
                                  cross_feats=cross)
             if a:
                 auxes.append(a)

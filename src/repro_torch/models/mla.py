@@ -9,9 +9,9 @@ into the query and ``w_uv`` into the output, so scores and context live
 in the latent space and a step never expands the cache to 128 heads.
 
 The decode partial returns the flash-decode triple ``(ctx, m, l)`` in
-latent space, combined by ``layers.combine_decode_partials`` as GQA's is.
-Single device only: the sequence-sharded combine over a mesh axis waits
-for the LM with a ``ParallelContext`` (ROADMAP Queue 1 item 13.6).
+latent space, combined by ``layers.combine_decode_partials`` as GQA's is,
+also across the simulated ranks of a sequence-sharded cache
+(``models/decode.py``).
 """
 from __future__ import annotations
 

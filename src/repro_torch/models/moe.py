@@ -27,12 +27,35 @@
 
 The scan over all experts costs about E / k times the routed form's
 FLOP (8.5e14 against 8e13 per forward of moonshot-v1-16b-a3b at 16,384
-tokens).  ``moe_ffn_ep`` (expert parallelism over a mesh axis) waits for
-the LM with a ``ParallelContext``.
+tokens).
+
+``moe_ffn_ep(p, x, cfg)`` is the reference's expert-parallel path over
+the E ranks of the model axis, simulated on one device with the ranks
+stacked on a leading axis (``core/comm.py``): ``x (E, N, d)`` holds each
+rank's tokens, and rank r owns experts ``[r E_x/E, (r + 1) E_x/E)``.
+Each rank routes its tokens; the load statistics are summed over the
+ranks (the reference's ``psum``), so ``moe_aux`` is the global one.
+Level 1 buckets each rank's assignments by owner rank at ``cap1 =
+ceil(N k / E * cf)`` (empty slots tagged with the discard expert
+``E_x/E``), and one all-to-all moves the hidden vectors and their local
+expert ids; level 2 buckets each rank's received rows by local expert at
+``cap2 = ceil(N k / (E_x/E) * cf)`` with the discard bucket, the expert
+GEMMs run over all ranks' buckets at once (rank r's local expert j is
+expert r E_x/E + j: the buckets are in expert order), and the inverse
+all-to-all and the f32 weighted combine return each assignment to its
+token.  Assignments over a capacity are dropped (they contribute zero),
+and ``moe_dropped`` is their count summed over ranks.  The combine adds a
+token's k contributions in assignment order, as the reference's
+``segment_sum`` does, in a loop over k: no atomics, so the card's result
+does not vary from run to run.
 """
 from __future__ import annotations
 
+import math
+
 import torch
+
+from repro_torch.core import comm
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import routing
@@ -156,7 +179,78 @@ def moe_ffn(p, x: torch.Tensor, cfg: ModelConfig):
     return out, {"moe_aux": aux, "moe_dropped": dropped}
 
 
-def moe_ffn_ep(p, x, cfg: ModelConfig, axis):
-    raise NotImplementedError(
-        "moe_ffn_ep (expert parallelism over a mesh axis) waits for the LM "
-        "with a ParallelContext (ROADMAP Queue 1 item 13.6)")
+# ---------------------------------------------------------------------------
+# Expert parallelism over the simulated ranks
+# ---------------------------------------------------------------------------
+
+def moe_ffn_ep(p, x: torch.Tensor, cfg: ModelConfig):
+    """Expert-parallel MoE over E simulated ranks (module docstring).
+
+    ``x`` (E, N, d): rank r's N tokens at ``x[r]``; ``p`` the layer's
+    whole parameters (``gate``/``up``/``down`` (E_x, ...), rank r's
+    slice owned by it; ``router`` and ``shared`` replicated).  Returns
+    (out (E, N, d), {"moe_aux", "moe_dropped"}).  Raises ``ValueError``
+    when E does not divide the experts, where the reference's
+    ``shard_map`` fails."""
+    if x.dim() != 3:
+        raise ValueError(f"moe_ffn_ep takes (ranks, N, d) tokens, got "
+                         f"shape {tuple(x.shape)}")
+    E, N, d = x.shape
+    k, n_exp = cfg.experts_per_token, cfg.num_experts
+    if n_exp % E:
+        raise ValueError(f"{n_exp} experts do not divide over {E} ranks")
+    el = n_exp // E
+    dev = x.device
+    xf = x.reshape(E * N, d)
+
+    # every rank's tokens routed at once: the load statistics as sums over
+    # all of them, the reference's psum of each rank's sums
+    w, topi, stats = router_topk(xf, p["router"], k)
+    aux = aux_loss(stats)
+    flat_e = topi.reshape(E, N * k).long()
+    flat_w = w.reshape(E * N * k)
+    tok = torch.arange(N, device=dev).repeat_interleave(k)     # (N k,)
+    ranks = torch.arange(E, device=dev)[:, None]
+
+    # level 1: bucket each rank's assignments by owner rank, one bucket
+    # set per rank (bucket r * E + owner); stable positions in input order
+    cap1 = max(1, math.ceil(N * k / E * cfg.moe_capacity_factor))
+    dest1 = (ranks * E + flat_e // el).reshape(-1)
+    (b_tok, b_el), slot1, drop1 = routing.fixed_capacity_bucket(
+        dest1, E * E, cap1,
+        [(ranks * N + tok).reshape(-1), (flat_e % el).reshape(-1)],
+        fills=[0, el])
+    send_x = xf[b_tok.reshape(-1)].reshape(E, E, cap1, d)
+    recv_x = comm.all_to_all(send_x)                     # (E_dst, E_src, ...)
+    recv_el = comm.all_to_all(b_el.reshape(E, E, cap1))
+
+    # level 2: each rank's received rows by local expert, discard bucket el
+    cap2 = max(1, math.ceil(N * k / el * cfg.moe_capacity_factor))
+    flat_el = recv_el.reshape(E, E * cap1)
+    dest2 = (ranks * (el + 1) + flat_el).reshape(-1)
+    (e_in,), slot2, _ = routing.fixed_capacity_bucket(
+        dest2, E * (el + 1), cap2, [recv_x.reshape(-1, d)])
+    # a live row past cap2 is dropped (slot one past all ranks' buckets)
+    drop2 = ((flat_el.reshape(-1) < el)
+             & (slot2 == E * (el + 1) * cap2)).sum(dtype=torch.int32)
+    e_in = e_in.reshape(E, el + 1, cap2, d)[:, :el].reshape(n_exp, cap2, d)
+    act = layers.activation_fn(cfg.activation)
+    h = act(torch.bmm(e_in, p["gate"])) * torch.bmm(e_in, p["up"])
+    del e_in
+    e_out = torch.bmm(h, p["down"]).reshape(E, el, cap2, d)
+    del h
+    e_out = torch.cat([e_out, e_out.new_zeros((E, 1, cap2, d))], dim=1)
+
+    # inverse: unbucket level 2, all-to-all back, unbucket level 1, combine
+    back = routing.gather_from_buckets(slot2, e_out.reshape(
+        E * (el + 1), cap2, d))                          # (E * E cap1, d)
+    ret = comm.all_to_all(back.reshape(E, E, cap1, d))
+    contrib = routing.gather_from_buckets(
+        slot1, ret.reshape(E * E, cap1, d)).reshape(E * N, k, d)
+    cw = flat_w.reshape(E * N, k, 1)
+    acc = contrib[:, 0].float() * cw[:, 0]
+    for j in range(1, k):
+        acc = acc + contrib[:, j].float() * cw[:, j]
+    out = acc.to(x.dtype) + _shared_out(p, xf, cfg.activation)
+    dropped = drop1.to(torch.int32) + drop2
+    return out.reshape(E, N, d), {"moe_aux": aux, "moe_dropped": dropped}

@@ -83,13 +83,15 @@ def _sample(logits: torch.Tensor, gen: Optional[torch.Generator],
     return torch.multinomial(probs, 1, generator=gen)[:, 0].to(torch.int32)
 
 
-def generate(params, cfg: ModelConfig, prompts, max_new: int, ctx=None, *,
+def generate(params, cfg: ModelConfig, prompts, max_new: int,
+             ctx: Optional[ParallelContext] = None, *,
              temperature: float = 0.0, seed: int = 0, frames=None,
              device=None) -> torch.Tensor:
     """prompts (B, S) -> (B, max_new) generated ids (greedy by default) on
     ``device`` (None: the card; the parameters must live there).  The
     audio family's ``frames`` (B, S_enc, d) go through its encoder once,
-    in the prefill."""
+    in the prefill.  ``ctx``: prefill, every decode step and the head
+    under the context (``models/decode.py``)."""
     device = resolve_device(device)
     prompts = torch.as_tensor(prompts, device=device)
     B, S = prompts.shape
@@ -130,11 +132,23 @@ class ContinuousBatcher:
     The audio family is refused: the reference's admission prefills
     without frames and fails; whisper serves through ``generate(frames=)``.
     The vlm family is served text only, as the reference's admission
-    prefills it."""
+    prefills it.
+
+    ``ctx``: the prefill of each admission, every decode step and the
+    head run under the context (``models/decode.py``), so a slot's tokens
+    are ``generate(ctx)``'s.  The reference's admission prefills without
+    the context and only its decode steps and head take it; the port
+    prefills under it, so admission runs the sharded vocabulary and the
+    expert-parallel MoE as ``generate(ctx)`` does (ROADMAP "Differences on
+    purpose").  With a sequence-sharded cache ``max_len`` must divide
+    over the context's ranks (``ValueError``)."""
 
     def __init__(self, params, cfg: ModelConfig, num_slots: int,
-                 max_len: int, ctx=None, eos_id: int = 1, *, device=None):
-        lm._require_local(ctx)
+                 max_len: int, ctx: Optional[ParallelContext] = None,
+                 eos_id: int = 1, *, device=None):
+        lm.check_context(ctx)
+        if cfg.attention != "none":
+            dec._seq_sharded(ctx, max_len)
         if cfg.family == "audio":
             raise ValueError(
                 f"{cfg.name}: the batcher admits prompts without frames; "
@@ -164,7 +178,8 @@ class ContinuousBatcher:
         self.queue.append(req)
 
     def _head(self, hidden: torch.Tensor) -> torch.Tensor:
-        return lm.lm_logits(self.params, hidden[:, None], self.cfg)[:, 0]
+        return lm.lm_logits(self.params, hidden[:, None], self.cfg,
+                            self.ctx)[:, 0]
 
     # -- internal ----------------------------------------------------------
     def _admit(self) -> None:
@@ -178,7 +193,8 @@ class ContinuousBatcher:
                 # at axis 1); prefill writes the states whole
                 kv = {name: {k: v[:, i:i + 1] for k, v in st.items()}
                       for name, st in dec.kv_stacks(self.cache).items()}
-                hidden = dec._prefill_into(self.params, prompt, self.cfg, kv)
+                hidden = dec._prefill_into(self.params, prompt, self.cfg, kv,
+                                           self.ctx)
                 self.cache["length"][i] = prompt.shape[1]
                 lg = self._head(hidden[:, -1])
                 first = int(torch.argmax(lg[0, : self.cfg.vocab_size]))
@@ -205,7 +221,7 @@ class ContinuousBatcher:
             return False
         t0 = time.perf_counter()
         self.cache, hidden = dec.decode_step(self.params, self.cache,
-                                             self.tokens, self.cfg)
+                                             self.tokens, self.cfg, self.ctx)
         logits = _mask_vocab(self._head(hidden), self.cfg.vocab_size)
         self.tokens = torch.argmax(logits, dim=-1).to(torch.int32)
         host = self.tokens.cpu().numpy()

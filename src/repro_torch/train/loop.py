@@ -12,6 +12,13 @@
   * per-step metrics and ``step_time_s`` (host clock, the device
     synchronised), and a straggler count: steps slower than
     ``straggler_factor`` x the median of the last 50.
+
+Under a ``ParallelContext`` the step runs on the context's simulated
+ranks (``train/step.py``) and the state's vocabulary is padded to a
+multiple of its model axis, as the reference's.  The reference's
+``state_shardings`` (leaves placed on a device mesh, also when a
+checkpoint is restored) has no counterpart: one card holds the state
+whole.
 """
 from __future__ import annotations
 
@@ -24,17 +31,17 @@ import torch
 
 from repro_torch import checkpoint as ckpt
 from repro_torch.configs.base import ModelConfig, TrainConfig
-from repro_torch.train.step import (_require_local, init_train_state,
-                                    make_train_step)
+from repro_torch.core.parallel import ParallelContext
+from repro_torch.train.step import init_train_state, make_train_step
 from repro_torch.utils.device import resolve_device
 
 
 class Trainer:
     def __init__(self, cfg: ModelConfig, tc: TrainConfig,
                  data: Iterator[Dict[str, np.ndarray]],
-                 ckpt_dir: Optional[str] = None, ctx=None,
+                 ckpt_dir: Optional[str] = None,
+                 ctx: Optional[ParallelContext] = None,
                  dtype: Optional[torch.dtype] = None, device=None):
-        _require_local(ctx)
         self.cfg, self.tc, self.ctx = cfg, tc, ctx
         self.device = resolve_device(device)
         self.data = data
@@ -47,7 +54,8 @@ class Trainer:
 
         self.step_fn = make_train_step(cfg, tc, ctx)
         gen = torch.Generator(device=self.device).manual_seed(tc.seed)
-        self.state = init_train_state(gen, cfg, tc, dtype=dtype,
+        tp = ctx.tp_size if ctx is not None else 1
+        self.state = init_train_state(gen, cfg, tc, tp_size=tp, dtype=dtype,
                                       device=self.device)
         start = ckpt.latest_step(ckpt_dir) if ckpt_dir else None
         if start is not None:

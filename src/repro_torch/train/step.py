@@ -11,10 +11,16 @@
     (``0.3 * mtp_ce``) in the objective; frames for audio, patches for
     vlm with the loss on the text positions only.
 
-One device: ``ctx`` must be None (the LM under a ``ParallelContext`` is
-ROADMAP Queue 1 item 13.6).  The gradients land in a tree of ``.grad``
-buffers like the parameters, kept across steps (``TrainStep.grads``),
-and the update writes the parameters and moments in place.
+Under a ``ParallelContext`` (simulated ranks on one device,
+``core/parallel.py``) the forward looks the tokens up through the
+row-wise sharded embedding bag and runs the MoE layers expert-parallel
+(``models/lm.py``); the embedding's gradient flows back through the
+row-wise partial lookups' autograd.  The reference's sharding
+constraints on the chunks and their logits are layouts: the port
+computes the same sums without them.  The gradients land in a tree of
+``.grad`` buffers like the parameters, kept across steps
+(``TrainStep.grads``), and the update writes the parameters and moments
+in place.
 """
 from __future__ import annotations
 
@@ -24,17 +30,10 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, TrainConfig
+from repro_torch.core.parallel import ParallelContext
 from repro_torch.models import lm
 from repro_torch.optim import adamw_init, adamw_update
 from repro_torch.utils.tree import leaves, map_leaves
-
-
-def _require_local(ctx) -> None:
-    if ctx is not None:
-        raise NotImplementedError(
-            "LM training under a ParallelContext (sharded vocabulary, "
-            "expert parallelism, FSDP) is not ported yet (ROADMAP Queue 1 "
-            "item 13.6); pass ctx=None")
 
 
 # ---------------------------------------------------------------------------
@@ -60,7 +59,8 @@ def _chunk_nll(hb, head, yb, mb, vmask):
 
 
 def softmax_xent_chunked(hidden: torch.Tensor, head: torch.Tensor,
-                         labels: torch.Tensor, vocab: int, ctx=None,
+                         labels: torch.Tensor, vocab: int,
+                         ctx: Optional[ParallelContext] = None,
                          mask: Optional[torch.Tensor] = None,
                          chunk_tokens: int = 16384) -> torch.Tensor:
     """Mean NLL of ``labels`` under logits = hidden @ head.
@@ -69,8 +69,9 @@ def softmax_xent_chunked(hidden: torch.Tensor, head: torch.Tensor,
     rows masked out of the softmax).  ``mask`` (B, S) optionally excludes
     positions.  Chunks along the sequence (``_chunk_count``), summed in
     order; each chunk's f32 logits under ``torch.utils.checkpoint`` when
-    grad is enabled."""
-    _require_local(ctx)
+    grad is enabled.  ``ctx`` changes no value (the reference's
+    constraints under it are layouts)."""
+    lm.check_context(ctx)
     B, S, d = hidden.shape
     Vp = head.shape[1]
     m = (torch.ones((B, S), dtype=torch.float32, device=hidden.device)
@@ -91,11 +92,13 @@ def softmax_xent_chunked(hidden: torch.Tensor, head: torch.Tensor,
 # LM objective (CE + MoE aux + MTP)
 # ---------------------------------------------------------------------------
 
-def lm_loss(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, ctx,
+def lm_loss(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+            ctx: Optional[ParallelContext],
             tc: TrainConfig) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(loss, metrics): ``ce``, for MoE ``moe_aux`` and ``moe_dropped``,
-    with ``cfg.mtp_depth`` ``mtp_ce``, and ``loss``."""
-    _require_local(ctx)
+    with ``cfg.mtp_depth`` ``mtp_ce``, and ``loss``.  Under ``ctx`` the
+    forward's and the MTP head's embeddings go through the sharded bag
+    and the MoE layers are expert-parallel (``lm.forward``)."""
     tokens, labels = batch["tokens"], batch["labels"]
     kw = {}
     if cfg.family == "audio":
@@ -140,23 +143,27 @@ def lm_loss(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, ctx,
 # ---------------------------------------------------------------------------
 
 def init_train_state(gen: torch.Generator, cfg: ModelConfig,
-                     tc: TrainConfig, dtype=None,
+                     tc: TrainConfig, tp_size: int = 1, dtype=None,
                      device=None) -> Dict[str, Any]:
     """``{"params", "opt"}``: ``lm.init_params`` from ``gen`` on ``device``
-    (None: the card) and ``adamw_init``."""
-    params = lm.init_params(gen, cfg, dtype=dtype, device=device)
+    (None: the card), the vocabulary padded to a multiple of ``tp_size``
+    (the reference's), and ``adamw_init``."""
+    params = lm.init_params(gen, cfg, tp_size=tp_size, dtype=dtype,
+                            device=device)
     return {"params": params, "opt": adamw_init(params, tc)}
 
 
 class TrainStep:
     """``train_step(state, batch) -> (state, metrics)``: the reference's
-    step on one device.  ``state`` is updated in place and returned;
-    ``batch`` holds tensors on the state's device.  ``grads`` keeps the
-    gradient buffers (the parameters' dtypes, made at the first call):
-    after a step at ``grad_accum`` 1, the gradient the update took."""
+    step on one device, under ``ctx`` when one is given.  ``state`` is
+    updated in place and returned; ``batch`` holds tensors on the state's
+    device.  ``grads`` keeps the gradient buffers (the parameters'
+    dtypes, made at the first call): after a step at ``grad_accum`` 1,
+    the gradient the update took."""
 
-    def __init__(self, cfg: ModelConfig, tc: TrainConfig):
-        self.cfg, self.tc = cfg, tc
+    def __init__(self, cfg: ModelConfig, tc: TrainConfig,
+                 ctx: Optional[ParallelContext] = None):
+        self.cfg, self.tc, self.ctx = cfg, tc, lm.check_context(ctx)
         self.grads = None
 
     def grad(self, params, mb) -> Dict[str, torch.Tensor]:
@@ -177,7 +184,7 @@ class TrainStep:
 
         with torch.enable_grad():
             leafs = map_leaves(alias, params, self.grads)
-            loss, metrics = lm_loss(leafs, mb, self.cfg, None, self.tc)
+            loss, metrics = lm_loss(leafs, mb, self.cfg, self.ctx, self.tc)
             loss.backward()
         return {k: v.detach() for k, v in metrics.items()}
 
@@ -207,7 +214,8 @@ class TrainStep:
         return {"params": params, "opt": opt}, metrics
 
 
-def make_train_step(cfg: ModelConfig, tc: TrainConfig, ctx=None) -> TrainStep:
-    """Returns ``train_step(state, batch) -> (state, metrics)``."""
-    _require_local(ctx)
-    return TrainStep(cfg, tc)
+def make_train_step(cfg: ModelConfig, tc: TrainConfig,
+                    ctx: Optional[ParallelContext] = None) -> TrainStep:
+    """Returns ``train_step(state, batch) -> (state, metrics)``; ``ctx``
+    anything but None or a ``ParallelContext`` raises ``TypeError``."""
+    return TrainStep(cfg, tc, ctx)

@@ -315,8 +315,20 @@ def test_decode_attention_partial_and_combine_match_jax(window, kv_offset):
     np.testing.assert_allclose(
         _np(tlayers.combine_decode_partials(*got)),
         _np(jlayers.combine_decode_partials(*want)), **LAYER)
-    with pytest.raises(NotImplementedError):
-        tlayers.combine_decode_partials(*got, axis_name="model")
+    # across 4 ranks, each over its slice of 5 positions: the reference's
+    # pmax/psum combine under jax.vmap with a named axis
+    parts = [tlayers.decode_attention_partial(
+        torch.as_tensor(q), torch.as_tensor(kc[:, 5 * r:5 * r + 5]),
+        torch.as_tensor(vc[:, 5 * r:5 * r + 5]), torch.as_tensor(length),
+        window=window, kv_offset=kv_offset + 5 * r) for r in range(4)]
+    stacked = [torch.stack(t) for t in zip(*parts)]
+    ranked = jax.vmap(lambda o, m, l: jlayers.combine_decode_partials(
+        o, m, l, "model"), axis_name="model")(
+            *(jnp.asarray(_np(t)) for t in stacked))
+    combined = tlayers.combine_decode_partials(*stacked, rank_dim=0)
+    np.testing.assert_allclose(_np(combined), _np(ranked[0]), **LAYER)
+    np.testing.assert_allclose(
+        _np(combined), _np(jlayers.combine_decode_partials(*want)), **LAYER)
 
 
 # ---------------------------------------------------------------------------
@@ -782,6 +794,6 @@ def test_lm_entry_points_need_a_card(monkeypatch):
         tengine.ContinuousBatcher(tp, tcfg, num_slots=2, max_len=8)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tengine.generate(tp, tcfg, np.zeros((1, 4), np.int32), 2)
-    with pytest.raises(NotImplementedError, match="ParallelContext"):
+    with pytest.raises(TypeError, match="ParallelContext"):
         tlm.forward(tp, torch.zeros((1, 4), dtype=torch.int64), tcfg,
                     ctx=object())

@@ -50,6 +50,7 @@ from repro.train import step as jstep
 from repro_torch import checkpoint as tckpt
 from repro_torch import configs as tconfigs
 from repro_torch.configs.base import TrainConfig
+from repro_torch.core.parallel import make_context
 from repro_torch.data import Prefetcher, lm_batches
 from repro_torch.kernels import flash_attention as tflash
 from repro_torch.launch import train as tlaunch
@@ -621,9 +622,13 @@ def test_checkpoint_keeps_the_newest(tmp_path):
 
 
 def test_single_device_only():
+    """The step takes None or a ParallelContext (its simulated ranks,
+    ``tests/test_torch_lm_parallel.py``); anything else raises."""
     cfg = tconfigs.get_smoke_config("granite-8b")
-    with pytest.raises(NotImplementedError, match="13.6"):
+    with pytest.raises(TypeError, match="ParallelContext"):
         tstep.make_train_step(cfg, TrainConfig(), ctx=object())
+    ctx = make_context(4)
+    assert tstep.make_train_step(cfg, TrainConfig(), ctx).ctx is ctx
 
 
 def test_launch_train_smoke_cpu():

@@ -312,5 +312,34 @@ def test_init_moe_params_layout():
 
 
 def test_moe_ffn_ep_waits_for_item_13_6():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13.6"):
-        tmoe.moe_ffn_ep({}, torch.zeros((2, 4)), SMOKE, "model")
+    """``moe_ffn_ep`` over 4 stacked ranks against the reference's under
+    ``jax.vmap`` with a named axis (its all-to-alls and psums run over
+    the mapped ranks), at capacity factors that drop and one that does not:
+    outputs within ``1e-5``, ``moe_aux`` within ``1e-6``, drops equal;
+    experts that do not divide over the ranks raise."""
+    E = 4
+    drops = []
+    for cf in (0.5, 1.25, 4.0):
+        cfg = dataclasses.replace(SMOKE, moe_capacity_factor=cf)
+        p, x = _inputs(cfg, 5, n=E * 12)
+        jp, tp, jx, tx = _pair(p, x, "float32")
+        el = cfg.num_experts // E
+        experts = ("gate", "up", "down")
+        split = {k: (v.reshape((E, el) + v.shape[1:]) if k in experts
+                     else v) for k, v in jp.items()}
+        axes = {k: 0 if k in experts else None for k in jp}
+        want, jaux = jax.vmap(
+            lambda pm, xr: jmoe.moe_ffn_ep(pm, xr, cfg, "model"),
+            in_axes=(axes, 0), axis_name="model")(
+                split, jx.reshape(E, 12, -1))
+        got, taux = tmoe.moe_ffn_ep(tp, tx.reshape(E, 12, -1), cfg)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **OUT_F32)
+        np.testing.assert_allclose(float(taux["moe_aux"]),
+                                   float(jaux["moe_aux"][0]), **STATS)
+        assert int(taux["moe_dropped"]) == int(jaux["moe_dropped"][0])
+        drops.append(int(taux["moe_dropped"]))
+    assert drops[0] > drops[1] > drops[2] == 0, drops
+    with pytest.raises(ValueError, match="do not divide over 3"):
+        tmoe.moe_ffn_ep(tp, tx.reshape(3, 16, -1), SMOKE)
+    with pytest.raises(ValueError, match="ranks, N, d"):
+        tmoe.moe_ffn_ep(tp, tx, SMOKE)
