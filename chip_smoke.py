@@ -96,6 +96,27 @@ Phases:
      (bitwise phase 3); a no-drop traffic (uniform ids, every length 32)
      where a2a drops nothing and agrees with uncached; flush medians, one
      profiled a2a flush, the kernels' times beside their bounds;
+  7p. ranks as processes: phase 3's tables handed to 4 rank processes
+     sharing the card (table-wise 2) through CUDA IPC, each in a gloo
+     group (run_ranks) copying its own shard (3.33 GB, table-wise 6.65
+     GB) and building its symmetric buffers (cudaMalloc'd, opened by the
+     peers through CUDA IPC); each rank's DLRMEngine under its
+     ProcessContext serves phase 3's requests in flushes of 2048, in
+     lockstep, for row/allgather on both backends (the one-sided
+     all-reduce a pull-sum over the peers' buffers), row/a2a on both
+     (the one-sided puts into the peers' receive buffers), column and
+     table: every rank's scores alike; bitwise phase 7's simulated ones
+     where every collective moves or adds in rank order, and for the
+     bulk sums (gloo's order) the first batch's pooled rows within E *
+     2**-24 * sum_s |partial_s| of the simulated sum and pCTR within
+     tolerance; each rank's a2a drops those of its simulated rank; one
+     TBE launch per rank per flush (3 put + 1 pull-sum launches per
+     one-sided a2a flush), counted in each process and summed here; each
+     rank's peak memory about its shard; the median flush per rank on the
+     host clock with its fences' share (processes time-slicing one card:
+     no interconnect's time), each bulk collective's route; with 2 or
+     more cards, the row-wise strategies again over NCCL, one process a
+     card (else logged as needing them);
   7t. DLRM training at full width (phase 3's tables freed first; fresh
      tables from a seed): at a small size, the fused, unfused and flat
      ops' gradients (tables and weights) against autograd of the plain
@@ -2231,6 +2252,353 @@ def phase_distributed(pt, eg, oa, unc) -> dict:
         onesided_all_to_all=ones["counts"]["onesided_all_to_all"],
         onesided_reduce_scatter=ones["counts"]["onesided_reduce_scatter"],
         onesided_ring_permute=ring_launches)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 7p. ranks as processes
+# ---------------------------------------------------------------------------
+
+# phase 7's strategies and row/allgather/onesided (the all-reduce through
+# the pull-sum), each rank a process of a gloo group sharing the card
+PROC_STRATEGIES = (
+    ("row/allgather/bulk", dict(sharding="row"), RANKS),
+    ("row/allgather/onesided", dict(sharding="row", rw_backend="onesided"),
+     RANKS),
+    ("row/a2a/bulk", dict(sharding="row", rw_impl="a2a"), RANKS),
+    ("row/a2a/onesided", dict(sharding="row", rw_impl="a2a",
+                              rw_backend="onesided"), RANKS),
+    ("column", dict(sharding="column"), RANKS),
+    ("table", dict(sharding="table"), 2),
+)
+PROC_STRATEGIES_BY_LABEL = {label: fields
+                            for label, fields, _ in PROC_STRATEGIES}
+RANKS_OF = {label: ranks for label, _, ranks in PROC_STRATEGIES}
+# phase 7's simulated strategy each is held to: the simulated all-reduce is
+# one sum over the stacked ranks on either backend
+SIMULATED = {"row/allgather/onesided": "row/allgather/bulk"}
+# bitwise phase 7's scores: every collective moves, or adds in rank order
+PROC_BITWISE = ("row/allgather/onesided", "row/a2a/onesided", "column",
+                "table")
+# the bulk sums take gloo's (NCCL's) order: pooled rows within ULPS_OF[leg]
+# * 2**-24 * sum_s |partial_s| of the simulated sum, pCTR within PCTR_TOL
+PROC_BULK_SUMS = ("row/allgather/bulk", "row/a2a/bulk")
+# the bound's multiple of 2**-24 per leg, at E ranks: gloo's order, fixed
+# for given inputs, is held to E (0.952 of it in PR 27's runs); NCCL's
+# order, untried, to the proven 2 (E - 1) -- two f32 sums of E terms in
+# any orders are each within (E - 1) * 2**-24 * sum_s |partial_s| of the
+# exact sum (to first order)
+ULPS_OF = {"gloo": lambda e: e, "nccl": lambda e: 2 * (e - 1)}
+# per rank per flush: (kernel, launches)
+PROC_LAUNCHES = {
+    "row/allgather/bulk": dict(gather_pool_tbe_flat=1),
+    "row/allgather/onesided": dict(gather_pool_tbe_flat=1,
+                                   onesided_reduce_scatter=1),
+    "row/a2a/bulk": {},
+    "row/a2a/onesided": dict(onesided_all_to_all=3,
+                             onesided_reduce_scatter=1),
+    "column": dict(gather_pool_tbe=1),
+    "table": dict(gather_pool_tbe=1),
+}
+PROC_FLUSHES = REQUESTS // BATCH     # the requests of phases 3 and 7
+PROC_TIMEOUT_S = 300.0
+RANK_PATH = "7p ranks as processes"
+# a rank's device memory beyond its shard: a flush's working tensors (the
+# a2a's gathered rows are the largest, ~0.2 GB) and the symmetric buffers
+PROC_MEM_SLACK = 2 ** 31
+
+
+def _rank_device() -> str:
+    return "cpu" if DEV == "cpu" else "cuda:0"
+
+
+def _rank_requests(reqs):
+    """The requests as three arrays, cheap to hand to the rank processes."""
+    return (np.stack([r.dense for r in reqs]),
+            np.stack([r.indices for r in reqs]),
+            np.stack([r.lengths for r in reqs]))
+
+
+def _rank_bound_rows(ctx, eb, comm, rs, batch, ecfg):
+    """This rank's pooled rows of ``batch`` through the bulk sums, and
+    sum_s |partial_s| of each: the bound's measure."""
+    mass = eb.row_partials(rs, batch, ecfg).abs()
+    if ecfg.rw_impl == "allgather":
+        mass = comm.all_reduce(mass, ctx=ctx)
+    else:
+        mass = comm.reduce_scatter(mass, ctx=ctx)
+        mass = comm.all_gather(mass.reshape(-1, ecfg.num_tables, ecfg.dim),
+                               axis=0, tiled=True, ctx=ctx)
+    return eb.pooled_lookup_sharded(rs, batch, ecfg), mass
+
+
+def _rank_serve(ctx, base, tables, mlp, reqs, strategies, batch):
+    """One rank of phase 7p: for each strategy, a DLRMEngine under the
+    rank's ProcessContext (its shard copied from the parent's tables,
+    which reach it through CUDA IPC) serves the requests in flushes of
+    BATCH, in lockstep with the other ranks.  Each flush is timed on the
+    host clock beside its fences' seconds; the launch counts are set to
+    0 just before the flushes and read just after.  Then the checks'
+    extras: the a2a's dropped lookups of each flush's batch, and for the
+    bulk sums the first batch's pooled rows and their bound's measure.
+    Every rank's record is gathered to rank 0, which returns them."""
+    import torch.distributed as tdist
+
+    from repro_torch.core import comm
+    from repro_torch.core import embedding_bag as eb
+    from repro_torch.core.jagged import JaggedBatch
+    from repro_torch.kernels import embedding_gather as eg
+    from repro_torch.kernels import onesided_a2a as oa
+    from repro_torch.serving.engine import CTRRequest, DLRMEngine
+
+    cuda = ctx.device.type == "cuda"
+    dense, idx, lens = reqs
+    requests = [CTRRequest(rid=i, dense=dense[i], indices=idx[i],
+                           lengths=lens[i]) for i in range(len(dense))]
+    params = {part: [{k: v.to(ctx.device, copy=True)
+                      for k, v in layer.items()} for layer in mlp[part]]
+              for part in ("bottom", "top")}
+    params["tables"] = tables
+    out = {}
+    for label, fields in strategies:
+        cfg = dataclasses.replace(base, **fields)
+        ecfg = cfg.embedding_config()
+        if cuda:
+            torch.cuda.synchronize(ctx.device)
+            torch.cuda.reset_peak_memory_stats(ctx.device)
+        t0 = time.perf_counter()
+        eng = DLRMEngine(params, cfg, batch, ctx)
+        shard = eng.params["tables"].local
+        rec = dict(shard_bytes=shard.numel() * shard.element_size(),
+                   shard_s=time.perf_counter() - t0,
+                   shard_ptr_own=shard.data_ptr() != tables.data_ptr())
+        for r in requests:
+            eng.submit(r)
+        heads = [requests[i:i + batch] for i in range(0, len(requests),
+                                                      batch)]
+        scores, flush_ms, fence_ms = {}, [], []
+        eg.reset_launch_counts()
+        oa.reset_launch_counts()
+        while eng.queue:
+            f0 = oa.FENCE_STATS["seconds"]
+            t = time.perf_counter()
+            scores.update(eng.flush())      # ends in .cpu(): synchronous
+            flush_ms.append(1e3 * (time.perf_counter() - t))
+            fence_ms.append(1e3 * (oa.FENCE_STATS["seconds"] - f0))
+        rec["counts"] = {**eg.LAUNCH_COUNTS, **oa.LAUNCH_COUNTS}
+        rec.update(scores=np.array([scores[i] for i in sorted(scores)]),
+                   flush_ms=flush_ms, fence_ms=fence_ms)
+        rs = eng.params["tables"]
+        batches = []
+        for head in heads:
+            _, i_, l_ = eng._pad_batch(head)
+            batches.append(JaggedBatch(
+                torch.as_tensor(i_, device=ctx.device),
+                torch.as_tensor(l_, device=ctx.device)))
+        with torch.no_grad():
+            if ecfg.rw_impl == "a2a" and ecfg.sharding == "row":
+                rec["dropped"] = [int(eb.pooled_lookup_rw_a2a_with_stats(
+                    rs, b, ecfg)[1]) for b in batches]
+            if label in PROC_BULK_SUMS:
+                pooled, mass = _rank_bound_rows(ctx, eb, comm, rs,
+                                                batches[0], ecfg)
+                if ctx.rank == 0:
+                    rec["pooled"], rec["mass"] = pooled.cpu(), mass.cpu()
+        if cuda:
+            torch.cuda.synchronize(ctx.device)
+            rec["peak_bytes"] = torch.cuda.max_memory_allocated(ctx.device)
+        rec["symmetric_bytes"] = sum(b.nbytes for b in ctx._buffers.values())
+        del eng, rs, shard
+        gathered = [None] * ctx.world
+        tdist.all_gather_object(gathered, rec, group=ctx.group)
+        if ctx.rank == 0:
+            out[label] = gathered
+        if cuda:
+            torch.cuda.empty_cache()
+    return out
+
+
+def _check_rank_leg(pt, unc, dist, got, leg) -> dict:
+    """Phase 7p's checks of one leg's ranks against phase 7's simulated
+    ranks (and phase 3): scores, pooled rows, drops, launches, memory.
+    Returns each strategy's per-rank medians for the log."""
+    summary = {}
+    n = PROC_FLUSHES
+    for label, ranks_ in got.items():
+        e = len(ranks_)
+        other_e = e != RANKS_OF[label]
+        if other_e and "a2a" in label:
+            # another rank count: the a2a's buckets, and so its drops,
+            # differ from phase 7's; a simulated run at e ranks instead
+            sim = _simulated_at(pt, unc, label, e)
+        else:
+            sim = dist[SIMULATED.get(label, label)]
+        want = np.array([sim["scores"][k] for k in sorted(sim["scores"])])
+        vals = ranks_[0]["scores"]
+        check(all(np.array_equal(r["scores"], vals) for r in ranks_),
+              f"[{leg} {label}] every rank returns the same scores")
+        check(len(vals) == REQUESTS and np.isfinite(vals).all()
+              and ((vals > 0) & (vals < 1)).all(),
+              f"[{leg} {label}] {REQUESTS} finite pCTRs in (0, 1)")
+        err = float(np.abs(vals - want).max())
+        same = bool(np.array_equal(vals, want))
+        # the all-reduce over other ranks adds other partials
+        if label in PROC_BITWISE and (not other_e or "a2a" in label):
+            check(same, f"[{leg} {label}] scores bitwise the simulated "
+                        f"ranks'")
+        else:
+            check(bool(np.allclose(vals, want, **PCTR_TOL)),
+                  f"[{leg} {label}] pCTR within tolerance of the simulated "
+                  f"ranks'")
+        per = {k: v * n for k, v in PROC_LAUNCHES[label].items()}
+        for r, rec in enumerate(ranks_):
+            check({k: rec["counts"].get(k, 0) for k in SOURCES}
+                  == _launches(**per),
+                  f"[{leg} {label}] rank {r}: launches {per} in {n} flushes")
+            check(rec["shard_ptr_own"], f"[{leg} {label}] rank {r} holds its "
+                                        f"shard in memory of its own")
+        launches = {k: sum(rec["counts"].get(k, 0) for rec in ranks_)
+                    for k in SOURCES}
+        line = (f"  [{leg} {label}] {e} ranks: scores "
+                f"{'bitwise' if same else 'not bitwise'} phase 7's "
+                f"(max_abs_err {err:.3e}); launches summed over ranks "
+                f"{ {k: v for k, v in launches.items() if v} }")
+        log(line)
+        if "dropped" in ranks_[0]:
+            drops = [[rec["dropped"][f] for rec in ranks_] for f in range(n)]
+            check(drops == sim["dropped"],
+                  f"[{leg} {label}] each rank's drops == the simulated "
+                  f"rank's at {e} ranks")
+            log(f"  [{leg} {label}] dropped per flush (per rank) {drops}")
+        if label in PROC_BULK_SUMS:
+            rec0 = ranks_[0]
+            ecfg = dataclasses.replace(
+                pt.CONFIG, **dict(PROC_STRATEGIES_BY_LABEL[label])
+            ).embedding_config()
+            _, i_, l_ = _padded_arrays(pt, unc["heads"][0])
+            with torch.no_grad():
+                ref = pt.eb.pooled_lookup_sharded(
+                    pt.eb.shard_tables(unc["params"]["tables"], ecfg, e),
+                    pt.JaggedBatch(i_, l_), ecfg).cpu()
+            diff = (rec0["pooled"] - ref).abs()
+            ulps = ULPS_OF[leg](e)
+            bound = ulps * 2.0 ** -24 * rec0["mass"]
+            check(bool((diff <= bound).all()),
+                  f"[{leg} {label}] pooled rows within {ulps} * 2**-24 * "
+                  f"sum_s |partial_s| of the simulated sum")
+            log(f"  [{leg} {label}] pooled vs simulated: max_abs_err "
+                f"{float(diff.max()):.3e}, largest share of the bound "
+                f"{float((diff / bound.clamp_min(1e-30)).max()):.3f}, "
+                f"bitwise {bool(torch.equal(rec0['pooled'], ref))}")
+        med = [statistics.median(rec["flush_ms"]) for rec in ranks_]
+        fence = [sum(rec["fence_ms"]) / sum(rec["flush_ms"]) for rec in ranks_]
+        peak = [(rec.get("peak_bytes", 0) + rec["symmetric_bytes"]) / 1e9
+                for rec in ranks_]
+        shard_gb = ranks_[0]["shard_bytes"] / 1e9
+        if DEV != "cpu":
+            check(all(p * 1e9 <= ranks_[0]["shard_bytes"] + PROC_MEM_SLACK
+                      for p in peak),
+                  f"[{leg} {label}] each rank's peak memory about its shard")
+        log(f"  [{leg} {label}] median flush ms per rank "
+            f"{[round(m, 3) for m in med]} (host clock), fences "
+            f"{[round(100 * f, 1) for f in fence]}% of it; shard "
+            f"{shard_gb:.2f} GB a rank (copied in "
+            f"{max(r['shard_s'] for r in ranks_):.2f} s), peak "
+            f"{[round(p, 2) for p in peak]} GB a rank (allocator peak + "
+            f"symmetric buffers)")
+        summary[label] = dict(median_ms=med, fence_share=fence, peak_gb=peak,
+                              launches=launches, bitwise=same, err=err)
+    return summary
+
+
+def _simulated_at(pt, unc, label, world) -> dict:
+    """``label`` served on ``world`` simulated ranks, as phase 7 serves it
+    on its own count: the scores, and the a2a's drops per flush (per
+    rank)."""
+    cfg = dataclasses.replace(pt.CONFIG, **PROC_STRATEGIES_BY_LABEL[label])
+    eng = pt.DLRMEngine(unc["params"], cfg, batch_size=BATCH,
+                        ctx=pt.make_context(tp_size=world), device=DEV)
+    reqs = unc["reqs"][:PROC_FLUSHES * BATCH]
+    for r in reqs:
+        eng.submit(r)
+    heads = [reqs[i:i + BATCH] for i in range(0, len(reqs), BATCH)]
+    out = dict(scores=eng.run_to_completion(),
+               dropped=_dropped(pt, eng, heads, cfg.embedding_config()))
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def _padded_arrays(pt, head):
+    """A head's padded (dense, indices, lengths) on the card, as the engine
+    pads them."""
+    F, T_, L_ = (pt.CONFIG.num_dense_features, pt.CONFIG.num_sparse_features,
+                 pt.CONFIG.pooling)
+    dense = np.zeros((BATCH, F), np.float32)
+    idx = np.zeros((T_, BATCH, L_), np.int32)
+    lens = np.zeros((T_, BATCH), np.int32)
+    for i, r in enumerate(head):
+        dense[i], idx[:, i, :], lens[:, i] = r.dense, r.indices, r.lengths
+    dev = torch.device(DEV)
+    return (torch.as_tensor(dense, device=dev),
+            torch.as_tensor(idx, device=dev),
+            torch.as_tensor(lens, device=dev))
+
+
+def phase_ranks(pt, unc, dist) -> dict:
+    n_cards = torch.cuda.device_count() if DEV != "cpu" else 0
+    log(f"== 7p. ranks as processes ({RANKS} processes sharing the card in "
+        f"a gloo group, table-wise 2; phase 3's tables through CUDA IPC; "
+        f"torch.cuda.device_count() {n_cards})")
+    for (op, be), route in pt.comm.RANK_ROUTES.items():
+        log(f"  route {op} {be}: {route}")
+    t0 = time.perf_counter()
+    tables = unc["params"]["tables"]
+    mlp = {part: unc["params"][part] for part in ("bottom", "top")}
+    reqs = _rank_requests(unc["reqs"][:PROC_FLUSHES * BATCH])
+    got = {}
+    for world in sorted({r for _, _, r in PROC_STRATEGIES}, reverse=True):
+        strategies = [(label, fields) for label, fields, r in PROC_STRATEGIES
+                      if r == world]
+        t1 = time.perf_counter()
+        got.update(pt.run_ranks(
+            _rank_serve, world, backend="gloo", device=_rank_device(),
+            args=(pt.CONFIG, tables, mlp, reqs, strategies, BATCH),
+            timeout_s=PROC_TIMEOUT_S))
+        log(f"  gloo, {world} processes: {len(strategies)} strategies in "
+            f"{time.perf_counter() - t1:.1f} s (spawn, shard copies, "
+            f"flushes, checks' extras)")
+    out = dict(gloo=_check_rank_leg(pt, unc, dist, got, "gloo"))
+    if n_cards >= 2:
+        world = RANKS if n_cards >= RANKS else 2
+        rows = [(label, fields) for label, fields, r in PROC_STRATEGIES
+                if label.startswith("row/")]
+        t1 = time.perf_counter()
+        got = pt.run_ranks(_rank_serve, world, backend="nccl",
+                           args=(pt.CONFIG, tables, mlp, reqs, rows, BATCH),
+                           timeout_s=PROC_TIMEOUT_S)
+        log(f"  nccl, {world} processes, one a card: {len(rows)} strategies "
+            f"in {time.perf_counter() - t1:.1f} s")
+        out["nccl"] = _check_rank_leg(pt, unc, dist, got, "nccl")
+    else:
+        log("  the NCCL leg needs two or more cards (NCCL refuses two ranks "
+            "on one device): not run on this machine")
+    # the per-rank path's launches, summed over its ranks and strategies
+    out["launches"] = {k: sum(s["launches"][k]
+                              for s in out["gloo"].values())
+                       for k in SOURCES}
+    out["secs"] = time.perf_counter() - t0
+    import multiprocessing
+
+    alive = multiprocessing.active_children()
+    nccl = "; the NCCL leg's are one process a card" if "nccl" in out \
+        else ""
+    log(f"  phase 7p: {out['secs']:.1f} s; the gloo leg's flush times are "
+        f"processes time-slicing one card, not an interconnect's{nccl}; "
+        f"rank processes alive after it: {len(alive)}; device memory "
+        f"reserved {torch.cuda.memory_reserved() / 1e9:.3f} GB, allocated "
+        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB")
+    check(not alive, "phase 7p's rank processes all ended")
     return out
 
 
@@ -4728,14 +5096,10 @@ def _leaves(tree):
         yield from (_leaves(v) if isinstance(v, dict) else (v,))
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device is available", file=sys.stderr)
-        return 1
-    sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels import build
-    from repro_torch.kernels import embedding_gather as eg
-    from repro_torch.kernels import onesided_a2a as oa
+def port_namespace():
+    """The port's entry points, one namespace (``src/`` on the path)."""
+    if str(ROOT / "src") not in sys.path:
+        sys.path.insert(0, str(ROOT / "src"))
 
     class pt:   # the port's entry points, one namespace
         from repro_torch.cache import RemoteStore
@@ -4744,7 +5108,7 @@ def main() -> int:
         from repro_torch.core import embedding_bag as eb
         from repro_torch.core.cache_config import CacheConfig
         from repro_torch.core.jagged import JaggedBatch
-        from repro_torch.core.parallel import make_context
+        from repro_torch.core.parallel import make_context, run_ranks
         from repro_torch.kernels import flash_attention as fa
         from repro_torch.kernels import ref
         from repro_torch.models import decode as dec
@@ -4787,6 +5151,20 @@ def main() -> int:
         from repro_torch.utils.tree import (flatten_with_paths, leaves,
                                             map_leaves)
 
+    return pt
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import build
+    from repro_torch.kernels import embedding_gather as eg
+    from repro_torch.kernels import onesided_a2a as oa
+
+    pt = port_namespace()
+
     # full fp32 products on the card, as in the reference
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4807,8 +5185,15 @@ def main() -> int:
     piped = phase_pipelined(pt, eg, oa, unc, cached, remote)
     planned = phase_planned(pt, eg, oa, unc, cached)
     dist = phase_distributed(pt, eg, oa, unc)
+    procs = phase_ranks(pt, unc, dist)
+    held = torch.cuda.memory_allocated()
     del unc["params"]           # phase 3's tables: 13.3 GB
     torch.cuda.empty_cache()
+    freed = held - torch.cuda.memory_allocated()
+    log(f"== phase 3's tables freed after phase 7p: {freed / 1e9:.3f} GB")
+    check(freed >= pt.CONFIG.embedding_config().table_bytes,
+          "phase 3's tables freed: the rank processes released what they "
+          "were sent through CUDA IPC")
     train = phase_train(pt, eg, oa)
     held = torch.cuda.memory_allocated()
     lm = phase_lm(pt, (eg, oa, pt.fa))
@@ -4866,6 +5251,7 @@ def main() -> int:
     by_path = {
         "gather_pool_tbe": {
             "3 serving uncached": unc["launches"]["gather_pool_tbe"],
+            RANK_PATH: procs["launches"]["gather_pool_tbe"],
             "7t training": train["launches"]},
         "gather_pool": {
             "3 serving uncached, fused=False":
@@ -4873,6 +5259,7 @@ def main() -> int:
             "7t training, fused=False": train["unfused_launches"]},
         "gather_pool_tbe_flat": {
             "4 serving cached": cached["launches"],
+            RANK_PATH: procs["launches"]["gather_pool_tbe_flat"],
             "8 LM serving, ctx": lm["ctx"]["launches"],
             "8m MoE serving, ctx": moe["ctx"]["launches"],
             "8d MLA decode, ctx": ds["ctx"]["launches"],
@@ -4880,6 +5267,9 @@ def main() -> int:
         "onesided_put_rows": {
             "6 serving remote": remote["onesided"]["launches"]},
         **{name: {"7 distributed": n} for name, n in dist["launches"].items()},
+        **{name: {"7 distributed": dist["launches"][name],
+                  RANK_PATH: procs["launches"][name]}
+           for name in ("onesided_all_to_all", "onesided_reduce_scatter")},
         "flash_attention": {"8 LM serving": lm["launches"],
                             "8 LM serving, ctx": lm["ctx"]["flash"],
                             "8m MoE serving": moe["launches"],
@@ -4956,6 +5346,15 @@ def main() -> int:
         f", onesided vs bulk {'bitwise' if dist['a2a_bitwise'] else 'within tolerance'}, "
         f"profiled a2a flush idle {dist['idle']:.1f}%, peak device memory "
         f"{dist['peak_gb']:.1f} GB")
+    log("ranks as processes (7p, gloo, one card; host clock, four "
+        "processes time-slicing the card): " + "; ".join(
+            f"{label} median flush {max(s['median_ms']):.3f} ms (slowest "
+            f"rank), fences {100 * max(s['fence_share']):.1f}%, peak "
+            f"{max(s['peak_gb']):.2f} GB a rank, scores "
+            + ("bitwise" if s["bitwise"] else f"max_abs_err {s['err']:.3e}")
+            for label, s in procs["gloo"].items())
+        + f"; NCCL leg {'run' if 'nccl' in procs else 'needs 2+ cards'}; "
+        f"phase {procs['secs']:.1f} s")
     log(f"contracts (2c): all {len(contracts)} hold on the card; TBE device "
         f"kernels per fixture {contracts}")
     med = train["median"]

@@ -27,6 +27,30 @@ collective whose result every rank holds alike (``all_gather``,
 :class:`CollectiveEvent` with the reference's ``bytes_in`` -- ONE rank's
 payload -- and ``axis_size = E``.  There is no one-sided mode switch: the
 device of the tensors picks the route.
+
+With ``ctx=`` a :class:`~repro_torch.core.parallel.ProcessContext`, the
+ranks are processes, and each collective takes ONE rank's value and
+returns that rank's result (``all_to_all`` ``(E_dst, C, ...)`` ->
+``(E_src, C, ...)``, ``reduce_scatter`` ``(E_dst, M, ...)`` -> ``(M,
+...)``, ``all_gather`` and ``all_reduce`` the result every rank holds).
+The routes (:data:`RANK_ROUTES`):
+
+  * ``"bulk"`` -- the group's ``all_to_all_single``,
+    ``all_gather_into_tensor``, ``all_reduce`` and
+    ``reduce_scatter_tensor``.  Gloo runs each of them on CUDA tensors
+    too (through the host, inside gloo), so nothing is composed or
+    staged here; its sums take gloo's order, not rank order;
+    ``emulate_with_a2a`` takes the paper's reduce-scatter as an
+    all-to-all and a local sum in rank order;
+  * ``"onesided"`` -- on a card the chunk kernels over the ranks'
+    symmetric buffers (``kernels/onesided_a2a.py``): the all-to-all as
+    puts, the reduce-scatter and the all-reduce as pull-sums, both in
+    rank order, bitwise ``x.sum(0)`` over the stacked ranks; on the CPU
+    their plain versions over the group.  The all-gather has no one-sided
+    kernel, in the reference either: it goes over the group.
+
+Each call records one event, as over the stacked ranks: ``bytes_in`` is
+this rank's payload, ``axis_size`` the world.
 """
 from __future__ import annotations
 
@@ -37,7 +61,9 @@ import time
 from typing import Callable, List, Optional
 
 import torch
+import torch.distributed as dist
 
+from repro_torch.kernels import onesided_a2a as _oa
 from repro_torch.kernels.onesided_a2a import (
     onesided_all_to_all,
     onesided_fetch_rows,
@@ -131,11 +157,15 @@ def record_runtime(op: str, nbytes: int, n_devices: int, backend: str,
 # Collectives over the stacked ranks
 # ---------------------------------------------------------------------------
 
-def all_to_all(x: torch.Tensor, *, backend: str = "bulk") -> torch.Tensor:
+def all_to_all(x: torch.Tensor, *, backend: str = "bulk",
+               ctx=None) -> torch.Tensor:
     """All-to-all: ``(E_src, E_dst, C, ...)`` -> ``(E_dst, E_src, C,
     ...)``; rank d receives every rank's chunk for d, in rank order.
     ``"onesided"`` puts whole chunks from inside a kernel (one launch for
-    all source ranks); ``"bulk"`` transposes with stock torch ops."""
+    all source ranks); ``"bulk"`` transposes with stock torch ops.  With
+    ``ctx``, this rank's ``(E_dst, C, ...)`` -> ``(E_src, C, ...)``."""
+    if ctx is not None:
+        return _rank_all_to_all(x, backend, ctx)
     _record("all_to_all", x, backend)
     if backend == "onesided":
         return onesided_all_to_all(x)
@@ -143,26 +173,32 @@ def all_to_all(x: torch.Tensor, *, backend: str = "bulk") -> torch.Tensor:
 
 
 def all_gather(x: torch.Tensor, *, axis: int = 0, tiled: bool = False,
-               backend: str = "bulk") -> torch.Tensor:
+               backend: str = "bulk", ctx=None) -> torch.Tensor:
     """All-gather of the E ranks' ``x[r]``: stacked along a new ``axis``,
     or concatenated along ``axis`` when ``tiled``.  Every rank holds the
-    same result; it is returned once."""
+    same result; it is returned once.  With ``ctx``, ``x`` is this rank's
+    value."""
+    if ctx is not None:
+        return _rank_all_gather(x, axis, tiled, backend, ctx)
     _record("all_gather", x, backend)
     parts = x.unbind(0)
     return torch.cat(parts, dim=axis) if tiled else torch.stack(parts,
                                                                 dim=axis)
 
 
-def all_reduce(x: torch.Tensor, *, backend: str = "bulk") -> torch.Tensor:
+def all_reduce(x: torch.Tensor, *, backend: str = "bulk",
+               ctx=None) -> torch.Tensor:
     """Sum of the E ranks' ``x[r]`` (the reference's ``psum``), returned
     once, in ``x``'s dtype (an int32 sum wraps modulo 2**32, as the
-    reference's does)."""
+    reference's does).  With ``ctx``, ``x`` is this rank's value."""
+    if ctx is not None:
+        return _rank_all_reduce(x, backend, ctx)
     _record("all_reduce", x, backend)
     return x.sum(dim=0, dtype=x.dtype)
 
 
 def reduce_scatter(x: torch.Tensor, *, backend: str = "bulk",
-                   emulate_with_a2a: bool = False) -> torch.Tensor:
+                   emulate_with_a2a: bool = False, ctx=None) -> torch.Tensor:
     """Reduce-scatter over the leading per-rank dimension: ``(E_src, E_dst,
     M, ...)`` -> ``(E_dst, M, ...)``, rank d's sum over sources of their
     ``[d]``, in ``x``'s dtype.
@@ -172,7 +208,10 @@ def reduce_scatter(x: torch.Tensor, *, backend: str = "bulk",
     that reads every source's chunk and sums it in registers.
     ``emulate_with_a2a`` takes the workaround's two passes on ``"bulk"``
     (a transpose, then a sum); otherwise the bulk route is one sum over
-    sources (the reference's ``psum_scatter``)."""
+    sources (the reference's ``psum_scatter``).  With ``ctx``, this rank's
+    ``(E_dst, M, ...)`` -> ``(M, ...)``."""
+    if ctx is not None:
+        return _rank_reduce_scatter(x, backend, emulate_with_a2a, ctx)
     _record("reduce_scatter", x, backend)
     if backend == "onesided":
         return onesided_reduce_scatter(x)
@@ -190,6 +229,115 @@ def permute_ring(x: torch.Tensor, *, shift: int = 1,
     if backend == "onesided":
         return onesided_ring_permute(x, shift)
     return torch.roll(x, shift, dims=0)
+
+
+# ---------------------------------------------------------------------------
+# Collectives of one rank per process
+# ---------------------------------------------------------------------------
+
+# (op, backend) -> what carries it when the ranks are processes, on either
+# device; chip_smoke.py logs it beside the group's backend
+RANK_ROUTES = {
+    ("all_to_all", "bulk"): "all_to_all_single",
+    ("all_to_all", "onesided"): "put_chunks_kernel (CPU: all_to_all_single)",
+    ("all_gather", "bulk"): "all_gather_into_tensor",
+    ("all_gather", "onesided"): "all_gather_into_tensor",
+    ("all_reduce", "bulk"): "all_reduce",
+    ("all_reduce", "onesided"):
+        "sum_chunks_kernel (CPU: all_gather_into_tensor + rank-order sum)",
+    ("reduce_scatter", "bulk"): "reduce_scatter_tensor",
+    ("reduce_scatter", "bulk+emulate"):
+        "all_to_all_single + rank-order sum",
+    ("reduce_scatter", "onesided"):
+        "sum_chunks_kernel (CPU: all_to_all_single + rank-order sum)",
+}
+
+
+def _record_rank(op: str, x: torch.Tensor, backend: str, ctx) -> None:
+    """One event for this rank's collective: its payload, the world."""
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; want one of "
+                         f"{BACKENDS}")
+    if _LOG.events is None and _SINK is None:
+        return
+    t = time.perf_counter()
+    _emit(CollectiveEvent(op, x.numel() * x.element_size(), ctx.world,
+                          backend, t, t))
+
+
+def _check_rank_value(x: torch.Tensor, ctx, what: str) -> None:
+    if x.device != ctx.device:
+        raise ValueError(f"{what}: this rank's value is on {x.device}, its "
+                         f"context on {ctx.device}")
+
+
+def _symmetric(ctx, name: str, x: torch.Tensor):
+    """The rank's symmetric buffers for ``x`` on a card, None on the CPU
+    (whose plain versions need none)."""
+    if x.device.type != "cuda":
+        return None
+    return ctx.symmetric(name, x.numel() * x.element_size())
+
+
+def _a2a_group(x: torch.Tensor, ctx) -> torch.Tensor:
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=ctx.group)
+    return out
+
+
+def _rank_all_to_all(x: torch.Tensor, backend: str, ctx) -> torch.Tensor:
+    _record_rank("all_to_all", x, backend, ctx)
+    _check_rank_value(x, ctx, "all_to_all")
+    if x.shape[0] != ctx.world:
+        raise ValueError(f"all_to_all takes ({ctx.world}, ...) chunks, got "
+                         f"{tuple(x.shape)}")
+    x = x.contiguous()
+    if backend == "onesided":
+        return _oa.onesided_all_to_all_rank(x, ctx.rank, ctx.group,
+                                            _symmetric(ctx, "recv", x))
+    return _a2a_group(x, ctx)
+
+
+def _rank_all_gather(x: torch.Tensor, axis: int, tiled: bool,
+                     backend: str, ctx) -> torch.Tensor:
+    _record_rank("all_gather", x, backend, ctx)
+    _check_rank_value(x, ctx, "all_gather")
+    out = torch.empty((ctx.world,) + tuple(x.shape), dtype=x.dtype,
+                      device=x.device)
+    _oa.all_gather_into(out, x.contiguous(), ctx.group)
+    parts = out.unbind(0)
+    return torch.cat(parts, dim=axis) if tiled else torch.stack(parts,
+                                                                dim=axis)
+
+
+def _rank_all_reduce(x: torch.Tensor, backend: str, ctx) -> torch.Tensor:
+    _record_rank("all_reduce", x, backend, ctx)
+    _check_rank_value(x, ctx, "all_reduce")
+    x = x.contiguous()
+    if backend == "onesided":
+        return _oa.onesided_all_reduce_rank(x, ctx.rank, ctx.group,
+                                            _symmetric(ctx, "send", x))
+    out = x.clone()
+    dist.all_reduce(out, group=ctx.group)
+    return out
+
+
+def _rank_reduce_scatter(x: torch.Tensor, backend: str,
+                         emulate_with_a2a: bool, ctx) -> torch.Tensor:
+    _record_rank("reduce_scatter", x, backend, ctx)
+    _check_rank_value(x, ctx, "reduce_scatter")
+    if x.shape[0] != ctx.world:
+        raise ValueError(f"reduce_scatter takes ({ctx.world}, ...) chunks, "
+                         f"got {tuple(x.shape)}")
+    x = x.contiguous()
+    if backend == "onesided":
+        return _oa.onesided_reduce_scatter_rank(
+            x, ctx.rank, ctx.group, _symmetric(ctx, "send", x))
+    if emulate_with_a2a:
+        return _a2a_group(x, ctx).sum(dim=0, dtype=x.dtype)
+    out = torch.empty(tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
+    _oa.reduce_scatter_into(out, x, ctx.group)
+    return out
 
 
 # ---------------------------------------------------------------------------

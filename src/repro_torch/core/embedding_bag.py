@@ -30,6 +30,18 @@ rank axis between the collectives:
 ``rw_backend`` picks the transport of the collectives: ``"bulk"`` (stock
 torch ops, the NCCL analogue) or ``"onesided"`` (the chunk-put kernel, the
 NVSHMEM analogue).
+
+When each rank is a process (``core.parallel.ProcessContext``),
+:func:`shard_for_rank` copies this rank's shard into an allocation of its
+own on its device (:class:`RankShard`), and :func:`pooled_lookup_sharded`
+runs the same bodies for this rank alone (``_local_ranks``), the
+collectives over the process group (``comm``'s ``ctx=``); it returns
+what this rank holds.  A rank's result is therefore bitwise the
+simulated one wherever the collectives move or add in the same order:
+everywhere but the bulk all-reduce and reduce-scatter, which take the
+group's order (gloo's, NCCL's).  Two f32 orders of E terms differ by at
+most ``2 (E - 1) * 2**-24 * sum_s |partial_s|`` (:func:`row_partials`
+gives the partials).
 """
 from __future__ import annotations
 
@@ -43,6 +55,7 @@ from repro_torch.analysis.contracts import KernelContract
 from repro_torch.core import comm
 from repro_torch.core.cache_config import CacheConfig
 from repro_torch.core.jagged import JaggedBatch
+from repro_torch.core.parallel import ProcessContext
 from repro_torch.kernels import ops as kops
 from repro_torch.utils.device import resolve_device
 
@@ -169,6 +182,14 @@ class ShardedTables:
     def dtype(self) -> torch.dtype:
         return self.tables.dtype
 
+    @property
+    def shape(self) -> Tuple[int, int, int]:
+        """The full tables' (T, R, D)."""
+        if self.sharding == "column":
+            E, T, R, d = self.tables.shape
+            return T, R, E * d
+        return tuple(self.tables.shape)
+
     def shard(self, rank: int) -> torch.Tensor:
         """Rank ``rank``'s shard: ``(T, R/E, D)`` rows ``[rank * R/E,
         (rank + 1) * R/E)`` of every table (a strided view), ``(T, R,
@@ -185,6 +206,47 @@ class ShardedTables:
         return self.tables
 
 
+@dataclasses.dataclass(frozen=True)
+class RankShard:
+    """This process's shard of the stacked ``(T, R, D)`` tables, when each
+    rank is a process: ``local`` is what :meth:`ShardedTables.shard` gives
+    for this rank, an allocation of its own on the rank's device."""
+
+    sharding: str
+    ctx: ProcessContext
+    local: torch.Tensor
+    shape: Tuple[int, int, int]         # the full tables' (T, R, D)
+
+    @property
+    def num_shards(self) -> int:
+        return self.ctx.world
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.local.dtype
+
+    def shard(self, rank: int) -> torch.Tensor:
+        if rank != self.ctx.rank:
+            raise ValueError(f"rank {self.ctx.rank} holds no shard of rank "
+                             f"{rank}")
+        return self.local
+
+
+def _check_divides(sharding: str, shape, E: int) -> None:
+    """Raises ``ValueError`` when E ranks do not divide R (row), D (column)
+    or T (table), where the reference's ``shard_map`` fails."""
+    T, R, D = shape
+    if E < 1:
+        raise ValueError(f"num_shards must be >= 1, got {E}")
+    dims = {"row": ("R", R), "column": ("D", D), "table": ("T", T)}
+    if sharding in dims:
+        name, size = dims[sharding]
+        if size % E:
+            raise ValueError(
+                f"{sharding}-wise sharding over {E} ranks needs {name} "
+                f"({size}) divisible by {E}")
+
+
 def shard_tables(tables: torch.Tensor, cfg: EmbeddingBagConfig,
                  num_shards: int) -> ShardedTables:
     """Shard the stacked ``(T, R, D)`` tables over ``num_shards`` ranks per
@@ -194,15 +256,7 @@ def shard_tables(tables: torch.Tensor, cfg: EmbeddingBagConfig,
     and table shards are views; the column shards are one copy."""
     T, R, D = tables.shape
     E = num_shards
-    if E < 1:
-        raise ValueError(f"num_shards must be >= 1, got {E}")
-    dims = {"row": ("R", R), "column": ("D", D), "table": ("T", T)}
-    if cfg.sharding in dims:
-        name, size = dims[cfg.sharding]
-        if size % E:
-            raise ValueError(
-                f"{cfg.sharding}-wise sharding over {E} ranks needs {name} "
-                f"({size}) divisible by {E}")
+    _check_divides(cfg.sharding, tables.shape, E)
     tables = tables.contiguous()
     if cfg.sharding == "column":
         tables = tables.view(T, R, E, D // E).permute(2, 0, 1, 3) \
@@ -210,37 +264,82 @@ def shard_tables(tables: torch.Tensor, cfg: EmbeddingBagConfig,
     return ShardedTables(cfg.sharding, E, tables)
 
 
-def _rw_allgather(shards: ShardedTables, batch: JaggedBatch,
-                  cfg: EmbeddingBagConfig, scatter_batch: bool
-                  ) -> torch.Tensor:
-    """Every rank pools the rows it owns of the replicated batch -- one
-    fused TBE launch per rank over its shard, read in place -- then the
-    partials are summed: one all-reduce -> (B, T, D), or with
-    ``scatter_batch`` a reduce-scatter over the batch -> (E, B/E, T, D),
-    rank r's pooled rows of its batch slice."""
+def shard_for_rank(tables: torch.Tensor, cfg: EmbeddingBagConfig,
+                   ctx: ProcessContext) -> RankShard:
+    """This process's shard of the stacked ``(T, R, D)`` tables over the
+    ``ctx.world`` ranks, per ``cfg.sharding``: ``(T, R/E, D)`` rows,
+    ``(T, R, D/E)`` columns, ``(T/E, R, D)`` tables or the full tables,
+    copied onto the rank's device (also when the slice is contiguous or
+    already there: the rank holds its shard, never a view of memory it
+    does not own).  Raises as :func:`shard_tables` does."""
+    _check_divides(cfg.sharding, tables.shape, ctx.world)
+    T, R, D = tables.shape
+    E, r = ctx.world, ctx.rank
+    if cfg.sharding == "row":
+        part = tables[:, r * (R // E):(r + 1) * (R // E)]
+    elif cfg.sharding == "column":
+        part = tables[..., r * (D // E):(r + 1) * (D // E)]
+    elif cfg.sharding == "table":
+        part = tables[r * (T // E):(r + 1) * (T // E)]
+    else:
+        part = tables
+    local = torch.empty(tuple(part.shape), dtype=part.dtype,
+                        device=ctx.device)
+    local.copy_(part)
+    return RankShard(cfg.sharding, ctx, local, (T, R, D))
+
+
+def _local_ranks(shards):
+    """(the process context or None, the ranks this process computes):
+    every simulated rank of :class:`ShardedTables`, or this process's
+    rank of a :class:`RankShard`."""
+    ctx = getattr(shards, "ctx", None)
+    return ctx, (range(shards.num_shards) if ctx is None else (ctx.rank,))
+
+
+def _stack(outs, ctx) -> torch.Tensor:
+    """The simulated ranks' results on a leading rank axis; a process's
+    one result as it is."""
+    return torch.stack(outs) if ctx is None else outs[0]
+
+
+def _rw_partial(shards, batch: JaggedBatch,
+                cfg: EmbeddingBagConfig) -> torch.Tensor:
+    """Every rank's pooling of the rows it owns of the replicated batch --
+    one fused TBE launch per rank over its shard, read in place -> ([E,]
+    B, T, D)."""
+    ctx, ranks = _local_ranks(shards)
+    rps = shards.shape[1] // shards.num_shards
+    return _stack([kops.embedding_bag_rw_partial_batched(
+        shards.shard(rank), rank * rps, batch.indices, batch.lengths,
+        batch.weights, fused=cfg.fused).transpose(0, 1) for rank in ranks],
+        ctx)
+
+
+def _rw_allgather(shards, batch: JaggedBatch, cfg: EmbeddingBagConfig,
+                  scatter_batch: bool) -> torch.Tensor:
+    """The partials of :func:`_rw_partial` summed: one all-reduce -> (B, T,
+    D), or with ``scatter_batch`` a reduce-scatter over the batch -> (E,
+    B/E, T, D), rank r's pooled rows of its batch slice (a process's
+    (B/E, T, D))."""
+    ctx, _ = _local_ranks(shards)
     E = shards.num_shards
-    T, R, D = shards.tables.shape
-    rps = R // E
-    parts = []
-    for rank in range(E):
-        part = kops.embedding_bag_rw_partial_batched(
-            shards.shard(rank), rank * rps, batch.indices, batch.lengths,
-            batch.weights, fused=cfg.fused)
-        parts.append(part.transpose(0, 1))                   # (B, T, D)
-    partial = torch.stack(parts)                             # (E, B, T, D)
+    T, _, D = shards.shape
+    partial = _rw_partial(shards, batch, cfg)                # ([E,] B, T, D)
     out_dtype = partial.dtype
     if cfg.rs_dtype != "float32":
         partial = partial.to(DTYPES[cfg.rs_dtype])
     if scatter_batch:
-        B = partial.shape[1]
+        B = partial.shape[-3]
         if B % E:
             raise ValueError(f"scatter_batch needs the batch ({B}) "
                              f"divisible by {E} ranks")
-        stacked = partial.reshape(E, E, B // E, T, D)
+        stacked = partial.reshape(partial.shape[:-3] + (E, B // E, T, D))
         return comm.reduce_scatter(
             stacked, backend=cfg.rw_backend,
-            emulate_with_a2a=cfg.emulate_rs_with_a2a).to(out_dtype)
-    return comm.all_reduce(partial, backend=cfg.rw_backend).to(out_dtype)
+            emulate_with_a2a=cfg.emulate_rs_with_a2a, ctx=ctx).to(out_dtype)
+    return comm.all_reduce(partial, backend=cfg.rw_backend,
+                           ctx=ctx).to(out_dtype)
 
 
 def _bucket_by_owner(flat_idx: torch.Tensor, flat_w: torch.Tensor,
@@ -282,125 +381,163 @@ def _bucket_by_owner(flat_idx: torch.Tensor, flat_w: torch.Tensor,
     return put(flat_idx, 0), put(flat_w, 0.0), put(flat_seg, -1), dropped
 
 
-def _rw_a2a(shards: ShardedTables, batch: JaggedBatch,
-            cfg: EmbeddingBagConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The paper-faithful row-wise pipeline -> ((B, T, D) pooled, (E,)
-    dropped lookups per rank).
+def _pool_received(shard: torch.Tensor, row0: int, p: torch.Tensor,
+                   w: torch.Tensor, seg: torch.Tensor, T: int, Bl: int
+                   ) -> torch.Tensor:
+    """Phase 2 on one rank: the (E, C) packed ids, weights and segments it
+    received, gathered from its (T, R/E, D) shard (rows ``row0`` on) and
+    segment-summed -> (E, Bl * T, D) f32 partials, one per requester."""
+    E, C = p.shape
+    rps, D = shard.shape[1], shard.shape[2]
+    row = torch.div(p, T, rounding_mode="floor") - row0
+    valid = (w != 0.0) & (row >= 0) & (row < rps)
+    # only the valid slots are gathered and summed: the reference adds the
+    # others (weight 0) into a segment it then cuts off, which would
+    # serialise the sort-based sum below on one hot segment
+    live = valid.reshape(-1).nonzero().squeeze(1)
+    row = row.reshape(-1)[live].long()
+    tab = torch.remainder(p.reshape(-1)[live], T).long()
+    rows = shard[tab, row].to(torch.float32)      # read in place
+    contrib = rows * w.reshape(-1)[live][:, None]
+    origin = torch.arange(E, device=p.device)[:, None].expand(E, C)
+    segs = origin.reshape(-1)[live] * (Bl * T) + seg.reshape(-1)[live]
+    # a sum in slot order per segment: index_put_ with accumulate sorts
+    # stably on CUDA, and adds in order on the CPU
+    sums = torch.zeros((E * Bl * T, D), dtype=torch.float32,
+                       device=p.device)
+    sums.index_put_((segs,), contrib, accumulate=True)
+    return sums.view(E, Bl * T, D)
 
-    Each rank takes its own 1/E slice of the replicated batch (the paper's
-    per-GPU mini-batch); phases 1-3 reassemble its pooled rows, and a tiled
-    all-gather restores the whole batch.  Phase 1 (bucketing) runs batched
-    over the rank axis, phase 2 once per rank over that rank's shard."""
+
+def _a2a_partials(shards, batch: JaggedBatch, cfg: EmbeddingBagConfig):
+    """Phases 1-2 of :func:`_rw_a2a` -> (the ([E,] E_requester, Bl * T, D)
+    f32 partials, the ([E,] Bl, T, L) effective weights, the ([E],)
+    dropped lookups): each rank's 1/E of the batch bucketed by owner, the
+    ids exchanged, the received lookups pooled over its shard.  Phase 1
+    runs batched over the simulated ranks, phase 2 once per rank."""
+    ctx, ranks = _local_ranks(shards)
     E = shards.num_shards
-    tables = shards.tables
-    T, R, D = tables.shape
+    T, R, D = shards.shape
     rps = R // E
     B, L = batch.batch_size, batch.max_pooling
     if B % E:
         raise ValueError(f"the a2a pipeline needs the batch ({B}) "
                          f"divisible by {E} ranks")
     Bl = B // E
-    dev = tables.device
+    dev = shards.shard(ranks[0]).device
+    sel = slice(None) if ctx is None else ctx.rank
 
     def per_rank(x: torch.Tensor) -> torch.Tensor:
         """(T, B, L) -> (E, Bl, T, L): every rank's batch slice, in the
-        reference's (b, t, l) flattening order."""
-        return x.reshape(T, E, Bl, L).permute(1, 2, 0, 3)
+        reference's (b, t, l) flattening order (a process's (Bl, T, L))."""
+        return x.reshape(T, E, Bl, L).permute(1, 2, 0, 3)[sel]
 
     idx = per_rank(batch.indices.to(device=dev, dtype=torch.int32))
-    eff_w = per_rank(batch.effective_weights().to(dev))      # (E, Bl, T, L)
+    eff_w = per_rank(batch.effective_weights().to(dev))  # ([E,] Bl, T, L)
     # segment id b * T + t and table id t of every slot, alike on all ranks
     b_ = torch.arange(Bl, device=dev, dtype=torch.int32)[:, None, None]
     t_ = torch.arange(T, device=dev, dtype=torch.int32)[None, :, None]
     seg = (b_ * T + t_).expand(Bl, T, L).reshape(-1)
     tab = t_.expand(Bl, T, L).reshape(-1)
     N = Bl * T * L
+    lead = tuple(idx.shape[:-3])
     capacity = min(max(1, int(N / E * cfg.capacity_factor)), N)
 
     # ---- phase 1: index permute (all-to-all) -------------------------------
-    packed = idx.reshape(E, N) * T + tab          # (row, table) in one id
+    packed = idx.reshape(lead + (N,)) * T + tab   # (row, table) in one id
     send_p, send_w, send_seg, dropped = _bucket_by_owner(
-        packed, eff_w.reshape(E, N), seg.expand(E, N), E, capacity,
-        rps * T)                  # packed ids of one shard span rps * T
-    recv_p = comm.all_to_all(send_p, backend=cfg.rw_backend)
-    recv_w = comm.all_to_all(send_w, backend=cfg.rw_backend)
-    recv_seg = comm.all_to_all(send_seg, backend=cfg.rw_backend)
+        packed, eff_w.reshape(lead + (N,)), seg.expand(lead + (N,)), E,
+        capacity, rps * T)        # packed ids of one shard span rps * T
+    recv = [comm.all_to_all(x, backend=cfg.rw_backend, ctx=ctx)
+            for x in (send_p, send_w, send_seg)]
+    if ctx is not None:
+        recv = [x[None] for x in recv]            # a rank axis of one
 
     # ---- phase 2: local gather + pool (segment-sum), once per rank ---------
-    flat = tables.view(T * R, D)
-    origin = torch.arange(E, device=dev)[:, None].expand(E, capacity)
-    partial = torch.empty((E, E, Bl * T, D), dtype=torch.float32,
-                          device=dev)
-    for rank in range(E):
-        p, w = recv_p[rank], recv_w[rank]                    # (E, C)
-        row = torch.div(p, T, rounding_mode="floor") - rank * rps
-        valid = (w != 0.0) & (row >= 0) & (row < rps)
-        # only the valid slots are gathered and summed: the reference adds
-        # the others (weight 0) into a segment it then cuts off, which
-        # would serialise the sort-based sum below on one hot segment
-        live = valid.reshape(-1).nonzero().squeeze(1)
-        row = row.reshape(-1)[live].long()
-        tab = torch.remainder(p.reshape(-1)[live], T).long()
-        # the shard's row (tab, row), addressed in place in the (T * R, D)
-        # view of the stacked tables
-        rows = flat[tab * R + rank * rps + row].to(torch.float32)
-        contrib = rows * w.reshape(-1)[live][:, None]
-        seg = origin.reshape(-1)[live] * (Bl * T) \
-            + recv_seg[rank].reshape(-1)[live]
-        # a sum in slot order per segment: index_put_ with accumulate
-        # sorts stably on CUDA, and adds in order on the CPU
-        sums = torch.zeros((E * Bl * T, D), dtype=torch.float32, device=dev)
-        sums.index_put_((seg,), contrib, accumulate=True)
-        partial[rank] = sums.view(E, Bl * T, D)
+    partial = _stack([_pool_received(shards.shard(rank), rank * rps,
+                                     *(x[i] for x in recv), T, Bl)
+                      for i, rank in enumerate(ranks)], ctx)
+    return partial, eff_w, dropped
+
+
+def _rw_a2a(shards, batch: JaggedBatch,
+            cfg: EmbeddingBagConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The paper-faithful row-wise pipeline -> ((B, T, D) pooled, (E,)
+    dropped lookups per rank; a process's as a 0-d tensor).
+
+    Each rank takes its own 1/E slice of the replicated batch (the paper's
+    per-GPU mini-batch); phases 1-3 reassemble its pooled rows, and a tiled
+    all-gather restores the whole batch."""
+    ctx, _ = _local_ranks(shards)
+    D = shards.shape[2]
+    partial, eff_w, dropped = _a2a_partials(shards, batch, cfg)
 
     # ---- phase 3: reduce-scatter back to the requesting rank ---------------
     if cfg.rs_dtype != "float32":
         partial = partial.to(DTYPES[cfg.rs_dtype])
     pooled = comm.reduce_scatter(
         partial, backend=cfg.rw_backend,
-        emulate_with_a2a=cfg.emulate_rs_with_a2a).to(torch.float32)
-    pooled = pooled.reshape(E, Bl, T, D).to(tables.dtype)
+        emulate_with_a2a=cfg.emulate_rs_with_a2a, ctx=ctx).to(torch.float32)
+    pooled = pooled.reshape(eff_w.shape[:-1] + (D,)).to(shards.dtype)
     if cfg.combiner == "mean":
-        denom = eff_w.sum(dim=-1).clamp_min(1.0)[..., None]  # (E, Bl, T, 1)
+        denom = eff_w.sum(dim=-1).clamp_min(1.0)[..., None]  # ([E,] Bl, T, 1)
         pooled = pooled / denom
     # restore the replicated batch (tiled all-gather)
     out = comm.all_gather(pooled, axis=0, tiled=True,
-                          backend=cfg.rw_backend)            # (B, T, D)
+                          backend=cfg.rw_backend, ctx=ctx)   # (B, T, D)
     return out, dropped
 
 
-def _cw(shards: ShardedTables, batch: JaggedBatch, cfg: EmbeddingBagConfig,
+def row_partials(shards, batch: JaggedBatch,
+                 cfg: EmbeddingBagConfig) -> torch.Tensor:
+    """The f32 partials a row-wise strategy's reduction adds, before it
+    adds them: all-gather's ([E,] B, T, D) TBE partials, the a2a
+    pipeline's ([E,] E_requester, Bl * T, D) phase-2 sums.  The same
+    reduction over their absolute values, ``sum_s |partial_s|``, is the
+    measure a sum's rounding error is bounded by (times a multiple of
+    ``2**-24``)."""
+    if shards.sharding != "row":
+        raise ValueError(f"row partials need row shards, got "
+                         f"{shards.sharding!r}")
+    if cfg.rw_impl == "a2a":
+        return _a2a_partials(shards, batch, cfg)[0]
+    return _rw_partial(shards, batch, cfg)
+
+
+def _cw(shards, batch: JaggedBatch, cfg: EmbeddingBagConfig,
         keep_sharded: bool) -> torch.Tensor:
     """Every rank pools its column slice of the replicated batch: (E, B, T,
-    D/E), or all-gathered along D -> (B, T, D)."""
-    out = torch.stack([pooled_lookup_local(shards.shard(rank), batch, cfg)
-                       for rank in range(shards.num_shards)])
+    D/E) (a process's (B, T, D/E)), or all-gathered along D -> (B, T,
+    D)."""
+    ctx, ranks = _local_ranks(shards)
+    out = _stack([pooled_lookup_local(shards.shard(rank), batch, cfg)
+                  for rank in ranks], ctx)
     if keep_sharded:
         return out
-    return comm.all_gather(out, axis=2, tiled=True)
+    return comm.all_gather(out, axis=2, tiled=True, ctx=ctx)
 
 
-def _tw(shards: ShardedTables, batch: JaggedBatch, cfg: EmbeddingBagConfig,
+def _tw(shards, batch: JaggedBatch, cfg: EmbeddingBagConfig,
         keep_sharded: bool) -> torch.Tensor:
-    """Every rank pools its T/E tables: (E, B, T/E, D), or all-gathered
-    along the tables -> (B, T, D)."""
-    E = shards.num_shards
-    tl = cfg.num_tables // E
+    """Every rank pools its T/E tables: (E, B, T/E, D) (a process's (B,
+    T/E, D)), or all-gathered along the tables -> (B, T, D)."""
+    ctx, ranks = _local_ranks(shards)
+    tl = cfg.num_tables // shards.num_shards
     sub_cfg = dataclasses.replace(cfg, num_tables=tl)
     outs = []
-    for rank in range(E):
+    for rank in ranks:
         sl = slice(rank * tl, (rank + 1) * tl)
         local = JaggedBatch(
             batch.indices[sl], batch.lengths[sl],
             None if batch.weights is None else batch.weights[sl])
         outs.append(pooled_lookup_local(shards.shard(rank), local, sub_cfg))
-    out = torch.stack(outs)
+    out = _stack(outs, ctx)
     if keep_sharded:
         return out
-    return comm.all_gather(out, axis=1, tiled=True)
+    return comm.all_gather(out, axis=1, tiled=True, ctx=ctx)
 
 
-def pooled_lookup_sharded(shards: ShardedTables, batch: JaggedBatch,
+def pooled_lookup_sharded(shards, batch: JaggedBatch,
                           cfg: EmbeddingBagConfig, *,
                           scatter_batch: bool = False,
                           keep_sharded: bool = False) -> torch.Tensor:
@@ -408,12 +545,18 @@ def pooled_lookup_sharded(shards: ShardedTables, batch: JaggedBatch,
     on ``cfg.sharding``.  Returns the (B, T, D) pooled embeddings every rank
     holds, or the per-rank results stacked on a leading rank axis when
     they stay sharded: ``scatter_batch`` (row, allgather) -> (E, B/E, T,
-    D); ``keep_sharded`` -> (E, B, T, D/E) column, (E, B, T/E, D) table."""
+    D); ``keep_sharded`` -> (E, B, T, D/E) column, (E, B, T/E, D) table.
+
+    Over a :class:`RankShard` (one rank per process, the replicated batch
+    on the rank's device), this rank's result: (B, T, D), or (B/E, T, D)
+    with ``scatter_batch``, (B, T, D/E) or (B, T/E, D) with
+    ``keep_sharded``."""
     if shards.sharding != cfg.sharding:
         raise ValueError(f"tables sharded {shards.sharding!r}, config "
                          f"{cfg.sharding!r}")
     if cfg.sharding == "replicated":
-        return pooled_lookup_local(shards.tables, batch, cfg)
+        return pooled_lookup_local(shards.shard(_local_ranks(shards)[1][0]),
+                                   batch, cfg)
     if cfg.sharding == "row":
         if cfg.rw_impl == "a2a":
             return _rw_a2a(shards, batch, cfg)[0]
@@ -423,12 +566,12 @@ def pooled_lookup_sharded(shards: ShardedTables, batch: JaggedBatch,
     return _tw(shards, batch, cfg, keep_sharded)
 
 
-def pooled_lookup_rw_a2a_with_stats(shards: ShardedTables,
-                                    batch: JaggedBatch,
+def pooled_lookup_rw_a2a_with_stats(shards, batch: JaggedBatch,
                                     cfg: EmbeddingBagConfig
                                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The paper-faithful row-wise pipeline, also returning the (E,)
-    dropped-lookup counts, one per requesting rank."""
+    dropped-lookup counts, one per requesting rank (over a
+    :class:`RankShard`, this rank's, as a 0-d tensor)."""
     if shards.sharding != "row":
         raise ValueError(f"the a2a pipeline runs over row shards, got "
                          f"{shards.sharding!r}")

@@ -1,5 +1,6 @@
 """ParallelContext -- the simulated mesh the distributed embedding bag and
-the LM run over.
+the LM run over; ProcessContext -- one rank of a model axis whose ranks
+are processes.
 
 The counterpart of ``repro.core.parallel``.  The reference's context wraps
 a jax ``Mesh``: its last axis is the model (tp) axis the tables, the
@@ -20,11 +21,35 @@ and its decode attention over the ranks' slices of the cache
 (``constrain``, ``sharding``, ``batch_spec``) place tensors on a device
 mesh and change no value; one card holds every tensor whole, so the port
 has none of them.
+
+Beside the simulation, a rank can be a process, the standard PyTorch
+idiom (:class:`ProcessContext`, :func:`make_process_context`,
+:func:`run_ranks`): it holds only its own shard on its own device, and
+its collectives go through a ``torch.distributed`` process group
+(``core/comm.py``), its one-sided puts into the peers' buffers through
+CUDA IPC (``kernels/onesided_a2a.SymmetricBuffers``).  The distributed
+embedding bag, the DLRM forward and its engine take either context.
+The backends:
+
+  * ``"gloo"`` -- on the CPU, and on the card, where several ranks may
+    share one device (the one-sided puts then cross processes on it);
+  * ``"nccl"`` -- one rank per card: NCCL refuses two ranks on one
+    device, so a group that would put two there raises (use gloo).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+import gc
+import os
+import shutil
+import tempfile
+import time
+import traceback
+from datetime import timedelta
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ShardingConfig
 
@@ -73,3 +98,250 @@ def make_context(tp_size: int, dp_size: int = 1,
     ``("model",)`` mesh -- with the mesh knobs ``sharding``."""
     return ParallelContext(tp_size=tp_size, dp_size=dp_size,
                            config=sharding or ShardingConfig())
+
+
+# ---------------------------------------------------------------------------
+# One rank per process
+# ---------------------------------------------------------------------------
+
+PROCESS_BACKENDS = ("gloo", "nccl")
+# a group's collectives and run_ranks give up after this long: a rank
+# that dies fails the run instead of hanging it
+DEFAULT_TIMEOUT_S = 600.0
+_MIN_SYMMETRIC_BYTES = 1 << 20
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ProcessContext:
+    """One rank of a model axis of ``world`` ranks, each a process: this
+    process's ``rank``, its ``device``, and the ``torch.distributed``
+    ``group`` its collectives go through (None: the default group).  The
+    model axis is the whole group (``tp_size == world``); there is no
+    data axis.
+
+    :meth:`symmetric` holds the rank's symmetric buffers of the one-sided
+    exchanges on a card, built and grown collectively; :meth:`close`
+    frees them."""
+
+    group: Any
+    rank: int
+    world: int
+    device: torch.device
+    _buffers: Dict[str, Any] = dataclasses.field(default_factory=dict,
+                                                  repr=False)
+
+    @property
+    def tp_size(self) -> int:
+        return self.world
+
+    @property
+    def dp_size(self) -> int:
+        return 1
+
+    def symmetric(self, name: str, nbytes: int):
+        """The symmetric buffers ``name`` ("send" or "recv") of at least
+        ``nbytes`` on every rank.  Collective: every rank asks at the same
+        point for the same size (the ranks run the same exchanges in
+        lockstep); a larger size replaces the buffers, at the next power
+        of two."""
+        from repro_torch.kernels.onesided_a2a import SymmetricBuffers, fence
+
+        bufs = self._buffers.get(name)
+        if bufs is not None and bufs.nbytes >= nbytes:
+            return bufs
+        if bufs is not None:
+            fence(self.group, self.device)   # no rank still reads them
+            bufs.close()
+        size = max(_MIN_SYMMETRIC_BYTES, 1 << (int(nbytes) - 1).bit_length())
+        bufs = self._buffers[name] = SymmetricBuffers(
+            self.group, self.rank, self.world, self.device, size)
+        return bufs
+
+    def close(self) -> None:
+        """Collective: free the symmetric buffers."""
+        if self._buffers:
+            from repro_torch.kernels.onesided_a2a import fence
+
+            fence(self.group, self.device)
+            for bufs in self._buffers.values():
+                bufs.close()
+            self._buffers.clear()
+
+
+def _default_device() -> torch.device:
+    """``cuda:{local_rank % device_count}``; raises without a card."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "ranks on the CPU")
+    local = int(os.environ.get("LOCAL_RANK", dist.get_rank()))
+    return torch.device(f"cuda:{local % torch.cuda.device_count()}")
+
+
+def _check_nccl(devices: Sequence[torch.device]) -> None:
+    """NCCL takes one rank per card: a CPU rank, or two ranks on one
+    device, raise (gloo runs both)."""
+    if any(d.type != "cuda" for d in devices):
+        raise ValueError("backend 'nccl' runs ranks on cards only; use "
+                         "backend='gloo' for CPU ranks")
+    if len(set(devices)) < len(devices):
+        raise ValueError(
+            f"backend 'nccl' takes one rank per card, and {len(devices)} "
+            f"ranks would share {len(set(devices))} device(s) (NCCL "
+            f"refuses two ranks on one device); use backend='gloo' to "
+            f"share a card")
+
+
+def make_process_context(tp_size: Optional[int] = None, dp_size: int = 1,
+                         *, device=None) -> ProcessContext:
+    """This process's rank of the model axis: the initialised default
+    process group, whose size must be ``tp_size`` (None: any), on
+    ``device`` (None: ``cuda:{LOCAL_RANK % device_count}``, raising
+    without a card).  ``dp_size > 1`` is not supported with processes
+    and raises."""
+    if dp_size != 1:
+        raise NotImplementedError(
+            "a data axis (dp_size > 1) is not supported with ranks as "
+            "processes; the model axis is the whole group")
+    if not dist.is_initialized():
+        raise RuntimeError("torch.distributed is not initialised: start "
+                           "the ranks with run_ranks, or call "
+                           "init_process_group first")
+    world = dist.get_world_size()
+    if tp_size is not None and tp_size != world:
+        raise ValueError(f"tp_size {tp_size} != the group's {world} ranks")
+    dev = _default_device() if device is None else torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device is available for "
+                               f"device={dev}")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    if dist.get_backend() == "nccl" and (
+            dev.type != "cuda" or world > torch.cuda.device_count()):
+        _check_nccl([dev] * world)
+    return ProcessContext(group=None, rank=dist.get_rank(), world=world,
+                          device=dev)
+
+
+def _rank_main(index: int, fn: Callable, world: int, backend: str,
+               devices: Sequence[str], store: str, result: str,
+               timeout_s: float, box: list) -> None:
+    """One rank's process: join the group through the file store, run
+    ``fn(ctx, *box[0])``, and keep rank 0's result.
+
+    The arguments come in a list that is emptied when ``fn`` returns: a
+    CUDA tensor received through CUDA IPC keeps its sender's memory
+    until the receiver drops it, and the process ends by ``os._exit``,
+    which drops nothing."""
+    device = torch.device(devices[index])
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    dist.init_process_group(
+        backend, store=dist.FileStore(store, world), rank=index,
+        world_size=world, timeout=timedelta(seconds=timeout_s),
+        **({"device_id": device} if backend == "nccl" else {}))
+    try:
+        ctx = make_process_context(world, device=device)
+        out = fn(ctx, *box.pop())
+        gc.collect()
+        ctx.close()
+        if index == 0:
+            torch.save(out, result)
+    except BaseException:
+        # stamped (perf_counter is the system-wide monotonic clock on
+        # Linux), so the parent can tell the first failure from the others
+        # it brings down
+        with open(os.path.join(os.path.dirname(result),
+                               f"error_{index}"), "w") as f:
+            f.write(f"{time.perf_counter()!r}\n{traceback.format_exc()}")
+        raise
+    finally:
+        box.clear()
+        dist.destroy_process_group()
+
+
+def _first_error(tmp: str) -> Optional[Tuple[int, str]]:
+    """(rank, traceback) of the earliest error a rank recorded in
+    ``tmp``, or None."""
+    errors = []
+    for name in os.listdir(tmp):
+        if name.startswith("error_"):
+            with open(os.path.join(tmp, name)) as f:
+                stamp, _, text = f.read().partition("\n")
+            errors.append((float(stamp), int(name[6:]), text))
+    if not errors:
+        return None
+    _, rank, text = min(errors)
+    return rank, text
+
+
+def run_ranks(fn: Callable, world: int, *, backend: str, device=None,
+              args: tuple = (), timeout_s: float = DEFAULT_TIMEOUT_S):
+    """Run ``fn(ctx, *args)`` on ``world`` ranks, one process each, and
+    return rank 0's result.
+
+    The processes start with the ``spawn`` method and meet through a
+    ``FileStore`` in a temporary directory (no network).  Each rank's
+    device is ``device`` when given ("cpu", or one card every rank
+    shares), else ``cuda:{rank % device_count}``, raising without a card.
+    ``args`` go to every rank (CUDA tensors through CUDA IPC, which the
+    caller keeps alive until the call returns; each rank drops them when
+    ``fn`` returns, so that the caller frees their memory when it drops
+    them too); the result goes back through ``torch.save``, so return
+    CPU tensors and plain values.  A
+    rank that raises or dies fails the run: the other ranks are stopped,
+    and the first rank's error is raised here.  The group's collectives,
+    and the whole run, give up after ``timeout_s``."""
+    if backend not in PROCESS_BACKENDS:
+        raise ValueError(f"backend must be one of {PROCESS_BACKENDS}, got "
+                         f"{backend!r}")
+    if world < 1:
+        raise ValueError(f"world must be >= 1, got {world}")
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run the "
+                "ranks on the CPU")
+        n = torch.cuda.device_count()
+        devices = [torch.device(f"cuda:{r % n}") for r in range(world)]
+    else:
+        devices = [torch.device(device)] * world
+        if devices[0].type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"no CUDA device is available for "
+                               f"device={device}")
+    if backend == "nccl":
+        _check_nccl(devices)
+    import torch.multiprocessing as mp
+    from torch.multiprocessing.spawn import ProcessException
+
+    tmp = tempfile.mkdtemp(prefix="run_ranks_")
+    try:
+        result = os.path.join(tmp, "result.pt")
+        procs = mp.start_processes(
+            _rank_main, args=(fn, world, backend, [str(d) for d in devices],
+                              os.path.join(tmp, "store"), result, timeout_s,
+                              [tuple(args)]),
+            nprocs=world, join=False, start_method="spawn")
+        deadline = time.monotonic() + timeout_s
+        try:
+            while not procs.join(timeout=0.5):
+                if time.monotonic() > deadline:
+                    for p in procs.processes:
+                        if p.is_alive():
+                            p.kill()
+                    raise TimeoutError(f"run_ranks: the {world} ranks did "
+                                       f"not finish within {timeout_s} s")
+        except ProcessException as e:
+            first = _first_error(tmp)
+            if first is None:
+                raise
+            raise RuntimeError(f"run_ranks: rank {first[0]} failed first:"
+                               f"\n{first[1]}") from e
+        return torch.load(result, weights_only=False)
+    finally:
+        if torch.cuda.is_initialized():
+            # free what the ranks released of the CUDA tensors they were
+            # sent (once the caller drops them too)
+            torch.cuda.ipc_collect()
+        shutil.rmtree(tmp, ignore_errors=True)

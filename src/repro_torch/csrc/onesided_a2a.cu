@@ -83,6 +83,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 #include <type_traits>
 
@@ -431,4 +432,58 @@ extern "C" int onesided_rs_pull(const long long* src_ptrs, void* out,
 
 extern "C" const char* a2a_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
+}
+
+// ---------------------------------------------------------------------------
+// Symmetric buffers across processes
+// ---------------------------------------------------------------------------
+//
+// One rank per process: each rank allocates its buffer with cudaMalloc (a
+// buffer of its own, so its IPC handle names it from its first byte),
+// exports the buffer's cudaIpcMemHandle_t, and opens every peer's handle
+// into its own address space.  The opened addresses fill the tables that
+// the put and pull-sum launchers above take, with first = rank and count =
+// 1: the same kernels then write into and read from other processes'
+// buffers.  On one card the peers' buffers lie in the same device memory;
+// across cards cudaIpcMemLazyEnablePeerAccess maps them over NVLink.
+// Every function selects `device` first and returns the cudaError_t (0 =
+// success).
+
+extern "C" int symm_handle_bytes() { return (int)sizeof(cudaIpcMemHandle_t); }
+
+extern "C" int symm_alloc(int device, long long nbytes, void** ptr) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  if (nbytes <= 0) return (int)cudaErrorInvalidValue;
+  return (int)cudaMalloc(ptr, (size_t)nbytes);
+}
+
+// handle: sizeof(cudaIpcMemHandle_t) bytes of the caller's.
+extern "C" int symm_export(int device, void* ptr, void* handle) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  cudaIpcMemHandle_t h;
+  e = cudaIpcGetMemHandle(&h, ptr);
+  if (e == cudaSuccess) memcpy(handle, &h, sizeof(h));
+  return (int)e;
+}
+
+extern "C" int symm_open(int device, const void* handle, void** ptr) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  cudaIpcMemHandle_t h;
+  memcpy(&h, handle, sizeof(h));
+  return (int)cudaIpcOpenMemHandle(ptr, h, cudaIpcMemLazyEnablePeerAccess);
+}
+
+extern "C" int symm_close(int device, void* ptr) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaIpcCloseMemHandle(ptr);
+}
+
+extern "C" int symm_free(int device, void* ptr) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaFree(ptr);
 }

@@ -35,10 +35,34 @@ package with two kernels:
     negative value), so every element adds the owner's value to zeros and
     the sum returns it bit for bit, in whatever order it is taken.
 
+One rank per process (``core.parallel.ProcessContext``), the same two
+kernels serve the per-rank exchanges, each launched with ``first = rank,
+count = 1`` over the ranks' :class:`SymmetricBuffers` -- buffers each
+process allocates with ``cudaMalloc`` and every other process opens
+through its CUDA IPC handle:
+
+  * :func:`onesided_all_to_all_rank` -- this rank's ``(E_dst, C, ...)`` ->
+    ``(E_src, C, ...)``: one put launch writes this rank's E chunks into
+    the peers' receive buffers;
+  * :func:`onesided_reduce_scatter_rank` -- ``(E_dst, M, ...)`` -> ``(M,
+    ...)``: one pull-sum launch reads this rank's chunk from every peer's
+    send buffer and sums it in rank order 0 .. E-1, ``x.sum(0)``'s order;
+  * :func:`onesided_all_reduce_rank` -- the pull-sum over the peers'
+    whole send buffers: every rank sums all of them, ``x.sum(0)``'s order.
+
+Across processes, stream order no longer orders the puts: a fence (this
+rank's stream synchronised, then a barrier of the group) comes before
+every exchange, so no peer still reads the buffer it writes, and after
+the puts and the copy into the send buffer, so every write has landed
+before anyone reads.  :data:`FENCE_STATS` counts the fences and their
+seconds.
+
 Every wrapper dispatches on the device of the tensor it is given: a CPU
-tensor takes the plain version beside it (``*_ref``), a CUDA tensor
-launches the kernel, anything else raises.  Each kernel launch adds one to
-the wrapper's entry in :data:`LAUNCH_COUNTS`; the plain versions count
+tensor takes the plain version beside it (``*_ref``; per rank, the
+group's collectives), a CUDA tensor launches the kernel, anything else
+raises.  Each kernel launch adds one to the wrapper's entry in
+:data:`LAUNCH_COUNTS` (the per-rank all-reduce under
+``onesided_reduce_scatter``, its kernel's); the plain versions count
 nothing.  Every call of a wrapper, on either device, adds one to its entry
 in :data:`CALL_COUNTS` (``onesided_fetch_rows`` counts as the
 ``onesided_put_rows`` call it makes).
@@ -46,9 +70,11 @@ in :data:`CALL_COUNTS` (``onesided_fetch_rows`` counts as the
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import time
+from typing import Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.kernels import build as _build
 
@@ -66,9 +92,14 @@ _DTYPE_CODES = {torch.int32: 0, torch.float32: 1, torch.bfloat16: 2}
 MAX_RANKS = 63
 
 
+# the per-rank exchanges' fences: how many, and their host seconds
+FENCE_STATS = {"fences": 0, "seconds": 0.0}
+
+
 def reset_launch_counts() -> None:
     for name in LAUNCH_COUNTS:
         LAUNCH_COUNTS[name] = 0
+    FENCE_STATS.update(fences=0, seconds=0.0)
 
 
 def _kernel():
@@ -84,6 +115,17 @@ def _kernel():
         lib.onesided_ring_put.restype = I
         lib.a2a_error_string.argtypes = [I]
         lib.a2a_error_string.restype = ctypes.c_char_p
+        PP = ctypes.POINTER(ctypes.c_void_p)
+        lib.symm_handle_bytes.argtypes = []
+        lib.symm_handle_bytes.restype = I
+        lib.symm_alloc.argtypes = [I, LL, PP]
+        lib.symm_export.argtypes = [I, P, ctypes.c_char_p]
+        lib.symm_open.argtypes = [I, ctypes.c_char_p, PP]
+        lib.symm_close.argtypes = [I, P]
+        lib.symm_free.argtypes = [I, P]
+        for fn in (lib.symm_alloc, lib.symm_export, lib.symm_open,
+                   lib.symm_close, lib.symm_free):
+            fn.restype = I
     return lib
 
 
@@ -311,3 +353,260 @@ def onesided_fetch_rows(contribs: torch.Tensor) -> torch.Tensor:
     over owners runs after the puts on the same stream, so it starts once
     every put has landed."""
     return onesided_put_rows(contribs).sum(dim=1)
+
+
+# --- one rank per process ----------------------------------------------------
+
+class _DeviceBytes:
+    """A raw device allocation seen through ``__cuda_array_interface__``,
+    so that ``torch.as_tensor`` views it without owning it."""
+
+    def __init__(self, ptr: int, nbytes: int):
+        self.__cuda_array_interface__ = {
+            "shape": (nbytes,), "typestr": "|u1", "data": (ptr, False),
+            "version": 2}
+
+
+def _check_symm(lib, rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"symmetric buffer: {what} failed: "
+                           f"{lib.a2a_error_string(rc).decode()} ({rc})")
+
+
+class SymmetricBuffers:
+    """One buffer of ``nbytes`` on every rank of a process group, each
+    addressable by every rank: the symmetric memory of the one-sided
+    exchanges when each rank is a process.
+
+    Every rank allocates its own buffer with ``cudaMalloc`` on its device
+    (``csrc/onesided_a2a.cu``, ``symm_alloc``), exports its CUDA IPC
+    handle, gathers every rank's handle over the group
+    (``all_gather_object``) and opens the peers' handles
+    (``cudaIpcOpenMemHandle`` with lazy peer access).  :attr:`ptrs` then
+    holds the E buffers' addresses in this process, in rank order, which
+    the put and pull-sum kernels take as their table.  A handle that does
+    not open raises: there is no fallback to a bulk collective.
+
+    The constructor is collective: every rank of the group builds its
+    buffers at the same point with the same size."""
+
+    def __init__(self, group, rank: int, world: int, device, nbytes: int):
+        self.group, self.rank, self.world = group, rank, world
+        self.device = torch.device(device)
+        if self.device.type != "cuda":
+            raise ValueError(f"symmetric buffers live on a card, got "
+                             f"{self.device}")
+        if not 1 <= world <= MAX_RANKS:
+            raise ValueError(f"at most {MAX_RANKS} ranks, got {world}")
+        self.nbytes = int(nbytes)
+        self._index = self.device.index if self.device.index is not None \
+            else torch.cuda.current_device()
+        lib = self._lib = _kernel()
+        own = ctypes.c_void_p()
+        _check_symm(lib, lib.symm_alloc(self._index, self.nbytes,
+                                        ctypes.byref(own)), "cudaMalloc")
+        self._own = own.value
+        handle = ctypes.create_string_buffer(lib.symm_handle_bytes())
+        _check_symm(lib, lib.symm_export(self._index, self._own, handle),
+                    "cudaIpcGetMemHandle")
+        handles = [None] * world
+        dist.all_gather_object(handles, handle.raw, group=group)
+        self._opened = []
+        ptrs = []
+        for r, h in enumerate(handles):
+            if r == rank:
+                ptrs.append(self._own)
+                continue
+            peer = ctypes.c_void_p()
+            _check_symm(lib, lib.symm_open(self._index, h,
+                                           ctypes.byref(peer)),
+                        f"cudaIpcOpenMemHandle of rank {r}'s buffer")
+            self._opened.append(peer.value)
+            ptrs.append(peer.value)
+        self.ptrs = tuple(ptrs)
+        self._table = (ctypes.c_longlong * world)(*ptrs)
+
+    def view(self, dtype: torch.dtype, shape: Sequence[int]) -> torch.Tensor:
+        """This rank's buffer, its first bytes as a ``shape`` tensor of
+        ``dtype``."""
+        n = 1
+        for s in shape:
+            n *= int(s)
+        nbytes = n * dtype.itemsize
+        if nbytes > self.nbytes:
+            raise ValueError(f"{nbytes} B do not fit a symmetric buffer of "
+                             f"{self.nbytes} B")
+        raw = torch.as_tensor(_DeviceBytes(self._own, self.nbytes),
+                              device=self.device)
+        return raw[:nbytes].view(dtype).view(tuple(shape))
+
+    def close(self) -> None:
+        """Collective: close the peers' buffers, wait for every rank to
+        have closed this one, free it."""
+        if self._own is None:
+            return
+        for p in self._opened:
+            _check_symm(self._lib, self._lib.symm_close(self._index, p),
+                        "cudaIpcCloseMemHandle")
+        self._opened = []
+        dist.barrier(group=self.group)
+        _check_symm(self._lib, self._lib.symm_free(self._index, self._own),
+                    "cudaFree")
+        self._own = None
+
+
+def fence(group, device: torch.device) -> None:
+    """This rank's stream drained, then a barrier of the group: every
+    rank's earlier device work -- a put, a read of its buffers -- is done
+    before any rank goes on.  Counted and timed in :data:`FENCE_STATS`."""
+    t0 = time.perf_counter()
+    if device.type == "cuda":
+        torch.cuda.current_stream(device).synchronize()
+    dist.barrier(group=group)
+    FENCE_STATS["fences"] += 1
+    FENCE_STATS["seconds"] += time.perf_counter() - t0
+
+
+def _check_rank_chunks(x: torch.Tensor, world: int, what: str) -> None:
+    _check_chunks(x, 1, what)
+    if x.shape[0] != world:
+        raise ValueError(f"{what} takes ({world}, ...) chunks, one per rank,"
+                         f" got {tuple(x.shape)}")
+
+
+# plain versions: the group's collectives, on the CPU
+
+def all_gather_into(out: torch.Tensor, x: torch.Tensor, group) -> None:
+    """The group's all-gather of the contiguous ``x`` into ``(world,) +
+    x.shape``, flat: gloo checks the first dimensions, world x the
+    input's.  (``all_gather_into_tensor`` took the name
+    ``all_gather_single`` in later torch releases.)"""
+    fn = getattr(dist, "all_gather_single", dist.all_gather_into_tensor)
+    fn(out.view(-1), x.view(-1), group=group)
+
+
+def reduce_scatter_into(out: torch.Tensor, x: torch.Tensor, group) -> None:
+    """The group's reduce-scatter (sum) of the contiguous ``(world,) +
+    out.shape`` ``x`` into ``out``, flat, as :func:`all_gather_into`.
+    (``reduce_scatter_tensor`` is ``reduce_scatter_single`` in later
+    releases.)"""
+    fn = getattr(dist, "reduce_scatter_single", dist.reduce_scatter_tensor)
+    fn(out.view(-1), x.view(-1), group=group)
+
+
+def onesided_all_to_all_rank_ref(x: torch.Tensor, group) -> torch.Tensor:
+    """Plain per-rank all-to-all: the group's ``all_to_all_single``."""
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x.contiguous(), group=group)
+    return out
+
+
+def onesided_reduce_scatter_rank_ref(x: torch.Tensor, group) -> torch.Tensor:
+    """Plain per-rank reduce-scatter: every source's chunk for this rank
+    gathered (the plain all-to-all), then summed in rank order."""
+    return onesided_all_to_all_rank_ref(x, group).sum(dim=0, dtype=x.dtype)
+
+
+def onesided_all_reduce_rank_ref(x: torch.Tensor, group) -> torch.Tensor:
+    """Plain per-rank all-reduce: every rank's value gathered, then summed
+    in rank order."""
+    out = torch.empty((dist.get_world_size(group),) + tuple(x.shape),
+                      dtype=x.dtype, device=x.device)
+    all_gather_into(out, x.contiguous(), group)
+    return out.sum(dim=0, dtype=x.dtype)
+
+
+# wrappers
+
+def onesided_all_to_all_rank(x: torch.Tensor, rank: int, group,
+                             recv: Optional[SymmetricBuffers] = None
+                             ) -> torch.Tensor:
+    """This rank's all-to-all: ``(E_dst, C, ...)`` -> ``(E_src, C, ...)``,
+    chunk d of every source at ``[source]`` of rank d's result.  One
+    launch of the put kernel with ``first = rank, count = 1`` writes this
+    rank's E chunks into the peers' receive buffers ``recv``, between two
+    fences; the result is a copy of this rank's receive buffer.  CPU
+    tensors take the group's ``all_to_all_single`` (``recv`` unused)."""
+    CALL_COUNTS["onesided_all_to_all"] += 1
+    if x.device.type == "cpu":
+        return onesided_all_to_all_rank_ref(x, group)
+    _check_device(x, "all-to-all")
+    E = recv.world
+    _check_rank_chunks(x, E, "onesided_all_to_all_rank")
+    chunk = x[0].numel()
+    if chunk == 0:
+        return torch.empty_like(x)
+    out = recv.view(x.dtype, x.shape)
+    vec = _aligned(x, out, chunk)
+    lib = _kernel()
+    fence(group, x.device)              # no peer still reads its buffer
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        _check_rc(lib, lib.onesided_a2a_put(
+            x.data_ptr(), recv._table, rank, 1, E, chunk,
+            _DTYPE_CODES[x.dtype], int(vec), stream), "onesided_all_to_all")
+    LAUNCH_COUNTS["onesided_all_to_all"] += 1
+    fence(group, x.device)              # every rank's puts have landed
+    return out.clone()
+
+
+def _pull_sum_rank(x: torch.Tensor, rank: int, group,
+                   send: SymmetricBuffers, first: int, chunk: int,
+                   out_shape) -> torch.Tensor:
+    """``x`` copied into this rank's send buffer between two fences, then
+    one pull-sum launch over the E send buffers' chunk ``first``."""
+    E = send.world
+    out = torch.empty(out_shape, dtype=x.dtype, device=x.device)
+    if chunk == 0:
+        return out
+    staged = send.view(x.dtype, x.shape)
+    vec = _aligned(staged, out, chunk)
+    lib = _kernel()
+    fence(group, x.device)              # no peer still reads its buffer
+    staged.copy_(x)
+    fence(group, x.device)              # every send buffer is written
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        _check_rc(lib, lib.onesided_rs_pull(
+            send._table, out.data_ptr(), E, first, 1, chunk,
+            _DTYPE_CODES[x.dtype], int(vec), stream),
+            "onesided_reduce_scatter")
+    LAUNCH_COUNTS["onesided_reduce_scatter"] += 1
+    return out
+
+
+def onesided_reduce_scatter_rank(x: torch.Tensor, rank: int, group,
+                                 send: Optional[SymmetricBuffers] = None
+                                 ) -> torch.Tensor:
+    """This rank's reduce-scatter: ``(E_dst, M, ...)`` -> ``(M, ...)``, the
+    sum over sources of their ``[rank]``, in ``x``'s dtype and rank order
+    (``x.sum(0)``'s).  One pull-sum launch with ``first = rank, count =
+    1`` reads the chunk from every peer's send buffer ``send``.  The next
+    exchange's first fence keeps the peers from overwriting their send
+    buffers while this rank still reads them."""
+    CALL_COUNTS["onesided_reduce_scatter"] += 1
+    if x.device.type == "cpu":
+        return onesided_reduce_scatter_rank_ref(x, group)
+    _check_device(x, "reduce-scatter")
+    _check_rank_chunks(x, send.world, "onesided_reduce_scatter_rank")
+    return _pull_sum_rank(x, rank, group, send, rank, x[0].numel(),
+                          tuple(x.shape[1:]))
+
+
+def onesided_all_reduce_rank(x: torch.Tensor, rank: int, group,
+                             send: Optional[SymmetricBuffers] = None
+                             ) -> torch.Tensor:
+    """This rank's all-reduce: the sum of every rank's ``x``, in ``x``'s
+    dtype and rank order (``x.sum(0)``'s over the stacked ranks).  One
+    pull-sum launch over the peers' whole send buffers (the chunk is all
+    of ``x``), counted under ``onesided_reduce_scatter``."""
+    CALL_COUNTS["onesided_reduce_scatter"] += 1
+    if x.device.type == "cpu":
+        return onesided_all_reduce_rank_ref(x, group)
+    _check_device(x, "all-reduce")
+    if x.dtype not in _DTYPE_CODES or not x.is_contiguous():
+        raise ValueError(f"onesided_all_reduce_rank takes a contiguous "
+                         f"tensor of one of {tuple(_DTYPE_CODES)}, got "
+                         f"{x.dtype}")
+    return _pull_sum_rank(x, rank, group, send, 0, x.numel(),
+                          tuple(x.shape))

@@ -2,7 +2,11 @@
 
 The counterpart of ``repro.models.dlrm``.  With a ``ParallelContext`` the
 pooling runs the distributed embedding bag over the context's simulated
-model axis (``core/embedding_bag.pooled_lookup_sharded``).
+model axis (``core/embedding_bag.pooled_lookup_sharded``); with a
+``ProcessContext`` this process is one rank of the axis: it pools over its
+own shard, the dense MLPs are replicated, the batch is replicated over the
+model axis, and every rank returns the same (B,) logits (the reference's
+``out_specs=P(dp, None, None)``).
 Parameters are a plain dict of tensors in the reference's layout,
 ``{"tables": (T, R, D), "bottom": [{"w": (in, out), "b": (out,)}, ...],
 "top": [...]}``, applied as ``x @ w + b``, so weights carry across from the
@@ -17,7 +21,7 @@ import torch
 from repro_torch.configs.dlrm import DLRMConfig
 from repro_torch.core import embedding_bag as eb
 from repro_torch.core.jagged import JaggedBatch
-from repro_torch.core.parallel import ParallelContext
+from repro_torch.core.parallel import ParallelContext, ProcessContext
 from repro_torch.utils.device import resolve_device
 
 
@@ -71,11 +75,19 @@ def dot_interaction(dense_vec: torch.Tensor,
 
 
 def _pooled_sharded(tables, batch: JaggedBatch, ecfg,
-                    ctx: ParallelContext) -> torch.Tensor:
+                    ctx: ParallelContext | ProcessContext) -> torch.Tensor:
     """The distributed pooled lookup: the tables sharded per
     ``ecfg.sharding`` over the context's model axis (unless they already
     are), the batch split over its data-parallel groups, which run one
-    after another."""
+    after another.  Under a ``ProcessContext``, this rank's shard (stacked
+    tables are sharded on the call)."""
+    if isinstance(ctx, ProcessContext):
+        if not isinstance(tables, eb.RankShard):
+            tables = eb.shard_for_rank(tables, ecfg, ctx)
+        if tables.ctx is not ctx:
+            raise ValueError("the rank's shard was made under another "
+                             "ProcessContext")
+        return eb.pooled_lookup_sharded(tables, batch, ecfg)
     if not isinstance(tables, eb.ShardedTables):
         tables = eb.shard_tables(tables, ecfg, ctx.tp_size)
     if tables.num_shards != ctx.tp_size:
@@ -97,7 +109,8 @@ def _pooled_sharded(tables, batch: JaggedBatch, ecfg,
 
 def forward(params, dense: torch.Tensor, batch: JaggedBatch,
             cfg: DLRMConfig,
-            ctx: Optional[ParallelContext] = None) -> torch.Tensor:
+            ctx: Optional[ParallelContext | ProcessContext] = None
+            ) -> torch.Tensor:
     """dense (B, num_dense), batch: sparse lookups -> CTR logit (B,).
 
     ``params["tables"]`` is the stacked (T, R, D) tables or the tiered
@@ -105,7 +118,7 @@ def forward(params, dense: torch.Tensor, batch: JaggedBatch,
     ``ctx`` the pooling runs the distributed embedding bag, over
     ``params["tables"]`` sharded per ``cfg.sharding`` (stacked tables are
     sharded on the call; an engine passes the ``ShardedTables`` it built
-    once)."""
+    once; a rank of a ``ProcessContext`` its ``RankShard``)."""
     ecfg = cfg.embedding_config()
     if ctx is None:
         pooled = eb.pooled_lookup_local(params["tables"], batch, ecfg)

@@ -21,7 +21,11 @@ tiered cache: ``flush`` first prefetches the micro-batch's working set
 into the device slot pool, and a micro-batch whose working set overflows
 the pool is split in half until it fits.  With a ``ParallelContext`` the
 pooling runs the distributed embedding bag over the context's simulated
-model axis; the engine shards the tables once, at construction.
+model axis; the engine shards the tables once, at construction.  With a
+``ProcessContext`` the engine is one rank's: it keeps only this rank's
+shard (a copy on the rank's device), every rank runs the same flushes in
+lockstep over its process group, and each returns the same scores (rank
+0's are the ones a caller reports).
 
 ``PipelinedDLRMEngine`` (``cfg.cache.pipeline_depth >= 2``) serves the
 same requests as a software pipeline over a ring of slot pools
@@ -53,9 +57,10 @@ from repro_torch.analysis.contracts import KernelContract
 from repro_torch.cache.manager import CacheCapacityError
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.dlrm import DLRMConfig
-from repro_torch.core.embedding_bag import make_cache, shard_tables
+from repro_torch.core.embedding_bag import (make_cache, shard_for_rank,
+                                            shard_tables)
 from repro_torch.core.jagged import JaggedBatch
-from repro_torch.core.parallel import ParallelContext
+from repro_torch.core.parallel import ParallelContext, ProcessContext
 from repro_torch.models import decode as dec
 from repro_torch.models import dlrm as dlrm_mod
 from repro_torch.models import lm
@@ -282,8 +287,15 @@ class DLRMEngine:
     OBS_NAME = "dlrm"
 
     def __init__(self, params, cfg: DLRMConfig, batch_size: int,
-                 ctx: Optional[ParallelContext] = None, *, device=None,
-                 telemetry=None, obs_name: Optional[str] = None):
+                 ctx: Optional[ParallelContext | ProcessContext] = None, *,
+                 device=None, telemetry=None,
+                 obs_name: Optional[str] = None):
+        if isinstance(ctx, ProcessContext):
+            # a rank's engine runs on the rank's device
+            if device is not None and torch.device(device) != ctx.device:
+                raise ValueError(f"device {device} is not the rank's "
+                                 f"{ctx.device}")
+            device = ctx.device
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             # full-fp32 MLP products, like the reference's
@@ -316,9 +328,14 @@ class DLRMEngine:
                 "tier is cache.cold_tier='remote'")
         if ctx is not None:
             # the sharded tables, built once: row and table shards are
-            # views of params["tables"], column shards one copy
-            self.params = {**params, "tables": shard_tables(
-                params["tables"], cfg.embedding_config(), ctx.tp_size)}
+            # views of params["tables"], column shards one copy; a rank of
+            # a ProcessContext copies its own shard and keeps nothing else
+            ecfg = cfg.embedding_config()
+            if isinstance(ctx, ProcessContext):
+                tables = shard_for_rank(params["tables"], ecfg, ctx)
+            else:
+                tables = shard_tables(params["tables"], ecfg, ctx.tp_size)
+            self.params = {**params, "tables": tables}
         if cached:
             per_table = cfg.cache_rows_vector()
             if per_table is not None:
@@ -682,8 +699,8 @@ class PipelinedDLRMEngine(DLRMEngine):
 
 
 def make_dlrm_engine(params, cfg: DLRMConfig, batch_size: int,
-                     ctx: Optional[ParallelContext] = None, *,
-                     device=None, telemetry=None,
+                     ctx: Optional[ParallelContext | ProcessContext] = None,
+                     *, device=None, telemetry=None,
                      obs_name: Optional[str] = None) -> DLRMEngine:
     """Build the engine ``cfg.cache.pipeline_depth`` selects on ``device``
     (None: the card): 1 is the serialized :class:`DLRMEngine`, >= 2 the

@@ -14,7 +14,10 @@ ones, views whose base is not 16-byte aligned, bf16 sums that cancel,
 int32 sums that wrap, ``-0.0`` sources, launches over a range of ranks
 short of all E, and the ring permute (one launch for all ranks) at every
 shift up to n + 1 and over ranges of source ranks, and the pull-sum at
-every rank count from 9 to ``MAX_RANKS``.  Every comparison is bitwise:
+every rank count from 9 to ``MAX_RANKS``; and, with each rank a process
+(``core.parallel.run_ranks``, 2 and 4 processes sharing the card), the
+put, the pull-sum and the all-reduce through the peers' symmetric
+buffers, and a peer's handle that does not open.  Every comparison is bitwise:
 the puts copy bits, and the pull-sum adds in the order of PyTorch's CUDA
 sum over an outer dimension (four partial sums, combined left to right),
 for any E up to ``MAX_RANKS``.  One exception:
@@ -312,3 +315,98 @@ def test_launcher_refuses_bad_ranges(card):
         with pytest.raises(ValueError, match=f"at most {oa.MAX_RANKS}"):
             fn(many)
     assert set(oa.LAUNCH_COUNTS.values()) == {0}
+
+
+# ---------------------------------------------------------------------------
+# one rank per process: the put and the pull-sum across processes sharing
+# the card, through the peers' symmetric buffers (CUDA IPC)
+# ---------------------------------------------------------------------------
+
+PROC_WORLDS = [2, 4]
+PROC_CASES = [(dtype, c) for dtype in DTYPES for c in (0, 1, 1001, 1024)]
+
+
+def _proc_cases(ctx):
+    """Every case on this rank: the rank's own chunks of stacked inputs
+    that every rank draws alike, through the per-rank wrappers, against
+    the plain versions of the stacked inputs; each case's launches."""
+    e, r = ctx.world, ctx.rank
+    out = {}
+    for dtype, c in PROC_CASES:
+        g = torch.Generator(device=ctx.device).manual_seed(100 * e + c)
+        xs = _chunks(g, e, c, dtype, ctx.device)          # (E_src, E, c)
+        x = xs[r].contiguous()
+        oa.reset_launch_counts()
+        put = comm.all_to_all(x, backend="onesided", ctx=ctx)
+        rs = comm.reduce_scatter(x, backend="onesided", ctx=ctx)
+        ar = comm.all_reduce(x, backend="onesided", ctx=ctx)
+        torch.cuda.synchronize()
+        plain_rs = oa.onesided_reduce_scatter_ref(xs)[r]
+        if c == 1 and dtype != torch.int32:
+            # the plain version's sum runs over a contiguous dimension:
+            # PyTorch's other order (see _check_rs); x.sum(0) is the
+            # kernel's
+            plain_rs = xs.sum(0, dtype=dtype)[r]
+        out[(dtype, c)] = dict(
+            put=_same(put, oa.onesided_all_to_all_ref(xs)[r]),
+            rs=_same(rs, plain_rs),
+            rs_sum0=_same(rs, xs.sum(0, dtype=dtype)[r]),
+            ar=_same(ar, xs.sum(0, dtype=dtype)),
+            launches=dict(oa.LAUNCH_COUNTS))
+    # a handle that does not open raises: no fallback to a bulk collective
+    real = oa.dist.all_gather_object
+
+    def garbage(handles, obj, group=None):
+        real(handles, obj, group=group)
+        for i in range(len(handles)):
+            if i != r:
+                handles[i] = bytes(len(obj))
+
+    oa.dist.all_gather_object = garbage
+    try:
+        oa.SymmetricBuffers(ctx.group, r, e, ctx.device, 1 << 20)
+        out["bad_handle"] = None
+    except RuntimeError as err:
+        out["bad_handle"] = str(err)
+    finally:
+        oa.dist.all_gather_object = real
+    gathered = [None] * e
+    torch.distributed.all_gather_object(gathered, out, group=ctx.group)
+    return gathered
+
+
+@pytest.fixture(scope="module")
+def proc_results():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the chunk kernels have no CPU mode")
+    from repro_torch.core import parallel
+
+    return {e: parallel.run_ranks(_proc_cases, e, backend="gloo",
+                                  device="cuda:0", timeout_s=300)
+            for e in PROC_WORLDS}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, c", PROC_CASES)
+@pytest.mark.parametrize("e", PROC_WORLDS)
+def test_processes_put_and_pull_sum_match_plain_versions(proc_results, e,
+                                                         dtype, c):
+    """Each rank a process on one card: its puts land in the peers'
+    buffers as the plain all-to-all's chunks, its pull-sums read the
+    peers' send buffers into the plain reduce-scatter's and x.sum(0)'s
+    bits; one launch of each per call (none for an empty chunk)."""
+    want = dict(onesided_all_to_all=1 if c else 0,
+                onesided_reduce_scatter=2 if c else 0)
+    for rank, out in enumerate(proc_results[e]):
+        got = out[(dtype, c)]
+        assert got["put"] and got["rs"] and got["rs_sum0"] and got["ar"], \
+            (rank, got)
+        assert {k: got["launches"][k] for k in want} == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e", PROC_WORLDS)
+def test_processes_refuse_a_handle_that_does_not_open(proc_results, e):
+    for out in proc_results[e]:
+        assert out["bad_handle"] is not None
+        assert "cudaIpcOpenMemHandle" in out["bad_handle"]

@@ -31,6 +31,7 @@ Tolerances:
     the remote-tier engine check holds, ``tests/test_torch_remote.py``).
 """
 import dataclasses
+import fcntl
 import os
 import subprocess
 import sys
@@ -96,6 +97,11 @@ DROP_CF = 0.5                           # a small capacity factor
 # the DLRM engine cases: (mesh shape, rw_backend); 1-D meshes are (E,)
 ENGINES = {"a2a_bulk": ((E,), "bulk"), "a2a_onesided": ((E,), "onesided"),
            "a2a_bulk_2x2": ((2, 2), "bulk")}
+# the forward of the other strategies: (ranks, DLRMConfig fields); table-
+# wise over 2 ranks, as chip_smoke.py serves CONFIG's 26 tables
+FORWARDS = {"row_allgather": (E, dict(sharding="row")),
+            "column": (E, dict(sharding="column")),
+            "table_2": (2, dict(sharding="table"))}
 
 
 def _num_tables(name: str) -> int:
@@ -263,6 +269,13 @@ def _jax_reference(inputs: Path, outputs: Path) -> None:
         scores = eng.run_to_completion()
         out[f"engine_{name}"] = np.array(
             [scores[i] for i in range(ENGINE_REQS)])
+    for name, (ranks, fields) in FORWARDS.items():
+        mesh_n = jax.make_mesh((ranks,), ("model",),
+                               devices=jax.devices()[:ranks])
+        out[f"forward_{name}"] = np.asarray(jdlrm.forward(
+            params, jnp.asarray(x["dense"]), JJagged(
+                jnp.asarray(x["fwd_idx"]), jnp.asarray(x["fwd_lens"])),
+            dataclasses.replace(base, **fields), jmake_context(mesh_n)))
     ctx2 = jmake_context(jax.make_mesh((2, 2), ("data", "model")))
     out["dp_for"] = np.array([len(ctx2.dp_for(8) or ()),
                               len(ctx2.dp_for(3) or ()), ctx2.dp_size,
@@ -270,21 +283,39 @@ def _jax_reference(inputs: Path, outputs: Path) -> None:
     np.savez(outputs, **out)
 
 
+def reference_outputs(tmp_path_factory):
+    """(inputs, the JAX reference's outputs), computed once per test
+    session: the subprocess runs once, under a file lock, in the session's
+    temporary directory (the one the xdist workers share), and every
+    module that asks later -- this one, ``test_torch_dist_ranks.py`` --
+    reads its outputs."""
+    base = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        base = base.parent
+    tmp = base / "distributed_ref"
+    tmp.mkdir(exist_ok=True)
+    x = _inputs()
+    with open(base / "distributed_ref.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not (tmp / "outputs.npz").exists():
+            np.savez(tmp / "inputs.npz", **x)
+            env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+                   "JAX_PLATFORMS": "cpu",
+                   "XLA_FLAGS":
+                       f"--xla_force_host_platform_device_count={E}"}
+            proc = subprocess.run(
+                [sys.executable, __file__, str(tmp / "inputs.npz"),
+                 str(tmp / "partial.npz")], env=env, capture_output=True,
+                text=True, timeout=300)
+            assert proc.returncode == 0, proc.stderr[-4000:]
+            os.replace(tmp / "partial.npz", tmp / "outputs.npz")
+    return x, dict(np.load(tmp / "outputs.npz"))
+
+
 @pytest.fixture(scope="module")
 def ref(tmp_path_factory):
-    """(inputs, the JAX reference's outputs), computed once per module."""
-    tmp = tmp_path_factory.mktemp("distributed_ref")
-    x = _inputs()
-    np.savez(tmp / "inputs.npz", **x)
-    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
-           "JAX_PLATFORMS": "cpu",
-           "XLA_FLAGS": f"--xla_force_host_platform_device_count={E}"}
-    proc = subprocess.run(
-        [sys.executable, __file__, str(tmp / "inputs.npz"),
-         str(tmp / "outputs.npz")], env=env, capture_output=True, text=True,
-        timeout=300)
-    assert proc.returncode == 0, proc.stderr[-4000:]
-    return x, dict(np.load(tmp / "outputs.npz"))
+    """(inputs, the JAX reference's outputs)."""
+    return reference_outputs(tmp_path_factory)
 
 
 def _t(a):
@@ -532,6 +563,19 @@ def test_engine_with_context_matches_jax(ref, name):
     got = np.array([scores[i] for i in range(ENGINE_REQS)])
     np.testing.assert_allclose(got, want[f"engine_{name}"], rtol=0,
                                atol=PCTR_ATOL)
+
+
+@pytest.mark.parametrize("name", list(FORWARDS))
+def test_forward_strategies_match_jax(ref, name):
+    """The forward under the other strategies' contexts: row all-gather
+    and column over 4 ranks, table-wise over 2."""
+    x, want = ref
+    ranks, fields = FORWARDS[name]
+    cfg = dataclasses.replace(tcfg_mod.smoke(), **fields)
+    got = tdlrm.forward(_params(want), _t(x["dense"]), JaggedBatch(
+        _t(x["fwd_idx"]), _t(x["fwd_lens"])), cfg, _ctx((ranks,)))
+    np.testing.assert_allclose(got.numpy(), want[f"forward_{name}"],
+                               rtol=0, atol=PCTR_ATOL)
 
 
 def test_context_axes_match_jax(ref):

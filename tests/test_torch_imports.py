@@ -1,5 +1,6 @@
 """The port stands alone: no module of ``repro_torch``, and not
-``chip_smoke.py``, imports JAX or the reference package ``repro``.
+``chip_smoke.py`` or the scripts under ``tools/``, imports JAX or the
+reference package ``repro``.
 
 ``repro_torch`` starts with ``repro``, so the reference package is matched
 exactly (``repro``) or by its prefix ``repro.``.
@@ -15,6 +16,7 @@ import sys
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 SMOKE = ROOT / "chip_smoke.py"
+TOOLS = ROOT / "tools"
 
 
 def _forbidden(name: str) -> bool:
@@ -85,8 +87,10 @@ def _imports(path: pathlib.Path):
 
 
 def test_ast_scan_finds_no_jax_or_repro_import():
-    files = sorted(PORT.rglob("*.py")) + [SMOKE]
+    tools = sorted(TOOLS.glob("*.py"))
+    files = sorted(PORT.rglob("*.py")) + [SMOKE] + tools
     assert SMOKE.exists() and len(files) > 10
+    assert {p.name for p in tools} >= {"phase_seconds.py", "rank_phases.py"}
     bad = [(str(p.relative_to(ROOT)), line, name)
            for p in files for line, name in _imports(p)
            if _forbidden(name)]
