@@ -64,6 +64,26 @@ Phases:
      overlap, stage totals, hit rate, pool bytes, peak device memory;
      (d) one profiled run: the streams of the scatters and of the TBE
      launches, and the side-stream device time under forward kernels;
+  6p. (run after phase 7p, while phase 3's tables live) the remote tier
+     with one host per process: phase 3's tables handed to 4 rank
+     processes sharing the card in a gloo group (run_ranks), each a host
+     of the remote tier that copies only its own row shard (26 x 250,000
+     x 128 f32, 3.33 GB) and drops the tables; on each rank an engine of
+     make_dlrm_engine(..., remote_ctx=ctx) with phase 6's cache serves
+     phase 3's requests in lockstep: (a) cached on bulk (the requests
+     all-gathered, the contributions over the group's reduce-scatter)
+     and on one-sided (one put launch a fetch into the peers' CUDA IPC
+     buffers, then the local sum), (b) pipelined at depth 2, one-sided:
+     scores bitwise phase 3's on every rank, the counters of phase 6 (and
+     its fetches, padded alike) or phase 6b (b)'s fallbacks, one flat TBE
+     launch per flush and one put launch per non-empty fetch per rank,
+     each from the side stream in (b); (c) comm.permute_ring(ctx=) at
+     row 7's shape, a (13,312, 128) f32 block a rank, on both backends:
+     bitwise torch.roll of the stacked blocks, one ring launch per rank
+     on one-sided; per rank the median flush (host clock), the fetches'
+     ms, the fences' share and peak memory; no rank process left after
+     it; with 2 or more cards, the same over NCCL, one process a card
+     (4 hosts, or 2 on 2 or 3 cards);
   6c. the planner -> engine round trip with telemetry, on the same
      requests: sharding_plan.plan over CONFIG's 26 tables (H100_DGX, Zipf
      1.05, host tier, 2048 a shard); (a) plan A (2 shards, 0.5 GB: 8 pools
@@ -562,7 +582,8 @@ def _profiled(fn, label):
     """``fn()`` under torch.profiler until a profile of it can be read
     (``contracts.profile_complete``: a lead-in of device spins, then the
     call, whose kernel launches must each have their record, or miss the
-    same ones as an earlier profile of it, with no stray record); logs
+    same ones as an earlier profile of it, with no stray record and not
+    all of them); logs
     each profile taken before it, the lead-in records the profiler
     dropped and the call's records the one read lacks.  Fails if none
     could be read."""
@@ -1558,6 +1579,8 @@ def phase_pipelined(pt, eg, oa, unc, cached, remote) -> dict:
     _check_pipelined(pt, eng, unc, scores, "remote onesided")
     out["remote"] = dict(wall_ms=wall, serial_ms=serial_ms, peak_gb=peak_gb,
                          puts=counts["onesided_put_rows"],
+                         tbe=counts["gather_pool_tbe_flat"],
+                         fallbacks=eng.scheduler.fallbacks,
                          **_stage_log(pt, eng, "remote onesided"))
     del eng, scores
     gc.collect()
@@ -2599,6 +2622,332 @@ def phase_ranks(pt, unc, dist) -> dict:
         f"reserved {torch.cuda.memory_reserved() / 1e9:.3f} GB, allocated "
         f"{torch.cuda.memory_allocated() / 1e9:.3f} GB")
     check(not alive, "phase 7p's rank processes all ended")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 6p. the remote tier with one host per process
+# ---------------------------------------------------------------------------
+
+REMOTE_RANK_PATH = "6p remote tier, ranks as processes"
+# each leg of 6p, all in one spawn of HOSTS rank processes: (label, the
+# remote tier's transport, pipeline_depth)
+REMOTE_LEGS = (("cached bulk", "bulk", 1),
+               ("cached onesided", "onesided", 1),
+               ("pipelined onesided", "onesided", 2))
+RING_BLOCK = (13_312, 128)   # row 7's block a rank: (4, 13,312, 128) stacked
+RING_SEED = 5
+# a rank's device memory beyond its shard and its slot pools: a fetch's
+# contributions and its receive buffer (0.54 GB each at M_pad 2**18), the
+# gathered requests, the fetched rows, the forward's working tensors
+REMOTE_MEM_SLACK = 2 ** 31
+
+
+def _remote_leg(ctx, eng, requests, depth, comm, eg, oa) -> dict:
+    """One leg's serving on this rank: flushes one by one on the host
+    clock (depth 1) or one ``run_to_completion`` (depth 2), the launch
+    counts set to 0 just before and read just after, the fetches' events
+    and, for each put launch, the stream it was issued on."""
+    for r in requests:
+        eng.submit(r)
+    fetches, put_streams = [], []
+    put = oa._put_rank
+
+    def _recording(x, rank, group, recv, counter):
+        if counter == "onesided_put_rows" and x.is_cuda:
+            put_streams.append(torch.cuda.current_stream(x.device).cuda_stream)
+        return put(x, rank, group, recv, counter)
+
+    prev = comm.set_event_sink(fetches.append)
+    oa._put_rank = _recording
+    eg.reset_launch_counts()
+    oa.reset_launch_counts()
+    rec = dict(flush_ms=[], fence_ms=[])
+    try:
+        if depth == 1:
+            scores = {}
+            while eng.queue:
+                f0 = oa.FENCE_STATS["seconds"]
+                t = time.perf_counter()
+                scores.update(eng.flush())      # ends in .cpu(): synchronous
+                rec["flush_ms"].append(1e3 * (time.perf_counter() - t))
+                rec["fence_ms"].append(
+                    1e3 * (oa.FENCE_STATS["seconds"] - f0))
+        else:
+            t = time.perf_counter()
+            scores = eng.run_to_completion()    # ends in the last drain
+            rec["flush_ms"].append(1e3 * (time.perf_counter() - t))
+            rec["fence_ms"].append(1e3 * oa.FENCE_STATS["seconds"])
+    finally:
+        comm.set_event_sink(prev)
+        oa._put_rank = put
+    rec["counts"] = {**eg.LAUNCH_COUNTS, **oa.LAUNCH_COUNTS}
+    rec["fences"] = oa.FENCE_STATS["fences"]
+    rec["scores"] = np.array([scores[i] for i in sorted(scores)])
+    # the store's timed event of each fetch, and comm's untimed one
+    timed = [ev for ev in fetches if ev.op == "fetch_rows" and ev.t1 > ev.t0]
+    rec["comm_events"] = sum(ev.op == "fetch_rows" and ev.t1 == ev.t0
+                             for ev in fetches)
+    row_bytes = eng.cfg.embedding_dim * 4
+    rec["m_pads"] = [ev.bytes_in // (ctx.world * row_bytes) for ev in timed]
+    rec["fetch_ms"] = [1e3 * (ev.t1 - ev.t0) for ev in timed]
+    rec["put_streams"] = put_streams
+    return rec
+
+
+def _remote_rank_serve(ctx, base, tables, mlp, reqs, batch):
+    """One rank of phase 6p, one host of the remote tier: for each leg of
+    REMOTE_LEGS an engine built by ``make_dlrm_engine(..., remote_ctx=
+    ctx)`` over phase 3's tables (which reach the rank through CUDA IPC;
+    it copies only its own row shard) serves phase 3's requests in
+    lockstep with the other ranks.  Then ``comm.permute_ring(ctx=)`` on
+    both backends at row 7's shape.  Every rank's records are gathered to
+    rank 0, which returns them."""
+    import torch.distributed as tdist
+
+    from repro_torch.core import comm
+    from repro_torch.core.cache_config import CacheConfig
+    from repro_torch.kernels import embedding_gather as eg
+    from repro_torch.kernels import onesided_a2a as oa
+    from repro_torch.serving.engine import CTRRequest, make_dlrm_engine
+
+    cuda = ctx.device.type == "cuda"
+    dense, idx, lens = reqs
+    requests = [CTRRequest(rid=i, dense=dense[i], indices=idx[i],
+                           lengths=lens[i]) for i in range(len(dense))]
+    params = {part: [{k: v.to(ctx.device, copy=True)
+                      for k, v in layer.items()} for layer in mlp[part]]
+              for part in ("bottom", "top")}
+    params["tables"] = tables
+    out = {}
+    for label, backend, depth in REMOTE_LEGS:
+        cfg = dataclasses.replace(base, cache=CacheConfig(
+            rows=65536, policy="lfu", cold_tier="remote",
+            remote_hosts=ctx.world, remote_backend=backend,
+            pipeline_depth=depth))
+        if cuda:
+            torch.cuda.synchronize(ctx.device)
+            torch.cuda.reset_peak_memory_stats(ctx.device)
+        t0 = time.perf_counter()
+        eng = make_dlrm_engine(params, cfg, batch, remote_ctx=ctx)
+        bags = getattr(eng.cache, "buffers", [eng.cache])
+        shard = bags[0].cold.shards
+        rec = dict(
+            kind=type(eng).__name__, shard_shape=tuple(shard.shape),
+            shard_bytes=shard.numel() * shard.element_size(),
+            shard_s=time.perf_counter() - t0,
+            shard_own=shard.untyped_storage().nbytes()
+            == shard.numel() * shard.element_size()
+            and shard.data_ptr() != tables.data_ptr(),
+            one_store=all(b.cold is bags[0].cold for b in bags),
+            tables_dropped=eng.params["tables"] is None,
+            pool_bytes=eng.cache.pool_bytes)
+        rec.update(_remote_leg(ctx, eng, requests, depth, comm, eg, oa))
+        st = eng.cache_stats()
+        rec["counters"] = {k: getattr(st, k) for k in COUNTERS}
+        if depth > 1:
+            rec["fallbacks"] = eng.scheduler.fallbacks
+            rec["side"] = getattr(eng.scheduler.side, "cuda_stream", None)
+        if cuda:
+            torch.cuda.synchronize(ctx.device)
+            rec["peak_bytes"] = torch.cuda.max_memory_allocated(ctx.device)
+        rec["symmetric_bytes"] = sum(b.nbytes for b in ctx._buffers.values())
+        del eng, bags, shard, st
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        gathered = [None] * ctx.world
+        tdist.all_gather_object(gathered, rec, group=ctx.group)
+        if ctx.rank == 0:
+            out[label] = gathered
+    # (c) the ring permute at row 7's shape, one block a rank
+    g = torch.Generator().manual_seed(RING_SEED)
+    blocks = torch.randn((ctx.world,) + RING_BLOCK, generator=g)
+    want = torch.roll(blocks, 1, dims=0)[ctx.rank].view(torch.int32)
+    mine = blocks[ctx.rank].to(ctx.device)
+    for backend in ("bulk", "onesided"):
+        oa.reset_launch_counts()
+        if cuda:
+            torch.cuda.synchronize(ctx.device)
+        t = time.perf_counter()
+        got = comm.permute_ring(mine, shift=1, backend=backend, ctx=ctx)
+        got = got.cpu()
+        rec = dict(ms=1e3 * (time.perf_counter() - t),
+                   bitwise=torch.equal(got.view(torch.int32), want),
+                   launches=oa.LAUNCH_COUNTS["onesided_ring_permute"])
+        gathered = [None] * ctx.world
+        tdist.all_gather_object(gathered, rec, group=ctx.group)
+        if ctx.rank == 0:
+            out[f"ring {backend}"] = gathered
+    return out
+
+
+def _check_remote_legs(pt, unc, remote, piped, got, leg) -> dict:
+    """Phase 6p's checks of one group's ranks against phase 3's scores,
+    phase 6's counters and fetches and phase 6b's fallbacks: scores,
+    counters, launches, streams, memory.  Returns the per-rank numbers
+    for the log and the path's launches."""
+    want = np.array([unc["scores"][k] for k in sorted(unc["scores"])])
+    summary = {}
+    for label, backend, depth in REMOTE_LEGS:
+        ranks_ = got[label]
+        world = len(ranks_)
+        rows_local = T * (R // world)
+        tag = f"[{leg} {label}]"
+        vals = ranks_[0]["scores"]
+        check(len(vals) == REQUESTS
+              and all(np.array_equal(r["scores"], vals) for r in ranks_),
+              f"{tag} every rank returns the same {REQUESTS} scores")
+        check(bool(np.array_equal(vals, want)),
+              f"{tag} scores bitwise phase 3's")
+        for r, rec in enumerate(ranks_):
+            check(rec["shard_shape"] == (rows_local, D) and rec["shard_own"]
+                  and rec["tables_dropped"] and rec["one_store"],
+                  f"{tag} rank {r} holds only its ({rows_local}, {D}) shard, "
+                  f"in memory of its own, and no tables")
+        counters = ranks_[0]["counters"]
+        check(all(r["counters"] == counters for r in ranks_),
+              f"{tag} every rank keeps the same counters")
+        puts_want = [len(r["m_pads"]) if backend == "onesided" else 0
+                     for r in ranks_]
+        if depth == 1:
+            ph6 = remote[backend]
+            if world == HOSTS:
+                check(counters == ph6["counters"],
+                      f"{tag} the counters of phase 6 [{backend}]")
+            else:
+                # other hosts split the misses otherwise by owner
+                check(all(counters[k] == ph6["counters"][k]
+                          for k in ("hits", "misses", "evictions"))
+                      and all(counters[a] + counters[b]
+                              == ph6["counters"][a] + ph6["counters"][b]
+                              for a, b in (("misses_host", "misses_remote"),
+                                           ("fetch_host", "fetch_remote"),
+                                           ("bytes_h2d", "bytes_remote"))),
+                      f"{tag} phase 6 [{backend}]'s counters, split over "
+                      f"{world} hosts")
+            check(all(r["m_pads"] == ph6["m_pads"] for r in ranks_),
+                  f"{tag} phase 6's {ph6['fetches']} fetches, padded "
+                  f"{ph6['m_pads']}, on every rank")
+            tbe_want = len(ph6["flush_ms"])
+        else:
+            ph6b = piped["remote"]
+            check(all(r["fallbacks"] == ph6b["fallbacks"] for r in ranks_),
+                  f"{tag} phase 6b (b)'s {ph6b['fallbacks']} fallback(s) on "
+                  f"every rank")
+            check(counters["misses"] == ph6b["misses"]
+                  and counters["fetch_host"] + counters["fetch_remote"]
+                  == ph6b["fetched"],
+                  f"{tag} phase 6b (b)'s misses and rows fetched")
+            check(all(r["kind"] == "PipelinedDLRMEngine" for r in ranks_),
+                  f"{tag} make_dlrm_engine built the pipelined engine")
+            check(all(len(r["put_streams"]) == len(r["m_pads"])
+                      and set(r["put_streams"]) <= {r["side"]}
+                      for r in ranks_) or DEV == "cpu",
+                  f"{tag} every put launch issued from the side stream")
+            tbe_want = ph6b["tbe"]
+        for r, rec in enumerate(ranks_):
+            want_counts = _launches(gather_pool_tbe_flat=tbe_want,
+                                    onesided_put_rows=puts_want[r])
+            check({k: rec["counts"].get(k, 0) for k in SOURCES}
+                  == want_counts and len(rec["m_pads"]) > 0
+                  and rec["comm_events"] == len(rec["m_pads"]),
+                  f"{tag} rank {r}: launches {want_counts}, one fetch_rows "
+                  f"event of comm's beside each of the store's")
+        med = [statistics.median(r["flush_ms"]) for r in ranks_]
+        fence = [sum(r["fence_ms"]) / sum(r["flush_ms"]) for r in ranks_]
+        peak = [(r.get("peak_bytes", 0) + r["symmetric_bytes"]) / 1e9
+                for r in ranks_]
+        if DEV != "cpu":
+            check(all(p * 1e9 <= r["shard_bytes"] + r["pool_bytes"]
+                      + REMOTE_MEM_SLACK for p, r in zip(peak, ranks_)),
+                  f"{tag} each rank's peak memory about its shard and pools")
+        fetch_ms = [[round(m, 3) for m in r["fetch_ms"]] for r in ranks_]
+        log(f"  {tag} scores bitwise phase 3's on {len(ranks_)} ranks; "
+            f"launches per rank {ranks_[0]['counts']}; m_pads "
+            f"{ranks_[0]['m_pads']}; counters {counters}"
+            + (f"; fallbacks {ranks_[0]['fallbacks']}" if depth > 1 else ""))
+        log(f"  {tag} {'median flush' if depth == 1 else 'run_to_completion'}"
+            f" ms per rank {[round(m, 3) for m in med]} (host clock), fences "
+            f"{[round(100 * f, 1) for f in fence]}% of it "
+            f"({ranks_[0]['fences']} a rank); fetch ms per rank {fetch_ms}; "
+            f"shard {ranks_[0]['shard_bytes'] / 1e9:.2f} GB a rank (copied "
+            f"in {max(r['shard_s'] for r in ranks_):.2f} s), pools "
+            f"{ranks_[0]['pool_bytes'] / 1e9:.3f} GB, peak "
+            f"{[round(p, 2) for p in peak]} GB a rank (allocator peak + "
+            f"symmetric buffers)")
+        summary[label] = dict(median_ms=med, fence_share=fence, peak_gb=peak,
+                              fetch_ms=fetch_ms,
+                              launches={k: sum(r["counts"].get(k, 0)
+                                               for r in ranks_)
+                                        for k in SOURCES})
+    for backend in ("bulk", "onesided"):
+        ranks_ = got[f"ring {backend}"]
+        want_n = 1 if backend == "onesided" else 0
+        check(all(r["bitwise"] for r in ranks_),
+              f"[{leg} ring {backend}] every rank's block bitwise torch.roll "
+              f"of the stacked blocks")
+        check(all(r["launches"] == want_n for r in ranks_),
+              f"[{leg} ring {backend}] {want_n} ring launch(es) per rank")
+        log(f"  [{leg} ring {backend}] {RING_BLOCK} f32 a rank, shift 1: "
+            f"bitwise on every rank, ms per rank "
+            f"{[round(r['ms'], 3) for r in ranks_]} (host clock, to the "
+            f"block on the host), launches per rank "
+            f"{[r['launches'] for r in ranks_]}")
+        summary[f"ring {backend}"] = dict(
+            ms=[r["ms"] for r in ranks_],
+            launches=sum(r["launches"] for r in ranks_))
+    summary["launches"] = {
+        k: sum(summary[label]["launches"][k] for label, _, _ in REMOTE_LEGS)
+        for k in SOURCES}
+    summary["launches"]["onesided_ring_permute"] += \
+        summary["ring onesided"]["launches"]
+    return summary
+
+
+def phase_remote_ranks(pt, unc, remote, piped) -> dict:
+    n_cards = torch.cuda.device_count() if DEV != "cpu" else 0
+    log(f"== 6p. the remote tier with one host per process ({HOSTS} "
+        f"processes sharing the card in a gloo group, each holding its row "
+        f"shard of phase 3's tables, handed over through CUDA IPC; "
+        f"torch.cuda.device_count() {n_cards})")
+    for (op, be), route in pt.comm.RANK_ROUTES.items():
+        if op in ("fetch_rows", "permute"):
+            log(f"  route {op} {be}: {route}")
+    t0 = time.perf_counter()
+    tables = unc["params"]["tables"]
+    mlp = {part: unc["params"][part] for part in ("bottom", "top")}
+    reqs = _rank_requests(unc["reqs"])
+    got = pt.run_ranks(_remote_rank_serve, HOSTS, backend="gloo",
+                       device=_rank_device(),
+                       args=(pt.CONFIG, tables, mlp, reqs, BATCH),
+                       timeout_s=PROC_TIMEOUT_S)
+    log(f"  gloo, {HOSTS} processes: {len(REMOTE_LEGS)} legs and the ring in "
+        f"{time.perf_counter() - t0:.1f} s (spawn, shard copies, flushes)")
+    out = dict(gloo=_check_remote_legs(pt, unc, remote, piped, got, "gloo"))
+    if n_cards >= 2:
+        world = HOSTS if n_cards >= HOSTS else 2
+        t1 = time.perf_counter()
+        got = pt.run_ranks(_remote_rank_serve, world, backend="nccl",
+                           args=(pt.CONFIG, tables, mlp, reqs, BATCH),
+                           timeout_s=PROC_TIMEOUT_S)
+        log(f"  nccl, {world} processes, one a card: in "
+            f"{time.perf_counter() - t1:.1f} s")
+        out["nccl"] = _check_remote_legs(pt, unc, remote, piped, got, "nccl")
+    else:
+        log("  the NCCL leg needs two or more cards (NCCL refuses two ranks "
+            "on one device): not run on this machine")
+    out["launches"] = out["gloo"]["launches"]
+    out["secs"] = time.perf_counter() - t0
+    import multiprocessing
+
+    alive = multiprocessing.active_children()
+    log(f"  phase 6p: {out['secs']:.1f} s; the gloo leg's times are "
+        f"processes time-slicing one card, not an interconnect's; rank "
+        f"processes alive after it: {len(alive)}; device memory reserved "
+        f"{torch.cuda.memory_reserved() / 1e9:.3f} GB, allocated "
+        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB")
+    check(not alive, "phase 6p's rank processes all ended")
     return out
 
 
@@ -5186,11 +5535,13 @@ def main() -> int:
     planned = phase_planned(pt, eg, oa, unc, cached)
     dist = phase_distributed(pt, eg, oa, unc)
     procs = phase_ranks(pt, unc, dist)
+    rprocs = phase_remote_ranks(pt, unc, remote, piped)
     held = torch.cuda.memory_allocated()
     del unc["params"]           # phase 3's tables: 13.3 GB
     torch.cuda.empty_cache()
     freed = held - torch.cuda.memory_allocated()
-    log(f"== phase 3's tables freed after phase 7p: {freed / 1e9:.3f} GB")
+    log(f"== phase 3's tables freed after phases 7p and 6p: "
+        f"{freed / 1e9:.3f} GB")
     check(freed >= pt.CONFIG.embedding_config().table_bytes,
           "phase 3's tables freed: the rank processes released what they "
           "were sent through CUDA IPC")
@@ -5260,13 +5611,18 @@ def main() -> int:
         "gather_pool_tbe_flat": {
             "4 serving cached": cached["launches"],
             RANK_PATH: procs["launches"]["gather_pool_tbe_flat"],
+            REMOTE_RANK_PATH: rprocs["launches"]["gather_pool_tbe_flat"],
             "8 LM serving, ctx": lm["ctx"]["launches"],
             "8m MoE serving, ctx": moe["ctx"]["launches"],
             "8d MLA decode, ctx": ds["ctx"]["launches"],
             "8t LM training, ctx": lt["ctx"]["launches"]},
         "onesided_put_rows": {
-            "6 serving remote": remote["onesided"]["launches"]},
+            "6 serving remote": remote["onesided"]["launches"],
+            REMOTE_RANK_PATH: rprocs["launches"]["onesided_put_rows"]},
         **{name: {"7 distributed": n} for name, n in dist["launches"].items()},
+        "onesided_ring_permute": {
+            "7 distributed": dist["launches"]["onesided_ring_permute"],
+            REMOTE_RANK_PATH: rprocs["launches"]["onesided_ring_permute"]},
         **{name: {"7 distributed": dist["launches"][name],
                   RANK_PATH: procs["launches"][name]}
            for name in ("onesided_all_to_all", "onesided_reduce_scatter")},
@@ -5355,6 +5711,19 @@ def main() -> int:
             for label, s in procs["gloo"].items())
         + f"; NCCL leg {'run' if 'nccl' in procs else 'needs 2+ cards'}; "
         f"phase {procs['secs']:.1f} s")
+    rg = rprocs["gloo"]
+    log("remote tier, one host per process (6p, gloo, one card; host clock, "
+        "four processes time-slicing the card): " + "; ".join(
+            f"{label} {'median flush' if depth == 1 else 'run'} "
+            f"{max(rg[label]['median_ms']):.3f} ms (slowest rank), median "
+            f"fetch {max(statistics.median(f) for f in rg[label]['fetch_ms']):.3f}"
+            f" ms, fences {100 * max(rg[label]['fence_share']):.1f}%, peak "
+            f"{max(rg[label]['peak_gb']):.2f} GB a rank"
+            for label, _, depth in REMOTE_LEGS)
+        + f"; ring bulk/onesided {max(rg['ring bulk']['ms']):.3f}/"
+        f"{max(rg['ring onesided']['ms']):.3f} ms; NCCL leg "
+        f"{'run' if 'nccl' in rprocs else 'needs 2+ cards'}; phase "
+        f"{rprocs['secs']:.1f} s")
     log(f"contracts (2c): all {len(contracts)} hold on the card; TBE device "
         f"kernels per fixture {contracts}")
     med = train["median"]

@@ -332,7 +332,9 @@ def profile_complete(fn, *, tries: int = PROFILE_TRIES):
     before it and inside the profile after it; :data:`PROFILE_LEAD_IN`
     spins first) until a profile can be read, at most ``tries`` times: one
     that is complete, or one whose missing kernel records (by op) are
-    those of an earlier profile of the call, with no stray record.  Most
+    those of an earlier profile of the call, with no stray record and at
+    least one of the call's launches recorded (a profile that lost them
+    all says nothing of the call's kernels, however often).  Most
     drops vary from profile to profile; some repeat for a while (on the
     H100, in some runs, the first kernel of every row/a2a flush or the
     first four of a training step), and then the profile is read without
@@ -351,8 +353,9 @@ def profile_complete(fn, *, tries: int = PROFILE_TRIES):
             fn()
             torch.cuda.synchronize()
         gaps = profile_gaps(prof, PROFILE_LEAD_IN)
-        if gaps.complete or (gaps.launches and not gaps.stray and any(
-                g.lost_in == gaps.lost_in for g in earlier)):
+        if gaps.complete or (gaps.lost < gaps.launches and not gaps.stray
+                             and any(g.lost_in == gaps.lost_in
+                                     for g in earlier)):
             return prof, gaps, earlier
         earlier.append(gaps)
     raise RuntimeError(f"no readable profile in {tries} tries: {earlier}")

@@ -1,5 +1,6 @@
 """``CachedEmbeddingBag`` -- tiered lookup: a device slot pool over a cold
-tier (the serving host's memory, or row shards of simulated remote hosts).
+tier (the serving host's memory, or row shards of remote hosts: simulated
+on one device, or the ranks of a process group).
 
 The counterpart of ``repro.cache.cached_bag`` for one serving device.  The
 serving protocol has two explicit steps:
@@ -54,14 +55,22 @@ _PREFETCH_SEQ = itertools.count()
 
 
 def make_cold_store(tables: torch.Tensor, cache: CacheConfig, *,
-                    device=None) -> TableStore:
+                    device=None, ctx=None) -> TableStore:
     """Build the cold tier named by ``cache.cold_tier``; a remote tier's
-    shards live on ``device`` (None: the card)."""
+    shards live on ``device`` (None: the card).  ``ctx`` (a
+    ``ProcessContext``): the remote tier's hosts are the group's ranks,
+    each holding its own shard; a host tier refuses it."""
     if cache.cold_tier == "host":
+        if ctx is not None:
+            raise ValueError(
+                "a ProcessContext for the remote tier's hosts was given, but "
+                "cache.cold_tier is 'host': only cold_tier='remote' is "
+                "split over ranks")
         return HostStore(tables)
     if cache.cold_tier == "remote":
         return RemoteStore(tables, hosts=cache.remote_hosts or None,
-                           backend=cache.remote_backend, device=device)
+                           backend=cache.remote_backend, device=device,
+                           ctx=ctx)
     raise ValueError(
         f"unknown cold_tier {cache.cold_tier!r}; pick 'host' or 'remote'")
 
@@ -69,11 +78,13 @@ def make_cold_store(tables: torch.Tensor, cache: CacheConfig, *,
 class CachedEmbeddingBag:
     """``cold_store``/``stats`` share another bag's cold tier and counters:
     the pipeline's later buffers reuse the first buffer's (one host copy
-    of the tables, one set of remote shards, one ``CacheStats``)."""
+    of the tables, one set of remote shards, one ``CacheStats``).
+    ``remote_ctx`` (a ``ProcessContext``): the remote cold tier with one
+    host per rank (:func:`make_cold_store`)."""
 
     def __init__(self, tables: torch.Tensor, cfg: EmbeddingBagConfig, *,
                  device=None, cold_store: Optional[TableStore] = None,
-                 stats: Optional[CacheStats] = None):
+                 stats: Optional[CacheStats] = None, remote_ctx=None):
         if cfg.combiner not in ("sum", "mean"):
             raise NotImplementedError(
                 f"CachedEmbeddingBag: combiner {cfg.combiner!r} is not "
@@ -85,7 +96,8 @@ class CachedEmbeddingBag:
             raise ValueError(
                 f"tables must be (T, R, D), got {tuple(tables.shape)}")
         self.cold = cold_store if cold_store is not None \
-            else make_cold_store(tables, cc, device=self.device)
+            else make_cold_store(tables, cc, device=self.device,
+                                 ctx=remote_ctx)
         T, R, D = tables.shape
         self.dtype = tables.dtype
         # slot sizing: the per-table vector wins over the uniform scalar

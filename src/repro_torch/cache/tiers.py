@@ -17,10 +17,12 @@ The counterpart of ``repro.cache.tiers`` for one serving device:
     transport.
 
 The simulation backs all H hosts with slices of ONE device (the card by
-default), where the reference backs each with its own jax device; placing
-one shard per card comes with the distributed slice.  The serving rank is
-host ``home``: rows it owns count as host-tier traffic, rows of peers as
-remote-tier traffic.  A fetched row's payload is bitwise the source table
+default), where the reference backs each with its own jax device.  With
+``ctx=`` a ``core.parallel.ProcessContext`` each host is a process, as
+each controller of a multi-host slice is: it holds only its own shard, on
+its own device, and every rank fetches the same rows in lockstep over the
+group.  The serving rank is host ``home``: rows it owns count as
+host-tier traffic, rows of peers as remote-tier traffic.  A fetched row's payload is bitwise the source table
 row whichever tier served it, so the pooled output stays bitwise-equal to
 the uncached lookup.
 """
@@ -161,23 +163,45 @@ class RemoteStore(TableStore):
     ``t * R/H + r % (R/H)``), all H shards stacked ``(H, T * R/H, D)`` on
     ``device`` (None: the card).  ``fetch`` runs ONE ``comm.fetch_rows``
     over the shards per call, with the request padded to a power of two,
-    and returns the payloads to the serving host as a CPU tensor."""
+    and returns the payloads to the serving host as a CPU tensor.
+
+    With ``ctx`` (a ``ProcessContext``) the hosts are the group's ranks:
+    ``hosts`` must be 0/None or ``ctx.world``, and ``shards`` is only this
+    rank's ``(T * R/H, D)`` shard, copied onto ``ctx.device``; no
+    reference to ``tables`` is kept (they may be a parent's, received
+    through CUDA IPC).  Every rank calls ``fetch`` with the same rows at
+    the same point and gets the same payloads; ``comm.fetch_rows`` then
+    records its own event beside the store's timed one."""
 
     tier = "remote"
 
     def __init__(self, tables: torch.Tensor, *, hosts: Optional[int] = None,
-                 backend: str = "bulk", home: int = 0, device=None):
+                 backend: str = "bulk", home: int = 0, device=None,
+                 ctx=None):
         if tables.dim() != 3:
             raise ValueError(
                 f"tables must be (T, R, D), got {tuple(tables.shape)}")
         T, R, D = tables.shape
         if backend not in ("bulk", "onesided"):
             raise ValueError(f"unknown remote backend {backend!r}")
-        self.device = resolve_device(device)
-        # one simulated host per card by default: one card, or the CPU,
-        # is one host and too few
-        H = int(hosts) if hosts else (
-            torch.cuda.device_count() if self.device.type == "cuda" else 1)
+        self.ctx = ctx
+        if ctx is None:
+            self.device = resolve_device(device)
+            # one simulated host per card by default: one card, or the
+            # CPU, is one host and too few
+            H = int(hosts) if hosts else (
+                torch.cuda.device_count() if self.device.type == "cuda"
+                else 1)
+        else:
+            H = ctx.world
+            if hosts and int(hosts) != H:
+                raise ValueError(
+                    f"RemoteStore: hosts={hosts} with a ProcessContext of "
+                    f"{H} ranks; each rank is one host (pass 0 or {H})")
+            if device is not None and torch.device(device) != ctx.device:
+                raise ValueError(f"RemoteStore: device {device} is not the "
+                                 f"rank's {ctx.device}")
+            self.device = ctx.device
         if H < 2:
             raise ValueError(
                 f"RemoteStore needs >= 2 hosts (got {H}) -- use HostStore "
@@ -186,12 +210,18 @@ class RemoteStore(TableStore):
             raise ValueError(
                 f"rows_per_table ({R}) must divide evenly over {H} hosts")
         self.hosts, self.home, self.backend = H, int(home), backend
-        self._rows_per_host = R // H
-        # (H, T * R/H, D): host h's flat shard at [h], one permuted copy
-        self.shards = (tables.detach().to(self.device)
-                       .reshape(T, H, self._rows_per_host, D)
-                       .permute(1, 0, 2, 3)
-                       .reshape(H, T * self._rows_per_host, D))
+        rph = self._rows_per_host = R // H
+        if ctx is None:
+            # (H, T * R/H, D): host h's flat shard at [h], one permuted copy
+            self.shards = (tables.detach().to(self.device)
+                           .reshape(T, H, rph, D)
+                           .permute(1, 0, 2, 3)
+                           .reshape(H, T * rph, D))
+        else:
+            # (T * R/H, D): this rank's rows of every table, its own copy
+            lo = ctx.rank * rph
+            self.shards = tables.detach()[:, lo:lo + rph].to(
+                self.device, copy=True).reshape(T * rph, D)
 
     @property
     def rows_per_host(self) -> int:
@@ -210,7 +240,8 @@ class RemoteStore(TableStore):
         t0 = time.perf_counter()
         out = comm.fetch_rows(
             self.shards, torch.as_tensor(local, device=self.device),
-            torch.as_tensor(owner, device=self.device), backend=self.backend)
+            torch.as_tensor(owner, device=self.device), backend=self.backend,
+            ctx=self.ctx)
         # device -> host round trip: the payloads land on the serving host
         # (modelling NIC -> host memory) before SlotPool.scatter moves them
         # to the device

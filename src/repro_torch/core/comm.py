@@ -32,7 +32,9 @@ With ``ctx=`` a :class:`~repro_torch.core.parallel.ProcessContext`, the
 ranks are processes, and each collective takes ONE rank's value and
 returns that rank's result (``all_to_all`` ``(E_dst, C, ...)`` ->
 ``(E_src, C, ...)``, ``reduce_scatter`` ``(E_dst, M, ...)`` -> ``(M,
-...)``, ``all_gather`` and ``all_reduce`` the result every rank holds).
+...)``, ``all_gather`` and ``all_reduce`` the result every rank holds,
+``permute_ring`` this rank's block -> the block it receives,
+``fetch_rows`` this rank's shard and request -> its ``(M, D)`` rows).
 The routes (:data:`RANK_ROUTES`):
 
   * ``"bulk"`` -- the group's ``all_to_all_single``,
@@ -221,10 +223,14 @@ def reduce_scatter(x: torch.Tensor, *, backend: str = "bulk",
 
 
 def permute_ring(x: torch.Tensor, *, shift: int = 1,
-                 backend: str = "bulk") -> torch.Tensor:
+                 backend: str = "bulk", ctx=None) -> torch.Tensor:
     """Ring collective-permute: ``(n, ...)`` -> ``(n, ...)``, rank ``(r +
     shift) % n`` receives rank r's block.  ``"onesided"`` puts each block
-    from inside a kernel; ``"bulk"`` is ``torch.roll``."""
+    from inside a kernel; ``"bulk"`` is ``torch.roll``.  With ``ctx``,
+    ``x`` is this rank's block, and the result the block of rank ``(r -
+    shift) % n``."""
+    if ctx is not None:
+        return _rank_permute_ring(x, shift, backend, ctx)
     _record("permute", x, backend)
     if backend == "onesided":
         return onesided_ring_permute(x, shift)
@@ -250,6 +256,15 @@ RANK_ROUTES = {
         "all_to_all_single + rank-order sum",
     ("reduce_scatter", "onesided"):
         "sum_chunks_kernel (CPU: all_to_all_single + rank-order sum)",
+    ("permute", "bulk"): "all_to_all_single, one non-empty split each way",
+    ("permute", "onesided"): "put_chunks_kernel, the ring entry "
+                             "(CPU: isend + irecv)",
+    ("fetch_rows", "bulk"):
+        "all_gather_into_tensor x 2 (the row counts, the requests) + "
+        "reduce_scatter_tensor",
+    ("fetch_rows", "onesided"):
+        "all_gather_into_tensor x 2 + put_chunks_kernel + the local sum "
+        "(CPU: all_to_all_single + the sum)",
 }
 
 
@@ -340,12 +355,33 @@ def _rank_reduce_scatter(x: torch.Tensor, backend: str,
     return out
 
 
+def _rank_permute_ring(x: torch.Tensor, shift: int, backend: str,
+                       ctx) -> torch.Tensor:
+    _record_rank("permute", x, backend, ctx)
+    _check_rank_value(x, ctx, "permute_ring")
+    x = x.contiguous()
+    if backend == "onesided":
+        return _oa.onesided_ring_permute_rank(x, shift, ctx.rank, ctx.group,
+                                              _symmetric(ctx, "recv", x))
+    # the bulk route: one all-to-all whose only non-empty chunks are the
+    # block to (r + shift) % n and the one from (r - shift) % n
+    n, rank = ctx.world, ctx.rank
+    flat = x.reshape(-1)
+    send = [0] * n
+    recv = [0] * n
+    send[(rank + shift) % n] = recv[(rank - shift) % n] = flat.numel()
+    out = torch.empty_like(flat)
+    dist.all_to_all_single(out, flat, output_split_sizes=recv,
+                           input_split_sizes=send, group=ctx.group)
+    return out.view(x.shape)
+
+
 # ---------------------------------------------------------------------------
 # The batched row fetch
 # ---------------------------------------------------------------------------
 
 def fetch_rows(shards: torch.Tensor, local_addr: torch.Tensor,
-               owner: torch.Tensor, *, backend: str = "bulk"
+               owner: torch.Tensor, *, backend: str = "bulk", ctx=None
                ) -> torch.Tensor:
     """Batched cross-host row fetch -- the remote cold tier's transport.
 
@@ -364,9 +400,24 @@ def fetch_rows(shards: torch.Tensor, local_addr: torch.Tensor,
     Every rank asked for the same rows and so gets the same result; rank
     0's is returned.  ``backend`` picks the transport; the device of the
     tensors picks the route (a card launches the kernel, the CPU takes its
-    plain version)."""
+    plain version).
+
+    With ``ctx`` (a ``ProcessContext``), ``shards`` is this rank's own
+    ``(rows_local, D)`` shard and ``local_addr``/``owner`` the rows THIS
+    rank asks for; every rank of the group calls at the same point with
+    the same M (unequal M raises on every rank, as the reference's
+    all-gather would fail).  The reference's protocol, each step a
+    collective: all-gather every rank's request, build this rank's ``(E,
+    M, D)`` contributions from its shard, and move them to the requesters
+    with the group's ``reduce_scatter_tensor`` (``"bulk"``) or with puts
+    into the peers' receive buffers and a local sum (``"onesided"``).
+    Returns this rank's ``(M, D)``; one :class:`CollectiveEvent`
+    ``("fetch_rows", E * M * D * itemsize, E, backend)``, the
+    reference's, and none for the all-gathers of the requests."""
     if backend not in ("bulk", "onesided"):
         raise ValueError(f"unknown remote backend {backend!r}")
+    if ctx is not None:
+        return _rank_fetch_rows(shards, local_addr, owner, backend, ctx)
     H = shards.shape[0]
     M = local_addr.shape[0]
     ranks = torch.arange(H, device=shards.device)
@@ -381,3 +432,39 @@ def fetch_rows(shards: torch.Tensor, local_addr: torch.Tensor,
     if backend == "onesided":
         return onesided_fetch_rows(contribs)[0]
     return contribs.sum(dim=0)[0]
+
+
+def _rank_fetch_rows(shard: torch.Tensor, local_addr: torch.Tensor,
+                     owner: torch.Tensor, backend: str, ctx) -> torch.Tensor:
+    _check_rank_value(shard, ctx, "fetch_rows")
+    if shard.dim() != 2:
+        raise ValueError(f"fetch_rows: this rank's shard must be "
+                         f"(rows_local, D), got {tuple(shard.shape)}")
+    dev, E = shard.device, ctx.world
+    m = local_addr.shape[0]
+    # every rank's M first: the requests' all-gather needs equal sizes
+    ms = torch.empty(E, dtype=torch.int64, device=dev)
+    _oa.all_gather_into(ms, torch.full((1,), m, dtype=torch.int64,
+                                       device=dev), ctx.group)
+    ms = ms.tolist()
+    if any(v != m for v in ms):
+        raise ValueError(f"fetch_rows: the ranks ask for unequal row counts "
+                         f"{ms}; every rank's request must have the same M")
+    req = torch.stack([local_addr.to(dev, torch.int64),
+                       owner.to(dev, torch.int64)])
+    gathered = torch.empty((E,) + tuple(req.shape), dtype=torch.int64,
+                           device=dev)
+    _oa.all_gather_into(gathered, req, ctx.group)
+    # (E_dst, M): this rank owns request m of requester q
+    mine = gathered[:, 1] == ctx.rank
+    safe = torch.where(mine, gathered[:, 0], 0)
+    contribs = shard[safe]                           # (E_dst, M, D)
+    contribs.mul_(mine[..., None].to(shard.dtype))
+    _record_rank("fetch_rows", contribs, backend, ctx)
+    if backend == "onesided":
+        return _oa.onesided_fetch_rows_rank(
+            contribs, ctx.rank, ctx.group, _symmetric(ctx, "recv", contribs))
+    out = torch.empty(tuple(contribs.shape[1:]), dtype=shard.dtype,
+                      device=dev)
+    _oa.reduce_scatter_into(out, contribs, ctx.group)
+    return out

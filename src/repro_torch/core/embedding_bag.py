@@ -619,12 +619,15 @@ def pooled_lookup_hot(shards: ShardedTables, hot_table: torch.Tensor,
 
 
 def make_cache(tables: torch.Tensor, cfg: EmbeddingBagConfig, *,
-               device=None):
+               device=None, remote_ctx=None):
     """Build the tiered cache for ``cfg.cache`` on ``device`` (None: the
-    card): a flat slot pool there over the cold tier ``cfg.cache`` names."""
+    card): a flat slot pool there over the cold tier ``cfg.cache`` names
+    (a remote one with one host per rank of ``remote_ctx``, a
+    ``ProcessContext``, when given)."""
     from repro_torch.cache.cached_bag import CachedEmbeddingBag  # cache -> core
 
-    return CachedEmbeddingBag(tables, cfg, device=device)
+    return CachedEmbeddingBag(tables, cfg, device=device,
+                              remote_ctx=remote_ctx)
 
 
 def pooled_lookup_cached(cache, batch: JaggedBatch) -> torch.Tensor:

@@ -48,7 +48,15 @@ through its CUDA IPC handle:
     ...)``: one pull-sum launch reads this rank's chunk from every peer's
     send buffer and sums it in rank order 0 .. E-1, ``x.sum(0)``'s order;
   * :func:`onesided_all_reduce_rank` -- the pull-sum over the peers'
-    whole send buffers: every rank sums all of them, ``x.sum(0)``'s order.
+    whole send buffers: every rank sums all of them, ``x.sum(0)``'s order;
+  * :func:`onesided_fetch_rows_rank` -- the remote tier's row exchange,
+    this rank's ``(H_dst, M, D)`` contributions -> its ``(M, D)`` rows:
+    one put launch writes chunk d into rank d's receive buffer at
+    ``[rank]``, then the local sum over the ``(H_src, M, D)`` received,
+    a select (one owner per element);
+  * :func:`onesided_ring_permute_rank` -- this rank's block -> the block
+    of rank ``(rank - shift) % n``: one ring-put launch writes it into
+    rank ``(rank + shift) % n``'s receive buffer.
 
 Across processes, stream order no longer orders the puts: a fence (this
 rank's stream synchronised, then a barrier of the group) comes before
@@ -62,10 +70,11 @@ tensor takes the plain version beside it (``*_ref``; per rank, the
 group's collectives), a CUDA tensor launches the kernel, anything else
 raises.  Each kernel launch adds one to the wrapper's entry in
 :data:`LAUNCH_COUNTS` (the per-rank all-reduce under
-``onesided_reduce_scatter``, its kernel's); the plain versions count
-nothing.  Every call of a wrapper, on either device, adds one to its entry
-in :data:`CALL_COUNTS` (``onesided_fetch_rows`` counts as the
-``onesided_put_rows`` call it makes).
+``onesided_reduce_scatter``, its kernel's; the per-rank row fetch under
+``onesided_put_rows``); the plain versions count nothing.  Every call of a
+wrapper, on either device, adds one to its entry in :data:`CALL_COUNTS`
+(``onesided_fetch_rows`` counts as the ``onesided_put_rows`` call it
+makes, and ``onesided_fetch_rows_rank`` as one).
 """
 from __future__ import annotations
 
@@ -516,6 +525,33 @@ def onesided_all_reduce_rank_ref(x: torch.Tensor, group) -> torch.Tensor:
     return out.sum(dim=0, dtype=x.dtype)
 
 
+def onesided_fetch_rows_rank_ref(contribs: torch.Tensor,
+                                 group) -> torch.Tensor:
+    """Plain per-rank row fetch: the contributions exchanged over the
+    group's ``all_to_all_single``, then the sum over owners."""
+    return onesided_all_to_all_rank_ref(contribs, group).sum(dim=0)
+
+
+def onesided_ring_permute_rank_ref(x: torch.Tensor, shift: int,
+                                   group) -> torch.Tensor:
+    """Plain per-rank ring permute: a send to rank ``(r + shift) % n``
+    and a receive from rank ``(r - shift) % n``, over the group."""
+    n = dist.get_world_size(group)
+    rank = dist.get_rank(group)
+    dst, src = (rank + shift) % n, (rank - shift) % n
+    if dst == rank:
+        return x.clone()
+    out = torch.empty_like(x)
+    x = x.contiguous()
+    if group is not None:       # the ops take the peers' global ranks
+        dst, src = (dist.get_global_rank(group, r) for r in (dst, src))
+    ops = [dist.P2POp(dist.isend, x, dst, group),
+           dist.P2POp(dist.irecv, out, src, group)]
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    return out
+
+
 # wrappers
 
 def onesided_all_to_all_rank(x: torch.Tensor, rank: int, group,
@@ -531,8 +567,18 @@ def onesided_all_to_all_rank(x: torch.Tensor, rank: int, group,
     if x.device.type == "cpu":
         return onesided_all_to_all_rank_ref(x, group)
     _check_device(x, "all-to-all")
+    _check_rank_chunks(x, recv.world, "onesided_all_to_all_rank")
+    return _put_rank(x, rank, group, recv, "onesided_all_to_all").clone()
+
+
+def _put_rank(x: torch.Tensor, rank: int, group, recv: SymmetricBuffers,
+              counter: str) -> torch.Tensor:
+    """One put launch (``first = rank, count = 1``, counted under
+    ``counter``) of this rank's ``(E_dst, C, ...)`` chunks into the peers'
+    receive buffers ``recv``, between two fences; returns this rank's
+    receive buffer as ``(E_src, C, ...)``, which the next exchange's first
+    fence keeps from the peers until what reads it here has run."""
     E = recv.world
-    _check_rank_chunks(x, E, "onesided_all_to_all_rank")
     chunk = x[0].numel()
     if chunk == 0:
         return torch.empty_like(x)
@@ -544,10 +590,10 @@ def onesided_all_to_all_rank(x: torch.Tensor, rank: int, group,
         stream = torch.cuda.current_stream(x.device).cuda_stream
         _check_rc(lib, lib.onesided_a2a_put(
             x.data_ptr(), recv._table, rank, 1, E, chunk,
-            _DTYPE_CODES[x.dtype], int(vec), stream), "onesided_all_to_all")
-    LAUNCH_COUNTS["onesided_all_to_all"] += 1
+            _DTYPE_CODES[x.dtype], int(vec), stream), counter)
+    LAUNCH_COUNTS[counter] += 1
     fence(group, x.device)              # every rank's puts have landed
-    return out.clone()
+    return out
 
 
 def _pull_sum_rank(x: torch.Tensor, rank: int, group,
@@ -610,3 +656,61 @@ def onesided_all_reduce_rank(x: torch.Tensor, rank: int, group,
                          f"{x.dtype}")
     return _pull_sum_rank(x, rank, group, send, 0, x.numel(),
                           tuple(x.shape))
+
+
+def onesided_fetch_rows_rank(contribs: torch.Tensor, rank: int, group,
+                             recv: Optional[SymmetricBuffers] = None
+                             ) -> torch.Tensor:
+    """This rank's row fetch: its ``(H_dst, M, D)`` contributions -> its
+    ``(M, D)`` fetched rows.  One launch of the put kernel with ``first =
+    rank, count = 1``, counted under ``onesided_put_rows``, writes chunk d
+    into rank d's receive buffer ``recv`` at ``[rank]``, between two
+    fences; then the sum over the ``(H_src, M, D)`` received, on this
+    rank's stream.  Each element has one owner and zeros elsewhere, so the
+    sum returns the owner's bits (``-0.0`` comes back ``+0.0``).  CPU
+    tensors take the group's ``all_to_all_single`` (``recv`` unused)."""
+    CALL_COUNTS["onesided_put_rows"] += 1
+    if contribs.device.type == "cpu":
+        return onesided_fetch_rows_rank_ref(contribs, group)
+    _check_device(contribs, "put")
+    _check_rank_chunks(contribs, recv.world, "onesided_fetch_rows_rank")
+    if contribs.dim() != 3:
+        raise ValueError(f"contribs must be (H, M, D), got "
+                         f"{tuple(contribs.shape)}")
+    return _put_rank(contribs, rank, group, recv,
+                     "onesided_put_rows").sum(dim=0)
+
+
+def onesided_ring_permute_rank(x: torch.Tensor, shift: int, rank: int,
+                               group, recv: Optional[SymmetricBuffers] = None
+                               ) -> torch.Tensor:
+    """This rank's ring permute: its block goes to rank ``(rank + shift) %
+    n``, and it returns the block of rank ``(rank - shift) % n``.  One
+    launch of the ring-put kernel with ``first = rank, count = 1`` writes
+    the block into that rank's receive buffer ``recv``, between two
+    fences; the result is a copy of this rank's receive buffer.  CPU
+    tensors take a send/recv pair over the group (``recv`` unused)."""
+    CALL_COUNTS["onesided_ring_permute"] += 1
+    if x.device.type == "cpu":
+        return onesided_ring_permute_rank_ref(x, shift, group)
+    _check_device(x, "ring permute")
+    if x.dtype not in _DTYPE_CODES or not x.is_contiguous():
+        raise ValueError(f"onesided_ring_permute_rank takes a contiguous "
+                         f"tensor of one of {tuple(_DTYPE_CODES)}, got "
+                         f"{x.dtype}")
+    n = recv.world
+    chunk = x.numel()
+    if chunk == 0:
+        return torch.empty_like(x)
+    out = recv.view(x.dtype, x.shape)
+    vec = _aligned(x, out, chunk)
+    lib = _kernel()
+    fence(group, x.device)              # no peer still reads its buffer
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        _check_rc(lib, lib.onesided_ring_put(
+            x.data_ptr(), recv._table, rank, 1, n, shift % n, chunk,
+            _DTYPE_CODES[x.dtype], int(vec), stream), "onesided_ring_permute")
+    LAUNCH_COUNTS["onesided_ring_permute"] += 1
+    fence(group, x.device)              # every rank's block has landed
+    return out.clone()

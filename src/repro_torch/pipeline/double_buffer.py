@@ -53,17 +53,19 @@ from repro_torch.core.embedding_bag import EmbeddingBagConfig
 
 class DoubleBufferedSlotPool:
     def __init__(self, tables: torch.Tensor, cfg: EmbeddingBagConfig, *,
-                 depth: int = 2, device=None):
+                 depth: int = 2, device=None, remote_ctx=None):
         if depth < 2:
             raise ValueError(
                 f"DoubleBufferedSlotPool needs depth >= 2 (got {depth}); "
                 f"depth 1 is the serialized single-pool CachedEmbeddingBag")
         self.depth = depth
-        first = CachedEmbeddingBag(tables, cfg, device=device)
+        first = CachedEmbeddingBag(tables, cfg, device=device,
+                                   remote_ctx=remote_ctx)
         self.device = first.device
         self.stats = first.stats
         # later buffers share the first's cold store (one host copy of the
-        # tables / one set of remote shards) and its stats record; each
+        # tables / one set of remote shards, or this rank's one shard when
+        # the remote tier's hosts are ranks) and its stats record; each
         # keeps its own manager and pool.  cfg.cache.warmup_freqs seeds
         # EVERY buffer (the warmup fetch traffic is counted once per buffer)
         self.buffers = [first] + [

@@ -44,6 +44,19 @@ two streams with events:
 On the CPU (``device="cpu"``) there are no streams or events: that is the
 device the caller chose, and nothing is skipped on the card.
 
+Over a remote cold tier whose hosts are ranks (``remote_ctx``), the fetch
+is a sequence of group operations (the requests' all-gathers, then the
+reduce-scatter or the fenced puts), and the worker issues them: the
+fences and the growth of the symmetric buffers run there too, and a
+fence synchronises the current stream, the side stream, so the forward
+on the main stream goes on overlapping.  A gloo group pairs collectives
+by their order, so one rank must never issue group operations from two
+threads at once.  None does: the main thread's forward and drain issue
+none, and the capacity fallback's serialized fetch runs on the main
+thread only after the worker has been joined.  The capacity decisions
+come from the same requests on every rank, so every rank falls back at
+the same batch and the ranks' group operations stay paired.
+
 Overlap is OBSERVED, not assumed: every stage records a wall-clock
 :class:`StageSpan` into a :class:`PipelineTrace`; ``overlap_s`` is the
 measured intersection of prefetch-side spans (admit/fetch) with open
@@ -299,6 +312,8 @@ class PipelineScheduler:
                 stats.add_time("scatter" if stage == "scatter"
                                else "prefetch", s1 - s0)
             err = box.get("err")
+            # the worker is joined: the fallback's group operations (a
+            # remote fetch over ranks) cannot interleave with its own
             if isinstance(err, CacheCapacityError):
                 # head-of-line fallback: the working set overflowed the
                 # shadow buffer (atomic: nothing admitted); score this

@@ -25,7 +25,13 @@ model axis; the engine shards the tables once, at construction.  With a
 ``ProcessContext`` the engine is one rank's: it keeps only this rank's
 shard (a copy on the rank's device), every rank runs the same flushes in
 lockstep over its process group, and each returns the same scores (rank
-0's are the ones a caller reports).
+0's are the ones a caller reports).  The cached engines refuse a context,
+as the reference's do; their cluster-wide cold tier is
+``cache.cold_tier="remote"``, whose hosts are the ranks of ``remote_ctx=``
+(a ``ProcessContext``) when one is given: every rank then runs the same
+engine over the same requests, holds only its own row shard of every
+table, and fetches the same rows in lockstep, so every rank keeps the
+same slot pools, counters and scores.
 
 ``PipelinedDLRMEngine`` (``cfg.cache.pipeline_depth >= 2``) serves the
 same requests as a software pipeline over a ring of slot pools
@@ -274,6 +280,11 @@ class DLRMEngine:
     with ``rows`` 0 and accepts a vector entry under ``pooling``: a
     difference on purpose (``tests/test_torch_serving.py`` pins both).
 
+    ``remote_ctx`` (a ``ProcessContext``): the remote cold tier's hosts
+    are the group's ranks, and this engine is one of them (on the rank's
+    device; see the module docstring).  It needs ``cache.cold_tier ==
+    "remote"`` and no ``ctx``.
+
     ``telemetry`` (a :class:`repro_torch.obs.Telemetry`) puts the engine
     on the unified timeline: ``submit`` stamps each request's enqueue
     time, ``flush`` records prefetch/forward spans on the engine lane and
@@ -289,13 +300,19 @@ class DLRMEngine:
     def __init__(self, params, cfg: DLRMConfig, batch_size: int,
                  ctx: Optional[ParallelContext | ProcessContext] = None, *,
                  device=None, telemetry=None,
-                 obs_name: Optional[str] = None):
-        if isinstance(ctx, ProcessContext):
-            # a rank's engine runs on the rank's device
-            if device is not None and torch.device(device) != ctx.device:
-                raise ValueError(f"device {device} is not the rank's "
-                                 f"{ctx.device}")
-            device = ctx.device
+                 obs_name: Optional[str] = None,
+                 remote_ctx: Optional[ProcessContext] = None):
+        cached = cfg.cache.enabled or cfg.sharding_plan is not None
+        if remote_ctx is not None:
+            _check_remote_ctx(remote_ctx, ctx, cfg, cached)
+        for rank_ctx in (ctx, remote_ctx):
+            if isinstance(rank_ctx, ProcessContext):
+                # a rank's engine runs on the rank's device
+                if device is not None and \
+                        torch.device(device) != rank_ctx.device:
+                    raise ValueError(f"device {device} is not the rank's "
+                                     f"{rank_ctx.device}")
+                device = rank_ctx.device
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             # full-fp32 MLP products, like the reference's
@@ -305,6 +322,7 @@ class DLRMEngine:
             raise ValueError(f"parameters are on {on}, the engine on "
                              f"{self.device}")
         self.params, self.cfg, self.ctx = params, cfg, ctx
+        self.remote_ctx = remote_ctx
         self.batch_size = batch_size
         self.queue: List[CTRRequest] = []
         self.telemetry = telemetry
@@ -319,7 +337,6 @@ class DLRMEngine:
         # cache counters at the last batch tick (windowed hit-rate deltas)
         self._cache_counter_state = None
         self.cache = None
-        cached = cfg.cache.enabled or cfg.sharding_plan is not None
         if cached and ctx is not None:
             raise NotImplementedError(
                 "DLRMEngine: the tiered cache path scores on a single "
@@ -377,7 +394,8 @@ class DLRMEngine:
     def _make_cache(self, tables: torch.Tensor, ecfg):
         """The tiered cache over ``tables`` on the engine's device; the
         pipelined engine builds its ring of slot pools here instead."""
-        return make_cache(tables, ecfg, device=self.device)
+        return make_cache(tables, ecfg, device=self.device,
+                          remote_ctx=self.remote_ctx)
 
     def submit(self, req: CTRRequest) -> None:
         T = self.cfg.num_sparse_features
@@ -600,7 +618,8 @@ class PipelinedDLRMEngine(DLRMEngine):
 
     def __init__(self, params, cfg: DLRMConfig, batch_size: int,
                  ctx: Optional[ParallelContext] = None, *, device=None,
-                 telemetry=None, obs_name: Optional[str] = None):
+                 telemetry=None, obs_name: Optional[str] = None,
+                 remote_ctx: Optional[ProcessContext] = None):
         if cfg.cache.pipeline_depth < 2:
             raise ValueError(
                 f"PipelinedDLRMEngine needs pipeline_depth >= 2 (got "
@@ -613,7 +632,8 @@ class PipelinedDLRMEngine(DLRMEngine):
                 "or a cfg.sharding_plan): with fully device-resident tables "
                 "there is no prefetch stage to overlap")
         super().__init__(params, cfg, batch_size, ctx, device=device,
-                         telemetry=telemetry, obs_name=obs_name)
+                         telemetry=telemetry, obs_name=obs_name,
+                         remote_ctx=remote_ctx)
         self.trace = PipelineTrace(
             tracer=None if telemetry is None else telemetry.tracer,
             label=self.obs_name,
@@ -627,7 +647,8 @@ class PipelinedDLRMEngine(DLRMEngine):
     def _make_cache(self, tables: torch.Tensor, ecfg):
         return DoubleBufferedSlotPool(tables, ecfg,
                                       depth=self.cfg.cache.pipeline_depth,
-                                      device=self.device)
+                                      device=self.device,
+                                      remote_ctx=self.remote_ctx)
 
     # -- scheduler hooks -----------------------------------------------------
 
@@ -701,15 +722,36 @@ class PipelinedDLRMEngine(DLRMEngine):
 def make_dlrm_engine(params, cfg: DLRMConfig, batch_size: int,
                      ctx: Optional[ParallelContext | ProcessContext] = None,
                      *, device=None, telemetry=None,
-                     obs_name: Optional[str] = None) -> DLRMEngine:
+                     obs_name: Optional[str] = None,
+                     remote_ctx: Optional[ProcessContext] = None
+                     ) -> DLRMEngine:
     """Build the engine ``cfg.cache.pipeline_depth`` selects on ``device``
     (None: the card): 1 is the serialized :class:`DLRMEngine`, >= 2 the
     :class:`PipelinedDLRMEngine` over a ``pipeline_depth``-deep ring of
-    slot pools.  ``telemetry``/``obs_name`` go to the engine (see
-    :class:`DLRMEngine`)."""
+    slot pools.  ``telemetry``/``obs_name``/``remote_ctx`` go to the
+    engine (see :class:`DLRMEngine`)."""
     cls = PipelinedDLRMEngine if cfg.cache.pipeline_depth > 1 else DLRMEngine
     return cls(params, cfg, batch_size, ctx, device=device,
-               telemetry=telemetry, obs_name=obs_name)
+               telemetry=telemetry, obs_name=obs_name, remote_ctx=remote_ctx)
+
+
+def _check_remote_ctx(remote_ctx, ctx, cfg: DLRMConfig, cached: bool) -> None:
+    """``remote_ctx`` names the remote cold tier's hosts: a
+    ``ProcessContext``, beside no model-axis context, under an enabled
+    cache whose cold tier is ``"remote"``."""
+    if not isinstance(remote_ctx, ProcessContext):
+        raise TypeError(f"remote_ctx must be a ProcessContext (one host per "
+                        f"rank), got {type(remote_ctx).__name__}")
+    if ctx is not None:
+        raise ValueError(
+            "DLRMEngine: remote_ctx (the remote cold tier's hosts) and ctx "
+            "(a model axis) were both given; the cached engine scores on "
+            "one device per rank and takes no model axis")
+    if not cached or cfg.cache.cold_tier != "remote":
+        raise ValueError(
+            f"DLRMEngine: remote_ctx needs an enabled cache whose cold tier "
+            f"is 'remote', got cold_tier={cfg.cache.cold_tier!r}"
+            + ("" if cached else " with the cache disabled"))
 
 
 # ---------------------------------------------------------------------------

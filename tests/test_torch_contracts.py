@@ -291,13 +291,18 @@ def _gaps(lost_in=(), stray=0, launches=10):
     ([_gaps(["a"]), _gaps(["b"]), _gaps(["c"]), _gaps(["d"]),
       _gaps(["e"])], None),                               # drops vary
     ([_gaps(launches=0)] * 5, None),                      # nothing launched
+    # the call's one launch lost twice: taken again until one records it
+    ([_gaps(["a"], launches=1), _gaps(["a"], launches=1),
+      _gaps(launches=1)], 2),
+    ([_gaps(["a"], launches=1)] * 5, None),               # never recorded
 ], ids=["complete", "retaken", "same_gap_twice", "stray", "varying",
-        "no_launch"])
+        "no_launch", "all_lost_twice", "all_lost_always"])
 def test_profile_complete_reads_a_complete_or_a_repeated_profile(
         monkeypatch, seq, read):
     """A profile is read when complete, or when its missing records are
-    those of an earlier profile (a record the profiler never takes);
-    varying drops, stray records or no launch at all raise after
+    those of an earlier profile (a record the profiler never takes) and
+    it recorded at least one of the call's launches; varying drops, stray
+    records, no launch at all or every launch lost each time raise after
     PROFILE_TRIES profiles."""
     from repro_torch.analysis import contracts
 

@@ -1,12 +1,13 @@
 """The port's remote cold tier against the JAX package, on the CPU.
 
 The reference needs one jax device per simulated host, so its side runs
-ONCE per module in a subprocess with ``XLA_FLAGS=
+ONCE per test session in a subprocess with ``XLA_FLAGS=
 --xla_force_host_platform_device_count=4`` and ``JAX_PLATFORMS=cpu`` set
 before JAX is imported (as ``tests/test_tiering.py`` runs
 ``tests/_tiering_checks.py``): this file run as a script, reading the
 numpy inputs from one ``.npz`` and writing the reference's outputs to
-another.  Its one-sided transport runs the Pallas kernel in interpret mode.
+another, which ``tests/test_torch_remote_ranks.py`` reads too.  Its
+one-sided transport runs the Pallas kernel in interpret mode.
 
 Tolerances: every comparison is bitwise (``np.testing.assert_array_equal``
 / ``torch.equal``) -- a fetched row is a copy, and the sum over owners adds
@@ -15,6 +16,7 @@ frameworks' MLPs and agrees to ``atol=1e-6`` (what the reference's own
 remote-tier engine check holds against its direct forward).
 """
 import dataclasses
+import fcntl
 import os
 import subprocess
 import sys
@@ -44,6 +46,7 @@ BACKENDS = ("bulk", "onesided")
 BAG = dict(batches=3, batch=4, pooling=3, cache_rows=32)
 ENGINE_REQS, ENGINE_BATCH, ENGINE_ROWS = 6, 4, 64
 PCTR_ATOL = 1e-6
+RING_SHIFTS = (1, -1, 2)                # the ring permute's shifts
 STATS = ("hits", "misses", "misses_host", "misses_remote", "evictions",
          "bytes_h2d", "bytes_remote", "fetch_host", "fetch_remote",
          "batches")
@@ -80,7 +83,17 @@ def _inputs() -> dict:
                                 (ENGINE_REQS, tt, ll)).astype(np.int32)
     x["req_lens"] = rng.integers(0, ll + 1, (ENGINE_REQS, tt)).astype(
         np.int32)
+    # each host's own request (the per-rank fetch), and one block a host
+    # for the ring permute
+    x["rank_addr"] = rng.integers(0, rows_local, (H, m)).astype(np.int32)
+    x["rank_owner"] = rng.integers(0, H, (H, m)).astype(np.int32)
+    x["ring"] = rng.standard_normal((H, 6, D)).astype(np.float32)
     return x
+
+
+def _events(events) -> np.ndarray:
+    return np.array([f"{e.op}:{e.bytes_in}:{e.axis_size}:{e.backend}"
+                     for e in events])
 
 
 def _jax_reference(inputs: Path, outputs: Path) -> None:
@@ -112,16 +125,40 @@ def _jax_reference(inputs: Path, outputs: Path) -> None:
                 s[0], a, o, "hosts", backend=be, onesided_mode="interpret"),
             mesh=mesh, in_specs=(P("hosts"), P(), P()), out_specs=P(),
             check_vma=False)
-        out[f"fetch_{be}"] = np.asarray(jax.jit(fetch)(
-            x["shards"], x["addr"], x["owner"]))
+        with jcomm.instrument() as events:
+            out[f"fetch_{be}"] = np.asarray(jax.jit(fetch)(
+                x["shards"], x["addr"], x["owner"]))
+        out[f"events_fetch_{be}"] = _events(events)
+        # each host its own request: host h's rows at [h]
+        fetch = shard_map(
+            lambda s, a, o, be=be: jcomm.fetch_rows(
+                s[0], a[0], o[0], "hosts", backend=be,
+                onesided_mode="interpret")[None],
+            mesh=mesh, in_specs=(P("hosts"),) * 3, out_specs=P("hosts"),
+            check_vma=False)
+        with jcomm.instrument() as events:
+            out[f"fetch_ranks_{be}"] = np.asarray(jax.jit(fetch)(
+                x["shards"], x["rank_addr"], x["rank_owner"]))
+        out[f"events_fetch_ranks_{be}"] = _events(events)
+        for shift in RING_SHIFTS:                                 # ppermute
+            perm = shard_map(
+                lambda b, be=be, shift=shift: jcomm.permute_ring(
+                    b, "hosts", shift=shift, backend=be),
+                mesh=mesh, in_specs=(P("hosts"),), out_specs=P("hosts"),
+                check_vma=False)
+            with jcomm.instrument() as events:
+                out[f"permute_{shift}"] = np.asarray(jax.jit(perm)(
+                    x["ring"]))
+            out[f"events_permute_{be}_{shift}"] = _events(events)
     put = shard_map(                                              # (b)
         lambda c: onesided_fetch_rows(c[0], "hosts", interpret=True)[None],
         mesh=mesh, in_specs=(P("hosts"),), out_specs=P("hosts"),
         check_vma=False)
     out["onesided_fetch_rows"] = np.asarray(jax.jit(put)(x["contribs"]))
     for be in BACKENDS:
-        out[f"store_{be}"] = JRemoteStore(                        # (c)
-            x["tables"], hosts=H, backend=be).fetch(x["t_ids"], x["row_ids"])
+        store = JRemoteStore(x["tables"], hosts=H, backend=be)    # (c)
+        out[f"store_{be}"] = store.fetch(x["t_ids"], x["row_ids"])
+        out["store_shards"] = np.asarray(store.shards)
         cfg = EmbeddingBagConfig(                                 # (d)
             num_tables=T, rows_per_table=R, dim=D, kernel_mode="reference",
             cache=JCacheConfig(rows=BAG["cache_rows"], cold_tier="remote",
@@ -150,21 +187,39 @@ def _jax_reference(inputs: Path, outputs: Path) -> None:
     np.savez(outputs, **out)
 
 
+def reference_outputs(tmp_path_factory):
+    """(inputs, the JAX reference's outputs), computed once per test
+    session: the subprocess runs once, under a file lock, in the session's
+    temporary directory (the one the xdist workers share), and every
+    module that asks later -- this one, ``test_torch_remote_ranks.py`` --
+    reads its outputs."""
+    base = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        base = base.parent
+    tmp = base / "remote_ref"
+    tmp.mkdir(exist_ok=True)
+    x = _inputs()
+    with open(base / "remote_ref.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not (tmp / "outputs.npz").exists():
+            np.savez(tmp / "inputs.npz", **x)
+            env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+                   "JAX_PLATFORMS": "cpu",
+                   "XLA_FLAGS":
+                       f"--xla_force_host_platform_device_count={H}"}
+            proc = subprocess.run(
+                [sys.executable, __file__, str(tmp / "inputs.npz"),
+                 str(tmp / "partial.npz")], env=env, capture_output=True,
+                text=True, timeout=180)
+            assert proc.returncode == 0, proc.stderr[-4000:]
+            os.replace(tmp / "partial.npz", tmp / "outputs.npz")
+    return x, dict(np.load(tmp / "outputs.npz"))
+
+
 @pytest.fixture(scope="module")
 def ref(tmp_path_factory):
-    """(inputs, the JAX reference's outputs), computed once per module."""
-    tmp = tmp_path_factory.mktemp("remote_ref")
-    x = _inputs()
-    np.savez(tmp / "inputs.npz", **x)
-    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
-           "JAX_PLATFORMS": "cpu",
-           "XLA_FLAGS": f"--xla_force_host_platform_device_count={H}"}
-    proc = subprocess.run(
-        [sys.executable, __file__, str(tmp / "inputs.npz"),
-         str(tmp / "outputs.npz")], env=env, capture_output=True, text=True,
-        timeout=120)
-    assert proc.returncode == 0, proc.stderr[-4000:]
-    return x, dict(np.load(tmp / "outputs.npz"))
+    """(inputs, the JAX reference's outputs)."""
+    return reference_outputs(tmp_path_factory)
 
 
 def _t(a):

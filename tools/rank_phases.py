@@ -1,14 +1,21 @@
-"""Run `chip_smoke.py`'s phases of the distributed embedding bag alone.
+"""Run `chip_smoke.py`'s phases of ranks as processes alone.
 
-    python3 tools/rank_phases.py
+    python3 tools/rank_phases.py [7p] [6p]
 
 Phase 1 (environment and the kernels' build), phase 3 (the uncached
-engine at full width, whose tables and scores the others read), phase 7
-(the simulated ranks) and phase 7p (ranks as processes: the gloo leg on
-one card, and the NCCL leg where there are 2 or more).  A quicker check
-of the per-rank path than the whole script, on as many cards as the
-machine has.  Exits non-zero if a check fails; the last line is
-``{"ok": true, "cards": N}``.
+engine at full width, whose tables and scores the others read), phase 4
+(the cached engine over the host tier), phase 6 (the remote tier on
+simulated hosts), phase 6b (pipelined), phase 7 (the simulated ranks),
+phase 7p (ranks as processes: the gloo leg on one card, and the NCCL leg
+where there are 2 or more) and phase 6p (the remote tier with one host
+per process: the gloo leg, and the NCCL leg where there are 2 or more
+cards, one process a card, the bulk fetch over the group's
+reduce-scatter and the one-sided puts across cards through CUDA IPC).
+A quicker check of the per-rank paths than the whole script, on as many
+cards as the machine has.  Naming 7p or 6p runs that one and only the
+phases it reads (7p: 1, 3, 7; 6p: 1, 3, 4, 6, 6b); both by default.
+Exits non-zero if a check fails; the last line is ``{"ok": true,
+"cards": N}``.
 """
 import json
 import sys
@@ -22,7 +29,12 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402
 
 
-def main() -> int:
+def main(argv) -> int:
+    wanted = set(argv) or {"7p", "6p"}
+    if not wanted <= {"7p", "6p"}:
+        print(f"rank_phases: unknown phase(s) {sorted(wanted)}; name 7p "
+              f"and/or 6p", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("rank_phases: no CUDA device is available", file=sys.stderr)
         return 1
@@ -35,11 +47,18 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     cs.phase_environment(build)
     unc = cs.phase_uncached(pt, eg, oa)
-    dist = cs.phase_distributed(pt, eg, oa, unc)
-    cs.phase_ranks(pt, unc, dist)
+    if "6p" in wanted:
+        cached = cs.phase_cached(pt, eg, oa, unc)
+        remote = cs.phase_remote(pt, eg, oa, unc, cached)
+        piped = cs.phase_pipelined(pt, eg, oa, unc, cached, remote)
+    if "7p" in wanted:
+        dist = cs.phase_distributed(pt, eg, oa, unc)
+        cs.phase_ranks(pt, unc, dist)
+    if "6p" in wanted:
+        cs.phase_remote_ranks(pt, unc, remote, piped)
     print(json.dumps({"ok": True, "cards": torch.cuda.device_count()}))
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))
