@@ -3337,16 +3337,13 @@ def _greedy(pt, params, cfg, hidden, ctx):
     return torch.argmax(logits[:, :cfg.vocab_size], dim=-1).to(torch.int32)
 
 
-def _ctx_batcher_run(pt, params, cfg, reqs, kmods, ctx) -> dict:
-    """Serve ``reqs`` (CTX_NEW new tokens each) through
-    ContinuousBatcher(CTX_SLOTS x LM_MAX_LEN, ctx) from launch counts at
-    0, recording the head's input and output at each call: an admission's
-    last hidden row (1, d) and logits, a decode step's rows (CTX_SLOTS,
-    d) and logits.  Returns them with each step's admissions and
-    launches, the timings and the run's counts."""
-    eng = pt.ContinuousBatcher(params, cfg, num_slots=CTX_SLOTS,
-                               max_len=LM_MAX_LEN, ctx=ctx, eos_id=-1,
-                               device=DEV)
+def _record_batcher(pt, eng, reqs, new, kmods) -> dict:
+    """Serve ``reqs`` ((rid, prompt) pairs, ``new`` new tokens each)
+    through the batcher ``eng`` from launch counts at 0, recording the
+    head's input and output at each call: an admission's last hidden row
+    (1, d) and logits, a decode step's rows (slots, d) and logits.
+    Returns them with each step's admissions and launches, the flash
+    routes, the timings, the tokens and the run's counts."""
     heads, real = [], eng._head
 
     def head(hidden):
@@ -3354,8 +3351,8 @@ def _ctx_batcher_run(pt, params, cfg, reqs, kmods, ctx) -> dict:
         heads.append((hidden.float(), logits))
         return logits
     eng._head = head
-    for r in reqs:
-        eng.submit(pt.Request(rid=r.rid, prompt=r.prompt, max_new=CTX_NEW))
+    for rid, prompt in reqs:
+        eng.submit(pt.Request(rid=rid, prompt=prompt, max_new=new))
     _reset_counts(pt, kmods)
     steps = []
     t0 = time.perf_counter()
@@ -3366,18 +3363,31 @@ def _ctx_batcher_run(pt, params, cfg, reqs, kmods, ctx) -> dict:
         steps.append((len(eng.timings["prefill"]) - n0,
                       {k: c1[k] - c0[k] for k in c1}))
     serve_s = time.perf_counter() - t0
-    out = dict(heads=heads, steps=steps, counts=_counts(pt, kmods),
-               serve_s=serve_s, prefill=list(eng.timings["prefill"]),
-               decode=list(eng.timings["decode"]),
-               tokens={rid: r.generated for rid, r in eng.done.items()})
+    # the recorder holds the engine's bound method: a cycle that would
+    # keep the engine's cache (and the weights) alive until a collection
+    del eng._head
+    return dict(heads=heads, steps=steps, counts=_counts(pt, kmods),
+                routes=dict(pt.fa.ROUTE_COUNTS), serve_s=serve_s,
+                prefill=list(eng.timings["prefill"]),
+                decode=list(eng.timings["decode"]),
+                tokens={rid: r.generated for rid, r in eng.done.items()})
+
+
+def _ctx_batcher_run(pt, params, cfg, reqs, kmods, ctx) -> dict:
+    """Serve ``reqs`` (CTX_NEW new tokens each) through
+    ContinuousBatcher(CTX_SLOTS x LM_MAX_LEN, ctx), recording the head's
+    calls (:func:`_record_batcher`), then one more decode step
+    profiled."""
+    eng = pt.ContinuousBatcher(params, cfg, num_slots=CTX_SLOTS,
+                               max_len=LM_MAX_LEN, ctx=ctx, eos_id=-1,
+                               device=DEV)
+    out = _record_batcher(pt, eng, [(r.rid, r.prompt) for r in reqs],
+                          CTX_NEW, kmods)
     # one more decode step profiled, into the finished slots (scratch)
     out["prof"] = _profile_lm(
         lambda: pt.dec.decode_step(params, eng.cache, eng.tokens, cfg, ctx),
         f"decode step ({'local' if ctx is None else 'ctx'})",
         statistics.median(out["decode"]) * 1e3)
-    # the recorder holds the engine's bound method: a cycle that would
-    # keep the engine's cache (and the weights) alive until a collection
-    del eng._head
     del eng
     torch.cuda.empty_cache()
     return out
@@ -4162,6 +4172,403 @@ def _profile_served(pt, params, cfg, eng, out, prompt) -> dict:
         long_prefill=_profile_lm(lambda: dec._prefill_into(
             params, tokens, cfg, kv), f"prefill of {len(prompt)} tokens",
             out["prefill"][0][1] * 1e3))
+
+
+# ---------------------------------------------------------------------------
+# 8p. LM serving with each rank a process
+# ---------------------------------------------------------------------------
+
+LM_RANK_PATH = "8p LM serving, ranks as processes"
+LMP_RANKS = 4
+# the depth cuts: four rank processes share the card beside the parent's
+# copy of the weights and its simulated run.  granite-8b: 0.436 GB a
+# layer and 0.81 GB of embedding and head, 6.0 GB at 12 layers; four
+# replicated copies at 36 layers would need 63 GB.  The ranks here take
+# the replicated weights through CUDA IPC and copy only their shares
+LMP_GRANITE_LAYERS = 12
+# moonshot-v1-16b-a3b: a rank holds 1.34 GB of embedding and head and
+# 0.345 GB a layer (its 16 experts 0.277, attention and the shared
+# experts 0.068): 6.9 GB at 16 layers beside the parent's 20.1 GB; at
+# all 48 layers 17.6 GB a rank, which four processes on one card cannot
+# hold beside the parent's 56.7 GB.  The NCCL leg (one process a card,
+# where there are 4 cards) serves all 48
+LMP_MOE_LAYERS = 16
+LMP_TIMEOUT_S = 600.0
+# moonshot's logits through the per-rank dispatch against the simulated
+# ranks' where they are not bitwise: the simulation runs each rank's
+# GEMMs at a rank's shapes, so only another cuBLAS kernel for the same
+# shape would part them, and a router near-tie then moves assignments
+# past the capacities (phase 8m's bound for moe_ffn_ep on the card
+# against the CPU, MOE_REL_L2)
+LMP_EP_REL = 1e-2
+
+
+def _sync(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _kernel_mods() -> tuple:
+    from repro_torch.kernels import embedding_gather as eg
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import onesided_a2a as oa
+    return eg, oa, fa
+
+
+def _greedy_run(pt, params, cfg, prompt, ctx, new, max_len, dev, kmods,
+                ep) -> dict:
+    """``prompt`` prefilled under ``ctx`` into a cache of ``max_len``
+    positions, then ``new`` greedy decode steps, from launch counts at 0:
+    each head call's logits and greedy token, each call of the MoE
+    function ``pt.moe.<ep>``'s ``moe_dropped`` (one a MoE layer a run),
+    the prefill's and each step's seconds (host clock, the device
+    synchronised), the counts and the flash routes."""
+    tokens = torch.as_tensor(prompt[None], device=dev)
+    drops, logits, step_s = [], [], []
+
+    def head(h):
+        lg = pt.lm.lm_logits(params, h[:, None], cfg, ctx)[:, 0]
+        logits.append(lg)
+        return torch.argmax(lg[:, :cfg.vocab_size], dim=-1).to(torch.int32)
+    restore = _patched(pt.moe, ep, lambda r: _recording(
+        r, drops, lambda out: out[1]["moe_dropped"]))
+    try:
+        _reset_counts(pt, kmods)
+        _sync(dev)
+        t0 = time.perf_counter()
+        cache, h = pt.dec.prefill(params, tokens, cfg, ctx, max_len=max_len)
+        tok = head(h[:, -1])
+        out = [int(tok[0])]
+        prefill_s = time.perf_counter() - t0
+        for _ in range(new):
+            t0 = time.perf_counter()
+            cache, h = pt.dec.decode_step(params, cache, tok, cfg, ctx)
+            tok = head(h)
+            out.append(int(tok[0]))
+            step_s.append(time.perf_counter() - t0)
+        counts = _counts(pt, kmods)
+    finally:
+        restore()
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for st in pt.dec.kv_stacks(cache).values()
+                      for t in st.values())
+    return dict(logits=[lg.cpu() for lg in logits], tokens=out,
+                drops=[int(d) for d in drops], prefill_s=prefill_s,
+                step_s=step_s, counts=counts,
+                routes=dict(pt.fa.ROUTE_COUNTS), cache_bytes=cache_bytes)
+
+
+def _lm_rank_serve(ctx, legs):
+    """One rank of phase 8p, for each of ``legs`` in turn (dicts: label,
+    kind, cfg, params, prompts, new, slots, max_len): cut the parent's
+    weights (through CUDA IPC) to this rank's share
+    (``lm_params_for_rank``: its rows of the vocabulary and its experts
+    copied, the rest as given), then serve under its ProcessContext from
+    launch counts at 0: kind "batcher" runs ``prompts`` through
+    ContinuousBatcher(slots x max_len), "decode" the first prompt's
+    prefill and ``new`` greedy steps.  Every rank's records (the head's
+    calls, tokens, counts, times, its own bytes and peak memory) are
+    gathered to rank 0, which returns them by leg."""
+    import torch.distributed as tdist
+
+    from repro_torch.utils.convert import lm_params_for_rank
+
+    pt = port_namespace()
+    kmods = _kernel_mods()
+    dev, cuda = ctx.device, ctx.device.type == "cuda"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for leg in legs:
+        cfg = leg["cfg"]
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        mine = lm_params_for_rank(leg.pop("params"), cfg, ctx)
+        _sync(dev)
+        own = [mine["embed"].local] + [
+            mine["moe_blocks"]["moe"][k] for k in ("gate", "up", "down")
+            if "moe_blocks" in mine]
+        rec = dict(cut_s=time.perf_counter() - t0,
+                   own_bytes=sum(t.numel() * t.element_size() for t in own))
+        with torch.no_grad():
+            if leg["kind"] == "batcher":
+                eng = pt.ContinuousBatcher(
+                    mine, cfg, num_slots=leg["slots"],
+                    max_len=leg["max_len"], ctx=ctx, eos_id=-1)
+                rec.update(_record_batcher(pt, eng, leg["prompts"],
+                                           leg["new"], kmods))
+                rec["heads"] = [(h.cpu(), lg.cpu())
+                                for h, lg in rec["heads"]]
+                rec["cache"] = {
+                    name: {k: tuple(v.shape) for k, v in st.items()}
+                    for name, st in pt.dec.kv_stacks(eng.cache).items()}
+                del eng
+            else:
+                rec.update(_greedy_run(
+                    pt, mine, cfg, leg["prompts"][0][1], ctx, leg["new"],
+                    leg["max_len"], dev, kmods, "moe_ffn_ep_rank"))
+        if cuda:
+            _sync(dev)
+            rec["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+        del mine, own
+        if cuda:
+            torch.cuda.empty_cache()
+        gathered = [None] * ctx.world
+        tdist.all_gather_object(gathered, rec, group=ctx.group)
+        out[leg["label"]] = gathered
+    return out
+
+
+def _run_lm_ranks(pt, backend, legs) -> dict:
+    t0 = time.perf_counter()
+    got = pt.run_ranks(_lm_rank_serve, LMP_RANKS, backend=backend,
+                       device=_rank_device() if backend == "gloo" else None,
+                       args=(legs,), timeout_s=LMP_TIMEOUT_S)
+    log(f"  {backend}, {LMP_RANKS} processes"
+        f"{' sharing the card' if backend == 'gloo' else ', one a card'}, "
+        f"legs {[leg['label'] for leg in legs]}: "
+        f"{time.perf_counter() - t0:.1f} s (spawn, the shares' copies, "
+        f"serving, the records' gather)")
+    return got
+
+
+def _log_rank_memory(label, ranks) -> list:
+    peak = [r.get("peak_bytes", 0) / 1e9 for r in ranks]
+    log(f"  [{label}] each rank's own copies {ranks[0]['own_bytes'] / 1e9:.3f}"
+        f" GB (its vocabulary rows and experts; cut in "
+        f"{max(r['cut_s'] for r in ranks):.2f} s), peak device memory "
+        f"{[round(p, 2) for p in peak]} GB a rank (its own allocations; the "
+        f"replicated weights are the parent's, through CUDA IPC)")
+    return peak
+
+
+def _granite_leg(pt, kmods) -> tuple:
+    """(a)'s weights and requests, and its simulated run: granite-8b at
+    full width, LMP_GRANITE_LAYERS layers; phase 8's ctx-leg requests
+    (the long prompt and a short one, CTX_NEW new tokens each) through
+    ContinuousBatcher(CTX_SLOTS x LM_MAX_LEN) under
+    make_context(LMP_RANKS), the head's calls recorded."""
+    cfg = dataclasses.replace(pt.LM_CONFIG, num_layers=LMP_GRANITE_LAYERS)
+    params = pt.lm.init_params(torch.Generator(device=DEV).manual_seed(11),
+                               cfg, tp_size=LMP_RANKS, device=DEV)
+    reqs = [(r.rid, r.prompt) for r in _lm_requests(pt, cfg)[:2]]
+    nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    log(f"  (a) {cfg.name}, {cfg.num_layers} of {pt.LM_CONFIG.num_layers} "
+        f"layers: {nbytes / 1e9:.2f} GB of weights; {len(reqs)} requests of "
+        f"{[len(p) for _, p in reqs]} tokens, {CTX_NEW} new each, "
+        f"{CTX_SLOTS} slots x {LM_MAX_LEN} positions "
+        f"({LM_MAX_LEN // LMP_RANKS} a rank)")
+    with torch.no_grad():
+        eng = pt.ContinuousBatcher(params, cfg, num_slots=CTX_SLOTS,
+                                   max_len=LM_MAX_LEN,
+                                   ctx=pt.make_context(LMP_RANKS), eos_id=-1,
+                                   device=DEV)
+        sim = _record_batcher(pt, eng, reqs, CTX_NEW, kmods)
+    del eng
+    sim["heads"] = [(h.cpu(), lg.cpu()) for h, lg in sim["heads"]]
+    torch.cuda.empty_cache()
+    return dict(label="(a)", kind="batcher", cfg=cfg, params=params,
+                prompts=reqs, new=CTX_NEW, slots=CTX_SLOTS,
+                max_len=LM_MAX_LEN), sim
+
+
+def _check_granite(sim, leg, ranks) -> dict:
+    """(a)'s checks: every rank's head inputs and logits bitwise the
+    simulated run's at every call; its tokens rank 0's and the simulated
+    run's; per rank one TBE launch an embedding call and the flash
+    kernel once a layer per long prefill, all on wgmma; each rank's
+    cache LM_MAX_LEN / LMP_RANKS positions."""
+    cfg, reqs = leg["cfg"], leg["prompts"]
+    n_long = sum(len(p) > cfg.attn_chunk_threshold for _, p in reqs)
+    n_flash = cfg.num_layers * n_long
+    positions = LM_MAX_LEN // LMP_RANKS
+    peak = _log_rank_memory("(a)", ranks)
+    prefill = [[(n, round(1e3 * t, 1)) for n, t in r["prefill"]]
+               for r in ranks]
+    med = [1e3 * statistics.median(r["decode"]) for r in ranks]
+    ntok = sum(len(t) for t in ranks[0]["tokens"].values())
+    same = [len(r["heads"]) == len(sim["heads"]) and all(
+        torch.equal(h, hs) and torch.equal(lg, ls)
+        for (h, lg), (hs, ls) in zip(r["heads"], sim["heads"]))
+        for r in ranks]
+    log(f"  [(a)] heads bitwise the simulated ranks' at all "
+        f"{len(sim['heads'])} calls per rank: {same}; tokens equal "
+        f"{[r['tokens'] == sim['tokens'] for r in ranks]}; prefill ms by "
+        f"length per rank {prefill} (simulated "
+        f"{[(n, round(1e3 * t, 1)) for n, t in sim['prefill']]}); median "
+        f"decode step per rank {[round(m, 3) for m in med]} ms (simulated "
+        f"{1e3 * statistics.median(sim['decode']):.3f}; host clock, four "
+        f"processes time-slicing the card); {ntok} tokens in "
+        f"{max(r['serve_s'] for r in ranks):.3f} s (slowest rank); "
+        f"launches per rank {TBE_FLAT} {ranks[0]['counts'][TBE_FLAT]}, "
+        f"flash_attention {ranks[0]['counts']['flash_attention']}")
+    for r, rec in enumerate(ranks):
+        n_steps = len(rec["decode"])
+        check(same[r], f"8p (a) rank {r}: the head's inputs and logits "
+                       f"bitwise the simulated ranks' at every call")
+        check(rec["tokens"] == ranks[0]["tokens"] == sim["tokens"],
+              f"8p (a) rank {r}: tokens rank 0's and the simulated run's")
+        check(all(d[TBE_FLAT] == adm + 1 for adm, d in rec["steps"])
+              and rec["counts"] == dict(_launches(
+                  flash_attention=n_flash,
+                  **{TBE_FLAT: len(reqs) + n_steps}), chunked=0)
+              and rec["routes"] == {"wgmma": n_flash, "simt": 0},
+              f"8p (a) rank {r}: one TBE launch per embedding call, "
+              f"{cfg.num_layers} flash launches on wgmma per long prefill, "
+              f"nothing else ({rec['counts']}, {rec['routes']})")
+        check(all(shape[2] == positions for st in rec["cache"].values()
+                  for shape in st.values()),
+              f"8p (a) rank {r}: its cache holds {positions} positions")
+    return dict(prefill=[r["prefill"] for r in ranks], decode_ms=med,
+                peak_gb=peak, sim_prefill=sim["prefill"],
+                sim_decode_ms=1e3 * statistics.median(sim["decode"]),
+                launches={k: sum(r["counts"][k] for r in ranks)
+                          for k in SOURCES})
+
+
+def _moe_leg(pt, kmods, n_layers, label) -> tuple:
+    """(b)'s (or the NCCL leg's) weights and prompt, and its simulated
+    run: moonshot-v1-16b-a3b at full width, ``n_layers`` layers; the
+    long prompt's prefill and CTX_NEW greedy decode steps into a cache
+    of LM_MAX_LEN positions under make_context(LMP_RANKS)."""
+    cfg = dataclasses.replace(pt.MOE_CONFIG, num_layers=n_layers)
+    t0 = time.perf_counter()
+    params = pt.lm.init_params(torch.Generator(device=DEV).manual_seed(13),
+                               cfg, tp_size=LMP_RANKS, device=DEV)
+    _sync(DEV)
+    nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    prompt = _lm_requests(pt, cfg, 1)[0].prompt
+    log(f"  {label} {cfg.name}, {cfg.num_layers} of "
+        f"{pt.MOE_CONFIG.num_layers} layers "
+        f"({cfg.num_layers - cfg.first_k_dense} MoE, "
+        f"{cfg.num_experts // LMP_RANKS} experts a rank): "
+        f"{nbytes / 1e9:.2f} GB of weights drawn in "
+        f"{time.perf_counter() - t0:.1f} s; the {len(prompt)}-token prompt "
+        f"and {CTX_NEW} greedy decode steps, {LM_MAX_LEN} positions "
+        f"({LM_MAX_LEN // LMP_RANKS} a rank)")
+    with torch.no_grad():
+        sim = _greedy_run(pt, params, cfg, prompt,
+                          pt.make_context(LMP_RANKS), CTX_NEW, LM_MAX_LEN,
+                          DEV, kmods, "moe_ffn_ep")
+    torch.cuda.empty_cache()
+    return dict(label=label, kind="decode", cfg=cfg, params=params,
+                prompts=[(0, prompt)], new=CTX_NEW, slots=1,
+                max_len=LM_MAX_LEN), sim
+
+
+def _check_moe(sim, leg, ranks) -> dict:
+    """(b)'s checks (and the NCCL leg's): every rank's tokens, logits and
+    drops rank 0's; against the simulated run, over the calls whose
+    inputs agree (every earlier greedy token equal): the logits bitwise,
+    else within LMP_EP_REL relative L2, logged; the first greedy token
+    that differs is logged, not failed (a router near-tie); with the
+    logits bitwise, moe_dropped equal at every layer.  Per rank one TBE
+    launch an embedding call and the flash kernel once a layer in the
+    prefill, on wgmma."""
+    cfg, label = leg["cfg"], leg["label"]
+    prompt = leg["prompts"][0][1]
+    n_moe = cfg.num_layers - cfg.first_k_dense
+    n_flash = cfg.num_layers * (len(prompt) > cfg.attn_chunk_threshold)
+    rec0 = ranks[0]
+    flip = next((i for i, (a, b) in enumerate(zip(rec0["tokens"],
+                                                  sim["tokens"])) if a != b),
+                len(sim["tokens"]))
+    # call j (the prefill, then step j) saw equal inputs while j <= flip
+    same = min(flip + 1, len(sim["logits"]))
+    rels, bitwise = [], True
+    for a, b in zip(rec0["logits"][:same], sim["logits"][:same]):
+        bitwise &= torch.equal(a, b)
+        rels.append(float((a.float() - b.float()).norm()
+                          / b.float().norm()))
+    runs = 1 + CTX_NEW
+    drops = [rec0["drops"][j * n_moe:(j + 1) * n_moe] for j in range(runs)]
+    sim_drops = [sim["drops"][j * n_moe:(j + 1) * n_moe]
+                 for j in range(runs)]
+    differ = [j for j in range(same) if drops[j] != sim_drops[j]]
+    peak = _log_rank_memory(label, ranks)
+    med = [1e3 * statistics.median(r["step_s"]) for r in ranks]
+    log(f"  [{label}] logits {'bitwise' if bitwise else 'not bitwise'} the "
+        f"simulated ranks' over the {same} calls with equal inputs "
+        f"(relative L2 per call {' '.join(f'{v:.2e}' for v in rels)}; bound "
+        f"{LMP_EP_REL}); greedy tokens "
+        f"{'equal' if flip == len(sim['tokens']) else f'differ first at {flip}'}"
+        f"; moe_dropped per run {[sum(d) for d in drops]} (simulated "
+        f"{[sum(d) for d in sim_drops]}; runs with a layer that differs "
+        f"{differ}, prefill's by layer {drops[0]} / {sim_drops[0]}); prefill "
+        f"ms per rank {[round(1e3 * r['prefill_s'], 1) for r in ranks]} "
+        f"(simulated {1e3 * sim['prefill_s']:.1f}); median decode step per "
+        f"rank {[round(m, 3) for m in med]} ms (simulated "
+        f"{1e3 * statistics.median(sim['step_s']):.3f}; host clock); cache "
+        f"{rec0['cache_bytes'] / 1e9:.3f} GB a rank")
+    for r, rec in enumerate(ranks):
+        check(rec["tokens"] == rec0["tokens"] and all(
+            torch.equal(a, b) for a, b in zip(rec["logits"], rec0["logits"]))
+            and rec["drops"] == rec0["drops"],
+            f"8p {label} rank {r}: tokens, logits and drops rank 0's")
+        check(rec["counts"] == dict(_launches(
+                  flash_attention=n_flash, **{TBE_FLAT: runs}), chunked=0)
+              and rec["routes"] == {"wgmma": n_flash, "simt": 0},
+              f"8p {label} rank {r}: one TBE launch per embedding call, "
+              f"{n_flash} flash launches on wgmma, nothing else "
+              f"({rec['counts']}, {rec['routes']})")
+        check(len(rec["drops"]) == n_moe * runs,
+              f"8p {label} rank {r}: {len(rec['drops'])} moe_ffn_ep_rank "
+              f"calls, want {n_moe} x {runs}")
+    check(max(rels) < LMP_EP_REL,
+          f"8p {label}: logits within {LMP_EP_REL} of the simulated ranks' "
+          f"over the {same} calls with equal inputs (max {max(rels):.3e})")
+    if bitwise:
+        check(not differ, f"8p {label}: with the logits bitwise, "
+                          f"moe_dropped equal at every layer of every call")
+    return dict(bitwise=bitwise, rel=max(rels), flip=flip, differ=differ,
+                prefill_ms=[1e3 * r["prefill_s"] for r in ranks],
+                decode_ms=med, peak_gb=peak,
+                sim_prefill_ms=1e3 * sim["prefill_s"],
+                sim_decode_ms=1e3 * statistics.median(sim["step_s"]),
+                launches={k: sum(r["counts"][k] for r in ranks)
+                          for k in SOURCES})
+
+
+def phase_lm_ranks(pt, kmods, backends=("gloo", "nccl")) -> dict:
+    """Phase 8p: (a) and (b) over gloo, 4 processes sharing the card, and
+    where there are LMP_RANKS cards (c), the NCCL leg; ``backends``
+    picks the legs (``tools/rank_phases.py 8p-nccl`` runs (c) alone)."""
+    n_cards = torch.cuda.device_count() if DEV != "cpu" else 0
+    log(f"== 8p. LM serving with each rank a process ({LMP_RANKS} processes "
+        f"sharing the card in a gloo group; the vocabulary's rows, the "
+        f"experts and the cache's positions sharded over them; "
+        f"torch.cuda.device_count() {n_cards})")
+    t0 = time.perf_counter()
+    out = {}
+    if "gloo" in backends:
+        granite, granite_sim = _granite_leg(pt, kmods)
+        moe, moe_sim = _moe_leg(pt, kmods, LMP_MOE_LAYERS, "(b)")
+        legs = [granite, moe]
+        ranks = _run_lm_ranks(pt, "gloo", legs)
+        del legs, granite["params"], moe["params"]
+        torch.cuda.empty_cache()
+        out["granite"] = _check_granite(granite_sim, granite, ranks["(a)"])
+        out["moe"] = _check_moe(moe_sim, moe, ranks["(b)"])
+        out["launches"] = {k: out["granite"]["launches"][k]
+                           + out["moe"]["launches"][k] for k in SOURCES}
+    if "nccl" in backends and n_cards >= LMP_RANKS:
+        leg, sim = _moe_leg(pt, kmods, pt.MOE_CONFIG.num_layers, "(c)")
+        ranks = _run_lm_ranks(pt, "nccl", [leg])
+        del leg["params"]
+        torch.cuda.empty_cache()
+        out["nccl"] = _check_moe(sim, leg, ranks["(c)"])
+    elif "nccl" in backends:
+        log(f"  the NCCL leg needs {LMP_RANKS} cards (one process a card; "
+            f"NCCL refuses two ranks on one device): not run on this "
+            f"machine")
+    out["secs"] = time.perf_counter() - t0
+    import multiprocessing
+
+    alive = multiprocessing.active_children()
+    log(f"  phase 8p: {out['secs']:.1f} s; rank processes alive after it: "
+        f"{len(alive)}")
+    check(not alive, "phase 8p's rank processes all ended")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -5560,6 +5967,11 @@ def main() -> int:
     log(f"== phase 8m freed: {after / 1e9:.3f} GB allocated after it, "
         f"{held / 1e9:.3f} GB before it (peak {moe['peak_gb']:.1f} GB in it)")
     check(after <= held + 2 ** 26, "phase 8m's weights and cache freed")
+    lprocs = phase_lm_ranks(pt, (eg, oa, pt.fa))
+    after = torch.cuda.memory_allocated()
+    log(f"== phase 8p freed: {after / 1e9:.3f} GB allocated after it")
+    check(after <= held + 2 ** 26, "phase 8p's weights freed: the rank "
+          "processes released what they were sent through CUDA IPC")
     pt.MLA_CONFIG = dataclasses.replace(pt.deepseek_v3_671b.CONFIG,
                                         num_layers=DS_LAYERS)
     ds = phase_mla(pt, (eg, oa, pt.fa))
@@ -5615,7 +6027,8 @@ def main() -> int:
             "8 LM serving, ctx": lm["ctx"]["launches"],
             "8m MoE serving, ctx": moe["ctx"]["launches"],
             "8d MLA decode, ctx": ds["ctx"]["launches"],
-            "8t LM training, ctx": lt["ctx"]["launches"]},
+            "8t LM training, ctx": lt["ctx"]["launches"],
+            LM_RANK_PATH: lprocs["launches"][TBE_FLAT]},
         "onesided_put_rows": {
             "6 serving remote": remote["onesided"]["launches"],
             REMOTE_RANK_PATH: rprocs["launches"]["onesided_put_rows"]},
@@ -5630,6 +6043,7 @@ def main() -> int:
                             "8 LM serving, ctx": lm["ctx"]["flash"],
                             "8m MoE serving": moe["launches"],
                             "8m MoE serving, ctx": moe["ctx"]["flash"],
+                            LM_RANK_PATH: lprocs["launches"]["flash_attention"],
                             "8h hybrid serving": hy["launches"],
                             "8v vlm forward": vl["fwd_launches"],
                             "8v vlm serving": vl["launches"],
@@ -5883,6 +6297,21 @@ def main() -> int:
         f"moe_dropped per step {dc['dropped']}; granite train step loss "
         f"{tcx['loss']!r} bitwise, {tcx['step_s']:.3f} s, peak "
         f"{tcx['peak_gb']:.2f} GB; resume under the context bitwise")
+    lg_, lm_ = lprocs["granite"], lprocs["moe"]
+    moe_logits = "bitwise" if lm_["bitwise"] else f"within {lm_['rel']:.3e}"
+    log(f"LM serving with each rank a process (8p, gloo, {LMP_RANKS} "
+        f"processes on one card; host clock): granite-8b at "
+        f"{LMP_GRANITE_LAYERS} layers bitwise the simulated ranks, median "
+        f"decode step {max(lg_['decode_ms']):.3f} ms (slowest rank; "
+        f"simulated {lg_['sim_decode_ms']:.3f}), long prefill "
+        f"{max(max(t for n, t in p if n == LONG_PROMPT) for p in lg_['prefill']) * 1e3:.1f}"
+        f" ms, peak {max(lg_['peak_gb']):.2f} GB a rank; moonshot at "
+        f"{LMP_MOE_LAYERS} layers logits {moe_logits}, "
+        f"prefill {max(lm_['prefill_ms']):.1f} ms, median decode step "
+        f"{max(lm_['decode_ms']):.3f} ms (simulated "
+        f"{lm_['sim_decode_ms']:.3f}), peak {max(lm_['peak_gb']):.2f} GB a "
+        f"rank; NCCL leg {'run' if 'nccl' in lprocs else 'needs 4 cards'}; "
+        f"phase {lprocs['secs']:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -53,6 +53,12 @@ The routes (:data:`RANK_ROUTES`):
 
 Each call records one event, as over the stacked ranks: ``bytes_in`` is
 this rank's payload, ``axis_size`` the world.
+
+The rank routes carry no gradient: ``torch.distributed``'s collectives
+are not autograd functions, so a tensor that needs one would come out
+with no path back to the ranks that sent it.  Each route refuses such a
+tensor while grad is enabled (``RuntimeError``): training over processes
+is not ported yet.
 """
 from __future__ import annotations
 
@@ -281,6 +287,13 @@ def _record_rank(op: str, x: torch.Tensor, backend: str, ctx) -> None:
 
 
 def _check_rank_value(x: torch.Tensor, ctx, what: str) -> None:
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise RuntimeError(
+            f"{what}: this rank's value needs a gradient, and a collective "
+            f"over processes carries none back to the ranks that sent it; "
+            f"training over processes is not ported yet (run under "
+            f"torch.no_grad(), or on the simulated ranks of a "
+            f"ParallelContext)")
     if x.device != ctx.device:
         raise ValueError(f"{what}: this rank's value is on {x.device}, its "
                          f"context on {ctx.device}")
@@ -301,8 +314,8 @@ def _a2a_group(x: torch.Tensor, ctx) -> torch.Tensor:
 
 
 def _rank_all_to_all(x: torch.Tensor, backend: str, ctx) -> torch.Tensor:
-    _record_rank("all_to_all", x, backend, ctx)
     _check_rank_value(x, ctx, "all_to_all")
+    _record_rank("all_to_all", x, backend, ctx)
     if x.shape[0] != ctx.world:
         raise ValueError(f"all_to_all takes ({ctx.world}, ...) chunks, got "
                          f"{tuple(x.shape)}")
@@ -315,8 +328,8 @@ def _rank_all_to_all(x: torch.Tensor, backend: str, ctx) -> torch.Tensor:
 
 def _rank_all_gather(x: torch.Tensor, axis: int, tiled: bool,
                      backend: str, ctx) -> torch.Tensor:
-    _record_rank("all_gather", x, backend, ctx)
     _check_rank_value(x, ctx, "all_gather")
+    _record_rank("all_gather", x, backend, ctx)
     out = torch.empty((ctx.world,) + tuple(x.shape), dtype=x.dtype,
                       device=x.device)
     _oa.all_gather_into(out, x.contiguous(), ctx.group)
@@ -326,8 +339,8 @@ def _rank_all_gather(x: torch.Tensor, axis: int, tiled: bool,
 
 
 def _rank_all_reduce(x: torch.Tensor, backend: str, ctx) -> torch.Tensor:
-    _record_rank("all_reduce", x, backend, ctx)
     _check_rank_value(x, ctx, "all_reduce")
+    _record_rank("all_reduce", x, backend, ctx)
     x = x.contiguous()
     if backend == "onesided":
         return _oa.onesided_all_reduce_rank(x, ctx.rank, ctx.group,
@@ -339,8 +352,8 @@ def _rank_all_reduce(x: torch.Tensor, backend: str, ctx) -> torch.Tensor:
 
 def _rank_reduce_scatter(x: torch.Tensor, backend: str,
                          emulate_with_a2a: bool, ctx) -> torch.Tensor:
-    _record_rank("reduce_scatter", x, backend, ctx)
     _check_rank_value(x, ctx, "reduce_scatter")
+    _record_rank("reduce_scatter", x, backend, ctx)
     if x.shape[0] != ctx.world:
         raise ValueError(f"reduce_scatter takes ({ctx.world}, ...) chunks, "
                          f"got {tuple(x.shape)}")
@@ -357,8 +370,8 @@ def _rank_reduce_scatter(x: torch.Tensor, backend: str,
 
 def _rank_permute_ring(x: torch.Tensor, shift: int, backend: str,
                        ctx) -> torch.Tensor:
-    _record_rank("permute", x, backend, ctx)
     _check_rank_value(x, ctx, "permute_ring")
+    _record_rank("permute", x, backend, ctx)
     x = x.contiguous()
     if backend == "onesided":
         return _oa.onesided_ring_permute_rank(x, shift, ctx.rank, ctx.group,

@@ -225,6 +225,10 @@ class RankShard:
     def dtype(self) -> torch.dtype:
         return self.local.dtype
 
+    @property
+    def device(self) -> torch.device:
+        return self.local.device
+
     def shard(self, rank: int) -> torch.Tensor:
         if rank != self.ctx.rank:
             raise ValueError(f"rank {self.ctx.rank} holds no shard of rank "

@@ -28,7 +28,12 @@ idiom (:class:`ProcessContext`, :func:`make_process_context`,
 its collectives go through a ``torch.distributed`` process group
 (``core/comm.py``), its one-sided puts into the peers' buffers through
 CUDA IPC (``kernels/onesided_a2a.SymmetricBuffers``).  The distributed
-embedding bag, the DLRM forward and its engine take either context.
+embedding bag, the DLRM forward and its engine take either context, and
+so do the LM's serving paths (``lm.forward`` without grad, prefill,
+decode, ``generate``, ``ContinuousBatcher``: each rank holds its rows of
+the vocabulary, its experts and its slice of the decode cache,
+``utils/convert.lm_params_for_rank``).  Training over processes is not
+ported: the rank collectives refuse a tensor that needs a gradient.
 The backends:
 
   * ``"gloo"`` -- on the CPU, and on the card, where several ranks may
@@ -127,6 +132,7 @@ class ProcessContext:
     rank: int
     world: int
     device: torch.device
+    config: ShardingConfig = ShardingConfig()
     _buffers: Dict[str, Any] = dataclasses.field(default_factory=dict,
                                                   repr=False)
 
@@ -136,6 +142,20 @@ class ProcessContext:
 
     @property
     def dp_size(self) -> int:
+        return 1
+
+    # ParallelContext's queries, for a context with no data axis
+    @property
+    def dp_axes(self) -> Tuple[str, ...]:
+        return ()
+
+    def dp_for(self, dim: int) -> None:
+        return None
+
+    def tp_for(self, dim: int) -> Optional[str]:
+        return "model" if dim % self.world == 0 else None
+
+    def dp_groups(self, dim: int) -> int:
         return 1
 
     def symmetric(self, name: str, nbytes: int):
@@ -193,12 +213,14 @@ def _check_nccl(devices: Sequence[torch.device]) -> None:
 
 
 def make_process_context(tp_size: Optional[int] = None, dp_size: int = 1,
-                         *, device=None) -> ProcessContext:
+                         *, device=None,
+                         sharding: Optional[ShardingConfig] = None
+                         ) -> ProcessContext:
     """This process's rank of the model axis: the initialised default
     process group, whose size must be ``tp_size`` (None: any), on
     ``device`` (None: ``cuda:{LOCAL_RANK % device_count}``, raising
-    without a card).  ``dp_size > 1`` is not supported with processes
-    and raises."""
+    without a card), with the mesh knobs ``sharding``.  ``dp_size > 1``
+    is not supported with processes and raises."""
     if dp_size != 1:
         raise NotImplementedError(
             "a data axis (dp_size > 1) is not supported with ranks as "
@@ -221,12 +243,13 @@ def make_process_context(tp_size: Optional[int] = None, dp_size: int = 1,
             dev.type != "cuda" or world > torch.cuda.device_count()):
         _check_nccl([dev] * world)
     return ProcessContext(group=None, rank=dist.get_rank(), world=world,
-                          device=dev)
+                          device=dev, config=sharding or ShardingConfig())
 
 
 def _rank_main(index: int, fn: Callable, world: int, backend: str,
                devices: Sequence[str], store: str, result: str,
-               timeout_s: float, box: list) -> None:
+               timeout_s: float, sharding: Optional[ShardingConfig],
+               box: list) -> None:
     """One rank's process: join the group through the file store, run
     ``fn(ctx, *box[0])``, and keep rank 0's result.
 
@@ -242,7 +265,7 @@ def _rank_main(index: int, fn: Callable, world: int, backend: str,
         world_size=world, timeout=timedelta(seconds=timeout_s),
         **({"device_id": device} if backend == "nccl" else {}))
     try:
-        ctx = make_process_context(world, device=device)
+        ctx = make_process_context(world, device=device, sharding=sharding)
         out = fn(ctx, *box.pop())
         gc.collect()
         ctx.close()
@@ -277,9 +300,11 @@ def _first_error(tmp: str) -> Optional[Tuple[int, str]]:
 
 
 def run_ranks(fn: Callable, world: int, *, backend: str, device=None,
-              args: tuple = (), timeout_s: float = DEFAULT_TIMEOUT_S):
+              args: tuple = (), timeout_s: float = DEFAULT_TIMEOUT_S,
+              sharding: Optional[ShardingConfig] = None):
     """Run ``fn(ctx, *args)`` on ``world`` ranks, one process each, and
-    return rank 0's result.
+    return rank 0's result.  Each rank's ``ctx`` carries the mesh knobs
+    ``sharding``.
 
     The processes start with the ``spawn`` method and meet through a
     ``FileStore`` in a temporary directory (no network).  Each rank's
@@ -321,7 +346,7 @@ def run_ranks(fn: Callable, world: int, *, backend: str, device=None,
         procs = mp.start_processes(
             _rank_main, args=(fn, world, backend, [str(d) for d in devices],
                               os.path.join(tmp, "store"), result, timeout_s,
-                              [tuple(args)]),
+                              sharding, [tuple(args)]),
             nprocs=world, join=False, start_method="spawn")
         deadline = time.monotonic() + timeout_s
         try:

@@ -35,6 +35,16 @@ across the ranks (``layers.combine_decode_partials(rank_dim=0)``), for
 GQA and MLA's latent cache alike.  max_len must divide by E.  The
 embedding and the MoE layers take the context too (``lm.embed_tokens``,
 ``lm._moe_apply``), in prefill and decode.
+
+Under a ``ProcessContext`` (each rank a process) with
+``decode_kv_seq_sharded`` a rank's cache holds only its ``Sc = max_len /
+E`` positions ``[r Sc, (r + 1) Sc)`` of every positional entry
+(``init_cache(..., ctx=)``), and the whole states.  Prefill computes the
+whole prompt on every rank and writes the rows of the positions it owns;
+decode writes the new row on the rank that owns position ``length``;
+each rank takes its partial at ``kv_offset = r Sc``, all-gathers the
+ranks' ``(o, m, l)`` triples in rank order and combines them as the
+simulation does, so the result is bitwise the simulated ranks'.
 """
 from __future__ import annotations
 
@@ -43,7 +53,8 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.parallel import ParallelContext
+from repro_torch.core import comm
+from repro_torch.core.parallel import ParallelContext, ProcessContext
 from repro_torch.models import layers, mla, ssm
 from repro_torch.models.lm import (
     _block,
@@ -90,22 +101,29 @@ def _entry_shapes(cfg: ModelConfig, dtype):
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, *,
-               device=None) -> Dict[str, Any]:
+               device=None, ctx=None) -> Dict[str, Any]:
     """A zero cache of ``batch`` slots of ``max_len`` positions on
     ``device`` (None: the card): K/V for GQA, the latent ``c_kv`` and
     ``k_rope`` for MLA, K/V and the Mamba states for the hybrid family,
     the RWKV states for the ssm family (the states ``ssm_h`` and ``S`` in
-    f32 whatever ``dtype``), K/V and ``enc`` for the audio family."""
+    f32 whatever ``dtype``), K/V and ``enc`` for the audio family.
+
+    Under a ``ProcessContext`` with ``decode_kv_seq_sharded`` (``ctx``)
+    the positional entries hold this rank's ``max_len / E`` positions
+    (``ValueError`` when E does not divide ``max_len``)."""
     _require_ported(cfg)
     device = resolve_device(device)
     dtype = dtype or torch_dtype(cfg.dtype)
+    ranks = _seq_sharded(ctx, max_len) if isinstance(ctx, ProcessContext) \
+        else 0
+    positions = max_len // ranks if ranks else max_len
     cache: Dict[str, Any] = {
         "length": torch.zeros((batch,), dtype=torch.int32, device=device)}
     shapes = _entry_shapes(cfg, dtype)
     for name, n, _ in block_stacks(cfg):
         cache[name] = {
             key: torch.zeros((n, batch) + (() if key in STATE_KEYS
-                                           else (max_len,)) + shape,
+                                           else (positions,)) + shape,
                              dtype=dt, device=device)
             for key, (shape, dt) in shapes.items()}
     if cfg.family == "audio":
@@ -170,10 +188,29 @@ def _seq_sharded(ctx: Optional[ParallelContext], max_len: int) -> int:
     return ctx.tp_size
 
 
-def _rank_partials(partial, caches, length, ranks: int):
+def _offset(ctx, positions: int) -> int:
+    """The absolute position of row 0 of a cache of ``positions`` rows:
+    ``rank * positions`` on a rank of a ``ProcessContext`` whose cache is
+    sequence-sharded, else 0."""
+    if isinstance(ctx, ProcessContext) and ctx.config.decode_kv_seq_sharded:
+        return ctx.rank * positions
+    return 0
+
+
+def _rank_partials(partial, caches, length, ctx):
     """``partial(*slices, length, kv_offset)`` over each rank's slice of
     the (B, S, ...) ``caches``, combined across the ranks; one call over
-    the whole caches when ``ranks`` is 0."""
+    the whole caches without a sequence-sharded context.  On a rank of a
+    ``ProcessContext`` the caches are its own slice: its partial, the
+    ranks' triples all-gathered in rank order, the same combine."""
+    if isinstance(ctx, ProcessContext) and ctx.config.decode_kv_seq_sharded:
+        o, m, l = partial(*caches, length, _offset(ctx, caches[0].shape[1]))
+        g = comm.all_gather(torch.cat([o, m[..., None], l[..., None]], -1),
+                            ctx=ctx)                     # (E, B, H, hd + 2)
+        return layers.combine_decode_partials(
+            g[..., :-2].contiguous(), g[..., -2].contiguous(),
+            g[..., -1].contiguous(), rank_dim=0)
+    ranks = _seq_sharded(ctx, caches[0].shape[1])
     if not ranks:
         return layers.combine_decode_partials(*partial(*caches, length, 0))
     sc = caches[0].shape[1] // ranks
@@ -192,29 +229,29 @@ def _decode_attn(q, k_cache, v_cache, length, cfg: ModelConfig, ctx=None, *,
     out = _rank_partials(
         lambda k, v, n, off: layers.decode_attention_partial(
             q, k, v, n, window=window, kv_offset=off),
-        (k_cache, v_cache), length[:, None],
-        _seq_sharded(ctx, k_cache.shape[1]))
+        (k_cache, v_cache), length[:, None], ctx)
     return out.reshape(B, 1, -1).to(q.dtype)
 
 
 def _write_rows(lc: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor],
-                length) -> None:
+                length, offset: int = 0) -> None:
     """Write one new (B, 1, ...) row of each positional entry of ``new``
     into the (B, S, ...) cache tensor ``lc[name]`` at per-sample
-    positions, in place.  A position past the cache is dropped, as the
-    reference's scatter drops it (an empty slot's length keeps growing).
-    The entries of ``new`` share (B, S), so the indices and the mask are
-    built once.  A whole state (:data:`STATE_KEYS`) has no positions and
-    raises."""
+    positions, in place; the cache's row 0 is position ``offset`` (a
+    rank's slice).  A position outside the cache is dropped, as the
+    reference's scatter drops one past it (an empty slot's length keeps
+    growing).  The entries of ``new`` share (B, S), so the indices and
+    the mask are built once.  A whole state (:data:`STATE_KEYS`) has no
+    positions and raises."""
     states = STATE_KEYS.intersection(new)
     if states:
         raise ValueError(f"{sorted(states)}: whole states, not positional "
                          f"rows; decode overwrites them whole")
     B, S = lc[next(iter(new))].shape[:2]
     bi = torch.arange(B, device=length.device)
-    pos = length.long()
-    inside = pos < S
-    pos = pos.clamp(max=S - 1)
+    pos = length.long() - offset
+    inside = (pos >= 0) & (pos < S)
+    pos = pos.clamp(0, S - 1)
     for name, row in new.items():
         cache = lc[name]
         keep = inside.view((B,) + (1,) * (cache.dim() - 2))
@@ -232,7 +269,8 @@ def _gqa_decode_block(pl, h, lc, length, cfg, ctx=None, *, window=None,
     x = _norm(h, pl["ln1"], cfg)
     q, k_new, v_new = _gqa_qkv(pl["attn"], x, length[:, None], cfg,
                                rope=rope)
-    _write_rows(lc, {"k": k_new, "v": v_new}, length)
+    _write_rows(lc, {"k": k_new, "v": v_new}, length,
+                _offset(ctx, lc["k"].shape[1]))
     attn = _decode_attn(q, lc["k"], lc["v"], length + 1, cfg, ctx,
                         window=window)
     h = h + attn @ pl["attn"]["wo"]
@@ -251,7 +289,7 @@ def _mla_decode_attn(p, x, c_kv, k_rope, length, cfg: ModelConfig,
     combined = _rank_partials(
         lambda ck, kr, n, off: mla.mla_decode_partial(
             p, x, cfg, ck, kr, n, kv_offset=off),
-        (c_kv, k_rope), length[:, None], _seq_sharded(ctx, c_kv.shape[1]))
+        (c_kv, k_rope), length[:, None], ctx)
     return mla.mla_decode_output(p, combined, x.dtype)
 
 
@@ -261,7 +299,8 @@ def _mla_decode_block(pl, h, lc, length, cfg, ctx=None):
     ``length``, then attention over ``length + 1`` rows.  Returns h."""
     x = _norm(h, pl["ln1"], cfg)
     c_kv, k_rope = mla.latent_kv(pl["attn"], x, cfg, length[:, None])
-    _write_rows(lc, {"c_kv": c_kv, "k_rope": k_rope}, length)
+    _write_rows(lc, {"c_kv": c_kv, "k_rope": k_rope}, length,
+                _offset(ctx, lc["c_kv"].shape[1]))
     return h + _mla_decode_attn(pl["attn"], x, lc["c_kv"], lc["k_rope"],
                                 length + 1, cfg, ctx)
 
@@ -273,7 +312,8 @@ def _hybrid_decode_block(pl, h, lc, length, cfg, ctx=None, *, window):
     (overwritten in place); h plus the normed mean of both."""
     x = _norm(h, pl["ln1"], cfg)
     q, k_new, v_new = _gqa_qkv(pl["attn"], x, length[:, None], cfg)
-    _write_rows(lc, {"k": k_new, "v": v_new}, length)
+    _write_rows(lc, {"k": k_new, "v": v_new}, length,
+                _offset(ctx, lc["k"].shape[1]))
     attn = _decode_attn(q, lc["k"], lc["v"], length + 1, cfg, ctx,
                         window=window) @ pl["attn"]["wo"]
     m_out, ssm_h, conv = ssm.mamba_decode_step(pl["mamba"], x, cfg,
@@ -355,7 +395,9 @@ def _prefill_into(params, tokens: torch.Tensor, cfg: ModelConfig,
     positions ``[0, S)``, whole states (:data:`STATE_KEYS`) entire.
     ``cross_feats``: the audio family's encoder output, which every layer
     cross-attends to.  ``ctx``: the embedding and the MoE layers under
-    the context.  Returns the hidden states (B, S, d) after the final
+    the context; on a rank of a ``ProcessContext`` whose cache holds its
+    slice of positions, only the rows of the positions it owns are
+    written.  Returns the hidden states (B, S, d) after the final
     norm."""
     B, S = tokens.shape
     h = embed_tokens(params, tokens, cfg, ctx)
@@ -368,8 +410,12 @@ def _prefill_into(params, tokens: torch.Tensor, cfg: ModelConfig,
             for key, val in entry.items():
                 if key in STATE_KEYS:
                     kv[name][key][i] = val
-                else:
-                    kv[name][key][i, :, :S] = val
+                    continue
+                rows = kv[name][key].shape[2]
+                a = _offset(ctx, rows)
+                b = min(S, a + rows)
+                if b > a:
+                    kv[name][key][i, :, :b - a] = val[:, a:b]
     return _norm(h, layer(params["final_norm"], 0), cfg)
 
 
@@ -395,7 +441,7 @@ def prefill(params, tokens: torch.Tensor, cfg: ModelConfig,
     if max_len < S:
         raise ValueError(f"max_len {max_len} < prompt length {S}")
     cache = init_cache(cfg, B, max_len, dtype=params["embed"].dtype,
-                       device=tokens.device)
+                       device=tokens.device, ctx=ctx)
     if cfg.family == "audio":
         cache["enc"] = encode(params, frames, cfg)
     h = _prefill_into(params, tokens, cfg, kv_stacks(cache), ctx,

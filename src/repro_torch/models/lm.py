@@ -32,6 +32,16 @@ run expert-parallel over the ranks (:func:`_moe_apply`,
 hints (activation constraints between blocks, sequence parallelism,
 vocabulary-sharded logits) place tensors and change no value; the port
 keeps every tensor whole and models none of them.
+
+With a ``ProcessContext`` (each rank of the model axis a process, its
+parameters cut by ``utils/convert.lm_params_for_rank``) every rank runs
+the same program on the same tokens, as each controller of a multi-host
+mesh does: it looks every token up through its ``RankShard`` of the
+vocabulary (one all-reduce of the partials), dispatches its slice of the
+sequence (or, when the ranks do not divide it, every token) to the
+owners of its experts and all-gathers the outputs along the sequence,
+and computes everything else whole.  No grad: the rank collectives carry
+no gradient (``core/comm.py``).
 Serving ignores the MTP head, as the reference does; its loss is LM
 training's (``train/step.lm_loss``).
 
@@ -60,11 +70,12 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.embedding_bag import (EmbeddingBagConfig,
+from repro_torch.core import comm
+from repro_torch.core.embedding_bag import (EmbeddingBagConfig, RankShard,
                                             pooled_lookup_sharded,
                                             shard_tables)
 from repro_torch.core.jagged import JaggedBatch
-from repro_torch.core.parallel import ParallelContext
+from repro_torch.core.parallel import ParallelContext, ProcessContext
 from repro_torch.models import layers, mla, ssm
 from repro_torch.models import moe as moe_mod
 from repro_torch.utils.device import resolve_device
@@ -136,12 +147,13 @@ def embedding_bag_config(cfg: ModelConfig,
         rw_impl=cfg.vocab_rw_impl, dtype=cfg.dtype)
 
 
-def check_context(ctx) -> Optional[ParallelContext]:
-    """``ctx`` if it is None or a ``ParallelContext``; anything else
-    raises ``TypeError``."""
-    if ctx is not None and not isinstance(ctx, ParallelContext):
-        raise TypeError(f"ctx must be a ParallelContext or None, got "
-                        f"{type(ctx).__name__}")
+def check_context(ctx):
+    """``ctx`` if it is None, a ``ParallelContext`` or a
+    ``ProcessContext``; anything else raises ``TypeError``."""
+    if ctx is not None and not isinstance(ctx, (ParallelContext,
+                                                ProcessContext)):
+        raise TypeError(f"ctx must be a ParallelContext, a ProcessContext "
+                        f"or None, got {type(ctx).__name__}")
     return ctx
 
 
@@ -399,7 +411,13 @@ def embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig,
     bitwise the local gather's.  Rows that do not divide over the ranks,
     and an unknown ``vocab_sharding`` or ``vocab_rw_impl``, raise
     ``ValueError``, where the reference's ``shard_map`` fails.
-    ``"replicated"`` keeps the local gather."""
+    ``"replicated"`` keeps the local gather.
+
+    Under a ``ProcessContext``, ``params["embed"]`` is this rank's
+    ``RankShard`` (``utils/convert.lm_params_for_rank``): the rank pools
+    its own rows of every token, and the partials go through the group's
+    all-reduce (``"allgather"``) or the a2a pipeline's collectives; every
+    rank returns the same (B, S, d)."""
     table = params["embed"]                                  # (1, Vp, d)
     if check_context(ctx) is None or cfg.vocab_sharding == "replicated":
         return table[0][tokens.long()]
@@ -407,7 +425,15 @@ def embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig,
         raise ValueError(f"vocab_sharding must be 'row' or 'replicated', "
                          f"got {cfg.vocab_sharding!r}")
     eb_cfg = embedding_bag_config(cfg, ctx.tp_size)
-    shards = shard_tables(table, eb_cfg, ctx.tp_size)
+    if isinstance(ctx, ProcessContext):
+        if not isinstance(table, RankShard) or table.ctx is not ctx:
+            raise ValueError(
+                "under a ProcessContext params['embed'] must be this rank's "
+                "RankShard of the vocabulary: cut the parameters with "
+                "utils.convert.lm_params_for_rank(params, cfg, ctx)")
+        shards = table
+    else:
+        shards = shard_tables(table, eb_cfg, ctx.tp_size)
     B, S = tokens.shape
     flat = tokens.reshape(-1)
     groups = ctx.dp_groups(flat.shape[0])
@@ -429,8 +455,16 @@ def lm_logits(params, hidden: torch.Tensor, cfg: ModelConfig,
     product: the reference's vocabulary-sharded constraint on the logits
     (``logits_vocab_sharded``) is a layout."""
     check_context(ctx)
-    head = params["embed"][0].T if cfg.tie_embeddings else params["head"]
-    return hidden @ head
+    return hidden @ _head(params, cfg)
+
+
+def _head(params, cfg: ModelConfig) -> torch.Tensor:
+    """The (d, Vp) head: ``params["head"]``, or the tied table's
+    transpose (a rank's parameters under a ``ProcessContext`` keep a tied
+    head whole as ``"head"``)."""
+    if "head" in params or not cfg.tie_embeddings:
+        return params["head"]
+    return params["embed"][0].T
 
 
 # ===========================================================================
@@ -469,13 +503,34 @@ def _moe_apply(p_moe, h, cfg: ModelConfig,
     gradient of ``moe_aux`` is that of the mean over the groups (its
     transpose hands each device 1 / (dp E) of the cotangent and sums over
     the group's ranks).  Raises ``ValueError`` when E does not divide the
-    experts."""
+    experts.
+
+    Under a ``ProcessContext`` this rank dispatches its slice of every
+    sample's sequence (all the tokens when E does not divide S) through
+    ``moe_ffn_ep_rank`` over its own experts, and the slices' outputs
+    are all-gathered along the sequence, so every rank holds the whole
+    (B, S, d), as GSPMD gathers the reference's sequence-sharded output.
+    With all the tokens the ranks' outputs can differ (each rank's copy
+    of an assignment reaches the owner's buckets after the copies of the
+    ranks before it, and past a capacity it is dropped): every rank
+    takes rank 0's output, as the simulated ranks do, through the same
+    all-gather."""
     B, S, d = h.shape
     if check_context(ctx) is None:
         out, aux = moe_mod.moe_ffn(p_moe, h.reshape(-1, d), cfg)
         return out.reshape(B, S, d), aux
     E = ctx.tp_size
     seq = S % E == 0
+    if isinstance(ctx, ProcessContext):
+        if seq:          # this rank: rows [r S/E, (r + 1) S/E) of each sample
+            x = h.reshape(B, E, S // E, d)[:, ctx.rank].reshape(-1, d)
+        else:
+            x = h.reshape(B * S, d)
+        out, aux = moe_mod.moe_ffn_ep_rank(p_moe, x, cfg, ctx)
+        if seq:
+            return comm.all_gather(out.reshape(B, S // E, d), axis=1,
+                                   tiled=True, ctx=ctx), aux
+        return comm.all_gather(out, ctx=ctx)[0].reshape(B, S, d), aux
     groups = ctx.dp_groups(B)
     b = B // groups
     outs, auxes = [], []

@@ -35,12 +35,16 @@ stacked on a leading axis (``core/comm.py``): ``x (E, N, d)`` holds each
 rank's tokens, and rank r owns experts ``[r E_x/E, (r + 1) E_x/E)``.
 Each rank routes its tokens; the load statistics are summed over the
 ranks (the reference's ``psum``), so ``moe_aux`` is the global one.
+Every GEMM runs at a rank's shapes (its N rows for the router and the
+shared experts, its experts' buckets), one rank after another, so the
+simulated ranks compute what ranks as processes compute, bit for bit on
+a card too.
 Level 1 buckets each rank's assignments by owner rank at ``cap1 =
 ceil(N k / E * cf)`` (empty slots tagged with the discard expert
 ``E_x/E``), and one all-to-all moves the hidden vectors and their local
 expert ids; level 2 buckets each rank's received rows by local expert at
-``cap2 = ceil(N k / (E_x/E) * cf)`` with the discard bucket, the expert
-GEMMs run over all ranks' buckets at once (rank r's local expert j is
+``cap2 = ceil(N k / (E_x/E) * cf)`` with the discard bucket, each
+rank's expert GEMMs run over its buckets (rank r's local expert j is
 expert r E_x/E + j: the buckets are in expert order), and the inverse
 all-to-all and the f32 weighted combine return each assignment to its
 token.  Assignments over a capacity are dropped (they contribute zero),
@@ -48,6 +52,12 @@ and ``moe_dropped`` is their count summed over ranks.  The combine adds a
 token's k contributions in assignment order, as the reference's
 ``segment_sum`` does, in a loop over k: no atomics, so the card's result
 does not vary from run to run.
+
+``moe_ffn_ep_rank(p, x, cfg, ctx)`` is the same dispatch for one rank of
+a ``ProcessContext``: ``x`` (N, d) this rank's tokens, ``p`` its own
+experts; the load statistics and the drops go through the group's
+all-reduce and the rows through its all-to-all (``core/comm.py``).  Both
+run the same bucketing and expert helpers, over E stacked ranks or one.
 """
 from __future__ import annotations
 
@@ -180,8 +190,82 @@ def moe_ffn(p, x: torch.Tensor, cfg: ModelConfig):
 
 
 # ---------------------------------------------------------------------------
-# Expert parallelism over the simulated ranks
+# Expert parallelism: the dispatch shared by the stacked ranks and a rank
 # ---------------------------------------------------------------------------
+#
+# Each helper takes the assignments of R ranks at once, stacked on a
+# leading axis: R = E over the simulated ranks, R = 1 for one rank's own.
+
+def _ep_sizes(cfg: ModelConfig, E: int, N: int):
+    """(experts a rank, cap1, cap2) of E ranks of N tokens each; raises
+    ``ValueError`` when E does not divide the experts, where the
+    reference's ``shard_map`` fails."""
+    n_exp, k = cfg.num_experts, cfg.experts_per_token
+    if n_exp % E:
+        raise ValueError(f"{n_exp} experts do not divide over {E} ranks")
+    el = n_exp // E
+    cf = cfg.moe_capacity_factor
+    return (el, max(1, math.ceil(N * k / E * cf)),
+            max(1, math.ceil(N * k / el * cf)))
+
+
+def _bucket_by_owner(flat_e: torch.Tensor, N: int, k: int, E: int, el: int,
+                     cap1: int):
+    """Level 1: ``flat_e`` (R, N k) expert ids -> ((token (R E, cap1)
+    into the R ranks' stacked tokens, local expert id (R E, cap1), empty
+    slots the discard id ``el``), slot, dropped), one bucket set of E
+    owners per rank, stable positions in input order."""
+    R, dev = flat_e.shape[0], flat_e.device
+    tok = torch.arange(N, device=dev).repeat_interleave(k)      # (N k,)
+    ranks = torch.arange(R, device=dev)[:, None]
+    dest1 = (ranks * E + flat_e // el).reshape(-1)
+    return routing.fixed_capacity_bucket(
+        dest1, R * E, cap1,
+        [(ranks * N + tok).reshape(-1), (flat_e % el).reshape(-1)],
+        fills=[0, el])
+
+
+def _expert_ffn(p, recv_x: torch.Tensor, recv_el: torch.Tensor, el: int,
+                cap2: int, cfg: ModelConfig):
+    """Level 2 and the experts: ``recv_x`` (R, M, d) the rows each rank
+    received, ``recv_el`` (R, M) their local expert ids (``el``: empty),
+    ``p`` the R ranks' ``R el`` experts in order.  Returns (the expert
+    outputs unbucketed, (R M, d); the live rows dropped past ``cap2``).
+    Each rank's experts run in GEMMs of their own, at the shapes a rank
+    gives them: one batched GEMM over all R el experts may round
+    otherwise on a card."""
+    R, d = recv_x.shape[0], recv_x.shape[-1]
+    flat_el = recv_el.reshape(R, -1)
+    ranks = torch.arange(R, device=recv_x.device)[:, None]
+    dest2 = (ranks * (el + 1) + flat_el).reshape(-1)
+    (e_in,), slot2, _ = routing.fixed_capacity_bucket(
+        dest2, R * (el + 1), cap2, [recv_x.reshape(-1, d)])
+    # a live row past cap2 is dropped (slot one past all ranks' buckets)
+    drop2 = ((flat_el.reshape(-1) < el)
+             & (slot2 == R * (el + 1) * cap2)).sum(dtype=torch.int32)
+    e_in = e_in.reshape(R, el + 1, cap2, d)
+    act = layers.activation_fn(cfg.activation)
+    empty = e_in.new_zeros((1, cap2, d))          # the discard bucket's
+    e_out = []
+    for r in range(R):
+        w = {k: p[k][r * el:(r + 1) * el] for k in ("gate", "up", "down")}
+        x = e_in[r, :el]
+        h = act(torch.bmm(x, w["gate"])) * torch.bmm(x, w["up"])
+        e_out += [torch.bmm(h, w["down"]), empty]
+        del h
+    del e_in
+    return routing.gather_from_buckets(slot2, torch.cat(e_out)), drop2
+
+
+def _combine(contrib: torch.Tensor, w: torch.Tensor, dtype) -> torch.Tensor:
+    """contrib (n, k, d), w (n, k) f32 -> (n, d) in ``dtype``: each
+    token's k contributions added in f32 in assignment order."""
+    cw = w.reshape(contrib.shape[0], -1, 1)
+    acc = contrib[:, 0].float() * cw[:, 0]
+    for j in range(1, contrib.shape[1]):
+        acc = acc + contrib[:, j].float() * cw[:, j]
+    return acc.to(dtype)
+
 
 def moe_ffn_ep(p, x: torch.Tensor, cfg: ModelConfig):
     """Expert-parallel MoE over E simulated ranks (module docstring).
@@ -196,61 +280,73 @@ def moe_ffn_ep(p, x: torch.Tensor, cfg: ModelConfig):
         raise ValueError(f"moe_ffn_ep takes (ranks, N, d) tokens, got "
                          f"shape {tuple(x.shape)}")
     E, N, d = x.shape
-    k, n_exp = cfg.experts_per_token, cfg.num_experts
-    if n_exp % E:
-        raise ValueError(f"{n_exp} experts do not divide over {E} ranks")
-    el = n_exp // E
-    dev = x.device
+    k = cfg.experts_per_token
+    el, cap1, cap2 = _ep_sizes(cfg, E, N)
     xf = x.reshape(E * N, d)
 
-    # every rank's tokens routed at once: the load statistics as sums over
-    # all of them, the reference's psum of each rank's sums
-    w, topi, stats = router_topk(xf, p["router"], k)
-    aux = aux_loss(stats)
-    flat_e = topi.reshape(E, N * k).long()
-    flat_w = w.reshape(E * N * k)
-    tok = torch.arange(N, device=dev).repeat_interleave(k)     # (N k,)
-    ranks = torch.arange(E, device=dev)[:, None]
-
-    # level 1: bucket each rank's assignments by owner rank, one bucket
-    # set per rank (bucket r * E + owner); stable positions in input order
-    cap1 = max(1, math.ceil(N * k / E * cfg.moe_capacity_factor))
-    dest1 = (ranks * E + flat_e // el).reshape(-1)
-    (b_tok, b_el), slot1, drop1 = routing.fixed_capacity_bucket(
-        dest1, E * E, cap1,
-        [(ranks * N + tok).reshape(-1), (flat_e % el).reshape(-1)],
-        fills=[0, el])
+    # each rank routes its own tokens (a GEMM of its N rows, as a rank
+    # computes it); the load statistics are the sums of the ranks' sums,
+    # in rank order (the reference's psum)
+    routed = [router_topk(x[r], p["router"], k) for r in range(E)]
+    w = torch.cat([r[0] for r in routed])
+    topi = torch.cat([r[1] for r in routed])
+    aux = aux_loss(tuple(torch.stack(s).sum(0)
+                         for s in zip(*(r[2] for r in routed))))
+    (b_tok, b_el), slot1, drop1 = _bucket_by_owner(
+        topi.reshape(E, N * k).long(), N, k, E, el, cap1)
     send_x = xf[b_tok.reshape(-1)].reshape(E, E, cap1, d)
     recv_x = comm.all_to_all(send_x)                     # (E_dst, E_src, ...)
     recv_el = comm.all_to_all(b_el.reshape(E, E, cap1))
+    back, drop2 = _expert_ffn(p, recv_x, recv_el, el, cap2, cfg)
 
-    # level 2: each rank's received rows by local expert, discard bucket el
-    cap2 = max(1, math.ceil(N * k / el * cfg.moe_capacity_factor))
-    flat_el = recv_el.reshape(E, E * cap1)
-    dest2 = (ranks * (el + 1) + flat_el).reshape(-1)
-    (e_in,), slot2, _ = routing.fixed_capacity_bucket(
-        dest2, E * (el + 1), cap2, [recv_x.reshape(-1, d)])
-    # a live row past cap2 is dropped (slot one past all ranks' buckets)
-    drop2 = ((flat_el.reshape(-1) < el)
-             & (slot2 == E * (el + 1) * cap2)).sum(dtype=torch.int32)
-    e_in = e_in.reshape(E, el + 1, cap2, d)[:, :el].reshape(n_exp, cap2, d)
-    act = layers.activation_fn(cfg.activation)
-    h = act(torch.bmm(e_in, p["gate"])) * torch.bmm(e_in, p["up"])
-    del e_in
-    e_out = torch.bmm(h, p["down"]).reshape(E, el, cap2, d)
-    del h
-    e_out = torch.cat([e_out, e_out.new_zeros((E, 1, cap2, d))], dim=1)
-
-    # inverse: unbucket level 2, all-to-all back, unbucket level 1, combine
-    back = routing.gather_from_buckets(slot2, e_out.reshape(
-        E * (el + 1), cap2, d))                          # (E * E cap1, d)
+    # inverse: all-to-all back, unbucket level 1, combine
     ret = comm.all_to_all(back.reshape(E, E, cap1, d))
     contrib = routing.gather_from_buckets(
         slot1, ret.reshape(E * E, cap1, d)).reshape(E * N, k, d)
-    cw = flat_w.reshape(E * N, k, 1)
-    acc = contrib[:, 0].float() * cw[:, 0]
-    for j in range(1, k):
-        acc = acc + contrib[:, j].float() * cw[:, j]
-    out = acc.to(x.dtype) + _shared_out(p, xf, cfg.activation)
+    out = _combine(contrib, w, x.dtype)
+    if "shared" in p:           # a rank's rows a GEMM, as above
+        out = out + torch.cat([_shared_out(p, x[r], cfg.activation)
+                               for r in range(E)])
     dropped = drop1.to(torch.int32) + drop2
     return out.reshape(E, N, d), {"moe_aux": aux, "moe_dropped": dropped}
+
+
+def moe_ffn_ep_rank(p, x: torch.Tensor, cfg: ModelConfig, ctx):
+    """The expert-parallel MoE for this rank of a ``ProcessContext``:
+    the reference's ``moe_ffn_ep`` body, step for step.  ``x`` (N, d)
+    this rank's tokens; ``p`` the layer's parameters with this rank's
+    ``el = E_x / E`` experts (``gate``/``up``/``down`` (el, ...), experts
+    ``[r el, (r + 1) el)``; ``router`` and ``shared`` whole).  Routes the
+    tokens, all-reduces the load statistics (the reference's psum),
+    buckets the assignments by owner, all-to-alls the rows and their
+    local expert ids, runs its experts over what it received, all-to-alls
+    the outputs back, combines, adds the shared experts and all-reduces
+    the drops.  Returns (out (N, d), {"moe_aux", "moe_dropped"}), the
+    same aux on every rank.  Every rank calls it at the same point with
+    the same N."""
+    if x.dim() != 2:
+        raise ValueError(f"moe_ffn_ep_rank takes one rank's (N, d) tokens, "
+                         f"got shape {tuple(x.shape)}")
+    N, d = x.shape
+    E, k, n_exp = ctx.world, cfg.experts_per_token, cfg.num_experts
+    el, cap1, cap2 = _ep_sizes(cfg, E, N)
+    if p["gate"].shape[0] != el:
+        raise ValueError(
+            f"this rank's MoE parameters hold {p['gate'].shape[0]} experts, "
+            f"not its {el}: cut them with "
+            f"utils.convert.lm_params_for_rank(params, cfg, ctx)")
+    w, topi, (top1, prob_sum, n) = router_topk(x, p["router"], k)
+    stats = comm.all_reduce(torch.cat([top1, prob_sum, n[None]]), ctx=ctx)
+    aux = aux_loss((stats[:n_exp], stats[n_exp:2 * n_exp], stats[-1]))
+    (b_tok, b_el), slot1, drop1 = _bucket_by_owner(
+        topi.reshape(1, N * k).long(), N, k, E, el, cap1)
+    recv_x = comm.all_to_all(x[b_tok.reshape(-1)].reshape(E, cap1, d),
+                             ctx=ctx)                    # (E_src, cap1, d)
+    recv_el = comm.all_to_all(b_el.reshape(E, cap1), ctx=ctx)
+    back, drop2 = _expert_ffn(p, recv_x[None], recv_el[None], el, cap2, cfg)
+    ret = comm.all_to_all(back.reshape(E, cap1, d), ctx=ctx)
+    contrib = routing.gather_from_buckets(slot1, ret).reshape(N, k, d)
+    out = _combine(contrib, w, x.dtype) + _shared_out(p, x, cfg.activation)
+    dropped = comm.all_reduce(
+        (drop1.to(torch.int32) + drop2).reshape(1), ctx=ctx)[0]
+    return out, {"moe_aux": aux, "moe_dropped": dropped}

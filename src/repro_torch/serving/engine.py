@@ -47,6 +47,12 @@ needs no ``cache.rows``.  ``telemetry=`` (``repro_torch.obs.Telemetry``)
 puts each engine on one host-clock timeline with latency histograms and
 the windowed hit-rate instruments the SLO monitor and drift detector read.
 
+LM serving under a ``ProcessContext`` (each rank of the model axis a
+process, its parameters cut by ``utils/convert.lm_params_for_rank``):
+``generate`` and ``ContinuousBatcher`` run on the rank's device, every
+rank over the same prompts, admitting and evicting the same requests in
+lockstep (``models/decode.py``); each returns the same tokens.
+
 Float32 products run in full float32 on the card (TF32 off), as in the
 reference.
 """
@@ -79,6 +85,17 @@ from repro_torch.utils.device import resolve_device
 # LM serving
 # ---------------------------------------------------------------------------
 
+def _rank_device(ctx, device):
+    """A rank's entry point runs on the rank's device: ``ctx.device``
+    under a ``ProcessContext`` (a ``device`` that differs raises
+    ``ValueError``), else ``device``."""
+    if not isinstance(ctx, ProcessContext):
+        return device
+    if device is not None and torch.device(device) != ctx.device:
+        raise ValueError(f"device {device} is not the rank's {ctx.device}")
+    return ctx.device
+
+
 def _mask_vocab(logits: torch.Tensor, vocab_size: int) -> torch.Tensor:
     """-inf on the padded vocabulary rows past ``vocab_size``."""
     pad = torch.arange(logits.shape[-1], device=logits.device) >= vocab_size
@@ -95,15 +112,17 @@ def _sample(logits: torch.Tensor, gen: Optional[torch.Generator],
 
 
 def generate(params, cfg: ModelConfig, prompts, max_new: int,
-             ctx: Optional[ParallelContext] = None, *,
+             ctx: Optional[ParallelContext | ProcessContext] = None, *,
              temperature: float = 0.0, seed: int = 0, frames=None,
              device=None) -> torch.Tensor:
     """prompts (B, S) -> (B, max_new) generated ids (greedy by default) on
     ``device`` (None: the card; the parameters must live there).  The
     audio family's ``frames`` (B, S_enc, d) go through its encoder once,
     in the prefill.  ``ctx``: prefill, every decode step and the head
-    under the context (``models/decode.py``)."""
-    device = resolve_device(device)
+    under the context (``models/decode.py``); under a ``ProcessContext``
+    on the rank's device, with the rank's parameters, ``S + max_new``
+    divisible by the ranks when the cache is sequence-sharded."""
+    device = resolve_device(_rank_device(lm.check_context(ctx), device))
     prompts = torch.as_tensor(prompts, device=device)
     B, S = prompts.shape
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -152,12 +171,17 @@ class ContinuousBatcher:
     prefills under it, so admission runs the sharded vocabulary and the
     expert-parallel MoE as ``generate(ctx)`` does (ROADMAP "Differences on
     purpose").  With a sequence-sharded cache ``max_len`` must divide
-    over the context's ranks (``ValueError``)."""
+    over the context's ranks (``ValueError``).  Under a ``ProcessContext``
+    the batcher is one rank's: on the rank's device, over the rank's
+    parameters (``utils/convert.lm_params_for_rank``) and its slice of
+    the cache; every rank submits the same requests and steps in
+    lockstep, and each finishes with the same tokens."""
 
     def __init__(self, params, cfg: ModelConfig, num_slots: int,
-                 max_len: int, ctx: Optional[ParallelContext] = None,
+                 max_len: int,
+                 ctx: Optional[ParallelContext | ProcessContext] = None,
                  eos_id: int = 1, *, device=None):
-        lm.check_context(ctx)
+        device = _rank_device(lm.check_context(ctx), device)
         if cfg.attention != "none":
             dec._seq_sharded(ctx, max_len)
         if cfg.family == "audio":
@@ -173,7 +197,7 @@ class ContinuousBatcher:
         self.num_slots, self.max_len, self.eos = num_slots, max_len, eos_id
         self.cache = dec.init_cache(cfg, num_slots, max_len,
                                     dtype=params["embed"].dtype,
-                                    device=self.device)
+                                    device=self.device, ctx=ctx)
         self.slots: List[Optional[Request]] = [None] * num_slots
         self.tokens = torch.zeros((num_slots,), dtype=torch.int32,
                                   device=self.device)
@@ -306,13 +330,7 @@ class DLRMEngine:
         if remote_ctx is not None:
             _check_remote_ctx(remote_ctx, ctx, cfg, cached)
         for rank_ctx in (ctx, remote_ctx):
-            if isinstance(rank_ctx, ProcessContext):
-                # a rank's engine runs on the rank's device
-                if device is not None and \
-                        torch.device(device) != rank_ctx.device:
-                    raise ValueError(f"device {device} is not the rank's "
-                                     f"{rank_ctx.device}")
-                device = rank_ctx.device
+            device = _rank_device(rank_ctx, device)
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             # full-fp32 MLP products, like the reference's

@@ -18,7 +18,8 @@ ranks (``train/step.py``) and the state's vocabulary is padded to a
 multiple of its model axis, as the reference's.  The reference's
 ``state_shardings`` (leaves placed on a device mesh, also when a
 checkpoint is restored) has no counterpart: one card holds the state
-whole.
+whole.  A ``ProcessContext`` raises ``TypeError``: training over
+processes is not ported yet.
 """
 from __future__ import annotations
 
@@ -32,7 +33,8 @@ import torch
 from repro_torch import checkpoint as ckpt
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.core.parallel import ParallelContext
-from repro_torch.train.step import init_train_state, make_train_step
+from repro_torch.train.step import (check_train_context, init_train_state,
+                                    make_train_step)
 from repro_torch.utils.device import resolve_device
 
 
@@ -42,7 +44,7 @@ class Trainer:
                  ckpt_dir: Optional[str] = None,
                  ctx: Optional[ParallelContext] = None,
                  dtype: Optional[torch.dtype] = None, device=None):
-        self.cfg, self.tc, self.ctx = cfg, tc, ctx
+        self.cfg, self.tc, self.ctx = cfg, tc, check_train_context(ctx)
         self.device = resolve_device(device)
         self.data = data
         self.ckpt_dir = ckpt_dir

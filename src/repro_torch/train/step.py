@@ -21,6 +21,9 @@ computes the same sums without them.  The gradients land in a tree of
 ``.grad`` buffers like the parameters, kept across steps
 (``TrainStep.grads``), and the update writes the parameters and moments
 in place.
+
+Training over processes (a ``ProcessContext``) is not ported yet: its
+collectives carry no gradient, and the step refuses such a context.
 """
 from __future__ import annotations
 
@@ -30,7 +33,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, TrainConfig
-from repro_torch.core.parallel import ParallelContext
+from repro_torch.core.parallel import ParallelContext, ProcessContext
 from repro_torch.models import lm
 from repro_torch.optim import adamw_init, adamw_update
 from repro_torch.utils.tree import leaves, map_leaves
@@ -153,6 +156,19 @@ def init_train_state(gen: torch.Generator, cfg: ModelConfig,
     return {"params": params, "opt": adamw_init(params, tc)}
 
 
+def check_train_context(ctx) -> Optional[ParallelContext]:
+    """``ctx`` if training runs under it: None or a ``ParallelContext``.
+    A ``ProcessContext`` raises ``TypeError`` (training over processes
+    is not ported yet: the rank collectives carry no gradient); anything
+    else raises as ``lm.check_context`` does."""
+    if isinstance(ctx, ProcessContext):
+        raise TypeError(
+            "training over processes (a ProcessContext) is not ported yet: "
+            "the rank collectives carry no gradient; train on the "
+            "simulated ranks of a ParallelContext")
+    return lm.check_context(ctx)
+
+
 class TrainStep:
     """``train_step(state, batch) -> (state, metrics)``: the reference's
     step on one device, under ``ctx`` when one is given.  ``state`` is
@@ -163,7 +179,7 @@ class TrainStep:
 
     def __init__(self, cfg: ModelConfig, tc: TrainConfig,
                  ctx: Optional[ParallelContext] = None):
-        self.cfg, self.tc, self.ctx = cfg, tc, lm.check_context(ctx)
+        self.cfg, self.tc, self.ctx = cfg, tc, check_train_context(ctx)
         self.grads = None
 
     def grad(self, params, mb) -> Dict[str, torch.Tensor]:
@@ -217,5 +233,6 @@ class TrainStep:
 def make_train_step(cfg: ModelConfig, tc: TrainConfig,
                     ctx: Optional[ParallelContext] = None) -> TrainStep:
     """Returns ``train_step(state, batch) -> (state, metrics)``; ``ctx``
-    anything but None or a ``ParallelContext`` raises ``TypeError``."""
+    anything but None or a ``ParallelContext`` raises ``TypeError`` (a
+    ``ProcessContext`` too: :func:`check_train_context`)."""
     return TrainStep(cfg, tc, ctx)

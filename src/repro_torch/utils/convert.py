@@ -8,6 +8,9 @@ the conversion copies each array, without a transpose.  The same holds
 for the reference's LM ``init_params`` (``lm_params_from_numpy``): stacked
 ``(num_layers, ...)`` blocks, ``(in, out)`` weights; and for its train
 state (``train_state_from_numpy``), int8 moments included.
+
+``lm_params_for_rank`` cuts converted LM parameters down to one rank's
+when each rank of the model axis is a process.
 """
 from __future__ import annotations
 
@@ -16,9 +19,16 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.embedding_bag import shard_for_rank
 from repro_torch.core.jagged import JaggedBatch
+from repro_torch.models.lm import embedding_bag_config
 from repro_torch.optim.quant import QuantizedTensor
 from repro_torch.utils.device import resolve_device
+
+# the MoE leaves sharded over the model axis along their expert axis, as
+# the reference's ``_moe_apply`` slices them; the router and the shared
+# experts stay whole
+EXPERT_LEAVES = ("gate", "up", "down")
 
 
 def _tensor(a, device: torch.device) -> torch.Tensor:
@@ -59,6 +69,63 @@ def lm_params_from_numpy(params: Dict[str, Any], *,
         return _tensor(tree, device)
 
     return conv(params)
+
+
+def lm_params_for_rank(params: Dict[str, Any], cfg, ctx) -> Dict[str, Any]:
+    """This rank's LM parameters under ``ctx`` (a ``ProcessContext``),
+    from the whole ones (``lm.init_params(..., tp_size=ctx.world)`` or
+    :func:`lm_params_from_numpy`), on ``ctx.device``:
+
+      * ``"embed"``: the rank's rows of the padded vocabulary, a
+        ``RankShard`` of the row-wise sharded bag
+        (``lm.embedding_bag_config``), its own copy; whole under
+        ``vocab_sharding="replicated"``.  A tied head keeps the whole
+        table as ``"head"`` (``(d, Vp)``);
+      * every MoE stack's ``gate``/``up``/``down``: the rank's
+        ``num_experts / world`` experts, ``[r el, (r + 1) el)`` along the
+        expert axis, its own copy;
+      * every other leaf as given (moved to ``ctx.device`` when it is
+        elsewhere): attention and dense FFN weights, norms, the head, the
+        routers and the shared experts, the encoder, the projector.
+
+    The result holds no reference to the whole expert stacks or the whole
+    table (a tied head aside): a tensor received through CUDA IPC keeps
+    its sender's memory until every receiver drops it.  Raises
+    ``ValueError`` when the ranks do not divide the experts or the
+    table's rows."""
+    E, r = ctx.world, ctx.rank
+    dev = ctx.device
+    if cfg.is_moe and cfg.num_experts % E:
+        raise ValueError(f"{cfg.num_experts} experts do not divide over {E} "
+                         f"ranks")
+    el = cfg.num_experts // E if cfg.is_moe else 0
+
+    def own(t: torch.Tensor) -> torch.Tensor:
+        out = torch.empty(tuple(t.shape), dtype=t.dtype, device=dev)
+        out.copy_(t)
+        return out
+
+    def conv(tree, moe=False):
+        out = {}
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                out[k] = conv(v, moe=k == "moe")
+            elif moe and k in EXPERT_LEAVES:        # (layers, E_x, ...)
+                out[k] = own(v[:, r * el:(r + 1) * el])
+            else:
+                out[k] = v.to(dev)
+        return out
+
+    out = conv({k: v for k, v in params.items() if k != "embed"})
+    embed = params["embed"]
+    if cfg.tie_embeddings:
+        out["head"] = embed[0].T.to(dev)
+    if cfg.vocab_sharding == "replicated":
+        out["embed"] = embed.to(dev)
+    else:
+        out["embed"] = shard_for_rank(embed, embedding_bag_config(cfg, E),
+                                      ctx)
+    return out
 
 
 def train_state_from_numpy(state: Dict[str, Any], *,

@@ -1,6 +1,6 @@
 """Run `chip_smoke.py`'s phases of ranks as processes alone.
 
-    python3 tools/rank_phases.py [7p] [6p]
+    python3 tools/rank_phases.py [7p] [6p] [8p | 8p-nccl]
 
 Phase 1 (environment and the kernels' build), phase 3 (the uncached
 engine at full width, whose tables and scores the others read), phase 4
@@ -10,10 +10,14 @@ phase 7p (ranks as processes: the gloo leg on one card, and the NCCL leg
 where there are 2 or more) and phase 6p (the remote tier with one host
 per process: the gloo leg, and the NCCL leg where there are 2 or more
 cards, one process a card, the bulk fetch over the group's
-reduce-scatter and the one-sided puts across cards through CUDA IPC).
-A quicker check of the per-rank paths than the whole script, on as many
-cards as the machine has.  Naming 7p or 6p runs that one and only the
-phases it reads (7p: 1, 3, 7; 6p: 1, 3, 4, 6, 6b); both by default.
+reduce-scatter and the one-sided puts across cards through CUDA IPC)
+and phase 8p (LM serving with each rank a process: granite-8b and
+moonshot-v1-16b-a3b cut in depth, 4 gloo processes sharing the card; on
+4 cards also the NCCL leg, moonshot at all 48 layers, one process a
+card; ``8p-nccl`` runs that leg alone).  A quicker check of the
+per-rank paths than the whole script, on as many cards as the machine
+has.  Naming 7p, 6p or 8p runs that one and only the phases it reads
+(7p: 1, 3, 7; 6p: 1, 3, 4, 6, 6b; 8p: 1); all three by default.
 Exits non-zero if a check fails; the last line is ``{"ok": true,
 "cards": N}``.
 """
@@ -30,10 +34,10 @@ import chip_smoke as cs  # noqa: E402
 
 
 def main(argv) -> int:
-    wanted = set(argv) or {"7p", "6p"}
-    if not wanted <= {"7p", "6p"}:
-        print(f"rank_phases: unknown phase(s) {sorted(wanted)}; name 7p "
-              f"and/or 6p", file=sys.stderr)
+    wanted = set(argv) or {"7p", "6p", "8p"}
+    if not wanted <= {"7p", "6p", "8p", "8p-nccl"}:
+        print(f"rank_phases: unknown phase(s) {sorted(wanted)}; name 7p, "
+              f"6p and/or 8p (or 8p-nccl)", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("rank_phases: no CUDA device is available", file=sys.stderr)
@@ -46,6 +50,19 @@ def main(argv) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cs.phase_environment(build)
+    if wanted & {"7p", "6p"}:
+        _dlrm_rank_phases(cs, pt, eg, oa, wanted)
+    if "8p" in wanted:
+        cs.phase_lm_ranks(pt, (eg, oa, pt.fa))
+    elif "8p-nccl" in wanted:
+        cs.phase_lm_ranks(pt, (eg, oa, pt.fa), backends=("nccl",))
+    print(json.dumps({"ok": True, "cards": torch.cuda.device_count()}))
+    return 0
+
+
+def _dlrm_rank_phases(cs, pt, eg, oa, wanted) -> None:
+    """Phases 7p and 6p with the phases they read; phase 3's tables are
+    freed when they return."""
     unc = cs.phase_uncached(pt, eg, oa)
     if "6p" in wanted:
         cached = cs.phase_cached(pt, eg, oa, unc)
@@ -56,8 +73,8 @@ def main(argv) -> int:
         cs.phase_ranks(pt, unc, dist)
     if "6p" in wanted:
         cs.phase_remote_ranks(pt, unc, remote, piped)
-    print(json.dumps({"ok": True, "cards": torch.cuda.device_count()}))
-    return 0
+    del unc
+    torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":
