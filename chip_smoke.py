@@ -150,6 +150,22 @@ Phases:
      backward difference, untouched rows bitwise unchanged and accum
      zero there, the loss down; stage times (CUDA events), a profiled
      step's TBE kernels and idle share, peak device memory;
+  7tp. DLRM training with each rank a process: fresh CONFIG tables from
+     a seed handed to 4 gloo processes sharing the card (table-wise 2)
+     through CUDA IPC, each cutting its shard; 2 steps of phase 7t's flow
+     on one Zipf batch of 2048 (dlrm.bce_loss under the rank's
+     ProcessContext, the shard's and the MLPs' gradients, row-wise
+     Adagrad on the shard, SGD) for row/allgather on both backends,
+     row/a2a/bulk, column and table, against the one-device flow (the
+     simulated ranks' for the pull-sum and the a2a pipeline) on the same
+     tables and batch: step 1's loss within 1e-5, step 2's within 1e-3,
+     the gradient of the pooled vectors against a fixed cotangent on the
+     touched rows (fetched to the host) within 1e-5 relative L2; every
+     rank's losses alike; per rank per forward one TBE launch and, for
+     the one-sided all-reduce, one pull-sum, none in the backward or the
+     update; step times on the host clock and peak memory per rank; the
+     a2a pipeline over the one-sided puts under grad raises on every
+     rank; with 4 cards, the same over NCCL, one process a card;
   8. LM serving: granite-8b at full width in bf16 (random weights from a
      seed) through ContinuousBatcher (4 slots of 16,416 positions) over 8
      requests, 2 prompts of 16,384 tokens (the flash kernel: 36 launches
@@ -296,6 +312,25 @@ Phases:
      relative L2 1e-4; (a') one step of (a)'s run under make_context(4),
      a Trainer from the same seed: the loss bitwise (a)'s step 1, 4 TBE
      launches, peak device memory; (c') (c) under make_context(4);
+  8tp. LM training with each rank a process (4 gloo processes sharing the
+     card): (a) granite-8b at its published widths cut to 2 layers, 4,096
+     tokens a step, and (b) moonshot-v1-16b-a3b cut to 4 layers, 2,048
+     tokens a step (the depths and tokens that four ranks' activations
+     fit beside each other), bf16, int8 moments, 2 Trainer(ctx=
+     ProcessContext) steps (each rank drawing only its share of the state
+     from the seed), against Trainer(ctx=make_context(4)) run on the card
+     first: step 1's loss and gradient norm within 1e-5, the later ones
+     within 1e-5 (a) or 2e-4 (b, where step 2 routes a token or two
+     otherwise), step 1's router gradients (b) within 2 (E - 1) 2**-24
+     ||sum_r |g_r||| and its shared experts' bf16 ones equal or adjacent
+     bf16 values, each parameter leaf's change over the 2 steps (a) or
+     step 1 (b) within 1e-3 of the simulated change, moe_dropped of step
+     1 equal, every rank's metrics alike, one
+     TBE launch a step per rank and nothing else; (c) moonshot at 2
+     layers (1 MoE): 2 steps against 1, a checkpoint (rank 0 receiving the
+     cut leaves' shares on the host and writing the whole state), a
+     restart and 1 more, bitwise; step times and peak memory per rank;
+     with 4 cards, (a)-(c) again over NCCL, one process a card;
   9. the card line, one JSON line of the kernels (the flash kernel's
      launches_by_path records LM training's 0; the ctx legs' launches are
      paths of their own), and last the result line.
@@ -2222,6 +2257,38 @@ def _times_chunks(pt, oa) -> dict:
     return out
 
 
+def _check_onesided_grad_refused(pt) -> str:
+    """``dlrm.bce_loss`` under make_context(RANKS) through the a2a pipeline
+    over the one-sided puts, with tables that need a gradient, on the card
+    (CONFIG's widths at 1,024 rows a table): it raises, as on the CPU,
+    where before the kernels' outputs carried no gradient and the tables
+    silently got none; without grad the same call scores."""
+    cfg = dataclasses.replace(pt.CONFIG, rows_per_table=1024, rw_impl="a2a",
+                              rw_backend="onesided")
+    dev = torch.device(DEV)
+    params = pt.init_params(torch.Generator(device=dev).manual_seed(3), cfg,
+                            device=dev)
+    inputs = _train_batches(pt, cfg, 1, 3, dev)[0]
+    ctx = pt.make_context(RANKS)
+    with torch.no_grad():
+        loss = float(pt.dlrm.bce_loss(params, *inputs, cfg, ctx))
+    params["tables"].requires_grad_()
+    msg = "no error"
+    try:
+        pt.dlrm.bce_loss(params, *inputs, cfg, ctx).backward()
+    except RuntimeError as e:
+        msg = str(e)
+    log(f"  dlrm.bce_loss through row/a2a/onesided with tables that need a "
+        f"gradient: {msg[:110]}...; without grad the loss {loss:.6f}")
+    check(msg.startswith("reduce_scatter: the value needs a gradient, and "
+                         "the one-sided route has no derivative")
+          and np.isfinite(loss),
+          "row/a2a/onesided under grad raises on the card (no silent loss "
+          "of the tables' gradient)")
+    del params
+    return msg
+
+
 def phase_distributed(pt, eg, oa, unc) -> dict:
     log(f"== 7. the distributed embedding bag ({RANKS} simulated ranks on "
         f"the card, table-wise over 2; phase 3's tables)")
@@ -2270,6 +2337,7 @@ def phase_distributed(pt, eg, oa, unc) -> dict:
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     log(f"  comm.permute_ring(backend='onesided'): {ring_launches} launches;"
         f" peak device memory in this phase {out['peak_gb']:.1f} GB")
+    out["refusal"] = _check_onesided_grad_refused(pt)
     out["errs"], out["times"] = errs, times
     out["launches"] = dict(
         onesided_all_to_all=ones["counts"]["onesided_all_to_all"],
@@ -3313,6 +3381,551 @@ def phase_train(pt, eg, oa) -> dict:
                median=med, peak_gb=peak_gb, prof=prof, launches=fwd_launches)
     del params, accum, probe
     torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 7tp. DLRM training with each rank a process
+# ---------------------------------------------------------------------------
+
+TRAIN_RANK_PATH = "7tp DLRM training, ranks as processes"
+# the flow's steps a strategy, on one batch of BATCH as phase 7t's: the
+# losses of both, and the gradient of step 1, on the same tables on both
+# sides.  At lr 0.05 the third step's loss reaches 48-74 on this seed
+# (on an H100), where the trajectories' rounding grows without bound
+TRP_STEPS = 2
+# the backward on a fixed cotangent: the gradient of <pooled, c> (c from
+# a seed, the same on both sides) on the touched rows, against the
+# reference's, element by element.  Each row's gradient adds its n
+# lookups' w * c, products both sides form alike: by index_add_'s
+# atomics for the TBE's backward, in an order that varies from run to
+# run (on an H100 3.4e-6-5.1e-6 in relative L2 on the ranks that hold hot
+# rows, 0 on the others), in sorted order for the a2a pipeline's (bitwise
+# there).  Two orders of n terms differ by at most 2 (n - 1) 2**-24
+# sum |w c| (to first order), the measure taken on the reference's side
+# as the gradient of <pooled, |c|> (the weights are 0 or 1), and n from
+# the batch; each element is held to it.  The flow's own step-1 gradient
+# carries the forward's pooled rounding in its cotangent as well (the bulk
+# sums' order, 2 (E - 1) 2**-24 sum_s |partial_s| at most), and a hot row
+# whose lookups' contributions cancel magnifies it: on H100 runs (gloo on
+# one card, NCCL on four) the rows' gradients read at most 5.0e-6 apart
+# in relative L2 for every strategy but row/a2a/bulk, whose read 3.0e-4-
+# 4.4e-4 with its step-1 loss bitwise the simulated ranks'.  Each is held
+# to about 5-20x its readings: TRP_GRAD_REL, TRP_A2A_GRAD_REL
+TRP_GRAD_REL = 1e-4
+TRP_A2A_GRAD_REL = 2e-3
+
+
+def _order_bound(n):
+    """2 (n - 1) 2**-24: two f32 sums of n terms, to first order."""
+    return 2 * (n - 1) * 2.0 ** -24
+
+
+# the touched rows' change at step 1 and the losses after it: row-wise
+# Adagrad's first step is lr g / rms(g) for each row, so a row whose
+# lookups' contributions cancel to near 0 takes a step its sum's last bits
+# decide.  On H100 runs (gloo and NCCL) row/a2a/bulk's rows' change read
+# 4.2e-4-7.2e-4 apart in relative L2 and its step-2 loss 5.6e-6-5.7e-6;
+# every other strategy's rows at most 7.4e-7 and its step-2 loss 3.6e-7.
+# Each is held to 3-30x its readings: the rows to TRP_ROWS_REL (row/a2a/
+# bulk TRP_A2A_ROWS_REL), the later losses to TRP_LATER_REL (row/a2a/bulk
+# TRP_A2A_LATER_REL), step 1's to TRP_LOSS_REL
+TRP_ROWS_REL = 1e-5
+TRP_A2A_ROWS_REL = 2e-3
+TRP_LATER_REL = 1e-5
+TRP_A2A_LATER_REL = 1e-4
+TRP_SEED = 23
+TRP_TIMEOUT_S = 600.0
+# the strategies trained, with their ranks: table-wise over 2, as the
+# other phases serve CONFIG's 26 tables
+TRP_STRATEGIES = (
+    ("row/allgather/bulk", dict(sharding="row"), RANKS),
+    ("row/allgather/onesided", dict(sharding="row", rw_backend="onesided"),
+     RANKS),
+    ("row/a2a/bulk", dict(sharding="row", rw_impl="a2a"), RANKS),
+    ("column", dict(sharding="column"), RANKS),
+    ("table", dict(sharding="table"), 2),
+)
+# per rank per forward: (kernel, launches); the backward and the update
+# launch none (their zero-fill and index_add_ are stock ops).  The a2a
+# pipeline's phase 2 gathers with stock ops, as the reference's is XLA
+TRP_LAUNCHES = {
+    "row/allgather/bulk": dict(gather_pool_tbe_flat=1),
+    "row/allgather/onesided": dict(gather_pool_tbe_flat=1,
+                                   onesided_reduce_scatter=1),
+    "row/a2a/bulk": {},
+    "column": dict(gather_pool_tbe=1),
+    "table": dict(gather_pool_tbe=1),
+}
+# the strategies held to the simulated ranks' flow (make_context(RANKS))
+# in place of the one-device flow: the a2a pipeline drops the lookups past
+# its buckets' capacity (skewed ids overflow them), so it computes another
+# function than the local lookup, the one the simulated ranks compute; the
+# pull-sum adds the ranks' partials in rank order, bitwise the simulated
+# ranks' sum, where the local lookup adds a bag's rows in slot order
+TRP_SIMULATED = ("row/allgather/onesided", "row/a2a/bulk")
+# step 1's loss against the reference flow's on the same tables and
+# batch: the ranks' pooled vectors differ from its by the sums' order (at
+# most 2 (E - 1) 2**-24 sum_s |partial_s|, ~1e-7 of their size, for the
+# bulk sums; none for the others), carried through the MLPs and the
+# mean over 2048 samples: 1e-5 relative is ~100 f32 ulps of the loss
+TRP_LOSS_REL = 1e-5
+
+
+def _held_rows(shard, ecfg, ids, ref_rows, init_rows, r, E) -> dict:
+    """The rows of ``ids`` (flat ``t * R + row``) that this rank's shard
+    holds (its columns of each, for a column shard), fetched to the host
+    beside the reference's and the initial ones: the relative L2 of the
+    change's difference, its largest element, and the change's."""
+    with torch.no_grad():
+        got, own, cols = _owned_rows(shard, ecfg, ids, r, E)
+        g = got.cpu().double()
+        w = ref_rows[own][:, cols].cpu().double()
+        i0 = init_rows[own][:, cols].cpu().double()
+    moved = w - i0
+    return dict(rows=int(g.shape[0]),
+                rows_rel=float((g - w).norm() / moved.norm()),
+                rows_max_abs=float((g - w).abs().max()),
+                moved_max=float(moved.abs().max()))
+
+
+def _owned_rows(shard, ecfg, ids, r, E):
+    """(this rank's part of the rows ``ids`` of the tables, from its
+    shard; the mask of ``ids`` it holds and the columns, to cut the
+    reference's rows alike)."""
+    T_, R_, D_ = shard.shape
+    t_, row = ids // R_, ids % R_
+    if ecfg.sharding == "row":
+        rps = R_ // E
+        own = (row >= r * rps) & (row < (r + 1) * rps)
+        return shard.local[t_[own], row[own] - r * rps], own, slice(None)
+    if ecfg.sharding == "column":
+        d = D_ // E
+        return (shard.local[t_, row], torch.ones_like(ids, dtype=torch.bool),
+                slice(r * d, (r + 1) * d))
+    tl = T_ // E
+    own = (t_ >= r * tl) & (t_ < (r + 1) * tl)
+    return shard.local[t_[own] - r * tl, row[own]], own, slice(None)
+
+
+def _held_grads(grad, ecfg, ids, ref_grads, r, E, mass=None,
+                counts=None) -> dict:
+    """A gradient on the rank's touched rows (``grad`` a RankShard of the
+    shard's gradient) against the reference's, on the host; with the
+    rows' ``mass`` (sum |w c| per element) and lookup ``counts``, the
+    largest ratio of an element's difference to _order_bound(n) x its
+    mass (a difference where the bound is 0 counts as infinite)."""
+    out = {}
+    with torch.no_grad():
+        got, own, cols = _owned_rows(grad, ecfg, ids, r, E)
+        g = got.cpu().double()
+        w = ref_grads[own][:, cols].cpu().double()
+        if mass is not None:
+            bound = (_order_bound(counts[own].double())[:, None].cpu()
+                     * mass[own][:, cols].cpu().double())
+            diff = (g - w).abs()
+            ratio = torch.where(bound > 0, diff / bound.clamp_min(1e-300),
+                                torch.where(diff > 0, float("inf"), 0.0))
+            out["ratio"] = float(ratio.max())
+    out.update(grad_rel=float((g - w).norm() / w.norm()),
+               grad_max_abs=float((g - w).abs().max()))
+    return out
+
+
+def _train_rank(ctx, base, tables, mlp, batches, strategies, ids, counts,
+                init_rows, cot, refusal):
+    """One rank of phase 7tp (``base`` the DLRM config), for each of
+    ``strategies`` (label, fields, and the reference's rows of ``ids``
+    after step 1, its step-1 gradient and its gradient on ``cot`` there)
+    in turn: cut its shard of the parent's tables (through CUDA IPC) and
+    copy the MLPs; the gradient of ``<pooled, cot>`` on the shard; then
+    the flow of phase 7t over ``batches`` under its ProcessContext
+    (``dlrm.bce_loss``, ``torch.autograd.grad`` of the shard and the MLP
+    leaves, row-wise Adagrad on the shard, SGD on the MLPs), each step's
+    launches from counts at 0 and its seconds on the host clock.  The
+    rows of ``ids`` (flat ``t * R + row``) the rank holds are fetched to
+    the host beside the reference's; the peak device memory.  Last, with
+    ``refusal``, the a2a/onesided pipeline under grad, whose refusal is
+    recorded.  Every rank's records go to rank 0."""
+    import torch.distributed as tdist
+
+    from repro_torch.kernels import embedding_gather as eg
+    from repro_torch.kernels import onesided_a2a as oa
+
+    pt = port_namespace()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev, r, E = ctx.device, ctx.rank, ctx.world
+    cuda = dev.type == "cuda"
+    out = {}
+    # the parent's tensors live on its card; a rank of another card (the
+    # NCCL leg) takes copies of what it reads
+    batches = [(d.to(dev), pt.JaggedBatch(b.indices.to(dev),
+                                          b.lengths.to(dev)), y.to(dev))
+               for d, b, y in batches]
+    ids, counts, init_rows, cot = (t.to(dev) for t in (ids, counts,
+                                                       init_rows, cot))
+
+    def launched():
+        return {**eg.LAUNCH_COUNTS, **oa.LAUNCH_COUNTS}
+
+    for label, fields, refs in strategies:
+        ref_rows, ref_grads, ref_cot, ref_mass = (t.to(dev) for t in refs)
+        cfg = dataclasses.replace(base, **fields)
+        ecfg = cfg.embedding_config()
+        if cuda:
+            _sync(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        shard = pt.eb.shard_for_rank(tables, ecfg, ctx)
+        _sync(dev)
+        rec = dict(shard_bytes=shard.local.numel() * 4,
+                   shard_s=time.perf_counter() - t0, losses=[], step_ms=[],
+                   fwd=[], quiet=[])
+        # the backward on the fixed cotangent, from the initial shard
+        leaf = shard.local.requires_grad_()
+        pooled = pt.dlrm._pooled_sharded(shard, batches[0][1], ecfg, ctx)
+        (g,) = torch.autograd.grad((pooled * cot).sum(), [leaf])
+        held = _held_grads(dataclasses.replace(shard, local=g), ecfg, ids,
+                           ref_cot, r, E, ref_mass, counts)
+        rec.update(cot_rel=held["grad_rel"], cot_max_abs=held["grad_max_abs"],
+                   cot_ratio=held["ratio"])
+        shard = dataclasses.replace(shard, local=leaf.detach())
+        del leaf, pooled, g
+        accum = pt.rowwise_adagrad_init(shard)
+        layers_ = {part: [{k: v.to(dev, copy=True) for k, v in layer.items()}
+                          for layer in mlp[part]]
+                   for part in ("bottom", "top")}
+        for dense, batch, labels in batches:
+            leaf = shard.local.requires_grad_()
+            mlp_leaves = [p.requires_grad_() for p in _mlp_leaves(layers_)]
+            params = dict(layers_, tables=shard)
+            eg.reset_launch_counts()
+            oa.reset_launch_counts()
+            _sync(dev)
+            t0 = time.perf_counter()
+            loss = pt.dlrm.bce_loss(params, dense, batch, labels, cfg, ctx)
+            fwd = launched()
+            grads = torch.autograd.grad(loss, [leaf] + mlp_leaves)
+            bwd = launched()
+            if not rec["losses"]:         # step 1's gradient rows
+                rec.update(_held_grads(dataclasses.replace(
+                    shard, local=grads[0]), ecfg, ids, ref_grads, r, E))
+            with torch.no_grad():
+                shard, accum = pt.rowwise_adagrad_update(
+                    dataclasses.replace(shard, local=leaf.detach()), accum,
+                    grads[0], lr=TRAIN_LR)
+                new = [p.detach() - TRAIN_LR * g
+                       for p, g in zip(mlp_leaves, grads[1:])]
+            _sync(dev)
+            rec["step_ms"].append(1e3 * (time.perf_counter() - t0))
+            rec["fwd"].append({k: v for k, v in fwd.items() if v})
+            rec["quiet"].append(bwd == fwd == launched())
+            rec["losses"].append(float(loss.detach()))
+            del loss, grads, leaf, params, mlp_leaves
+            for layer, (w, b) in zip(layers_["bottom"] + layers_["top"],
+                                     zip(new[0::2], new[1::2])):
+                layer["w"], layer["b"] = w, b
+            del new
+            if len(rec["losses"]) == 1:
+                rec.update(_held_rows(shard, ecfg, ids, ref_rows, init_rows,
+                                      r, E))
+        if cuda:
+            _sync(dev)
+            rec["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+        del shard, accum, layers_, ref_rows, ref_grads, ref_cot, ref_mass
+        if cuda:
+            torch.cuda.empty_cache()
+        gathered = [None] * E
+        tdist.all_gather_object(gathered, rec, group=ctx.group)
+        if r == 0:
+            out[label] = gathered
+    # the a2a pipeline over the one-sided puts has no derivative: under
+    # grad it raises, on every rank alike
+    cfg = dataclasses.replace(base, sharding="row", rw_impl="a2a",
+                              rw_backend="onesided")
+    msg = "no error"
+    if refusal:
+        shard = pt.eb.shard_for_rank(tables, cfg.embedding_config(), ctx)
+        shard.local.requires_grad_()
+        params = dict({part: [{k: v.to(dev, copy=True)
+                               for k, v in layer.items()}
+                              for layer in mlp[part]]
+                       for part in ("bottom", "top")}, tables=shard)
+        try:
+            pt.dlrm.bce_loss(params, *batches[0], cfg, ctx).backward()
+        except RuntimeError as e:
+            msg = f"RuntimeError: {e}"
+        del shard, params
+        if cuda:
+            torch.cuda.empty_cache()
+    gathered = [None] * E
+    tdist.all_gather_object(gathered, msg, group=ctx.group)
+    out["refusal"] = gathered
+    return out
+
+
+def _train_batches(pt, cfg, n, seed, dev) -> list:
+    """``n`` Zipf(1.05) batches of BATCH from dlrm_batches, -1 past each
+    length, as (dense, JaggedBatch, labels)."""
+    it = pt.dlrm_batches(cfg, BATCH, seed=seed, zipf_a=1.05,
+                         fixed_pooling=False, device=dev)
+    out = []
+    for _ in range(n):
+        data = next(it)
+        lens = data["batch"].lengths
+        live = torch.arange(cfg.pooling, device=dev) < lens[..., None]
+        out.append((data["dense"], pt.JaggedBatch(
+            torch.where(live, data["batch"].indices, -1).to(torch.int32),
+            lens), data["labels"]))
+    return out
+
+
+def _train_reference(pt, kmods, params, batches, ids, label, cot):
+    """(losses, the rows ``ids`` after step 1, step 1's table gradient on
+    them, and for a fixed cotangent ``cot`` of the pooled vectors the
+    gradients of ``<pooled, cot>`` and ``<pooled, |cot|>`` on them) of
+    phase 7t's flow
+    (``_train_step``) on a copy of ``params`` over ``batches``: on one
+    device (``label`` None), or under make_context(RANKS) with strategy
+    ``label``'s fields."""
+    cfg = pt.CONFIG
+    ctx = None
+    if label is not None:
+        fields = next(f for lb, f, _ in TRP_STRATEGIES if lb == label)
+        cfg, ctx = dataclasses.replace(cfg, **fields), pt.make_context(RANKS)
+    ref = {"tables": params["tables"].clone(),
+           **{part: [{k: v.clone() for k, v in layer.items()}
+                     for layer in params[part]] for part in ("bottom",
+                                                             "top")}}
+    dense, batch, _ = batches[0]
+    ref["tables"].requires_grad_()
+    pooled = pt.dlrm._pooled_sharded(ref["tables"], batch,
+                                     cfg.embedding_config(), ctx) \
+        if ctx is not None else pt.eb.pooled_lookup_local(
+            ref["tables"], batch, cfg.embedding_config())
+    (g,) = torch.autograd.grad((pooled * cot).sum(), [ref["tables"]],
+                               retain_graph=True)
+    cot_rows = g.view(-1, g.shape[-1])[ids]
+    del g
+    (g,) = torch.autograd.grad((pooled * cot.abs()).sum(), [ref["tables"]])
+    mass_rows = g.view(-1, g.shape[-1])[ids]
+    ref["tables"] = ref["tables"].detach()
+    del pooled, g
+    accum = pt.rowwise_adagrad_init(ref["tables"])
+    losses = []
+    probe = _RowsProbe(ids)
+    for dense, batch, labels in batches:
+        loss, new, accum, mlp, _, _ = _train_step(
+            pt, kmods, ref, accum, (dense, batch, labels, cfg, ctx),
+            probe=probe if not losses else None)
+        _commit(ref, new, mlp)
+        losses.append(float(loss))
+        del new, mlp
+        if len(losses) == 1:
+            with torch.no_grad():
+                rows = ref["tables"].view(-1, ref["tables"].shape[-1])[ids]
+    del ref, accum
+    torch.cuda.empty_cache()
+    return losses, rows, probe.rows, cot_rows, mass_rows
+
+
+class _RowsProbe:
+    """Keeps step 1's table gradient on the rows ``ids``."""
+
+    def __init__(self, ids):
+        self.ids, self.rows = ids, None
+
+    def attach(self, loss) -> None:
+        pass
+
+    def check(self, loss, leaves, grads) -> None:
+        self.rows = grads[0].view(-1, grads[0].shape[-1])[self.ids]
+
+
+def _train_ranks_leg(pt, cfg, params, batches, ids, counts, init_rows, cot,
+                     refs, backend) -> tuple:
+    """Phase 7tp's ranks over ``backend``: one spawn per world size
+    (gloo: every rank on the card; nccl: one rank a card), each strategy
+    with its reference's rows.  Returns (each strategy's rank records,
+    the refusal's messages)."""
+    mlp = {part: params[part] for part in ("bottom", "top")}
+    got = {}
+    for world in sorted({n for _, _, n in TRP_STRATEGIES}, reverse=True):
+        # each strategy with its reference's rows after step 1, its step-1
+        # gradient rows and its fixed-cotangent gradient and mass rows
+        strategies = [(lb, fields, refs[lb if lb in TRP_SIMULATED
+                                         else None][1:])
+                      for lb, fields, n in TRP_STRATEGIES if n == world]
+        t0 = time.perf_counter()
+        res = pt.run_ranks(
+            _train_rank, world, backend=backend,
+            device=_rank_device() if backend == "gloo" else None,
+            args=(cfg, params["tables"], mlp, batches, strategies, ids,
+                  counts, init_rows, cot, world == RANKS),
+            timeout_s=TRP_TIMEOUT_S)
+        log(f"  {backend}, {world} processes, "
+            f"{[s for s, _, _ in strategies]}: "
+            f"{time.perf_counter() - t0:.1f} s (spawn, the shards' copies, "
+            f"the steps, the records' gather)")
+        msgs = res.pop("refusal")
+        if world == RANKS:
+            refusal = msgs
+        got.update(res)
+    return got, refusal
+
+
+def _check_train_ranks(got, refusal, ref_losses, tag) -> tuple:
+    """Phase 7tp's checks of one leg; returns (each strategy's summary,
+    the kernels' launches summed over its ranks and steps)."""
+    launches = dict(gather_pool_tbe_flat=0, gather_pool_tbe=0,
+                    onesided_reduce_scatter=0)
+    summary = {}
+    for label, _, world in TRP_STRATEGIES:
+        ranks_ = got[label]
+        want = TRP_LAUNCHES[label]
+        a2a = label == "row/a2a/bulk"
+        later_rel = TRP_A2A_LATER_REL if a2a else TRP_LATER_REL
+        grad_rel = TRP_A2A_GRAD_REL if a2a else TRP_GRAD_REL
+        rows_rel = TRP_A2A_ROWS_REL if a2a else TRP_ROWS_REL
+        rels = [[abs(a - b) / abs(b) for a, b in zip(
+            rec["losses"], ref_losses[label])] for rec in ranks_]
+        flow = ("the simulated ranks' flow" if label in TRP_SIMULATED
+                else "the one-device flow")
+        peak = [rec.get("peak_bytes", 0) / 1e9 for rec in ranks_]
+        med = [statistics.median(rec["step_ms"]) for rec in ranks_]
+        log(f"  [{label}{tag}] {world} ranks: losses {ranks_[0]['losses']} "
+            f"({flow}'s within {[f'{v:.3e}' for v in rels[0]]} relative, "
+            f"bounds {TRP_LOSS_REL} at step 1, {later_rel} after); the "
+            f"gradient on a fixed cotangent vs {flow}'s on the touched rows, "
+            f"relative L2 per rank "
+            f"{[f'{rec['cot_rel']:.3e}' for rec in ranks_]} over "
+            f"{[rec['rows'] for rec in ranks_]} rows (max abs "
+            f"{max(rec['cot_max_abs'] for rec in ranks_):.3e}; each "
+            f"element's difference at most "
+            f"{max(rec['cot_ratio'] for rec in ranks_):.3f} of its bound "
+            f"2 (n - 1) 2**-24 sum |w c|); the flow's step-1 gradient "
+            f"{[f'{rec['grad_rel']:.3e}' for rec in ranks_]} (max abs "
+            f"{max(rec['grad_max_abs'] for rec in ranks_):.3e}; bound "
+            f"{grad_rel}) and the rows' change at step 1 "
+            f"{[f'{rec['rows_rel']:.3e}' for rec in ranks_]} (max abs "
+            f"{max(rec['rows_max_abs'] for rec in ranks_):.3e} of changes "
+            f"up to {max(rec['moved_max'] for rec in ranks_):.3e}; bound "
+            f"{rows_rel}); median "
+            f"step per rank {[round(m, 1) for m in med]} ms (host clock; the "
+            f"shard cut in {max(rec['shard_s'] for rec in ranks_):.2f} s); "
+            f"peak device memory {[round(p, 2) for p in peak]} GB a rank "
+            f"(shard {ranks_[0]['shard_bytes'] / 1e9:.2f} GB); launches a "
+            f"forward per rank {ranks_[0]['fwd'][0]}")
+        for r, rec in enumerate(ranks_):
+            check(rec["losses"] == ranks_[0]["losses"],
+                  f"7tp {label}{tag} rank {r}: its losses bitwise rank 0's")
+            check(rels[r][0] <= TRP_LOSS_REL
+                  and max(rels[r]) <= later_rel,
+                  f"7tp {label}{tag} rank {r}: step 1's loss within "
+                  f"{TRP_LOSS_REL} of {flow}'s, the later within "
+                  f"{later_rel} ({rels[r]})")
+            check(rec["grad_rel"] <= grad_rel and rec["rows_rel"] <= rows_rel,
+                  f"7tp {label}{tag} rank {r}: the flow's step-1 gradient on "
+                  f"its touched rows within {grad_rel} of {flow}'s "
+                  f"({rec['grad_rel']:.3e}), the rows' change at step 1 "
+                  f"within {rows_rel} ({rec['rows_rel']:.3e})")
+            check(rec["cot_ratio"] <= 1.0 and rec["rows"] > 0,
+                  f"7tp {label}{tag} rank {r}: the gradient on a fixed "
+                  f"cotangent on its touched rows, each element within 2 (n "
+                  f"- 1) 2**-24 sum |w c| of {flow}'s (at most "
+                  f"{rec['cot_ratio']:.3f} of it)")
+            check(all(f == want for f in rec["fwd"]) and all(rec["quiet"]),
+                  f"7tp {label}{tag} rank {r}: each forward launches {want}, "
+                  f"the backward and the update nothing ({rec['fwd']})")
+            for k, n in want.items():
+                launches[k] += n * len(rec["fwd"])
+        summary[label] = dict(
+            loss_rel=max(max(v) for v in rels),
+            cot_rel=max(rec["cot_rel"] for rec in ranks_),
+            cot_ratio=max(rec["cot_ratio"] for rec in ranks_),
+            grad_rel=max(rec["grad_rel"] for rec in ranks_),
+            rows_rel=max(rec["rows_rel"] for rec in ranks_), step_ms=med,
+            peak_gb=peak)
+    for r, msg in enumerate(refusal):
+        check(msg.startswith("RuntimeError: reduce_scatter: the value needs "
+                             "a gradient, and the one-sided route has no "
+                             "derivative"),
+              f"7tp{tag} rank {r}: the a2a/onesided pipeline under grad "
+              f"raises ({msg[:80]})")
+    log(f"  [{tag.strip(' ()') or 'gloo'}] the a2a/onesided pipeline under "
+        f"grad raised on every rank: {refusal[0][:100]}...")
+    return summary, launches
+
+
+def phase_train_ranks(pt, eg, oa, backends=("gloo", "nccl")) -> dict:
+    """Phase 7tp: the flow of phase 7t at CONFIG's full width with each
+    rank a process (4 sharing the card over gloo, table-wise 2; where
+    there are RANKS cards the NCCL leg, one rank a card): fresh tables
+    from TRP_SEED, TRP_STEPS steps on one batch of BATCH, each strategy's
+    losses and gradients held to phase 7t's one-device flow (or the
+    simulated ranks') on the same tables and batch.  ``backends`` picks
+    the legs."""
+    cfg = pt.CONFIG
+    T_, R_, D_ = cfg.num_sparse_features, cfg.rows_per_table, \
+        cfg.embedding_dim
+    n_cards = torch.cuda.device_count() if DEV != "cpu" else 0
+    log(f"== 7tp. DLRM training with each rank a process ({T_} x {R_} x "
+        f"{D_} {cfg.dtype}; {RANKS} processes sharing the card over gloo, "
+        f"table-wise 2; {TRP_STEPS} steps on one batch of B={BATCH} a "
+        f"strategy, lr {TRAIN_LR}; torch.cuda.device_count() {n_cards})")
+    t_phase = time.perf_counter()
+    kmods = (eg, oa, pt.fa)
+    dev = torch.device(DEV)
+    params = pt.init_params(torch.Generator(device=dev).manual_seed(
+        TRP_SEED), cfg, device=dev)
+    batches = _train_batches(pt, cfg, 1, TRP_SEED, dev) * TRP_STEPS
+    flat = []
+    for _, b, _ in batches:
+        live = b.indices >= 0
+        flat.append((b.indices.long() + torch.arange(
+            T_, device=dev)[:, None, None] * R_)[live])
+    ids, counts = torch.unique(torch.cat(flat), return_counts=True)
+    del flat
+    with torch.no_grad():
+        init_rows = params["tables"].view(-1, D_)[ids]
+    cot = torch.randn((BATCH, T_, D_), device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(
+                          TRP_SEED + 1))
+    refs = {}
+    for label in (None,) + TRP_SIMULATED:
+        refs[label] = _train_reference(pt, kmods, params, batches, ids,
+                                       label, cot)
+        log(f"  {ids.numel():,} rows touched by the batch; the "
+            f"{label or 'one-device'} flow's losses "
+            f"{[round(v, 6) for v in refs[label][0]]}")
+    ref_losses = {label: refs[label if label in TRP_SIMULATED else None][0]
+                  for label, _, _ in TRP_STRATEGIES}
+    out = dict(ref_losses=ref_losses)
+    for backend in backends:
+        if backend == "nccl" and n_cards < RANKS:
+            log(f"  the NCCL leg needs {RANKS} cards (one process a card; "
+                f"NCCL refuses two ranks on one device): not run on this "
+                f"machine")
+            continue
+        got, refusal = _train_ranks_leg(pt, cfg, params, batches, ids,
+                                        counts, init_rows, cot, refs,
+                                        backend)
+        tag = "" if backend == "gloo" else " (nccl)"
+        summary, launches = _check_train_ranks(got, refusal, ref_losses,
+                                               tag)
+        if backend == "gloo":
+            out.update(summary=summary, launches=launches)
+        else:
+            out["nccl"] = summary
+    del params, batches, ids, counts, refs, init_rows, cot
+    torch.cuda.empty_cache()
+    out["secs"] = time.perf_counter() - t_phase
+    import multiprocessing
+
+    alive = multiprocessing.active_children()
+    log(f"  phase 7tp: {out['secs']:.1f} s; rank processes alive after it: "
+        f"{len(alive)}")
+    check(not alive, "phase 7tp's rank processes all ended")
     return out
 
 
@@ -4568,6 +5181,487 @@ def phase_lm_ranks(pt, kmods, backends=("gloo", "nccl")) -> dict:
     log(f"  phase 8p: {out['secs']:.1f} s; rank processes alive after it: "
         f"{len(alive)}")
     check(not alive, "phase 8p's rank processes all ended")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 8tp. LM training with each rank a process
+# ---------------------------------------------------------------------------
+
+LMT_RANK_PATH = "8tp LM training, ranks as processes"
+LMTP_RANKS = 4
+# the depths and tokens, reckoned before the runs and cut after a run on
+# an H100 where a granite rank at 4 layers ran out of the card's memory in
+# its backward (13.26 GB allocated, 1.53 reserved, beside three more and
+# the parent's 7.5 GB of simulated weights).  What a rank holds at the
+# peak of a step, every rank alike: its state (bf16 weights and
+# gradients, int8 moments: granite-8b ~1.32 GB a layer, phase 8t's 50.04 GB
+# over 8.25 B parameters, and the head's 1.22 GB with its state; the
+# vocabulary's rows and the experts a quarter), plus the step's
+# activations, which no rank shares: attention's f32 (1, H, S, S) scores,
+# probabilities and their gradients (4 x 2.1 GB for granite's 32 heads at
+# 4,096 tokens) and the loss's f32 (S, Vp) logits with their recompute and
+# gradient (~4 x 0.8 GB for granite's 49,152 rows; ~4 x 2.7 GB for
+# moonshot's 163,840 at 4,096 tokens).  granite-8b at 2 layers and 4,096
+# tokens: ~3.4 GB of state and ~12 of activations, ~15 GB a rank;
+# moonshot-v1-16b-a3b at 4 layers (1 dense, 3 MoE; a rank's 16 of 64
+# experts) needs ~20 GB a rank at 4,096 tokens, which four ranks cannot
+# hold on one card, and ~12 GB at 2,048, the tokens its leg takes
+LMTP_GRANITE_LAYERS = 2
+LMTP_MOE_LAYERS = 4
+LMTP_MOE_SEQ = 2048
+LMTP_STEPS = 2
+LMTP_SEED = 5                # the batches' seed
+LMTP_RESUME_LAYERS = 2       # (c): moonshot, 1 dense + 1 MoE layer
+LMTP_TIMEOUT_S = 600.0
+# the gradient norm (the clip factor is grad_clip over it) against the
+# simulated ranks': one rank's sum of squares of its vocabulary rows (and
+# experts) is added over the ranks in gloo's order where one device sums
+# the whole leaf, the embedding's gradient adds with index_add_'s atomics
+# on either side, and the routers' and shared experts' gradients are
+# summed over the ranks; each is a few f32 roundings of sums of ~1e8
+# squares (~1e-7 relative), so 1e-5 relative holds with a margin
+LMTP_NORM_REL = 1e-5
+# the losses: step 1 is a forward of the same weights, bitwise the
+# simulated ranks' but for moe_aux's load statistics (summed in gloo's
+# order, 1e-5 relative in tests/test_torch_lm_ranks.py); step 2 follows
+# an update scaled by the clip factor above
+LMTP_LOSS_REL = 1e-5
+# a MoE model's routers and shared experts: each rank's gradient covers
+# its tokens, and the ranks' are summed in f32 -- over processes by the
+# group's all-reduce, on one device in rank order (models/moe._FanOut) --
+# and rounded once to the leaf's dtype.  A token's cotangents from the
+# router, the dispatch and the shared experts add in one order on both
+# sides (_FanOut again), so every rank's partial is the simulated rank's
+# bit for bit.  Two f32 sums of E terms differ by at most 2 (E - 1)
+# 2**-24 sum_r |g_r| per element, to first order: the f32 routers are held
+# to that in L2 (each rank's |g_r| all-reduced before the sum, after step
+# 1, the same weights on both sides); a bf16 leaf rounds those two sums
+# once each, to equal or adjacent bf16 values, which each element is held
+# to
+LMTP_SUM_REL = 2 * (LMTP_RANKS - 1) * 2.0 ** -24
+# each parameter leaf's change against the simulated run's: the
+# relative L2 of the difference of the two changes (both from the same
+# initial weights), so that an update wrong or missing reads ~1.  Held
+# after the steps for a dense leg (an H100 read 9.3e-5 for granite: the
+# clip's 1e-7 moves a few int8 codes, and with them a few elements'
+# updates), after step 1 for a MoE leg (below)
+LMTP_CHANGE_REL = 1e-3
+# a MoE leg after step 1: its routers' f32 sums (LMTP_SUM_REL) move its
+# weights by a few int8 codes, and step 2 then routes a token or two
+# otherwise (moe_dropped 29,089 against 29,088 on an H100), whose loss and
+# gradient move discretely: there the loss read 1.8e-5 and the gradient
+# norm 1.1e-5 apart, and the leaves' changes after step 2 up to 1.9e-2.
+# So a MoE leg's parameters are held after step 1, and its later losses
+# and norms to about 10x their readings
+LMTP_MOE_LATER_REL = 2e-4
+
+
+def _lm_train_rank(ctx, legs):
+    """One rank of phase 8tp, for each of ``legs`` in turn (dicts: label,
+    kind, cfg, tc, steps, seq, seed, and for kind "steps" the simulated
+    run's parameters through CUDA IPC, for kind "resume" a shared
+    directory): "steps" runs ``Trainer(ctx=ctx)`` (the rank's share of
+    the state drawn from the seed) for ``steps`` steps from launch
+    counts at 0 and holds each leaf's change to the simulated run's
+    change of the rank's share; "resume" runs 2 steps straight, then 1
+    step with a
+    checkpoint (rank 0 writes the whole state), a restart from it and 1
+    more, and compares the two states bitwise.  Every rank's records go
+    to rank 0."""
+    import torch.distributed as tdist
+
+    pt = port_namespace()
+    kmods = _kernel_mods()
+    dev, cuda = ctx.device, ctx.device.type == "cuda"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for leg in legs:
+        cfg, tc = leg["cfg"], leg["tc"]
+
+        def data(start=0):
+            return pt.lm_batches(cfg, LMT_BATCH, leg["seq"],
+                                 seed=leg["seed"], start_step=start)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        rec = {}
+        if leg["kind"] == "steps":
+            t0 = time.perf_counter()
+            tr = pt.Trainer(cfg, tc, data(), ctx=ctx)
+            _sync(dev)
+            rec["init_s"] = time.perf_counter() - t0
+            init = {path: t.detach().to("cpu", copy=True) for path, t in
+                    pt.flatten_with_paths(pt.tstep.rank_tensors(
+                        tr.state["params"]))}
+            _reset_counts(pt, kmods)
+            # step 1's sum_r |g_r| of the token-sliced leaves, before the
+            # step sums them: the measure of the sum's rounding
+            mass, cls = {}, type(tr.step_fn)
+            real = cls._sum_token_slices
+
+            def recording(step):
+                if not mass:
+                    with torch.no_grad():
+                        for path, g in pt.flatten_with_paths(step.grads):
+                            if pt.token_slice_leaf(path):
+                                mass[path] = pt.comm.all_reduce(
+                                    g.float().abs(), ctx=step.ranks)
+                real(step)
+            cls._sum_token_slices = recording
+            try:
+                tr.run(1)
+            finally:
+                cls._sum_token_slices = real
+            # the token-sliced leaves' gradients of step 1 (the same
+            # weights as the simulated run's) against its: (relative L2;
+            # an f32 leaf's bound 2 (E - 1) 2**-24 ||sum_r |g_r||| over its
+            # norm, or for a bf16 leaf the most bf16 values between an
+            # element and the simulated one's, at most 1)
+            sim_g = leg.pop("sim_grads")
+            with torch.no_grad():
+                rec["slice_rels"] = {}
+                for path, g in pt.flatten_with_paths(tr.step_fn.grads):
+                    if pt.token_slice_leaf(path):
+                        w = sim_g[path].to(dev)
+                        rel = float((g.float() - w.float()).norm()
+                                    / w.float().norm())
+                        rec["slice_rels"][path] = (
+                            (rel, float(LMTP_SUM_REL * mass[path].norm()
+                                        / w.float().norm()))
+                            if g.dtype == torch.float32 else
+                            (rel, _bf16_steps_apart(g, w)))
+            del sim_g, mass
+
+            def changes():
+                """Each leaf's change so far against the simulated run's
+                after as many steps (the same initial weights); the
+                comparison's f32 temporaries left out of the peak."""
+                if cuda:
+                    _sync(dev)
+                    rec["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+                sim = dict(pt.flatten_with_paths(leg.pop("sim_params")))
+                mine = dict(pt.flatten_with_paths(
+                    pt.tstep.rank_tensors(tr.state["params"])))
+                rels, same = {}, 0
+                with torch.no_grad():
+                    for path, p in mine.items():
+                        w = sim.pop(path).to(dev)
+                        if w.shape != p.shape:        # this rank's share
+                            n = p.shape[1]
+                            w = w.narrow(1, ctx.rank * n, n)
+                        same += torch.equal(p, w)
+                        moved = w.float() - init.pop(path).to(dev).float()
+                        rels[path] = float((p.float() - w.float()).norm()
+                                           / moved.norm().clamp_min(1e-30))
+                rec.update(rels=rels, bitwise=same, leaves=len(mine),
+                           own_bytes=sum(
+                               t.numel() * t.element_size()
+                               for path, t in mine.items()
+                               if pt.rank_sharded(path, cfg)))
+                if cuda:
+                    torch.cuda.reset_peak_memory_stats(dev)
+            if leg["held_step"] == 1:
+                changes()
+            tr.run(leg["steps"] - 1)
+            if leg["held_step"] == leg["steps"]:
+                changes()
+            rec["counts"] = _counts(pt, kmods)
+            rec["metrics"] = [m for _, m in tr.metrics_log]
+            del tr
+        else:
+            t0 = time.perf_counter()
+            whole = pt.Trainer(cfg, tc, data(), ctx=ctx)
+            whole.run(2)
+            first = pt.Trainer(cfg, tc, data(), ckpt_dir=leg["dir"],
+                               ctx=ctx)
+            first.run(1)
+            del first
+            resumed = pt.Trainer(cfg, tc, data(1), ckpt_dir=leg["dir"],
+                                 ctx=ctx)
+            rec["start"] = resumed.start_step
+            resumed.ckpt_dir = None       # no checkpoint of its own
+            resumed.run(1)
+            pairs = zip(pt.flatten_with_paths(
+                pt.tstep.rank_tensors(whole.state["params"])),
+                pt.flatten_with_paths(
+                pt.tstep.rank_tensors(resumed.state["params"])))
+            same = [torch.equal(a, b) for (_, a), (_, b) in pairs]
+            same += [torch.equal(a, b) for (_, a), (_, b) in zip(
+                pt.flatten_with_paths(whole.state["opt"]),
+                pt.flatten_with_paths(resumed.state["opt"]))]
+            rec.update(same=sum(same), leaves=len(same),
+                       secs=time.perf_counter() - t0)
+            if ctx.rank == 0:
+                step1 = os.path.join(leg["dir"], "step_00000001")
+                rec["ckpt_bytes"] = sum(
+                    os.path.getsize(os.path.join(step1, f))
+                    for f in os.listdir(step1))
+            del whole, resumed
+        if cuda:
+            _sync(dev)
+            rec["peak_bytes"] = max(rec.get("peak_bytes", 0),
+                                    torch.cuda.max_memory_allocated(dev))
+            torch.cuda.empty_cache()
+        gathered = [None] * ctx.world
+        tdist.all_gather_object(gathered, rec, group=ctx.group)
+        out[leg["label"]] = gathered
+    return out
+
+
+def _bf16_steps_apart(got: torch.Tensor, want: torch.Tensor) -> int:
+    """The most bf16 values between an element of ``got`` and of ``want``
+    (both bf16): the distance of their 16-bit patterns' orders."""
+    def order(t):
+        i = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return int((order(got) - order(want)).abs().max())
+
+
+def _lm_train_leg(pt, base, n_layers, seq, label, held_step) -> tuple:
+    """A leg of phase 8tp and its simulated run: ``base`` at its
+    published widths cut to ``n_layers``, bf16, int8 moments;
+    ``Trainer(ctx=make_context(LMTP_RANKS))`` for LMTP_STEPS steps of
+    LMT_BATCH x ``seq`` tokens on the card, before the ranks; its
+    metrics, and its parameters after ``held_step`` steps for the ranks
+    (the moments and gradients freed)."""
+    cfg = dataclasses.replace(base, num_layers=n_layers)
+    tc = pt.TrainConfig(optimizer_state_dtype="int8", remat=True,
+                        warmup_steps=1, total_steps=LMTP_STEPS + 2,
+                        checkpoint_every=100)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = pt.Trainer(cfg, tc, pt.lm_batches(cfg, LMT_BATCH, seq,
+                                           seed=LMTP_SEED),
+                    ctx=pt.make_context(LMTP_RANKS), device=DEV)
+    tr.run(1)
+    grads = {path: g.clone() for path, g in pt.flatten_with_paths(
+        tr.step_fn.grads) if pt.token_slice_leaf(path)}
+    spread = {}
+    if grads:
+        # the same step again from the seed: how far the card's own runs
+        # of these gradients lie apart
+        again = pt.Trainer(cfg, tc, pt.lm_batches(cfg, LMT_BATCH, seq,
+                                                  seed=LMTP_SEED),
+                           ctx=pt.make_context(LMTP_RANKS), device=DEV)
+        again.run(1)
+        spread = {path: float((g.float() - grads[path].float()).norm()
+                              / grads[path].float().norm())
+                  for path, g in pt.flatten_with_paths(again.step_fn.grads)
+                  if path in grads}
+        del again
+        torch.cuda.empty_cache()
+    if held_step == 1:
+        params = pt.map_leaves(torch.clone, tr.state["params"])
+    tr.run(LMTP_STEPS - 1)
+    sim = [m for _, m in tr.metrics_log]
+    if held_step == LMTP_STEPS:
+        params = tr.state["params"]
+    nbytes = _tree_bytes(pt, params)
+    log(f"  {label} {cfg.name}, {n_layers} of {base.num_layers} layers, "
+        f"{nbytes / 1e9:.2f} GB of bf16 weights: the simulated run under "
+        f"make_context({LMTP_RANKS}), {LMTP_STEPS} steps of "
+        f"{LMT_BATCH} x {seq} tokens, losses "
+        f"{[m['loss'] for m in sim]}, grad norms "
+        f"{[m['grad_norm'] for m in sim]}, steps "
+        f"{[round(m['step_time_s'], 3) for m in sim]} s, peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, in "
+        f"{time.perf_counter() - t0:.1f} s; two simulated runs' step-1 "
+        f"router and shared-expert gradients apart by "
+        f"{ {p: f'{v:.3e}' for p, v in spread.items()} } relative L2")
+    del tr
+    torch.cuda.empty_cache()
+    return dict(label=label, kind="steps", cfg=cfg, tc=tc, spread=spread,
+                steps=LMTP_STEPS, seq=seq, seed=LMTP_SEED,
+                held_step=held_step, sim_params=params,
+                sim_grads=grads), sim
+
+
+def _check_lm_train(pt, leg, sim, ranks, tag="") -> dict:
+    """A leg's checks: every rank's metrics rank 0's; against the
+    simulated run step 1's loss within LMTP_LOSS_REL and its gradient
+    norm within LMTP_NORM_REL, the later ones within those (a dense leg)
+    or LMTP_MOE_LATER_REL, moe_dropped equal at step 1 (the forward of
+    the same weights), step 1's router and shared-expert gradients as
+    LMTP_SUM_REL states; each leaf's change over the leg's held steps
+    within LMTP_CHANGE_REL of the simulated run's; per rank one TBE
+    launch a step (the vocabulary's lookup), nothing else."""
+    label, cfg = leg["label"] + tag, leg["cfg"]
+    m0 = ranks[0]["metrics"]
+    loss_rels = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                 for a, b in zip(m0, sim)]
+    loss_rel = max(loss_rels)
+    norm_rels = [abs(a["grad_norm"] - b["grad_norm"]) / b["grad_norm"]
+                 for a, b in zip(m0, sim)]
+    norm_rel = max(norm_rels)
+    later = LMTP_MOE_LATER_REL if cfg.is_moe else LMTP_LOSS_REL
+    worst = max(max(rec["rels"].values()) for rec in ranks)
+    slice0 = ranks[0]["slice_rels"]
+    slices = {p: max(rec["slice_rels"][p][0] for rec in ranks)
+              for p in slice0}
+    peak = [rec.get("peak_bytes", 0) / 1e9 for rec in ranks]
+    step_s = [[round(m["step_time_s"], 3) for m in rec["metrics"]]
+              for rec in ranks]
+    drops = [m.get("moe_dropped") for m in m0]
+    f32_bounds = {p: f"{b:.3e}" for p, (_, b) in slice0.items()
+                  if isinstance(b, float)}
+    bf16_apart = {p: max(rec["slice_rels"][p][1] for rec in ranks)
+                  for p, (_, b) in slice0.items() if isinstance(b, int)}
+    log(f"  [{label}] losses {[m['loss'] for m in m0]} (simulated within "
+        f"{[f'{v:.3e}' for v in loss_rels]} relative, bounds "
+        f"{LMTP_LOSS_REL} at step 1, {later} after); grad norms "
+        f"{[m['grad_norm'] for m in m0]} (within "
+        f"{[f'{v:.3e}' for v in norm_rels]}, bounds {LMTP_NORM_REL} at "
+        f"step 1, {later} after); step 1's token-sliced gradients within "
+        f"{ {p: f'{v:.3e}' for p, v in slices.items()} } relative L2 (f32: "
+        f"bound 2 (E - 1) 2**-24 ||sum_r |g_r||| {f32_bounds}; bf16: "
+        f"bf16 values apart at most {bf16_apart}, bound 1); parameters "
+        f"after {leg['held_step']} of {len(m0)} steps: "
+        f"{[rec['bitwise'] for rec in ranks]} of {ranks[0]['leaves']} "
+        f"leaves bitwise per rank, the rest's change within {worst:.3e} "
+        f"relative L2 of the simulated change (bound {LMTP_CHANGE_REL}); "
+        f"moe_dropped per step {drops} "
+        f"(simulated {[m.get('moe_dropped') for m in sim]}); steps per rank "
+        f"{step_s} s (host clock; the Trainer's init "
+        f"{max(rec['init_s'] for rec in ranks):.1f} s); peak device "
+        f"memory {[round(p, 2) for p in peak]} GB a rank (its own shares "
+        f"{ranks[0]['own_bytes'] / 1e9:.2f} GB); launches per rank "
+        f"{ {k: v for k, v in ranks[0]['counts'].items() if v} }")
+    n = leg["steps"]
+    for r, rec in enumerate(ranks):
+        check(rec["metrics"] == [dict(m, step_time_s=s["step_time_s"])
+                                 for m, s in zip(m0, rec["metrics"])],
+              f"8tp {label} rank {r}: its metrics rank 0's")
+        check(max(rec["rels"].values()) <= LMTP_CHANGE_REL,
+              f"8tp {label} rank {r}: every parameter leaf's change over "
+              f"{leg['held_step']} steps within {LMTP_CHANGE_REL} of the "
+              f"simulated run's (the worst "
+              f"{max(rec['rels'], key=rec['rels'].get)})")
+        check(all(v <= b if isinstance(b, float) else b <= 1
+                  for v, b in rec["slice_rels"].values()),
+              f"8tp {label} rank {r}: step 1's router gradients within 2 (E "
+              f"- 1) 2**-24 ||sum_r |g_r||| and its shared experts' bf16 "
+              f"gradients equal or adjacent to the simulated run's "
+              f"({rec['slice_rels']})")
+        check(rec["counts"] == dict(_launches(**{TBE_FLAT: n}), chunked=0),
+              f"8tp {label} rank {r}: one TBE launch a step, nothing else "
+              f"({rec['counts']})")
+    check(all(np.isfinite([m["loss"] for m in m0])),
+          f"8tp {label}: finite losses")
+    check(loss_rels[0] <= LMTP_LOSS_REL and loss_rel <= later,
+          f"8tp {label}: step 1's loss within {LMTP_LOSS_REL} of the "
+          f"simulated run's, the later ones within {later} ({loss_rels})")
+    check(norm_rels[0] <= LMTP_NORM_REL and norm_rel <= later,
+          f"8tp {label}: gradient norms (the clip factor's divisor) within "
+          f"{LMTP_NORM_REL} of the simulated run's at step 1, {later} "
+          f"after ({norm_rels})")
+    if cfg.is_moe:
+        check(m0[0]["moe_dropped"] == sim[0]["moe_dropped"],
+              f"8tp {label}: moe_dropped of step 1 the simulated run's")
+    return dict(loss_rel=loss_rel, norm_rel=norm_rel, param_rel=worst,
+                slice_rel=max(slices.values(), default=0.0),
+                peak_gb=peak, step_s=step_s, losses=[m["loss"] for m in m0],
+                launches=sum(rec["counts"][TBE_FLAT] for rec in ranks))
+
+
+def _run_lm_train_ranks(pt, legs, backend) -> dict:
+    """Phase 8tp's ranks over ``backend`` (gloo: every rank on the card;
+    nccl: one rank a card), the legs in one spawn."""
+    # the rank processes' allocators map memory in expandable segments:
+    # a step's activations come and go in sizes that fragment fixed ones
+    # (on an H100, 1.53 GB reserved but unallocated in the rank that
+    # ran out); nothing they allocate crosses processes
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        t0 = time.perf_counter()
+        ranks = pt.run_ranks(
+            _lm_train_rank, LMTP_RANKS, backend=backend,
+            device=_rank_device() if backend == "gloo" else None,
+            args=(legs,), timeout_s=LMTP_TIMEOUT_S)
+        log(f"  {backend}, {LMTP_RANKS} processes, legs "
+            f"{[leg['label'] for leg in legs]}: "
+            f"{time.perf_counter() - t0:.1f} s (spawn, the draws and cuts, "
+            f"the steps, the checkpoint, the records' gather)")
+        return ranks
+    finally:
+        if alloc is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF", None)
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+
+
+def _check_resume(pt, rc, tag) -> None:
+    log(f"  [(c){tag}] {pt.MOE_CONFIG.name} at {LMTP_RESUME_LAYERS} layers "
+        f"(1 MoE), {RESUME_TOKENS} tokens: 2 steps against 1, a checkpoint "
+        f"of {rc[0]['ckpt_bytes']:,} B (the whole state, rank 0 receiving "
+        f"the cut leaves' shares on the host and writing), a restart at "
+        f"step {rc[0]['start']} and 1 more: "
+        f"{[rec['same'] for rec in rc]} of {rc[0]['leaves']} leaves bitwise "
+        f"per rank, in {max(rec['secs'] for rec in rc):.1f} s; peak device "
+        f"memory {[round(rec.get('peak_bytes', 0) / 1e9, 2) for rec in rc]}"
+        f" GB a rank")
+    for r, rec in enumerate(rc):
+        check(rec["start"] == 1 and rec["same"] == rec["leaves"],
+              f"8tp (c){tag} rank {r}: resumed at step 1, the state bitwise "
+              f"the uninterrupted run's")
+
+
+def phase_lm_train_ranks(pt, kmods, backends=("gloo", "nccl")) -> dict:
+    """Phase 8tp: LM training with each rank a process, 4 sharing the card
+    over gloo (and where there are LMTP_RANKS cards the NCCL leg, one rank
+    a card): (a) granite-8b and (b) moonshot-v1-16b-a3b at their
+    published widths cut in depth, Trainer steps held to the simulated
+    ranks' run of the same seed; (c) a resume of moonshot on the ranks,
+    bitwise.
+    ``backends`` picks the legs."""
+    n_cards = torch.cuda.device_count() if DEV != "cpu" else 0
+    log(f"== 8tp. LM training with each rank a process ({LMTP_RANKS} "
+        f"processes sharing the card over gloo; the vocabulary's rows and "
+        f"the experts sharded over them; bf16, int8 moments, remat; "
+        f"granite-8b at {LMTP_GRANITE_LAYERS} layers and {LMT_SEQ} tokens, "
+        f"moonshot-v1-16b-a3b at {LMTP_MOE_LAYERS} layers and "
+        f"{LMTP_MOE_SEQ} tokens; torch.cuda.device_count() {n_cards})")
+    t_phase = time.perf_counter()
+    granite, g_sim = _lm_train_leg(pt, pt.LMT_CONFIG, LMTP_GRANITE_LAYERS,
+                                   LMT_SEQ, "(a)", LMTP_STEPS)
+    moe, m_sim = _lm_train_leg(pt, pt.MOE_CONFIG, LMTP_MOE_LAYERS,
+                               LMTP_MOE_SEQ, "(b)", 1)
+    out = {}
+    for backend in backends:
+        if backend == "nccl" and n_cards < LMTP_RANKS:
+            log(f"  the NCCL leg needs {LMTP_RANKS} cards (one process a "
+                f"card): not run on this machine")
+            continue
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_8tp_")
+        resume = dict(label="(c)", kind="resume", cfg=dataclasses.replace(
+            pt.MOE_CONFIG, num_layers=LMTP_RESUME_LAYERS),
+            tc=pt.TrainConfig(optimizer_state_dtype="int8", remat=True,
+                              warmup_steps=1, total_steps=4,
+                              checkpoint_every=100),
+            seq=RESUME_TOKENS, seed=LMTP_SEED, dir=tmp)
+        try:
+            ranks = _run_lm_train_ranks(pt, [granite, moe, resume], backend)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        tag = "" if backend == "gloo" else " (nccl)"
+        res = {"granite": _check_lm_train(pt, granite, g_sim, ranks["(a)"],
+                                          tag),
+               "moe": _check_lm_train(pt, moe, m_sim, ranks["(b)"], tag)}
+        _check_resume(pt, ranks["(c)"], tag)
+        if backend == "gloo":
+            out.update(res, launches={TBE_FLAT: res["granite"]["launches"]
+                                      + res["moe"]["launches"]})
+        else:
+            out["nccl"] = res
+    del granite["sim_params"], moe["sim_params"], moe["sim_grads"]
+    torch.cuda.empty_cache()
+    out["secs"] = time.perf_counter() - t_phase
+    import multiprocessing
+
+    alive = multiprocessing.active_children()
+    log(f"  phase 8tp: {out['secs']:.1f} s; rank processes alive after it: "
+        f"{len(alive)}")
+    check(not alive, "phase 8tp's rank processes all ended")
     return out
 
 
@@ -5906,6 +7000,7 @@ def port_namespace():
         from repro_torch.train.loop import Trainer
         from repro_torch.utils.tree import (flatten_with_paths, leaves,
                                             map_leaves)
+        from repro_torch.utils.convert import rank_sharded, token_slice_leaf
 
     return pt
 
@@ -5954,6 +7049,12 @@ def main() -> int:
           "were sent through CUDA IPC")
     train = phase_train(pt, eg, oa)
     held = torch.cuda.memory_allocated()
+    tprocs = phase_train_ranks(pt, eg, oa)
+    after = torch.cuda.memory_allocated()
+    log(f"== phase 7tp freed: {after / 1e9:.3f} GB allocated after it, "
+        f"{held / 1e9:.3f} GB before it")
+    check(after <= held + 2 ** 26, "phase 7tp's tables freed: the rank "
+          "processes released what they were sent through CUDA IPC")
     lm = phase_lm(pt, (eg, oa, pt.fa))
     # phase 8's granite weights and cache are freed before phase 8m
     after = torch.cuda.memory_allocated()
@@ -5971,6 +7072,11 @@ def main() -> int:
     after = torch.cuda.memory_allocated()
     log(f"== phase 8p freed: {after / 1e9:.3f} GB allocated after it")
     check(after <= held + 2 ** 26, "phase 8p's weights freed: the rank "
+          "processes released what they were sent through CUDA IPC")
+    ltprocs = phase_lm_train_ranks(pt, (eg, oa, pt.fa))
+    after = torch.cuda.memory_allocated()
+    log(f"== phase 8tp freed: {after / 1e9:.3f} GB allocated after it")
+    check(after <= held + 2 ** 26, "phase 8tp's weights freed: the rank "
           "processes released what they were sent through CUDA IPC")
     pt.MLA_CONFIG = dataclasses.replace(pt.deepseek_v3_671b.CONFIG,
                                         num_layers=DS_LAYERS)
@@ -6015,7 +7121,8 @@ def main() -> int:
         "gather_pool_tbe": {
             "3 serving uncached": unc["launches"]["gather_pool_tbe"],
             RANK_PATH: procs["launches"]["gather_pool_tbe"],
-            "7t training": train["launches"]},
+            "7t training": train["launches"],
+            TRAIN_RANK_PATH: tprocs["launches"]["gather_pool_tbe"]},
         "gather_pool": {
             "3 serving uncached, fused=False":
                 unc["launches"]["gather_pool"],
@@ -6028,7 +7135,9 @@ def main() -> int:
             "8m MoE serving, ctx": moe["ctx"]["launches"],
             "8d MLA decode, ctx": ds["ctx"]["launches"],
             "8t LM training, ctx": lt["ctx"]["launches"],
-            LM_RANK_PATH: lprocs["launches"][TBE_FLAT]},
+            LM_RANK_PATH: lprocs["launches"][TBE_FLAT],
+            TRAIN_RANK_PATH: tprocs["launches"][TBE_FLAT],
+            LMT_RANK_PATH: ltprocs["launches"][TBE_FLAT]},
         "onesided_put_rows": {
             "6 serving remote": remote["onesided"]["launches"],
             REMOTE_RANK_PATH: rprocs["launches"]["onesided_put_rows"]},
@@ -6049,6 +7158,8 @@ def main() -> int:
                             "8v vlm serving": vl["launches"],
                             TRAIN_PATH: lt["launches"]},
     }
+    by_path["onesided_reduce_scatter"][TRAIN_RANK_PATH] = \
+        tprocs["launches"]["onesided_reduce_scatter"]
     # LM training runs no kernel: the flash kernel has no backward, and
     # under grad attention takes chunked_attention (phase 8t checks 0)
     check(all(n > 0 for paths in by_path.values()
@@ -6312,6 +7423,34 @@ def main() -> int:
         f"{lm_['sim_decode_ms']:.3f}), peak {max(lm_['peak_gb']):.2f} GB a "
         f"rank; NCCL leg {'run' if 'nccl' in lprocs else 'needs 4 cards'}; "
         f"phase {lprocs['secs']:.1f} s")
+    log("DLRM training with each rank a process (7tp, gloo, one card; host "
+        "clock, the processes time-slicing the card): " + "; ".join(
+            f"{label} losses within {v['loss_rel']:.3e} of the reference "
+            f"flow's, the gradient on a fixed cotangent within "
+            f"{v['cot_rel']:.3e} ({v['cot_ratio']:.3f} of its bound; the "
+            f"flow's step 1 {v['grad_rel']:.3e}, the "
+            f"rows' change {v['rows_rel']:.3e}), "
+            f"median step "
+            f"{max(v['step_ms']):.1f} ms (slowest rank), peak "
+            f"{max(v['peak_gb']):.2f} GB a rank"
+            for label, v in tprocs["summary"].items())
+        + f"; phase {tprocs['secs']:.1f} s")
+    tg, tm = ltprocs["granite"], ltprocs["moe"]
+    log(f"LM training with each rank a process (8tp, gloo, {LMTP_RANKS} "
+        f"processes on one card; host clock): granite-8b at "
+        f"{LMTP_GRANITE_LAYERS} layers, {LMT_SEQ} tokens, losses "
+        f"{tg['losses']} (simulated "
+        f"within {tg['loss_rel']:.3e}), grad norms within "
+        f"{tg['norm_rel']:.3e}, parameters within {tg['param_rel']:.3e}, "
+        f"steps {max(max(s) for s in tg['step_s']):.3f} s (slowest), peak "
+        f"{max(tg['peak_gb']):.2f} GB a rank; moonshot at {LMTP_MOE_LAYERS} "
+        f"layers, {LMTP_MOE_SEQ} tokens, losses {tm['losses']} (within "
+        f"{tm['loss_rel']:.3e}), grad "
+        f"norms within {tm['norm_rel']:.3e}, parameters within "
+        f"{tm['param_rel']:.3e}, steps "
+        f"{max(max(s) for s in tm['step_s']):.3f} s, peak "
+        f"{max(tm['peak_gb']):.2f} GB a rank; resume bitwise; phase "
+        f"{ltprocs['secs']:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

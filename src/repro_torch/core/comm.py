@@ -54,11 +54,33 @@ The routes (:data:`RANK_ROUTES`):
 Each call records one event, as over the stacked ranks: ``bytes_in`` is
 this rank's payload, ``axis_size`` the world.
 
-The rank routes carry no gradient: ``torch.distributed``'s collectives
-are not autograd functions, so a tensor that needs one would come out
-with no path back to the ranks that sent it.  Each route refuses such a
-tensor while grad is enabled (``RuntimeError``): training over processes
-is not ported yet.
+Under grad the rank routes are ``torch.autograd.Function`` s whose
+backward is the inverse collective over the group, under the
+reference's semantics: every rank computes the same loss from the
+values the ranks hold alike, so a replicated value's cotangent is the
+same on every rank and counts once.
+
+  * ``all_reduce`` (bulk, and the one-sided pull-sum): the identity --
+    each rank's partial takes the whole cotangent (the row-wise bag's
+    backward across ranks);
+  * ``all_gather``: this rank's slice of the cotangent;
+  * ``all_to_all`` (bulk): the all-to-all of the cotangents;
+  * ``reduce_scatter`` (bulk, ``emulate_with_a2a`` too): the all-gather
+    of the cotangents;
+  * :func:`split`, the entry of a value the ranks hold alike into a
+    per-rank computation (the reference's ``shard_map`` in_specs): its
+    forward takes this rank's slice along an axis (or the whole value),
+    its backward all-gathers the ranks' cotangents along that axis (or
+    sums them).
+
+The backward's collectives record no event, as the reference's
+transposes go through no ``repro.core.comm`` call.  What has no
+derivative is refused while grad is enabled and the value needs one
+(``RuntimeError``), on either device and on the simulated ranks too: the
+one-sided all-to-all, reduce-scatter, ring permute and row fetch (the
+reference's Pallas puts have no derivative: ``jax.grad`` fails inside
+them), and over processes the ring permute and the row fetch on either
+backend.
 """
 from __future__ import annotations
 
@@ -176,6 +198,7 @@ def all_to_all(x: torch.Tensor, *, backend: str = "bulk",
         return _rank_all_to_all(x, backend, ctx)
     _record("all_to_all", x, backend)
     if backend == "onesided":
+        _refuse_grad(x, "all_to_all", ONESIDED_NO_GRAD)
         return onesided_all_to_all(x)
     return x.transpose(0, 1).contiguous()
 
@@ -222,6 +245,7 @@ def reduce_scatter(x: torch.Tensor, *, backend: str = "bulk",
         return _rank_reduce_scatter(x, backend, emulate_with_a2a, ctx)
     _record("reduce_scatter", x, backend)
     if backend == "onesided":
+        _refuse_grad(x, "reduce_scatter", ONESIDED_NO_GRAD)
         return onesided_reduce_scatter(x)
     if emulate_with_a2a:
         return x.transpose(0, 1).contiguous().sum(dim=1, dtype=x.dtype)
@@ -239,6 +263,7 @@ def permute_ring(x: torch.Tensor, *, shift: int = 1,
         return _rank_permute_ring(x, shift, backend, ctx)
     _record("permute", x, backend)
     if backend == "onesided":
+        _refuse_grad(x, "permute_ring", ONESIDED_NO_GRAD)
         return onesided_ring_permute(x, shift)
     return torch.roll(x, shift, dims=0)
 
@@ -286,14 +311,24 @@ def _record_rank(op: str, x: torch.Tensor, backend: str, ctx) -> None:
                           backend, t, t))
 
 
-def _check_rank_value(x: torch.Tensor, ctx, what: str) -> None:
+# why the one-sided routes refuse a value that needs a gradient
+ONESIDED_NO_GRAD = ("the one-sided route has no derivative (the "
+                    "reference's Pallas put has none: jax.grad fails "
+                    "inside it); train with backend='bulk', or run under "
+                    "torch.no_grad()")
+# why the rank ring permute and row fetch do
+RANK_NO_GRAD = ("over processes it carries no gradient back to the ranks "
+                "that sent it (only all_reduce, all_gather, and the bulk "
+                "all_to_all and reduce_scatter do); run under "
+                "torch.no_grad()")
+
+
+def _refuse_grad(x: torch.Tensor, what: str, why: str) -> None:
     if torch.is_grad_enabled() and x.requires_grad:
-        raise RuntimeError(
-            f"{what}: this rank's value needs a gradient, and a collective "
-            f"over processes carries none back to the ranks that sent it; "
-            f"training over processes is not ported yet (run under "
-            f"torch.no_grad(), or on the simulated ranks of a "
-            f"ParallelContext)")
+        raise RuntimeError(f"{what}: the value needs a gradient, and {why}")
+
+
+def _check_rank_value(x: torch.Tensor, ctx, what: str) -> None:
     if x.device != ctx.device:
         raise ValueError(f"{what}: this rank's value is on {x.device}, its "
                          f"context on {ctx.device}")
@@ -309,8 +344,138 @@ def _symmetric(ctx, name: str, x: torch.Tensor):
 
 def _a2a_group(x: torch.Tensor, ctx) -> torch.Tensor:
     out = torch.empty_like(x)
-    dist.all_to_all_single(out, x, group=ctx.group)
+    dist.all_to_all_single(out, x.contiguous(), group=ctx.group)
     return out
+
+
+def _gather_group(x: torch.Tensor, axis: int, tiled: bool,
+                  ctx) -> torch.Tensor:
+    out = torch.empty((ctx.world,) + tuple(x.shape), dtype=x.dtype,
+                      device=x.device)
+    _oa.all_gather_into(out, x.contiguous(), ctx.group)
+    parts = out.unbind(0)
+    return torch.cat(parts, dim=axis) if tiled else torch.stack(parts,
+                                                                dim=axis)
+
+
+def _reduce_group(x: torch.Tensor, backend: str, ctx) -> torch.Tensor:
+    x = x.contiguous()
+    if backend == "onesided":
+        return _oa.onesided_all_reduce_rank(x, ctx.rank, ctx.group,
+                                            _symmetric(ctx, "send", x))
+    out = x.clone()
+    dist.all_reduce(out, group=ctx.group)
+    return out
+
+
+def _scatter_group(x: torch.Tensor, emulate_with_a2a: bool,
+                   ctx) -> torch.Tensor:
+    if emulate_with_a2a:
+        return _a2a_group(x, ctx).sum(dim=0, dtype=x.dtype)
+    out = torch.empty(tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
+    _oa.reduce_scatter_into(out, x.contiguous(), ctx.group)
+    return out
+
+
+def _own_slice(g: torch.Tensor, axis: int, tiled: bool, n: int,
+               rank: int) -> torch.Tensor:
+    """This rank's part of an all-gathered value's cotangent."""
+    if tiled:
+        return g.narrow(axis, rank * n, n).contiguous()
+    return g.select(axis, rank).contiguous()
+
+
+class _AllReduce(torch.autograd.Function):
+    """The sum of every rank's ``x``; the backward is the identity (every
+    rank's partial takes the whole cotangent of the replicated sum)."""
+
+    @staticmethod
+    def forward(fctx, x, backend, ctx):
+        return _reduce_group(x, backend, ctx)
+
+    @staticmethod
+    def backward(fctx, g):
+        return g, None, None
+
+
+class _AllGather(torch.autograd.Function):
+    """Every rank's ``x`` stacked or concatenated along ``axis``; the
+    backward takes this rank's part of the replicated cotangent."""
+
+    @staticmethod
+    def forward(fctx, x, axis, tiled, ctx):
+        fctx.args = (axis % (x.dim() + (0 if tiled else 1)), tiled,
+                     x.shape[axis] if tiled else 1, ctx.rank)
+        return _gather_group(x, axis, tiled, ctx)
+
+    @staticmethod
+    def backward(fctx, g):
+        axis, tiled, n, rank = fctx.args
+        return _own_slice(g, axis, tiled, n, rank), None, None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    """The bulk all-to-all; the backward sends each cotangent chunk back
+    to the rank that sent the chunk (the same all-to-all)."""
+
+    @staticmethod
+    def forward(fctx, x, ctx):
+        fctx.ctx = ctx
+        return _a2a_group(x, ctx)
+
+    @staticmethod
+    def backward(fctx, g):
+        return _a2a_group(g, fctx.ctx), None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """The bulk reduce-scatter; the backward all-gathers the cotangents:
+    this rank's chunk for rank d takes rank d's."""
+
+    @staticmethod
+    def forward(fctx, x, emulate_with_a2a, ctx):
+        fctx.ctx = ctx
+        return _scatter_group(x, emulate_with_a2a, ctx)
+
+    @staticmethod
+    def backward(fctx, g):
+        return _gather_group(g, 0, False, fctx.ctx), None, None
+
+
+class _Split(torch.autograd.Function):
+    """This rank's slice of a value every rank holds alike (the whole
+    value with ``axis`` None); the backward all-gathers the ranks'
+    cotangents along ``axis`` (sums them)."""
+
+    @staticmethod
+    def forward(fctx, x, axis, ctx):
+        fctx.axis, fctx.ctx = axis, ctx
+        if axis is None:
+            return x.view_as(x)
+        n = x.shape[axis] // ctx.world
+        return x.narrow(axis, ctx.rank * n, n).contiguous()
+
+    @staticmethod
+    def backward(fctx, g):
+        if fctx.axis is None:
+            return _reduce_group(g, "bulk", fctx.ctx), None, None
+        return _gather_group(g, fctx.axis, True, fctx.ctx), None, None
+
+
+def split(x: torch.Tensor, *, axis: Optional[int] = None,
+          ctx) -> torch.Tensor:
+    """The entry of ``x``, which every rank of ``ctx`` (a
+    ``ProcessContext``) holds alike, into a computation each rank runs on
+    its own share: this rank's ``1/E`` slice along ``axis`` (E must
+    divide it), or with ``axis`` None the whole ``x``.  The forward sends
+    nothing; under grad the backward all-gathers the ranks' cotangents
+    along ``axis`` (sums them over the group), so the gradient upstream
+    is the same on every rank -- the transpose of the reference's
+    ``shard_map`` in_specs ``P(..., tp)`` (``P()``)."""
+    if axis is not None and x.shape[axis] % ctx.world:
+        raise ValueError(f"split: {ctx.world} ranks do not divide axis "
+                         f"{axis} of {tuple(x.shape)}")
+    return _Split.apply(x, axis, ctx)
 
 
 def _rank_all_to_all(x: torch.Tensor, backend: str, ctx) -> torch.Tensor:
@@ -321,33 +486,23 @@ def _rank_all_to_all(x: torch.Tensor, backend: str, ctx) -> torch.Tensor:
                          f"{tuple(x.shape)}")
     x = x.contiguous()
     if backend == "onesided":
+        _refuse_grad(x, "all_to_all", ONESIDED_NO_GRAD)
         return _oa.onesided_all_to_all_rank(x, ctx.rank, ctx.group,
                                             _symmetric(ctx, "recv", x))
-    return _a2a_group(x, ctx)
+    return _AllToAll.apply(x, ctx)
 
 
 def _rank_all_gather(x: torch.Tensor, axis: int, tiled: bool,
                      backend: str, ctx) -> torch.Tensor:
     _check_rank_value(x, ctx, "all_gather")
     _record_rank("all_gather", x, backend, ctx)
-    out = torch.empty((ctx.world,) + tuple(x.shape), dtype=x.dtype,
-                      device=x.device)
-    _oa.all_gather_into(out, x.contiguous(), ctx.group)
-    parts = out.unbind(0)
-    return torch.cat(parts, dim=axis) if tiled else torch.stack(parts,
-                                                                dim=axis)
+    return _AllGather.apply(x, axis, tiled, ctx)
 
 
 def _rank_all_reduce(x: torch.Tensor, backend: str, ctx) -> torch.Tensor:
     _check_rank_value(x, ctx, "all_reduce")
     _record_rank("all_reduce", x, backend, ctx)
-    x = x.contiguous()
-    if backend == "onesided":
-        return _oa.onesided_all_reduce_rank(x, ctx.rank, ctx.group,
-                                            _symmetric(ctx, "send", x))
-    out = x.clone()
-    dist.all_reduce(out, group=ctx.group)
-    return out
+    return _AllReduce.apply(x, backend, ctx)
 
 
 def _rank_reduce_scatter(x: torch.Tensor, backend: str,
@@ -359,18 +514,16 @@ def _rank_reduce_scatter(x: torch.Tensor, backend: str,
                          f"got {tuple(x.shape)}")
     x = x.contiguous()
     if backend == "onesided":
+        _refuse_grad(x, "reduce_scatter", ONESIDED_NO_GRAD)
         return _oa.onesided_reduce_scatter_rank(
             x, ctx.rank, ctx.group, _symmetric(ctx, "send", x))
-    if emulate_with_a2a:
-        return _a2a_group(x, ctx).sum(dim=0, dtype=x.dtype)
-    out = torch.empty(tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
-    _oa.reduce_scatter_into(out, x, ctx.group)
-    return out
+    return _ReduceScatter.apply(x, emulate_with_a2a, ctx)
 
 
 def _rank_permute_ring(x: torch.Tensor, shift: int, backend: str,
                        ctx) -> torch.Tensor:
     _check_rank_value(x, ctx, "permute_ring")
+    _refuse_grad(x, "permute_ring", RANK_NO_GRAD)
     _record_rank("permute", x, backend, ctx)
     x = x.contiguous()
     if backend == "onesided":
@@ -443,6 +596,7 @@ def fetch_rows(shards: torch.Tensor, local_addr: torch.Tensor,
     contribs = shards[ranks[:, None, None], safe]    # (H_src, H_dst, M, D)
     contribs.mul_(mine[..., None].to(shards.dtype))
     if backend == "onesided":
+        _refuse_grad(contribs, "fetch_rows", ONESIDED_NO_GRAD)
         return onesided_fetch_rows(contribs)[0]
     return contribs.sum(dim=0)[0]
 
@@ -450,6 +604,7 @@ def fetch_rows(shards: torch.Tensor, local_addr: torch.Tensor,
 def _rank_fetch_rows(shard: torch.Tensor, local_addr: torch.Tensor,
                      owner: torch.Tensor, backend: str, ctx) -> torch.Tensor:
     _check_rank_value(shard, ctx, "fetch_rows")
+    _refuse_grad(shard, "fetch_rows", RANK_NO_GRAD)
     if shard.dim() != 2:
         raise ValueError(f"fetch_rows: this rank's shard must be "
                          f"(rows_local, D), got {tuple(shard.shape)}")

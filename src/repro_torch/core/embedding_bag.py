@@ -36,7 +36,10 @@ When each rank is a process (``core.parallel.ProcessContext``),
 own on its device (:class:`RankShard`), and :func:`pooled_lookup_sharded`
 runs the same bodies for this rank alone (``_local_ranks``), the
 collectives over the process group (``comm``'s ``ctx=``); it returns
-what this rank holds.  A rank's result is therefore bitwise the
+what this rank holds.  Under grad a rank's shard trains: every route
+but the one-sided all-to-all pipeline (whose puts have no derivative,
+in the reference either) carries the gradient back to each rank's rows.
+A rank's result is therefore bitwise the
 simulated one wherever the collectives move or add in the same order:
 everywhere but the bulk all-reduce and reduce-scatter, which take the
 group's order (gloo's, NCCL's).  Two f32 orders of E terms differ by at
@@ -210,7 +213,12 @@ class ShardedTables:
 class RankShard:
     """This process's shard of the stacked ``(T, R, D)`` tables, when each
     rank is a process: ``local`` is what :meth:`ShardedTables.shard` gives
-    for this rank, an allocation of its own on the rank's device."""
+    for this rank, an allocation of its own on the rank's device.  A
+    ``local`` that needs a gradient trains: :func:`pooled_lookup_sharded`
+    under grad runs through the TBE autograd functions of
+    ``kernels/ops.py`` and the differentiable rank collectives of
+    ``core/comm.py``, and ``local.grad`` gets this rank's rows of the
+    tables' gradient."""
 
     sharding: str
     ctx: ProcessContext
@@ -275,7 +283,10 @@ def shard_for_rank(tables: torch.Tensor, cfg: EmbeddingBagConfig,
     ``(T, R, D/E)`` columns, ``(T/E, R, D)`` tables or the full tables,
     copied onto the rank's device (also when the slice is contiguous or
     already there: the rank holds its shard, never a view of memory it
-    does not own).  Raises as :func:`shard_tables` does."""
+    does not own).  Its ``local`` trains once it needs a gradient
+    (``shard.local.requires_grad_()``; tables that need one themselves
+    get this rank's rows of it back through the copy).  Raises as
+    :func:`shard_tables` does."""
     _check_divides(cfg.sharding, tables.shape, ctx.world)
     T, R, D = tables.shape
     E, r = ctx.world, ctx.rank

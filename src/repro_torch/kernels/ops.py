@@ -277,6 +277,11 @@ def _flat_rows(tables: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     table) is such a strided view, so it is read in place; any other layout
     is copied first."""
     T, R, D = tables.shape
+    if tables.is_contiguous():
+        # a view autograd takes back as one: a rank's own shard, a leaf
+        # under training, gets its gradient without an as_strided scatter
+        return (tables.view(T * R, D),
+                torch.arange(T, device=tables.device, dtype=torch.int32) * R)
     if tables.stride(2) != 1 or tables.stride(1) != D \
             or tables.stride(0) % max(D, 1):
         tables = tables.contiguous()

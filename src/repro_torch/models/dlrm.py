@@ -6,7 +6,8 @@ model axis (``core/embedding_bag.pooled_lookup_sharded``); with a
 ``ProcessContext`` this process is one rank of the axis: it pools over its
 own shard, the dense MLPs are replicated, the batch is replicated over the
 model axis, and every rank returns the same (B,) logits (the reference's
-``out_specs=P(dp, None, None)``).
+``out_specs=P(dp, None, None)``); under grad each rank's shard trains
+(:func:`bce_loss`).
 Parameters are a plain dict of tensors in the reference's layout,
 ``{"tables": (T, R, D), "bottom": [{"w": (in, out), "b": (out,)}, ...],
 "top": [...]}``, applied as ``x @ w + b``, so weights carry across from the
@@ -131,7 +132,20 @@ def forward(params, dense: torch.Tensor, batch: JaggedBatch,
 
 def bce_loss(params, dense, batch: JaggedBatch, labels: torch.Tensor,
              cfg: DLRMConfig,
-             ctx: Optional[ParallelContext] = None) -> torch.Tensor:
+             ctx: Optional[ParallelContext | ProcessContext] = None
+             ) -> torch.Tensor:
+    """The mean binary cross-entropy of the logits of :func:`forward`
+    over the batch.  Under grad it trains whatever needs a gradient: the
+    tables (stacked, sharded, or a rank's ``RankShard`` whose ``local``
+    is a leaf) and the MLP leaves.  Under a ``ProcessContext`` every rank
+    scores the whole batch from the pooled vectors the ranks hold alike,
+    so every rank computes the same loss: the MLPs' gradients are the
+    whole batch's on every rank (nothing to sum), and each rank's shard
+    gets its rows of the tables' gradient (``core/comm.py``'s rank
+    collectives under grad).  The one-sided all-to-all pipeline
+    (``rw_impl="a2a", rw_backend="onesided"``) has no derivative, as in
+    the reference: with tables that need a gradient it raises
+    ``RuntimeError``, on simulated ranks and processes alike."""
     logit = forward(params, dense, batch, cfg, ctx)
     z = torch.nn.functional.logsigmoid(logit)
     zn = torch.nn.functional.logsigmoid(-logit)

@@ -33,16 +33,22 @@ from repro_torch.kernels.flash_attention import (  # noqa: F401
 # ---------------------------------------------------------------------------
 
 def stacked_init(gen: torch.Generator, n: int, shape, fan_in: int, *,
-                 dtype=torch.float32, device=None) -> torch.Tensor:
+                 dtype=torch.float32, device=None,
+                 keep: Optional[slice] = None) -> torch.Tensor:
     """(n, *shape) truncated-normal (-2, 2) draws scaled by
     ``fan_in ** -0.5``, drawn one layer at a time in f32 so the
-    temporaries stay one layer's size."""
+    temporaries stay one layer's size.  With ``keep`` (a slice of
+    ``shape``'s first axis) each layer is drawn whole and only that part
+    of it kept: the whole stack's values there, from the same draws."""
     shape = tuple(shape)
-    out = torch.empty((n,) + shape, dtype=dtype, device=device)
+    kept = shape if keep is None else \
+        (len(range(shape[0])[keep]),) + shape[1:]
+    out = torch.empty((n,) + kept, dtype=dtype, device=device)
     tmp = torch.empty(shape, dtype=torch.float32, device=device)
+    part = tmp if keep is None else tmp[keep]
     for i in range(n):
         torch.nn.init.trunc_normal_(tmp, 0.0, 1.0, -2.0, 2.0, generator=gen)
-        out[i] = tmp.mul_(fan_in ** -0.5)
+        out[i] = part.mul_(fan_in ** -0.5)
     return out
 
 

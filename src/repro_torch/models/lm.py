@@ -40,8 +40,11 @@ mesh does: it looks every token up through its ``RankShard`` of the
 vocabulary (one all-reduce of the partials), dispatches its slice of the
 sequence (or, when the ranks do not divide it, every token) to the
 owners of its experts and all-gathers the outputs along the sequence,
-and computes everything else whole.  No grad: the rank collectives carry
-no gradient (``core/comm.py``).
+and computes everything else whole.  Under grad every rank computes the
+same loss and the rank collectives carry the gradient back to each
+rank's share (``core/comm.py``): its rows of the vocabulary, its
+experts, its tokens' part of the routers and the shared experts
+(``train/step.py`` sums those over the ranks).
 Serving ignores the MTP head, as the reference does; its loss is LM
 training's (``train/step.lm_loss``).
 
@@ -182,11 +185,14 @@ def _init_gqa(gen, n, cfg: ModelConfig, dtype, device):
 
 
 def _init_block_stack(gen, n, cfg: ModelConfig, dtype, device, *,
-                      with_moe=False, with_mamba=False, with_cross=False):
+                      with_moe=False, with_mamba=False, with_cross=False,
+                      experts=None):
     """One stack of ``n`` layers: norms, attention (GQA or MLA), with
     ``with_mamba`` the Mamba heads and their output norms, with
     ``with_cross`` the cross attention ``cross`` and its norm
-    ``ln_cross``, then the FFN or (with ``with_moe``) the MoE block."""
+    ``ln_cross``, then the FFN or (with ``with_moe``) the MoE block,
+    holding only the ``experts`` slice of its experts when one is
+    given."""
     init_attn = mla.init_mla_params if cfg.attention == "mla" else _init_gqa
     d = cfg.d_model
     p: Dict[str, Any] = {
@@ -202,7 +208,8 @@ def _init_block_stack(gen, n, cfg: ModelConfig, dtype, device, *,
         p["cross"] = _init_gqa(gen, n, cfg, dtype, device)
         p["ln_cross"] = _init_norm(n, d, cfg, dtype, device)
     if with_moe:
-        p["moe"] = moe_mod.init_moe_params(gen, n, cfg, dtype, device)
+        p["moe"] = moe_mod.init_moe_params(gen, n, cfg, dtype, device,
+                                           experts)
     else:
         p["ffn"] = layers.init_ffn(gen, n, cfg.d_model, cfg.d_ff,
                                    gated=cfg.gated_ffn, dtype=dtype,
@@ -211,8 +218,8 @@ def _init_block_stack(gen, n, cfg: ModelConfig, dtype, device, *,
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig, *, tp_size: int = 1,
-                dtype: Optional[torch.dtype] = None,
-                device=None) -> Dict[str, Any]:
+                dtype: Optional[torch.dtype] = None, device=None,
+                ctx: Optional[ProcessContext] = None) -> Dict[str, Any]:
     """Random parameters on ``device`` (None: the card), drawn from
     ``gen`` (a generator on that device) one layer at a time:
     ``{"embed" (1, Vp, d), "final_norm", "head" (d, Vp) unless tied}``
@@ -232,18 +239,43 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *, tp_size: int = 1,
     ``cfg.mtp_depth``, ``"mtp": {"proj" (2d, d), "norm_h", "norm_e",
     "block"}``, one dense layer, as the reference builds it.  The draws are ``torch.Generator``'s, not
     ``jax.random``'s: tests convert the reference's parameters
-    instead."""
+    instead.
+
+    With ``ctx`` (a ``ProcessContext``; ``tp_size`` is its world, and
+    ``device`` its device unless given) this rank's parameters, as
+    ``utils/convert.lm_params_for_rank`` cuts them from the whole ones,
+    from the same draws: the table's rows and each layer's experts are
+    drawn whole, one at a time, and only the rank's part is kept, so a
+    rank never holds the whole table or expert stacks (a tied head
+    aside, which keeps the whole table)."""
     _require_ported(cfg)
-    device = resolve_device(device)
     dtype = dtype or torch_dtype(cfg.dtype)
+    experts = rows = None
+    if ctx is not None:
+        device = ctx.device if device is None else device
+        tp_size, E, r = ctx.world, ctx.world, ctx.rank
+        if cfg.is_moe and cfg.num_experts % E:
+            raise ValueError(f"{cfg.num_experts} experts do not divide "
+                             f"over {E} ranks")
+        el = cfg.num_experts // E if cfg.is_moe else 0
+        experts = slice(r * el, (r + 1) * el)
+        if cfg.vocab_sharding != "replicated":
+            n = padded_vocab(cfg, E) // E
+            rows = slice(r * n, (r + 1) * n)
+    device = resolve_device(device)
     Vp, d = padded_vocab(cfg, tp_size), cfg.d_model
     embed = torch.empty((1, Vp, d), dtype=dtype, device=device)
     tmp = torch.empty((Vp, d), dtype=torch.float32, device=device)
     embed[0] = tmp.normal_(generator=gen).mul_(d ** -0.5)
     del tmp
-    params: Dict[str, Any] = {"embed": embed,
-                              "final_norm": _init_norm(1, d, cfg, dtype,
+    params: Dict[str, Any] = {"final_norm": _init_norm(1, d, cfg, dtype,
                                                        device)}
+    if cfg.tie_embeddings and ctx is not None:
+        params["head"] = embed[0].T
+    if rows is not None:
+        embed = RankShard(cfg.vocab_sharding, ctx, embed[:, rows].clone(),
+                          (1, Vp, d))
+    params = {"embed": embed, **params}
     if not cfg.tie_embeddings:
         params["head"] = layers.stacked_dense_init(
             gen, 1, d, Vp, dtype=dtype, device=device)[0]
@@ -257,7 +289,7 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *, tp_size: int = 1,
             params[name] = _init_block_stack(
                 gen, n, cfg, dtype, device, with_moe=name == "moe_blocks",
                 with_mamba=cfg.family == "hybrid",
-                with_cross=cfg.family == "audio")
+                with_cross=cfg.family == "audio", experts=experts)
     if cfg.family == "audio":
         params["enc_blocks"] = _init_block_stack(gen, cfg.encoder_layers,
                                                  cfg, dtype, device)
@@ -514,7 +546,12 @@ def _moe_apply(p_moe, h, cfg: ModelConfig,
     of an assignment reaches the owner's buckets after the copies of the
     ranks before it, and past a capacity it is dropped): every rank
     takes rank 0's output, as the simulated ranks do, through the same
-    all-gather."""
+    all-gather.  Under grad the tokens enter through ``comm.split``, whose
+    backward all-gathers the slices' cotangents (sums the copies'), and
+    the all-gather's backward hands each rank its slice (rank 0 alone the
+    output's cotangent when every rank dispatched every token): the
+    router and the shared experts then hold this rank's share of their
+    gradient, which the train step sums over the ranks."""
     B, S, d = h.shape
     if check_context(ctx) is None:
         out, aux = moe_mod.moe_ffn(p_moe, h.reshape(-1, d), cfg)
@@ -522,10 +559,10 @@ def _moe_apply(p_moe, h, cfg: ModelConfig,
     E = ctx.tp_size
     seq = S % E == 0
     if isinstance(ctx, ProcessContext):
-        if seq:          # this rank: rows [r S/E, (r + 1) S/E) of each sample
-            x = h.reshape(B, E, S // E, d)[:, ctx.rank].reshape(-1, d)
-        else:
-            x = h.reshape(B * S, d)
+        # this rank: rows [r S/E, (r + 1) S/E) of each sample, or all of
+        # them; under grad the split's backward gathers (sums) the ranks'
+        # cotangents, so the gradient upstream is the same on every rank
+        x = comm.split(h, axis=1 if seq else None, ctx=ctx).reshape(-1, d)
         out, aux = moe_mod.moe_ffn_ep_rank(p_moe, x, cfg, ctx)
         if seq:
             return comm.all_gather(out.reshape(B, S // E, d), axis=1,

@@ -58,6 +58,15 @@ a ``ProcessContext``: ``x`` (N, d) this rank's tokens, ``p`` its own
 experts; the load statistics and the drops go through the group's
 all-reduce and the rows through its all-to-all (``core/comm.py``).  Both
 run the same bucketing and expert helpers, over E stacked ranks or one.
+
+Under grad a rank's tokens have three uses -- the router, the dispatch,
+the shared experts -- and their cotangents meet in ``x``'s gradient.
+Autograd adds them in the order its engine delivers them, which is not
+the same over the stacked ranks as in a rank's process, and in bf16
+each addition rounds (on moonshot's layers the token cotangents then
+differed by ~3e-3 relative L2, and everything upstream with them).  So
+both paths take the tokens through :class:`_FanOut`, whose backward adds
+the uses' cotangents in f32 in one fixed order and rounds once.
 """
 from __future__ import annotations
 
@@ -79,23 +88,25 @@ CHUNK_ROWS = 4096
 # ---------------------------------------------------------------------------
 
 def init_moe_params(gen: torch.Generator, n_layers: int, cfg: ModelConfig,
-                    dtype=torch.float32, device=None):
+                    dtype=torch.float32, device=None, experts=None):
     """Stacked (n_layers, ...) MoE block params, the reference's layout:
     ``router`` (n, d, E) in float32 whatever ``dtype`` (drawn in ``dtype``
     first, as the reference rounds it), ``gate``/``up`` (n, E, d, f),
     ``down`` (n, E, f, d) and ``shared.{gate, up, down}`` at
-    f * num_shared_experts."""
+    f * num_shared_experts.  With ``experts`` (a slice of the expert
+    ids) the expert stacks hold only those experts, from the whole
+    stacks' draws."""
     d, f, E = cfg.d_model, cfg.moe_d_ff, cfg.num_experts
 
-    def stack(shape, fan_in):
+    def stack(shape, fan_in, keep=None):
         # one layer's f32 temporary at most: (E, d, f), 0.74 GB at moonshot
         return layers.stacked_init(gen, n_layers, shape, fan_in,
-                                   dtype=dtype, device=device)
+                                   dtype=dtype, device=device, keep=keep)
 
     p = {"router": stack((d, E), d).float(),
-         "gate": stack((E, d, f), d),
-         "up": stack((E, d, f), d),
-         "down": stack((E, f, d), f)}
+         "gate": stack((E, d, f), d, experts),
+         "up": stack((E, d, f), d, experts),
+         "down": stack((E, f, d), f, experts)}
     if cfg.num_shared_experts:
         fs = f * cfg.num_shared_experts
         p["shared"] = {"gate": stack((d, fs), d), "up": stack((d, fs), d),
@@ -196,6 +207,31 @@ def moe_ffn(p, x: torch.Tensor, cfg: ModelConfig):
 # Each helper takes the assignments of R ranks at once, stacked on a
 # leading axis: R = E over the simulated ranks, R = 1 for one rank's own.
 
+class _FanOut(torch.autograd.Function):
+    """``n`` aliases of ``x``, one for each of its uses (a rank's tokens'
+    three, or a replicated weight's E ranks); the backward adds the uses'
+    cotangents in f32 in the aliases' order and rounds once to
+    ``x.dtype``, whatever order autograd delivers them in."""
+
+    @staticmethod
+    def forward(fctx, x, n):
+        return tuple(x.view_as(x) for _ in range(n))
+
+    @staticmethod
+    def backward(fctx, *gs):
+        acc = gs[0].float()
+        for g in gs[1:]:
+            acc = acc + g.float()
+        return acc.to(gs[0].dtype), None
+
+
+def _token_uses(x: torch.Tensor, shared: bool):
+    """(router's, dispatch's, shared experts' or None) aliases of a rank's
+    tokens ``x`` (:class:`_FanOut`)."""
+    uses = _FanOut.apply(x, 3 if shared else 2)
+    return uses if shared else (*uses, None)
+
+
 def _ep_sizes(cfg: ModelConfig, E: int, N: int):
     """(experts a rank, cap1, cap2) of E ranks of N tokens each; raises
     ``ValueError`` when E does not divide the experts, where the
@@ -282,18 +318,26 @@ def moe_ffn_ep(p, x: torch.Tensor, cfg: ModelConfig):
     E, N, d = x.shape
     k = cfg.experts_per_token
     el, cap1, cap2 = _ep_sizes(cfg, E, N)
-    xf = x.reshape(E * N, d)
 
     # each rank routes its own tokens (a GEMM of its N rows, as a rank
     # computes it); the load statistics are the sums of the ranks' sums,
     # in rank order (the reference's psum)
-    routed = [router_topk(x[r], p["router"], k) for r in range(E)]
+    uses = [_token_uses(x[r], "shared" in p) for r in range(E)]
+    # the router and the shared experts serve every rank, each on its own
+    # tokens: their gradient is the ranks' added in f32 in rank order and
+    # rounded once, as ranks as processes add theirs (train/step.py)
+    router = _FanOut.apply(p["router"], E)
+    shared = [dict(zip(p["shared"], ws)) for ws in zip(*(
+        _FanOut.apply(v, E) for v in p["shared"].values()))] \
+        if "shared" in p else None
+    routed = [router_topk(uses[r][0], router[r], k) for r in range(E)]
     w = torch.cat([r[0] for r in routed])
     topi = torch.cat([r[1] for r in routed])
     aux = aux_loss(tuple(torch.stack(s).sum(0)
                          for s in zip(*(r[2] for r in routed))))
     (b_tok, b_el), slot1, drop1 = _bucket_by_owner(
         topi.reshape(E, N * k).long(), N, k, E, el, cap1)
+    xf = torch.stack([u[1] for u in uses]).reshape(E * N, d)
     send_x = xf[b_tok.reshape(-1)].reshape(E, E, cap1, d)
     recv_x = comm.all_to_all(send_x)                     # (E_dst, E_src, ...)
     recv_el = comm.all_to_all(b_el.reshape(E, E, cap1))
@@ -305,7 +349,8 @@ def moe_ffn_ep(p, x: torch.Tensor, cfg: ModelConfig):
         slot1, ret.reshape(E * E, cap1, d)).reshape(E * N, k, d)
     out = _combine(contrib, w, x.dtype)
     if "shared" in p:           # a rank's rows a GEMM, as above
-        out = out + torch.cat([_shared_out(p, x[r], cfg.activation)
+        out = out + torch.cat([_shared_out({"shared": shared[r]},
+                                           uses[r][2], cfg.activation)
                                for r in range(E)])
     dropped = drop1.to(torch.int32) + drop2
     return out.reshape(E, N, d), {"moe_aux": aux, "moe_dropped": dropped}
@@ -335,18 +380,20 @@ def moe_ffn_ep_rank(p, x: torch.Tensor, cfg: ModelConfig, ctx):
             f"this rank's MoE parameters hold {p['gate'].shape[0]} experts, "
             f"not its {el}: cut them with "
             f"utils.convert.lm_params_for_rank(params, cfg, ctx)")
-    w, topi, (top1, prob_sum, n) = router_topk(x, p["router"], k)
+    x_router, x_send, x_shared = _token_uses(x, "shared" in p)
+    w, topi, (top1, prob_sum, n) = router_topk(x_router, p["router"], k)
     stats = comm.all_reduce(torch.cat([top1, prob_sum, n[None]]), ctx=ctx)
     aux = aux_loss((stats[:n_exp], stats[n_exp:2 * n_exp], stats[-1]))
     (b_tok, b_el), slot1, drop1 = _bucket_by_owner(
         topi.reshape(1, N * k).long(), N, k, E, el, cap1)
-    recv_x = comm.all_to_all(x[b_tok.reshape(-1)].reshape(E, cap1, d),
+    recv_x = comm.all_to_all(x_send[b_tok.reshape(-1)].reshape(E, cap1, d),
                              ctx=ctx)                    # (E_src, cap1, d)
     recv_el = comm.all_to_all(b_el.reshape(E, cap1), ctx=ctx)
     back, drop2 = _expert_ffn(p, recv_x[None], recv_el[None], el, cap2, cfg)
     ret = comm.all_to_all(back.reshape(E, cap1, d), ctx=ctx)
     contrib = routing.gather_from_buckets(slot1, ret).reshape(N, k, d)
-    out = _combine(contrib, w, x.dtype) + _shared_out(p, x, cfg.activation)
+    out = _combine(contrib, w, x.dtype) + _shared_out(p, x_shared,
+                                                      cfg.activation)
     dropped = comm.all_reduce(
         (drop1.to(torch.int32) + drop2).reshape(1), ctx=ctx)[0]
     return out, {"moe_aux": aux, "moe_dropped": dropped}

@@ -20,13 +20,14 @@ from typing import Any, Dict, Iterator, Tuple
 import torch
 
 from repro_torch.configs.base import TrainConfig
+from repro_torch.core import comm
 from repro_torch.optim.quant import (
     QuantizedTensor,
     dequantize_blockwise,
     quantize_blockwise,
     zeros_quantized,
 )
-from repro_torch.utils.tree import leaves, map_leaves
+from repro_torch.utils.tree import flatten_with_paths, leaves, map_leaves
 
 # the f32 elements of one slice of the update and of the global norm
 CHUNK_ELEMS = 1 << 25
@@ -82,17 +83,36 @@ def _rows(t: torch.Tensor) -> torch.Tensor:
     return t.reshape(-1, t.shape[-1] if t.dim() else 1)
 
 
-def global_norm(tree) -> torch.Tensor:
+def _square_sums(x: torch.Tensor) -> Iterator[torch.Tensor]:
+    r = _rows(x)
+    for a, b in _row_slices(x.shape):
+        yield r[a:b].float().square().sum()
+
+
+def global_norm(tree, *, ctx=None, sharded=frozenset()) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in f32, by slices: the
     reference's ``sum(square(x.astype(f32)))``.  (The CPU's f32
     ``vector_norm`` of a 2**25-element slice drifts far from the exact
     value, so the card's clip differed from the CPU's; ``sum`` is
-    pairwise on the CPU and a tree on the card.)"""
+    pairwise on the CPU and a tree on the card.)
+
+    With ``ctx`` (a ``ProcessContext``), the whole model's norm over the
+    ranks: the leaves whose paths are in ``sharded`` are this rank's
+    share of a leaf cut over the ranks; each one's sum of squares (its
+    slices in order) is all-reduced over the group, all of them in one
+    collective, and enters the total in its leaf's place, while a
+    replicated leaf's slices enter as above, once.  Only the sharded
+    leaves' sums differ from one device's, in their order of addition."""
     total = None
-    for x in leaves(tree):
-        r = _rows(x)
-        for a, b in _row_slices(x.shape):
-            sq = r[a:b].float().square().sum()
+    pairs = flatten_with_paths(tree)
+    whole = {}
+    if ctx is not None and sharded:
+        mine = [sum(_square_sums(x)) for p, x in pairs if p in sharded]
+        if mine:
+            summed = comm.all_reduce(torch.stack(mine), ctx=ctx).unbind(0)
+            whole = dict(zip([p for p, _ in pairs if p in sharded], summed))
+    for path, x in pairs:
+        for sq in ([whole[path]] if path in whole else _square_sums(x)):
             total = sq if total is None else total + sq
     return torch.sqrt(total)
 
@@ -126,14 +146,19 @@ class _Moment:
 
 
 @torch.no_grad()
-def adamw_update(grads, state, params, tc: TrainConfig):
+def adamw_update(grads, state, params, tc: TrainConfig, *, ctx=None,
+                 sharded=frozenset()):
     """One step: clip by the global norm, AdamW with bias correction,
     decay on ``ndim >= 2`` leaves.  Writes ``params`` and ``state`` (``m``,
     ``v``, ``step``) in place; returns ``(params, state, {"grad_norm",
-    "lr"})``, the metrics 0-dim f32 tensors."""
+    "lr"})``, the metrics 0-dim f32 tensors.  With ``ctx`` (a
+    ``ProcessContext``) the parameters are this rank's, ``sharded`` the
+    paths of the leaves cut over the ranks: the clip takes the whole
+    model's norm (:func:`global_norm`), and each rank updates its own
+    share."""
     _check_dtype(tc.optimizer_state_dtype)
     step = state["step"]
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, ctx=ctx, sharded=sharded)
     clip = torch.clamp(tc.grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
     lr = cosine_schedule(step, tc)
     b1, b2 = tc.beta1, tc.beta2

@@ -18,8 +18,20 @@ ranks (``train/step.py``) and the state's vocabulary is padded to a
 multiple of its model axis, as the reference's.  The reference's
 ``state_shardings`` (leaves placed on a device mesh, also when a
 checkpoint is restored) has no counterpart: one card holds the state
-whole.  A ``ProcessContext`` raises ``TypeError``: training over
-processes is not ported yet.
+whole.
+
+Under a ``ProcessContext`` each rank is a process: every rank draws its
+share of the initial state from the seed (``train/step.init_train_state``
+with the context, on its own device: a card's generator draws what the
+simulated ranks' draws on that card, and a rank keeps only its rows of
+the table and its experts), and restores its share of a checkpoint when
+there is one; every rank takes the same batches from its ``data`` (pass
+each the same seeded iterator), and rank 0 alone calls ``on_metrics``.
+A checkpoint is the one the Trainer writes on one device, the whole
+state: rank 0 receives each cut leaf's shares on the host and writes
+(``checkpoint.store.save`` with the context).  So a run resumes
+bitwise, and a checkpoint written under processes restores under
+``make_context(E)`` and the other way round.
 """
 from __future__ import annotations
 
@@ -30,11 +42,14 @@ from typing import Callable, Dict, Iterator, Optional
 import numpy as np
 import torch
 
+import torch.distributed as dist
+
 from repro_torch import checkpoint as ckpt
 from repro_torch.configs.base import ModelConfig, TrainConfig
-from repro_torch.core.parallel import ParallelContext
+from repro_torch.core.parallel import ParallelContext, ProcessContext
 from repro_torch.train.step import (check_train_context, init_train_state,
-                                    make_train_step)
+                                    make_train_step, rank_tensors)
+from repro_torch.utils.convert import rank_sharded_paths
 from repro_torch.utils.device import resolve_device
 
 
@@ -42,10 +57,19 @@ class Trainer:
     def __init__(self, cfg: ModelConfig, tc: TrainConfig,
                  data: Iterator[Dict[str, np.ndarray]],
                  ckpt_dir: Optional[str] = None,
-                 ctx: Optional[ParallelContext] = None,
+                 ctx: Optional[ParallelContext | ProcessContext] = None,
                  dtype: Optional[torch.dtype] = None, device=None):
-        self.cfg, self.tc, self.ctx = cfg, tc, check_train_context(ctx)
-        self.device = resolve_device(device)
+        self.cfg, self.tc = cfg, tc
+        self.ctx = check_train_context(ctx, cfg)
+        self.ranks = ctx if isinstance(ctx, ProcessContext) else None
+        if self.ranks is not None:
+            self.device = ctx.device if device is None else \
+                torch.device(device)
+            if self.device != ctx.device:
+                raise ValueError(f"device {self.device} is not the rank's "
+                                 f"{ctx.device}")
+        else:
+            self.device = resolve_device(device)
         self.data = data
         self.ckpt_dir = ckpt_dir
         self.metrics_log: list = []
@@ -58,13 +82,23 @@ class Trainer:
         gen = torch.Generator(device=self.device).manual_seed(tc.seed)
         tp = ctx.tp_size if ctx is not None else 1
         self.state = init_train_state(gen, cfg, tc, tp_size=tp, dtype=dtype,
-                                      device=self.device)
+                                      device=self.device, ctx=self.ranks)
+        # the leaves a checkpoint gathers from (restores to) the ranks
+        self.sharded = frozenset() if self.ranks is None else \
+            rank_sharded_paths(self._tensors(), cfg)
         start = ckpt.latest_step(ckpt_dir) if ckpt_dir else None
         if start is not None:
-            ckpt.restore(self.state, ckpt_dir, start)
+            ckpt.restore(self._tensors(), ckpt_dir, start, ctx=self.ranks,
+                         sharded=self.sharded)
             self.start_step = start
         else:
             self.start_step = 0
+
+    def _tensors(self):
+        """The state as the tree of tensors a checkpoint holds (a rank's
+        ``RankShard`` as its rows)."""
+        return {"params": rank_tensors(self.state["params"]),
+                "opt": self.state["opt"]}
 
     # ------------------------------------------------------------------
     def _install_preemption_handler(self):
@@ -78,9 +112,13 @@ class Trainer:
             signal.signal(s, h)
 
     def _checkpoint(self, step: int, asynchronous: bool = True):
-        if self.ckpt_dir:
-            ckpt.save(self.state, self.ckpt_dir, step,
-                      asynchronous=asynchronous, keep=self.tc.keep_checkpoints)
+        if not self.ckpt_dir:
+            return
+        ckpt.save(self._tensors(), self.ckpt_dir, step,
+                  asynchronous=asynchronous, keep=self.tc.keep_checkpoints,
+                  ctx=self.ranks, sharded=self.sharded)
+        if self.ranks is not None and not asynchronous:
+            dist.barrier(group=self.ranks.group)   # rank 0 has written
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -110,7 +148,8 @@ class Trainer:
                 m = {k: float(v) for k, v in metrics.items()}
                 m["step_time_s"] = dt
                 self.metrics_log.append((step, m))
-                if on_metrics:
+                if on_metrics and (self.ranks is None
+                                   or self.ranks.rank == 0):
                     on_metrics(step, m)
                 if step % self.tc.checkpoint_every == 0:
                     self._checkpoint(step)

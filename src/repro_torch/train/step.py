@@ -22,21 +22,37 @@ computes the same sums without them.  The gradients land in a tree of
 (``TrainStep.grads``), and the update writes the parameters and moments
 in place.
 
-Training over processes (a ``ProcessContext``) is not ported yet: its
-collectives carry no gradient, and the step refuses such a context.
+Under a ``ProcessContext`` (each rank of the model axis a process, its
+state drawn by :func:`init_train_state` with the context, or cut from a
+whole one by ``utils/convert.lm_train_state_for_rank``) every rank runs
+the step on the same batch and computes the same loss; the rank
+collectives carry the gradient back to each rank's share (its rows of
+the vocabulary, its experts).  After the backward, the gradients of the
+replicated leaves each rank used on its own tokens only -- the MoE
+routers and shared experts (``utils/convert.token_slice_leaf``) -- are
+summed over the ranks (one all-reduce in f32, the group's order); every other
+replicated leaf's gradient is the whole batch's on every rank.  The clip
+takes the whole model's norm (``optim/adamw.global_norm`` with the
+context), and each rank updates its own share.  A tied head
+(``tie_embeddings``, which no shipped config sets) is refused there: a
+rank holds the table whole as its head and its own rows as ``embed``.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, TrainConfig
+from repro_torch.core import comm
+from repro_torch.core.embedding_bag import RankShard
 from repro_torch.core.parallel import ParallelContext, ProcessContext
 from repro_torch.models import lm
 from repro_torch.optim import adamw_init, adamw_update
-from repro_torch.utils.tree import leaves, map_leaves
+from repro_torch.utils.convert import rank_sharded_paths, token_slice_leaf
+from repro_torch.utils.tree import flatten_with_paths, leaves, map_leaves
 
 
 # ---------------------------------------------------------------------------
@@ -147,26 +163,42 @@ def lm_loss(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
 
 def init_train_state(gen: torch.Generator, cfg: ModelConfig,
                      tc: TrainConfig, tp_size: int = 1, dtype=None,
-                     device=None) -> Dict[str, Any]:
+                     device=None,
+                     ctx: Optional[ProcessContext] = None) -> Dict[str, Any]:
     """``{"params", "opt"}``: ``lm.init_params`` from ``gen`` on ``device``
     (None: the card), the vocabulary padded to a multiple of ``tp_size``
-    (the reference's), and ``adamw_init``."""
+    (the reference's), and ``adamw_init``.  With ``ctx`` (a
+    ``ProcessContext``) this rank's state, drawn share by share
+    (``lm.init_params`` with the context): what
+    ``utils/convert.lm_train_state_for_rank`` cuts from the whole one."""
     params = lm.init_params(gen, cfg, tp_size=tp_size, dtype=dtype,
-                            device=device)
-    return {"params": params, "opt": adamw_init(params, tc)}
+                            device=device, ctx=ctx)
+    return {"params": params, "opt": adamw_init(rank_tensors(params), tc)}
 
 
-def check_train_context(ctx) -> Optional[ParallelContext]:
-    """``ctx`` if training runs under it: None or a ``ParallelContext``.
-    A ``ProcessContext`` raises ``TypeError`` (training over processes
-    is not ported yet: the rank collectives carry no gradient); anything
-    else raises as ``lm.check_context`` does."""
-    if isinstance(ctx, ProcessContext):
-        raise TypeError(
-            "training over processes (a ProcessContext) is not ported yet: "
-            "the rank collectives carry no gradient; train on the "
-            "simulated ranks of a ParallelContext")
+def check_train_context(ctx, cfg: Optional[ModelConfig] = None):
+    """``ctx`` if training runs under it: None, a ``ParallelContext`` or
+    a ``ProcessContext``; anything else raises as ``lm.check_context``
+    does.  Under a ``ProcessContext`` a tied head (``cfg.tie_embeddings``)
+    raises ``NotImplementedError``."""
+    if (isinstance(ctx, ProcessContext) and cfg is not None
+            and cfg.tie_embeddings):
+        raise NotImplementedError(
+            f"{cfg.name}: training over processes with a tied head "
+            f"(tie_embeddings=True) is not ported: a rank holds the table "
+            f"whole as its head and only its rows as embed, so the head's "
+            f"gradient would not reach the rows")
     return lm.check_context(ctx)
+
+
+def rank_tensors(params) -> Dict[str, Any]:
+    """``params`` with a rank's ``RankShard`` of the vocabulary replaced by
+    its ``local`` rows: the tree of tensors the gradients, the moments and
+    a checkpoint are laid out like."""
+    embed = params.get("embed")
+    if isinstance(embed, RankShard):
+        return {**params, "embed": embed.local}
+    return params
 
 
 class TrainStep:
@@ -174,22 +206,30 @@ class TrainStep:
     step on one device, under ``ctx`` when one is given.  ``state`` is
     updated in place and returned; ``batch`` holds tensors on the state's
     device.  ``grads`` keeps the gradient buffers (the parameters'
-    dtypes, made at the first call): after a step at ``grad_accum`` 1,
-    the gradient the update took."""
+    dtypes, made at the first call; a rank's shares under a
+    ``ProcessContext``): after a step at ``grad_accum`` 1, the gradient
+    the update took."""
 
     def __init__(self, cfg: ModelConfig, tc: TrainConfig,
-                 ctx: Optional[ParallelContext] = None):
-        self.cfg, self.tc, self.ctx = cfg, tc, check_train_context(ctx)
+                 ctx: Optional[ParallelContext | ProcessContext] = None):
+        self.cfg, self.tc, self.ctx = cfg, tc, check_train_context(ctx, cfg)
+        self.ranks = self.ctx if isinstance(ctx, ProcessContext) else None
         self.grads = None
+        self.sharded: frozenset = frozenset()
 
     def grad(self, params, mb) -> Dict[str, torch.Tensor]:
         """Zero ``grads`` (made at the first call), backprop ``lm_loss`` of
         ``mb`` into them (the parameters aliased as leaves that need a
         gradient, each with its buffer as ``.grad`` before the forward,
         which is what sends ``lm.layer``'s slices of a stack through
-        ``lm._LayerSlice``); returns the metrics, detached."""
+        ``lm._LayerSlice``; a rank's ``RankShard`` around its aliased
+        rows), then, over processes, sum the token-sliced leaves'
+        gradients over the ranks; returns the metrics, detached."""
+        tensors = rank_tensors(params)
         if self.grads is None:
-            self.grads = map_leaves(torch.zeros_like, params)
+            self.grads = map_leaves(torch.zeros_like, tensors)
+            if self.ranks is not None:
+                self.sharded = rank_sharded_paths(tensors, self.cfg)
         for g in leaves(self.grads):
             g.zero_()
 
@@ -199,17 +239,36 @@ class TrainStep:
             return a
 
         with torch.enable_grad():
-            leafs = map_leaves(alias, params, self.grads)
+            leafs = map_leaves(alias, tensors, self.grads)
+            if isinstance(params.get("embed"), RankShard):
+                leafs["embed"] = dataclasses.replace(params["embed"],
+                                                     local=leafs["embed"])
             loss, metrics = lm_loss(leafs, mb, self.cfg, self.ctx, self.tc)
             loss.backward()
+        if self.ranks is not None:
+            self._sum_token_slices()
         return {k: v.detach() for k, v in metrics.items()}
+
+    def _sum_token_slices(self) -> None:
+        """The routers' and shared experts' gradients summed over the
+        ranks, in one all-reduce in f32 (a bf16 leaf's sum rounds once)."""
+        gs = [g for p, g in flatten_with_paths(self.grads)
+              if token_slice_leaf(p)]
+        if not gs:
+            return
+        with torch.no_grad():
+            flat = comm.all_reduce(torch.cat([g.reshape(-1).float()
+                                              for g in gs]), ctx=self.ranks)
+            for g, part in zip(gs, flat.split([g.numel() for g in gs])):
+                g.copy_(part.view_as(g))
 
     def __call__(self, state, batch):
         params, tc = state["params"], self.tc
         if tc.grad_accum > 1:
             n = tc.grad_accum
             acc = map_leaves(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
+                p.shape, dtype=torch.float32, device=p.device),
+                rank_tensors(params))
             ms = []
             for i in range(n):
                 mb = {k: v.reshape((n, -1) + tuple(v.shape[1:]))[i]
@@ -225,14 +284,18 @@ class TrainStep:
         else:
             metrics = self.grad(params, batch)
             grads = self.grads
-        params, opt, om = adamw_update(grads, state["opt"], params, tc)
+        _, opt, om = adamw_update(grads, state["opt"], rank_tensors(params),
+                                  tc, ctx=self.ranks, sharded=self.sharded)
         metrics.update(om)
         return {"params": params, "opt": opt}, metrics
 
 
 def make_train_step(cfg: ModelConfig, tc: TrainConfig,
-                    ctx: Optional[ParallelContext] = None) -> TrainStep:
+                    ctx: Optional[ParallelContext | ProcessContext] = None
+                    ) -> TrainStep:
     """Returns ``train_step(state, batch) -> (state, metrics)``; ``ctx``
-    anything but None or a ``ParallelContext`` raises ``TypeError`` (a
-    ``ProcessContext`` too: :func:`check_train_context`)."""
+    anything but None, a ``ParallelContext`` or a ``ProcessContext``
+    raises ``TypeError`` (:func:`check_train_context`).  Under a
+    ``ProcessContext`` the state is this rank's
+    (``utils/convert.lm_train_state_for_rank``)."""
     return TrainStep(cfg, tc, ctx)

@@ -10,10 +10,13 @@ for the reference's LM ``init_params`` (``lm_params_from_numpy``): stacked
 state (``train_state_from_numpy``), int8 moments included.
 
 ``lm_params_for_rank`` cuts converted LM parameters down to one rank's
-when each rank of the model axis is a process.
+when each rank of the model axis is a process, ``lm_train_state_for_rank``
+a whole train state (its moments too); ``rank_sharded`` names the leaves
+they cut.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -24,11 +27,58 @@ from repro_torch.core.jagged import JaggedBatch
 from repro_torch.models.lm import embedding_bag_config
 from repro_torch.optim.quant import QuantizedTensor
 from repro_torch.utils.device import resolve_device
+from repro_torch.utils.tree import flatten_with_paths
 
 # the MoE leaves sharded over the model axis along their expert axis, as
 # the reference's ``_moe_apply`` slices them; the router and the shared
 # experts stay whole
 EXPERT_LEAVES = ("gate", "up", "down")
+# every leaf a rank holds a share of is cut along this axis: the padded
+# vocabulary's rows of the (1, Vp, d) table, the experts of an
+# (n_layers, E_x, ...) stack
+SHARD_AXIS = 1
+
+
+def _param_path(path: str) -> list:
+    """A parameter's path parts from a path of a parameter tree or of a
+    train state (``params/...``, ``opt/m/...``, ``opt/v/...``; an int8
+    moment's ``.../0`` codes and ``.../1`` scales)."""
+    parts = path.split("/")
+    if parts[0] == "params":
+        return parts[1:]
+    if parts[0] == "opt" and len(parts) > 1 and parts[1] in ("m", "v"):
+        parts = parts[2:]
+        return parts[:-1] if parts and parts[-1] in ("0", "1") else parts
+    return parts
+
+
+def rank_sharded(path: str, cfg) -> bool:
+    """Whether the leaf at ``path`` (of LM parameters or a train state,
+    as ``utils/tree.flatten_with_paths`` names it) is cut over the ranks
+    by :func:`lm_params_for_rank` / :func:`lm_train_state_for_rank`,
+    along :data:`SHARD_AXIS`: the vocabulary table (when row-sharded) and
+    the expert stacks, with their moments."""
+    parts = _param_path(path)
+    if parts == ["embed"]:
+        return cfg.vocab_sharding != "replicated"
+    return (cfg.is_moe and len(parts) >= 2 and parts[-2] == "moe"
+            and parts[-1] in EXPERT_LEAVES)
+
+
+def rank_sharded_paths(tree, cfg) -> frozenset:
+    """The paths of ``tree``'s leaves (LM parameters, their gradients or a
+    train state) that are cut over the ranks (:func:`rank_sharded`)."""
+    return frozenset(p for p, _ in flatten_with_paths(tree)
+                     if rank_sharded(p, cfg))
+
+
+def token_slice_leaf(path: str) -> bool:
+    """Whether the parameter at ``path`` is replicated over the ranks but
+    used by each rank on its own tokens only -- an MoE layer's router and
+    shared experts (``models/moe.moe_ffn_ep_rank``) -- so that its
+    gradient is the sum of the ranks'."""
+    parts = _param_path(path)
+    return "moe" in parts and (parts[-1] == "router" or "shared" in parts)
 
 
 def _tensor(a, device: torch.device) -> torch.Tensor:
@@ -126,6 +176,53 @@ def lm_params_for_rank(params: Dict[str, Any], cfg, ctx) -> Dict[str, Any]:
         out["embed"] = shard_for_rank(embed, embedding_bag_config(cfg, E),
                                       ctx)
     return out
+
+
+def lm_train_state_for_rank(state: Dict[str, Any], cfg,
+                            ctx) -> Dict[str, Any]:
+    """This rank's LM train state under ``ctx`` (a ``ProcessContext``)
+    from the whole one (``train/step.init_train_state`` at ``tp_size =
+    ctx.world``, or :func:`train_state_from_numpy`): ``"params"`` as
+    :func:`lm_params_for_rank` cuts them, and every moment of a cut leaf
+    (:func:`rank_sharded`) cut the same way along :data:`SHARD_AXIS`,
+    its own copy; the other moments and ``"step"`` moved to
+    ``ctx.device`` (the same tensors when already there).  An int8
+    moment's codes and scales are cut alike: its blocks run along the
+    last axis only (``optim/quant.py``), so a rank's rows of the codes
+    and scales are the whole moment's rows, and the cut is exact."""
+    E, r, dev = ctx.world, ctx.rank, ctx.device
+
+    def cut(t: torch.Tensor) -> torch.Tensor:
+        n = t.shape[SHARD_AXIS] // E
+        part = t.narrow(SHARD_AXIS, r * n, n)
+        out = torch.empty(tuple(part.shape), dtype=t.dtype, device=dev)
+        out.copy_(part)
+        return out
+
+    def conv(tree, prefix):
+        out = {}
+        for k, v in tree.items():
+            path = f"{prefix}/{k}"
+            if isinstance(v, dict):
+                out[k] = conv(v, path)
+            elif isinstance(v, QuantizedTensor):
+                sharded = rank_sharded(path, cfg)
+                shape = list(v.shape)
+                if sharded:
+                    shape[SHARD_AXIS] //= E
+                move = cut if sharded else (lambda t: t.to(dev))
+                out[k] = dataclasses.replace(v, q=move(v.q),
+                                             scale=move(v.scale),
+                                             shape=tuple(shape))
+            else:
+                out[k] = cut(v) if rank_sharded(path, cfg) else v.to(dev)
+        return out
+
+    opt = state["opt"]
+    return {"params": lm_params_for_rank(state["params"], cfg, ctx),
+            "opt": {"m": conv(opt["m"], "opt/m"),
+                    "v": conv(opt["v"], "opt/v"),
+                    "step": opt["step"].to(dev)}}
 
 
 def train_state_from_numpy(state: Dict[str, Any], *,

@@ -28,7 +28,11 @@ Tolerances:
     (a bf16 ulp near 1 is 2**-7 = 7.8e-3);
   * dropped lookups are a count of the same bucketing: exactly equal;
   * logits and pCTR go through two frameworks' MLPs: ``atol=1e-6`` (what
-    the remote-tier engine check holds, ``tests/test_torch_remote.py``).
+    the remote-tier engine check holds, ``tests/test_torch_remote.py``);
+  * the gradients of ``bce_loss(ctx=)`` (tables and MLP leaves) against
+    the reference's ``jax.grad`` of its ctx path: the local lookup's
+    ``rtol=1e-5, atol=1e-6``; the a2a/onesided pipeline raises under
+    grad, as the reference's ``jax.grad`` fails inside its Pallas puts.
 """
 import dataclasses
 import fcntl
@@ -143,6 +147,10 @@ def _inputs() -> dict:
     # int32 partials over the whole range: their sums over 4 ranks overflow
     x["rs_int32"] = rng.integers(-2**31, 2**31, (E, E, 5, 3)).astype(
         np.int32)
+    # the labels of the gradient checks, from a seed of their own (the
+    # draws above stay as they were)
+    x["labels"] = (np.random.default_rng(14).random(B) < 0.3).astype(
+        np.float32)
     return x
 
 
@@ -253,6 +261,20 @@ def _jax_reference(inputs: Path, outputs: Path) -> None:
         for i, layer in enumerate(params[part]):
             out[f"p_{part}_{i}_w"] = layer["w"]
             out[f"p_{part}_{i}_b"] = layer["b"]
+    fwd_batch = JJagged(jnp.asarray(x["fwd_idx"]),
+                        jnp.asarray(x["fwd_lens"]))
+
+    def grads(cfg, ctx, prefix):
+        """jax.grad of bce_loss(ctx=) at the converted parameters."""
+        g = jax.jit(jax.grad(lambda p: jdlrm.bce_loss(
+            p, jnp.asarray(x["dense"]), fwd_batch, jnp.asarray(x["labels"]),
+            cfg, ctx)))(params)
+        out[f"{prefix}_tables"] = np.asarray(g["tables"])
+        for part in ("bottom", "top"):
+            for i, layer in enumerate(g[part]):
+                for k in ("w", "b"):
+                    out[f"{prefix}_{part}_{i}_{k}"] = np.asarray(layer[k])
+
     for name, (shape, be) in ENGINES.items():
         names = ("model",) if len(shape) == 1 else ("data", "model")
         ctx = jmake_context(jax.make_mesh(shape, names))
@@ -261,6 +283,12 @@ def _jax_reference(inputs: Path, outputs: Path) -> None:
             params, jnp.asarray(x["dense"]), JJagged(
                 jnp.asarray(x["fwd_idx"]), jnp.asarray(x["fwd_lens"])),
             cfg, ctx))
+        if be == "bulk" and len(shape) == 1:
+            # the one-sided puts have no derivative; on the (2, 2) mesh
+            # the installed jax's grad raises a ShardingTypeError (the
+            # data-sharded contraction of the MLPs' backward), so that
+            # case is held to the local path's gradient below
+            grads(cfg, ctx, f"grad_{name}")
         eng = JEngine(params, cfg, ENGINE_BATCH, ctx)
         for i in range(ENGINE_REQS):
             eng.submit(JRequest(rid=i, dense=x["req_dense"][i],
@@ -269,6 +297,7 @@ def _jax_reference(inputs: Path, outputs: Path) -> None:
         scores = eng.run_to_completion()
         out[f"engine_{name}"] = np.array(
             [scores[i] for i in range(ENGINE_REQS)])
+    grads(base, None, "grad_local")
     for name, (ranks, fields) in FORWARDS.items():
         mesh_n = jax.make_mesh((ranks,), ("model",),
                                devices=jax.devices()[:ranks])
@@ -276,6 +305,8 @@ def _jax_reference(inputs: Path, outputs: Path) -> None:
             params, jnp.asarray(x["dense"]), JJagged(
                 jnp.asarray(x["fwd_idx"]), jnp.asarray(x["fwd_lens"])),
             dataclasses.replace(base, **fields), jmake_context(mesh_n)))
+        grads(dataclasses.replace(base, **fields), jmake_context(mesh_n),
+              f"grad_{name}")
     ctx2 = jmake_context(jax.make_mesh((2, 2), ("data", "model")))
     out["dp_for"] = np.array([len(ctx2.dp_for(8) or ()),
                               len(ctx2.dp_for(3) or ()), ctx2.dp_size,
@@ -538,10 +569,38 @@ def test_forward_with_context_matches_jax(ref, name):
         _t(x["fwd_idx"]), _t(x["fwd_lens"])), cfg, _ctx(shape))
     np.testing.assert_allclose(got.numpy(), want[f"forward_{name}"],
                                rtol=0, atol=PCTR_ATOL)
+    if be == "onesided":
+        # the reference's Pallas puts have no derivative, and the port
+        # refuses what it cannot differentiate, on the CPU as on a card
+        with pytest.raises(RuntimeError, match="the one-sided route has no "
+                                               "derivative"):
+            _check_grads(x, want, params, cfg, _ctx(shape), name)
+        return
+    _check_grads(x, want, params, cfg, _ctx(shape),
+                 name if len(shape) == 1 else "local")
+
+
+def _check_grads(x, want, params, cfg, ctx, name) -> None:
+    """The simulated ranks' gradients of bce_loss(ctx=), the tables' and
+    every MLP leaf's, against the reference's jax.grad of its ctx path
+    (``name``; "local": of its path without a context, which its ctx
+    path's gradients equal on the 1-D meshes, the table gradient within
+    3.7e-9): within the local lookup's parity tolerance (two frameworks'
+    f32 arithmetic)."""
+    leaves = [params["tables"]] + [layer[k] for part in ("bottom", "top")
+                                   for layer in params[part]
+                                   for k in ("w", "b")]
+    for t in leaves:
+        t.requires_grad_(True)
     loss = tdlrm.bce_loss(params, _t(x["dense"]), JaggedBatch(
-        _t(x["fwd_idx"]), _t(x["fwd_lens"])), torch.ones(B), cfg,
-        _ctx(shape))
-    assert torch.isfinite(loss)
+        _t(x["fwd_idx"]), _t(x["fwd_lens"])), _t(x["labels"]), cfg, ctx)
+    loss.backward()
+    wanted = [want[f"grad_{name}_tables"]] + [
+        want[f"grad_{name}_{part}_{i}_{k}"] for part in ("bottom", "top")
+        for i in range(len(params[part])) for k in ("w", "b")]
+    assert np.abs(wanted[0]).max() > 0
+    for t, w in zip(leaves, wanted):
+        np.testing.assert_allclose(t.grad.numpy(), w, **LOCAL)
 
 
 @pytest.mark.parametrize("name", list(ENGINES))
@@ -576,6 +635,44 @@ def test_forward_strategies_match_jax(ref, name):
         _t(x["fwd_idx"]), _t(x["fwd_lens"])), cfg, _ctx((ranks,)))
     np.testing.assert_allclose(got.numpy(), want[f"forward_{name}"],
                                rtol=0, atol=PCTR_ATOL)
+
+
+@pytest.mark.parametrize("name", list(FORWARDS))
+def test_bce_loss_gradients_match_jax(ref, name):
+    """The simulated ranks' gradients under row all-gather and column over
+    4 ranks and table-wise over 2, against jax.grad of the reference's
+    bce_loss(ctx=)."""
+    x, want = ref
+    ranks, fields = FORWARDS[name]
+    cfg = dataclasses.replace(tcfg_mod.smoke(), **fields)
+    _check_grads(x, want, _params(want), cfg, _ctx((ranks,)), name)
+
+
+@pytest.mark.parametrize("rw_impl", ["a2a", "allgather"])
+def test_onesided_under_grad_refuses_only_the_a2a(ref, rw_impl):
+    """On simulated ranks, tables that need a gradient through the
+    one-sided a2a pipeline raise (its puts have no derivative, in the
+    reference either: jax.grad fails inside them); row/allgather/onesided
+    reduces with an all-reduce, which trains.  Without grad the a2a
+    pipeline scores as before."""
+    x, want = ref
+    cfg = dataclasses.replace(tcfg_mod.smoke(), rw_impl=rw_impl,
+                              rw_backend="onesided")
+    params = _params(want)
+    params["tables"].requires_grad_(True)
+    args = (_t(x["dense"]), JaggedBatch(_t(x["fwd_idx"]),
+                                        _t(x["fwd_lens"])),
+            _t(x["labels"]), cfg, _ctx((E,)))
+    if rw_impl == "a2a":
+        with pytest.raises(RuntimeError, match="reduce_scatter: the value "
+                                               "needs a gradient, and the "
+                                               "one-sided route"):
+            tdlrm.bce_loss(params, *args).backward()
+        with torch.no_grad():
+            assert torch.isfinite(tdlrm.bce_loss(params, *args))
+        return
+    tdlrm.bce_loss(params, *args).backward()
+    assert params["tables"].grad.abs().max() > 0
 
 
 def test_context_axes_match_jax(ref):

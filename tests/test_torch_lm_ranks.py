@@ -33,8 +33,10 @@ Also held: a rank's shares (its rows of the vocabulary, 1/4 of the
 experts in memory of its own, ``max_len / 4`` positions of every
 positional cache entry and the states whole), its collective events,
 and the refusals: a data axis, a ``max_len`` 4 does not divide, training
-under a ``ProcessContext``, a rank collective of a tensor that needs a
-gradient (``comm.all_to_all``, ``dlrm.forward``, ``lm.forward``).
+a tied head under a ``ProcessContext``, a one-sided rank collective of a
+tensor that needs a gradient (``comm.all_to_all``, ``dlrm.forward``
+through the a2a/onesided pipeline); ``lm.forward`` under grad goes
+through (training over processes: ``tests/test_torch_train_ranks.py``).
 """
 import dataclasses
 import os
@@ -222,10 +224,12 @@ def _error(fn) -> str:
 def _refusals(ctx, x, params):
     """Each refusal a rank must raise, by its message."""
     cfg = _cfg("granite-8b")
+    tied = dataclasses.replace(cfg, tie_embeddings=True)
     tokens = _t(x, "granite-8b/tokens")
     whole = _params(x, "granite-8b")
     tc = TrainConfig(warmup_steps=1)
-    dcfg = dlrm_cfg.smoke()
+    dcfg = dataclasses.replace(dlrm_cfg.smoke(), rw_impl="a2a",
+                               rw_backend="onesided")
     dp = tdlrm.init_params(torch.Generator().manual_seed(0), dcfg,
                            device="cpu")
     dp["tables"].requires_grad_(True)
@@ -259,11 +263,11 @@ def _refusals(ctx, x, params):
         "other_device": _error(lambda: ContinuousBatcher(
             params, cfg, SLOTS, MAX_LEN, ctx, device="meta")),
         "whole_params": _error(lambda: tlm.forward(whole, tokens, cfg, ctx)),
-        "train_step": _error(lambda: tstep.make_train_step(cfg, tc, ctx)),
-        "trainer": _error(lambda: Trainer(cfg, tc, iter(()), ctx=ctx,
+        "train_step": _error(lambda: tstep.make_train_step(tied, tc, ctx)),
+        "trainer": _error(lambda: Trainer(tied, tc, iter(()), ctx=ctx,
                                           device="cpu")),
-        "all_to_all_grad": _error(lambda: comm.all_to_all(needs_grad,
-                                                          ctx=ctx)),
+        "all_to_all_grad": _error(lambda: comm.all_to_all(
+            needs_grad, backend="onesided", ctx=ctx)),
         "dlrm_grad": _error(dlrm_under_grad),
         "lm_grad": _error(lm_under_grad),
     }
@@ -551,15 +555,17 @@ def test_process_context_queries(runs):
     ("other_device", "ValueError: device meta is not the rank's cpu"),
     ("whole_params", "ValueError: under a ProcessContext params\\['embed'\\] "
                      "must be this rank's RankShard"),
-    ("train_step", "TypeError: training over processes .* is not ported"),
-    ("trainer", "TypeError: training over processes .* is not ported"),
-    ("all_to_all_grad", "RuntimeError: all_to_all: this rank's value needs "
-                        "a gradient.*training over processes is not "
-                        "ported yet"),
-    ("dlrm_grad", "RuntimeError: all_reduce: this rank's value needs a "
-                  "gradient"),
-    ("lm_grad", "RuntimeError: all_reduce: this rank's value needs a "
-                "gradient"),
+    ("train_step", "NotImplementedError: .*training over processes with "
+                   "a tied head"),
+    ("trainer", "NotImplementedError: .*training over processes with a "
+                "tied head"),
+    ("all_to_all_grad", "RuntimeError: all_to_all: the value needs a "
+                        "gradient, and the one-sided route has no "
+                        "derivative"),
+    ("dlrm_grad", "RuntimeError: reduce_scatter: the value needs a "
+                  "gradient, and the one-sided route has no derivative"),
+    # the LM's rank collectives carry the gradient now: nothing refuses
+    ("lm_grad", "^no error$"),
 ])
 def test_rank_refusals(runs, what, match):
     _, _, ranks = runs

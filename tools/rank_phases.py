@@ -1,6 +1,6 @@
 """Run `chip_smoke.py`'s phases of ranks as processes alone.
 
-    python3 tools/rank_phases.py [7p] [6p] [8p | 8p-nccl]
+    python3 tools/rank_phases.py [7p] [6p] [8p | 8p-nccl] [7tp] [8tp]
 
 Phase 1 (environment and the kernels' build), phase 3 (the uncached
 engine at full width, whose tables and scores the others read), phase 4
@@ -14,10 +14,17 @@ reduce-scatter and the one-sided puts across cards through CUDA IPC)
 and phase 8p (LM serving with each rank a process: granite-8b and
 moonshot-v1-16b-a3b cut in depth, 4 gloo processes sharing the card; on
 4 cards also the NCCL leg, moonshot at all 48 layers, one process a
-card; ``8p-nccl`` runs that leg alone).  A quicker check of the
-per-rank paths than the whole script, on as many cards as the machine
-has.  Naming 7p, 6p or 8p runs that one and only the phases it reads
-(7p: 1, 3, 7; 6p: 1, 3, 4, 6, 6b; 8p: 1); all three by default.
+card; ``8p-nccl`` runs that leg alone), phase 7tp (DLRM training at
+full width with each rank a process: 2 steps of row-wise Adagrad and SGD
+a strategy, 4 gloo processes sharing the card, table-wise 2, held to the
+one-device flow or the simulated ranks') and phase 8tp (LM training with
+each rank a process: granite-8b at 2 layers and moonshot-v1-16b-a3b at
+4, Trainer steps held to make_context(4)'s, and a resume); on 4 cards
+both also run their NCCL legs, one process a card.  A quicker check of the per-rank
+paths than the whole script, on as many cards as the machine has.
+Naming 7p, 6p, 8p, 7tp or 8tp runs that one and only the phases it reads
+(7p: 1, 3, 7; 6p: 1, 3, 4, 6, 6b; 8p, 7tp, 8tp: 1); 7p, 6p and 8p by
+default.
 Exits non-zero if a check fails; the last line is ``{"ok": true,
 "cards": N}``.
 """
@@ -35,9 +42,9 @@ import chip_smoke as cs  # noqa: E402
 
 def main(argv) -> int:
     wanted = set(argv) or {"7p", "6p", "8p"}
-    if not wanted <= {"7p", "6p", "8p", "8p-nccl"}:
+    if not wanted <= {"7p", "6p", "8p", "8p-nccl", "7tp", "8tp"}:
         print(f"rank_phases: unknown phase(s) {sorted(wanted)}; name 7p, "
-              f"6p and/or 8p (or 8p-nccl)", file=sys.stderr)
+              f"6p, 8p (or 8p-nccl), 7tp and/or 8tp", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("rank_phases: no CUDA device is available", file=sys.stderr)
@@ -56,6 +63,10 @@ def main(argv) -> int:
         cs.phase_lm_ranks(pt, (eg, oa, pt.fa))
     elif "8p-nccl" in wanted:
         cs.phase_lm_ranks(pt, (eg, oa, pt.fa), backends=("nccl",))
+    if "7tp" in wanted:
+        cs.phase_train_ranks(pt, eg, oa)
+    if "8tp" in wanted:
+        cs.phase_lm_train_ranks(pt, (eg, oa, pt.fa))
     print(json.dumps({"ok": True, "cards": torch.cuda.device_count()}))
     return 0
 
