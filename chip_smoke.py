@@ -3356,7 +3356,7 @@ def phase_train(pt, eg, oa) -> dict:
         check(bwd == upd == _launches(),
               f"step {step}: the backward and the update launch nothing")
         fwd_launches += fwd["gather_pool_tbe"]
-        losses.append(float(loss))
+        losses.append(float(loss.detach()))
         stages.append(ms)
         log(f"  step {step}: loss {losses[-1]:.6f}; forward "
             f"{ms['forward']:.3f} ms, backward {ms['backward']:.3f} ms, "
@@ -3719,7 +3719,7 @@ def _train_reference(pt, kmods, params, batches, ids, label, cot):
             pt, kmods, ref, accum, (dense, batch, labels, cfg, ctx),
             probe=probe if not losses else None)
         _commit(ref, new, mlp)
-        losses.append(float(loss))
+        losses.append(float(loss.detach()))
         del new, mlp
         if len(losses) == 1:
             with torch.no_grad():
@@ -5666,6 +5666,509 @@ def phase_lm_train_ranks(pt, kmods, backends=("gloo", "nccl")) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 8dp. a data axis with each rank a process
+# ---------------------------------------------------------------------------
+
+DP_RANK_PATH = "8dp (dp, tp) meshes, ranks as processes"
+DPP_DP, DPP_TP = 2, 2          # 2 data groups of 2 model-axis ranks
+DPP_WORLD = DPP_DP * DPP_TP
+# the flushes: CONFIG at full width, phase 7p's strategies whose kernels
+# the model axis launches, each group scoring half of each batch of BATCH
+DPP_STRATEGIES = (
+    ("row/allgather/onesided", dict(sharding="row", rw_backend="onesided")),
+    ("row/a2a/bulk", dict(sharding="row", rw_impl="a2a")),
+    ("row/a2a/onesided", dict(sharding="row", rw_impl="a2a",
+                              rw_backend="onesided")),
+)
+DPP_FLUSHES = 2
+# DLRM training: table-wise (13 of CONFIG's 26 tables a rank, the TBE
+# kernel over its stacked tables), CONFIG's widths with each table cut to
+# 2**18 rows: a rank's dense gradient is its shard's size and is summed
+# over the data axis through the host (gloo), so four processes hold four
+# shards, four gradients and their sums (~7 GB at 2**18 rows; ~27 GB at
+# CONFIG's 10**6, beside the parent's tables)
+DPP_TRAIN = ("table", dict(sharding="table"))
+DPP_TRAIN_ROWS = 2 ** 18
+DPP_TRAIN_STEPS = 2
+# granite-8b at its published widths cut in depth, bf16: 2 prompts of
+# 2,048 tokens (under the flash kernel's 8,192: full attention), one a
+# data group, then DPP_NEW greedy steps; and one train step of 2 layers
+# on 2 x 2,048 tokens (int8 moments, remat), each group its sample
+DPP_LM_LAYERS = 4
+DPP_PROMPT = 2048
+DPP_NEW = 8
+DPP_LMT_LAYERS = 2
+DPP_TIMEOUT_S = 600.0
+# per rank per flush (each group's half batch): (kernel, launches)
+DPP_LAUNCHES = {label: PROC_LAUNCHES[label] for label, _ in DPP_STRATEGIES}
+# a group scores half a batch, so its MLPs' GEMMs take other shapes than
+# the simulated ranks' whole batch (cuBLAS picks other kernels): pCTR
+# within PCTR_TOL, bitwise logged (2.682e-7 apart on an H100).  The LM's
+# logits likewise, in bf16 and growing with the decode steps (a group
+# decodes one sample where the simulation decodes two: 1.7e-3 to 7.3e-3
+# relative L2 over 4 layers on an H100): each call's relative L2 against
+# the simulated ranks' within DECODE_REL_L2 (phase 8's bound of a decode
+# against another run of the same weights), over the calls whose inputs
+# agree; a greedy token that differs (a near-tie) is logged.  The DLRM
+# flow's losses: phase 7tp's bound; the LM step's: phase 8tp's
+DPP_LOSS_REL = TRP_LOSS_REL
+DPP_LM_REL = DECODE_REL_L2
+
+
+def _bit_sums(t: torch.Tensor) -> tuple:
+    """Two sums of ``t``'s bit patterns, plain and weighted by position
+    (mod 1021), by slices: equal tensors give equal sums, and a flipped
+    bit changes both."""
+    flat = t.detach().contiguous().view(-1)
+    bits = flat.view({4: torch.int32, 2: torch.int16,
+                      1: torch.int8}[flat.element_size()])
+    plain = weighted = 0
+    step = 1 << 24
+    for a in range(0, bits.numel(), step):
+        b = bits[a:a + step].to(torch.int64)
+        w = torch.arange(a, a + b.numel(), device=b.device) % 1021 + 1
+        plain += int(b.sum())
+        weighted += int((b * w).sum())
+    return plain, weighted
+
+
+def _dp_flow(pt, kmods, mlp, tables, inputs, cfg, ctx, ranks):
+    """DPP_TRAIN_STEPS steps of the flow on one batch, from the MLP layers
+    ``mlp`` (``{"bottom", "top"}``) and ``tables``: row-wise Adagrad on
+    the tables (a rank's shard), SGD on the MLPs, the gradients summed
+    over the data axis (``dlrm.sum_over_data``).  The losses, each step's
+    seconds (host clock, synchronised), the forwards' launches, and after
+    each step the bit sums of the tables (shard) and the MLP leaves."""
+    dev = inputs[0].device
+    if ranks:
+        tables = pt.eb.shard_for_rank(tables, cfg.embedding_config(), ctx)
+    accum = pt.rowwise_adagrad_init(tables)
+    layers = {part: len(mlp[part]) for part in ("bottom", "top")}
+    mlp = [t.detach().to(dev, copy=True) for t in _mlp_leaves(mlp)]
+    losses, step_s, sums = [], [], []
+    _reset_counts(pt, kmods)
+    for _ in range(DPP_TRAIN_STEPS):
+        _sync(dev)
+        t0 = time.perf_counter()
+        leaf = getattr(tables, "local", tables).detach().requires_grad_()
+        p = {"tables": dataclasses.replace(tables, local=leaf) if ranks
+             else leaf}
+        leaves = [t.requires_grad_() for t in mlp]
+        it = iter(leaves)
+        for part in ("bottom", "top"):
+            p[part] = [{"w": next(it), "b": next(it)}
+                       for _ in range(layers[part])]
+        with torch.enable_grad():
+            loss = pt.dlrm.bce_loss(p, *inputs, cfg, ctx)
+            grads = torch.autograd.grad(loss, [leaf] + leaves)
+        grads = pt.dlrm.sum_over_data(grads, BATCH, ctx)
+        tables, accum = pt.rowwise_adagrad_update(
+            dataclasses.replace(tables, local=leaf.detach()) if ranks
+            else leaf.detach(), accum, grads[0], lr=TRAIN_LR)
+        with torch.no_grad():
+            mlp = [m.detach() - TRAIN_LR * g
+                   for m, g in zip(leaves, grads[1:])]
+        losses.append(float(loss.detach()))
+        _sync(dev)
+        step_s.append(time.perf_counter() - t0)
+        del grads, leaf, p, leaves
+        sums.append([_bit_sums(getattr(tables, "local", tables))]
+                    + [_bit_sums(m) for m in mlp])
+    return dict(losses=losses, step_s=step_s, sums=sums,
+                counts=_counts(pt, kmods))
+
+
+def _dp_greedy(pt, params, cfg, prompts, ctx, kmods) -> dict:
+    """``prompts`` (B, S) prefilled under ``ctx`` into a cache of S +
+    DPP_NEW positions, then DPP_NEW greedy decode steps, from launch
+    counts at 0: each head call's f32 logits on the host and greedy
+    tokens, the prefill's and each step's seconds (host clock, the device
+    synchronised), the counts, the slots of the cache."""
+    dev = prompts.device
+    logits, step_s = [], []
+
+    def head(h):
+        lg = pt.lm.lm_logits(params, h[:, None], cfg, ctx)[:, 0]
+        logits.append(lg.float().cpu())
+        return torch.argmax(lg[:, :cfg.vocab_size], dim=-1).to(torch.int32)
+    _reset_counts(pt, kmods)
+    _sync(dev)
+    t0 = time.perf_counter()
+    cache, h = pt.dec.prefill(params, prompts, cfg, ctx,
+                              max_len=prompts.shape[1] + DPP_NEW)
+    tok = head(h[:, -1])
+    toks = [tok.cpu()]
+    prefill_s = time.perf_counter() - t0
+    for _ in range(DPP_NEW):
+        t0 = time.perf_counter()
+        cache, h = pt.dec.decode_step(params, cache, tok, cfg, ctx)
+        tok = head(h)
+        toks.append(tok.cpu())
+        step_s.append(time.perf_counter() - t0)
+    return dict(logits=logits, tokens=torch.stack(toks, 1).tolist(),
+                prefill_s=prefill_s, step_s=step_s,
+                counts=_counts(pt, kmods),
+                slots=int(cache["length"].shape[0]))
+
+
+def _dp_train_step(pt, kmods, cfg, tc, ctx, dev) -> dict:
+    """One LM train step: the state drawn from a seed on ``dev`` (a
+    rank's share under a ProcessContext), the batch of lm_batches; its
+    metrics, seconds, launches, and the parameters' bit sums by path."""
+    gen = torch.Generator(device=dev).manual_seed(LMTP_SEED)
+    if isinstance(ctx, pt.ProcessContext):
+        state = pt.tstep.init_train_state(gen, cfg, tc, device=dev, ctx=ctx)
+    else:
+        state = pt.tstep.init_train_state(gen, cfg, tc, tp_size=DPP_TP,
+                                          device=dev)
+    step = pt.tstep.make_train_step(cfg, tc, ctx)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in next(
+        pt.lm_batches(cfg, DPP_DP, DPP_PROMPT, seed=LMTP_SEED)).items()}
+    _reset_counts(pt, kmods)
+    _sync(dev)
+    t0 = time.perf_counter()
+    state, metrics = step(state, batch)
+    _sync(dev)
+    secs = time.perf_counter() - t0
+    sums = {path: _bit_sums(t) for path, t in pt.flatten_with_paths(
+        pt.tstep.rank_tensors(state["params"]))}
+    return dict(metrics={k: float(v) for k, v in metrics.items()},
+                step_s=secs, counts=_counts(pt, kmods), sums=sums)
+
+
+def _dp_rank(ctx, base, tables, mlp, reqs, train, lm_leg, lmt_cfg):
+    """One rank of phase 8dp, a (DPP_DP, DPP_TP) mesh: (a) for each of
+    DPP_STRATEGIES a DLRMEngine under the rank's ProcessContext (its
+    shard copied from the parent's tables, through CUDA IPC) serves the
+    requests in flushes of BATCH, from launch counts at 0, and records
+    its symmetric buffers' IPC handles; (b) the DLRM flow on ``train``'s
+    tables; (c) granite's greedy run on its weights (the rank's share
+    cut); (d) one LM train step of ``lmt_cfg``.  Every rank's records go
+    to global rank 0, in global rank order."""
+    import torch.distributed as tdist
+
+    pt = port_namespace()
+    kmods = _kernel_mods()
+    dev, cuda = ctx.device, ctx.device.type == "cuda"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dense, idx, lens = reqs
+    requests = [pt.CTRRequest(rid=i, dense=dense[i], indices=idx[i],
+                              lengths=lens[i]) for i in range(len(dense))]
+    params = {part: [{k: v.to(dev, copy=True) for k, v in layer.items()}
+                     for layer in mlp[part]] for part in ("bottom", "top")}
+    params["tables"] = tables
+    out = {"place": (tdist.get_rank(), ctx.dp_rank, ctx.rank),
+           "flush": {}}
+    for label, fields in DPP_STRATEGIES:
+        cfg = dataclasses.replace(base, **fields)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        eng = pt.DLRMEngine(params, cfg, BATCH, ctx)
+        for r in requests:
+            eng.submit(r)
+        scores, flush_ms = {}, []
+        _reset_counts(pt, kmods)
+        while eng.queue:
+            t = time.perf_counter()
+            scores.update(eng.flush())      # ends in .cpu(): synchronous
+            flush_ms.append(1e3 * (time.perf_counter() - t))
+        rec = dict(scores=np.array([scores[i] for i in sorted(scores)]),
+                   flush_ms=flush_ms, counts=_counts(pt, kmods),
+                   handles={k: b.handles for k, b in ctx._buffers.items()})
+        if cuda:
+            _sync(dev)
+            rec["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+        del eng
+        if cuda:
+            torch.cuda.empty_cache()
+        out["flush"][label] = rec
+    del params["tables"]
+    tcfg = dataclasses.replace(base, rows_per_table=DPP_TRAIN_ROWS,
+                               **DPP_TRAIN[1])
+    inputs = tuple(t.to(dev) if torch.is_tensor(t) else
+                   pt.JaggedBatch(t.indices.to(dev), t.lengths.to(dev))
+                   for t in train["inputs"])
+    out["train"] = _dp_flow(pt, kmods, train["mlp"], train.pop("tables"),
+                            inputs, tcfg, ctx, True)
+    del inputs
+    cfg = lm_leg["cfg"]
+    mine = pt.lm_params_for_rank(lm_leg.pop("params"), cfg, ctx)
+    with torch.no_grad():
+        out["lm"] = _dp_greedy(pt, mine, cfg, lm_leg["prompts"].to(dev), ctx,
+                               kmods)
+    del mine
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    out["lmt"] = _dp_train_step(pt, kmods, lmt_cfg, _dp_tc(pt), ctx, dev)
+    if cuda:
+        _sync(dev)
+        out["lmt"]["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+        torch.cuda.empty_cache()
+    gathered = [None] * DPP_WORLD
+    tdist.all_gather_object(gathered, out)
+    return gathered
+
+
+def _dp_tc(pt):
+    return pt.TrainConfig(optimizer_state_dtype="int8", remat=True,
+                          warmup_steps=1, total_steps=4,
+                          checkpoint_every=100)
+
+
+def _dp_check_flush(label, sim, ranks, tag) -> dict:
+    """(a)'s checks of one strategy: every rank's scores rank 0's and
+    within PCTR_TOL of the simulated (2, 2) ranks' (bitwise logged); the
+    strategy's launches per rank; each rank's symmetric buffers' handles
+    its own data group's, in model-rank order."""
+    vals = ranks[0]["flush"][label]["scores"]
+    want = np.array([sim[k] for k in sorted(sim)])
+    check(all(np.array_equal(r["flush"][label]["scores"], vals)
+              for r in ranks), f"8dp{tag} {label}: every rank's scores")
+    check(len(vals) == DPP_FLUSHES * BATCH and np.isfinite(vals).all()
+          and bool(np.allclose(vals, want, **PCTR_TOL)),
+          f"8dp{tag} {label}: {len(want)} finite pCTRs within PCTR_TOL of "
+          f"the simulated (2, 2) ranks'")
+    per = {k: v * DPP_FLUSHES for k, v in DPP_LAUNCHES[label].items()}
+    for r in ranks:
+        got = {k: r["flush"][label]["counts"].get(k, 0) for k in SOURCES}
+        check(got == _launches(**per), f"8dp{tag} {label} global rank "
+              f"{r['place'][0]}: launches {per} in {DPP_FLUSHES} flushes "
+              f"({got})")
+    own = {r["place"][1:]: {k: h[r["place"][2]] for k, h in
+                            r["flush"][label]["handles"].items()}
+           for r in ranks}
+    for r in ranks:
+        d, m = r["place"][1:]
+        for name, table in r["flush"][label]["handles"].items():
+            check(list(table) == [own[(d, j)][name] for j in range(DPP_TP)]
+                  and not set(table) & {own[(e, j)][name]
+                                        for e in range(DPP_DP) if e != d
+                                        for j in range(DPP_TP)},
+                  f"8dp{tag} {label} global rank {r['place'][0]}: its "
+                  f"'{name}' buffers' handles are its data group's ranks' "
+                  f"only")
+    err = float(np.abs(vals - want).max())
+    med = [statistics.median(r["flush"][label]["flush_ms"]) for r in ranks]
+    launches = {k: sum(r["flush"][label]["counts"].get(k, 0) for r in ranks)
+                for k in SOURCES}
+    log(f"  [(a){tag} {label}] scores "
+        f"{'bitwise' if np.array_equal(vals, want) else 'not bitwise'} the "
+        f"simulated (2, 2) ranks' (max_abs_err {err:.3e}); median flush "
+        f"{[round(m, 3) for m in med]} ms per rank (host clock); peak "
+        f"{[round(r['flush'][label].get('peak_bytes', 0) / 1e9, 2) for r in ranks]}"
+        f" GB a rank; symmetric buffers "
+        f"{sorted(ranks[0]['flush'][label]['handles'])} opened within each "
+        f"data group; launches summed over ranks "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    return dict(median_ms=med, err=err, launches=launches)
+
+
+def _dp_check_groups(what, sums, tag) -> None:
+    """Rank m of data group 0 and of data group 1 hold bitwise the same
+    ``what`` (their bit sums equal)."""
+    for m in range(DPP_TP):
+        check(all(sums[d * DPP_TP + m] == sums[m] for d in range(DPP_DP)),
+              f"8dp{tag} model rank {m}: {what} bitwise equal in every data "
+              f"group")
+
+
+def _dp_check(pt, sims, ranks, tag) -> dict:
+    out = {"flush": {label: _dp_check_flush(label, sims["flush"][label],
+                                            ranks, tag)
+                     for label, _ in DPP_STRATEGIES}}
+    check([r["place"] for r in ranks] == [
+        (g, g // DPP_TP, g % DPP_TP) for g in range(DPP_WORLD)],
+        f"8dp{tag}: global rank g is model rank g % {DPP_TP} of data group "
+        f"g // {DPP_TP}")
+    # (b) DLRM training
+    st, t0 = sims["train"], ranks[0]["train"]
+    rels = [abs(a - b) / abs(b) for a, b in zip(t0["losses"], st["losses"])]
+    for r in ranks:
+        check(r["train"]["losses"] == t0["losses"],
+              f"8dp{tag} (b) global rank {r['place'][0]}: losses rank 0's")
+        check(r["train"]["counts"] == dict(_launches(gather_pool_tbe=
+                                                     DPP_TRAIN_STEPS),
+                                           chunked=0),
+              f"8dp{tag} (b): one TBE launch a forward, nothing else "
+              f"({r['train']['counts']})")
+    check(max(rels) <= DPP_LOSS_REL, f"8dp{tag} (b): losses within "
+          f"{DPP_LOSS_REL} of the simulated (2, 2) flow's ({rels})")
+    for s in range(DPP_TRAIN_STEPS):
+        _dp_check_groups(f"(b) the shard and MLP leaves after step {s + 1}",
+                         [r["train"]["sums"][s] for r in ranks], tag)
+    log(f"  [(b){tag} DLRM training, {DPP_TRAIN[0]}, {DPP_TRAIN_ROWS} rows a "
+        f"table] losses {t0['losses']} (simulated {st['losses']}, within "
+        f"{[f'{v:.3e}' for v in rels]}); steps "
+        f"{[[round(1e3 * v, 1) for v in r['train']['step_s']] for r in ranks]}"
+        f" ms per rank (simulated "
+        f"{[round(1e3 * v, 1) for v in st['step_s']]}); both data groups' "
+        f"shards and MLP leaves bitwise equal after each step")
+    out["train"] = dict(loss_rel=max(rels), step_s=[r["train"]["step_s"]
+                                                    for r in ranks])
+    # (c) granite serving
+    sl, l0 = sims["lm"], ranks[0]["lm"]
+    flip = next((i for i, (a, b) in enumerate(zip(
+        np.array(l0["tokens"]).T, np.array(sl["tokens"]).T))
+        if not np.array_equal(a, b)), len(sl["logits"]))
+    same = min(flip + 1, len(sl["logits"]))
+    lrels = [float((a - b).norm() / b.norm())
+             for a, b in zip(l0["logits"][:same], sl["logits"][:same])]
+    bitwise = all(torch.equal(a, b) for a, b in
+                  zip(l0["logits"][:same], sl["logits"][:same]))
+    for r in ranks:
+        rl = r["lm"]
+        check(rl["tokens"] == l0["tokens"] and all(
+            torch.equal(a, b) for a, b in zip(rl["logits"], l0["logits"])),
+            f"8dp{tag} (c) global rank {r['place'][0]}: tokens and logits "
+            f"rank 0's")
+        check(rl["slots"] == 1 and rl["counts"] == dict(
+            _launches(**{TBE_FLAT: 1 + DPP_NEW}), chunked=0),
+            f"8dp{tag} (c): a rank's cache holds its group's 1 slot; one "
+            f"TBE launch an embedding call, nothing else ({rl['counts']})")
+    check(max(lrels) < DPP_LM_REL, f"8dp{tag} (c): logits within "
+          f"{DPP_LM_REL} of the simulated (2, 2) ranks' over the {same} "
+          f"calls with equal inputs ({max(lrels):.3e})")
+    med = [1e3 * statistics.median(r["lm"]["step_s"]) for r in ranks]
+    log(f"  [(c){tag} granite-8b, {DPP_LM_LAYERS} layers] logits "
+        f"{'bitwise' if bitwise else 'not bitwise'} the simulated (2, 2) "
+        f"ranks' over the {same} calls with equal inputs (relative L2 per "
+        f"call {' '.join(f'{v:.2e}' for v in lrels)}); greedy tokens "
+        f"{'equal' if flip == len(sl['logits']) else f'differ first at call {flip}'}"
+        f"; prefill of {DPP_DP} x {DPP_PROMPT} tokens "
+        f"{[round(1e3 * r['lm']['prefill_s'], 1) for r in ranks]} ms per "
+        f"rank (simulated {1e3 * sl['prefill_s']:.1f}); median decode step "
+        f"{[round(m, 3) for m in med]} ms (simulated "
+        f"{1e3 * statistics.median(sl['step_s']):.3f}; host clock)")
+    out["lm"] = dict(rel=max(lrels), bitwise=bitwise, flip=flip,
+                     prefill_ms=[1e3 * r["lm"]["prefill_s"] for r in ranks],
+                     decode_ms=med)
+    # (d) granite train step
+    mt, m0 = sims["lmt"]["metrics"], ranks[0]["lmt"]["metrics"]
+    loss_rel = abs(m0["loss"] - mt["loss"]) / abs(mt["loss"])
+    norm_rel = abs(m0["grad_norm"] - mt["grad_norm"]) / mt["grad_norm"]
+    for r in ranks:
+        check(r["lmt"]["metrics"] == m0, f"8dp{tag} (d) global rank "
+              f"{r['place'][0]}: metrics rank 0's")
+        check(r["lmt"]["counts"] == dict(_launches(**{TBE_FLAT: 1}),
+                                         chunked=0),
+              f"8dp{tag} (d): one TBE launch a step, nothing else "
+              f"({r['lmt']['counts']})")
+    check(np.isfinite(m0["loss"]) and loss_rel <= LMTP_LOSS_REL
+          and norm_rel <= LMTP_NORM_REL,
+          f"8dp{tag} (d): the loss within {LMTP_LOSS_REL} and the gradient "
+          f"norm within {LMTP_NORM_REL} of the simulated (2, 2) step's "
+          f"({loss_rel:.3e}, {norm_rel:.3e})")
+    _dp_check_groups("(d) the parameters after the step",
+                     [r["lmt"]["sums"] for r in ranks], tag)
+    log(f"  [(d){tag} granite-8b, {DPP_LMT_LAYERS} layers, {DPP_DP} x "
+        f"{DPP_PROMPT} tokens] loss {m0['loss']} (simulated {mt['loss']}, "
+        f"{loss_rel:.3e}), grad norm {m0['grad_norm']} ({norm_rel:.3e}); "
+        f"step {[round(r['lmt']['step_s'], 3) for r in ranks]} s per rank "
+        f"(simulated {sims['lmt']['step_s']:.3f}); peak "
+        f"{[round(r['lmt'].get('peak_bytes', 0) / 1e9, 2) for r in ranks]} "
+        f"GB a rank; both data groups' parameters bitwise equal")
+    out["lmt"] = dict(loss_rel=loss_rel, norm_rel=norm_rel,
+                      step_s=[r["lmt"]["step_s"] for r in ranks])
+    out["launches"] = {k: sum(f["launches"][k] for f in out["flush"].values())
+                       + sum(r["train"]["counts"].get(k, 0)
+                             + r["lm"]["counts"].get(k, 0)
+                             + r["lmt"]["counts"].get(k, 0) for r in ranks)
+                       for k in SOURCES}
+    return out
+
+
+def phase_dp_ranks(pt, kmods, backends=("gloo", "nccl")) -> dict:
+    """Phase 8dp: 4 processes sharing the card over gloo as a (2, 2)
+    mesh (and where there are 4 cards the NCCL leg, one rank a card):
+    (a) DLRM flushes at CONFIG's width, (b) two DLRM training steps, (c)
+    granite-8b prefill and decode, (d) one granite-8b train step, each
+    held to the simulated make_context(2, dp_size=2) ranks on the card."""
+    n_cards = torch.cuda.device_count() if DEV != "cpu" else 0
+    log(f"== 8dp. (dp, tp) = ({DPP_DP}, {DPP_TP}) meshes with each rank a "
+        f"process ({DPP_WORLD} processes sharing the card over gloo: a data "
+        f"group's half of each batch over its model axis, the results "
+        f"gathered over the data axis; torch.cuda.device_count() "
+        f"{n_cards})")
+    t_phase = time.perf_counter()
+    sim_ctx = pt.make_context(DPP_TP, dp_size=DPP_DP)
+    dev = torch.device(DEV)
+    sims = {"flush": {}}
+    # (a) CONFIG's tables and phase 3's requests' first DPP_FLUSHES batches
+    cfg = pt.CONFIG
+    params = pt.init_params(torch.Generator(device=DEV).manual_seed(3), cfg,
+                            device=DEV)
+    reqs = _requests(cfg, pt.CTRRequest, DPP_FLUSHES * BATCH, seed=5)
+    for label, fields in DPP_STRATEGIES:
+        eng = pt.DLRMEngine(params, dataclasses.replace(cfg, **fields),
+                            batch_size=BATCH, ctx=sim_ctx, device=DEV)
+        for r in reqs:
+            eng.submit(r)
+        sims["flush"][label] = eng.run_to_completion()
+        del eng
+    # (b) the training tables: CONFIG cut to DPP_TRAIN_ROWS rows a table
+    tcfg = dataclasses.replace(cfg, rows_per_table=DPP_TRAIN_ROWS,
+                               **DPP_TRAIN[1])
+    tparams = pt.init_params(torch.Generator(device=DEV).manual_seed(4),
+                             tcfg, device=DEV)
+    inputs = _train_batches(pt, tcfg, 1, TRP_SEED, dev)[0]
+    sims["train"] = _dp_flow(pt, kmods, tparams, tparams["tables"], inputs,
+                             tcfg, sim_ctx, False)
+    # (c) granite-8b cut in depth, 2 prompts of DPP_PROMPT tokens
+    lcfg = dataclasses.replace(pt.LM_CONFIG, num_layers=DPP_LM_LAYERS)
+    lparams = pt.lm.init_params(torch.Generator(device=DEV).manual_seed(17),
+                                lcfg, tp_size=DPP_TP, device=DEV)
+    prompts = torch.as_tensor(np.random.default_rng(18).integers(
+        0, lcfg.vocab_size, (DPP_DP, DPP_PROMPT)).astype(np.int32),
+        device=dev)
+    with torch.no_grad():
+        sims["lm"] = _dp_greedy(pt, lparams, lcfg, prompts, sim_ctx, kmods)
+    # (d) one granite-8b train step of DPP_LMT_LAYERS layers
+    ltcfg = dataclasses.replace(pt.LMT_CONFIG, num_layers=DPP_LMT_LAYERS)
+    sims["lmt"] = _dp_train_step(pt, kmods, ltcfg, _dp_tc(pt), sim_ctx, dev)
+    torch.cuda.empty_cache()
+    log(f"  the simulated (2, 2) ranks on the card: "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    mlp = {part: params[part] for part in ("bottom", "top")}
+    tmlp = {part: tparams[part] for part in ("bottom", "top")}
+    out = {}
+    for backend in backends:
+        if backend == "nccl" and n_cards < DPP_WORLD:
+            log(f"  the NCCL leg needs {DPP_WORLD} cards (one process a "
+                f"card): not run on this machine")
+            continue
+        t0 = time.perf_counter()
+        ranks = pt.run_ranks(
+            _dp_rank, DPP_WORLD, backend=backend, dp_size=DPP_DP,
+            device=_rank_device() if backend == "gloo" else None,
+            args=(cfg, params["tables"], mlp, _rank_requests(reqs),
+                  {"tables": tparams["tables"], "inputs": inputs,
+                   "mlp": tmlp},
+                  {"cfg": lcfg, "params": lparams, "prompts": prompts},
+                  ltcfg),
+            timeout_s=DPP_TIMEOUT_S)
+        log(f"  {backend}, {DPP_WORLD} processes as ({DPP_DP}, {DPP_TP}): "
+            f"{time.perf_counter() - t0:.1f} s (spawn, shard copies, the "
+            f"legs, the records' gather)")
+        tag = "" if backend == "gloo" else " (nccl)"
+        res = _dp_check(pt, sims, ranks, tag)
+        if backend == "gloo":
+            out.update(res)
+        else:
+            out["nccl"] = res
+    del params, tparams, lparams, inputs, mlp, tmlp, prompts
+    torch.cuda.empty_cache()
+    out["secs"] = time.perf_counter() - t_phase
+    import multiprocessing
+
+    alive = multiprocessing.active_children()
+    log(f"  phase 8dp: {out['secs']:.1f} s; rank processes alive after it: "
+        f"{len(alive)}")
+    check(not alive, "phase 8dp's rank processes all ended")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # 8d. MLA serving
 # ---------------------------------------------------------------------------
 
@@ -6958,7 +7461,8 @@ def port_namespace():
         from repro_torch.core import embedding_bag as eb
         from repro_torch.core.cache_config import CacheConfig
         from repro_torch.core.jagged import JaggedBatch
-        from repro_torch.core.parallel import make_context, run_ranks
+        from repro_torch.core.parallel import (ProcessContext, make_context,
+                                               run_ranks)
         from repro_torch.kernels import flash_attention as fa
         from repro_torch.kernels import ref
         from repro_torch.models import decode as dec
@@ -7000,7 +7504,8 @@ def port_namespace():
         from repro_torch.train.loop import Trainer
         from repro_torch.utils.tree import (flatten_with_paths, leaves,
                                             map_leaves)
-        from repro_torch.utils.convert import rank_sharded, token_slice_leaf
+        from repro_torch.utils.convert import (lm_params_for_rank,
+                                               rank_sharded, token_slice_leaf)
 
     return pt
 
@@ -7078,6 +7583,11 @@ def main() -> int:
     log(f"== phase 8tp freed: {after / 1e9:.3f} GB allocated after it")
     check(after <= held + 2 ** 26, "phase 8tp's weights freed: the rank "
           "processes released what they were sent through CUDA IPC")
+    dprocs = phase_dp_ranks(pt, (eg, oa, pt.fa))
+    after = torch.cuda.memory_allocated()
+    log(f"== phase 8dp freed: {after / 1e9:.3f} GB allocated after it")
+    check(after <= held + 2 ** 26, "phase 8dp's tables and weights freed: "
+          "the rank processes released what they were sent through CUDA IPC")
     pt.MLA_CONFIG = dataclasses.replace(pt.deepseek_v3_671b.CONFIG,
                                         num_layers=DS_LAYERS)
     ds = phase_mla(pt, (eg, oa, pt.fa))
@@ -7160,6 +7670,9 @@ def main() -> int:
     }
     by_path["onesided_reduce_scatter"][TRAIN_RANK_PATH] = \
         tprocs["launches"]["onesided_reduce_scatter"]
+    for name in ("gather_pool_tbe_flat", "gather_pool_tbe",
+                 "onesided_all_to_all", "onesided_reduce_scatter"):
+        by_path[name][DP_RANK_PATH] = dprocs["launches"][name]
     # LM training runs no kernel: the flash kernel has no backward, and
     # under grad attention takes chunked_attention (phase 8t checks 0)
     check(all(n > 0 for paths in by_path.values()
@@ -7451,6 +7964,23 @@ def main() -> int:
         f"{max(max(s) for s in tm['step_s']):.3f} s, peak "
         f"{max(tm['peak_gb']):.2f} GB a rank; resume bitwise; phase "
         f"{ltprocs['secs']:.1f} s")
+    df = dprocs["flush"]
+    log(f"(dp, tp) = ({DPP_DP}, {DPP_TP}) meshes with each rank a process "
+        f"(8dp, gloo, {DPP_WORLD} processes on one card; host clock): "
+        + "; ".join(f"{label} median flush {max(v['median_ms']):.3f} ms "
+                    f"(slowest rank), pCTR within {v['err']:.3e}"
+                    for label, v in df.items())
+        + f"; DLRM training losses within {dprocs['train']['loss_rel']:.3e},"
+        f" steps {max(max(s) for s in dprocs['train']['step_s']):.3f} s "
+        f"(slowest); granite-8b at {DPP_LM_LAYERS} layers logits within "
+        f"{dprocs['lm']['rel']:.3e}, prefill "
+        f"{max(dprocs['lm']['prefill_ms']):.1f} ms, median decode step "
+        f"{max(dprocs['lm']['decode_ms']):.3f} ms; train step loss within "
+        f"{dprocs['lmt']['loss_rel']:.3e}, grad norm within "
+        f"{dprocs['lmt']['norm_rel']:.3e}, "
+        f"{max(dprocs['lmt']['step_s']):.3f} s; NCCL leg "
+        f"{'run' if 'nccl' in dprocs else f'needs {DPP_WORLD} cards'}; "
+        f"phase {dprocs['secs']:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -193,6 +193,14 @@ class RemoteStore(TableStore):
                 torch.cuda.device_count() if self.device.type == "cuda"
                 else 1)
         else:
+            if ctx.dp_size > 1:
+                raise NotImplementedError(
+                    "RemoteStore: a ProcessContext with a data axis "
+                    f"(dp_size {ctx.dp_size}) is not supported: the remote "
+                    "tier's hosts are one axis of ranks that fetch the same "
+                    "rows in lockstep, and each data group would be a tier "
+                    "of its own holding every row again; pass a context of "
+                    "one model axis (dp_size 1)")
             H = ctx.world
             if hosts and int(hosts) != H:
                 raise ValueError(

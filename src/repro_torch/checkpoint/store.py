@@ -22,12 +22,14 @@ Layout (one directory per step):
   * ``asynchronous=True`` writes on a thread; ``wait_all`` joins them;
   * with ``ctx`` (a ``ProcessContext``) every rank calls ``save`` with
     its own share of the state, and ``sharded`` names the leaves cut
-    over the ranks along ``utils/convert.SHARD_AXIS``: rank 0 receives
-    each such leaf's shares one at a time into one host buffer of the
+    over the ranks along ``utils/convert.SHARD_AXIS``: model rank 0 of
+    data group 0 (global rank 0) receives each such leaf's shares from
+    its data group's ranks one at a time into one host buffer of the
     whole leaf (no rank holds more than its share on its device), copies
     the others to the host, and alone writes -- the checkpoint one
-    device writes.  ``restore`` with the context reads the whole state
-    leaf by leaf and keeps this rank's part of each cut leaf.
+    device writes; the other data groups hold the same state and send
+    nothing.  ``restore`` with the context reads the whole state leaf by
+    leaf on every rank and keeps this rank's part of each cut leaf.
 """
 from __future__ import annotations
 
@@ -75,6 +77,8 @@ def _to_host(t: torch.Tensor):
 
 
 def _global(ctx, rank: int) -> int:
+    """The global rank of model rank ``rank`` of this rank's data
+    group."""
     return rank if ctx.group is None else dist.get_global_rank(ctx.group,
                                                                 rank)
 
@@ -108,8 +112,11 @@ def save(tree: Any, base: str, step: int, *, asynchronous: bool = False,
 
     With ``ctx`` (a ``ProcessContext``; collective) ``tree`` is this
     rank's share, and ``sharded`` the paths of its leaves cut over the
-    ranks along ``SHARD_AXIS`` (the rest replicated): rank 0 writes the
-    whole state, every other rank writes nothing."""
+    ranks along ``SHARD_AXIS`` (the rest replicated): global rank 0
+    writes the whole state from data group 0's shares, every other rank
+    writes nothing."""
+    if ctx is not None and ctx.dp_rank != 0:
+        return _step_dir(base, step)
     pairs = flatten_with_paths(tree)
     paths = [p for p, _ in pairs]
     host = []                                     # before the writer starts

@@ -52,7 +52,16 @@ The routes (:data:`RANK_ROUTES`):
     kernel, in the reference either: it goes over the group.
 
 Each call records one event, as over the stacked ranks: ``bytes_in`` is
-this rank's payload, ``axis_size`` the world.
+this rank's payload, ``axis_size`` the model axis's ranks.
+
+A context with a data axis (``dp_size > 1``) runs those over its data
+group's model axis, and has two collectives of its own over the data
+axis, both bulk (the group's ``all_gather_into_tensor`` and
+``all_reduce``; the reference leaves them to XLA): :func:`data_all_gather`
+brings the rows each data group computed from its share of a batch back
+whole on every rank, and :func:`data_all_reduce` sums what each data
+group holds (a gradient of its share).  Each records one event with
+``axis_size = dp_size``.
 
 Under grad the rank routes are ``torch.autograd.Function`` s whose
 backward is the inverse collective over the group, under the
@@ -64,6 +73,8 @@ same on every rank and counts once.
     each rank's partial takes the whole cotangent (the row-wise bag's
     backward across ranks);
   * ``all_gather``: this rank's slice of the cotangent;
+  * ``data_all_gather``: this data group's slice of the cotangent;
+  * ``data_all_reduce``: the identity, as ``all_reduce``'s;
   * ``all_to_all`` (bulk): the all-to-all of the cotangents;
   * ``reduce_scatter`` (bulk, ``emulate_with_a2a`` too): the all-gather
     of the cotangents;
@@ -299,15 +310,18 @@ RANK_ROUTES = {
 }
 
 
-def _record_rank(op: str, x: torch.Tensor, backend: str, ctx) -> None:
-    """One event for this rank's collective: its payload, the world."""
+def _record_rank(op: str, x: torch.Tensor, backend: str, ctx,
+                 axis_size: Optional[int] = None) -> None:
+    """One event for this rank's collective: its payload, the axis's
+    ranks (the model axis's unless ``axis_size`` is given)."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; want one of "
                          f"{BACKENDS}")
     if _LOG.events is None and _SINK is None:
         return
     t = time.perf_counter()
-    _emit(CollectiveEvent(op, x.numel() * x.element_size(), ctx.world,
+    _emit(CollectiveEvent(op, x.numel() * x.element_size(),
+                          ctx.world if axis_size is None else axis_size,
                           backend, t, t))
 
 
@@ -348,11 +362,14 @@ def _a2a_group(x: torch.Tensor, ctx) -> torch.Tensor:
     return out
 
 
-def _gather_group(x: torch.Tensor, axis: int, tiled: bool,
-                  ctx) -> torch.Tensor:
-    out = torch.empty((ctx.world,) + tuple(x.shape), dtype=x.dtype,
-                      device=x.device)
-    _oa.all_gather_into(out, x.contiguous(), ctx.group)
+def _gather_group(x: torch.Tensor, axis: int, tiled: bool, ctx, *,
+                  n: Optional[int] = None, group=None) -> torch.Tensor:
+    """The all-gather of ``x`` over ``group`` of ``n`` ranks (default:
+    the model axis of ``ctx``)."""
+    if n is None:
+        n, group = ctx.world, ctx.group
+    out = torch.empty((n,) + tuple(x.shape), dtype=x.dtype, device=x.device)
+    _oa.all_gather_into(out, x.contiguous(), group)
     parts = out.unbind(0)
     return torch.cat(parts, dim=axis) if tiled else torch.stack(parts,
                                                                 dim=axis)
@@ -476,6 +493,66 @@ def split(x: torch.Tensor, *, axis: Optional[int] = None,
         raise ValueError(f"split: {ctx.world} ranks do not divide axis "
                          f"{axis} of {tuple(x.shape)}")
     return _Split.apply(x, axis, ctx)
+
+
+class _DataGather(torch.autograd.Function):
+    """Every data group's ``x`` concatenated along its leading axis; the
+    backward takes this data group's rows of the replicated cotangent."""
+
+    @staticmethod
+    def forward(fctx, x, ctx):
+        fctx.args = (x.shape[0], ctx.dp_rank)
+        return _gather_group(x, 0, True, ctx, n=ctx.dp_size,
+                             group=ctx.data_group)
+
+    @staticmethod
+    def backward(fctx, g):
+        n, d = fctx.args
+        return g.narrow(0, d * n, n).contiguous(), None
+
+
+class _DataReduce(torch.autograd.Function):
+    """The sum of every data group's ``x``; the backward is the identity
+    (each group's term takes the whole cotangent of the replicated
+    sum)."""
+
+    @staticmethod
+    def forward(fctx, x, ctx):
+        out = x.contiguous().clone()
+        dist.all_reduce(out, group=ctx.data_group)
+        return out
+
+    @staticmethod
+    def backward(fctx, g):
+        return g, None
+
+
+def data_all_gather(x: torch.Tensor, *, ctx) -> torch.Tensor:
+    """The data axis's all-gather of a ``ProcessContext``: every data
+    group's ``x`` concatenated along the leading (batch) axis in
+    data-group order, the same on every rank -- the rows a data group
+    computed from its share of a batch, back whole (the reference's
+    ``out_specs=P(dp, ...)``).  Under grad the backward hands each data
+    group its own rows.  Without a data axis, ``x`` itself."""
+    if ctx.dp_size == 1:
+        return x
+    _check_rank_value(x, ctx, "data_all_gather")
+    _record_rank("all_gather", x, "bulk", ctx, axis_size=ctx.dp_size)
+    return _DataGather.apply(x, ctx)
+
+
+def data_all_reduce(x: torch.Tensor, *, ctx) -> torch.Tensor:
+    """The data axis's all-reduce of a ``ProcessContext``: the sum of
+    every data group's ``x`` (this rank's, and the same model rank's in
+    the other groups) in ``x``'s dtype, the same on every rank -- a
+    gradient of each group's share of a batch summed into the whole
+    batch's.  Under grad the backward is the identity.  Without a data
+    axis, ``x`` itself."""
+    if ctx.dp_size == 1:
+        return x
+    _check_rank_value(x, ctx, "data_all_reduce")
+    _record_rank("all_reduce", x, "bulk", ctx, axis_size=ctx.dp_size)
+    return _DataReduce.apply(x, ctx)
 
 
 def _rank_all_to_all(x: torch.Tensor, backend: str, ctx) -> torch.Tensor:

@@ -27,13 +27,21 @@ idiom (:class:`ProcessContext`, :func:`make_process_context`,
 :func:`run_ranks`): it holds only its own shard on its own device, and
 its collectives go through a ``torch.distributed`` process group
 (``core/comm.py``), its one-sided puts into the peers' buffers through
-CUDA IPC (``kernels/onesided_a2a.SymmetricBuffers``).  The distributed
-embedding bag, the DLRM forward and its engine take either context, and
-so do the LM's serving paths (``lm.forward`` without grad, prefill,
-decode, ``generate``, ``ContinuousBatcher``: each rank holds its rows of
-the vocabulary, its experts and its slice of the decode cache,
-``utils/convert.lm_params_for_rank``).  Training over processes is not
-ported: the rank collectives refuse a tensor that needs a gradient.
+CUDA IPC (``kernels/onesided_a2a.SymmetricBuffers``).  The world is laid
+out as the reference's ``("data", "model")`` mesh, the model axis last:
+global rank ``d * tp_size + m`` is rank m of data group d.  A rank's
+model-axis collectives go through its data group's model-axis subgroup,
+its data-axis collectives (``comm.data_all_gather``,
+``comm.data_all_reduce``) through its model rank's data-axis subgroup.
+The distributed embedding bag, the DLRM forward, its engine and its
+training flow take either context, and so do the LM's serving paths
+(``lm.forward``, prefill, decode, ``generate``, ``ContinuousBatcher``:
+each rank holds its rows of the vocabulary, its experts and its slice of
+the decode cache, ``utils/convert.lm_params_for_rank``) and its train
+step and ``Trainer`` (the rank collectives carry the gradient back to
+each rank's share).  With a data axis, a data group runs its share of a
+batch over its model axis (:meth:`ProcessContext.model_axis`) and the
+results come back whole over the data axis.
 The backends:
 
   * ``"gloo"`` -- on the CPU, and on the card, where several ranks may
@@ -118,45 +126,87 @@ _MIN_SYMMETRIC_BYTES = 1 << 20
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class ProcessContext:
-    """One rank of a model axis of ``world`` ranks, each a process: this
-    process's ``rank``, its ``device``, and the ``torch.distributed``
-    ``group`` its collectives go through (None: the default group).  The
-    model axis is the whole group (``tp_size == world``); there is no
-    data axis.
+    """One rank of a ``(dp_size, world)`` mesh of processes, the model
+    axis last: this process's model-axis ``rank`` of ``world`` ranks, its
+    ``device``, the ``torch.distributed`` ``group`` of its data group's
+    model axis (None: the default group, when the model axis is the
+    whole world), and, with a data axis (``dp_size > 1``), its data group
+    ``dp_rank`` and the ``data_group`` of the ranks that hold its model
+    rank in every data group.  ``rank``/``world``/``group`` are the model
+    axis's, so every reader of a rank's share (its table shard, its rows
+    of the vocabulary, its experts, its slice of the decode cache) reads
+    the same share in every data group.
 
     :meth:`symmetric` holds the rank's symmetric buffers of the one-sided
-    exchanges on a card, built and grown collectively; :meth:`close`
-    frees them."""
+    exchanges on a card, built and grown collectively over the model
+    axis; :meth:`close` frees them."""
 
     group: Any
     rank: int
     world: int
     device: torch.device
     config: ShardingConfig = ShardingConfig()
+    dp_size: int = 1
+    dp_rank: int = 0
+    data_group: Any = None
     _buffers: Dict[str, Any] = dataclasses.field(default_factory=dict,
                                                   repr=False)
+    _views: Dict[str, Any] = dataclasses.field(default_factory=dict,
+                                                repr=False)
+
+    def __post_init__(self):
+        if not 0 <= self.dp_rank < self.dp_size:
+            raise ValueError(f"dp_rank {self.dp_rank} is not a data group "
+                             f"of {self.dp_size}")
 
     @property
     def tp_size(self) -> int:
         return self.world
 
     @property
-    def dp_size(self) -> int:
-        return 1
+    def global_rank(self) -> int:
+        """This rank in the world: ``dp_rank * world + rank``."""
+        return self.dp_rank * self.world + self.rank
 
-    # ParallelContext's queries, for a context with no data axis
+    # ParallelContext's queries
     @property
     def dp_axes(self) -> Tuple[str, ...]:
-        return ()
+        return ("data",) if self.dp_size > 1 else ()
 
-    def dp_for(self, dim: int) -> None:
+    def dp_for(self, dim: int) -> Optional[Tuple[str, ...]]:
+        if self.dp_axes and dim % self.dp_size == 0:
+            return self.dp_axes
         return None
 
     def tp_for(self, dim: int) -> Optional[str]:
         return "model" if dim % self.world == 0 else None
 
     def dp_groups(self, dim: int) -> int:
-        return 1
+        return self.dp_size if self.dp_for(dim) else 1
+
+    def data_rows(self, dim: int) -> slice:
+        """This data group's rows of a batch of ``dim``: ``[d dim/dp, (d +
+        1) dim/dp)`` when ``dp_size`` divides it, else all of them (every
+        group runs the whole batch, as :meth:`dp_groups` says)."""
+        n = self.dp_groups(dim)
+        if n == 1:
+            return slice(None)
+        b = dim // n
+        return slice(self.dp_rank * b, (self.dp_rank + 1) * b)
+
+    def model_axis(self) -> "ProcessContext":
+        """The context a data group's share of a batch runs under: this
+        rank of its data group's model axis, with no data axis -- the same
+        group, rank, device, knobs and symmetric buffers.  Itself without
+        a data axis; one view per context otherwise, so
+        :func:`same_model_axis` holds between them."""
+        if self.dp_size == 1:
+            return self
+        view = self._views.get("model")
+        if view is None:
+            view = self._views["model"] = dataclasses.replace(
+                self, dp_size=1, dp_rank=0, data_group=None, _views={})
+        return view
 
     def symmetric(self, name: str, nbytes: int):
         """The symmetric buffers ``name`` ("send" or "recv") of at least
@@ -188,6 +238,23 @@ class ProcessContext:
             self._buffers.clear()
 
 
+def same_model_axis(a: ProcessContext, b: ProcessContext) -> bool:
+    """Whether two contexts are one rank of one model axis: the same
+    context, or a context and its :meth:`ProcessContext.model_axis`."""
+    return a is b or a.model_axis() is b.model_axis()
+
+
+def data_split(ctx, batch: int) -> Optional[Tuple[slice, ProcessContext]]:
+    """(this data group's rows of a batch of ``batch``, the model-axis
+    context they run under) under a ``ProcessContext`` whose data groups
+    split the batch (``dp_size`` divides it); None otherwise: no context,
+    simulated ranks, no data axis, or every group runs the whole
+    batch."""
+    if isinstance(ctx, ProcessContext) and ctx.dp_groups(batch) > 1:
+        return ctx.data_rows(batch), ctx.model_axis()
+    return None
+
+
 def _default_device() -> torch.device:
     """``cuda:{local_rank % device_count}``; raises without a card."""
     if not torch.cuda.is_available():
@@ -212,26 +279,50 @@ def _check_nccl(devices: Sequence[torch.device]) -> None:
             f"share a card")
 
 
-def make_process_context(tp_size: Optional[int] = None, dp_size: int = 1,
-                         *, device=None,
-                         sharding: Optional[ShardingConfig] = None
+def _mesh_groups(tp_size: int, dp: int, timeout_s: float, kw: dict):
+    """(this rank's model-axis group, its data-axis group): every rank
+    creates every group, in the same order -- the dp model-axis groups,
+    then the tp_size data-axis groups -- as ``new_group`` requires."""
+    d, m = divmod(dist.get_rank(), tp_size)
+    timeout = timedelta(seconds=timeout_s)
+    model = [dist.new_group([g * tp_size + j for j in range(tp_size)],
+                            timeout=timeout, **kw) for g in range(dp)]
+    data = [dist.new_group([g * tp_size + j for g in range(dp)],
+                           timeout=timeout, **kw) for j in range(tp_size)]
+    return model[d], data[m]
+
+
+def make_process_context(tp_size: Optional[int] = None,
+                         dp_size: Optional[int] = None, *, device=None,
+                         sharding: Optional[ShardingConfig] = None,
+                         timeout_s: float = DEFAULT_TIMEOUT_S
                          ) -> ProcessContext:
-    """This process's rank of the model axis: the initialised default
-    process group, whose size must be ``tp_size`` (None: any), on
-    ``device`` (None: ``cuda:{LOCAL_RANK % device_count}``, raising
-    without a card), with the mesh knobs ``sharding``.  ``dp_size > 1``
-    is not supported with processes and raises."""
-    if dp_size != 1:
-        raise NotImplementedError(
-            "a data axis (dp_size > 1) is not supported with ranks as "
-            "processes; the model axis is the whole group")
+    """This process's rank of a ``(dp_size, tp_size)`` mesh of the
+    initialised default group's ranks, the model axis last, as the
+    reference's ``("data", "model")`` mesh: global rank ``d * tp_size +
+    m`` is rank m of data group d.  ``tp_size`` None: the world over
+    ``dp_size``; ``dp_size`` None: the world over ``tp_size`` (both None:
+    one model axis of the whole world).  ``tp_size`` must divide the
+    world and ``tp_size * dp_size`` equal it (``ValueError``).  With a
+    data axis every rank creates every model-axis and data-axis subgroup
+    (collective; with NCCL on the rank's device), their collectives
+    giving up after ``timeout_s``.  On ``device`` (None:
+    ``cuda:{LOCAL_RANK % device_count}``, raising without a card), with
+    the mesh knobs ``sharding``."""
     if not dist.is_initialized():
         raise RuntimeError("torch.distributed is not initialised: start "
                            "the ranks with run_ranks, or call "
                            "init_process_group first")
     world = dist.get_world_size()
-    if tp_size is not None and tp_size != world:
-        raise ValueError(f"tp_size {tp_size} != the group's {world} ranks")
+    if tp_size is None:
+        tp_size = world // (dp_size or 1)
+    if tp_size < 1 or world % tp_size:
+        raise ValueError(f"tp_size {tp_size} != the group's {world} ranks, "
+                         f"nor divides them into data groups")
+    dp = world // tp_size
+    if dp_size is not None and dp_size != dp:
+        raise ValueError(f"tp_size {tp_size} x dp_size {dp_size} != the "
+                         f"group's {world} ranks")
     dev = _default_device() if device is None else torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -239,17 +330,23 @@ def make_process_context(tp_size: Optional[int] = None, dp_size: int = 1,
                                f"device={dev}")
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
-    if dist.get_backend() == "nccl" and (
-            dev.type != "cuda" or world > torch.cuda.device_count()):
+    nccl = dist.get_backend() == "nccl"
+    if nccl and (dev.type != "cuda" or world > torch.cuda.device_count()):
         _check_nccl([dev] * world)
-    return ProcessContext(group=None, rank=dist.get_rank(), world=world,
-                          device=dev, config=sharding or ShardingConfig())
+    group = data_group = None
+    if dp > 1:
+        group, data_group = _mesh_groups(
+            tp_size, dp, timeout_s, {"device_id": dev} if nccl else {})
+    d, m = divmod(dist.get_rank(), tp_size)
+    return ProcessContext(group=group, rank=m, world=tp_size, device=dev,
+                          config=sharding or ShardingConfig(), dp_size=dp,
+                          dp_rank=d, data_group=data_group)
 
 
-def _rank_main(index: int, fn: Callable, world: int, backend: str,
-               devices: Sequence[str], store: str, result: str,
-               timeout_s: float, sharding: Optional[ShardingConfig],
-               box: list) -> None:
+def _rank_main(index: int, fn: Callable, world: int, dp_size: int,
+               backend: str, devices: Sequence[str], store: str,
+               result: str, timeout_s: float,
+               sharding: Optional[ShardingConfig], box: list) -> None:
     """One rank's process: join the group through the file store, run
     ``fn(ctx, *box[0])``, and keep rank 0's result.
 
@@ -265,7 +362,8 @@ def _rank_main(index: int, fn: Callable, world: int, backend: str,
         world_size=world, timeout=timedelta(seconds=timeout_s),
         **({"device_id": device} if backend == "nccl" else {}))
     try:
-        ctx = make_process_context(world, device=device, sharding=sharding)
+        ctx = make_process_context(world // dp_size, dp_size, device=device,
+                                   sharding=sharding, timeout_s=timeout_s)
         out = fn(ctx, *box.pop())
         gc.collect()
         ctx.close()
@@ -301,9 +399,11 @@ def _first_error(tmp: str) -> Optional[Tuple[int, str]]:
 
 def run_ranks(fn: Callable, world: int, *, backend: str, device=None,
               args: tuple = (), timeout_s: float = DEFAULT_TIMEOUT_S,
-              sharding: Optional[ShardingConfig] = None):
+              sharding: Optional[ShardingConfig] = None, dp_size: int = 1):
     """Run ``fn(ctx, *args)`` on ``world`` ranks, one process each, and
-    return rank 0's result.  Each rank's ``ctx`` carries the mesh knobs
+    return global rank 0's result.  The ranks form a ``(dp_size, world /
+    dp_size)`` mesh (:func:`make_process_context`; ``dp_size`` must divide
+    ``world``), and each rank's ``ctx`` carries the mesh knobs
     ``sharding``.
 
     The processes start with the ``spawn`` method and meet through a
@@ -323,6 +423,9 @@ def run_ranks(fn: Callable, world: int, *, backend: str, device=None,
                          f"{backend!r}")
     if world < 1:
         raise ValueError(f"world must be >= 1, got {world}")
+    if dp_size < 1 or world % dp_size:
+        raise ValueError(f"dp_size {dp_size} does not divide the world of "
+                         f"{world} ranks")
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -344,7 +447,8 @@ def run_ranks(fn: Callable, world: int, *, backend: str, device=None,
     try:
         result = os.path.join(tmp, "result.pt")
         procs = mp.start_processes(
-            _rank_main, args=(fn, world, backend, [str(d) for d in devices],
+            _rank_main, args=(fn, world, dp_size, backend,
+                              [str(d) for d in devices],
                               os.path.join(tmp, "store"), result, timeout_s,
                               sharding, [tuple(args)]),
             nprocs=world, join=False, start_method="spawn")

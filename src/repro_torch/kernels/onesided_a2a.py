@@ -397,7 +397,12 @@ class SymmetricBuffers:
     not open raises: there is no fallback to a bulk collective.
 
     The constructor is collective: every rank of the group builds its
-    buffers at the same point with the same size."""
+    buffers at the same point with the same size.  ``rank`` and ``world``
+    are the rank's and the size of ``group`` (a model-axis subgroup under
+    a data axis: the handles are gathered over it and indexed by the rank
+    in it, so two model axes sharing a card open only their own peers'
+    buffers); others raise.  :attr:`handles` keeps the E handles, in
+    rank order."""
 
     def __init__(self, group, rank: int, world: int, device, nbytes: int):
         self.group, self.rank, self.world = group, rank, world
@@ -407,6 +412,12 @@ class SymmetricBuffers:
                              f"{self.device}")
         if not 1 <= world <= MAX_RANKS:
             raise ValueError(f"at most {MAX_RANKS} ranks, got {world}")
+        if (dist.get_rank(group), dist.get_world_size(group)) != (rank,
+                                                                 world):
+            raise ValueError(
+                f"rank {rank} of {world} is not this process's place in the"
+                f" group: {dist.get_rank(group)} of "
+                f"{dist.get_world_size(group)}")
         self.nbytes = int(nbytes)
         self._index = self.device.index if self.device.index is not None \
             else torch.cuda.current_device()
@@ -420,6 +431,7 @@ class SymmetricBuffers:
                     "cudaIpcGetMemHandle")
         handles = [None] * world
         dist.all_gather_object(handles, handle.raw, group=group)
+        self.handles = tuple(handles)
         self._opened = []
         ptrs = []
         for r, h in enumerate(handles):

@@ -44,7 +44,11 @@ whole prompt on every rank and writes the rows of the positions it owns;
 decode writes the new row on the rank that owns position ``length``;
 each rank takes its partial at ``kv_offset = r Sc``, all-gathers the
 ranks' ``(o, m, l)`` triples in rank order and combines them as the
-simulation does, so the result is bitwise the simulated ranks'.
+simulation does, so the result is bitwise the simulated ranks'.  With a
+data axis whose ``dp_size`` divides the batch, a rank's cache holds only
+its data group's ``B / dp`` slots (:func:`cache_specs`' data-sharded
+batch), prefill and decode run the group's samples over its model axis,
+and the hidden states come back whole over the data axis.
 """
 from __future__ import annotations
 
@@ -54,10 +58,12 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import comm
-from repro_torch.core.parallel import ParallelContext, ProcessContext
+from repro_torch.core.parallel import (ParallelContext, ProcessContext,
+                                       data_split)
 from repro_torch.models import layers, mla, ssm
 from repro_torch.models.lm import (
     _block,
+    _rows,
     _gqa_qkv,
     _moe_apply,
     _norm,
@@ -110,13 +116,17 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, *,
 
     Under a ``ProcessContext`` with ``decode_kv_seq_sharded`` (``ctx``)
     the positional entries hold this rank's ``max_len / E`` positions
-    (``ValueError`` when E does not divide ``max_len``)."""
+    (``ValueError`` when E does not divide ``max_len``), and with a data
+    axis that divides ``batch`` only its data group's ``batch / dp``
+    slots."""
     _require_ported(cfg)
     device = resolve_device(device)
     dtype = dtype or torch_dtype(cfg.dtype)
     ranks = _seq_sharded(ctx, max_len) if isinstance(ctx, ProcessContext) \
         else 0
     positions = max_len // ranks if ranks else max_len
+    if isinstance(ctx, ProcessContext):
+        batch //= ctx.dp_groups(batch)
     cache: Dict[str, Any] = {
         "length": torch.zeros((batch,), dtype=torch.int32, device=device)}
     shapes = _entry_shapes(cfg, dtype)
@@ -354,8 +364,22 @@ def decode_step(params, cache, tokens: torch.Tensor, cfg: ModelConfig,
     (Mamba's, RWKV's) in place, and returns the cache with ``length +
     1``.  The audio family's layers cross-attend to ``cache["enc"]``.
     ``ctx``: the embedding, the MoE layers and (sequence-sharded) decode
-    attention under the context (module docstring)."""
+    attention under the context (module docstring); under a
+    ``ProcessContext`` whose data groups split the B tokens, ``cache``
+    holds this group's B / dp slots (:func:`init_cache`), and the hidden
+    states come back whole over the data axis."""
     _require_ported(cfg)
+    split = data_split(ctx, tokens.shape[0])
+    if split is not None:
+        rows, model = split
+        mine = tokens[rows]
+        if cache["length"].shape[0] != mine.shape[0]:
+            raise ValueError(
+                f"the cache holds {cache['length'].shape[0]} slots, and "
+                f"this data group's share of {tokens.shape[0]} tokens is "
+                f"{mine.shape[0]}: make it with init_cache(..., ctx=ctx)")
+        cache, h = decode_step(params, cache, mine, cfg, model)
+        return cache, comm.data_all_gather(h, ctx=ctx)
     length = cache["length"]
     audio = cfg.family == "audio"
     enc = cache["enc"] if audio else None
@@ -428,9 +452,19 @@ def prefill(params, tokens: torch.Tensor, cfg: ModelConfig,
     the MoE layers under the context.  audio: ``frames`` (B,
     S_enc, d) run through the encoder once, into ``cache["enc"]``.  vlm:
     text only; ``patches`` raises ``NotImplementedError``, as in the
-    reference (an image-prefixed prompt goes through ``lm.forward``)."""
+    reference (an image-prefixed prompt goes through ``lm.forward``).
+    Under a ``ProcessContext`` whose data groups split the batch, the
+    cache holds this group's samples and the hidden states come back
+    whole over the data axis."""
     _require_ported(cfg)
     check_context(ctx)
+    split = data_split(ctx, tokens.shape[0])
+    if split is not None:
+        rows, model = split
+        cache, h = prefill(params, tokens[rows], cfg, model,
+                           max_len=max_len or tokens.shape[1],
+                           frames=_rows(frames, rows), patches=patches)
+        return cache, comm.data_all_gather(h, ctx=ctx)
     if cfg.family == "vlm" and patches is not None:
         raise NotImplementedError(
             f"{cfg.name}: prefill with patches (an image-prefixed cache) "

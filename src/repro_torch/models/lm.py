@@ -44,7 +44,11 @@ and computes everything else whole.  Under grad every rank computes the
 same loss and the rank collectives carry the gradient back to each
 rank's share (``core/comm.py``): its rows of the vocabulary, its
 experts, its tokens' part of the routers and the shared experts
-(``train/step.py`` sums those over the ranks).
+(``train/step.py`` sums those over the ranks).  With a data axis whose
+``dp_size`` divides B, data group d runs samples ``[d B/dp, (d + 1)
+B/dp)`` over its model axis (``core/parallel.data_split``) and the
+hidden states come back whole over the data axis (:func:`data_aux` for
+the MoE's ``aux``); otherwise every group runs the whole batch.
 Serving ignores the MTP head, as the reference does; its loss is LM
 training's (``train/step.lm_loss``).
 
@@ -78,7 +82,8 @@ from repro_torch.core.embedding_bag import (EmbeddingBagConfig, RankShard,
                                             pooled_lookup_sharded,
                                             shard_tables)
 from repro_torch.core.jagged import JaggedBatch
-from repro_torch.core.parallel import ParallelContext, ProcessContext
+from repro_torch.core.parallel import (ParallelContext, ProcessContext,
+                                       data_split, same_model_axis)
 from repro_torch.models import layers, mla, ssm
 from repro_torch.models import moe as moe_mod
 from repro_torch.utils.device import resolve_device
@@ -158,6 +163,29 @@ def check_context(ctx):
         raise TypeError(f"ctx must be a ParallelContext, a ProcessContext "
                         f"or None, got {type(ctx).__name__}")
     return ctx
+
+
+def data_aux(aux: Dict[str, torch.Tensor], ctx) -> Dict[str, torch.Tensor]:
+    """A data group's ``aux`` as the whole batch's, the same on every rank
+    (the simulated ranks' semantics, from the reference's replicated
+    ``out_specs=P()``): ``moe_aux``'s value is the first data group's,
+    its gradient that of the mean over the groups; ``moe_dropped`` the
+    first group's; the audio family's ``encoder_out`` gathered."""
+    out = dict(aux)
+    if "moe_aux" in aux:
+        g = comm.data_all_gather(aux["moe_aux"][None], ctx=ctx)
+        mean = g.mean()
+        out["moe_aux"] = mean + (g[0] - mean).detach()
+        out["moe_dropped"] = comm.data_all_gather(
+            aux["moe_dropped"][None], ctx=ctx)[0]
+    if "encoder_out" in aux:
+        out["encoder_out"] = comm.data_all_gather(aux["encoder_out"],
+                                                  ctx=ctx)
+    return out
+
+
+def _rows(x, rows: slice):
+    return None if x is None else x[rows]
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -458,7 +486,8 @@ def embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig,
                          f"got {cfg.vocab_sharding!r}")
     eb_cfg = embedding_bag_config(cfg, ctx.tp_size)
     if isinstance(ctx, ProcessContext):
-        if not isinstance(table, RankShard) or table.ctx is not ctx:
+        if not isinstance(table, RankShard) or not same_model_axis(
+                table.ctx, ctx):
             raise ValueError(
                 "under a ProcessContext params['embed'] must be this rank's "
                 "RankShard of the vocabulary: cut the parameters with "
@@ -700,8 +729,18 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig,
     ``torch.utils.checkpoint`` when grad is enabled, the same values.
     ``ctx``: the embedding through the sharded bag and the MoE layers
     expert-parallel (:func:`embed_tokens`, :func:`_moe_apply`); every
-    other layer computes what it computes without one."""
+    other layer computes what it computes without one.  Under a
+    ``ProcessContext`` whose data groups split the batch, this group's
+    samples over its model axis, the hidden states gathered over the data
+    axis (``core/parallel.data_split``, :func:`data_aux`)."""
     _require_ported(cfg)
+    split = data_split(ctx, tokens.shape[0])
+    if split is not None:
+        rows, model = split
+        h, aux = forward(params, tokens[rows], cfg, model,
+                         frames=_rows(frames, rows),
+                         patches=_rows(patches, rows), remat=remat)
+        return comm.data_all_gather(h, ctx=ctx), data_aux(aux, ctx)
     h = embed_tokens(params, tokens, cfg, ctx)
     aux: Dict[str, torch.Tensor] = {}
     cross = None

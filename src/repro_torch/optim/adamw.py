@@ -102,7 +102,10 @@ def global_norm(tree, *, ctx=None, sharded=frozenset()) -> torch.Tensor:
     slices in order) is all-reduced over the group, all of them in one
     collective, and enters the total in its leaf's place, while a
     replicated leaf's slices enter as above, once.  Only the sharded
-    leaves' sums differ from one device's, in their order of addition."""
+    leaves' sums differ from one device's, in their order of addition.
+    The sum runs over the model axis alone: with a data axis every data
+    group holds the same gradients (summed over it by the train step), so
+    each leaf counts once, not ``dp_size`` times."""
     total = None
     pairs = flatten_with_paths(tree)
     whole = {}

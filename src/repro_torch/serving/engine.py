@@ -51,7 +51,12 @@ LM serving under a ``ProcessContext`` (each rank of the model axis a
 process, its parameters cut by ``utils/convert.lm_params_for_rank``):
 ``generate`` and ``ContinuousBatcher`` run on the rank's device, every
 rank over the same prompts, admitting and evicting the same requests in
-lockstep (``models/decode.py``); each returns the same tokens.
+lockstep (``models/decode.py``); each returns the same tokens.  With a
+data axis that divides the batch (the batcher's slots), a rank's cache
+holds its data group's share of the slots, the group prefills and
+decodes only those, and the hidden states (an admission's first token)
+come back whole over the data axis, so every rank keeps the same host
+bookkeeping.
 
 Float32 products run in full float32 on the card (TF32 off), as in the
 reference.
@@ -69,10 +74,12 @@ from repro_torch.analysis.contracts import KernelContract
 from repro_torch.cache.manager import CacheCapacityError
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.dlrm import DLRMConfig
+from repro_torch.core import comm
 from repro_torch.core.embedding_bag import (make_cache, shard_for_rank,
                                             shard_tables)
 from repro_torch.core.jagged import JaggedBatch
-from repro_torch.core.parallel import ParallelContext, ProcessContext
+from repro_torch.core.parallel import (ParallelContext, ProcessContext,
+                                       data_split)
 from repro_torch.models import decode as dec
 from repro_torch.models import dlrm as dlrm_mod
 from repro_torch.models import lm
@@ -175,7 +182,12 @@ class ContinuousBatcher:
     the batcher is one rank's: on the rank's device, over the rank's
     parameters (``utils/convert.lm_params_for_rank``) and its slice of
     the cache; every rank submits the same requests and steps in
-    lockstep, and each finishes with the same tokens."""
+    lockstep, and each finishes with the same tokens.  With a data axis
+    that divides ``num_slots``, data group d owns slots ``[d n/dp, (d +
+    1) n/dp)``: its ranks' cache holds only those, an admission into one
+    is prefilled by its owner alone (its first token gathered over the
+    data axis), and each decode step runs every group's slots in its
+    group (``decode.decode_step``)."""
 
     def __init__(self, params, cfg: ModelConfig, num_slots: int,
                  max_len: int,
@@ -198,6 +210,11 @@ class ContinuousBatcher:
         self.cache = dec.init_cache(cfg, num_slots, max_len,
                                     dtype=params["embed"].dtype,
                                     device=self.device, ctx=ctx)
+        # the slots this rank's cache holds, and the context their
+        # admissions run under: a data group's share over its model axis
+        split = data_split(ctx, num_slots)
+        rows, self._admit_ctx = split or (slice(None), ctx)
+        self._own = range(num_slots)[rows]
         self.slots: List[Optional[Request]] = [None] * num_slots
         self.tokens = torch.zeros((num_slots,), dtype=torch.int32,
                                   device=self.device)
@@ -217,6 +234,11 @@ class ContinuousBatcher:
                             self.ctx)[:, 0]
 
     # -- internal ----------------------------------------------------------
+    def _local(self, i: int) -> Optional[int]:
+        """Slot ``i``'s index in this rank's cache, None if another data
+        group's cache holds it."""
+        return i - self._own.start if i in self._own else None
+
     def _admit(self) -> None:
         for i in range(self.num_slots):
             if self.slots[i] is None and self.queue:
@@ -224,15 +246,24 @@ class ContinuousBatcher:
                 t0 = time.perf_counter()
                 prompt = torch.as_tensor(req.prompt[None, :],
                                          device=self.device)
-                # slot i of every entry, rows and states alike (batch
-                # at axis 1); prefill writes the states whole
-                kv = {name: {k: v[:, i:i + 1] for k, v in st.items()}
-                      for name, st in dec.kv_stacks(self.cache).items()}
-                hidden = dec._prefill_into(self.params, prompt, self.cfg, kv,
-                                           self.ctx)
-                self.cache["length"][i] = prompt.shape[1]
-                lg = self._head(hidden[:, -1])
-                first = int(torch.argmax(lg[0, : self.cfg.vocab_size]))
+                first = torch.zeros((1,), dtype=torch.int64,
+                                    device=self.device)
+                j = self._local(i)
+                if j is not None:
+                    # slot j of every entry, rows and states alike (batch
+                    # at axis 1); prefill writes the states whole
+                    kv = {name: {k: v[:, j:j + 1] for k, v in st.items()}
+                          for name, st in dec.kv_stacks(self.cache).items()}
+                    hidden = dec._prefill_into(self.params, prompt, self.cfg,
+                                               kv, self._admit_ctx)
+                    self.cache["length"][j] = prompt.shape[1]
+                    lg = self._head(hidden[:, -1])
+                    first = torch.argmax(lg[:, : self.cfg.vocab_size], -1)
+                if len(self._own) < self.num_slots:
+                    # the owner's token, from the data group that holds i
+                    first = comm.data_all_gather(first, ctx=self.ctx)[
+                        i // len(self._own)]
+                first = int(first.reshape(-1)[0])
                 self.timings["prefill"].append(
                     (prompt.shape[1], time.perf_counter() - t0))
                 req.generated.append(first)
@@ -247,7 +278,9 @@ class ContinuousBatcher:
                     (req.generated and req.generated[-1] == self.eos)):
                 self.done[req.rid] = req
                 self.slots[i] = None
-                self.cache["length"][i] = 0
+                j = self._local(i)
+                if j is not None:
+                    self.cache["length"][j] = 0
 
     def step(self) -> bool:
         """Admit, decode one token for all slots, evict finished."""

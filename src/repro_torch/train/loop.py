@@ -26,10 +26,13 @@ with the context, on its own device: a card's generator draws what the
 simulated ranks' draws on that card, and a rank keeps only its rows of
 the table and its experts), and restores its share of a checkpoint when
 there is one; every rank takes the same batches from its ``data`` (pass
-each the same seeded iterator), and rank 0 alone calls ``on_metrics``.
-A checkpoint is the one the Trainer writes on one device, the whole
-state: rank 0 receives each cut leaf's shares on the host and writes
-(``checkpoint.store.save`` with the context).  So a run resumes
+each the same seeded iterator), the train step drawing its data group's
+rows of each when a data axis splits it, and global rank 0 alone calls
+``on_metrics``.  A checkpoint is the one the Trainer writes on one
+device, the whole state: global rank 0 receives each cut leaf's shares
+from data group 0's ranks on the host and writes
+(``checkpoint.store.save`` with the context); a restore fills every data
+group.  So a run resumes
 bitwise, and a checkpoint written under processes restores under
 ``make_context(E)`` and the other way round.
 """
@@ -118,7 +121,7 @@ class Trainer:
                   asynchronous=asynchronous, keep=self.tc.keep_checkpoints,
                   ctx=self.ranks, sharded=self.sharded)
         if self.ranks is not None and not asynchronous:
-            dist.barrier(group=self.ranks.group)   # rank 0 has written
+            dist.barrier()          # the world: global rank 0 has written
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -149,7 +152,7 @@ class Trainer:
                 m["step_time_s"] = dt
                 self.metrics_log.append((step, m))
                 if on_metrics and (self.ranks is None
-                                   or self.ranks.rank == 0):
+                                   or self.ranks.global_rank == 0):
                     on_metrics(step, m)
                 if step % self.tc.checkpoint_every == 0:
                     self._checkpoint(step)

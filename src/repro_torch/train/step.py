@@ -31,9 +31,16 @@ the vocabulary, its experts).  After the backward, the gradients of the
 replicated leaves each rank used on its own tokens only -- the MoE
 routers and shared experts (``utils/convert.token_slice_leaf``) -- are
 summed over the ranks (one all-reduce in f32, the group's order); every other
-replicated leaf's gradient is the whole batch's on every rank.  The clip
-takes the whole model's norm (``optim/adamw.global_norm`` with the
-context), and each rank updates its own share.  A tied head
+replicated leaf's gradient is the whole batch's on every rank.  With a
+data axis whose ``dp_size`` divides the batch, each data group runs its
+samples over its model axis and computes only their head and
+cross-entropy; the loss is the global token mean on every rank (the
+cross-entropy's numerator and its mask count each summed over the data
+axis, not each group's mean averaged), and after the model axis's sums
+every leaf's gradient is summed over the data axis, once, in f32
+(:meth:`TrainStep.sum_over_data`).  The clip takes the whole model's norm
+(``optim/adamw.global_norm`` with the context, each leaf counted once),
+and each rank updates its own share.  A tied head
 (``tie_embeddings``, which no shipped config sets) is refused there: a
 rank holds the table whole as its head and its own rows as ``embed``.
 """
@@ -48,12 +55,16 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.core import comm
 from repro_torch.core.embedding_bag import RankShard
-from repro_torch.core.parallel import ParallelContext, ProcessContext
+from repro_torch.core.parallel import (ParallelContext, ProcessContext,
+                                       data_split)
 from repro_torch.models import lm
 from repro_torch.optim import adamw_init, adamw_update
 from repro_torch.utils.convert import rank_sharded_paths, token_slice_leaf
 from repro_torch.utils.tree import flatten_with_paths, leaves, map_leaves
 
+
+# the f32 elements of one data-axis all-reduce of the gradients
+DATA_BUCKET_ELEMS = 1 << 26
 
 # ---------------------------------------------------------------------------
 # Chunked cross-entropy
@@ -91,6 +102,21 @@ def softmax_xent_chunked(hidden: torch.Tensor, head: torch.Tensor,
     grad is enabled.  ``ctx`` changes no value (the reference's
     constraints under it are layouts)."""
     lm.check_context(ctx)
+    total, count = _xent_sums(hidden, head, labels, vocab, mask,
+                              chunk_tokens)
+    return total / torch.clamp(count, min=1.0)
+
+
+def _data_xent(hidden, head, labels, vocab, ctx) -> torch.Tensor:
+    """The global token mean of a data group's rows' NLL: its sum and its
+    token count each summed over the data axis."""
+    total, count = _xent_sums(hidden, head, labels, vocab)
+    return comm.data_all_reduce(total, ctx=ctx) / torch.clamp(
+        comm.data_all_reduce(count, ctx=ctx), min=1.0)
+
+
+def _xent_sums(hidden, head, labels, vocab, mask=None, chunk_tokens=16384):
+    """(the NLL summed over the unmasked positions, their count)."""
     B, S, d = hidden.shape
     Vp = head.shape[1]
     m = (torch.ones((B, S), dtype=torch.float32, device=hidden.device)
@@ -104,7 +130,7 @@ def softmax_xent_chunked(hidden: torch.Tensor, head: torch.Tensor,
                 m[:, lo:lo + C], vmask)
         total = total + (checkpoint(_chunk_nll, *args, use_reentrant=False)
                          if torch.is_grad_enabled() else _chunk_nll(*args))
-    return total / torch.clamp(m.sum(), min=1.0)
+    return total, m.sum()
 
 
 # ---------------------------------------------------------------------------
@@ -117,19 +143,36 @@ def lm_loss(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     """(loss, metrics): ``ce``, for MoE ``moe_aux`` and ``moe_dropped``,
     with ``cfg.mtp_depth`` ``mtp_ce``, and ``loss``.  Under ``ctx`` the
     forward's and the MTP head's embeddings go through the sharded bag
-    and the MoE layers are expert-parallel (``lm.forward``)."""
+    and the MoE layers are expert-parallel (``lm.forward``).  Under a
+    ``ProcessContext`` whose data groups split the batch, this group's
+    samples over its model axis, each cross-entropy the global token mean
+    (its sum and count summed over the data axis) and ``aux`` as
+    ``lm.data_aux`` makes it."""
+    split = data_split(ctx, batch["tokens"].shape[0])
+    inner = ctx                     # what the samples run under
+    if split is not None:
+        rows, inner = split
+        batch = {k: v[rows] for k, v in batch.items()}
     tokens, labels = batch["tokens"], batch["labels"]
     kw = {}
     if cfg.family == "audio":
         kw["frames"] = batch["frames"]
     if cfg.family == "vlm":
         kw["patches"] = batch["patches"]
-    hidden, aux = lm.forward(params, tokens, cfg, ctx, remat=tc.remat, **kw)
+    hidden, aux = lm.forward(params, tokens, cfg, inner, remat=tc.remat,
+                             **kw)
+    if split is not None:
+        aux = lm.data_aux(aux, ctx)
+
+    def xent(h, head, y):
+        if split is not None:
+            return _data_xent(h, head, y, cfg.vocab_size, ctx)
+        return softmax_xent_chunked(h, head, y, cfg.vocab_size, ctx)
 
     if cfg.family == "vlm":                     # loss only on text positions
         hidden = hidden[:, cfg.vision_tokens:]
     head = params["embed"][0].T if cfg.tie_embeddings else params["head"]
-    ce = softmax_xent_chunked(hidden, head, labels, cfg.vocab_size, ctx)
+    ce = xent(hidden, head, labels)
     loss = ce
     metrics = {"ce": ce}
 
@@ -140,7 +183,7 @@ def lm_loss(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
 
     if cfg.mtp_depth:                           # deepseek multi-token predict
         mtp = params["mtp"]
-        emb_next = lm.embed_tokens(params, labels, cfg, ctx)
+        emb_next = lm.embed_tokens(params, labels, cfg, inner)
         hn = lm._norm(hidden, lm.layer(mtp["norm_h"], 0), cfg)
         en = lm._norm(emb_next, lm.layer(mtp["norm_e"], 0), cfg)
         h2 = torch.cat([hn, en], dim=-1) @ mtp["proj"]
@@ -148,8 +191,7 @@ def lm_loss(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
         pos = torch.arange(S2, device=h2.device).expand(B, S2)
         h2, _ = lm._dense_block(lm.layer(mtp["block"], 0), h2, pos, cfg)
         # target: the token at t+2 == labels shifted left by one
-        mtp_ce = softmax_xent_chunked(h2[:, :-1], head, labels[:, 1:],
-                                      cfg.vocab_size, ctx)
+        mtp_ce = xent(h2[:, :-1], head, labels[:, 1:])
         loss = loss + 0.3 * mtp_ce
         metrics["mtp_ce"] = mtp_ce
 
@@ -216,6 +258,8 @@ class TrainStep:
         self.ranks = self.ctx if isinstance(ctx, ProcessContext) else None
         self.grads = None
         self.sharded: frozenset = frozenset()
+        # whether the data groups split the last micro-batch
+        self.split = False
 
     def grad(self, params, mb) -> Dict[str, torch.Tensor]:
         """Zero ``grads`` (made at the first call), backprop ``lm_loss`` of
@@ -224,7 +268,9 @@ class TrainStep:
         which is what sends ``lm.layer``'s slices of a stack through
         ``lm._LayerSlice``; a rank's ``RankShard`` around its aliased
         rows), then, over processes, sum the token-sliced leaves'
-        gradients over the ranks; returns the metrics, detached."""
+        gradients over the ranks and, when the data groups split ``mb``,
+        every gradient over the data axis; returns the metrics,
+        detached."""
         tensors = rank_tensors(params)
         if self.grads is None:
             self.grads = map_leaves(torch.zeros_like, tensors)
@@ -246,12 +292,18 @@ class TrainStep:
             loss, metrics = lm_loss(leafs, mb, self.cfg, self.ctx, self.tc)
             loss.backward()
         if self.ranks is not None:
+            self.split = data_split(self.ranks,
+                                    mb["tokens"].shape[0]) is not None
             self._sum_token_slices()
+            if self.split:
+                self.sum_over_data()
         return {k: v.detach() for k, v in metrics.items()}
 
     def _sum_token_slices(self) -> None:
         """The routers' and shared experts' gradients summed over the
-        ranks, in one all-reduce in f32 (a bf16 leaf's sum rounds once)."""
+        ranks, in one all-reduce in f32 (a bf16 leaf's sum rounds once),
+        and when the data groups split the batch (``split``) over the data
+        axis too, in the same f32 sum."""
         gs = [g for p, g in flatten_with_paths(self.grads)
               if token_slice_leaf(p)]
         if not gs:
@@ -259,8 +311,33 @@ class TrainStep:
         with torch.no_grad():
             flat = comm.all_reduce(torch.cat([g.reshape(-1).float()
                                               for g in gs]), ctx=self.ranks)
+            if self.split:
+                flat = comm.data_all_reduce(flat, ctx=self.ranks)
             for g, part in zip(gs, flat.split([g.numel() for g in gs])):
                 g.copy_(part.view_as(g))
+
+    def sum_over_data(self) -> None:
+        """Every other leaf's gradient, each data group's share of the
+        batch's, summed over the data axis once, in f32 (a bf16 leaf's sum
+        rounds once): in buckets of up to :data:`DATA_BUCKET_ELEMS`
+        elements a collective, so that the f32 staging stays a bucket's
+        size.  Every data group then holds the same gradient, and the
+        clip's norm counts each leaf once."""
+        gs = [g for p, g in flatten_with_paths(self.grads)
+              if not token_slice_leaf(p)]
+        with torch.no_grad():
+            while gs:
+                n, k = 0, 0
+                while k < len(gs) and (k == 0 or n + gs[k].numel()
+                                       <= DATA_BUCKET_ELEMS):
+                    n += gs[k].numel()
+                    k += 1
+                bucket, gs = gs[:k], gs[k:]
+                flat = comm.data_all_reduce(torch.cat(
+                    [g.reshape(-1).float() for g in bucket]), ctx=self.ranks)
+                for g, part in zip(bucket, flat.split(
+                        [g.numel() for g in bucket])):
+                    g.copy_(part.view_as(g))
 
     def __call__(self, state, batch):
         params, tc = state["params"], self.tc

@@ -132,7 +132,6 @@ def _refusals(ctx):
         except ValueError as e:
             out[sharding] = str(e)
     for name, fn in (
-            ("dp_size", lambda: parallel.make_process_context(E, dp_size=2)),
             ("tp_size", lambda: parallel.make_process_context(E + 1)),
             ("no_card", lambda: parallel.make_process_context(E)),
             ("symmetric_cpu", lambda: oa.SymmetricBuffers(
@@ -146,6 +145,15 @@ def _refusals(ctx):
         except (ValueError, RuntimeError, NotImplementedError) as e:
             out[name] = f"{type(e).__name__}: {e}"
     return out
+
+
+def _dp_context():
+    """The (2, 2) context of this world of 4 (collective: every rank
+    creates the mesh's groups): its queries and the groups' ranks."""
+    c = parallel.make_process_context(2, dp_size=2, device="cpu")
+    return (c.dp_size, c.dp_rank, c.rank, c.world, c.dp_for(8), c.dp_for(3),
+            torch.distributed.get_process_group_ranks(c.group),
+            torch.distributed.get_process_group_ranks(c.data_group))
 
 
 def _rank_cases(ctx, x, want_params):
@@ -190,6 +198,7 @@ def _rank_cases(ctx, x, want_params):
             out[("forward", name)] = tdlrm.forward(
                 params, dense, fwd, dataclasses.replace(base, **fields), ctx)
     out["refusals"] = _refusals(ctx)
+    out["dp_context"] = _dp_context()
     gathered = [None] * ctx.world
     torch.distributed.all_gather_object(gathered, out, group=ctx.group)
     return gathered
@@ -455,7 +464,6 @@ def test_rank_engine_matches_jax(ranks, ref, name):
     ("row", r"R \(66\) divisible by 4"),
     ("column", r"D \(18\) divisible by 4"),
     ("table", r"T \(6\) divisible by 4"),
-    ("dp_size", "NotImplementedError: a data axis"),
     ("tp_size", r"tp_size 5 != the group's 4 ranks"),
     ("no_card", "RuntimeError: no CUDA device"),
     ("symmetric_cpu", "symmetric buffers live on a card"),
@@ -471,6 +479,16 @@ def test_rank_refusals(ranks, what, match):
             assert msg is None, msg
             continue
         assert msg is not None and re.search(match, msg), msg
+
+
+def test_two_by_two_context_of_the_world(ranks):
+    """make_process_context(2, dp_size=2) in the world of 4: global rank
+    g is model rank g % 2 of data group g // 2, as the reference's
+    ("data", "model") mesh of 4 devices lays them out."""
+    for g, out in enumerate(ranks):
+        d, m = divmod(g, 2)
+        assert out["dp_context"] == (2, d, m, 2, ("data",), None,
+                                     [2 * d, 2 * d + 1], [m, m + 2]), g
 
 
 def test_nccl_two_ranks_on_one_device_raises():

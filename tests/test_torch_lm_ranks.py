@@ -32,7 +32,7 @@ Tolerances:
 Also held: a rank's shares (its rows of the vocabulary, 1/4 of the
 experts in memory of its own, ``max_len / 4`` positions of every
 positional cache entry and the states whole), its collective events,
-and the refusals: a data axis, a ``max_len`` 4 does not divide, training
+and the refusals: a ``max_len`` 4 does not divide, training
 a tied head under a ``ProcessContext``, a one-sided rank collective of a
 tensor that needs a gradient (``comm.all_to_all``, ``dlrm.forward``
 through the a2a/onesided pipeline); ``lm.forward`` under grad goes
@@ -252,8 +252,6 @@ def _refusals(ctx, x, params):
             tdlrm.forward(dp, dense, batch, dcfg, ctx)
 
     out = {
-        "dp_size": _error(lambda: parallel.make_process_context(
-            E, dp_size=2, device="cpu")),
         "batcher_max_len": _error(lambda: ContinuousBatcher(
             params, cfg, SLOTS, 30, ctx, device="cpu")),
         "generate_max_len": _error(lambda: generate(
@@ -309,6 +307,9 @@ def _rank_cases(ctx, x):
             out[arch] = rec
     out["refusals"] = _refusals(ctx, x, lm_params_for_rank(
         _params(x, "granite-8b"), _cfg("granite-8b"), ctx))
+    c = parallel.make_process_context(2, dp_size=2, device="cpu")
+    out["dp_context"] = (c.dp_size, c.dp_rank, c.rank, c.world, c.dp_axes,
+                         c.dp_for(B), c.dp_groups(B), c.data_rows(B))
     gathered = [None] * ctx.world
     torch.distributed.all_gather_object(gathered, out, group=ctx.group)
     return gathered
@@ -541,12 +542,22 @@ def test_process_context_queries(runs):
     assert ctx.config is sharding and ctx.tp_size == E and ctx.dp_size == 1
 
 
+def test_two_by_two_context_queries(runs):
+    """make_process_context(2, dp_size=2) in the world of 4: model rank
+    g % 2 of data group g // 2, the batch of B split over the data
+    axis."""
+    _, _, ranks = runs
+    for g, out in enumerate(ranks):
+        d, m = divmod(g, 2)
+        assert out["dp_context"] == (2, d, m, 2, ("data",), ("data",), 2,
+                                     slice(d * B // 2, (d + 1) * B // 2)), g
+
+
 # ---------------------------------------------------------------------------
 # refusals: no silent fallback, no silent gradient
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("what, match", [
-    ("dp_size", "NotImplementedError: a data axis"),
     ("batcher_max_len", "ValueError: a cache of 30 positions does not "
                         "divide over 4 ranks"),
     ("generate_max_len", "ValueError: a cache of 18 positions does not "
