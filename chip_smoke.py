@@ -331,6 +331,31 @@ Phases:
      cut leaves' shares on the host and writing the whole state), a
      restart and 1 more, bitwise; step times and peak memory per rank;
      with 4 cards, (a)-(c) again over NCCL, one process a card;
+  8dp. a data axis with each rank a process (4 gloo processes sharing the
+     card as the mesh (2, 2), each data group half of each batch): (a)
+     CONFIG's flushes for three row-wise strategies and (b) two DLRM
+     training steps, table-wise, tables cut to 2**18 rows, against the
+     simulated make_context(2, dp_size=2) ranks (pCTR within PCTR_TOL,
+     losses within 1e-5, both data groups' leaves bitwise equal); with 4
+     cards again over NCCL;
+  8lr. the launchers over the reference's debug mesh (2, 2), after 8dp
+     (4 gloo processes sharing the card): (a) the serve launcher's rank
+     function serves granite-8b at all 36 layers, bf16, each rank drawing
+     only its share from the seed, 4 requests in 4 slots (a prompt of
+     8,448 tokens and one of 256 a data group, 9 tokens each), against
+     ContinuousBatcher(ctx=make_context(2, dp_size=2)) run by the parent
+     on the whole draw after the ranks end: each head call's logits
+     within 2e-2, greedy tokens equal up to the first near-tie (printed),
+     each rank's parameters lm_params_for_rank's cut of the whole draw
+     leaf for leaf, per rank one TBE launch an embedding call and 36 flash
+     launches; (b) the train launcher's rank function at 2 layers, int8
+     moments, 2 x 2,048 tokens: 2 steps with a checkpoint a step written
+     by global rank 0, then the same command again, which resumes from
+     step 2 and runs 2 more from batch 0 as the reference's launcher does,
+     bitwise the run's Trainer gone on in memory, both data groups'
+     states bitwise equal; and a tied head's f32 step; against the simulated (2, 2) Trainer (step 1's loss and norm
+     within 1e-5, step 2's loss within 2.5e-4); with 4 cards, (c) (a)
+     again and training at all 36 layers over NCCL, one process a card;
   9. the card line, one JSON line of the kernels (the flash kernel's
      launches_by_path records LM training's 0; the ctx legs' launches are
      paths of their own), and last the result line.
@@ -5690,29 +5715,16 @@ DPP_FLUSHES = 2
 DPP_TRAIN = ("table", dict(sharding="table"))
 DPP_TRAIN_ROWS = 2 ** 18
 DPP_TRAIN_STEPS = 2
-# granite-8b at its published widths cut in depth, bf16: 2 prompts of
-# 2,048 tokens (under the flash kernel's 8,192: full attention), one a
-# data group, then DPP_NEW greedy steps; and one train step of 2 layers
-# on 2 x 2,048 tokens (int8 moments, remat), each group its sample
-DPP_LM_LAYERS = 4
-DPP_PROMPT = 2048
-DPP_NEW = 8
-DPP_LMT_LAYERS = 2
 DPP_TIMEOUT_S = 600.0
 # per rank per flush (each group's half batch): (kernel, launches)
 DPP_LAUNCHES = {label: PROC_LAUNCHES[label] for label, _ in DPP_STRATEGIES}
 # a group scores half a batch, so its MLPs' GEMMs take other shapes than
 # the simulated ranks' whole batch (cuBLAS picks other kernels): pCTR
-# within PCTR_TOL, bitwise logged (2.682e-7 apart on an H100).  The LM's
-# logits likewise, in bf16 and growing with the decode steps (a group
-# decodes one sample where the simulation decodes two: 1.7e-3 to 7.3e-3
-# relative L2 over 4 layers on an H100): each call's relative L2 against
-# the simulated ranks' within DECODE_REL_L2 (phase 8's bound of a decode
-# against another run of the same weights), over the calls whose inputs
-# agree; a greedy token that differs (a near-tie) is logged.  The DLRM
-# flow's losses: phase 7tp's bound; the LM step's: phase 8tp's
+# within PCTR_TOL, bitwise logged (2.682e-7 apart on an H100).  The DLRM
+# flow's losses: phase 7tp's bound.  The LM over a (2, 2) mesh of
+# processes is phase 8lr's: granite served at all 36 layers and trained
+# through the launchers
 DPP_LOSS_REL = TRP_LOSS_REL
-DPP_LM_REL = DECODE_REL_L2
 
 
 def _bit_sums(t: torch.Tensor) -> tuple:
@@ -5778,73 +5790,14 @@ def _dp_flow(pt, kmods, mlp, tables, inputs, cfg, ctx, ranks):
                 counts=_counts(pt, kmods))
 
 
-def _dp_greedy(pt, params, cfg, prompts, ctx, kmods) -> dict:
-    """``prompts`` (B, S) prefilled under ``ctx`` into a cache of S +
-    DPP_NEW positions, then DPP_NEW greedy decode steps, from launch
-    counts at 0: each head call's f32 logits on the host and greedy
-    tokens, the prefill's and each step's seconds (host clock, the device
-    synchronised), the counts, the slots of the cache."""
-    dev = prompts.device
-    logits, step_s = [], []
-
-    def head(h):
-        lg = pt.lm.lm_logits(params, h[:, None], cfg, ctx)[:, 0]
-        logits.append(lg.float().cpu())
-        return torch.argmax(lg[:, :cfg.vocab_size], dim=-1).to(torch.int32)
-    _reset_counts(pt, kmods)
-    _sync(dev)
-    t0 = time.perf_counter()
-    cache, h = pt.dec.prefill(params, prompts, cfg, ctx,
-                              max_len=prompts.shape[1] + DPP_NEW)
-    tok = head(h[:, -1])
-    toks = [tok.cpu()]
-    prefill_s = time.perf_counter() - t0
-    for _ in range(DPP_NEW):
-        t0 = time.perf_counter()
-        cache, h = pt.dec.decode_step(params, cache, tok, cfg, ctx)
-        tok = head(h)
-        toks.append(tok.cpu())
-        step_s.append(time.perf_counter() - t0)
-    return dict(logits=logits, tokens=torch.stack(toks, 1).tolist(),
-                prefill_s=prefill_s, step_s=step_s,
-                counts=_counts(pt, kmods),
-                slots=int(cache["length"].shape[0]))
-
-
-def _dp_train_step(pt, kmods, cfg, tc, ctx, dev) -> dict:
-    """One LM train step: the state drawn from a seed on ``dev`` (a
-    rank's share under a ProcessContext), the batch of lm_batches; its
-    metrics, seconds, launches, and the parameters' bit sums by path."""
-    gen = torch.Generator(device=dev).manual_seed(LMTP_SEED)
-    if isinstance(ctx, pt.ProcessContext):
-        state = pt.tstep.init_train_state(gen, cfg, tc, device=dev, ctx=ctx)
-    else:
-        state = pt.tstep.init_train_state(gen, cfg, tc, tp_size=DPP_TP,
-                                          device=dev)
-    step = pt.tstep.make_train_step(cfg, tc, ctx)
-    batch = {k: torch.as_tensor(v, device=dev) for k, v in next(
-        pt.lm_batches(cfg, DPP_DP, DPP_PROMPT, seed=LMTP_SEED)).items()}
-    _reset_counts(pt, kmods)
-    _sync(dev)
-    t0 = time.perf_counter()
-    state, metrics = step(state, batch)
-    _sync(dev)
-    secs = time.perf_counter() - t0
-    sums = {path: _bit_sums(t) for path, t in pt.flatten_with_paths(
-        pt.tstep.rank_tensors(state["params"]))}
-    return dict(metrics={k: float(v) for k, v in metrics.items()},
-                step_s=secs, counts=_counts(pt, kmods), sums=sums)
-
-
-def _dp_rank(ctx, base, tables, mlp, reqs, train, lm_leg, lmt_cfg):
+def _dp_rank(ctx, base, tables, mlp, reqs, train):
     """One rank of phase 8dp, a (DPP_DP, DPP_TP) mesh: (a) for each of
     DPP_STRATEGIES a DLRMEngine under the rank's ProcessContext (its
     shard copied from the parent's tables, through CUDA IPC) serves the
     requests in flushes of BATCH, from launch counts at 0, and records
     its symmetric buffers' IPC handles; (b) the DLRM flow on ``train``'s
-    tables; (c) granite's greedy run on its weights (the rank's share
-    cut); (d) one LM train step of ``lmt_cfg``.  Every rank's records go
-    to global rank 0, in global rank order."""
+    tables.  Every rank's records go to global rank 0, in global rank
+    order."""
     import torch.distributed as tdist
 
     pt = port_namespace()
@@ -5891,29 +5844,9 @@ def _dp_rank(ctx, base, tables, mlp, reqs, train, lm_leg, lmt_cfg):
     out["train"] = _dp_flow(pt, kmods, train["mlp"], train.pop("tables"),
                             inputs, tcfg, ctx, True)
     del inputs
-    cfg = lm_leg["cfg"]
-    mine = pt.lm_params_for_rank(lm_leg.pop("params"), cfg, ctx)
-    with torch.no_grad():
-        out["lm"] = _dp_greedy(pt, mine, cfg, lm_leg["prompts"].to(dev), ctx,
-                               kmods)
-    del mine
-    if cuda:
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats(dev)
-    out["lmt"] = _dp_train_step(pt, kmods, lmt_cfg, _dp_tc(pt), ctx, dev)
-    if cuda:
-        _sync(dev)
-        out["lmt"]["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
-        torch.cuda.empty_cache()
     gathered = [None] * DPP_WORLD
     tdist.all_gather_object(gathered, out)
     return gathered
-
-
-def _dp_tc(pt):
-    return pt.TrainConfig(optimizer_state_dtype="int8", remat=True,
-                          warmup_steps=1, total_steps=4,
-                          checkpoint_every=100)
 
 
 def _dp_check_flush(label, sim, ranks, tag) -> dict:
@@ -6006,74 +5939,8 @@ def _dp_check(pt, sims, ranks, tag) -> dict:
         f"shards and MLP leaves bitwise equal after each step")
     out["train"] = dict(loss_rel=max(rels), step_s=[r["train"]["step_s"]
                                                     for r in ranks])
-    # (c) granite serving
-    sl, l0 = sims["lm"], ranks[0]["lm"]
-    flip = next((i for i, (a, b) in enumerate(zip(
-        np.array(l0["tokens"]).T, np.array(sl["tokens"]).T))
-        if not np.array_equal(a, b)), len(sl["logits"]))
-    same = min(flip + 1, len(sl["logits"]))
-    lrels = [float((a - b).norm() / b.norm())
-             for a, b in zip(l0["logits"][:same], sl["logits"][:same])]
-    bitwise = all(torch.equal(a, b) for a, b in
-                  zip(l0["logits"][:same], sl["logits"][:same]))
-    for r in ranks:
-        rl = r["lm"]
-        check(rl["tokens"] == l0["tokens"] and all(
-            torch.equal(a, b) for a, b in zip(rl["logits"], l0["logits"])),
-            f"8dp{tag} (c) global rank {r['place'][0]}: tokens and logits "
-            f"rank 0's")
-        check(rl["slots"] == 1 and rl["counts"] == dict(
-            _launches(**{TBE_FLAT: 1 + DPP_NEW}), chunked=0),
-            f"8dp{tag} (c): a rank's cache holds its group's 1 slot; one "
-            f"TBE launch an embedding call, nothing else ({rl['counts']})")
-    check(max(lrels) < DPP_LM_REL, f"8dp{tag} (c): logits within "
-          f"{DPP_LM_REL} of the simulated (2, 2) ranks' over the {same} "
-          f"calls with equal inputs ({max(lrels):.3e})")
-    med = [1e3 * statistics.median(r["lm"]["step_s"]) for r in ranks]
-    log(f"  [(c){tag} granite-8b, {DPP_LM_LAYERS} layers] logits "
-        f"{'bitwise' if bitwise else 'not bitwise'} the simulated (2, 2) "
-        f"ranks' over the {same} calls with equal inputs (relative L2 per "
-        f"call {' '.join(f'{v:.2e}' for v in lrels)}); greedy tokens "
-        f"{'equal' if flip == len(sl['logits']) else f'differ first at call {flip}'}"
-        f"; prefill of {DPP_DP} x {DPP_PROMPT} tokens "
-        f"{[round(1e3 * r['lm']['prefill_s'], 1) for r in ranks]} ms per "
-        f"rank (simulated {1e3 * sl['prefill_s']:.1f}); median decode step "
-        f"{[round(m, 3) for m in med]} ms (simulated "
-        f"{1e3 * statistics.median(sl['step_s']):.3f}; host clock)")
-    out["lm"] = dict(rel=max(lrels), bitwise=bitwise, flip=flip,
-                     prefill_ms=[1e3 * r["lm"]["prefill_s"] for r in ranks],
-                     decode_ms=med)
-    # (d) granite train step
-    mt, m0 = sims["lmt"]["metrics"], ranks[0]["lmt"]["metrics"]
-    loss_rel = abs(m0["loss"] - mt["loss"]) / abs(mt["loss"])
-    norm_rel = abs(m0["grad_norm"] - mt["grad_norm"]) / mt["grad_norm"]
-    for r in ranks:
-        check(r["lmt"]["metrics"] == m0, f"8dp{tag} (d) global rank "
-              f"{r['place'][0]}: metrics rank 0's")
-        check(r["lmt"]["counts"] == dict(_launches(**{TBE_FLAT: 1}),
-                                         chunked=0),
-              f"8dp{tag} (d): one TBE launch a step, nothing else "
-              f"({r['lmt']['counts']})")
-    check(np.isfinite(m0["loss"]) and loss_rel <= LMTP_LOSS_REL
-          and norm_rel <= LMTP_NORM_REL,
-          f"8dp{tag} (d): the loss within {LMTP_LOSS_REL} and the gradient "
-          f"norm within {LMTP_NORM_REL} of the simulated (2, 2) step's "
-          f"({loss_rel:.3e}, {norm_rel:.3e})")
-    _dp_check_groups("(d) the parameters after the step",
-                     [r["lmt"]["sums"] for r in ranks], tag)
-    log(f"  [(d){tag} granite-8b, {DPP_LMT_LAYERS} layers, {DPP_DP} x "
-        f"{DPP_PROMPT} tokens] loss {m0['loss']} (simulated {mt['loss']}, "
-        f"{loss_rel:.3e}), grad norm {m0['grad_norm']} ({norm_rel:.3e}); "
-        f"step {[round(r['lmt']['step_s'], 3) for r in ranks]} s per rank "
-        f"(simulated {sims['lmt']['step_s']:.3f}); peak "
-        f"{[round(r['lmt'].get('peak_bytes', 0) / 1e9, 2) for r in ranks]} "
-        f"GB a rank; both data groups' parameters bitwise equal")
-    out["lmt"] = dict(loss_rel=loss_rel, norm_rel=norm_rel,
-                      step_s=[r["lmt"]["step_s"] for r in ranks])
     out["launches"] = {k: sum(f["launches"][k] for f in out["flush"].values())
-                       + sum(r["train"]["counts"].get(k, 0)
-                             + r["lm"]["counts"].get(k, 0)
-                             + r["lmt"]["counts"].get(k, 0) for r in ranks)
+                       + sum(r["train"]["counts"].get(k, 0) for r in ranks)
                        for k in SOURCES}
     return out
 
@@ -6081,9 +5948,9 @@ def _dp_check(pt, sims, ranks, tag) -> dict:
 def phase_dp_ranks(pt, kmods, backends=("gloo", "nccl")) -> dict:
     """Phase 8dp: 4 processes sharing the card over gloo as a (2, 2)
     mesh (and where there are 4 cards the NCCL leg, one rank a card):
-    (a) DLRM flushes at CONFIG's width, (b) two DLRM training steps, (c)
-    granite-8b prefill and decode, (d) one granite-8b train step, each
-    held to the simulated make_context(2, dp_size=2) ranks on the card."""
+    (a) DLRM flushes at CONFIG's width, (b) two DLRM training steps, each
+    held to the simulated make_context(2, dp_size=2) ranks on the card
+    (the LM's legs over this mesh are phase 8lr's)."""
     n_cards = torch.cuda.device_count() if DEV != "cpu" else 0
     log(f"== 8dp. (dp, tp) = ({DPP_DP}, {DPP_TP}) meshes with each rank a "
         f"process ({DPP_WORLD} processes sharing the card over gloo: a data "
@@ -6114,18 +5981,6 @@ def phase_dp_ranks(pt, kmods, backends=("gloo", "nccl")) -> dict:
     inputs = _train_batches(pt, tcfg, 1, TRP_SEED, dev)[0]
     sims["train"] = _dp_flow(pt, kmods, tparams, tparams["tables"], inputs,
                              tcfg, sim_ctx, False)
-    # (c) granite-8b cut in depth, 2 prompts of DPP_PROMPT tokens
-    lcfg = dataclasses.replace(pt.LM_CONFIG, num_layers=DPP_LM_LAYERS)
-    lparams = pt.lm.init_params(torch.Generator(device=DEV).manual_seed(17),
-                                lcfg, tp_size=DPP_TP, device=DEV)
-    prompts = torch.as_tensor(np.random.default_rng(18).integers(
-        0, lcfg.vocab_size, (DPP_DP, DPP_PROMPT)).astype(np.int32),
-        device=dev)
-    with torch.no_grad():
-        sims["lm"] = _dp_greedy(pt, lparams, lcfg, prompts, sim_ctx, kmods)
-    # (d) one granite-8b train step of DPP_LMT_LAYERS layers
-    ltcfg = dataclasses.replace(pt.LMT_CONFIG, num_layers=DPP_LMT_LAYERS)
-    sims["lmt"] = _dp_train_step(pt, kmods, ltcfg, _dp_tc(pt), sim_ctx, dev)
     torch.cuda.empty_cache()
     log(f"  the simulated (2, 2) ranks on the card: "
         f"{time.perf_counter() - t_phase:.1f} s")
@@ -6143,9 +5998,7 @@ def phase_dp_ranks(pt, kmods, backends=("gloo", "nccl")) -> dict:
             device=_rank_device() if backend == "gloo" else None,
             args=(cfg, params["tables"], mlp, _rank_requests(reqs),
                   {"tables": tparams["tables"], "inputs": inputs,
-                   "mlp": tmlp},
-                  {"cfg": lcfg, "params": lparams, "prompts": prompts},
-                  ltcfg),
+                   "mlp": tmlp}),
             timeout_s=DPP_TIMEOUT_S)
         log(f"  {backend}, {DPP_WORLD} processes as ({DPP_DP}, {DPP_TP}): "
             f"{time.perf_counter() - t0:.1f} s (spawn, shard copies, the "
@@ -6156,7 +6009,7 @@ def phase_dp_ranks(pt, kmods, backends=("gloo", "nccl")) -> dict:
             out.update(res)
         else:
             out["nccl"] = res
-    del params, tparams, lparams, inputs, mlp, tmlp, prompts
+    del params, tparams, inputs, mlp, tmlp
     torch.cuda.empty_cache()
     out["secs"] = time.perf_counter() - t_phase
     import multiprocessing
@@ -6165,6 +6018,543 @@ def phase_dp_ranks(pt, kmods, backends=("gloo", "nccl")) -> dict:
     log(f"  phase 8dp: {out['secs']:.1f} s; rank processes alive after it: "
         f"{len(alive)}")
     check(not alive, "phase 8dp's rank processes all ended")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 8lr. the launchers over a (2, 2) mesh of processes
+# ---------------------------------------------------------------------------
+
+LR_PATH = "8lr the launchers, ranks as processes"
+LR_DP, LR_TP = 2, 2            # the reference's debug mesh at 4 devices
+LR_WORLD = LR_DP * LR_TP
+# (a) granite-8b at its published widths and all 36 layers, bf16, through
+# the serve launcher's rank function: each rank draws its own share from
+# the seed (everything but the other half of the vocabulary table: ~16.3
+# GB), so four ranks hold ~65 GB beside four CUDA contexts and the parent,
+# which holds no weights then.  4 requests in 4 slots, a data group's 2
+# each: a long prompt in each group's first slot (over attn_chunk_threshold
+# 8,192: the flash kernel on every rank) and a short one in its second;
+# LR_NEW tokens each, the prefill's and 8 greedy steps.  A rank's cache:
+# its group's 2 slots x LR_MAX_LEN / 2 positions (1.25 GB)
+LR_LONG = 8_448
+LR_SHORT = 256
+LR_PROMPTS = (LR_LONG, LR_SHORT, LR_LONG, LR_SHORT)     # by rid
+LR_NEW = 9
+LR_SLOTS = 4
+LR_MAX_LEN = 8_464             # LR_LONG + LR_NEW up to a multiple of 16
+LR_SEED = 23
+# (b) through the train launcher's rank function: granite-8b's widths at
+# LR_TRAIN_LAYERS layers, int8 moments, batches of 2 x 2,048 tokens
+# (a data group's sample each): LR_TRAIN_STEPS steps with a checkpoint of
+# the whole state each step, written by global rank 0; the run's Trainer
+# going on in memory for LR_TRAIN_STEPS more from batch 0, and the same
+# command again, which resumes from the checkpoint of the last step and
+# runs LR_TRAIN_STEPS more from batch 0 as the reference's launcher does;
+# and a tied head for 1 step, in f32.  Depth cut: a rank keeps a step's
+# activations of its sample beside its state (~3.4 GB at 2 layers)
+LR_TRAIN_LAYERS = 2
+LR_TRAIN = ["--arch", "granite-8b", "--batch", "2", "--seq", "2048",
+            "--opt-state-dtype", "int8"]
+LR_TRAIN_STEPS = 2
+# (c) the NCCL leg, one process a card: (a) again, and the train launcher
+# at all 36 layers, 3 steps of 4 x 2,048 tokens (phase 8t fits the whole
+# state and a step on one card; a rank holds its share of it)
+LR_NCCL_TRAIN = ["--arch", "granite-8b", "--batch", "4", "--seq", "2048",
+                 "--steps", "3", "--opt-state-dtype", "int8"]
+LR_TIMEOUT_S = 900.0
+# the losses after step 1 against the simulated Trainer's: where a data
+# group takes half the batch its bf16 gradients round otherwise than the
+# whole batch's (step 1's norm read 3.2e-6 apart on an H100), and AdamW's
+# first step moves each weight by about lr whatever its gradient's size,
+# so a weight whose gradient nears 0 may move the other way.  The sound
+# runs read 5.4e-5 ((b) step 2) to 8.3e-5 ((c) steps 2 and 3 at 36
+# layers) apart on H100s: held to 3x the largest.  A leaf left out of the
+# data axis's sum may read as sound here (tools/later_loss_fault.py); the
+# data groups' states, held bitwise equal, catch it
+LR_LATER_REL = 2.5e-4
+
+
+def _lr_serve_leg(pt) -> dict:
+    """(a)'s config and the serve launcher's arguments."""
+    cfg = pt.LM_CONFIG
+    argv = ["--arch", "granite-8b", "--requests", str(len(LR_PROMPTS)),
+            "--slots", str(LR_SLOTS), "--max-new", str(LR_NEW),
+            "--max-len", str(LR_MAX_LEN), "--seed", str(LR_SEED)]
+    return dict(cfg=cfg, args=pt.tserve.parser().parse_args(argv))
+
+
+def _lr_requests(pt, leg) -> list:
+    """(a)'s requests, fresh: LR_PROMPTS' lengths of uniform ids from the
+    launcher's seed, the same on every rank and in the parent."""
+    cfg, args = leg["cfg"], leg["args"]
+    rng = np.random.default_rng(args.seed)
+    return [pt.Request(rid=rid, prompt=rng.integers(0, cfg.vocab_size, n
+                                                    ).astype(np.int32),
+                       max_new=args.max_new)
+            for rid, n in enumerate(LR_PROMPTS)]
+
+
+def _lr_train_legs(pt, tmp) -> list:
+    """(b)'s legs: the launcher's 2 steps with a checkpoint a step and
+    the resume, and a tied head's f32 step."""
+    cfg = dataclasses.replace(pt.LMT_CONFIG, num_layers=LR_TRAIN_LAYERS)
+    argv = LR_TRAIN + ["--steps", str(LR_TRAIN_STEPS), "--ckpt-every", "1",
+                       "--ckpt-dir", os.path.join(tmp, "b")]
+    tied = LR_TRAIN + ["--steps", "1"]
+    return [dict(label="(b)", cfg=cfg, resume=True,
+                 args=pt.tlaunch.parser().parse_args(argv)),
+            dict(label="(b) tied", resume=False,
+                 cfg=dataclasses.replace(cfg, tie_embeddings=True,
+                                         dtype="float32"),
+                 args=pt.tlaunch.parser().parse_args(tied))]
+
+
+def _param_summary(pt, params) -> dict:
+    """Per leaf: (shape, dtype, bytes, bit sums)."""
+    return {p: (tuple(t.shape), str(t.dtype), t.numel() * t.element_size(),
+                _bit_sums(t)) for p, t in pt.flatten_with_paths(params)}
+
+
+def _lr_state_sums(pt, tr, cfg) -> dict:
+    return {p: _bit_sums(t) for p, t in pt.flatten_with_paths(
+        {"params": pt.tstep.rank_tensors(tr.state["params"], cfg),
+         "opt": tr.state["opt"]})}
+
+
+def _lr_train(pt, kmods, ctx, leg) -> dict:
+    """One train leg on this rank through the train launcher's rank
+    function, from launch counts at 0: the metrics, launches and peak
+    memory.  With ``resume``: the checkpoints written, then the run's
+    Trainer going on in memory for ``--steps`` more on the seeded batches
+    from batch 0 (writing nothing), then the same command again, which
+    resumes from the run's last checkpoint; the two states' bit sums and
+    steps.  With a tied head: whether the head holds this rank's rows."""
+    dev, cuda = ctx.device, ctx.device.type == "cuda"
+    cfg, args = leg["cfg"], leg["args"]
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    _reset_counts(pt, kmods)
+    tr = pt.tlaunch.train(ctx, cfg, args)
+    rec = dict(metrics=[m for _, m in tr.metrics_log],
+               counts=_counts(pt, kmods))
+    if cuda:
+        _sync(dev)
+        rec["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    if leg["resume"]:
+        # train() returns after the world's barrier on the last checkpoint
+        rec["written"] = sorted(os.listdir(args.ckpt_dir))
+        tr.ckpt_dir = None
+        tr.data = pt.lm_batches(cfg, args.batch, args.seq, seed=tr.tc.seed)
+        tr.run(args.steps)
+        rec.update(continued_steps=[s for s, _ in
+                                    tr.metrics_log[-args.steps:]],
+                   sums=_lr_state_sums(pt, tr, cfg))
+    if cfg.tie_embeddings:
+        p = tr.state["params"]
+        n = p["embed"].local.shape[1]
+        rec["rows_in_head"] = bool(torch.equal(
+            p["head"].T[ctx.rank * n:(ctx.rank + 1) * n], p["embed"].local[0]))
+        rec["head_sums"] = _bit_sums(p["head"])
+    del tr
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    if leg["resume"]:
+        _reset_counts(pt, kmods)
+        tr = pt.tlaunch.train(ctx, cfg, args)
+        rec.update(resumed_steps=[s for s, _ in tr.metrics_log],
+                   resumed=_lr_state_sums(pt, tr, cfg),
+                   resume_counts=_counts(pt, kmods))
+        del tr
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+    return rec
+
+
+def _lr_rank(ctx, serve_leg, train_legs):
+    """One rank of phase 8lr, a (2, 2) mesh: (a) the serve launcher's rank
+    function on ``serve_leg``'s config and arguments, from launch counts
+    at 0, with this process's batcher recording each head call's f32
+    logits (by kind and index) and a summary of the parameters it is
+    given; then each of ``train_legs`` (:func:`_lr_train`).  Every rank's
+    records go to global rank 0, in global rank order."""
+    import torch.distributed as tdist
+
+    pt = port_namespace()
+    kmods = _kernel_mods()
+    dev, cuda = ctx.device, ctx.device.type == "cuda"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"place": (tdist.get_rank(), ctx.dp_rank, ctx.rank)}
+    heads, summary = [], {}
+    batcher = pt.ContinuousBatcher
+    real_head, real_init = batcher._head, batcher.__init__
+
+    def head(self, hidden):
+        lg = real_head(self, hidden)
+        kind = "prefill" if hidden.shape[0] == 1 else "decode"
+        heads.append((kind, len(self.timings[kind]), lg.float().cpu()))
+        return lg
+
+    def init(self, params, cfg, *a, **kw):
+        summary.update(_param_summary(pt, params))
+        real_init(self, params, cfg, *a, **kw)
+    batcher._head, batcher.__init__ = head, init
+    try:
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        _reset_counts(pt, kmods)
+        served = pt.tserve.serve(ctx, serve_leg["cfg"], serve_leg["args"],
+                                 reqs=_lr_requests(pt, serve_leg))
+        out["serve"] = dict(served, heads=heads, params=summary,
+                            counts=_counts(pt, kmods),
+                            routes=dict(pt.fa.ROUTE_COUNTS))
+    finally:
+        batcher._head, batcher.__init__ = real_head, real_init
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    out["train"] = {leg["label"]: _lr_train(pt, kmods, ctx, leg)
+                    for leg in train_legs}
+    gathered = [None] * LR_WORLD
+    tdist.all_gather_object(gathered, out)
+    return gathered
+
+
+def _lr_simulated_serve(pt, leg) -> dict:
+    """(a) on the simulated (2, 2) ranks on the card: the whole model
+    drawn from the seed, the same requests through ContinuousBatcher(
+    ctx=make_context(2, dp_size=2)), each head call's f32 logits by kind
+    and index; and each model rank's parameters cut from the whole ones
+    by lm_params_for_rank, summarised."""
+    cfg, args = leg["cfg"], leg["args"]
+    t0 = time.perf_counter()
+    dev = torch.device(DEV)
+    whole = pt.lm.init_params(torch.Generator(device=DEV).manual_seed(
+        args.seed), cfg, tp_size=LR_TP, device=DEV)
+    nbytes = _tree_bytes(pt, whole)
+    cuts = []
+    for m in range(LR_TP):
+        rank = pt.ProcessContext(group=None, rank=m, world=LR_TP, device=dev)
+        cut = pt.lm_params_for_rank(whole, cfg, rank)
+        cuts.append(_param_summary(pt, cut))
+        del cut
+    heads = []
+    with torch.no_grad():
+        eng = pt.ContinuousBatcher(whole, cfg, num_slots=args.slots,
+                                   max_len=pt.tserve.max_len(args),
+                                   ctx=pt.make_context(LR_TP, dp_size=LR_DP),
+                                   eos_id=-1, device=DEV)
+        real = eng._head
+
+        def head(hidden):
+            lg = real(hidden)
+            kind = "prefill" if hidden.shape[0] == 1 else "decode"
+            heads.append((kind, len(eng.timings[kind]), lg.float().cpu()))
+            return lg
+        eng._head = head
+        for req in _lr_requests(pt, leg):
+            eng.submit(req)
+        done = eng.run_to_completion()
+        del eng._head
+    out = dict(heads=heads, cuts=cuts, nbytes=nbytes,
+               tokens={rid: r.generated for rid, r in done.items()},
+               prefill=list(eng.timings["prefill"]),
+               decode=list(eng.timings["decode"]))
+    del eng, whole
+    gc.collect()
+    if DEV != "cpu":
+        torch.cuda.empty_cache()
+    log(f"  (a) the simulated (2, 2) ranks on the card: {cfg.name} at "
+        f"{cfg.num_layers} layers, {nbytes / 1e9:.2f} GB of weights; "
+        f"prefill ms {[(n, round(1e3 * t, 1)) for n, t in out['prefill']]},"
+        f" median decode step "
+        f"{1e3 * statistics.median(out['decode']):.3f} ms; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def _lr_simulated_train(pt, leg) -> list:
+    """A train leg's Trainer under make_context(2, dp_size=2) on the card,
+    with the launcher's TrainConfig and batches: its metrics."""
+    cfg, args = leg["cfg"], leg["args"]
+    tc = pt.tlaunch.train_config(args)
+    t0 = time.perf_counter()
+    tr = pt.Trainer(cfg, tc, pt.lm_batches(cfg, args.batch, args.seq,
+                                           seed=tc.seed),
+                    ctx=pt.make_context(LR_TP, dp_size=LR_DP), device=DEV)
+    tr.run(args.steps)
+    sim = [m for _, m in tr.metrics_log]
+    del tr
+    gc.collect()
+    if DEV != "cpu":
+        torch.cuda.empty_cache()
+    log(f"  {leg['label']} the simulated (2, 2) Trainer: {cfg.name} at "
+        f"{cfg.num_layers} layers{', tied head' if cfg.tie_embeddings else ''}"
+        f", losses {[m['loss'] for m in sim]}, grad norms "
+        f"{[m['grad_norm'] for m in sim]}, steps "
+        f"{[round(m['step_time_s'], 3) for m in sim]} s; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return sim
+
+
+def _lr_check_serve(pt, leg, sim, ranks, tag) -> dict:
+    """(a)'s checks: every rank's tokens rank 0's; each head call's logits
+    within DECODE_REL_L2 of the simulated run's and its greedy tokens the
+    same, up to the first near-tie (a call whose simulated top-two margin
+    is under twice the two runs' largest logit difference: a swap of the
+    top two moves both); the parameters each rank was given
+    lm_params_for_rank's cut, leaf for leaf; per rank one TBE launch an
+    embedding call and the flash kernel once a layer per long prefill,
+    on wgmma."""
+    cfg, args = leg["cfg"], leg["args"]
+    V = cfg.vocab_size
+    want = {(k, i): lg[:, :V] for k, i, lg in sim["heads"]}
+    order = [(k, i) for k, i, _ in sim["heads"]]
+    diff, rel, same = {}, {}, {}
+    for out in ranks:
+        for k, i, lg in out["serve"]["heads"]:
+            s, g = want[(k, i)], lg[:, :V]
+            diff[(k, i)] = max(diff.get((k, i), 0.0),
+                               float((g - s).abs().max()))
+            rel[(k, i)] = max(rel.get((k, i), 0.0),
+                              float((g - s).norm() / s.norm()))
+            same[(k, i)] = same.get((k, i), True) and bool(torch.equal(
+                g.argmax(-1), s.argmax(-1)))
+    margin = {}
+    for key, s in want.items():
+        top = s.topk(2, dim=-1).values
+        margin[key] = float((top[:, 0] - top[:, 1]).min())
+    first_flip = next((j for j, key in enumerate(order) if not same[key]),
+                      len(order))
+    D = max(diff[key] for key in order[:first_flip + 1])
+    tie = next((j for j, key in enumerate(order) if margin[key] < 2 * D),
+               None)
+    upto = len(order) if tie is None else tie + 1
+    held = order[:upto]
+    tie_text = "none" if tie is None else \
+        f"call {tie} ({order[tie][0]} {order[tie][1]}, margin " \
+        f"{margin[order[tie]]:.4f})"
+    n_long = sum(n > cfg.attn_chunk_threshold for n in LR_PROMPTS)
+    n_flash = cfg.num_layers * n_long // LR_DP
+    toks = ranks[0]["serve"]["tokens"]
+    for g, out in enumerate(ranks):
+        sv = out["serve"]
+        n_steps = len(sv["ranks"][g]["decode"])
+        n_adm = sum(k == "prefill" for k, _, _ in sv["heads"])
+        check(sv["tokens"] == toks, f"8lr{tag} (a) global rank {g}: tokens "
+                                    f"rank 0's")
+        check(sv["counts"] == dict(_launches(
+            flash_attention=n_flash, **{TBE_FLAT: n_adm + n_steps}),
+            chunked=0) and sv["routes"] == {"wgmma": n_flash, "simt": 0},
+            f"8lr{tag} (a) global rank {g}: one TBE launch per embedding "
+            f"call ({n_adm} admissions, {n_steps} decode steps), "
+            f"{cfg.num_layers} flash launches on wgmma per long prefill "
+            f"({sv['counts']}, {sv['routes']})")
+        cut = sim["cuts"][g % LR_TP]
+        check(sv["params"] == cut, f"8lr{tag} (a) global rank {g}: its "
+              f"parameters lm_params_for_rank's cut of the whole draw, leaf "
+              f"for leaf (bytes and bits)")
+        mine = sum(v[2] for v in sv["params"].values())
+        check(mine < sim["nbytes"], f"8lr{tag} (a) global rank {g}: "
+              f"{mine / 1e9:.3f} GB of parameters, under the whole model's "
+              f"{sim['nbytes'] / 1e9:.3f}")
+    check(max(rel[key] for key in held) < DECODE_REL_L2,
+          f"8lr{tag} (a): logits within {DECODE_REL_L2} of the simulated "
+          f"(2, 2) run's over the {len(held)} calls up to the near-tie "
+          f"({max(rel[key] for key in held):.3e})")
+    check(all(same[key] for key in order[:upto - (tie is not None)]),
+          f"8lr{tag} (a): greedy tokens the simulated run's before the "
+          f"near-tie ({tie_text})")
+    if tie is None:
+        check(toks == sim["tokens"], f"8lr{tag} (a): the served tokens the "
+              f"simulated run's")
+    timings = ranks[0]["serve"]["ranks"]
+    prefill = [1e3 * statistics.median(t["prefill"]) for t in timings]
+    decode = [1e3 * statistics.median(t["decode"]) for t in timings]
+    peak = [t["peak_bytes"] / 1e9 for t in timings]
+    counts = [out["serve"]["counts"] for out in ranks]
+    own = [sum(v[2] for v in out["serve"]["params"].values()) / 1e9
+           for out in ranks]
+    log(f"  [(a){tag} {cfg.name}, {cfg.num_layers} layers, 4 requests of "
+        f"{list(LR_PROMPTS)} tokens] logits within "
+        f"{max(rel[key] for key in held):.3e} relative L2 of the simulated "
+        f"(2, 2) run over {len(held)} of {len(order)} calls (largest "
+        f"|difference| {D:.4f}); near-tie: {tie_text}; tokens "
+        f"{'equal' if toks == sim['tokens'] else 'differ'}; per rank "
+        f"{TBE_FLAT} {[c[TBE_FLAT] for c in counts]}, flash_attention "
+        f"{[c['flash_attention'] for c in counts]}; median prefill ms per "
+        f"rank {[round(v, 1) for v in prefill]}, median decode step ms "
+        f"{[round(v, 3) for v in decode]} (simulated "
+        f"{1e3 * statistics.median(sim['decode']):.3f}; host clock), peak "
+        f"{[round(v, 2) for v in peak]} GB a rank, parameters "
+        f"{[round(v, 3) for v in own]} GB a rank (the whole model "
+        f"{sim['nbytes'] / 1e9:.3f})")
+    return dict(rel=max(rel[key] for key in held), tie=tie_text,
+                prefill_ms=prefill, decode_ms=decode, peak_gb=peak,
+                launches={k: sum(c.get(k, 0) for c in counts)
+                          for k in SOURCES})
+
+
+def _lr_check_train(leg, sim, ranks, tag) -> dict:
+    """A train leg's checks: every rank's metrics rank 0's; the losses
+    within LMTP_LOSS_REL of the simulated Trainer's at step 1 and within
+    LR_LATER_REL after, the step-1 gradient norm within LMTP_NORM_REL;
+    one TBE launch a step, nothing else; with ``resume`` the checkpoint
+    of each step written, and the same command again resumed at the last
+    step, its steps and state bitwise those of the run's Trainer gone on
+    in memory, on every rank, and that state bitwise equal in both data
+    groups; a tied head holding the table its model axis holds."""
+    label, cfg = leg["label"], leg["cfg"]
+    recs = [out["train"][label] for out in ranks]
+    m0 = recs[0]["metrics"]
+    steps = len(sim)
+    for g, rec in enumerate(recs):
+        check([m["loss"] for m in rec["metrics"]] == [m["loss"] for m in m0]
+              and [m["grad_norm"] for m in rec["metrics"]] ==
+              [m["grad_norm"] for m in m0],
+              f"8lr{tag} {label} global rank {g}: losses and norms rank 0's")
+        check(rec["counts"] == dict(_launches(**{TBE_FLAT: steps}),
+                                    chunked=0),
+              f"8lr{tag} {label} global rank {g}: one TBE launch a step, "
+              f"nothing else ({rec['counts']})")
+    rels = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
+            for a, b in zip(m0, sim)]
+    norm_rel = abs(m0[0]["grad_norm"] - sim[0]["grad_norm"]) / \
+        sim[0]["grad_norm"]
+    check(len(m0) == steps and all(np.isfinite(m["loss"]) for m in m0)
+          and rels[0] <= LMTP_LOSS_REL and max(rels) <= LR_LATER_REL
+          and norm_rel <= LMTP_NORM_REL,
+          f"8lr{tag} {label}: losses within {LMTP_LOSS_REL} of the simulated"
+          f" (2, 2) Trainer's at step 1 ({rels[0]:.3e}) and {LR_LATER_REL} "
+          f"after ({[f'{v:.3e}' for v in rels]}), the step-1 gradient norm "
+          f"within {LMTP_NORM_REL} ({norm_rel:.3e})")
+    extra = ""
+    if leg["resume"]:
+        want = [f"step_{s:08d}" for s in range(1, steps + 1)]
+        more = list(range(steps + 1, 2 * steps + 1))
+        for g, rec in enumerate(recs):
+            check(rec["written"] == want, f"8lr{tag} {label} global rank "
+                  f"{g}: global rank 0 wrote a checkpoint each step "
+                  f"({rec['written']})")
+            check(rec["continued_steps"] == more
+                  and rec["resumed_steps"] == more
+                  and rec["resumed"] == rec["sums"],
+                  f"8lr{tag} {label} global rank {g}: the same command "
+                  f"again resumed at step {steps}, ran steps {more} from "
+                  f"batch 0 and reached bitwise the state of the run's "
+                  f"Trainer gone on in memory ({len(rec['sums'])} leaves)")
+            check(rec["resume_counts"] == dict(_launches(
+                **{TBE_FLAT: steps}), chunked=0),
+                f"8lr{tag} {label} global rank {g}: the resumed run's "
+                f"one TBE launch a step, nothing else "
+                f"({rec['resume_counts']})")
+        for m in range(LR_TP):
+            check(all(recs[d * LR_TP + m]["sums"] == recs[m]["sums"]
+                      for d in range(LR_DP)),
+                  f"8lr{tag} {label} model rank {m}: the state bitwise equal "
+                  f"in every data group")
+        extra = (f"; the same command again, resumed from the checkpoint "
+                 f"of step {steps}: every rank's {len(recs[0]['sums'])} "
+                 f"state leaves after {steps} more steps bitwise the run's "
+                 f"Trainer gone on in memory")
+    if cfg.tie_embeddings:
+        for g, rec in enumerate(recs):
+            check(rec["rows_in_head"] and rec["head_sums"] ==
+                  recs[0]["head_sums"],
+                  f"8lr{tag} {label} global rank {g}: the head holds this "
+                  f"rank's updated rows, the same table on every rank")
+        extra = "; every rank's head the table of its updated rows"
+    step_s = [[m["step_time_s"] for m in rec["metrics"]] for rec in recs]
+    peak = [rec.get("peak_bytes", 0) / 1e9 for rec in recs]
+    log(f"  [{label}{tag} {cfg.name}, {cfg.num_layers} layers"
+        f"{', tied head' if cfg.tie_embeddings else ''}, "
+        f"{leg['args'].batch} x {leg['args'].seq} tokens] losses "
+        f"{[m['loss'] for m in m0]} (simulated {[m['loss'] for m in sim]}, "
+        f"within {[f'{v:.3e}' for v in rels]}), step-1 norm within "
+        f"{norm_rel:.3e}; steps {[[round(v, 3) for v in s] for s in step_s]}"
+        f" s per rank (host clock), peak {[round(v, 2) for v in peak]} GB a "
+        f"rank{extra}")
+    return dict(loss_rel=max(rels), norm_rel=norm_rel, step_s=step_s,
+                peak_gb=peak, tbe=sum(rec["counts"][TBE_FLAT]
+                                      + rec.get("resume_counts", {}).get(
+                                          TBE_FLAT, 0) for rec in recs))
+
+
+def _lr_run(pt, backend, serve_leg, train_legs) -> list:
+    t0 = time.perf_counter()
+    ranks = pt.run_ranks(
+        _lr_rank, LR_WORLD, backend=backend, dp_size=LR_DP,
+        device=_rank_device() if backend == "gloo" else None,
+        args=(serve_leg, train_legs), timeout_s=LR_TIMEOUT_S)
+    check([r["place"] for r in ranks] == [
+        (g, g // LR_TP, g % LR_TP) for g in range(LR_WORLD)],
+        f"8lr ({backend}): global rank g is model rank g % {LR_TP} of data "
+        f"group g // {LR_TP}")
+    log(f"  {backend}, {LR_WORLD} processes as ({LR_DP}, {LR_TP})"
+        f"{' sharing the card' if backend == 'gloo' else ', one a card'}: "
+        f"{time.perf_counter() - t0:.1f} s (spawn, each rank's draws, "
+        f"serving, the train legs, the records' gather)")
+    return ranks
+
+
+def phase_launch_ranks(pt, kmods, backends=("gloo", "nccl")) -> dict:
+    """Phase 8lr: the serve and train launchers' rank functions on 4
+    processes as the reference's debug mesh (2, 2), sharing the card over
+    gloo (and where there are 4 cards over NCCL, one a card): (a)
+    granite-8b served at all 36 layers, each rank drawing only its
+    share; (b) training at 2 layers with a checkpoint, its resume and a
+    tied head; (c) on 4 cards both at full width.  Each held to the
+    simulated make_context(2, dp_size=2) on the card."""
+    n_cards = torch.cuda.device_count() if DEV != "cpu" else 0
+    log(f"== 8lr. the launchers over ({LR_DP}, {LR_TP}) meshes of processes"
+        f" ({LR_WORLD} processes sharing the card over gloo: the serve and "
+        f"train launchers' rank functions, each rank drawing its own share;"
+        f" torch.cuda.device_count() {n_cards})")
+    t_phase = time.perf_counter()
+    held = torch.cuda.memory_allocated() if DEV != "cpu" else 0
+    log(f"  the parent holds {held / 1e9:.3f} GB on the card while the ranks"
+        f" run (no weights)")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_8lr_")
+    out = {}
+    try:
+        serve_leg = _lr_serve_leg(pt)
+        legs = _lr_train_legs(pt, tmp)
+        ranks = _lr_run(pt, "gloo", serve_leg, legs)
+        sim = _lr_simulated_serve(pt, serve_leg)
+        out["serve"] = _lr_check_serve(pt, serve_leg, sim, ranks, "")
+        out["train"] = {leg["label"]: _lr_check_train(
+            leg, _lr_simulated_train(pt, leg), ranks, "") for leg in legs}
+        out["launches"] = dict(out["serve"]["launches"])
+        out["launches"][TBE_FLAT] += sum(t["tbe"]
+                                         for t in out["train"].values())
+        del ranks
+        if "nccl" in backends and n_cards >= LR_WORLD:
+            cfg = pt.LMT_CONFIG
+            leg = dict(label="(c)", cfg=cfg, resume=False,
+                       args=pt.tlaunch.parser().parse_args(LR_NCCL_TRAIN))
+            ranks = _lr_run(pt, "nccl", serve_leg, [leg])
+            nc = {"serve": _lr_check_serve(pt, serve_leg, sim, ranks,
+                                           " (nccl)")}
+            nc["train"] = _lr_check_train(leg, _lr_simulated_train(pt, leg),
+                                          ranks, " (nccl)")
+            out["nccl"] = nc
+            del ranks
+        elif "nccl" in backends:
+            log(f"  (c) the NCCL leg needs {LR_WORLD} cards (one process a "
+                f"card): not run on this machine")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if DEV != "cpu":
+        torch.cuda.empty_cache()
+    out["secs"] = time.perf_counter() - t_phase
+    import multiprocessing
+
+    alive = multiprocessing.active_children()
+    log(f"  phase 8lr: {out['secs']:.1f} s; rank processes alive after it: "
+        f"{len(alive)}")
+    check(not alive, "phase 8lr's rank processes all ended")
     return out
 
 
@@ -7506,6 +7896,8 @@ def port_namespace():
                                             map_leaves)
         from repro_torch.utils.convert import (lm_params_for_rank,
                                                rank_sharded, token_slice_leaf)
+        from repro_torch.launch import serve as tserve
+        from repro_torch.launch import train as tlaunch
 
     return pt
 
@@ -7588,6 +7980,11 @@ def main() -> int:
     log(f"== phase 8dp freed: {after / 1e9:.3f} GB allocated after it")
     check(after <= held + 2 ** 26, "phase 8dp's tables and weights freed: "
           "the rank processes released what they were sent through CUDA IPC")
+    lrprocs = phase_launch_ranks(pt, (eg, oa, pt.fa))
+    after = torch.cuda.memory_allocated()
+    log(f"== phase 8lr freed: {after / 1e9:.3f} GB allocated after it")
+    check(after <= held + 2 ** 26, "phase 8lr's simulated weights and "
+          "states freed")
     pt.MLA_CONFIG = dataclasses.replace(pt.deepseek_v3_671b.CONFIG,
                                         num_layers=DS_LAYERS)
     ds = phase_mla(pt, (eg, oa, pt.fa))
@@ -7673,6 +8070,8 @@ def main() -> int:
     for name in ("gather_pool_tbe_flat", "gather_pool_tbe",
                  "onesided_all_to_all", "onesided_reduce_scatter"):
         by_path[name][DP_RANK_PATH] = dprocs["launches"][name]
+    for name in ("gather_pool_tbe_flat", "flash_attention"):
+        by_path[name][LR_PATH] = lrprocs["launches"][name]
     # LM training runs no kernel: the flash kernel has no backward, and
     # under grad attention takes chunked_attention (phase 8t checks 0)
     check(all(n > 0 for paths in by_path.values()
@@ -7972,15 +8371,23 @@ def main() -> int:
                     for label, v in df.items())
         + f"; DLRM training losses within {dprocs['train']['loss_rel']:.3e},"
         f" steps {max(max(s) for s in dprocs['train']['step_s']):.3f} s "
-        f"(slowest); granite-8b at {DPP_LM_LAYERS} layers logits within "
-        f"{dprocs['lm']['rel']:.3e}, prefill "
-        f"{max(dprocs['lm']['prefill_ms']):.1f} ms, median decode step "
-        f"{max(dprocs['lm']['decode_ms']):.3f} ms; train step loss within "
-        f"{dprocs['lmt']['loss_rel']:.3e}, grad norm within "
-        f"{dprocs['lmt']['norm_rel']:.3e}, "
-        f"{max(dprocs['lmt']['step_s']):.3f} s; NCCL leg "
+        f"(slowest); NCCL leg "
         f"{'run' if 'nccl' in dprocs else f'needs {DPP_WORLD} cards'}; "
         f"phase {dprocs['secs']:.1f} s")
+    ls, lt8 = lrprocs["serve"], lrprocs["train"]
+    log(f"the launchers over a ({LR_DP}, {LR_TP}) mesh of processes (8lr, "
+        f"gloo, {LR_WORLD} processes on one card; host clock): "
+        f"{pt.LM_CONFIG.name} served at {pt.LM_CONFIG.num_layers} layers, "
+        f"logits within {ls['rel']:.3e} of the simulated ranks' (near-tie: "
+        f"{ls['tie']}), median prefill {[round(v, 1) for v in ls['prefill_ms']]}"
+        f" ms and decode step {[round(v, 3) for v in ls['decode_ms']]} ms a "
+        f"rank, peak {[round(v, 2) for v in ls['peak_gb']]} GB a rank; "
+        + "; ".join(f"train {label} losses within {v['loss_rel']:.3e}, "
+                    f"steps up to {max(max(x) for x in v['step_s']):.3f} s, "
+                    f"peak {max(v['peak_gb']):.2f} GB a rank"
+                    for label, v in lt8.items())
+        + f"; NCCL leg {'run' if 'nccl' in lrprocs else f'needs {LR_WORLD} cards'}"
+        f"; phase {lrprocs['secs']:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -78,6 +78,12 @@ same on every rank and counts once.
   * ``all_to_all`` (bulk): the all-to-all of the cotangents;
   * ``reduce_scatter`` (bulk, ``emulate_with_a2a`` too): the all-gather
     of the cotangents;
+  * ``permute_ring`` (bulk): the permute by ``-shift`` (the reference's
+    ``ppermute`` transposes to the inverse permutation);
+  * ``fetch_rows`` (bulk): the all-gather of the requesters' cotangents
+    back to the owners, each adding the rows it owns into its shard
+    (``index_add_``; the transpose of the reference's ``psum_scatter``
+    and its gather);
   * :func:`split`, the entry of a value the ranks hold alike into a
     per-rank computation (the reference's ``shard_map`` in_specs): its
     forward takes this rank's slice along an axis (or the whole value),
@@ -90,8 +96,7 @@ derivative is refused while grad is enabled and the value needs one
 (``RuntimeError``), on either device and on the simulated ranks too: the
 one-sided all-to-all, reduce-scatter, ring permute and row fetch (the
 reference's Pallas puts have no derivative: ``jax.grad`` fails inside
-them), and over processes the ring permute and the row fetch on either
-backend.
+them).
 """
 from __future__ import annotations
 
@@ -330,12 +335,6 @@ ONESIDED_NO_GRAD = ("the one-sided route has no derivative (the "
                     "reference's Pallas put has none: jax.grad fails "
                     "inside it); train with backend='bulk', or run under "
                     "torch.no_grad()")
-# why the rank ring permute and row fetch do
-RANK_NO_GRAD = ("over processes it carries no gradient back to the ranks "
-                "that sent it (only all_reduce, all_gather, and the bulk "
-                "all_to_all and reduce_scatter do); run under "
-                "torch.no_grad()")
-
 
 def _refuse_grad(x: torch.Tensor, what: str, why: str) -> None:
     if torch.is_grad_enabled() and x.requires_grad:
@@ -597,19 +596,12 @@ def _rank_reduce_scatter(x: torch.Tensor, backend: str,
     return _ReduceScatter.apply(x, emulate_with_a2a, ctx)
 
 
-def _rank_permute_ring(x: torch.Tensor, shift: int, backend: str,
-                       ctx) -> torch.Tensor:
-    _check_rank_value(x, ctx, "permute_ring")
-    _refuse_grad(x, "permute_ring", RANK_NO_GRAD)
-    _record_rank("permute", x, backend, ctx)
-    x = x.contiguous()
-    if backend == "onesided":
-        return _oa.onesided_ring_permute_rank(x, shift, ctx.rank, ctx.group,
-                                              _symmetric(ctx, "recv", x))
-    # the bulk route: one all-to-all whose only non-empty chunks are the
-    # block to (r + shift) % n and the one from (r - shift) % n
+def _permute_group(x: torch.Tensor, shift: int, ctx) -> torch.Tensor:
+    """The bulk ring permute: one all-to-all whose only non-empty chunks
+    are the block to ``(r + shift) % n`` and the one from ``(r - shift) %
+    n``."""
     n, rank = ctx.world, ctx.rank
-    flat = x.reshape(-1)
+    flat = x.contiguous().reshape(-1)
     send = [0] * n
     recv = [0] * n
     send[(rank + shift) % n] = recv[(rank - shift) % n] = flat.numel()
@@ -617,6 +609,32 @@ def _rank_permute_ring(x: torch.Tensor, shift: int, backend: str,
     dist.all_to_all_single(out, flat, output_split_sizes=recv,
                            input_split_sizes=send, group=ctx.group)
     return out.view(x.shape)
+
+
+class _PermuteRing(torch.autograd.Function):
+    """The bulk ring permute; the backward permutes the cotangent by
+    ``-shift``, back to the rank that sent the block."""
+
+    @staticmethod
+    def forward(fctx, x, shift, ctx):
+        fctx.shift, fctx.ctx = shift, ctx
+        return _permute_group(x, shift, ctx)
+
+    @staticmethod
+    def backward(fctx, g):
+        return _permute_group(g, -fctx.shift, fctx.ctx), None, None
+
+
+def _rank_permute_ring(x: torch.Tensor, shift: int, backend: str,
+                       ctx) -> torch.Tensor:
+    _check_rank_value(x, ctx, "permute_ring")
+    _record_rank("permute", x, backend, ctx)
+    x = x.contiguous()
+    if backend == "onesided":
+        _refuse_grad(x, "permute_ring", ONESIDED_NO_GRAD)
+        return _oa.onesided_ring_permute_rank(x, shift, ctx.rank, ctx.group,
+                                              _symmetric(ctx, "recv", x))
+    return _PermuteRing.apply(x, shift, ctx)
 
 
 # ---------------------------------------------------------------------------
@@ -678,10 +696,46 @@ def fetch_rows(shards: torch.Tensor, local_addr: torch.Tensor,
     return contribs.sum(dim=0)[0]
 
 
+def _contributions(shard: torch.Tensor, safe: torch.Tensor,
+                   mine: torch.Tensor) -> torch.Tensor:
+    """This rank's ``(E_dst, M, D)`` contributions: the rows it owns at
+    their owner-local addresses ``safe``, ``0 * row`` elsewhere."""
+    contribs = shard[safe]
+    return contribs.mul_(mine[..., None].to(shard.dtype))
+
+
+class _FetchRows(torch.autograd.Function):
+    """The bulk row fetch from this rank's contributions; the backward
+    all-gathers the requesters' cotangents back to the owners, and each
+    adds the rows it owns into its shard's gradient."""
+
+    @staticmethod
+    def forward(fctx, shard, safe, mine, ctx):
+        fctx.save_for_backward(safe, mine)
+        fctx.rows, fctx.ctx = shard.shape[0], ctx
+        contribs = _contributions(shard, safe, mine)
+        _record_rank("fetch_rows", contribs, "bulk", ctx)
+        out = torch.empty(tuple(contribs.shape[1:]), dtype=shard.dtype,
+                          device=shard.device)
+        _oa.reduce_scatter_into(out, contribs, ctx.group)
+        return out
+
+    @staticmethod
+    def backward(fctx, g):
+        safe, mine = fctx.saved_tensors
+        gathered = _gather_group(g, 0, False, fctx.ctx)     # (E_dst, M, D)
+        gathered.mul_(mine[..., None].to(g.dtype))
+        d = g.shape[-1]
+        grad = torch.zeros((fctx.rows, d), dtype=g.dtype, device=g.device)
+        grad.index_add_(0, safe.reshape(-1), gathered.reshape(-1, d))
+        return grad, None, None, None
+
+
 def _rank_fetch_rows(shard: torch.Tensor, local_addr: torch.Tensor,
                      owner: torch.Tensor, backend: str, ctx) -> torch.Tensor:
     _check_rank_value(shard, ctx, "fetch_rows")
-    _refuse_grad(shard, "fetch_rows", RANK_NO_GRAD)
+    if backend == "onesided":
+        _refuse_grad(shard, "fetch_rows", ONESIDED_NO_GRAD)
     if shard.dim() != 2:
         raise ValueError(f"fetch_rows: this rank's shard must be "
                          f"(rows_local, D), got {tuple(shard.shape)}")
@@ -703,13 +757,9 @@ def _rank_fetch_rows(shard: torch.Tensor, local_addr: torch.Tensor,
     # (E_dst, M): this rank owns request m of requester q
     mine = gathered[:, 1] == ctx.rank
     safe = torch.where(mine, gathered[:, 0], 0)
-    contribs = shard[safe]                           # (E_dst, M, D)
-    contribs.mul_(mine[..., None].to(shard.dtype))
+    if backend == "bulk":
+        return _FetchRows.apply(shard, safe, mine, ctx)
+    contribs = _contributions(shard, safe, mine)
     _record_rank("fetch_rows", contribs, backend, ctx)
-    if backend == "onesided":
-        return _oa.onesided_fetch_rows_rank(
-            contribs, ctx.rank, ctx.group, _symmetric(ctx, "recv", contribs))
-    out = torch.empty(tuple(contribs.shape[1:]), dtype=shard.dtype,
-                      device=dev)
-    _oa.reduce_scatter_into(out, contribs, ctx.group)
-    return out
+    return _oa.onesided_fetch_rows_rank(
+        contribs, ctx.rank, ctx.group, _symmetric(ctx, "recv", contribs))

@@ -1,30 +1,52 @@
-"""Training launcher: the counterpart of ``repro.launch.train`` on one
-device.
+"""Training launcher: the counterpart of ``repro.launch.train``.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch granite-8b \\
         --smoke --device cpu --steps 3 --batch 2 --seq 16
+    PYTHONPATH=src python -m repro_torch.launch.train --arch granite-8b \\
+        --smoke --device cpu --ranks 4 --steps 3 --batch 4 --seq 16
 
 ``--smoke`` selects the reduced config; without it the published config
 is built on the card (granite-8b: 16.5 GB of bf16 parameters, as much
 again of gradients, and with ``--opt-state-dtype int8`` 17 GB of moments).
 ``--device`` defaults to the card.  The reference's ``--production-mesh``,
 ``--multi-pod`` and ``--coordinator`` (TPU meshes, multi-host) are not
-here (ROADMAP Queue 1 item 13.8).  With one device the reference's
-launcher builds no context either; ``Trainer(ctx=)`` runs the simulated
-ranks from Python.
+here (ROADMAP Queue 1 item 13.8).
+
+With one rank the ``Trainer`` runs on one device and no context, as the
+reference's launcher does on one device.  With more -- ``--ranks N``, by
+default the cards when no ``--device`` is named, as the reference counts
+``jax.devices()`` -- it runs the reference's multi-device path: the debug
+mesh ``(data = N / 2, model = 2)`` (``launch/mesh.py``), each rank a
+process (NCCL with a card a rank, gloo on the CPU or on one card the
+ranks share, ``--device cuda:K``).  Each rank builds ``Trainer(ctx=)``,
+whose state is drawn share by share (``init_train_state(ctx=)``: its rows
+of the vocabulary, its experts, their moments), takes the same seeded
+batches and trains its data group's half of each; global rank 0 alone
+logs, writes ``--metrics-out`` and writes the checkpoint (the whole
+state), and a restore puts each rank's part back.  The reference's
+``state_spec_tree`` placement (FSDP of the dense weights and their
+moments, dense tensor parallelism) has no counterpart (ROADMAP
+"Differences on purpose"): a rank holds whole every leaf that is not
+sharded along the model axis.
+
+As in the reference, a run whose ``--ckpt-dir`` holds a checkpoint
+resumes from the newest one and runs ``--steps`` more, on the seeded
+batches from batch 0.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import sys
 
 from repro_torch import configs
 from repro_torch.configs.base import TrainConfig
 from repro_torch.data import Prefetcher, lm_batches
+from repro_torch.launch.mesh import rank_count, run_debug_mesh
 from repro_torch.train.loop import Trainer
 
 
-def main(argv=None):
+def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True, choices=configs.PORTED_ARCH_IDS)
     ap.add_argument("--smoke", action="store_true")
@@ -39,20 +61,49 @@ def main(argv=None):
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--metrics-out", default=None)
     ap.add_argument("--device", default=None,
-                    help="torch device (default: the CUDA card)")
-    args = ap.parse_args(argv)
+                    help="torch device (default: the CUDA card; with "
+                         "--ranks, the device every rank shares)")
+    ap.add_argument("--ranks", type=int, default=None,
+                    help="processes of the (ranks / 2, 2) mesh (default: "
+                         "the cards without --device, else 1)")
+    return ap
 
+
+def train_config(args) -> TrainConfig:
+    return TrainConfig(learning_rate=args.lr, total_steps=args.steps,
+                       warmup_steps=max(1, args.steps // 10),
+                       grad_accum=args.grad_accum,
+                       optimizer_state_dtype=args.opt_state_dtype,
+                       checkpoint_every=args.ckpt_every)
+
+
+def main(argv=None):
+    args = parser().parse_args(argv)
     cfg = (configs.get_smoke_config(args.arch) if args.smoke
            else configs.get_config(args.arch))
-    tc = TrainConfig(learning_rate=args.lr, total_steps=args.steps,
-                     warmup_steps=max(1, args.steps // 10),
-                     grad_accum=args.grad_accum,
-                     optimizer_state_dtype=args.opt_state_dtype,
-                     checkpoint_every=args.ckpt_every)
+    n = rank_count(args.ranks, args.device)
+    if n > 1:
+        run_debug_mesh(_train_rank, n, args.device, args=(cfg, args))
+        return
+    train(None, cfg, args)
 
+
+def _train_rank(ctx, cfg, args) -> list:
+    return train(ctx, cfg, args).metrics_log
+
+
+def train(ctx, cfg, args) -> Trainer:
+    """``cfg`` trained ``args.steps`` steps on the seeded batches (from
+    its newest checkpoint in ``args.ckpt_dir`` when there is one), on one
+    device (``ctx`` None, on ``args.device``) or as one rank of the debug
+    mesh (``ctx`` a ``ProcessContext``, on its device).  Returns the
+    ``Trainer``; only global rank 0 logs, writes ``args.metrics_out`` and
+    the checkpoint."""
+    tc = train_config(args)
+    lead = ctx is None or ctx.global_rank == 0
     data = Prefetcher(lm_batches(cfg, args.batch, args.seq, seed=tc.seed))
-    trainer = Trainer(cfg, tc, data, ckpt_dir=args.ckpt_dir,
-                      device=args.device)
+    trainer = Trainer(cfg, tc, data, ckpt_dir=args.ckpt_dir, ctx=ctx,
+                      device=args.device if ctx is None else None)
 
     def log(step, m):
         print(f"step {step:5d}  loss {m['loss']:.4f}  "
@@ -60,11 +111,14 @@ def main(argv=None):
 
     trainer.run(args.steps, on_metrics=log)
     data.close()
-    if args.metrics_out:
-        with open(args.metrics_out, "w") as f:
-            json.dump(trainer.metrics_log, f)
-    print(f"done: {trainer.start_step} steps, "
-          f"stragglers observed: {trainer.straggler_events}")
+    if lead:
+        if args.metrics_out:
+            with open(args.metrics_out, "w") as f:
+                json.dump(trainer.metrics_log, f)
+        print(f"done: {trainer.start_step} steps, "
+              f"stragglers observed: {trainer.straggler_events}")
+        sys.stdout.flush()
+    return trainer
 
 
 if __name__ == "__main__":

@@ -50,8 +50,9 @@ import torch.distributed as dist
 from repro_torch import checkpoint as ckpt
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.core.parallel import ParallelContext, ProcessContext
-from repro_torch.train.step import (check_train_context, init_train_state,
-                                    make_train_step, rank_tensors)
+from repro_torch.models.lm import check_context
+from repro_torch.train.step import (init_train_state, make_train_step,
+                                    rank_tensors, sync_tied_head)
 from repro_torch.utils.convert import rank_sharded_paths
 from repro_torch.utils.device import resolve_device
 
@@ -63,7 +64,7 @@ class Trainer:
                  ctx: Optional[ParallelContext | ProcessContext] = None,
                  dtype: Optional[torch.dtype] = None, device=None):
         self.cfg, self.tc = cfg, tc
-        self.ctx = check_train_context(ctx, cfg)
+        self.ctx = check_context(ctx)
         self.ranks = ctx if isinstance(ctx, ProcessContext) else None
         if self.ranks is not None:
             self.device = ctx.device if device is None else \
@@ -93,6 +94,8 @@ class Trainer:
         if start is not None:
             ckpt.restore(self._tensors(), ckpt_dir, start, ctx=self.ranks,
                          sharded=self.sharded)
+            if self.ranks is not None:
+                sync_tied_head(self.state["params"], cfg, self.ranks)
             self.start_step = start
         else:
             self.start_step = 0
@@ -100,7 +103,7 @@ class Trainer:
     def _tensors(self):
         """The state as the tree of tensors a checkpoint holds (a rank's
         ``RankShard`` as its rows)."""
-        return {"params": rank_tensors(self.state["params"]),
+        return {"params": rank_tensors(self.state["params"], self.cfg),
                 "opt": self.state["opt"]}
 
     # ------------------------------------------------------------------

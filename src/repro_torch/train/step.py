@@ -41,8 +41,14 @@ every leaf's gradient is summed over the data axis, once, in f32
 (:meth:`TrainStep.sum_over_data`).  The clip takes the whole model's norm
 (``optim/adamw.global_norm`` with the context, each leaf counted once),
 and each rank updates its own share.  A tied head
-(``tie_embeddings``, which no shipped config sets) is refused there: a
-rank holds the table whole as its head and its own rows as ``embed``.
+(``tie_embeddings``, which no shipped config sets) is the table itself,
+as in the reference's tree: a rank holds its rows as ``embed`` (its
+``RankShard``) and the table whole as ``head``, which the logits read.
+The head is no leaf of the gradients, the moments or a checkpoint
+(:func:`rank_tensors` with the config); the rows of its gradient in the
+rank's range are added to the shard's before the sums over the data
+axis, and after each update the model axis all-gathers the rows back
+into ``head`` (:func:`sync_tied_head`).
 """
 from __future__ import annotations
 
@@ -171,7 +177,7 @@ def lm_loss(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
 
     if cfg.family == "vlm":                     # loss only on text positions
         hidden = hidden[:, cfg.vision_tokens:]
-    head = params["embed"][0].T if cfg.tie_embeddings else params["head"]
+    head = lm._head(params, cfg)
     ce = xent(hidden, head, labels)
     loss = ce
     metrics = {"ce": ce}
@@ -215,32 +221,43 @@ def init_train_state(gen: torch.Generator, cfg: ModelConfig,
     ``utils/convert.lm_train_state_for_rank`` cuts from the whole one."""
     params = lm.init_params(gen, cfg, tp_size=tp_size, dtype=dtype,
                             device=device, ctx=ctx)
-    return {"params": params, "opt": adamw_init(rank_tensors(params), tc)}
+    return {"params": params,
+            "opt": adamw_init(rank_tensors(params, cfg), tc)}
 
 
-def check_train_context(ctx, cfg: Optional[ModelConfig] = None):
-    """``ctx`` if training runs under it: None, a ``ParallelContext`` or
-    a ``ProcessContext``; anything else raises as ``lm.check_context``
-    does.  Under a ``ProcessContext`` a tied head (``cfg.tie_embeddings``)
-    raises ``NotImplementedError``."""
-    if (isinstance(ctx, ProcessContext) and cfg is not None
-            and cfg.tie_embeddings):
-        raise NotImplementedError(
-            f"{cfg.name}: training over processes with a tied head "
-            f"(tie_embeddings=True) is not ported: a rank holds the table "
-            f"whole as its head and only its rows as embed, so the head's "
-            f"gradient would not reach the rows")
-    return lm.check_context(ctx)
-
-
-def rank_tensors(params) -> Dict[str, Any]:
+def rank_tensors(params, cfg: Optional[ModelConfig] = None
+                 ) -> Dict[str, Any]:
     """``params`` with a rank's ``RankShard`` of the vocabulary replaced by
-    its ``local`` rows: the tree of tensors the gradients, the moments and
-    a checkpoint are laid out like."""
+    its ``local`` rows, and with ``cfg.tie_embeddings`` without the whole
+    table a rank keeps as ``"head"``: the tree of tensors the gradients,
+    the moments and a checkpoint are laid out like (the reference's tree,
+    which has no head when it is tied)."""
     embed = params.get("embed")
+    if cfg is not None and cfg.tie_embeddings and "head" in params:
+        params = {k: v for k, v in params.items() if k != "head"}
     if isinstance(embed, RankShard):
         return {**params, "embed": embed.local}
     return params
+
+
+def _tied_rank_head(params, cfg: ModelConfig) -> bool:
+    """Whether ``params`` are a rank's with a tied head: its rows a
+    ``RankShard``, the whole table its ``"head"``."""
+    return (cfg.tie_embeddings and "head" in params
+            and isinstance(params.get("embed"), RankShard))
+
+
+def sync_tied_head(params, cfg: ModelConfig, ctx: ProcessContext) -> None:
+    """A rank's tied ``"head"`` (the whole table, ``(d, Vp)``) set from
+    the ranks' rows of it, all-gathered over the model axis: after an
+    update or a restore has written this rank's rows.  Nothing without a
+    tied head over processes."""
+    if not _tied_rank_head(params, cfg):
+        return
+    with torch.no_grad():
+        rows = comm.all_gather(params["embed"].local[0], axis=0, tiled=True,
+                               ctx=ctx)
+        params["head"].copy_(rows.T)
 
 
 class TrainStep:
@@ -254,7 +271,7 @@ class TrainStep:
 
     def __init__(self, cfg: ModelConfig, tc: TrainConfig,
                  ctx: Optional[ParallelContext | ProcessContext] = None):
-        self.cfg, self.tc, self.ctx = cfg, tc, check_train_context(ctx, cfg)
+        self.cfg, self.tc, self.ctx = cfg, tc, lm.check_context(ctx)
         self.ranks = self.ctx if isinstance(ctx, ProcessContext) else None
         self.grads = None
         self.sharded: frozenset = frozenset()
@@ -271,7 +288,7 @@ class TrainStep:
         gradients over the ranks and, when the data groups split ``mb``,
         every gradient over the data axis; returns the metrics,
         detached."""
-        tensors = rank_tensors(params)
+        tensors = rank_tensors(params, self.cfg)
         if self.grads is None:
             self.grads = map_leaves(torch.zeros_like, tensors)
             if self.ranks is not None:
@@ -284,13 +301,23 @@ class TrainStep:
             a.grad = g
             return a
 
+        tied = _tied_rank_head(params, self.cfg)
         with torch.enable_grad():
             leafs = map_leaves(alias, tensors, self.grads)
             if isinstance(params.get("embed"), RankShard):
                 leafs["embed"] = dataclasses.replace(params["embed"],
                                                      local=leafs["embed"])
+            if tied:
+                leafs["head"] = params["head"].detach().requires_grad_(True)
             loss, metrics = lm_loss(leafs, mb, self.cfg, self.ctx, self.tc)
             loss.backward()
+        if tied:
+            # the head's gradient (d, Vp), the batch's on every rank of the
+            # model axis: its rows in this rank's range into the shard's
+            n, r = params["embed"].local.shape[1], self.ranks.rank
+            with torch.no_grad():
+                self.grads["embed"][0].add_(
+                    leafs["head"].grad.T[r * n:(r + 1) * n])
         if self.ranks is not None:
             self.split = data_split(self.ranks,
                                     mb["tokens"].shape[0]) is not None
@@ -345,7 +372,7 @@ class TrainStep:
             n = tc.grad_accum
             acc = map_leaves(lambda p: torch.zeros(
                 p.shape, dtype=torch.float32, device=p.device),
-                rank_tensors(params))
+                rank_tensors(params, self.cfg))
             ms = []
             for i in range(n):
                 mb = {k: v.reshape((n, -1) + tuple(v.shape[1:]))[i]
@@ -361,8 +388,11 @@ class TrainStep:
         else:
             metrics = self.grad(params, batch)
             grads = self.grads
-        _, opt, om = adamw_update(grads, state["opt"], rank_tensors(params),
-                                  tc, ctx=self.ranks, sharded=self.sharded)
+        _, opt, om = adamw_update(grads, state["opt"],
+                                  rank_tensors(params, self.cfg), tc,
+                                  ctx=self.ranks, sharded=self.sharded)
+        if self.ranks is not None:
+            sync_tied_head(params, self.cfg, self.ranks)
         metrics.update(om)
         return {"params": params, "opt": opt}, metrics
 
@@ -372,7 +402,7 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig,
                     ) -> TrainStep:
     """Returns ``train_step(state, batch) -> (state, metrics)``; ``ctx``
     anything but None, a ``ParallelContext`` or a ``ProcessContext``
-    raises ``TypeError`` (:func:`check_train_context`).  Under a
+    raises ``TypeError`` (``lm.check_context``).  Under a
     ``ProcessContext`` the state is this rank's
     (``utils/convert.lm_train_state_for_rank``)."""
     return TrainStep(cfg, tc, ctx)

@@ -32,11 +32,12 @@ Tolerances:
 Also held: a rank's shares (its rows of the vocabulary, 1/4 of the
 experts in memory of its own, ``max_len / 4`` positions of every
 positional cache entry and the states whole), its collective events,
-and the refusals: a ``max_len`` 4 does not divide, training
-a tied head under a ``ProcessContext``, a one-sided rank collective of a
-tensor that needs a gradient (``comm.all_to_all``, ``dlrm.forward``
-through the a2a/onesided pipeline); ``lm.forward`` under grad goes
-through (training over processes: ``tests/test_torch_train_ranks.py``).
+and the refusals: a ``max_len`` 4 does not divide, a one-sided rank
+collective of a tensor that needs a gradient (``comm.all_to_all``,
+``dlrm.forward`` through the a2a/onesided pipeline); ``lm.forward``
+under grad and a tied head's train step and ``Trainer`` under a
+``ProcessContext`` go through (training over processes:
+``tests/test_torch_train_ranks.py``).
 """
 import dataclasses
 import os
@@ -566,10 +567,9 @@ def test_two_by_two_context_queries(runs):
     ("other_device", "ValueError: device meta is not the rank's cpu"),
     ("whole_params", "ValueError: under a ProcessContext params\\['embed'\\] "
                      "must be this rank's RankShard"),
-    ("train_step", "NotImplementedError: .*training over processes with "
-                   "a tied head"),
-    ("trainer", "NotImplementedError: .*training over processes with a "
-                "tied head"),
+    # a tied head trains over processes now: nothing refuses
+    ("train_step", "^no error$"),
+    ("trainer", "^no error$"),
     ("all_to_all_grad", "RuntimeError: all_to_all: the value needs a "
                         "gradient, and the one-sided route has no "
                         "derivative"),

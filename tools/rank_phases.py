@@ -1,6 +1,7 @@
 """Run `chip_smoke.py`'s phases of ranks as processes alone.
 
     python3 tools/rank_phases.py [7p] [6p] [8p | 8p-nccl] [7tp] [8tp] [8dp]
+        [8lr]
 
 Phase 1 (environment and the kernels' build), phase 3 (the uncached
 engine at full width, whose tables and scores the others read), phase 4
@@ -20,15 +21,20 @@ a strategy, 4 gloo processes sharing the card, table-wise 2, held to the
 one-device flow or the simulated ranks') and phase 8tp (LM training with
 each rank a process: granite-8b at 2 layers and moonshot-v1-16b-a3b at
 4, Trainer steps held to make_context(4)'s, and a resume) and phase 8dp
-(a (2, 2) mesh of ranks as processes: DLRM flushes at full width, DLRM
-training, granite-8b serving and a train step, each data group its half
-of the batch, held to make_context(2, dp_size=2)'s); on 4 cards all
-three also run their NCCL legs, one process a card.  A quicker check of
+(a (2, 2) mesh of ranks as processes: DLRM flushes at full width and
+DLRM training, each data group its half of the batch, held to
+make_context(2, dp_size=2)'s) and phase 8lr (the serve and train
+launchers' rank functions on a (2, 2) mesh: granite-8b served at all 36
+layers, each rank drawing only its share, and trained at 2 layers with
+a checkpoint, a resume and a tied head, held to
+make_context(2, dp_size=2)'s; on 4 cards its NCCL leg serves and trains
+at all 36 layers); on 4 cards all also run their NCCL legs, one process
+a card.  A quicker check of
 the per-rank paths than the whole script, on as many cards as the
 machine has.
-Naming 7p, 6p, 8p, 7tp, 8tp or 8dp runs that one and only the phases it
-reads (7p: 1, 3, 7; 6p: 1, 3, 4, 6, 6b; 8p, 7tp, 8tp, 8dp: 1); 7p, 6p
-and 8p by default.
+Naming 7p, 6p, 8p, 7tp, 8tp, 8dp or 8lr runs that one and only the
+phases it reads (7p: 1, 3, 7; 6p: 1, 3, 4, 6, 6b; 8p, 7tp, 8tp, 8dp,
+8lr: 1); 7p, 6p and 8p by default.
 Exits non-zero if a check fails; the last line is ``{"ok": true,
 "cards": N}``.
 """
@@ -46,9 +52,11 @@ import chip_smoke as cs  # noqa: E402
 
 def main(argv) -> int:
     wanted = set(argv) or {"7p", "6p", "8p"}
-    if not wanted <= {"7p", "6p", "8p", "8p-nccl", "7tp", "8tp", "8dp"}:
+    if not wanted <= {"7p", "6p", "8p", "8p-nccl", "7tp", "8tp", "8dp",
+                      "8lr"}:
         print(f"rank_phases: unknown phase(s) {sorted(wanted)}; name 7p, "
-              f"6p, 8p (or 8p-nccl), 7tp, 8tp and/or 8dp", file=sys.stderr)
+              f"6p, 8p (or 8p-nccl), 7tp, 8tp, 8dp and/or 8lr",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("rank_phases: no CUDA device is available", file=sys.stderr)
@@ -73,6 +81,8 @@ def main(argv) -> int:
         cs.phase_lm_train_ranks(pt, (eg, oa, pt.fa))
     if "8dp" in wanted:
         cs.phase_dp_ranks(pt, (eg, oa, pt.fa))
+    if "8lr" in wanted:
+        cs.phase_launch_ranks(pt, (eg, oa, pt.fa))
     print(json.dumps({"ok": True, "cards": torch.cuda.device_count()}))
     return 0
 
