@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Phases:
-  1. environment: torch, CUDA, nvcc, triton, the card's name and power
+  1. environment: torch, CUDA, nvcc, triton, each card's name and power
      limit; builds the port's CUDA kernels from this checkout (one nvcc per
      source, all started together, into build/) and prints the build's
      seconds, each flash and TBE kernel's ptxas registers and spills, and
@@ -356,7 +356,27 @@ Phases:
      states bitwise equal; and a tied head's f32 step; against the simulated (2, 2) Trainer (step 1's loss and norm
      within 1e-5, step 2's loss within 2.5e-4); with 4 cards, (c) (a)
      again and training at all 36 layers over NCCL, one process a card;
-  9. the card line, one JSON line of the kernels (the flash kernel's
+  9. the examples (examples/*_torch.py), after 8t: each TBE launch of
+     the path (this process's and each rank's) held against the
+     wrapper's plain version on its own inputs, once a shape, and every
+     launch seen by that hold; (a)
+     dlrm_inference's one-device part (the oracle, the tiered engine
+     over the host tier within 1e-5 of the uncached forward, hit rate
+     over 0.5); (b) one spawn of a (1, 4) mesh of processes (gloo on one
+     card, NCCL with 4) running quickstart's rank function (each rank
+     drawing the 256 MiB tables and keeping its rows; the a2a pipeline
+     within 1e-4 of rank 0's oracle) and dlrm_inference's four
+     strategies (each within 1e-4 of the oracle, the traffic the
+     reference's example prints at 4 devices); (c) serve_batched (the LM
+     batcher, depth 1 against depth 2 under an SLO monitor); (d)
+     dlrm_sharding_plan on the H100 model; (e) lm_train: 300 steps of
+     the 100M model, 8 x 128 tokens, int8 moments, checkpoints every 100
+     into a temporary directory: the loss at steps 1, 10, 100 and 300,
+     the last under the first; the last, and the mean of the last 50,
+     over lm_batches' unigram entropy (5.0586 nats) less 3 standard
+     deviations of a batch's (of 50 batches') mean -log p; no kernel
+     launch; TBE launches counted per part and per rank;
+  10. the card line, one JSON line of the kernels (the flash kernel's
      launches_by_path records LM training's 0; the ctx legs' launches are
      paths of their own), and last the result line.
 
@@ -379,6 +399,7 @@ import gc
 import hashlib
 import itertools
 import json
+import math
 import os
 import re
 import shutil
@@ -495,7 +516,7 @@ def compare(name, got, want, tol) -> float:
 def phase_environment(build) -> str:
     log("== 1. environment")
     log(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
-        f"torch.version.cuda {torch.version.cuda}")
+        f"torch.version.cuda {torch.version.cuda}  numpy {np.__version__}")
     nvcc = subprocess.run([build.nvcc(), "--version"], capture_output=True,
                           text=True, check=True, timeout=60)
     log(f"nvcc: {nvcc.stdout.strip().splitlines()[-1]}")
@@ -508,8 +529,10 @@ def phase_environment(build) -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
-    card = smi.stdout.strip().splitlines()[0]
-    log(card)
+    cards = smi.stdout.strip().splitlines()
+    for line in cards:           # every card's name and power limit
+        log(line)
+    card = cards[0]
     log(f"torch.cuda: {torch.cuda.get_device_name(0)}, "
         f"{torch.cuda.device_count()} device(s)")
     t0 = time.perf_counter()
@@ -7839,6 +7862,324 @@ def _leaves(tree):
         yield from (_leaves(v) if isinstance(v, dict) else (v,))
 
 
+# ---------------------------------------------------------------------------
+# 9. the examples
+# ---------------------------------------------------------------------------
+
+EXAMPLES_PATH = "9 the examples"
+EX_RANKS = 4                 # the reference's examples at 4 devices
+EX_TIMEOUT_S = 300.0
+EX_ERR = 1e-4                # quickstart's and each strategy's bound
+# the traffic the reference's dlrm_inference.py prints at 4 devices: one
+# rank's bytes_in summed by op (B=32, T=8, D=64 f32; the a2a's three
+# (4, 512) int32/f32 exchanges, its (4, 64, 64) reduce-scatter, its
+# (8, 8, 64) all-gather; column (32, 8, 16), table (32, 2, 64))
+EX_TRAFFIC = {"row/allgather": {"all_reduce": 65536},
+              "row/a2a": {"all_to_all": 24576, "reduce_scatter": 65536,
+                          "all_gather": 16384},
+              "column": {"all_gather": 16384},
+              "table": {"all_gather": 16384}}
+# per-launch counts of the one-device parts: the oracle and the 24
+# single-request forwards (gather_pool_tbe), the tiered engine's 3
+# flushes (gather_pool_tbe_flat); per rank: quickstart's oracle on rank
+# 0, 2 forwards each of row/allgather (flat) and of column and table
+EX_LOCAL = {"gather_pool_tbe": 25, "gather_pool_tbe_flat": 3}
+EX_RANK = {"gather_pool_tbe": 4, "gather_pool_tbe_flat": 2}
+EX_LOSS_STEPS = (1, 10, 100, 300)
+# lm_batches' labels are independent Zipf(1.2) draws over 32,768 ids:
+# no model's EXPECTED loss goes under their entropy H (5.0586 nats), but
+# one batch's loss, the mean of -log p over its 1,024 labels, spreads
+# about it by sqrt(V / 1,024) = 0.104 nats (V = 11.08, the variance of
+# -log p; a sound run read 4.9621 at step 60 and 5.0002 at step 260).
+# The last loss is held over H less EX_LOSS_SDS such spreads, the mean
+# of the last EX_LOSS_TAIL losses over H less EX_LOSS_SDS of its own
+# spread, sqrt(V / (1,024 x 50)): a loss under them is a fault (a label
+# shift, a leak between batches), not learning
+EX_LOSS_SDS = 3
+EX_LOSS_TAIL = 50
+EX_STEPS, EX_BATCH, EX_SEQ = 300, 8, 128
+EX_TRAIN = ["--steps", str(EX_STEPS), "--batch", str(EX_BATCH), "--seq",
+            str(EX_SEQ)]
+
+
+def _zipf_law(a: float, ids: int) -> tuple:
+    """``(H, V)``: the entropy in nats of ``min(Zipf(a), ids) - 1``,
+    lm_batches' token law, and the variance of -log p under it.  p_k =
+    k^-a / zeta(a) for k < ids, the tail's mass on the last id; zeta(a)
+    by Euler-Maclaurin after 10**6 terms."""
+    n = 10 ** 6
+    zeta = float((np.arange(1, n, dtype=np.float64) ** -a).sum()
+                 + n ** (1 - a) / (a - 1) + n ** -a / 2
+                 + a * n ** (-a - 1) / 12)
+    p = np.arange(1, ids, dtype=np.float64) ** -a / zeta
+    p = np.append(p, 1.0 - p.sum())
+    nats = -np.log(p)
+    h = float((p * nats).sum())
+    return h, float((p * (nats - h) ** 2).sum())
+
+
+def _examples():
+    """The five examples' modules (``examples/`` on the path)."""
+    if str(ROOT / "examples") not in sys.path:
+        sys.path.insert(0, str(ROOT / "examples"))
+    import dlrm_inference_torch
+    import dlrm_sharding_plan_torch
+    import lm_train_torch
+    import quickstart_torch
+    import serve_batched_torch
+
+    class ex:   # one namespace
+        qs, di, plan = quickstart_torch, dlrm_inference_torch, \
+            dlrm_sharding_plan_torch
+        sb, lt = serve_batched_torch, lm_train_torch
+    return ex
+
+
+def _ex_rank(ctx, di_args):
+    """One rank of phase 9's (1, 4) mesh: quickstart's rank function,
+    then dlrm_inference's strategies, each from launch counts at 0, each
+    TBE launch shape held against its plain version (:func:`_hold_tbe`).
+    Every rank's counts and held shapes go to rank 0, which returns them
+    with its results."""
+    from repro_torch.launch.mesh import gather_world
+
+    pt = port_namespace()
+    kmods = _kernel_mods()
+    ex = _examples()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    held, restore = _hold_tbe(pt)
+    try:
+        _reset_counts(pt, kmods)
+        t0 = time.perf_counter()
+        qs_out = ex.qs.quickstart(ctx)
+        _sync(ctx.device)
+        qs_s = time.perf_counter() - t0
+        counts = {"qs": _counts(pt, kmods)}
+        _reset_counts(pt, kmods)
+        t0 = time.perf_counter()
+        di_out = ex.di.strategies(ctx, *di_args)
+        counts["di"] = _counts(pt, kmods)
+    finally:
+        restore()
+    counts["secs"] = {"qs": qs_s, "di": time.perf_counter() - t0}
+    counts["held"] = _held(held)
+    counts = gather_world(counts)
+    if ctx.rank == 0:
+        return {"qs": qs_out, "di": di_out, "ranks": counts}
+    return None
+
+
+def _hold_tbe(pt):
+    """Holds each TBE launch of phase 9's path against the wrapper's
+    plain version on the same inputs, once a shape: ``kernels.ops``'
+    ``gather_pool_tbe`` and ``gather_pool_tbe_flat`` are wrapped so that
+    the first launch at each (wrapper, argument shapes, table dtype) key
+    is compared, on its own stream just after it, with the plain version
+    (``embedding_gather.*_ref``; ids of zero-weight slots, which the
+    kernel never reads, taken as row 0 of the table).  No launch is
+    added and nothing syncs inside the path.  Returns ``(held,
+    restore)``: ``held`` maps each key to ``[device pair (max |kernel -
+    plain|, the largest excess over POOL_TOL), launches at the key]``,
+    which :func:`_held` reads after the path."""
+    from repro_torch.kernels import embedding_gather as eg
+
+    plain = {"gather_pool_tbe": eg.gather_pool_tbe_ref,
+             "gather_pool_tbe_flat": eg.gather_pool_tbe_flat_ref}
+    held = {}
+
+    def make(name):
+        def wrap(real):
+            def launch(*args):
+                out = real(*args)
+                key = (name, str(args[0].dtype)) + tuple(
+                    tuple(a.shape) for a in args)
+                if not out.is_cuda:
+                    return out
+                if key not in held:
+                    idx, w = args[-2:]
+                    want = plain[name](*args[:-2], idx.where(w != 0, 0), w)
+                    d = (out - want).abs()
+                    held[key] = [torch.stack([
+                        d.max(), (d - POOL_TOL["atol"]
+                                  - POOL_TOL["rtol"] * want.abs()).max()]),
+                        0]
+                held[key][1] += 1
+                return out
+            return launch
+        return wrap
+    restore = [_patched(pt.kops, name, make(name)) for name in plain]
+    return held, lambda: [r() for r in restore]
+
+
+def _held(held) -> list:
+    """:func:`_hold_tbe`'s record read: ``[(key, err, excess, launches),
+    ...]``."""
+    return [(key, *pair.tolist(), n) for key, (pair, n) in held.items()]
+
+
+def phase_examples(pt, kmods) -> dict:
+    """Phase 9: the five examples through their entry points on the card;
+    quickstart's and dlrm_inference's rank functions in one spawn of a
+    (1, 4) mesh (gloo on one card, NCCL with 4)."""
+    n_cards = torch.cuda.device_count() if DEV != "cpu" else 0
+    device = None if n_cards >= EX_RANKS else _rank_device()
+    backend = pt.tmesh.backend_for(EX_RANKS, device)
+    log(f"== 9. the examples (examples/*_torch.py on the card; quickstart "
+        f"and dlrm_inference's strategies on a (1, {EX_RANKS}) mesh of "
+        f"processes over {backend}, torch.cuda.device_count() {n_cards})")
+    ex = _examples()
+    t_phase = time.perf_counter()
+    out = {"secs": {}}
+    held, restore = _hold_tbe(pt)
+
+    # dlrm_inference: the oracle and the tiered engine in this process
+    _reset_counts(pt, kmods)
+    t0 = time.perf_counter()
+    loc = ex.di.local(DEV)
+    _sync(DEV)
+    out["secs"]["dlrm_inference local"] = time.perf_counter() - t0
+    local = _counts(pt, kmods)
+    tiered = loc["tiered"]
+    check(tiered["err"] < 1e-5 and tiered["stats"].hit_rate > 0.5,
+          f"9 dlrm_inference: tiered scores within 1e-5 of the uncached "
+          f"forward ({tiered['err']:.3e}), hit rate "
+          f"{tiered['stats'].hit_rate:.4f} > 0.5")
+    check(all(local[k] == EX_LOCAL.get(k, 0) for k in
+              ("gather_pool", "gather_pool_tbe", "gather_pool_tbe_flat",
+               "flash_attention")),
+          f"9 dlrm_inference local: {local['gather_pool_tbe']} TBE and "
+          f"{local['gather_pool_tbe_flat']} flat launches == {EX_LOCAL}")
+
+    # quickstart and the strategies: one spawn
+    t0 = time.perf_counter()
+    ranks = pt.tmesh.run_model_mesh(
+        _ex_rank, EX_RANKS, device,
+        args=(ex.di.strategy_args(loc),),
+        timeout_s=EX_TIMEOUT_S)
+    out["secs"]["ranks (spawn, quickstart, strategies)"] = \
+        time.perf_counter() - t0
+    del loc
+    qs_err = ranks["qs"]["err"]
+    check(qs_err < EX_ERR, f"9 quickstart: max |distributed - local oracle| "
+                           f"{qs_err:.3e} < {EX_ERR}")
+    rows = {r["label"]: r for r in ranks["di"]}
+    for label, want in EX_TRAFFIC.items():
+        r = rows[label]
+        check(r["err"] < EX_ERR and r["traffic"] == want,
+              f"9 dlrm_inference {label}: err {r['err']:.3e} < {EX_ERR}, "
+              f"traffic {r['traffic']} == the reference's")
+    rc = ranks["ranks"]
+    check(rc[0]["qs"]["gather_pool_tbe"] == 1
+          and all(c["qs"]["gather_pool_tbe"] == 0 for c in rc[1:])
+          and all(c["di"][k] == EX_RANK[k] for c in rc for k in EX_RANK)
+          and all(c[part][k] == 0 for c in rc for part in ("qs", "di")
+                  for k in ("gather_pool", "flash_attention")),
+          f"9 ranks: quickstart's oracle 1 TBE launch on rank 0, the "
+          f"strategies {EX_RANK} a rank")
+
+    # serve_batched and the plan in this process
+    _reset_counts(pt, kmods)
+    t0 = time.perf_counter()
+    try:
+        served = ex.sb.main(["--device", DEV])
+        _sync(DEV)
+    finally:
+        restore()
+    out["secs"]["serve_batched"] = time.perf_counter() - t0
+    sbc = _counts(pt, kmods)
+    check(len(served["lm"]) == 10 and sbc["gather_pool_tbe_flat"] >= 6
+          and sbc["flash_attention"] == 0,
+          f"9 serve_batched: 10 requests served, "
+          f"{sbc['gather_pool_tbe_flat']} flat TBE launches (>= 6: 3 "
+          f"flushes, 3 micro-batches), no flash launch (prompts under "
+          f"the chunk threshold)")
+    # every TBE launch shape of the path, this process's and each rank's,
+    # held against the wrapper's plain version on the path's own inputs
+    shapes = [("this process",) + h for h in _held(held)] + [
+        (f"rank {r}",) + h for r, c in enumerate(rc) for h in c["held"]]
+    for where, key, err, excess, n in shapes:
+        log(f"  held {key[0]} ({where}, {n} launches): {key[1]} {key[2:]}: "
+            f"max_abs_err {err:.3e} (allclose rtol={POOL_TOL['rtol']} "
+            f"atol={POOL_TOL['atol']}) {'ok' if excess <= 0 else 'FAIL'}")
+    check(all(excess <= 0 for *_, excess, _ in shapes),
+          "9: every TBE launch shape within POOL_TOL of its plain version")
+    names = ("gather_pool_tbe", "gather_pool_tbe_flat")
+    out["launches"] = {k: local[k] + sbc[k] + sum(
+        c[part][k] for c in rc for part in ("qs", "di")) for k in names}
+    seen = {k: sum(n for _, key, _, _, n in shapes if key[0] == k)
+            for k in names}
+    check(seen == out["launches"],
+          f"9: every TBE launch of the path went through the held "
+          f"wrappers ({seen} of {out['launches']})")
+    out["err"] = {k: max(err for _, key, err, _, _ in shapes
+                         if key[0] == k) for k in names}
+    t0 = time.perf_counter()
+    ex.plan.main([])
+    out["secs"]["dlrm_sharding_plan"] = time.perf_counter() - t0
+
+    # lm_train: 300 steps
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_9_")
+    try:
+        _reset_counts(pt, kmods)
+        t0 = time.perf_counter()
+        tr = ex.lt.main(EX_TRAIN + ["--device", DEV, "--ckpt-dir", tmp])
+        out["secs"]["lm_train"] = time.perf_counter() - t0
+        ltc = _counts(pt, kmods)
+        written = sorted(os.listdir(tmp))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    losses = [m["loss"] for _, m in tr.metrics_log]
+    step_s = [m["step_time_s"] for _, m in tr.metrics_log]
+    del tr
+    out["losses"] = {s: losses[s - 1] for s in EX_LOSS_STEPS}
+    out["step_ms"] = 1e3 * statistics.median(step_s)
+    h, v = _zipf_law(1.2, ex.lt.make_100m().vocab_size)
+    spread = math.sqrt(v / (EX_BATCH * EX_SEQ))
+    tail = statistics.fmean(losses[-EX_LOSS_TAIL:])
+    floors = (h - EX_LOSS_SDS * spread,
+              h - EX_LOSS_SDS * spread / math.sqrt(EX_LOSS_TAIL))
+    out.update(entropy=h, spread=spread, tail=tail, floors=floors,
+               tail_sd=statistics.stdev(losses[-EX_LOSS_TAIL:]))
+    log(f"  lm_train: loss at steps {', '.join(str(s) for s in EX_LOSS_STEPS)}"
+        f" {[round(v, 4) for v in out['losses'].values()]}, mean of the "
+        f"last {EX_LOSS_TAIL} {tail:.4f} (their sd {out['tail_sd']:.4f}); "
+        f"the stream's unigram entropy {h:.4f} nats, a batch's spread "
+        f"{spread:.4f}, floors {floors[0]:.4f} (one step) and "
+        f"{floors[1]:.4f} (the mean); median step {out['step_ms']:.1f} ms; "
+        f"checkpoints {written}; launches "
+        f"{ {k: v for k, v in ltc.items() if v} or 'none'}")
+    check(floors[0] < losses[-1] < losses[0] and floors[1] < tail
+          and len(losses) == EX_STEPS and all(np.isfinite(losses)),
+          f"9 lm_train: {EX_STEPS} finite losses, the last "
+          f"({losses[-1]:.4f}) under the first ({losses[0]:.4f}) and over "
+          f"{floors[0]:.4f}, the last {EX_LOSS_TAIL}'s mean ({tail:.4f}) "
+          f"over {floors[1]:.4f}")
+    check(all(v == 0 for k, v in ltc.items() if k != "chunked"),
+          "9 lm_train: no kernel launch (no vocabulary bag without a "
+          "context; the flash wrapper refuses a tensor that needs a "
+          "gradient)")
+    if DEV != "cpu":
+        torch.cuda.empty_cache()
+    log(f"  TBE launches on the path: {out['launches']} (dlrm_inference "
+        f"local {[local[k] for k in out['launches']]}, serve_batched "
+        f"{[sbc[k] for k in out['launches']]}, each rank's quickstart + "
+        f"strategies "
+        f"{[[c['qs'][k] + c['di'][k] for k in out['launches']] for c in rc]})")
+    out["strategies"] = {label: dict(err=r["err"], first_ms=r["first_ms"],
+                                     second_ms=r["second_ms"])
+                         for label, r in rows.items()}
+    out["qs_err"], out["tiered_err"] = qs_err, tiered["err"]
+    out["rank_secs"] = [c["secs"] for c in rc]
+    out["secs"]["phase"] = time.perf_counter() - t_phase
+    import multiprocessing
+
+    alive = multiprocessing.active_children()
+    log(f"  phase 9: {out['secs']}; rank processes alive after it: "
+        f"{len(alive)}")
+    check(not alive, "phase 9's rank processes all ended")
+    return out
+
+
 def port_namespace():
     """The port's entry points, one namespace (``src/`` on the path)."""
     if str(ROOT / "src") not in sys.path:
@@ -7898,6 +8239,8 @@ def port_namespace():
                                                rank_sharded, token_slice_leaf)
         from repro_torch.launch import serve as tserve
         from repro_torch.launch import train as tlaunch
+        from repro_torch.launch import mesh as tmesh
+        from repro_torch.core.jagged import random_jagged_batch
 
     return pt
 
@@ -8019,8 +8362,13 @@ def main() -> int:
     # held counts the two 32 MiB cuBLAS workspaces, the main thread's and
     # the autograd engine's device thread's (phase 7t's backward made it)
     check(after <= held + 2 ** 26, "phase 8t's state freed")
+    exs = phase_examples(pt, (eg, oa, pt.fa))
+    after = torch.cuda.memory_allocated()
+    log(f"== phase 9 freed: {after / 1e9:.3f} GB allocated after it")
+    check(after <= held + 2 ** 26, "phase 9's tables, weights and state "
+          "freed")
 
-    log("== 9. summary")
+    log("== 10. summary")
     # each main path's launches, read from its own run with the counts
     # at 0 just before it; a kernel's `launches` is their sum over the
     # paths that run it, `launches_by_path` keeps each path's own count
@@ -8072,6 +8420,8 @@ def main() -> int:
         by_path[name][DP_RANK_PATH] = dprocs["launches"][name]
     for name in ("gather_pool_tbe_flat", "flash_attention"):
         by_path[name][LR_PATH] = lrprocs["launches"][name]
+    for name, n in exs["launches"].items():
+        by_path[name][EXAMPLES_PATH] = n
     # LM training runs no kernel: the flash kernel has no backward, and
     # under grad attention takes chunked_attention (phase 8t checks 0)
     check(all(n > 0 for paths in by_path.values()
@@ -8081,6 +8431,8 @@ def main() -> int:
     errs.update(dist["errs"])
     errs["flash_attention"] = max(flash_err, lm["err"], moe["err"],
                                   hy["err"], vl["err"])
+    for name, err in exs["err"].items():
+        errs[name] = max(errs[name], err)
     kernels = []
     for name in SOURCES:
         t = dict(times[name])
@@ -8388,6 +8740,21 @@ def main() -> int:
                     for label, v in lt8.items())
         + f"; NCCL leg {'run' if 'nccl' in lrprocs else f'needs {LR_WORLD} cards'}"
         f"; phase {lrprocs['secs']:.1f} s")
+    exl = exs["losses"]
+    log(f"the examples (9; strategies on a (1, {EX_RANKS}) mesh of "
+        f"processes, host clock): quickstart max |distributed - oracle| "
+        f"{exs['qs_err']:.3e}; tiered engine {exs['tiered_err']:.3e} off "
+        f"the uncached forward; "
+        + ", ".join(f"{label} err {v['err']:.3e} first/second forward "
+                    f"{v['first_ms']:.1f}/{v['second_ms']:.1f} ms"
+                    for label, v in exs["strategies"].items())
+        + "; lm_train loss " + ", ".join(f"step {k} {v:.4f}"
+                                          for k, v in exl.items())
+        + f", mean of the last {EX_LOSS_TAIL} {exs['tail']:.4f} (unigram "
+        f"entropy {exs['entropy']:.4f}, floors {exs['floors'][0]:.4f} and "
+        f"{exs['floors'][1]:.4f}), "
+        f"median step {exs['step_ms']:.1f} ms; "
+        f"phase {exs['secs']['phase']:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

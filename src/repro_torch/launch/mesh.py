@@ -1,7 +1,10 @@
 """The launchers' mesh of processes: the counterpart of
 ``repro.launch.mesh.make_debug_mesh``, the ``(data = n / 2, model = 2)``
 mesh the reference's launchers build whenever they see more than one
-device, here over n ranks each a process (``core/parallel.run_ranks``).
+device, here over n ranks each a process (``core/parallel.run_ranks``);
+and the examples' ``(data = 1, model = n)`` mesh, the reference's
+``jax.make_mesh((n,), ("model",))`` and ``make_mesh((1, n), ("data",
+"model"))`` over every device (:func:`run_model_mesh`).
 
 The reference's ``make_production_mesh`` (the 256- and 512-chip TPU
 meshes, ``--production-mesh``, ``--multi-pod``) is not here (ROADMAP
@@ -48,13 +51,28 @@ def run_debug_mesh(fn: Callable, n: int, device=None, args: tuple = (),
         raise ValueError(f"{n} ranks do not form the debug mesh (n / "
                          f"{MODEL_AXIS}, {MODEL_AXIS}): pass an even "
                          f"--ranks")
-    if device is None and n <= torch.cuda.device_count():
-        backend = "nccl"
-    else:
-        backend = "gloo"
-    return run_ranks(fn, n, backend=backend, device=device,
+    return run_ranks(fn, n, backend=backend_for(n, device), device=device,
                      dp_size=n // MODEL_AXIS, args=args,
                      timeout_s=timeout_s)
+
+
+def run_model_mesh(fn: Callable, n: int, device=None, args: tuple = (),
+                   timeout_s: float = DEFAULT_TIMEOUT_S):
+    """``fn(ctx, *args)`` on ``n`` ranks, one process each, as one model
+    axis ``(1, n)``: the examples' mesh, ``dp_size`` 1, rank r the model
+    axis's rank r.  Devices and backend as :func:`run_debug_mesh`.
+    Returns rank 0's result."""
+    return run_ranks(fn, n, backend=backend_for(n, device), device=device,
+                     args=args, timeout_s=timeout_s)
+
+
+def backend_for(n: int, device) -> str:
+    """NCCL when no ``device`` is named and each of the ``n`` ranks has a
+    card of its own; gloo otherwise (the CPU, or one card the ranks
+    share)."""
+    if device is None and n <= torch.cuda.device_count():
+        return "nccl"
+    return "gloo"
 
 
 def peak_bytes(device: torch.device) -> int:

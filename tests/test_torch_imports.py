@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``repro_torch``, and not
-``chip_smoke.py`` or the scripts under ``tools/``, imports JAX or the
-reference package ``repro``.
+``chip_smoke.py``, the scripts under ``tools/`` or the port's examples
+(``examples/*_torch.py``), imports JAX or the reference package
+``repro``.
 
 ``repro_torch`` starts with ``repro``, so the reference package is matched
 exactly (``repro``) or by its prefix ``repro.``.
@@ -17,6 +18,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 SMOKE = ROOT / "chip_smoke.py"
 TOOLS = ROOT / "tools"
+EXAMPLES = ROOT / "examples"
 
 
 def _forbidden(name: str) -> bool:
@@ -95,6 +97,32 @@ def test_ast_scan_finds_no_jax_or_repro_import():
            for p in files for line, name in _imports(p)
            if _forbidden(name)]
     assert bad == []
+
+
+def test_port_examples_import_no_jax_and_no_repro():
+    """The five ``examples/*_torch.py``: no import of JAX or ``repro`` in
+    their text, and none loaded when they are imported."""
+    examples = sorted(EXAMPLES.glob("*_torch.py"))
+    assert {p.stem for p in examples} == {
+        f"{name}_torch" for name in ("quickstart", "dlrm_inference",
+                                     "dlrm_sharding_plan", "serve_batched",
+                                     "lm_train")}
+    bad = [(p.name, line, name) for p in examples
+           for line, name in _imports(p) if _forbidden(name)]
+    assert bad == []
+    code = (
+        "import importlib, json, sys\n"
+        f"sys.path.insert(0, {str(EXAMPLES)!r})\n"
+        f"for m in {[p.stem for p in examples]!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))\n"
+        "print(json.dumps(bad))\n")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300,
+                         check=True)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
 def test_every_cuda_source_is_plain_c_bound_and_smoked():

@@ -1,7 +1,7 @@
 """Run `chip_smoke.py`'s phases of ranks as processes alone.
 
     python3 tools/rank_phases.py [7p] [6p] [8p | 8p-nccl] [7tp] [8tp] [8dp]
-        [8lr]
+        [8lr] [9]
 
 Phase 1 (environment and the kernels' build), phase 3 (the uncached
 engine at full width, whose tables and scores the others read), phase 4
@@ -28,13 +28,15 @@ launchers' rank functions on a (2, 2) mesh: granite-8b served at all 36
 layers, each rank drawing only its share, and trained at 2 layers with
 a checkpoint, a resume and a tied head, held to
 make_context(2, dp_size=2)'s; on 4 cards its NCCL leg serves and trains
-at all 36 layers); on 4 cards all also run their NCCL legs, one process
+at all 36 layers) and phase 9 (the five examples on the card,
+quickstart's and dlrm_inference's rank functions on a (1, 4) mesh of
+processes); on 4 cards all also run their NCCL legs, one process
 a card.  A quicker check of
 the per-rank paths than the whole script, on as many cards as the
 machine has.
-Naming 7p, 6p, 8p, 7tp, 8tp, 8dp or 8lr runs that one and only the
+Naming 7p, 6p, 8p, 7tp, 8tp, 8dp, 8lr or 9 runs that one and only the
 phases it reads (7p: 1, 3, 7; 6p: 1, 3, 4, 6, 6b; 8p, 7tp, 8tp, 8dp,
-8lr: 1); 7p, 6p and 8p by default.
+8lr, 9: 1); 7p, 6p and 8p by default.
 Exits non-zero if a check fails; the last line is ``{"ok": true,
 "cards": N}``.
 """
@@ -53,9 +55,9 @@ import chip_smoke as cs  # noqa: E402
 def main(argv) -> int:
     wanted = set(argv) or {"7p", "6p", "8p"}
     if not wanted <= {"7p", "6p", "8p", "8p-nccl", "7tp", "8tp", "8dp",
-                      "8lr"}:
+                      "8lr", "9"}:
         print(f"rank_phases: unknown phase(s) {sorted(wanted)}; name 7p, "
-              f"6p, 8p (or 8p-nccl), 7tp, 8tp, 8dp and/or 8lr",
+              f"6p, 8p (or 8p-nccl), 7tp, 8tp, 8dp, 8lr and/or 9",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -83,6 +85,8 @@ def main(argv) -> int:
         cs.phase_dp_ranks(pt, (eg, oa, pt.fa))
     if "8lr" in wanted:
         cs.phase_launch_ranks(pt, (eg, oa, pt.fa))
+    if "9" in wanted:
+        cs.phase_examples(pt, (eg, oa, pt.fa))
     print(json.dumps({"ok": True, "cards": torch.cuda.device_count()}))
     return 0
 
