@@ -349,13 +349,18 @@ Phases:
      each rank's parameters lm_params_for_rank's cut of the whole draw
      leaf for leaf, per rank one TBE launch an embedding call and 36 flash
      launches; (b) the train launcher's rank function at 2 layers, int8
-     moments, 2 x 2,048 tokens: 2 steps with a checkpoint a step written
+     moments, 2 x 2,048 tokens, under the reference's state placement
+     (launch/specs.state_spec_tree: FSDP over the data axis, dense cuts
+     over the model axis; each rank's parameter, gradient and moment
+     bytes exactly the specs'): 2 steps with a checkpoint a step written
      by global rank 0, then the same command again, which resumes from
      step 2 and runs 2 more from batch 0 as the reference's launcher does,
-     bitwise the run's Trainer gone on in memory, both data groups'
-     states bitwise equal; and a tied head's f32 step; against the simulated (2, 2) Trainer (step 1's loss and norm
-     within 1e-5, step 2's loss within 2.5e-4); with 4 cards, (c) (a)
-     again and training at all 36 layers over NCCL, one process a card;
+     bitwise the run's Trainer gone on in memory, the leaves the data
+     axis does not cut bitwise equal in both data groups; and a tied
+     head's f32 step; against the simulated (2, 2) Trainer (step 1's loss
+     and norm within 1e-5, step 2's loss within 2.5e-4); with 4 cards,
+     (c) (a) again and training at all 36 layers over NCCL, one process a
+     card, each rank's peak memory logged;
   9. the examples (examples/*_torch.py), after 8t: each TBE launch of
      the path (this process's and each rank's) held against the
      wrapper's plain version on its own inputs, once a shape, and every
@@ -6074,8 +6079,11 @@ LR_SEED = 23
 # going on in memory for LR_TRAIN_STEPS more from batch 0, and the same
 # command again, which resumes from the checkpoint of the last step and
 # runs LR_TRAIN_STEPS more from batch 0 as the reference's launcher does;
-# and a tied head for 1 step, in f32.  Depth cut: a rank keeps a step's
-# activations of its sample beside its state (~3.4 GB at 2 layers)
+# and a tied head for 1 step, in f32.  The launcher places the state by
+# the reference's specs (each rank its cut of every leaf, a layer's
+# weights gathered whole while it runs).  Depth cut: a rank keeps a
+# step's activations of its sample beside its state (~3.4 GB at 2
+# layers)
 LR_TRAIN_LAYERS = 2
 LR_TRAIN = ["--arch", "granite-8b", "--batch", "2", "--seq", "2048",
             "--opt-state-dtype", "int8"]
@@ -6145,6 +6153,43 @@ def _lr_state_sums(pt, tr, cfg) -> dict:
          "opt": tr.state["opt"]})}
 
 
+def _lr_state_bytes(pt, tr, cfg, ctx) -> dict:
+    """This rank's parameter, gradient and moment bytes as held, and as
+    the launcher's specs (launch/specs.state_spec_tree under the rank's
+    context) give them: each leaf's whole shape (the state on the meta
+    device) cut by its spec, a gradient at its moments' layout; and the
+    paths of the leaves the data axis cuts."""
+    specs = pt.tspecs.state_spec_tree(cfg, tr.tc, ctx)[1]
+    flat = pt.tspecs.flatten_specs(specs)
+    moments = pt.tspecs.moment_specs(specs["opt"]["m"])
+    meta = pt.tstep.init_train_state(None, cfg, tr.tc, tp_size=ctx.world,
+                                     device="meta")
+    whole = pt.flatten_with_paths({"params": pt.tstep.rank_tensors(
+        meta["params"], cfg), "opt": meta["opt"]})
+    held = dict(pt.flatten_with_paths(
+        {"params": pt.tstep.rank_tensors(tr.state["params"], cfg),
+         "opt": tr.state["opt"]}))
+    grads = dict(pt.flatten_with_paths(tr.step_fn.grads))
+
+    def nbytes(spec, t):
+        return math.prod(pt.cut_shape(spec, tuple(t.shape), ctx)) * \
+            t.element_size()
+
+    want = dict.fromkeys(("params", "grads", "opt"), 0)
+    have = dict(want)
+    for path, t in whole:
+        part = "params" if path.startswith("params/") else "opt"
+        want[part] += nbytes(flat[path], t)
+        have[part] += held[path].numel() * held[path].element_size()
+        if part == "params":
+            q = path[len("params/"):]
+            want["grads"] += nbytes(pt.tspecs.grad_spec(moments[q]), t)
+            have["grads"] += grads[q].numel() * grads[q].element_size()
+    return dict(held=have, spec=want, whole=sum(
+        t.numel() * t.element_size() for _, t in whole),
+        data_cut=sorted(p for p, sp in flat.items() if ("data",) in sp))
+
+
 def _lr_train(pt, kmods, ctx, leg) -> dict:
     """One train leg on this rank through the train launcher's rank
     function, from launch counts at 0: the metrics, launches and peak
@@ -6160,7 +6205,8 @@ def _lr_train(pt, kmods, ctx, leg) -> dict:
     _reset_counts(pt, kmods)
     tr = pt.tlaunch.train(ctx, cfg, args)
     rec = dict(metrics=[m for _, m in tr.metrics_log],
-               counts=_counts(pt, kmods))
+               counts=_counts(pt, kmods),
+               state_bytes=_lr_state_bytes(pt, tr, cfg, ctx))
     if cuda:
         _sync(dev)
         rec["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
@@ -6424,11 +6470,13 @@ def _lr_check_train(leg, sim, ranks, tag) -> dict:
     """A train leg's checks: every rank's metrics rank 0's; the losses
     within LMTP_LOSS_REL of the simulated Trainer's at step 1 and within
     LR_LATER_REL after, the step-1 gradient norm within LMTP_NORM_REL;
-    one TBE launch a step, nothing else; with ``resume`` the checkpoint
-    of each step written, and the same command again resumed at the last
-    step, its steps and state bitwise those of the run's Trainer gone on
-    in memory, on every rank, and that state bitwise equal in both data
-    groups; a tied head holding the table its model axis holds."""
+    one TBE launch a step, nothing else; each rank's parameter, gradient
+    and moment bytes exactly the launcher's placement's arithmetic; with
+    ``resume`` the checkpoint of each step written, and the same command
+    again resumed at the last step, its steps and state bitwise those of
+    the run's Trainer gone on in memory, on every rank, and that state's
+    leaves the data axis does not cut bitwise equal in both data groups;
+    a tied head holding the table its model axis holds."""
     label, cfg = leg["label"], leg["cfg"]
     recs = [out["train"][label] for out in ranks]
     m0 = recs[0]["metrics"]
@@ -6473,15 +6521,25 @@ def _lr_check_train(leg, sim, ranks, tag) -> dict:
                 f"8lr{tag} {label} global rank {g}: the resumed run's "
                 f"one TBE launch a step, nothing else "
                 f"({rec['resume_counts']})")
+        cut = set(recs[0]["state_bytes"]["data_cut"])
         for m in range(LR_TP):
-            check(all(recs[d * LR_TP + m]["sums"] == recs[m]["sums"]
-                      for d in range(LR_DP)),
-                  f"8lr{tag} {label} model rank {m}: the state bitwise equal "
-                  f"in every data group")
+            check(all({p: v for p, v in recs[d * LR_TP + m]["sums"].items()
+                       if p not in cut} ==
+                      {p: v for p, v in recs[m]["sums"].items()
+                       if p not in cut} for d in range(LR_DP)),
+                  f"8lr{tag} {label} model rank {m}: every leaf the data "
+                  f"axis does not cut bitwise equal in every data group "
+                  f"({len(cut)} leaves cut over it)")
         extra = (f"; the same command again, resumed from the checkpoint "
                  f"of step {steps}: every rank's {len(recs[0]['sums'])} "
                  f"state leaves after {steps} more steps bitwise the run's "
                  f"Trainer gone on in memory")
+    for g, rec in enumerate(recs):
+        b = rec["state_bytes"]
+        check(b["held"] == b["spec"] and sum(b["held"].values()) > 0,
+              f"8lr{tag} {label} global rank {g}: its parameter, gradient "
+              f"and moment bytes the placement's arithmetic ({b['held']}; "
+              f"the specs {b['spec']})")
     if cfg.tie_embeddings:
         for g, rec in enumerate(recs):
             check(rec["rows_in_head"] and rec["head_sums"] ==
@@ -6491,6 +6549,11 @@ def _lr_check_train(leg, sim, ranks, tag) -> dict:
         extra = "; every rank's head the table of its updated rows"
     step_s = [[m["step_time_s"] for m in rec["metrics"]] for rec in recs]
     peak = [rec.get("peak_bytes", 0) / 1e9 for rec in recs]
+    held = [{k: round(v / 1e9, 3) for k, v in rec["state_bytes"][
+        "held"].items()} for rec in recs]
+    extra += (f"; state a rank (GB, parameters / gradients / moments) "
+              f"{held}, the whole state "
+              f"{recs[0]['state_bytes']['whole'] / 1e9:.3f} GB")
     log(f"  [{label}{tag} {cfg.name}, {cfg.num_layers} layers"
         f"{', tied head' if cfg.tie_embeddings else ''}, "
         f"{leg['args'].batch} x {leg['args'].seq} tokens] losses "
@@ -6500,9 +6563,9 @@ def _lr_check_train(leg, sim, ranks, tag) -> dict:
         f" s per rank (host clock), peak {[round(v, 2) for v in peak]} GB a "
         f"rank{extra}")
     return dict(loss_rel=max(rels), norm_rel=norm_rel, step_s=step_s,
-                peak_gb=peak, tbe=sum(rec["counts"][TBE_FLAT]
-                                      + rec.get("resume_counts", {}).get(
-                                          TBE_FLAT, 0) for rec in recs))
+                peak_gb=peak, state_gb=held,
+                tbe=sum(rec["counts"][TBE_FLAT] + rec.get(
+                    "resume_counts", {}).get(TBE_FLAT, 0) for rec in recs))
 
 
 def _lr_run(pt, backend, serve_leg, train_legs) -> list:
@@ -8240,6 +8303,8 @@ def port_namespace():
         from repro_torch.launch import serve as tserve
         from repro_torch.launch import train as tlaunch
         from repro_torch.launch import mesh as tmesh
+        from repro_torch.launch import specs as tspecs
+        from repro_torch.core.parallel import cut_shape
         from repro_torch.core.jagged import random_jagged_batch
 
     return pt

@@ -21,15 +21,18 @@ Layout (one directory per step):
     checkpoint intact; ``keep`` drops the oldest after a write;
   * ``asynchronous=True`` writes on a thread; ``wait_all`` joins them;
   * with ``ctx`` (a ``ProcessContext``) every rank calls ``save`` with
-    its own share of the state, and ``sharded`` names the leaves cut
-    over the ranks along ``utils/convert.SHARD_AXIS``: model rank 0 of
-    data group 0 (global rank 0) receives each such leaf's shares from
-    its data group's ranks one at a time into one host buffer of the
-    whole leaf (no rank holds more than its share on its device), copies
-    the others to the host, and alone writes -- the checkpoint one
-    device writes; the other data groups hold the same state and send
-    nothing.  ``restore`` with the context reads the whole state leaf by
-    leaf on every rank and keeps this rank's part of each cut leaf.
+    its own pieces of the state, and ``specs`` gives each leaf's spec by
+    path (``launch/specs.py``: None, ``"model"`` or ``("data",)`` per
+    dim): global rank 0 receives each cut leaf's pieces, one from the
+    first rank that holds each (over the world's group), one at a time
+    into one host buffer of the whole leaf (no rank holds more than its
+    piece on its device), copies the others to the host, and alone
+    writes -- the checkpoint one device writes.  ``restore`` with the
+    context reads the whole state leaf by leaf on every rank and keeps
+    this rank's piece of each.  The format is the whole state, so a
+    checkpoint written under one placement restores under another, on
+    simulated ranks or on one device, as the reference's ``restore(
+    shardings=)`` reshards.
 """
 from __future__ import annotations
 
@@ -43,7 +46,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch.utils.convert import SHARD_AXIS
+from repro_torch.core.parallel import cut_index, spec_axis, whole_shape
 from repro_torch.utils.tree import flatten_with_paths
 
 _PENDING: List[threading.Thread] = []
@@ -76,58 +79,72 @@ def _to_host(t: torch.Tensor):
     return _numpy(t.detach().to("cpu", copy=True))
 
 
-def _global(ctx, rank: int) -> int:
-    """The global rank of model rank ``rank`` of this rank's data
-    group."""
-    return rank if ctx.group is None else dist.get_global_rank(ctx.group,
-                                                                rank)
+def _owners(spec, ctx):
+    """[(global rank, index)] of the first rank holding each piece of a
+    leaf under ``spec``: data group 0 along a data axis the spec does
+    not cut, model rank 0 along a model axis it does not cut."""
+    axes = {spec_axis(e) for e in spec}
+    dps = range(ctx.dp_size) if "data" in axes else (0,)
+    tps = range(ctx.world) if "model" in axes else (0,)
+    return [(d * ctx.world + m, d, m) for d in dps for m in tps]
 
 
-def _gathered_on_host(t: torch.Tensor, ctx) -> Optional[torch.Tensor]:
-    """Rank 0: on the host, the whole leaf of which each rank's ``t`` is
-    its share along ``SHARD_AXIS``, received one share at a time; every
-    other rank sends its share and gets None.  Over gloo the shares go
-    through the host, over NCCL through one share's buffer on the card."""
+def _gathered_on_host(t: torch.Tensor, spec, ctx) -> Optional[torch.Tensor]:
+    """Global rank 0: on the host, the whole leaf of which each rank's
+    ``t`` is its piece under ``spec``, received from the first rank
+    holding each piece, all of a leaf's pieces at once; every other rank
+    sends its piece when it is that rank and gets None.  Over gloo the
+    pieces go through the host, over NCCL through the card."""
     t = t.detach().contiguous()
-    via = t.device if dist.get_backend(ctx.group) == "nccl" \
-        else torch.device("cpu")
-    if ctx.rank != 0:
-        dist.send(t.to(via), dst=_global(ctx, 0), group=ctx.group)
+    via = t.device if dist.get_backend() == "nccl" else torch.device("cpu")
+    me = ctx.global_rank
+    owners = _owners(spec, ctx)
+    if me != 0:
+        if any(g == me for g, _, _ in owners):
+            dist.send(t.to(via), dst=0)
         return None
-    n = t.shape[SHARD_AXIS]
-    shape = list(t.shape)
-    shape[SHARD_AXIS] *= ctx.world
+    shape = whole_shape(spec, tuple(t.shape), ctx)
     whole = torch.empty(shape, dtype=t.dtype)
-    whole.narrow(SHARD_AXIS, 0, n).copy_(t)
-    buf = torch.empty(tuple(t.shape), dtype=t.dtype, device=via)
-    for r in range(1, ctx.world):
-        dist.recv(buf, src=_global(ctx, r), group=ctx.group)
-        whole.narrow(SHARD_AXIS, r * n, n).copy_(buf)
+    recv = []
+    for g, d, m in owners:
+        idx = cut_index(spec, shape, ctx, dp_rank=d, rank=m)
+        if g == 0:
+            whole[idx].copy_(t)
+        else:
+            buf = torch.empty(tuple(t.shape), dtype=t.dtype, device=via)
+            recv.append((dist.irecv(buf, src=g), buf, idx))
+    for work, buf, idx in recv:
+        work.wait()
+        whole[idx].copy_(buf)
     return whole
 
 
+def _is_cut(spec) -> bool:
+    return any(e is not None for e in spec)
+
+
 def save(tree: Any, base: str, step: int, *, asynchronous: bool = False,
-         keep: int = 3, ctx=None, sharded: frozenset = frozenset()) -> str:
+         keep: int = 3, ctx=None, specs: Optional[dict] = None) -> str:
     """Write ``tree`` for ``step``.  Returns the final directory path.
 
-    With ``ctx`` (a ``ProcessContext``; collective) ``tree`` is this
-    rank's share, and ``sharded`` the paths of its leaves cut over the
-    ranks along ``SHARD_AXIS`` (the rest replicated): global rank 0
-    writes the whole state from data group 0's shares, every other rank
-    writes nothing."""
-    if ctx is not None and ctx.dp_rank != 0:
-        return _step_dir(base, step)
+    With ``ctx`` (a ``ProcessContext``; collective over the world)
+    ``tree`` is this rank's pieces, and ``specs`` each leaf's spec by
+    path (a leaf without one is whole on every rank): global rank 0
+    writes the whole state, every other rank writes nothing."""
+    specs = specs or {}
     pairs = flatten_with_paths(tree)
     paths = [p for p, _ in pairs]
     host = []                                     # before the writer starts
+    lead = ctx is None or ctx.global_rank == 0
     for path, t in pairs:
-        if ctx is not None and path in sharded:
-            whole = _gathered_on_host(t, ctx)
+        spec = specs.get(path)
+        if ctx is not None and spec is not None and _is_cut(spec):
+            whole = _gathered_on_host(t, spec, ctx)
             if whole is not None:
                 host.append(_numpy(whole))
-        elif ctx is None or ctx.rank == 0:
+        elif lead:
             host.append(_to_host(t))
-    if ctx is not None and ctx.rank != 0:
+    if not lead:
         return _step_dir(base, step)
 
     final = _step_dir(base, step)
@@ -169,16 +186,17 @@ def wait_all() -> None:
 
 
 def restore(template: Any, base: str, step: Optional[int] = None, *,
-            ctx=None, sharded: frozenset = frozenset()) -> Any:
+            ctx=None, specs: Optional[dict] = None) -> Any:
     """Fill ``template`` (a state tree of tensors) in place from the
     checkpoint of ``step`` (default: the newest) and return it.  Paths
     and shapes must match the template's; each leaf is cast to the
-    template's dtype on its device.  One device: the reference's
-    ``shardings`` (an elastic reshard onto a mesh) has no counterpart;
-    simulated ranks share the card and its whole tensors.  With ``ctx``
-    (a ``ProcessContext``) ``template`` is this rank's share, as in
-    :func:`save`: each leaf of ``sharded`` is read whole on the host and
-    this rank's part along ``SHARD_AXIS`` copied in."""
+    template's dtype on its device.  One device and simulated ranks take
+    the whole state.  With ``ctx`` (a ``ProcessContext``) ``template`` is
+    this rank's pieces, as in :func:`save`: each leaf with a spec in
+    ``specs`` is read whole on the host and this rank's piece copied in
+    -- the reference's ``restore(shardings=)``, whatever placement wrote
+    the checkpoint."""
+    specs = specs or {}
     step = step if step is not None else latest_step(base)
     if step is None:
         raise FileNotFoundError(f"no checkpoints under {base}")
@@ -193,17 +211,15 @@ def restore(template: Any, base: str, step: Optional[int] = None, *,
     with np.load(os.path.join(d, SHARD)) as data:
         for i, (path, tmpl) in enumerate(pairs):
             a = data[f"leaf_{i}"]
-            want = list(tmpl.shape)
-            cut = ctx is not None and path in sharded
-            if cut:
-                want[SHARD_AXIS] *= ctx.world
-            if list(a.shape) != want:
+            spec = specs.get(path)
+            cut = ctx is not None and spec is not None and _is_cut(spec)
+            want = whole_shape(spec, tuple(tmpl.shape), ctx) if cut else \
+                tuple(tmpl.shape)
+            if tuple(a.shape) != want:
                 raise ValueError(f"shape mismatch at {path}: {a.shape} vs "
-                                 f"{tuple(want)}")
+                                 f"{want}")
             if cut:
-                n = tmpl.shape[SHARD_AXIS]
-                a = a[(slice(None),) * SHARD_AXIS
-                      + (slice(ctx.rank * n, (ctx.rank + 1) * n),)]
+                a = a[cut_index(spec, want, ctx, what=path)]
             a = np.array(a, copy=True, order="C")
             if manifest["dtypes"][i] == "bfloat16":
                 t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)

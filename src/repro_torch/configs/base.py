@@ -170,15 +170,19 @@ class ShardingConfig:
     """The mesh-level knobs of a ``ParallelContext``: the reference's
     ``ShardingConfig``, field for field.
 
-    On the simulated ranks of one card (``core/parallel.py``) only
     ``decode_kv_seq_sharded`` changes what runs: True takes decode
     attention's flash-decode over the ranks' slices of the cache, False
-    the local attention over the whole cache.  ``fsdp``,
-    ``sequence_parallel`` and ``logits_vocab_sharded`` are layouts in the
-    reference (parameter and activation sharding hints to GSPMD) that
-    change no value; the port keeps every tensor whole and models none of
-    them.  ``embed_rs_dtype`` has no reader in the reference either: a
-    field with no behaviour."""
+    the local attention over the whole cache.  ``fsdp`` is read by the
+    train state's placement (``launch/specs.py``, the reference's
+    rules): True cuts the dense weights, the head and the experts, with
+    their gradients and moments, over the data axis as well, False drops
+    every data cut.  Ranks that are processes hold the placement's
+    pieces (``Trainer(state_shardings=)``, the train launcher); the
+    simulated ranks of one card hold every tensor whole whatever it says.
+    ``sequence_parallel`` and ``logits_vocab_sharded`` are activation
+    layouts in the reference (hints to GSPMD) that change no value; the
+    port models neither.  ``embed_rs_dtype`` has no reader in the
+    reference either: a field with no behaviour."""
     fsdp: bool = True                 # shard params/opt-state over data axes
     sequence_parallel: bool = True    # shard activations over model between blocks
     embed_rs_dtype: str = "float32"   # reduce-scatter dtype for pooled embeds

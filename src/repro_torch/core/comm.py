@@ -88,7 +88,11 @@ same on every rank and counts once.
     per-rank computation (the reference's ``shard_map`` in_specs): its
     forward takes this rank's slice along an axis (or the whole value),
     its backward all-gathers the ranks' cotangents along that axis (or
-    sums them).
+    sums them);
+  * :func:`gathered`, a parameter a train state's placement cuts
+    (:class:`Placed`) made whole over both axes: its backward brings the
+    cotangent back to the piece's gradient layout, each sum in f32
+    (:class:`_PlacedGather`).
 
 The backward's collectives record no event, as the reference's
 transposes go through no ``repro.core.comm`` call.  What has no
@@ -524,6 +528,198 @@ class _DataReduce(torch.autograd.Function):
     @staticmethod
     def backward(fctx, g):
         return g, None
+
+
+@dataclasses.dataclass(frozen=True)
+class Placed:
+    """A rank's piece of a parameter that a placement cuts over the mesh
+    (``launch/specs.Placement``), in the tree a forward reads: ``local``
+    the piece (a whole layer stack, ``index`` a layer of it once
+    ``lm.layer`` has taken one), ``gather`` the axis each of its dims is
+    all-gathered over before use (None: as held), ``grad`` the axis each
+    dim of the gradient stays cut over (the moments' layout: an int8
+    moment is whole along the last dim), ``ctx`` the ``ProcessContext``
+    of the whole mesh.  Under grad the gradient is added into ``buffer``
+    (that layout; a stack's, ``index`` selecting the layer), reduced over
+    the model axis when ``summed`` (the rank used the parameter on its own
+    tokens: an MoE layer's shared experts) and over the data axis when
+    ``split`` (each data group ran its share of the batch)."""
+    local: torch.Tensor
+    gather: tuple
+    grad: tuple
+    ctx: object
+    buffer: Optional[torch.Tensor] = None
+    summed: bool = False
+    split: bool = False
+    index: Optional[int] = None
+
+    def dims(self) -> tuple:
+        """(gather, grad) entries of the value :func:`gathered` makes:
+        the stack's less its layer dim when ``index`` is set."""
+        if self.index is None:
+            return self.gather, self.grad
+        return self.gather[1:], self.grad[1:]
+
+
+def _axis_group(ctx, axis: str):
+    """(ranks, this rank's index, group) of ``axis`` of ``ctx``."""
+    if axis == "model":
+        return ctx.world, ctx.rank, ctx.group
+    return ctx.dp_size, ctx.dp_rank, ctx.data_group
+
+
+def _gather_many(xs: list, cuts: list, ctx) -> None:
+    """Each ``xs[i]`` of ``cuts`` (``(i, {axis: dim})``) all-gathered over
+    the axes it is cut over and concatenated along their dims: one
+    all-gather a set of axes and dtype, of the pieces laid end to end,
+    over the model axis's group, the data axis's, or the whole mesh (the
+    world's group, global rank ``d * world + m``) for a piece cut over
+    both."""
+    sets: dict = {}
+    for i, dims in cuts:
+        sets.setdefault((tuple(sorted(dims)), xs[i].dtype), []).append(
+            (i, dims))
+    for (axes, dtype), part in sets.items():
+        if len(axes) == 2:
+            n, group = ctx.dp_size * ctx.world, None
+        else:
+            n, _, group = _axis_group(ctx, axes[0])
+        flat = torch.cat([xs[i].reshape(-1) for i, _ in part])
+        out = torch.empty((n, flat.numel()), dtype=dtype, device=flat.device)
+        _oa.all_gather_into(out, flat, group)
+        off = 0
+        for i, dims in part:
+            m = xs[i].numel()
+            seg = out[:, off:off + m].reshape((n,) + tuple(xs[i].shape))
+            off += m
+            if len(dims) == 1:
+                (d,) = dims.values()
+                xs[i] = torch.cat(seg.unbind(0), dim=d)
+                continue
+            tp = ctx.world
+            rows = [torch.cat(seg[g * tp:(g + 1) * tp].unbind(0),
+                              dim=dims["model"])
+                    for g in range(ctx.dp_size)]
+            xs[i] = torch.cat(rows, dim=dims["data"])
+
+
+def _reduce_many(xs: dict, cuts: list, whole: list, axis: str,
+                 ctx) -> None:
+    """Each ``xs[i]`` summed over ``axis``: this rank's slice along
+    ``dim`` for each ``(i, dim)`` of ``cuts`` (one reduce-scatter of them
+    laid end to end, rank-major), all of it for each ``i`` of ``whole``
+    (one all-reduce)."""
+    n, _, group = _axis_group(ctx, axis)
+    if cuts:
+        rows = [xs[i].movedim(d, 0) for i, d in cuts]
+        src = torch.cat([r.reshape(n, -1) for r in rows], dim=1)
+        out = torch.empty(src.shape[1], dtype=src.dtype, device=src.device)
+        _oa.reduce_scatter_into(out, src.contiguous(), group)
+        off = 0
+        for (i, d), r in zip(cuts, rows):
+            shape = (r.shape[0] // n,) + tuple(r.shape[1:])
+            m = r.numel() // n
+            xs[i] = out[off:off + m].view(shape).movedim(0, d)
+            off += m
+    if whole:
+        flat = torch.cat([xs[i].reshape(-1) for i in whole])
+        dist.all_reduce(flat, group=group)
+        off = 0
+        for i in whole:
+            m = xs[i].numel()
+            xs[i] = flat[off:off + m].view(xs[i].shape)
+            off += m
+
+
+class _PlacedGather(torch.autograd.Function):
+    """The whole values of :class:`Placed` pieces (a layer's): all-gathered
+    over the axes their ``gather`` names, the pieces cut over the same
+    axes in one collective (:func:`_gather_many`).  The backward brings
+    each whole
+    cotangent back to its gradient's layout and adds it into the piece's
+    buffer, passing nothing on: over the model axis this rank's slice
+    (every model rank computed the same cotangent) or, when ``summed``,
+    the sum over the model axis (a reduce-scatter; an all-reduce where
+    the gradient stays whole); over the data axis the sum (a
+    reduce-scatter, or an all-reduce) when ``split``, else this rank's
+    slice.  Every sum runs in f32, one collective an axis for all the
+    pieces, and rounds once."""
+
+    @staticmethod
+    def forward(fctx, ps, *local):
+        fctx.set_materialize_grads(False)
+        fctx.ps = ps
+        xs = [x if p.index is None else x[p.index]
+              for p, x in zip(ps, local)]
+        _gather_many(xs, [(i, {e: d for d, e in enumerate(p.dims()[0])
+                               if e is not None})
+                          for i, p in enumerate(ps)], ps[0].ctx)
+        return tuple(xs)
+
+    @staticmethod
+    def backward(fctx, *gs):
+        ps = fctx.ps
+        ctx = ps[0].ctx
+        live = [i for i, g in enumerate(gs)
+                if g is not None and ps[i].buffer is not None]
+
+        def sums(p, axis):
+            if axis == "model":
+                return p.summed and ctx.world > 1
+            return p.split and ctx.dp_size > 1
+
+        xs = {i: gs[i].float() if sums(ps[i], "model") or sums(
+            ps[i], "data") else gs[i] for i in live}
+        for axis in ("model", "data"):
+            cuts, whole = [], []
+            for i in live:
+                gather, keep = ps[i].dims()
+                dims = [d for d, e in enumerate(gather) if e == axis]
+                kept = bool(dims) and keep[dims[0]] == axis
+                if sums(ps[i], axis):
+                    if kept:
+                        cuts.append((i, dims[0]))
+                    else:
+                        whole.append(i)
+                elif kept:
+                    n, r, _ = _axis_group(ctx, axis)
+                    b = xs[i].shape[dims[0]] // n
+                    xs[i] = xs[i].narrow(dims[0], r * b, b)
+            _reduce_many(xs, cuts, whole, axis, ctx)
+        for i in live:
+            p = ps[i]
+            buf = p.buffer if p.index is None else p.buffer[p.index]
+            buf.add_(xs[i].to(buf.dtype))
+        return (None,) * (len(ps) + 1)
+
+
+def gathered(tree):
+    """``tree`` (a parameter tree, a layer of one, or one leaf) with each
+    :class:`Placed` piece replaced by its whole value, all-gathered over
+    the mesh, all of them in one :class:`_PlacedGather`; every other leaf
+    as it is."""
+    found: list = []
+
+    def collect(t, path):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                collect(v, path + (k,))
+        elif isinstance(t, Placed):
+            found.append((path, t))
+
+    collect(tree, ())
+    if not found:
+        return tree
+    ps = tuple(p for _, p in found)
+    whole = dict(zip((path for path, _ in found),
+                     _PlacedGather.apply(ps, *(p.local for p in ps))))
+
+    def rebuild(t, path):
+        if isinstance(t, dict):
+            return {k: rebuild(v, path + (k,)) for k, v in t.items()}
+        return whole.get(path, t) if isinstance(t, Placed) else t
+
+    return rebuild(tree, ())
 
 
 def data_all_gather(x: torch.Tensor, *, ctx) -> torch.Tensor:

@@ -41,7 +41,9 @@ the decode cache, ``utils/convert.lm_params_for_rank``) and its train
 step and ``Trainer`` (the rank collectives carry the gradient back to
 each rank's share).  With a data axis, a data group runs its share of a
 batch over its model axis (:meth:`ProcessContext.model_axis`) and the
-results come back whole over the data axis.
+results come back whole over the data axis.  The train state's placement
+(``launch/specs.py``) cuts leaves over both axes by specs, one entry a
+dim (:func:`cut_index`, :func:`cut_shape`, :func:`whole_shape`).
 The backends:
 
   * ``"gloo"`` -- on the CPU, and on the card, where several ranks may
@@ -253,6 +255,77 @@ def data_split(ctx, batch: int) -> Optional[Tuple[slice, ProcessContext]]:
     if isinstance(ctx, ProcessContext) and ctx.dp_groups(batch) > 1:
         return ctx.data_rows(batch), ctx.model_axis()
     return None
+
+
+# ---------------------------------------------------------------------------
+# A leaf's piece under a spec
+# ---------------------------------------------------------------------------
+#
+# A spec (``launch/specs.py``) places a leaf over the ``("data", "model")``
+# mesh as the reference's ``PartitionSpec`` does, as a plain tuple with one
+# entry per dim: None (whole), ``"model"`` (cut over the model axis) or
+# ``("data",)`` (cut over the data axis).
+
+def spec_axis(entry) -> Optional[str]:
+    """``"model"``, ``"data"`` or None: the axis one entry of a spec cuts
+    its dim over."""
+    if entry is None:
+        return None
+    if entry in ("model", "data"):
+        return entry
+    if tuple(entry) == ("data",):
+        return "data"
+    raise ValueError(f"a spec entry is None, 'model' or ('data',), got "
+                     f"{entry!r}")
+
+
+def axis_ranks(ctx: "ProcessContext", axis: str) -> Tuple[int, int]:
+    """(ranks, this rank's index) along ``axis`` of ``ctx``."""
+    if axis == "model":
+        return ctx.world, ctx.rank
+    return ctx.dp_size, ctx.dp_rank
+
+
+def cut_index(spec, shape, ctx, *, dp_rank: Optional[int] = None,
+              rank: Optional[int] = None, what: str = "a leaf") -> tuple:
+    """The index of this rank's piece (or of model rank ``rank`` of data
+    group ``dp_rank``) of a leaf of ``shape`` placed by ``spec``: along a
+    dim cut over an axis of k ranks, the rank's ``1/k`` slice of it.
+    Raises ``ValueError`` naming ``what`` when the spec does not fit the
+    shape or an axis does not divide its dim."""
+    if len(spec) != len(shape):
+        raise ValueError(f"{what}: a spec of {len(spec)} entries for a "
+                         f"leaf of shape {tuple(shape)}")
+    idx = []
+    for entry, n in zip(spec, shape):
+        axis = spec_axis(entry)
+        if axis is None:
+            idx.append(slice(None))
+            continue
+        k, r = axis_ranks(ctx, axis)
+        want = dp_rank if axis == "data" else rank
+        r = r if want is None else want
+        if n % k:
+            raise ValueError(f"{what}: the {axis} axis's {k} ranks do not "
+                             f"divide a dim of {n} (shape {tuple(shape)}, "
+                             f"spec {tuple(spec)})")
+        b = n // k
+        idx.append(slice(r * b, (r + 1) * b))
+    return tuple(idx)
+
+
+def cut_shape(spec, shape, ctx, what: str = "a leaf") -> Tuple[int, ...]:
+    """The shape of a rank's piece of a leaf of ``shape`` under
+    ``spec``."""
+    return tuple(len(range(n)[s]) for n, s in
+                 zip(shape, cut_index(spec, shape, ctx, what=what)))
+
+
+def whole_shape(spec, piece_shape, ctx) -> Tuple[int, ...]:
+    """The shape of the leaf of which a rank's piece has ``piece_shape``
+    under ``spec``."""
+    return tuple(n * (axis_ranks(ctx, spec_axis(e))[0] if spec_axis(e)
+                      else 1) for e, n in zip(spec, piece_shape))
 
 
 def _default_device() -> torch.device:

@@ -18,16 +18,17 @@ default the cards when no ``--device`` is named, as the reference counts
 ``jax.devices()`` -- it runs the reference's multi-device path: the debug
 mesh ``(data = N / 2, model = 2)`` (``launch/mesh.py``), each rank a
 process (NCCL with a card a rank, gloo on the CPU or on one card the
-ranks share, ``--device cuda:K``).  Each rank builds ``Trainer(ctx=)``,
-whose state is drawn share by share (``init_train_state(ctx=)``: its rows
-of the vocabulary, its experts, their moments), takes the same seeded
-batches and trains its data group's half of each; global rank 0 alone
-logs, writes ``--metrics-out`` and writes the checkpoint (the whole
-state), and a restore puts each rank's part back.  The reference's
-``state_spec_tree`` placement (FSDP of the dense weights and their
-moments, dense tensor parallelism) has no counterpart (ROADMAP
-"Differences on purpose"): a rank holds whole every leaf that is not
-sharded along the model axis.
+ranks share, ``--device cuda:K``).  As the reference's launcher, it
+places the train state by ``launch/specs.state_spec_tree`` under the
+rank's context: each rank builds ``Trainer(ctx=, state_shardings=)``,
+whose state is drawn piece by piece (``init_train_state(ctx=,
+specs=)``: its rows of the vocabulary, its experts, its cut of each
+dense weight -- the model axis's and, FSDP, the data axis's -- and the
+moments at their specs), takes the same seeded batches and trains its
+data group's half of each, each layer's weights gathered whole only
+while it runs; global rank 0 alone logs, writes ``--metrics-out`` and
+writes the checkpoint (the whole state), and a restore puts each
+rank's pieces back.
 
 As in the reference, a run whose ``--ckpt-dir`` holds a checkpoint
 resumes from the newest one and runs ``--steps`` more, on the seeded
@@ -42,6 +43,7 @@ import sys
 from repro_torch import configs
 from repro_torch.configs.base import TrainConfig
 from repro_torch.data import Prefetcher, lm_batches
+from repro_torch.launch import specs as S
 from repro_torch.launch.mesh import rank_count, run_debug_mesh
 from repro_torch.train.loop import Trainer
 
@@ -101,9 +103,12 @@ def train(ctx, cfg, args) -> Trainer:
     the checkpoint."""
     tc = train_config(args)
     lead = ctx is None or ctx.global_rank == 0
+    # the reference's src/repro/launch/train.py:69-70
+    specs = None if ctx is None else S.state_spec_tree(cfg, tc, ctx)[1]
     data = Prefetcher(lm_batches(cfg, args.batch, args.seq, seed=tc.seed))
     trainer = Trainer(cfg, tc, data, ckpt_dir=args.ckpt_dir, ctx=ctx,
-                      device=args.device if ctx is None else None)
+                      device=args.device if ctx is None else None,
+                      state_shardings=specs)
 
     def log(step, m):
         print(f"step {step:5d}  loss {m['loss']:.4f}  "

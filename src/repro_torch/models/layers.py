@@ -34,18 +34,21 @@ from repro_torch.kernels.flash_attention import (  # noqa: F401
 
 def stacked_init(gen: torch.Generator, n: int, shape, fan_in: int, *,
                  dtype=torch.float32, device=None,
-                 keep: Optional[slice] = None) -> torch.Tensor:
+                 keep=None) -> torch.Tensor:
     """(n, *shape) truncated-normal (-2, 2) draws scaled by
     ``fan_in ** -0.5``, drawn one layer at a time in f32 so the
     temporaries stay one layer's size.  With ``keep`` (a slice of
-    ``shape``'s first axis) each layer is drawn whole and only that part
-    of it kept: the whole stack's values there, from the same draws."""
+    ``shape``'s first axis, or a tuple of slices of its leading axes)
+    each layer is drawn whole and only that part of it kept: the whole
+    stack's values there, from the same draws."""
     shape = tuple(shape)
-    kept = shape if keep is None else \
-        (len(range(shape[0])[keep]),) + shape[1:]
+    idx = () if keep is None else keep if isinstance(keep, tuple) \
+        else (keep,)
+    kept = tuple(len(range(m)[k]) for m, k in zip(shape, idx)) + \
+        shape[len(idx):]
     out = torch.empty((n,) + kept, dtype=dtype, device=device)
     tmp = torch.empty(shape, dtype=torch.float32, device=device)
-    part = tmp if keep is None else tmp[keep]
+    part = tmp[idx] if idx else tmp
     for i in range(n):
         torch.nn.init.trunc_normal_(tmp, 0.0, 1.0, -2.0, 2.0, generator=gen)
         out[i] = part.mul_(fan_in ** -0.5)
@@ -54,10 +57,11 @@ def stacked_init(gen: torch.Generator, n: int, shape, fan_in: int, *,
 
 def stacked_dense_init(gen: torch.Generator, n: int, in_dim: int,
                        out_dim: int, *, dtype=torch.float32,
-                       device=None) -> torch.Tensor:
-    """(n, in, out) matrices at fan-in scale (:func:`stacked_init`)."""
+                       device=None, keep=None) -> torch.Tensor:
+    """(n, in, out) matrices at fan-in scale (:func:`stacked_init`, whose
+    ``keep`` it passes on)."""
     return stacked_init(gen, n, (in_dim, out_dim), in_dim, dtype=dtype,
-                        device=device)
+                        device=device, keep=keep)
 
 
 # ---------------------------------------------------------------------------
@@ -252,14 +256,18 @@ def combine_decode_partials(o, m, l, rank_dim: Optional[int] = None):
 # ---------------------------------------------------------------------------
 
 def init_ffn(gen: torch.Generator, n: int, d: int, d_ff: int, *,
-             gated: bool = True, dtype=torch.float32, device=None):
+             gated: bool = True, dtype=torch.float32, device=None,
+             keep=None):
+    """``{"up", "down"[, "gate"]}`` stacks; ``keep`` maps a leaf's name to
+    the part of each layer kept (:func:`stacked_init`)."""
+    k = keep or {}
     p = {"up": stacked_dense_init(gen, n, d, d_ff, dtype=dtype,
-                                  device=device),
+                                  device=device, keep=k.get("up")),
          "down": stacked_dense_init(gen, n, d_ff, d, dtype=dtype,
-                                    device=device)}
+                                    device=device, keep=k.get("down"))}
     if gated:
         p["gate"] = stacked_dense_init(gen, n, d, d_ff, dtype=dtype,
-                                       device=device)
+                                       device=device, keep=k.get("gate"))
     return p
 
 

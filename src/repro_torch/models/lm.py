@@ -66,10 +66,16 @@ Under grad, :func:`layer` slices a stacked parameter whose
 ``.grad`` slice: indexing (``select``'s backward) would build a zero
 tensor the size of the whole stack for every layer.  Any other stacked
 leaf is indexed, so ``torch.autograd.grad`` and ``torch.func`` see its
-gradient.
+gradient.  A parameter the train state's placement cuts
+(``launch/specs.py``) reaches the forward as a ``comm.Placed`` piece:
+:func:`layer` keeps it a piece, and :func:`_run_block` all-gathers a
+layer's pieces inside its checkpoint, so the weights are whole only
+while the layer runs (the head, the projector, the encoder's positions
+and the MTP head are gathered where they are read).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -83,7 +89,8 @@ from repro_torch.core.embedding_bag import (EmbeddingBagConfig, RankShard,
                                             shard_tables)
 from repro_torch.core.jagged import JaggedBatch
 from repro_torch.core.parallel import (ParallelContext, ProcessContext,
-                                       data_split, same_model_axis)
+                                       cut_index, data_split,
+                                       same_model_axis)
 from repro_torch.models import layers, mla, ssm
 from repro_torch.models import moe as moe_mod
 from repro_torch.utils.device import resolve_device
@@ -203,51 +210,102 @@ def _init_norm(n, d, cfg, dtype, device):
     return p
 
 
-def _init_gqa(gen, n, cfg: ModelConfig, dtype, device):
+def _init_gqa(gen, n, cfg: ModelConfig, dtype, device, keep=None):
     d, H, KH, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    init = layers.stacked_dense_init
-    return {"wq": init(gen, n, d, H * hd, dtype=dtype, device=device),
-            "wk": init(gen, n, d, KH * hd, dtype=dtype, device=device),
-            "wv": init(gen, n, d, KH * hd, dtype=dtype, device=device),
-            "wo": init(gen, n, H * hd, d, dtype=dtype, device=device)}
+    k = keep or {}
+
+    def init(name, i, o):
+        return layers.stacked_dense_init(gen, n, i, o, dtype=dtype,
+                                         device=device, keep=k.get(name))
+    return {"wq": init("wq", d, H * hd), "wk": init("wk", d, KH * hd),
+            "wv": init("wv", d, KH * hd), "wo": init("wo", H * hd, d)}
 
 
 def _init_block_stack(gen, n, cfg: ModelConfig, dtype, device, *,
                       with_moe=False, with_mamba=False, with_cross=False,
-                      experts=None):
+                      keep=None):
     """One stack of ``n`` layers: norms, attention (GQA or MLA), with
     ``with_mamba`` the Mamba heads and their output norms, with
     ``with_cross`` the cross attention ``cross`` and its norm
-    ``ln_cross``, then the FFN or (with ``with_moe``) the MoE block,
-    holding only the ``experts`` slice of its experts when one is
-    given."""
+    ``ln_cross``, then the FFN or (with ``with_moe``) the MoE block.
+    ``keep`` (a tree like the stack's of each leaf's part of a layer)
+    keeps only that part of each layer drawn."""
     init_attn = mla.init_mla_params if cfg.attention == "mla" else _init_gqa
     d = cfg.d_model
+    k = keep or {}
     p: Dict[str, Any] = {
         "ln1": _init_norm(n, d, cfg, dtype, device),
         "ln2": _init_norm(n, d, cfg, dtype, device),
-        "attn": init_attn(gen, n, cfg, dtype, device),
+        "attn": init_attn(gen, n, cfg, dtype, device, keep=k.get("attn")),
     }
     if with_mamba:
-        p["mamba"] = ssm.init_mamba_params(gen, n, cfg, dtype, device)
+        p["mamba"] = ssm.init_mamba_params(gen, n, cfg, dtype, device,
+                                           keep=k.get("mamba"))
         p["ln_attn_out"] = _init_norm(n, d, cfg, dtype, device)
         p["ln_mamba_out"] = _init_norm(n, d, cfg, dtype, device)
     if with_cross:
-        p["cross"] = _init_gqa(gen, n, cfg, dtype, device)
+        p["cross"] = _init_gqa(gen, n, cfg, dtype, device,
+                               keep=k.get("cross"))
         p["ln_cross"] = _init_norm(n, d, cfg, dtype, device)
     if with_moe:
         p["moe"] = moe_mod.init_moe_params(gen, n, cfg, dtype, device,
-                                           experts)
+                                           keep=k.get("moe"))
     else:
         p["ffn"] = layers.init_ffn(gen, n, cfg.d_model, cfg.d_ff,
                                    gated=cfg.gated_ffn, dtype=dtype,
-                                   device=device)
+                                   device=device, keep=k.get("ffn"))
     return p
+
+
+def _param_cuts(cfg: ModelConfig, ctx: ProcessContext, specs=None,
+               dtype: Optional[torch.dtype] = None) -> Dict[str, tuple]:
+    """``{path: index}``: the index of this rank's piece of each parameter
+    (``utils/tree.flatten_with_paths``'s paths) under ``specs``, a
+    parameter spec tree (``launch/specs.param_spec_tree`` under ``ctx``);
+    None: the cuts every rank holds whatever the placement, its rows of
+    the vocabulary and its experts (``launch/specs.rank_cut_tree``).
+    Raises ``ValueError`` naming a leaf whose spec does not fit it."""
+    from repro_torch.launch import specs as S
+    from repro_torch.utils.tree import flatten_with_paths
+
+    template = init_params(None, cfg, tp_size=ctx.world, dtype=dtype,
+                           device="meta")
+    if specs is None:
+        specs = S.rank_cut_tree(S.param_spec_tree(template, cfg, ctx), cfg)
+    flat = S.flatten_specs(specs)
+    out = {}
+    for path, t in flatten_with_paths(template):
+        if path not in flat:
+            raise ValueError(f"{path}: no spec for this parameter")
+        out[path] = cut_index(flat[path], tuple(t.shape), ctx, what=path)
+    if set(flat) - set(out):
+        raise ValueError(f"specs for no parameter: "
+                         f"{sorted(set(flat) - set(out))}")
+    return out
+
+
+def _keep(cuts: Dict[str, tuple], prefix: str, stacked: bool = True):
+    """The tree of each leaf's kept part of a layer under ``prefix``: its
+    index less the layer axis, which a placement never cuts."""
+    out: Dict[str, Any] = {}
+    for path, idx in cuts.items():
+        if not path.startswith(prefix + "/"):
+            continue
+        if stacked and idx and idx[0] != slice(None):
+            raise ValueError(f"{path}: a spec cutting the layer axis, which "
+                             f"the port does not hold")
+        node = out
+        *keys, leaf = path[len(prefix) + 1:].split("/")
+        for key in keys:
+            node = node.setdefault(key, {})
+        node[leaf] = idx[1:] if stacked else idx
+    return out
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig, *, tp_size: int = 1,
                 dtype: Optional[torch.dtype] = None, device=None,
-                ctx: Optional[ProcessContext] = None) -> Dict[str, Any]:
+                ctx: Optional[ProcessContext] = None,
+                specs=None) -> Dict[str, Any]:
     """Random parameters on ``device`` (None: the card), drawn from
     ``gen`` (a generator on that device) one layer at a time:
     ``{"embed" (1, Vp, d), "final_norm", "head" (d, Vp) unless tied}``
@@ -272,24 +330,23 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *, tp_size: int = 1,
     With ``ctx`` (a ``ProcessContext``; ``tp_size`` is its world, and
     ``device`` its device unless given) this rank's parameters, as
     ``utils/convert.lm_params_for_rank`` cuts them from the whole ones,
-    from the same draws: the table's rows and each layer's experts are
-    drawn whole, one at a time, and only the rank's part is kept, so a
-    rank never holds the whole table or expert stacks (a tied head
-    aside, which keeps the whole table)."""
+    from the same draws: each layer of a leaf is drawn whole, one at a
+    time, and only the rank's part is kept, so a rank never holds a
+    whole stack.  The part is the rank's piece under ``specs`` (a
+    parameter spec tree, ``launch/specs.param_spec_tree`` under ``ctx``:
+    the placement's cuts) or, with ``specs`` None, its rows of the
+    vocabulary and its experts alone (a tied head keeps the whole table
+    then)."""
     _require_ported(cfg)
     dtype = dtype or torch_dtype(cfg.dtype)
-    experts = rows = None
+    cuts: Optional[Dict[str, tuple]] = None
     if ctx is not None:
         device = ctx.device if device is None else device
-        tp_size, E, r = ctx.world, ctx.world, ctx.rank
-        if cfg.is_moe and cfg.num_experts % E:
+        tp_size = ctx.world
+        if cfg.is_moe and cfg.num_experts % ctx.world:
             raise ValueError(f"{cfg.num_experts} experts do not divide "
-                             f"over {E} ranks")
-        el = cfg.num_experts // E if cfg.is_moe else 0
-        experts = slice(r * el, (r + 1) * el)
-        if cfg.vocab_sharding != "replicated":
-            n = padded_vocab(cfg, E) // E
-            rows = slice(r * n, (r + 1) * n)
+                             f"over {ctx.world} ranks")
+        cuts = _param_cuts(cfg, ctx, specs, dtype)
     device = resolve_device(device)
     Vp, d = padded_vocab(cfg, tp_size), cfg.d_model
     embed = torch.empty((1, Vp, d), dtype=dtype, device=device)
@@ -300,48 +357,92 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *, tp_size: int = 1,
                                                        device)}
     if cfg.tie_embeddings and ctx is not None:
         params["head"] = embed[0].T
-    if rows is not None:
-        embed = RankShard(cfg.vocab_sharding, ctx, embed[:, rows].clone(),
-                          (1, Vp, d))
+    if cuts is not None:
+        idx = cuts["embed"]
+        if cfg.vocab_sharding == "row":
+            if idx[0] != slice(None) or idx[2] != slice(None):
+                raise ValueError("embed: a row-sharded vocabulary is cut "
+                                 "along its rows only")
+            embed = RankShard(cfg.vocab_sharding, ctx,
+                              embed[idx].clone(), (1, Vp, d))
+        elif any(s != slice(None) for s in idx):
+            embed = embed[idx].clone()
+
+    def keep(prefix, stacked=True):
+        return {} if cuts is None else _keep(cuts, prefix, stacked)
     params = {"embed": embed, **params}
     if not cfg.tie_embeddings:
         params["head"] = layers.stacked_dense_init(
-            gen, 1, d, Vp, dtype=dtype, device=device)[0]
+            gen, 1, d, Vp, dtype=dtype, device=device,
+            keep=None if cuts is None else cuts["head"])[0]
     for name, n, _ in block_stacks(cfg):
         if cfg.family == "ssm":
             params[name] = {
                 "ln1": _init_norm(n, d, cfg, dtype, device),
                 "ln2": _init_norm(n, d, cfg, dtype, device),
-                "rwkv": ssm.init_rwkv_params(gen, n, cfg, dtype, device)}
+                "rwkv": ssm.init_rwkv_params(gen, n, cfg, dtype, device,
+                                             keep=keep(name).get("rwkv"))}
         else:
             params[name] = _init_block_stack(
                 gen, n, cfg, dtype, device, with_moe=name == "moe_blocks",
                 with_mamba=cfg.family == "hybrid",
-                with_cross=cfg.family == "audio", experts=experts)
+                with_cross=cfg.family == "audio", keep=keep(name))
     if cfg.family == "audio":
-        params["enc_blocks"] = _init_block_stack(gen, cfg.encoder_layers,
-                                                 cfg, dtype, device)
+        params["enc_blocks"] = _init_block_stack(
+            gen, cfg.encoder_layers, cfg, dtype, device,
+            keep=keep("enc_blocks"))
         pos = torch.empty((cfg.encoder_seq_len, d), dtype=torch.float32,
                           device=device)
         params["enc_pos"] = pos.normal_(generator=gen).mul_(0.01).to(dtype)
         params["enc_norm"] = _init_norm(1, d, cfg, dtype, device)
     if cfg.family == "vlm":
         v = cfg.vision_dim
+        kp = keep("projector", stacked=False)
         params["projector"] = {
             "ln_w": torch.ones((v,), dtype=dtype, device=device),
             "ln_b": torch.zeros((v,), dtype=dtype, device=device),
             "fc1": layers.stacked_dense_init(gen, 1, v, d, dtype=dtype,
-                                             device=device)[0],
+                                             device=device,
+                                             keep=kp.get("fc1"))[0],
             "fc2": layers.stacked_dense_init(gen, 1, d, d, dtype=dtype,
-                                             device=device)[0]}
+                                             device=device,
+                                             keep=kp.get("fc2"))[0]}
     if cfg.mtp_depth:
         params["mtp"] = {
-            "proj": layers.stacked_dense_init(gen, 1, 2 * d, d, dtype=dtype,
-                                              device=device)[0],
+            "proj": layers.stacked_dense_init(
+                gen, 1, 2 * d, d, dtype=dtype, device=device,
+                keep=keep("mtp", stacked=False).get("proj"))[0],
             "norm_h": _init_norm(1, d, cfg, dtype, device),
             "norm_e": _init_norm(1, d, cfg, dtype, device),
-            "block": _init_block_stack(gen, 1, cfg, dtype, device)}
+            "block": _init_block_stack(gen, 1, cfg, dtype, device,
+                                       keep=keep("mtp/block"))}
+    if cuts is not None:
+        params = _cut_rest(params, cuts)
     return params
+
+
+def _cut_rest(params, cuts: Dict[str, tuple], prefix: str = ""):
+    """The leaves drawn whole that ``cuts`` cut (norms, ``enc_pos``: none
+    under the reference's rules), cut; a leaf neither whole nor its piece
+    raises, naming it."""
+    out = {}
+    for k, v in params.items():
+        path = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, dict):
+            out[k] = _cut_rest(v, cuts, path)
+            continue
+        out[k] = v
+        idx = cuts.get(path)
+        if isinstance(v, RankShard) or idx is None:
+            continue
+        dims = [(n, s) for n, s in zip(v.shape, idx) if s != slice(None)]
+        if all(n == s.stop - s.start for n, s in dims):
+            continue                          # drawn as the piece
+        if any(n < s.stop for n, s in dims):
+            raise ValueError(f"{path}: shape {tuple(v.shape)} is neither "
+                             f"the whole leaf nor this rank's piece")
+        out[k] = v[idx].clone()
+    return out
 
 
 class _LayerSlice(torch.autograd.Function):
@@ -372,22 +473,35 @@ def _slice(v: torch.Tensor, i: int) -> torch.Tensor:
     return v[i]
 
 
+def _layer_leaf(v, i: int):
+    if isinstance(v, comm.Placed):
+        return dataclasses.replace(v, index=i)
+    return _slice(v, i)
+
+
 def layer(stack: Dict[str, Any], i: int) -> Dict[str, Any]:
     """Layer ``i`` of a stacked parameter (or cache) tree: views (under
     grad, a leaf whose ``.grad`` is preallocated through
     :class:`_LayerSlice`; any other leaf by indexing, which every form of
-    autograd differentiates)."""
-    return {k: layer(v, i) if isinstance(v, dict) else _slice(v, i)
+    autograd differentiates).  A placed piece (``comm.Placed``) stays a
+    piece, of layer ``i``: :func:`_run_block` gathers it."""
+    return {k: layer(v, i) if isinstance(v, dict) else _layer_leaf(v, i)
             for k, v in stack.items()}
 
 
-def _run_block(remat: bool, fn, *args, **kwargs):
-    """``fn(*args, **kwargs)``, under ``torch.utils.checkpoint`` with
+def _run_block(remat: bool, fn, pl, *args, **kwargs):
+    """``fn(pl, *args, **kwargs)``, under ``torch.utils.checkpoint`` with
     ``remat`` when grad is enabled (the reference's ``jax.checkpoint``
-    of each scanned block)."""
+    of each scanned block).  The layer's placed pieces are all-gathered
+    first, inside the checkpoint (``comm.gathered``): the backward's
+    recompute gathers them again, and no gathered weight is kept for
+    it."""
+    def run(pl, *args, **kwargs):
+        return fn(comm.gathered(pl), *args, **kwargs)
+
     if remat and torch.is_grad_enabled():
-        return checkpoint(fn, *args, use_reentrant=False, **kwargs)
-    return fn(*args, **kwargs)
+        return checkpoint(run, pl, *args, use_reentrant=False, **kwargs)
+    return run(pl, *args, **kwargs)
 
 
 # ===========================================================================
@@ -480,7 +594,7 @@ def embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig,
     rank returns the same (B, S, d)."""
     table = params["embed"]                                  # (1, Vp, d)
     if check_context(ctx) is None or cfg.vocab_sharding == "replicated":
-        return table[0][tokens.long()]
+        return comm.gathered(table)[0][tokens.long()]
     if cfg.vocab_sharding != "row":
         raise ValueError(f"vocab_sharding must be 'row' or 'replicated', "
                          f"got {cfg.vocab_sharding!r}")
@@ -522,9 +636,10 @@ def lm_logits(params, hidden: torch.Tensor, cfg: ModelConfig,
 def _head(params, cfg: ModelConfig) -> torch.Tensor:
     """The (d, Vp) head: ``params["head"]``, or the tied table's
     transpose (a rank's parameters under a ``ProcessContext`` keep a tied
-    head whole as ``"head"``)."""
+    head whole as ``"head"``); a placed head all-gathered
+    (``comm.gathered``)."""
     if "head" in params or not cfg.tie_embeddings:
-        return params["head"]
+        return comm.gathered(params["head"])
     return params["embed"][0].T
 
 
@@ -690,7 +805,7 @@ def encode(params, frames, cfg: ModelConfig, *,
     if frames is None:
         raise ValueError(f"{cfg.name}: the audio family needs frames= "
                          f"(B, S_enc, d) frame embeddings")
-    pos = params["enc_pos"]
+    pos = comm.gathered(params["enc_pos"])
     enc = torch.as_tensor(frames, device=pos.device).to(pos.dtype)
     enc = enc + pos[: enc.shape[1]]
     for i in range(cfg.encoder_layers):
@@ -748,7 +863,8 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig,
         if patches is None:
             raise ValueError(f"{cfg.name}: the vlm forward needs patches= "
                              f"(B, {cfg.vision_tokens}, {cfg.vision_dim})")
-        h = torch.cat([project_patches(params["projector"], patches,
+        h = torch.cat([project_patches(comm.gathered(params["projector"]),
+                                       patches,
                                        h.dtype), h], dim=1)
     if cfg.family == "audio":
         cross = aux["encoder_out"] = encode(params, frames, cfg,

@@ -22,33 +22,38 @@ from repro_torch.models import layers
 
 
 def init_mla_params(gen: torch.Generator, n: int, cfg: ModelConfig,
-                    dtype=torch.float32, device=None):
+                    dtype=torch.float32, device=None, keep=None):
     """Stacked (n, ...) MLA parameters, the reference's layout:
     ``w_dq`` (d, q_lora), ``q_norm``, ``w_uq`` (q_lora, H * (nope +
     rope)), ``w_dkv`` (d, kv_lora + rope), ``kv_norm``, ``w_uk`` (kv_lora,
     H, nope), ``w_uv`` (kv_lora, H, v) and ``w_o`` (H * v, d), each matrix
-    truncated-normal at its fan-in scale (``layers.stacked_init``)."""
+    truncated-normal at its fan-in scale (``layers.stacked_init``;
+    ``keep`` maps a leaf's name to the part of each layer kept)."""
     m: MLAConfig = cfg.mla
     d, H = cfg.d_model, cfg.num_heads
     qk = m.qk_nope_head_dim + m.qk_rope_head_dim
 
-    def stack(shape, fan_in):
+    k = keep or {}
+
+    def stack(shape, fan_in, name):
         return layers.stacked_init(gen, n, shape, fan_in, dtype=dtype,
-                                   device=device)
+                                   device=device, keep=k.get(name))
 
     def ones(width):
         return torch.ones((n, width), dtype=dtype, device=device)
 
     return {
-        "w_dq": stack((d, m.q_lora_rank), d),
+        "w_dq": stack((d, m.q_lora_rank), d, "w_dq"),
         "q_norm": ones(m.q_lora_rank),
-        "w_uq": stack((m.q_lora_rank, H * qk), m.q_lora_rank),
-        "w_dkv": stack((d, m.kv_lora_rank + m.qk_rope_head_dim), d),
+        "w_uq": stack((m.q_lora_rank, H * qk), m.q_lora_rank, "w_uq"),
+        "w_dkv": stack((d, m.kv_lora_rank + m.qk_rope_head_dim), d,
+                       "w_dkv"),
         "kv_norm": ones(m.kv_lora_rank),
         "w_uk": stack((m.kv_lora_rank, H, m.qk_nope_head_dim),
-                      m.kv_lora_rank),
-        "w_uv": stack((m.kv_lora_rank, H, m.v_head_dim), m.kv_lora_rank),
-        "w_o": stack((H * m.v_head_dim, d), H * m.v_head_dim),
+                      m.kv_lora_rank, "w_uk"),
+        "w_uv": stack((m.kv_lora_rank, H, m.v_head_dim), m.kv_lora_rank,
+                      "w_uv"),
+        "w_o": stack((H * m.v_head_dim, d), H * m.v_head_dim, "w_o"),
     }
 
 

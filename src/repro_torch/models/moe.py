@@ -88,29 +88,34 @@ CHUNK_ROWS = 4096
 # ---------------------------------------------------------------------------
 
 def init_moe_params(gen: torch.Generator, n_layers: int, cfg: ModelConfig,
-                    dtype=torch.float32, device=None, experts=None):
+                    dtype=torch.float32, device=None, keep=None):
     """Stacked (n_layers, ...) MoE block params, the reference's layout:
     ``router`` (n, d, E) in float32 whatever ``dtype`` (drawn in ``dtype``
     first, as the reference rounds it), ``gate``/``up`` (n, E, d, f),
     ``down`` (n, E, f, d) and ``shared.{gate, up, down}`` at
-    f * num_shared_experts.  With ``experts`` (a slice of the expert
-    ids) the expert stacks hold only those experts, from the whole
-    stacks' draws."""
+    f * num_shared_experts.  ``keep`` maps a leaf's name (``"shared"``
+    to such a mapping) to the part of each layer kept
+    (``layers.stacked_init``): a rank's experts, from the whole stacks'
+    draws."""
     d, f, E = cfg.d_model, cfg.moe_d_ff, cfg.num_experts
+
+    k = keep or {}
+    ks = k.get("shared") or {}
 
     def stack(shape, fan_in, keep=None):
         # one layer's f32 temporary at most: (E, d, f), 0.74 GB at moonshot
         return layers.stacked_init(gen, n_layers, shape, fan_in,
                                    dtype=dtype, device=device, keep=keep)
 
-    p = {"router": stack((d, E), d).float(),
-         "gate": stack((E, d, f), d, experts),
-         "up": stack((E, d, f), d, experts),
-         "down": stack((E, f, d), f, experts)}
+    p = {"router": stack((d, E), d, k.get("router")).float(),
+         "gate": stack((E, d, f), d, k.get("gate")),
+         "up": stack((E, d, f), d, k.get("up")),
+         "down": stack((E, f, d), f, k.get("down"))}
     if cfg.num_shared_experts:
         fs = f * cfg.num_shared_experts
-        p["shared"] = {"gate": stack((d, fs), d), "up": stack((d, fs), d),
-                       "down": stack((fs, d), fs)}
+        p["shared"] = {"gate": stack((d, fs), d, ks.get("gate")),
+                       "up": stack((d, fs), d, ks.get("up")),
+                       "down": stack((fs, d), fs, ks.get("down"))}
     return p
 
 

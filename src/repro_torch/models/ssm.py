@@ -44,9 +44,10 @@ def _full(n, shape, value, dtype, device):
 # ===========================================================================
 
 def init_mamba_params(gen: torch.Generator, n: int, cfg: ModelConfig,
-                      dtype=torch.float32, device=None):
+                      dtype=torch.float32, device=None, keep=None):
     """``n`` stacked Mamba mixers, the reference's layout and scales
-    (every matrix at the fan-in of its first axis)."""
+    (every matrix at the fan-in of its first axis; ``keep`` maps a
+    matrix's name to the part of each layer kept)."""
     d = cfg.d_model
     di = cfg.ssm_expand * d
     N = cfg.ssm_state
@@ -54,21 +55,23 @@ def init_mamba_params(gen: torch.Generator, n: int, cfg: ModelConfig,
     A_log = torch.log(torch.arange(1, N + 1, dtype=torch.float32,
                                    device=device))
 
-    def dense(i, o):
+    k = keep or {}
+
+    def dense(i, o, name):
         return layers.stacked_dense_init(gen, n, i, o, dtype=dtype,
-                                         device=device)
+                                         device=device, keep=k.get(name))
 
     return {
-        "in_proj": dense(d, 2 * di),                       # x and z (gate)
-        "conv_w": dense(cfg.ssm_conv, di),
+        "in_proj": dense(d, 2 * di, "in_proj"),            # x and z (gate)
+        "conv_w": dense(cfg.ssm_conv, di, "conv_w"),
         "conv_b": _full(n, (di,), 0.0, dtype, device),
-        "x_proj": dense(di, dt_rank + 2 * N),
-        "dt_proj": dense(dt_rank, di),
+        "x_proj": dense(di, dt_rank + 2 * N, "x_proj"),
+        "dt_proj": dense(dt_rank, di, "dt_proj"),
         "dt_bias": _full(n, (di,), 0.0, dtype, device),
         # S4D-real init: A = -(1..N) per channel
         "A_log": A_log.expand(n, di, N).to(dtype).contiguous(),
         "D": _full(n, (di,), 1.0, dtype, device),
-        "out_proj": dense(di, d),
+        "out_proj": dense(di, d, "out_proj"),
     }
 
 
@@ -198,36 +201,39 @@ def mamba_decode_step(p, x, cfg: ModelConfig, h, conv_state):
 # ===========================================================================
 
 def init_rwkv_params(gen: torch.Generator, n: int, cfg: ModelConfig,
-                     dtype=torch.float32, device=None):
+                     dtype=torch.float32, device=None, keep=None):
     """``n`` stacked RWKV-6 layers (time mix and channel mix), the
-    reference's layout and scales."""
+    reference's layout and scales (``keep`` maps a matrix's name to the
+    part of each layer kept)."""
     d = cfg.d_model
     lora = 64
 
-    def dense(i, o):
+    k = keep or {}
+
+    def dense(i, o, name):
         return layers.stacked_dense_init(gen, n, i, o, dtype=dtype,
-                                         device=device)
+                                         device=device, keep=k.get(name))
 
     return {
         # token-shift interpolation weights (static mu per stream)
         "mu": _full(n, (5, d), 0.5, dtype, device),        # r, k, v, w, g
-        "w_r": dense(d, d),
-        "w_k": dense(d, d),
-        "w_v": dense(d, d),
-        "w_g": dense(d, d),
-        "w_o": dense(d, d),
+        "w_r": dense(d, d, "w_r"),
+        "w_k": dense(d, d, "w_k"),
+        "w_v": dense(d, d, "w_v"),
+        "w_g": dense(d, d, "w_g"),
+        "w_o": dense(d, d, "w_o"),
         # Finch data-dependent decay lora: w = exp(-exp(w0 + tanh(xA)B))
         "w0": _full(n, (d,), -6.0, dtype, device),
-        "w_A": dense(d, lora),
-        "w_B": dense(lora, d),
+        "w_A": dense(d, lora, "w_A"),
+        "w_B": dense(lora, d, "w_B"),
         "u": _full(n, (d,), 0.0, dtype, device),           # bonus
         "ln_w": _full(n, (d,), 1.0, dtype, device),        # per-head norm
         "ln_b": _full(n, (d,), 0.0, dtype, device),
         # channel mix
         "mu_c": _full(n, (2, d), 0.5, dtype, device),
-        "ck": dense(d, cfg.d_ff),
-        "cv": dense(cfg.d_ff, d),
-        "cr": dense(d, d),
+        "ck": dense(d, cfg.d_ff, "ck"),
+        "cv": dense(cfg.d_ff, d, "cv"),
+        "cr": dense(d, d, "cr"),
     }
 
 

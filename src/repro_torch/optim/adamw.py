@@ -89,7 +89,15 @@ def _square_sums(x: torch.Tensor) -> Iterator[torch.Tensor]:
         yield r[a:b].float().square().sum()
 
 
-def global_norm(tree, *, ctx=None, sharded=frozenset()) -> torch.Tensor:
+def _axis_sum(x: torch.Tensor, axes, ctx) -> torch.Tensor:
+    """``x`` summed over each of ``axes`` ("model", "data") of ``ctx``."""
+    for axis in axes:
+        x = comm.all_reduce(x, ctx=ctx) if axis == "model" else \
+            comm.data_all_reduce(x, ctx=ctx)
+    return x
+
+
+def global_norm(tree, *, ctx=None, sharded=None) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in f32, by slices: the
     reference's ``sum(square(x.astype(f32)))``.  (The CPU's f32
     ``vector_norm`` of a 2**25-element slice drifts far from the exact
@@ -97,23 +105,29 @@ def global_norm(tree, *, ctx=None, sharded=frozenset()) -> torch.Tensor:
     pairwise on the CPU and a tree on the card.)
 
     With ``ctx`` (a ``ProcessContext``), the whole model's norm over the
-    ranks: the leaves whose paths are in ``sharded`` are this rank's
-    share of a leaf cut over the ranks; each one's sum of squares (its
-    slices in order) is all-reduced over the group, all of them in one
-    collective, and enters the total in its leaf's place, while a
-    replicated leaf's slices enter as above, once.  Only the sharded
-    leaves' sums differ from one device's, in their order of addition.
-    The sum runs over the model axis alone: with a data axis every data
-    group holds the same gradients (summed over it by the train step), so
-    each leaf counts once, not ``dp_size`` times."""
+    mesh: ``sharded`` maps the path of each leaf that is this rank's
+    piece of a leaf cut over the mesh to the axes it is cut over
+    (``("model",)``, ``("data",)`` or both); each one's sum of squares
+    (its slices in order) is all-reduced over those axes, the leaves cut
+    over the same axes in one collective an axis, and enters the total in
+    its leaf's place, while a leaf whole on every rank enters as above,
+    once.  Only the cut leaves' sums differ from one device's, in their
+    order of addition.  A leaf counts once: a gradient the data axis does
+    not cut is the same in every data group (summed over it by the train
+    step), and is summed over no axis it is whole along."""
     total = None
     pairs = flatten_with_paths(tree)
+    sharded = sharded or {}
     whole = {}
     if ctx is not None and sharded:
-        mine = [sum(_square_sums(x)) for p, x in pairs if p in sharded]
-        if mine:
-            summed = comm.all_reduce(torch.stack(mine), ctx=ctx).unbind(0)
-            whole = dict(zip([p for p, _ in pairs if p in sharded], summed))
+        groups: Dict[tuple, list] = {}
+        for p, x in pairs:
+            if sharded.get(p):
+                groups.setdefault(tuple(sharded[p]), []).append(
+                    (p, sum(_square_sums(x))))
+        for axes, mine in groups.items():
+            summed = _axis_sum(torch.stack([v for _, v in mine]), axes, ctx)
+            whole.update(zip([p for p, _ in mine], summed.unbind(0)))
     for path, x in pairs:
         for sq in ([whole[path]] if path in whole else _square_sums(x)):
             total = sq if total is None else total + sq
@@ -150,15 +164,19 @@ class _Moment:
 
 @torch.no_grad()
 def adamw_update(grads, state, params, tc: TrainConfig, *, ctx=None,
-                 sharded=frozenset()):
+                 sharded=None, columns=None):
     """One step: clip by the global norm, AdamW with bias correction,
     decay on ``ndim >= 2`` leaves.  Writes ``params`` and ``state`` (``m``,
     ``v``, ``step``) in place; returns ``(params, state, {"grad_norm",
     "lr"})``, the metrics 0-dim f32 tensors.  With ``ctx`` (a
-    ``ProcessContext``) the parameters are this rank's, ``sharded`` the
-    paths of the leaves cut over the ranks: the clip takes the whole
-    model's norm (:func:`global_norm`), and each rank updates its own
-    share."""
+    ``ProcessContext``) the parameters are this rank's pieces,
+    ``sharded`` the axes each gradient leaf is cut over by path: the clip
+    takes the whole model's norm (:func:`global_norm`), and each rank
+    updates its own pieces.  ``columns`` maps the path of a parameter
+    whose gradient and moments are whole along a last dim the parameter
+    is cut on (an int8 moment's blocks run along it) to (first, count):
+    the rank updates the moments' whole rows and writes the parameter's
+    columns of them."""
     _check_dtype(tc.optimizer_state_dtype)
     step = state["step"]
     gnorm = global_norm(grads, ctx=ctx, sharded=sharded)
@@ -168,17 +186,23 @@ def adamw_update(grads, state, params, tc: TrainConfig, *, ctx=None,
     stepf = step.float() + 1.0
     bc1 = 1.0 - b1 ** stepf
     bc2 = 1.0 - b2 ** stepf
-    for p, g, m_enc, v_enc in zip(leaves(params), leaves(grads),
-                                  leaves(state["m"]), leaves(state["v"])):
+    columns = columns or {}
+    paths = [path for path, _ in flatten_with_paths(params)]
+    for path, p, g, m_enc, v_enc in zip(paths, leaves(params), leaves(grads),
+                                        leaves(state["m"]),
+                                        leaves(state["v"])):
         pr, gr = _rows(p), _rows(g)
         ms, vs = _Moment(m_enc, "sym"), _Moment(v_enc, "log")
-        for a, b in _row_slices(p.shape):
+        cols = columns.get(path)
+        for a, b in _row_slices(g.shape):
             gs = gr[a:b].float() * clip
             m = b1 * ms.read(a, b) + (1 - b1) * gs
             v = b2 * vs.read(a, b) + (1 - b2) * gs * gs
             mh = m / bc1
             vh = v / bc2
             delta = mh / (torch.sqrt(vh) + tc.eps)
+            if cols is not None:
+                delta = delta.narrow(1, cols[0], cols[1])
             if p.dim() >= 2:
                 delta = delta + tc.weight_decay * pr[a:b].float()
             pr[a:b].copy_((pr[a:b].float() - lr * delta).to(p.dtype))

@@ -15,26 +15,30 @@
 
 Under a ``ParallelContext`` the step runs on the context's simulated
 ranks (``train/step.py``) and the state's vocabulary is padded to a
-multiple of its model axis, as the reference's.  The reference's
-``state_shardings`` (leaves placed on a device mesh, also when a
-checkpoint is restored) has no counterpart: one card holds the state
-whole.
+multiple of its model axis, as the reference's.  ``state_shardings``
+changes nothing there: the simulated ranks share one card, which holds
+the state whole.
 
 Under a ``ProcessContext`` each rank is a process: every rank draws its
-share of the initial state from the seed (``train/step.init_train_state``
+pieces of the initial state from the seed (``train/step.init_train_state``
 with the context, on its own device: a card's generator draws what the
-simulated ranks' draws on that card, and a rank keeps only its rows of
-the table and its experts), and restores its share of a checkpoint when
-there is one; every rank takes the same batches from its ``data`` (pass
-each the same seeded iterator), the train step drawing its data group's
-rows of each when a data axis splits it, and global rank 0 alone calls
-``on_metrics``.  A checkpoint is the one the Trainer writes on one
-device, the whole state: global rank 0 receives each cut leaf's shares
-from data group 0's ranks on the host and writes
-(``checkpoint.store.save`` with the context); a restore fills every data
-group.  So a run resumes
-bitwise, and a checkpoint written under processes restores under
-``make_context(E)`` and the other way round.
+simulated ranks' draws on that card, and a rank keeps only its pieces),
+and restores its pieces of a checkpoint when there is one; every rank
+takes the same batches from its ``data`` (pass each the same seeded
+iterator), the train step drawing its data group's rows of each when a
+data axis splits it, and global rank 0 alone calls ``on_metrics``.  The
+pieces are those of ``state_shardings``, the reference's name for the
+state's placement: a state spec tree (``launch/specs.state_spec_tree``
+under the context; the parameters, their gradients and both moments
+each cut as its spec says, a layer's weights gathered whole only while
+it runs), or, with None, the cuts every rank holds whatever the
+placement (its rows of the table, its experts, and their moments).  A
+checkpoint is the one the Trainer writes on one device, the whole
+state: global rank 0 receives each cut leaf's pieces on the host and
+writes (``checkpoint.store.save`` with the context); a restore cuts each
+rank's pieces from it.  So a run resumes bitwise, and a checkpoint
+written under one placement restores under another, under
+``make_context(E)`` and on one device, and the other way round.
 """
 from __future__ import annotations
 
@@ -53,7 +57,6 @@ from repro_torch.core.parallel import ParallelContext, ProcessContext
 from repro_torch.models.lm import check_context
 from repro_torch.train.step import (init_train_state, make_train_step,
                                     rank_tensors, sync_tied_head)
-from repro_torch.utils.convert import rank_sharded_paths
 from repro_torch.utils.device import resolve_device
 
 
@@ -62,7 +65,8 @@ class Trainer:
                  data: Iterator[Dict[str, np.ndarray]],
                  ckpt_dir: Optional[str] = None,
                  ctx: Optional[ParallelContext | ProcessContext] = None,
-                 dtype: Optional[torch.dtype] = None, device=None):
+                 dtype: Optional[torch.dtype] = None, device=None,
+                 state_shardings=None):
         self.cfg, self.tc = cfg, tc
         self.ctx = check_context(ctx)
         self.ranks = ctx if isinstance(ctx, ProcessContext) else None
@@ -82,18 +86,21 @@ class Trainer:
         self.straggler_factor = 3.0
         self.straggler_events = 0
 
-        self.step_fn = make_train_step(cfg, tc, ctx)
+        specs = state_shardings if self.ranks is not None else None
+        self.step_fn = make_train_step(cfg, tc, ctx, specs)
         gen = torch.Generator(device=self.device).manual_seed(tc.seed)
         tp = ctx.tp_size if ctx is not None else 1
         self.state = init_train_state(gen, cfg, tc, tp_size=tp, dtype=dtype,
-                                      device=self.device, ctx=self.ranks)
-        # the leaves a checkpoint gathers from (restores to) the ranks
-        self.sharded = frozenset() if self.ranks is None else \
-            rank_sharded_paths(self._tensors(), cfg)
+                                      device=self.device, ctx=self.ranks,
+                                      specs=specs)
+        # each state leaf's spec, by path: what a checkpoint gathers from
+        # (restores to) the ranks
+        self.specs = {} if self.ranks is None else \
+            self.step_fn.place.state
         start = ckpt.latest_step(ckpt_dir) if ckpt_dir else None
         if start is not None:
             ckpt.restore(self._tensors(), ckpt_dir, start, ctx=self.ranks,
-                         sharded=self.sharded)
+                         specs=self.specs)
             if self.ranks is not None:
                 sync_tied_head(self.state["params"], cfg, self.ranks)
             self.start_step = start
@@ -122,7 +129,7 @@ class Trainer:
             return
         ckpt.save(self._tensors(), self.ckpt_dir, step,
                   asynchronous=asynchronous, keep=self.tc.keep_checkpoints,
-                  ctx=self.ranks, sharded=self.sharded)
+                  ctx=self.ranks, specs=self.specs)
         if self.ranks is not None and not asynchronous:
             dist.barrier()          # the world: global rank 0 has written
 

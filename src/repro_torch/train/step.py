@@ -31,7 +31,19 @@ the vocabulary, its experts).  After the backward, the gradients of the
 replicated leaves each rank used on its own tokens only -- the MoE
 routers and shared experts (``utils/convert.token_slice_leaf``) -- are
 summed over the ranks (one all-reduce in f32, the group's order); every other
-replicated leaf's gradient is the whole batch's on every rank.  With a
+replicated leaf's gradient is the whole batch's on every rank.
+
+With a state spec tree (``TrainStep(specs=)``, ``launch/specs.
+state_spec_tree``: the reference's placement) a rank holds only its
+piece of every leaf, its gradient and both moments: the forward reads
+each cut parameter as a ``comm.Placed`` piece, all-gathered just before
+its layer runs (``lm._run_block``, inside the layer's checkpoint), and
+the gather's backward adds the piece's gradient into its buffer, summed
+over the mesh as the leaf needs (so the sums below leave those leaves
+out).  A gradient is kept at its moments' layout: an int8 moment is
+whole along a last dim the parameter is cut on, and the update then
+writes the parameter's columns of its whole rows
+(``optim/adamw.adamw_update(columns=)``).  With a
 data axis whose ``dp_size`` divides the batch, each data group runs its
 samples over its model axis and computes only their head and
 cross-entropy; the loss is the global token mean on every rank (the
@@ -53,6 +65,7 @@ into ``head`` (:func:`sync_tied_head`).
 from __future__ import annotations
 
 import dataclasses
+from types import SimpleNamespace
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -65,7 +78,8 @@ from repro_torch.core.parallel import (ParallelContext, ProcessContext,
                                        data_split)
 from repro_torch.models import lm
 from repro_torch.optim import adamw_init, adamw_update
-from repro_torch.utils.convert import rank_sharded_paths, token_slice_leaf
+from repro_torch.launch import specs as S
+from repro_torch.utils.convert import token_slice_leaf
 from repro_torch.utils.tree import flatten_with_paths, leaves, map_leaves
 
 
@@ -188,7 +202,7 @@ def lm_loss(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
         metrics["moe_dropped"] = aux["moe_dropped"].float()
 
     if cfg.mtp_depth:                           # deepseek multi-token predict
-        mtp = params["mtp"]
+        mtp = comm.gathered(params["mtp"])
         emb_next = lm.embed_tokens(params, labels, cfg, inner)
         hn = lm._norm(hidden, lm.layer(mtp["norm_h"], 0), cfg)
         en = lm._norm(emb_next, lm.layer(mtp["norm_e"], 0), cfg)
@@ -211,18 +225,49 @@ def lm_loss(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
 
 def init_train_state(gen: torch.Generator, cfg: ModelConfig,
                      tc: TrainConfig, tp_size: int = 1, dtype=None,
-                     device=None,
-                     ctx: Optional[ProcessContext] = None) -> Dict[str, Any]:
+                     device=None, ctx: Optional[ProcessContext] = None,
+                     specs=None) -> Dict[str, Any]:
     """``{"params", "opt"}``: ``lm.init_params`` from ``gen`` on ``device``
     (None: the card), the vocabulary padded to a multiple of ``tp_size``
     (the reference's), and ``adamw_init``.  With ``ctx`` (a
-    ``ProcessContext``) this rank's state, drawn share by share
+    ``ProcessContext``) this rank's state, drawn piece by piece
     (``lm.init_params`` with the context): what
-    ``utils/convert.lm_train_state_for_rank`` cuts from the whole one."""
+    ``utils/convert.lm_train_state_for_rank`` cuts from the whole one,
+    under ``specs`` (a state spec tree, ``launch/specs.state_spec_tree``
+    under ``ctx``: the placement) or, with None, the cuts every rank
+    holds whatever the placement.  The moments are built at the
+    moments' spec: an int8 moment whole along a last dim the parameter
+    is cut on."""
     params = lm.init_params(gen, cfg, tp_size=tp_size, dtype=dtype,
-                            device=device, ctx=ctx)
-    return {"params": params,
-            "opt": adamw_init(rank_tensors(params, cfg), tc)}
+                            device=device, ctx=ctx,
+                            specs=None if specs is None else specs["params"])
+    tensors = rank_tensors(params, cfg)
+    if ctx is None:
+        return {"params": params, "opt": adamw_init(tensors, tc)}
+    place = placement(cfg, tc, ctx, specs)
+    like = _map_paths(lambda path, t: SimpleNamespace(
+        shape=place.grad_shape(path, tuple(t.shape)), device=t.device),
+        tensors)
+    return {"params": params, "opt": adamw_init(like, tc)}
+
+
+def placement(cfg: ModelConfig, tc: TrainConfig, ctx: ProcessContext,
+              specs=None) -> S.Placement:
+    """The ``launch/specs.Placement`` of a rank's state under ``specs`` (a
+    state spec tree), or, with None, of the cuts every rank holds
+    whatever the placement (``launch/specs.rank_cut_tree``)."""
+    if specs is None:
+        specs = S.rank_cut_tree(S.state_spec_tree(cfg, tc, ctx)[1], cfg)
+    return S.Placement.of(specs, cfg, ctx)
+
+
+def _map_paths(fn, tree, prefix: str = ""):
+    """``fn(path, leaf)`` over a tree of tensors, in a tree of its
+    shape."""
+    if isinstance(tree, dict):
+        return {k: _map_paths(fn, v, f"{prefix}/{k}" if prefix else k)
+                for k, v in tree.items()}
+    return fn(prefix, tree)
 
 
 def rank_tensors(params, cfg: Optional[ModelConfig] = None
@@ -265,16 +310,23 @@ class TrainStep:
     step on one device, under ``ctx`` when one is given.  ``state`` is
     updated in place and returned; ``batch`` holds tensors on the state's
     device.  ``grads`` keeps the gradient buffers (the parameters'
-    dtypes, made at the first call; a rank's shares under a
-    ``ProcessContext``): after a step at ``grad_accum`` 1, the gradient
-    the update took."""
+    dtypes, made at the first call; a rank's pieces under a
+    ``ProcessContext``, at the layout of ``specs``, a state spec tree,
+    when given: :func:`placement`): after a step at ``grad_accum`` 1, the
+    gradient the update took."""
 
     def __init__(self, cfg: ModelConfig, tc: TrainConfig,
-                 ctx: Optional[ParallelContext | ProcessContext] = None):
+                 ctx: Optional[ParallelContext | ProcessContext] = None,
+                 specs=None):
         self.cfg, self.tc, self.ctx = cfg, tc, lm.check_context(ctx)
         self.ranks = self.ctx if isinstance(ctx, ProcessContext) else None
         self.grads = None
-        self.sharded: frozenset = frozenset()
+        # by path: the axes each gradient is cut over, and the columns of
+        # a parameter whose gradient is whole along its last dim
+        self.sharded: Dict[str, Tuple[str, ...]] = {}
+        self.columns: Dict[str, Tuple[int, int]] = {}
+        self.place = None if self.ranks is None else placement(
+            cfg, tc, self.ranks, specs)
         # whether the data groups split the last micro-batch
         self.split = False
 
@@ -289,21 +341,29 @@ class TrainStep:
         every gradient over the data axis; returns the metrics,
         detached."""
         tensors = rank_tensors(params, self.cfg)
+        place = self.place
         if self.grads is None:
-            self.grads = map_leaves(torch.zeros_like, tensors)
-            if self.ranks is not None:
-                self.sharded = rank_sharded_paths(tensors, self.cfg)
+            self._make_grads(tensors)
         for g in leaves(self.grads):
             g.zero_()
+        if self.ranks is not None:
+            self.split = data_split(self.ranks,
+                                    mb["tokens"].shape[0]) is not None
 
-        def alias(p, g):
+        def alias(path, p):
+            g = self._grad(path)
             a = p.detach().requires_grad_(True)
-            a.grad = g
-            return a
+            lp = None if place is None else place.params[path]
+            if lp is None or not lp.gathered:
+                a.grad = g
+                return a
+            return comm.Placed(a, lp.gather, lp.grad, self.ranks, buffer=g,
+                               summed=token_slice_leaf(path),
+                               split=self.split)
 
         tied = _tied_rank_head(params, self.cfg)
         with torch.enable_grad():
-            leafs = map_leaves(alias, tensors, self.grads)
+            leafs = _map_paths(alias, tensors)
             if isinstance(params.get("embed"), RankShard):
                 leafs["embed"] = dataclasses.replace(params["embed"],
                                                      local=leafs["embed"])
@@ -319,20 +379,50 @@ class TrainStep:
                 self.grads["embed"][0].add_(
                     leafs["head"].grad.T[r * n:(r + 1) * n])
         if self.ranks is not None:
-            self.split = data_split(self.ranks,
-                                    mb["tokens"].shape[0]) is not None
             self._sum_token_slices()
             if self.split:
                 self.sum_over_data()
         return {k: v.detach() for k, v in metrics.items()}
 
+    def _make_grads(self, tensors) -> None:
+        """The gradient buffers, zeros in the parameters' dtypes at the
+        gradients' layout (``launch/specs.Placement.grad_shape``: a
+        parameter's piece, whole along a last dim its int8 moments keep
+        whole), and by path the axes each is cut over and the columns of
+        a parameter whose gradient is wider than its piece."""
+        place = self.place
+        if place is None:
+            self.grads = map_leaves(torch.zeros_like, tensors)
+            return
+        self.grads = _map_paths(lambda path, t: torch.zeros(
+            place.grad_shape(path, tuple(t.shape)), dtype=t.dtype,
+            device=t.device), tensors)
+        for path, t in flatten_with_paths(tensors):
+            if place.cuts(path):
+                self.sharded[path] = place.cuts(path)
+            cols = place.columns(path, t.shape[-1])
+            if cols is not None:
+                self.columns[path] = cols
+
+    def _grad(self, path: str) -> torch.Tensor:
+        node = self.grads
+        for k in path.split("/"):
+            node = node[k]
+        return node
+
+    def _summed_in_backward(self, path: str) -> bool:
+        """Whether the gradient of the parameter at ``path`` came out of
+        its gather's backward summed over the mesh (``comm.Placed``)."""
+        return self.place is not None and self.place.params[path].gathered
+
     def _sum_token_slices(self) -> None:
         """The routers' and shared experts' gradients summed over the
         ranks, in one all-reduce in f32 (a bf16 leaf's sum rounds once),
         and when the data groups split the batch (``split``) over the data
-        axis too, in the same f32 sum."""
+        axis too, in the same f32 sum (a placed leaf's backward summed
+        it)."""
         gs = [g for p, g in flatten_with_paths(self.grads)
-              if token_slice_leaf(p)]
+              if token_slice_leaf(p) and not self._summed_in_backward(p)]
         if not gs:
             return
         with torch.no_grad():
@@ -351,7 +441,7 @@ class TrainStep:
         size.  Every data group then holds the same gradient, and the
         clip's norm counts each leaf once."""
         gs = [g for p, g in flatten_with_paths(self.grads)
-              if not token_slice_leaf(p)]
+              if not token_slice_leaf(p) and not self._summed_in_backward(p)]
         with torch.no_grad():
             while gs:
                 n, k = 0, 0
@@ -370,14 +460,16 @@ class TrainStep:
         params, tc = state["params"], self.tc
         if tc.grad_accum > 1:
             n = tc.grad_accum
-            acc = map_leaves(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device),
-                rank_tensors(params, self.cfg))
+            acc = None
             ms = []
             for i in range(n):
                 mb = {k: v.reshape((n, -1) + tuple(v.shape[1:]))[i]
                       for k, v in batch.items()}
                 ms.append(self.grad(params, mb))
+                if acc is None:
+                    acc = map_leaves(lambda g: torch.zeros(
+                        g.shape, dtype=torch.float32, device=g.device),
+                        self.grads)
                 for a, g in zip(leaves(acc), leaves(self.grads)):
                     a.add_(g)
             for a in leaves(acc):
@@ -390,7 +482,8 @@ class TrainStep:
             grads = self.grads
         _, opt, om = adamw_update(grads, state["opt"],
                                   rank_tensors(params, self.cfg), tc,
-                                  ctx=self.ranks, sharded=self.sharded)
+                                  ctx=self.ranks, sharded=self.sharded,
+                                  columns=self.columns)
         if self.ranks is not None:
             sync_tied_head(params, self.cfg, self.ranks)
         metrics.update(om)
@@ -398,11 +491,12 @@ class TrainStep:
 
 
 def make_train_step(cfg: ModelConfig, tc: TrainConfig,
-                    ctx: Optional[ParallelContext | ProcessContext] = None
-                    ) -> TrainStep:
+                    ctx: Optional[ParallelContext | ProcessContext] = None,
+                    specs=None) -> TrainStep:
     """Returns ``train_step(state, batch) -> (state, metrics)``; ``ctx``
     anything but None, a ``ParallelContext`` or a ``ProcessContext``
     raises ``TypeError`` (``lm.check_context``).  Under a
     ``ProcessContext`` the state is this rank's
-    (``utils/convert.lm_train_state_for_rank``)."""
-    return TrainStep(cfg, tc, ctx)
+    (``utils/convert.lm_train_state_for_rank``), placed by ``specs`` (a
+    state spec tree, ``launch/specs.state_spec_tree``) when given."""
+    return TrainStep(cfg, tc, ctx, specs)

@@ -11,8 +11,10 @@ state (``train_state_from_numpy``), int8 moments included.
 
 ``lm_params_for_rank`` cuts converted LM parameters down to one rank's
 when each rank of the model axis is a process, ``lm_train_state_for_rank``
-a whole train state (its moments too); ``rank_sharded`` names the leaves
-they cut.
+a whole train state (its moments too), each by a spec tree
+(``launch/specs.py``: the reference's placement) or, without one, by the
+cuts every rank holds whatever the placement, which ``rank_sharded``
+names.
 """
 from __future__ import annotations
 
@@ -24,52 +26,20 @@ import torch
 
 from repro_torch.core.embedding_bag import shard_for_rank
 from repro_torch.core.jagged import JaggedBatch
+from repro_torch.core.parallel import cut_index, cut_shape
+from repro_torch.launch import specs as S
 from repro_torch.models.lm import embedding_bag_config
 from repro_torch.optim.quant import QuantizedTensor
 from repro_torch.utils.device import resolve_device
-from repro_torch.utils.tree import flatten_with_paths
-
-# the MoE leaves sharded over the model axis along their expert axis, as
-# the reference's ``_moe_apply`` slices them; the router and the shared
-# experts stay whole
-EXPERT_LEAVES = ("gate", "up", "down")
-# every leaf a rank holds a share of is cut along this axis: the padded
-# vocabulary's rows of the (1, Vp, d) table, the experts of an
-# (n_layers, E_x, ...) stack
-SHARD_AXIS = 1
-
-
-def _param_path(path: str) -> list:
-    """A parameter's path parts from a path of a parameter tree or of a
-    train state (``params/...``, ``opt/m/...``, ``opt/v/...``; an int8
-    moment's ``.../0`` codes and ``.../1`` scales)."""
-    parts = path.split("/")
-    if parts[0] == "params":
-        return parts[1:]
-    if parts[0] == "opt" and len(parts) > 1 and parts[1] in ("m", "v"):
-        parts = parts[2:]
-        return parts[:-1] if parts and parts[-1] in ("0", "1") else parts
-    return parts
-
 
 def rank_sharded(path: str, cfg) -> bool:
     """Whether the leaf at ``path`` (of LM parameters or a train state,
-    as ``utils/tree.flatten_with_paths`` names it) is cut over the ranks
-    by :func:`lm_params_for_rank` / :func:`lm_train_state_for_rank`,
-    along :data:`SHARD_AXIS`: the vocabulary table (when row-sharded) and
-    the expert stacks, with their moments."""
-    parts = _param_path(path)
-    if parts == ["embed"]:
-        return cfg.vocab_sharding != "replicated"
-    return (cfg.is_moe and len(parts) >= 2 and parts[-2] == "moe"
-            and parts[-1] in EXPERT_LEAVES)
-
-
-def rank_sharded_paths(tree, cfg) -> frozenset:
-    """The paths of ``tree``'s leaves (LM parameters, their gradients or a
-    train state) that are cut over the ranks (:func:`rank_sharded`)."""
-    return frozenset(p for p, _ in flatten_with_paths(tree)
-                     if rank_sharded(p, cfg))
+    as ``utils/tree.flatten_with_paths`` names it) is cut over the model
+    axis whatever the placement (``launch/specs.rank_cut``): the
+    vocabulary table (when row-sharded) and the expert stacks, with
+    their moments -- what :func:`lm_params_for_rank` and
+    :func:`lm_train_state_for_rank` cut with no spec given."""
+    return S.rank_cut_leaf(path, cfg)
 
 
 def token_slice_leaf(path: str) -> bool:
@@ -77,7 +47,7 @@ def token_slice_leaf(path: str) -> bool:
     used by each rank on its own tokens only -- an MoE layer's router and
     shared experts (``models/moe.moe_ffn_ep_rank``) -- so that its
     gradient is the sum of the ranks'."""
-    parts = _param_path(path)
+    parts = S.param_names(path)
     return "moe" in parts and (parts[-1] == "router" or "shared" in parts)
 
 
@@ -121,10 +91,19 @@ def lm_params_from_numpy(params: Dict[str, Any], *,
     return conv(params)
 
 
-def lm_params_for_rank(params: Dict[str, Any], cfg, ctx) -> Dict[str, Any]:
+def _is_cut(idx: tuple) -> bool:
+    return any(s != slice(None) for s in idx)
+
+
+def lm_params_for_rank(params: Dict[str, Any], cfg, ctx,
+                       specs=None) -> Dict[str, Any]:
     """This rank's LM parameters under ``ctx`` (a ``ProcessContext``),
     from the whole ones (``lm.init_params(..., tp_size=ctx.world)`` or
-    :func:`lm_params_from_numpy`), on ``ctx.device``:
+    :func:`lm_params_from_numpy`), on ``ctx.device``: each leaf's piece
+    under ``specs`` (a parameter spec tree, ``launch/specs.
+    param_spec_tree`` under ``ctx``), its own copy; with ``specs`` None
+    the cuts every rank holds whatever the placement
+    (``launch/specs.rank_cut_tree``):
 
       * ``"embed"``: the rank's rows of the padded vocabulary, a
         ``RankShard`` of the row-wise sharded bag
@@ -138,90 +117,104 @@ def lm_params_for_rank(params: Dict[str, Any], cfg, ctx) -> Dict[str, Any]:
         elsewhere): attention and dense FFN weights, norms, the head, the
         routers and the shared experts, the encoder, the projector.
 
-    The result holds no reference to the whole expert stacks or the whole
-    table (a tied head aside): a tensor received through CUDA IPC keeps
-    its sender's memory until every receiver drops it.  Raises
-    ``ValueError`` when the ranks do not divide the experts or the
-    table's rows."""
-    E, r = ctx.world, ctx.rank
+    The result holds no reference to a whole leaf it cuts (a tied head
+    aside, which is the whole table): a tensor received through CUDA IPC
+    keeps its sender's memory until every receiver drops it.  Raises
+    ``ValueError`` when the ranks do not divide the experts or a cut
+    dim."""
+    E = ctx.world
     dev = ctx.device
     if cfg.is_moe and cfg.num_experts % E:
         raise ValueError(f"{cfg.num_experts} experts do not divide over {E} "
                          f"ranks")
-    el = cfg.num_experts // E if cfg.is_moe else 0
+    if specs is None:
+        specs = S.rank_cut_tree(S.param_spec_tree(params, cfg, ctx), cfg)
+    flat = S.flatten_specs(specs)
 
     def own(t: torch.Tensor) -> torch.Tensor:
         out = torch.empty(tuple(t.shape), dtype=t.dtype, device=dev)
         out.copy_(t)
         return out
 
-    def conv(tree, moe=False):
+    def conv(tree, prefix=""):
         out = {}
         for k, v in tree.items():
+            path = f"{prefix}/{k}" if prefix else k
             if isinstance(v, dict):
-                out[k] = conv(v, moe=k == "moe")
-            elif moe and k in EXPERT_LEAVES:        # (layers, E_x, ...)
-                out[k] = own(v[:, r * el:(r + 1) * el])
-            else:
-                out[k] = v.to(dev)
+                out[k] = conv(v, path)
+                continue
+            idx = cut_index(flat[path], tuple(v.shape), ctx, what=path)
+            out[k] = own(v[idx]) if _is_cut(idx) else v.to(dev)
         return out
 
     out = conv({k: v for k, v in params.items() if k != "embed"})
     embed = params["embed"]
     if cfg.tie_embeddings:
         out["head"] = embed[0].T.to(dev)
+    idx = cut_index(flat["embed"], tuple(embed.shape), ctx, what="embed")
     if cfg.vocab_sharding == "replicated":
-        out["embed"] = embed.to(dev)
+        out["embed"] = own(embed[idx]) if _is_cut(idx) else embed.to(dev)
     else:
+        if idx[0] != slice(None) or idx[2] != slice(None):
+            raise ValueError("embed: a row-sharded vocabulary is cut along "
+                             "its rows only")
         out["embed"] = shard_for_rank(embed, embedding_bag_config(cfg, E),
                                       ctx)
     return out
 
 
-def lm_train_state_for_rank(state: Dict[str, Any], cfg,
-                            ctx) -> Dict[str, Any]:
+def lm_train_state_for_rank(state: Dict[str, Any], cfg, ctx,
+                            specs=None) -> Dict[str, Any]:
     """This rank's LM train state under ``ctx`` (a ``ProcessContext``)
     from the whole one (``train/step.init_train_state`` at ``tp_size =
-    ctx.world``, or :func:`train_state_from_numpy`): ``"params"`` as
-    :func:`lm_params_for_rank` cuts them, and every moment of a cut leaf
-    (:func:`rank_sharded`) cut the same way along :data:`SHARD_AXIS`,
-    its own copy; the other moments and ``"step"`` moved to
+    ctx.world``, or :func:`train_state_from_numpy`): each leaf's piece
+    under ``specs`` (a state spec tree, ``launch/specs.state_spec_tree``
+    under ``ctx``: the placement), its own copy; with ``specs`` None the
+    cuts every rank holds whatever the placement (its rows of the
+    vocabulary and its experts, and their moments).  ``"params"`` as
+    :func:`lm_params_for_rank` cuts them; other leaves moved to
     ``ctx.device`` (the same tensors when already there).  An int8
-    moment's codes and scales are cut alike: its blocks run along the
-    last axis only (``optim/quant.py``), so a rank's rows of the codes
-    and scales are the whole moment's rows, and the cut is exact."""
-    E, r, dev = ctx.world, ctx.rank, ctx.device
+    moment's codes and scales are cut by their own specs, whole along
+    the blocks (``optim/quant.py``: blocks run along the last axis), so
+    a rank's piece of the codes and scales is the whole moment's, and
+    the cut is exact."""
+    dev = ctx.device
+    if specs is None:
+        pspecs = S.param_spec_tree(state["params"], cfg, ctx)
+        specs = S.rank_cut_tree({"params": pspecs, "opt": S.opt_spec_tree(
+            pspecs, state["opt"])}, cfg)
 
-    def cut(t: torch.Tensor) -> torch.Tensor:
-        n = t.shape[SHARD_AXIS] // E
-        part = t.narrow(SHARD_AXIS, r * n, n)
+    def cut(t: torch.Tensor, spec, path) -> torch.Tensor:
+        idx = cut_index(spec, tuple(t.shape), ctx, what=path)
+        if not _is_cut(idx):
+            return t.to(dev)
+        part = t[idx]
         out = torch.empty(tuple(part.shape), dtype=t.dtype, device=dev)
         out.copy_(part)
         return out
 
-    def conv(tree, prefix):
+    def conv(tree, sp, prefix):
         out = {}
         for k, v in tree.items():
             path = f"{prefix}/{k}"
             if isinstance(v, dict):
-                out[k] = conv(v, path)
+                out[k] = conv(v, sp[k], path)
             elif isinstance(v, QuantizedTensor):
-                sharded = rank_sharded(path, cfg)
-                shape = list(v.shape)
-                if sharded:
-                    shape[SHARD_AXIS] //= E
-                move = cut if sharded else (lambda t: t.to(dev))
-                out[k] = dataclasses.replace(v, q=move(v.q),
-                                             scale=move(v.scale),
-                                             shape=tuple(shape))
+                s = sp[k]
+                shape = cut_shape(tuple(s.scale[:-1]) + (None,), v.shape,
+                                  ctx, what=path)
+                out[k] = dataclasses.replace(
+                    v, q=cut(v.q, s.q, path + "/0"),
+                    scale=cut(v.scale, s.scale, path + "/1"), shape=shape)
             else:
-                out[k] = cut(v) if rank_sharded(path, cfg) else v.to(dev)
+                out[k] = cut(v, sp[k], path)
         return out
 
-    opt = state["opt"]
-    return {"params": lm_params_for_rank(state["params"], cfg, ctx),
-            "opt": {"m": conv(opt["m"], "opt/m"),
-                    "v": conv(opt["v"], "opt/v"),
+    opt, ospecs = state["opt"], specs["opt"]
+    return {"params": lm_params_for_rank(state["params"], cfg, ctx,
+                                         specs["params"]),
+            "opt": {"m": conv(opt["m"], ospecs["m"], "opt/m"),
+                    "v": conv(opt["v"], ospecs["v"], "opt/v"),
                     "step": opt["step"].to(dev)}}
 
 

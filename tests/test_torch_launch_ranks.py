@@ -60,6 +60,7 @@ from repro_torch.core import parallel
 from repro_torch.core.parallel import make_context
 from repro_torch.data.synthetic import lm_batches
 from repro_torch.launch import mesh as tmesh
+from repro_torch.launch import specs as tspecs
 from repro_torch.launch import serve as tserve
 from repro_torch.launch import train as tlaunch
 from repro_torch.models import lm as tlm
@@ -587,14 +588,43 @@ def test_train_main_over_ranks_resumes_bitwise(trained):
 
 
 def test_train_over_ranks_data_groups_hold_one_state(trained):
-    """After 4 steps every data group's model rank m holds bitwise the
-    same parameters and moments: each leaf's gradient was summed over
-    the data axis (a leaf left out of the sum diverges here, where the
-    losses may not show it: tools/later_loss_fault.py)."""
-    digests = trained[1]["digests"]
-    assert len(digests) == WORLD and len(digests[0]) > 1
+    """After 4 steps under the launcher's placement
+    (``launch/specs.state_spec_tree``): a leaf the data axis does not cut
+    is bitwise the same in every data group's model rank m (each leaf's
+    gradient was summed over the data axis: a leaf left out of the sum
+    diverges here, where the losses may not show it:
+    tools/later_loss_fault.py); the pieces of a leaf it cuts assemble
+    into one state: each rank's piece is bitwise its cut of the whole
+    leaf in the checkpoint its Trainer wrote after the last step."""
+    _, out = trained
+    digests = out["digests"]
+    args = tlaunch.parser().parse_args(TRAIN)
+    specs = tspecs.Placement.of(tspecs.state_spec_tree(
+        tconfigs.get_smoke_config(ARCH), tlaunch.train_config(args),
+        make_context(TP, dp_size=DP))[1], tconfigs.get_smoke_config(ARCH),
+        None).state
+    step = out["in_memory"] / "step_00000004"
+    paths = json.loads((step / "manifest.json").read_text())["paths"]
+    whole = np.load(step / "shard_p0.npz")
+    leaf = {p: whole[f"leaf_{i}"] for i, p in enumerate(paths)}
+    assert len(digests) == WORLD and sorted(digests[0]) == sorted(paths)
+    cut = 0
     for g, d in enumerate(digests):
-        assert d == digests[g % TP], g
+        dp_rank, m = divmod(g, TP)
+        rank = parallel.ProcessContext(group=None, rank=m, world=TP,
+                                       device=torch.device("cpu"),
+                                       dp_size=DP, dp_rank=dp_rank)
+        for path, h in d.items():
+            if ("data",) not in specs[path]:
+                assert h == digests[m][path], (g, path)
+                continue
+            cut += 1
+            a = leaf[path]
+            piece = np.ascontiguousarray(a[parallel.cut_index(
+                specs[path], a.shape, rank)])
+            assert hashlib.sha256(piece.tobytes()).hexdigest() == h, (
+                g, path)
+    assert cut
 
 
 @pytest.mark.parametrize("mesh", list(MESHES))

@@ -25,10 +25,10 @@ each rank a process: granite-8b at 2 layers and moonshot-v1-16b-a3b at
 DLRM training, each data group its half of the batch, held to
 make_context(2, dp_size=2)'s) and phase 8lr (the serve and train
 launchers' rank functions on a (2, 2) mesh: granite-8b served at all 36
-layers, each rank drawing only its share, and trained at 2 layers with
-a checkpoint, a resume and a tied head, held to
-make_context(2, dp_size=2)'s; on 4 cards its NCCL leg serves and trains
-at all 36 layers) and phase 9 (the five examples on the card,
+layers, each rank drawing only its share, and trained at 2 layers under
+the reference's state placement with a checkpoint, a resume and a tied
+head, held to make_context(2, dp_size=2)'s; on 4 cards its NCCL leg
+serves and trains at all 36 layers, each rank's state and peak logged) and phase 9 (the five examples on the card,
 quickstart's and dlrm_inference's rank functions on a (1, 4) mesh of
 processes); on 4 cards all also run their NCCL legs, one process
 a card.  A quicker check of
