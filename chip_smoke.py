@@ -4640,19 +4640,42 @@ def _forced_router(real, ids):
     return router_topk
 
 
-def _moe_decode_vs_forward(pt, params, cfg, tokens) -> dict:
+def _moe_decode_vs_forward(pt, params, cfg, tokens, ctx=None, steps=1,
+                           max_len=None) -> dict:
     """Decode against forward for the MoE, recorded: each MoE layer's
-    expert choices and each layer's last hidden row on both paths.  The
+    expert choices and each layer's last hidden row on both paths.
+    ``tokens`` (1, S): the forward runs over all S of them; prefill over
+    the first P = S - ``steps`` and decode_step over each of the others,
+    into a cache of ``max_len`` positions (S by default).  Under ``ctx``
+    (a model axis of processes) every rank runs it, routing its slice of
+    the sequence (or every token of a decode step) as lm._moe_apply
+    splits them; the choices are gathered into the sequence's.  The
     free-running decode (its own routing) may pick another top-k on a
     near-tie of the router's logits, and then it computes another
     function; so the same decode runs again with every token's experts
     forced to the forward's choice (weights from its own logits), and
     that run is held to DECODE_REL_L2.  Logs per MoE layer how many of
-    the prompt's tokens chose another expert set, the layers where the
-    last token did, and the per-layer relative L2 of both runs."""
+    the tokens chose another expert set, the MoE layers where each
+    decoded token did, each call's relative L2 (the prefill's last row,
+    then each step's) and the per-layer relative L2 of the last row, for
+    both runs (under ``ctx`` model rank 0 logs).  ``rel`` is the aligned
+    run's largest over the decode steps; ``hidden`` holds each run's rows
+    and the forward's at those positions, on the host."""
     lm, dec, moe = pt.lm, pt.dec, pt.moe
     n = cfg.num_layers - cfg.first_k_dense
     S = tokens.shape[1]
+    P = S - steps
+    E = 1 if ctx is None else ctx.world
+    say = log if E == 1 or ctx.rank == 0 else (lambda line: None)
+
+    def whole(t, rows):           # this rank's router rows -> the sequence's
+        return t if E == 1 or rows % E else pt.comm.all_gather(
+            t, axis=0, tiled=True, ctx=ctx)
+
+    def mine(t, rows):            # the sequence's rows -> this rank's
+        c = rows // E
+        return t if E == 1 or rows % E else t[ctx.rank * c:(ctx.rank + 1) * c]
+
     ids, rows = {"fwd": [], "free": []}, {"fwd": [], "free": [],
                                           "aligned": []}
     row = lambda out: out[0][0, -1].float()
@@ -4661,55 +4684,83 @@ def _moe_decode_vs_forward(pt, params, cfg, tokens) -> dict:
                _patched(lm, "_block", lambda r: _recording(
                    r, rows["fwd"], row))]
     try:
-        last = _forward_last(pt, params, cfg, tokens)
+        h_fwd, _ = lm.forward(params, tokens, cfg, ctx)
     finally:
         for undo in restore:
             undo()
-    outs = {}
+    want = h_fwd[0, P - 1:]
+    del h_fwd
+    fwd_ids = [whole(t, S) for t in ids["fwd"]]
+    # the forward's choices: the prefill's P rows (this rank's), then each
+    # step's one
+    forced = [mine(t[:P], P) for t in fwd_ids] + [
+        t[P + j:P + j + 1] for j in range(steps) for t in fwd_ids]
+    hidden = {"fwd": want.cpu()}
     for run in ("free", "aligned"):
         if run == "free":
             make = lambda r: _recording(r, ids["free"], lambda out: out[1])
-        else:     # the forward's choices: prefill's S - 1 rows, decode's 1
-            forced = [t[:S - 1] for t in ids["fwd"]] + \
-                [t[S - 1:] for t in ids["fwd"]]
+        else:
             make = lambda r: _forced_router(r, forced)
         restore = [_patched(moe, "router_topk", make),
                    _patched(dec, "_ffn_or_moe", lambda r: _recording(
                        r, rows[run], row))]
         try:
-            outs[run] = _decoded_last(pt, params, cfg, tokens)
+            cache, h = dec.prefill(params, tokens[:, :P], cfg, ctx,
+                                   max_len=max_len or S)
+            got = [h[0, -1]]
+            for j in range(steps):
+                cache, h = dec.decode_step(params, cache, tokens[:, P + j],
+                                           cfg, ctx)
+                got.append(h[0])
+            del cache
         finally:
             for undo in restore:
                 undo()
-    check(len(ids["fwd"]) == n and len(ids["free"]) == 2 * n,
+        hidden[run] = torch.stack(got).cpu()
+    check(len(ids["fwd"]) == n and len(ids["free"]) == (1 + steps) * n,
           f"router calls: {len(ids['fwd'])} forward, {len(ids['free'])} "
-          f"prefill + decode; want {n} and 2 x {n}")
-    check(all(len(r) == cfg.num_layers for r in rows.values()),
-          "one recorded row per layer and path")
-    flips, last_flips = [], []
+          f"prefill + decode; want {n} and {1 + steps} x {n}")
+    check(len(rows["fwd"]) == cfg.num_layers
+          and all(len(rows[run]) == steps * cfg.num_layers
+                  for run in ("free", "aligned")),
+          "one recorded row per layer and path (and decode step)")
+    flips, step_flips = [], [[] for _ in range(steps)]
     for i in range(n):
-        fwd = ids["fwd"][i].sort(-1).values
-        inc = torch.cat([ids["free"][i], ids["free"][n + i]]).sort(-1).values
-        differ = (fwd != inc).any(-1)
+        fwd = fwd_ids[i].sort(-1).values
+        inc = torch.cat([whole(ids["free"][i], P)] + [
+            ids["free"][n * (1 + j) + i] for j in range(steps)]
+        ).sort(-1).values
+        differ = (fwd != inc).any(-1).cpu()
         flips.append(int(differ.sum()))
-        if bool(differ[-1]):
-            last_flips.append(i + cfg.first_k_dense)
+        for j in range(steps):
+            if bool(differ[P + j]):
+                step_flips[j].append(i + cfg.first_k_dense)
+    last = {run: rows[run][-cfg.num_layers:] for run in ("free", "aligned")}
     per_layer = {run: [float((d - f).norm() / f.norm())
-                       for f, d in zip(rows["fwd"], rows[run])]
+                       for f, d in zip(rows["fwd"], last[run])]
                  for run in ("free", "aligned")}
-    log(f"  routing: tokens of the {S}-token prompt whose expert set "
+    say(f"  routing: tokens of the {S}-token sequence whose expert set "
         f"differs between forward and prefill + decode_step, per MoE "
-        f"layer: {flips} (total {sum(flips)}; the decoded token in layers "
-        f"{last_flips})")
+        f"layer: {flips} (total {sum(flips)}; the decoded tokens in layers "
+        f"{step_flips})")
+    want = hidden["fwd"].float()
+    check(all(bool(torch.isfinite(t).all()) for t in hidden.values()),
+          f"decode against forward ({S} tokens): finite hidden states")
+    calls = {run: [float((g - w).norm() / w.norm()) for g, w in
+                   zip(hidden[run].float(), want)]
+             for run in ("free", "aligned")}
     for run in ("free", "aligned"):
-        log(f"  last row, relative L2 to the forward after each layer "
+        say(f"  last row, relative L2 to the forward after each layer "
             f"({run} routing): "
             + " ".join(f"{r:.2e}" for r in per_layer[run]))
-    rel = {run: _rel_l2(outs[run], last,
-                        f"decode ({run} routing) against forward ({S} "
-                        f"tokens)") for run in ("free", "aligned")}
-    return dict(rel=rel["aligned"], rel_free=rel["free"], flips=flips,
-                last_flips=last_flips, layer_rel=per_layer)
+        say(f"  decode ({run} routing) against forward ({S} tokens, "
+            f"{steps} decode steps): relative L2 per call (the prefill's "
+            f"last row, then each step's) "
+            + " ".join(f"{r:.3e}" for r in calls[run])
+            + f" (bound {DECODE_REL_L2})")
+    return dict(rel=max(calls["aligned"][1:]), rel_free=max(calls["free"][1:]),
+                calls=calls, flips=flips, step_flips=step_flips,
+                last_flips=step_flips[-1], layer_rel=per_layer, hidden=hidden)
 
 
 def _init_moe_lm(pt, cfg, seed, want) -> dict:
@@ -4847,18 +4898,31 @@ def _profile_served(pt, params, cfg, eng, out, prompt) -> dict:
 LM_RANK_PATH = "8p LM serving, ranks as processes"
 LMP_RANKS = 4
 # the depth cuts: four rank processes share the card beside the parent's
-# copy of the weights and its simulated run.  granite-8b: 0.436 GB a
-# layer and 0.81 GB of embedding and head, 6.0 GB at 12 layers; four
-# replicated copies at 36 layers would need 63 GB.  The ranks here take
-# the replicated weights through CUDA IPC and copy only their shares
-LMP_GRANITE_LAYERS = 12
-# moonshot-v1-16b-a3b: a rank holds 1.34 GB of embedding and head and
-# 0.345 GB a layer (its 16 experts 0.277, attention and the shared
-# experts 0.068): 6.9 GB at 16 layers beside the parent's 20.1 GB; at
-# all 48 layers 17.6 GB a rank, which four processes on one card cannot
-# hold beside the parent's 56.7 GB.  The NCCL leg (one process a card,
-# where there are 4 cards) serves all 48
-LMP_MOE_LAYERS = 16
+# copy of every leg's weights (the legs run in one spawn, and the parent
+# keeps what it sent through CUDA IPC until the spawn ends) and its
+# simulated runs.  The ranks take the replicated weights through CUDA IPC
+# and copy only their shares.  granite-8b: 0.436 GB a layer and 0.81 GB
+# of embedding and head, 2.6 GB at 4 layers (the batcher over processes
+# runs deeper in phase 8lr (a))
+LMP_GRANITE_LAYERS = 4
+# moonshot-v1-16b-a3b: 1.14 GB a layer and 1.8 GB of embedding and head,
+# 11.0 GB at 8 layers; a rank copies its 16 experts and vocabulary rows
+# (2.2 GB at 8 layers).  At all 48 layers 17.6 GB a rank, which four
+# processes on one card cannot hold beside the parent's 56.7 GB.  The
+# NCCL leg (one process a card, where there are 4 cards) serves all 48
+LMP_MOE_LAYERS = 8
+# deepseek-v3-671b at its published widths: 3 dense MLA layers, then 1
+# MoE layer of 256 experts top-8 (the published first_k_dense), 15.80e9
+# parameters and the MTP head, 31.60 GB beside moonshot's and granite's
+# 13.6 GB in the parent; a rank copies its 64 experts (5.64 GB) and its
+# vocabulary rows (0.46 GB).  A 5th layer (a 2nd MoE) would add 23.0 GB
+# to the parent and 5.6 GB to each rank, past the card.  One prompt of
+# LMP_DS_PROMPT tokens, under attn_chunk_threshold: MLA's full branch,
+# whose (1, 128, S, S) f32 scores a rank holds at S = 1,024 in 0.54 GB
+LMP_DS_LAYERS = 4
+LMP_DS_PROMPT = 1_024
+LMP_DS_MAX_LEN = 1_056       # the prompt and CTX_NEW steps, 264 a rank
+LMP_DS_SEED = 17
 LMP_TIMEOUT_S = 600.0
 # moonshot's logits through the per-rank dispatch against the simulated
 # ranks' where they are not bitwise: the simulation runs each rank's
@@ -4956,23 +5020,28 @@ def _lm_rank_serve(ctx, legs):
             if "moe_blocks" in mine]
         rec = dict(cut_s=time.perf_counter() - t0,
                    own_bytes=sum(t.numel() * t.element_size() for t in own))
-        with torch.no_grad():
-            if leg["kind"] == "batcher":
-                eng = pt.ContinuousBatcher(
-                    mine, cfg, num_slots=leg["slots"],
-                    max_len=leg["max_len"], ctx=ctx, eos_id=-1)
-                rec.update(_record_batcher(pt, eng, leg["prompts"],
-                                           leg["new"], kmods))
-                rec["heads"] = [(h.cpu(), lg.cpu())
-                                for h, lg in rec["heads"]]
-                rec["cache"] = {
-                    name: {k: tuple(v.shape) for k, v in st.items()}
-                    for name, st in pt.dec.kv_stacks(eng.cache).items()}
-                del eng
-            else:
-                rec.update(_greedy_run(
-                    pt, mine, cfg, leg["prompts"][0][1], ctx, leg["new"],
-                    leg["max_len"], dev, kmods, "moe_ffn_ep_rank"))
+        held, restore = _hold_tbe(pt)
+        try:
+            with torch.no_grad():
+                if leg["kind"] == "batcher":
+                    eng = pt.ContinuousBatcher(
+                        mine, cfg, num_slots=leg["slots"],
+                        max_len=leg["max_len"], ctx=ctx, eos_id=-1)
+                    rec.update(_record_batcher(pt, eng, leg["prompts"],
+                                               leg["new"], kmods))
+                    rec["heads"] = [(h.cpu(), lg.cpu())
+                                    for h, lg in rec["heads"]]
+                    rec["cache"] = {
+                        name: {k: tuple(v.shape) for k, v in st.items()}
+                        for name, st in pt.dec.kv_stacks(eng.cache).items()}
+                    del eng
+                else:
+                    rec.update(_greedy_run(
+                        pt, mine, cfg, leg["prompts"][0][1], ctx, leg["new"],
+                        leg["max_len"], dev, kmods, "moe_ffn_ep_rank"))
+        finally:
+            restore()
+        rec["tbe_held"] = _held(held)
         if cuda:
             _sync(dev)
             rec["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
@@ -5092,34 +5161,41 @@ def _check_granite(sim, leg, ranks) -> dict:
                           for k in SOURCES})
 
 
-def _moe_leg(pt, kmods, n_layers, label) -> tuple:
-    """(b)'s (or the NCCL leg's) weights and prompt, and its simulated
-    run: moonshot-v1-16b-a3b at full width, ``n_layers`` layers; the
-    long prompt's prefill and CTX_NEW greedy decode steps into a cache
-    of LM_MAX_LEN positions under make_context(LMP_RANKS)."""
-    cfg = dataclasses.replace(pt.MOE_CONFIG, num_layers=n_layers)
+def _moe_leg(pt, kmods, n_layers, label, base=None, seed=13,
+             prompt_len=None, max_len=LM_MAX_LEN) -> tuple:
+    """(b)'s (or the NCCL leg's, or (d)'s) weights and prompt, and its
+    simulated run: ``base`` (moonshot-v1-16b-a3b by default) at full
+    width, ``n_layers`` layers; the long prompt (or ``prompt_len``
+    uniform ids from ``seed``) prefilled and CTX_NEW greedy decode steps
+    into a cache of ``max_len`` positions under
+    make_context(LMP_RANKS)."""
+    base = pt.MOE_CONFIG if base is None else base
+    cfg = dataclasses.replace(base, num_layers=n_layers)
     t0 = time.perf_counter()
-    params = pt.lm.init_params(torch.Generator(device=DEV).manual_seed(13),
+    params = pt.lm.init_params(torch.Generator(device=DEV).manual_seed(seed),
                                cfg, tp_size=LMP_RANKS, device=DEV)
     _sync(DEV)
     nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
-    prompt = _lm_requests(pt, cfg, 1)[0].prompt
+    prompt = _lm_requests(pt, cfg, 1)[0].prompt if prompt_len is None \
+        else np.random.default_rng(seed).integers(
+            0, cfg.vocab_size, prompt_len).astype(np.int32)
     log(f"  {label} {cfg.name}, {cfg.num_layers} of "
-        f"{pt.MOE_CONFIG.num_layers} layers "
+        f"{base.num_layers} layers "
         f"({cfg.num_layers - cfg.first_k_dense} MoE, "
         f"{cfg.num_experts // LMP_RANKS} experts a rank): "
         f"{nbytes / 1e9:.2f} GB of weights drawn in "
         f"{time.perf_counter() - t0:.1f} s; the {len(prompt)}-token prompt "
-        f"and {CTX_NEW} greedy decode steps, {LM_MAX_LEN} positions "
-        f"({LM_MAX_LEN // LMP_RANKS} a rank)")
+        f"and {CTX_NEW} greedy decode steps, {max_len} positions "
+        f"({max_len // LMP_RANKS} a rank)")
     with torch.no_grad():
         sim = _greedy_run(pt, params, cfg, prompt,
-                          pt.make_context(LMP_RANKS), CTX_NEW, LM_MAX_LEN,
+                          pt.make_context(LMP_RANKS), CTX_NEW, max_len,
                           DEV, kmods, "moe_ffn_ep")
-    torch.cuda.empty_cache()
+    if DEV != "cpu":
+        torch.cuda.empty_cache()
     return dict(label=label, kind="decode", cfg=cfg, params=params,
                 prompts=[(0, prompt)], new=CTX_NEW, slots=1,
-                max_len=LM_MAX_LEN), sim
+                max_len=max_len), sim
 
 
 def _check_moe(sim, leg, ranks) -> dict:
@@ -5165,7 +5241,10 @@ def _check_moe(sim, leg, ranks) -> dict:
         f"(simulated {1e3 * sim['prefill_s']:.1f}); median decode step per "
         f"rank {[round(m, 3) for m in med]} ms (simulated "
         f"{1e3 * statistics.median(sim['step_s']):.3f}; host clock); cache "
-        f"{rec0['cache_bytes'] / 1e9:.3f} GB a rank")
+        f"{rec0['cache_bytes'] / 1e9:.3f} GB a rank; launches per rank "
+        f"{TBE_FLAT} {[r['counts'][TBE_FLAT] for r in ranks]}, "
+        f"flash_attention {[r['counts']['flash_attention'] for r in ranks]}"
+        f", chunked_attention calls {[r['counts']['chunked'] for r in ranks]}")
     for r, rec in enumerate(ranks):
         check(rec["tokens"] == rec0["tokens"] and all(
             torch.equal(a, b) for a, b in zip(rec["logits"], rec0["logits"]))
@@ -5196,9 +5275,11 @@ def _check_moe(sim, leg, ranks) -> dict:
 
 
 def phase_lm_ranks(pt, kmods, backends=("gloo", "nccl")) -> dict:
-    """Phase 8p: (a) and (b) over gloo, 4 processes sharing the card, and
-    where there are LMP_RANKS cards (c), the NCCL leg; ``backends``
-    picks the legs (``tools/rank_phases.py 8p-nccl`` runs (c) alone)."""
+    """Phase 8p: (a) granite-8b, (b) moonshot-v1-16b-a3b and (d)
+    deepseek-v3-671b over gloo in one spawn, 4 processes sharing the
+    card, and where there are LMP_RANKS cards (c), the NCCL leg;
+    ``backends`` picks the legs (``tools/rank_phases.py 8p-nccl`` runs
+    (c) alone)."""
     n_cards = torch.cuda.device_count() if DEV != "cpu" else 0
     log(f"== 8p. LM serving with each rank a process ({LMP_RANKS} processes "
         f"sharing the card in a gloo group; the vocabulary's rows, the "
@@ -5209,20 +5290,35 @@ def phase_lm_ranks(pt, kmods, backends=("gloo", "nccl")) -> dict:
     if "gloo" in backends:
         granite, granite_sim = _granite_leg(pt, kmods)
         moe, moe_sim = _moe_leg(pt, kmods, LMP_MOE_LAYERS, "(b)")
-        legs = [granite, moe]
+        ds, ds_sim = _moe_leg(pt, kmods, LMP_DS_LAYERS, "(d)",
+                              base=pt.deepseek_v3_671b.CONFIG,
+                              seed=LMP_DS_SEED, prompt_len=LMP_DS_PROMPT,
+                              max_len=LMP_DS_MAX_LEN)
+        if DEV != "cpu":
+            log(f"  the parent holds {torch.cuda.memory_allocated() / 1e9:.2f}"
+                f" GB on the card (the three legs' weights) as the ranks "
+                f"start")
+        legs = [granite, moe, ds]
         ranks = _run_lm_ranks(pt, "gloo", legs)
-        del legs, granite["params"], moe["params"]
-        torch.cuda.empty_cache()
+        del legs, granite["params"], moe["params"], ds["params"]
+        if DEV != "cpu":
+            torch.cuda.empty_cache()
         out["granite"] = _check_granite(granite_sim, granite, ranks["(a)"])
         out["moe"] = _check_moe(moe_sim, moe, ranks["(b)"])
-        out["launches"] = {k: out["granite"]["launches"][k]
-                           + out["moe"]["launches"][k] for k in SOURCES}
+        out["ds"] = _check_moe(ds_sim, ds, ranks["(d)"])
+        # each rank's TBE launch shapes against the plain version on the
+        # legs' own inputs
+        for key, label in (("granite", "(a)"), ("moe", "(b)"), ("ds", "(d)")):
+            out[key]["tbe_err"] = _check_held(f"8p {label}", ranks[label])
+        out["launches"] = {k: sum(out[leg]["launches"][k] for leg in
+                                  ("granite", "moe", "ds")) for k in SOURCES}
     if "nccl" in backends and n_cards >= LMP_RANKS:
         leg, sim = _moe_leg(pt, kmods, pt.MOE_CONFIG.num_layers, "(c)")
         ranks = _run_lm_ranks(pt, "nccl", [leg])
         del leg["params"]
         torch.cuda.empty_cache()
         out["nccl"] = _check_moe(sim, leg, ranks["(c)"])
+        out["nccl"]["tbe_err"] = _check_held("8p (c)", ranks["(c)"])
     elif "nccl" in backends:
         log(f"  the NCCL leg needs {LMP_RANKS} cards (one process a card; "
             f"NCCL refuses two ranks on one device): not run on this "
@@ -5616,16 +5712,27 @@ def _check_lm_train(pt, leg, sim, ranks, tag="") -> dict:
                 launches=sum(rec["counts"][TBE_FLAT] for rec in ranks))
 
 
-def _run_lm_train_ranks(pt, legs, backend) -> dict:
-    """Phase 8tp's ranks over ``backend`` (gloo: every rank on the card;
-    nccl: one rank a card), the legs in one spawn."""
-    # the rank processes' allocators map memory in expandable segments:
-    # a step's activations come and go in sizes that fragment fixed ones
-    # (on an H100, 1.53 GB reserved but unallocated in the rank that
-    # ran out); nothing they allocate crosses processes
+@contextlib.contextmanager
+def _expandable_segments():
+    """Rank processes spawned inside allocate in expandable segments: a
+    step's activations come and go in sizes that fragment fixed ones (on
+    an H100, 1.53 GB reserved but unallocated in the rank that ran out);
+    nothing they allocate crosses processes."""
     alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
     os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
     try:
+        yield
+    finally:
+        if alloc is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF", None)
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+
+
+def _run_lm_train_ranks(pt, legs, backend) -> dict:
+    """Phase 8tp's ranks over ``backend`` (gloo: every rank on the card;
+    nccl: one rank a card), the legs in one spawn."""
+    with _expandable_segments():
         t0 = time.perf_counter()
         ranks = pt.run_ranks(
             _lm_train_rank, LMTP_RANKS, backend=backend,
@@ -5636,11 +5743,6 @@ def _run_lm_train_ranks(pt, legs, backend) -> dict:
             f"{time.perf_counter() - t0:.1f} s (spawn, the draws and cuts, "
             f"the steps, the checkpoint, the records' gather)")
         return ranks
-    finally:
-        if alloc is None:
-            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF", None)
-        else:
-            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
 
 
 def _check_resume(pt, rc, tag) -> None:
@@ -6056,15 +6158,17 @@ def phase_dp_ranks(pt, kmods, backends=("gloo", "nccl")) -> dict:
 LR_PATH = "8lr the launchers, ranks as processes"
 LR_DP, LR_TP = 2, 2            # the reference's debug mesh at 4 devices
 LR_WORLD = LR_DP * LR_TP
-# (a) granite-8b at its published widths and all 36 layers, bf16, through
-# the serve launcher's rank function: each rank draws its own share from
-# the seed (everything but the other half of the vocabulary table: ~16.3
-# GB), so four ranks hold ~65 GB beside four CUDA contexts and the parent,
-# which holds no weights then.  4 requests in 4 slots, a data group's 2
-# each: a long prompt in each group's first slot (over attn_chunk_threshold
-# 8,192: the flash kernel on every rank) and a short one in its second;
-# LR_NEW tokens each, the prefill's and 8 greedy steps.  A rank's cache:
-# its group's 2 slots x LR_MAX_LEN / 2 positions (1.25 GB)
+# (a) granite-8b at its published widths, bf16, through the serve
+# launcher's rank function: each rank draws its own share from the seed
+# (everything but the other half of the vocabulary table), LR_SERVE_LAYERS
+# layers over gloo on one card (5.5 GB a rank; the depth cut keeps the
+# phase's time: the NCCL leg (c) serves all 36, 16.3 GB a rank).  4
+# requests in 4 slots, a data group's 2 each: a long prompt in each
+# group's first slot (over attn_chunk_threshold 8,192: the flash kernel on
+# every rank) and a short one in its second; LR_NEW tokens each, the
+# prefill's and 8 greedy steps.  A rank's cache: its group's 2 slots x
+# LR_MAX_LEN / 2 positions
+LR_SERVE_LAYERS = 12
 LR_LONG = 8_448
 LR_SHORT = 256
 LR_PROMPTS = (LR_LONG, LR_SHORT, LR_LONG, LR_SHORT)     # by rid
@@ -6094,6 +6198,51 @@ LR_TRAIN_STEPS = 2
 LR_NCCL_TRAIN = ["--arch", "granite-8b", "--batch", "4", "--seq", "2048",
                  "--steps", "3", "--opt-state-dtype", "int8"]
 LR_TIMEOUT_S = 900.0
+# (d) deepseek-v3-671b at its published widths over NCCL, one process a
+# card (where there are 4 cards).  Serving through the serve launcher's
+# rank function at LR_DS_SERVE_LAYERS layers (3 dense MLA layers, then 4
+# MoE of 256 experts): a rank draws its share, 128 experts of each MoE
+# layer, 54.68 GB.  The draw keeps one f32 temporary of a MoE leaf's whole
+# layer (256 x 7,168 x 2,048: 15.0 GB) beside what the rank holds, so an
+# 8th layer (66.37 GB held) would peak near 81.4 GB and leave under 6 GB
+# of the card free.  4 requests of LR_DS_PROMPTS tokens (MLA's full
+# branch) in 4 slots, LR_DS_NEW tokens each
+LR_DS_SERVE_LAYERS = 7
+LR_DS_PROMPTS = (512, 128, 512, 128)
+LR_DS_NEW = 9
+LR_DS_MAX_LEN = 528            # 512 + LR_DS_NEW up to a multiple of 16
+LR_DS_SEED = 29
+# decode against the forward on each data group's long request (the
+# served tokens fed back, one sequence, under the group's model axis) at
+# a capacity factor under which no assignment can drop: a rank's local
+# expert may receive every token of both model ranks (2 x 128 / 8), so
+# both paths compute the same function; the served run keeps the
+# config's 1.25, as the launcher does
+LR_DS_CAPACITY = 32.0
+# training through the train launcher's rank function at
+# LR_DS_TRAIN_LAYERS layers (3 dense, 1 MoE), int8 moments, under the
+# reference's placement: a rank's state 29.23 GB by the specs (8.41 of
+# parameters, 10.25 of gradients, 10.57 of moments); while the MoE layer
+# runs it also holds its data-gathered 128 experts (11.3 GB) and, in the
+# backward, their cotangent and each one's f32 sum in turn.  A data
+# group's sample a step, 1 x 2,048 tokens: at 2 x 2,048 step 2's
+# attention backward asked for 4 GiB more than the card had (its
+# (2, 128, 2,048, 2,048) f32 scores).  A 2nd MoE layer would add 22.5 GB
+# of state a rank: past the card
+LR_DS_TRAIN_LAYERS = 4
+LR_DS_TRAIN = ["--arch", "deepseek-v3-671b", "--batch", "2", "--seq",
+               "2048", "--steps", "3", "--opt-state-dtype", "int8"]
+# the launcher's step-1 loss against a no-grad lm_loss of the same drawn
+# parameters in serving's layout on the same ranks: the same forward
+# (each layer's weights whole), so bitwise but for a sum's order
+LR_DS_LOSS_REL = 1e-5
+# the placed backward's buckets held on the card: the same launcher run
+# again for LR_DS_PIECE_STEPS steps with comm.GATHER_BUCKET_ELEMS at 1,
+# each piece through its own collectives, its losses and gradient norms
+# within LR_DS_LOSS_REL of the bucketed run's (each element's sum over
+# two ranks is the same in any order, so bitwise but for an atomic add's
+# order in the backward)
+LR_DS_PIECE_STEPS = 2
 # the losses after step 1 against the simulated Trainer's: where a data
 # group takes half the batch its bf16 gradients round otherwise than the
 # whole batch's (step 1's norm read 3.2e-6 apart on an H100), and AdamW's
@@ -6106,24 +6255,27 @@ LR_TIMEOUT_S = 900.0
 LR_LATER_REL = 2.5e-4
 
 
-def _lr_serve_leg(pt) -> dict:
-    """(a)'s config and the serve launcher's arguments."""
-    cfg = pt.LM_CONFIG
+def _lr_serve_leg(pt, layers) -> dict:
+    """(a)'s config at ``layers`` layers and the serve launcher's
+    arguments."""
+    cfg = dataclasses.replace(pt.LM_CONFIG, num_layers=layers)
     argv = ["--arch", "granite-8b", "--requests", str(len(LR_PROMPTS)),
             "--slots", str(LR_SLOTS), "--max-new", str(LR_NEW),
             "--max-len", str(LR_MAX_LEN), "--seed", str(LR_SEED)]
-    return dict(cfg=cfg, args=pt.tserve.parser().parse_args(argv))
+    return dict(cfg=cfg, args=pt.tserve.parser().parse_args(argv),
+                prompts=LR_PROMPTS)
 
 
 def _lr_requests(pt, leg) -> list:
-    """(a)'s requests, fresh: LR_PROMPTS' lengths of uniform ids from the
-    launcher's seed, the same on every rank and in the parent."""
+    """A serve leg's requests, fresh: its prompts' lengths of uniform ids
+    from the launcher's seed, the same on every rank and in the
+    parent."""
     cfg, args = leg["cfg"], leg["args"]
     rng = np.random.default_rng(args.seed)
     return [pt.Request(rid=rid, prompt=rng.integers(0, cfg.vocab_size, n
                                                     ).astype(np.int32),
                        max_new=args.max_new)
-            for rid, n in enumerate(LR_PROMPTS)]
+            for rid, n in enumerate(leg["prompts"])]
 
 
 def _lr_train_legs(pt, tmp) -> list:
@@ -6568,10 +6720,402 @@ def _lr_check_train(leg, sim, ranks, tag) -> dict:
                     "resume_counts", {}).get(TBE_FLAT, 0) for rec in recs))
 
 
-def _lr_run(pt, backend, serve_leg, train_legs) -> list:
+def _peak_reader(dev):
+    """Resets the peak memory statistic of ``dev`` and returns a reader of
+    it in bytes (0 on the CPU)."""
+    if dev.type != "cuda":
+        return lambda: 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    return lambda: torch.cuda.max_memory_allocated(dev)
+
+
+def _lr_ds_legs(pt) -> tuple:
+    """(d)'s serve and train legs: deepseek-v3-671b's config cut in depth
+    and the launchers' arguments."""
+    base = pt.deepseek_v3_671b.CONFIG
+    argv = ["--arch", "deepseek-v3-671b",
+            "--requests", str(len(LR_DS_PROMPTS)),
+            "--slots", str(len(LR_DS_PROMPTS)), "--max-new", str(LR_DS_NEW),
+            "--max-len", str(LR_DS_MAX_LEN), "--seed", str(LR_DS_SEED)]
+    serve = dict(cfg=dataclasses.replace(base, num_layers=LR_DS_SERVE_LAYERS),
+                 args=pt.tserve.parser().parse_args(argv),
+                 prompts=LR_DS_PROMPTS, capacity=LR_DS_CAPACITY)
+    train = dict(cfg=dataclasses.replace(base, num_layers=LR_DS_TRAIN_LAYERS),
+                 args=pt.tlaunch.parser().parse_args(LR_DS_TRAIN))
+    return serve, train
+
+
+def _serving_param_bytes(pt, cfg, ctx) -> int:
+    """A rank's serving parameter bytes by the arithmetic: each leaf's
+    whole shape cut by the cuts every rank holds (its vocabulary rows and
+    its experts: launch/specs.rank_cut_tree)."""
+    meta = pt.lm.init_params(None, cfg, tp_size=ctx.world, device="meta")
+    cuts = pt.tspecs.flatten_specs(pt.tspecs.rank_cut_tree(
+        pt.tspecs.param_spec_tree(meta, cfg, ctx), cfg))
+    return sum(math.prod(pt.cut_shape(cuts[p], tuple(t.shape), ctx))
+               * t.element_size() for p, t in pt.flatten_with_paths(meta))
+
+
+def _lr_ds_serve(pt, kmods, ctx, leg) -> dict:
+    """(d)'s serving on this rank: its share drawn from the seed
+    (lm.init_params(ctx=)), its bytes, the serve launcher's rank function
+    on the requests from launch counts at 0 (moe_dropped recorded, each
+    TBE launch shape held against its plain version: :func:`_hold_tbe`),
+    then decode against the forward on its data group's long request with
+    the served tokens fed back, under the group's model axis at ``leg``'s
+    capacity factor (:func:`_moe_decode_vs_forward`), and both runs'
+    logits and the forward's at the same positions."""
+    dev, cfg, args = ctx.device, leg["cfg"], leg["args"]
+    peak = _peak_reader(dev)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        params = pt.lm.init_params(torch.Generator(device=dev).manual_seed(
+            args.seed), cfg, ctx=ctx)
+    _sync(dev)
+    rec = dict(draw_s=time.perf_counter() - t0, draw_peak=peak(),
+               held=sum(t.numel() * t.element_size() for _, t in
+                        pt.flatten_with_paths(pt.tstep.rank_tensors(
+                            params, cfg))),
+               want=_serving_param_bytes(pt, cfg, ctx))
+    drops = []
+    reqs = _lr_requests(pt, leg)
+    held, restore_tbe = _hold_tbe(pt)
+    restore = _patched(pt.moe, "moe_ffn_ep_rank", lambda r: _recording(
+        r, drops, lambda out: int(out[1]["moe_dropped"])))
+    try:
+        _reset_counts(pt, kmods)
+        served = pt.tserve.serve(ctx, cfg, args, params=params, reqs=reqs)
+        rec["counts"] = _counts(pt, kmods)
+    finally:
+        restore()
+        restore_tbe()
+    rec.update(tokens=served["tokens"], timings=served["ranks"], drops=drops,
+               serve_peak=peak(), tbe_held=_held(held))
+    long = 2 * ctx.dp_rank              # the group's first slot's request
+    gen, mctx = served["tokens"][long], ctx.model_axis()
+    seq = np.concatenate([reqs[long].prompt, np.asarray(gen[:-1], np.int32)])
+    check_drops = []
+    restore = _patched(pt.moe, "moe_ffn_ep_rank", lambda r: _recording(
+        r, check_drops, lambda out: int(out[1]["moe_dropped"])))
+    try:
+        with torch.no_grad():
+            dvf = _moe_decode_vs_forward(
+                pt, params, dataclasses.replace(
+                    cfg, moe_capacity_factor=leg["capacity"]),
+                torch.as_tensor(seq[None], device=dev), ctx=mctx,
+                steps=len(gen) - 1, max_len=args.max_len)
+            hid = dvf.pop("hidden")
+            rows = torch.cat([hid[run] for run in ("fwd", "aligned", "free")])
+            logits = pt.lm.lm_logits(params, rows.to(dev), cfg, mctx)
+    finally:
+        restore()
+    lg = logits.float()[:, :cfg.vocab_size].cpu().split(len(gen))
+    rec["check"] = dict(dvf, rid=long, P=len(reqs[long].prompt), n=len(gen),
+                        fwd=lg[0], aligned=lg[1], free=lg[2],
+                        drops=check_drops)
+    rec["peak_bytes"] = peak()
+    del params, logits
+    return rec
+
+
+def _lr_ds_train(pt, kmods, ctx, leg) -> dict:
+    """(d)'s training on this rank through the train launcher's rank
+    function (the state placed by the launcher's specs), from launch
+    counts at 0, each TBE launch shape held against its plain version:
+    the metrics, each rank's bytes against the specs' and its peak; then
+    a no-grad lm_loss of the same drawn parameters in serving's layout
+    (lm.init_params(ctx=) from the TrainConfig's seed) on the first batch;
+    then the same launcher run for LR_DS_PIECE_STEPS steps with each
+    piece of the placed backward in a bucket of its own."""
+    dev, cfg, args = ctx.device, leg["cfg"], leg["args"]
+    peak = _peak_reader(dev)
+    held, restore = _hold_tbe(pt)
+    try:
+        _reset_counts(pt, kmods)
+        tr = pt.tlaunch.train(ctx, cfg, args)
+        counts = _counts(pt, kmods)
+    finally:
+        restore()
+    rec = dict(metrics=[m for _, m in tr.metrics_log], counts=counts,
+               tbe_held=_held(held),
+               state_bytes=_lr_state_bytes(pt, tr, cfg, ctx),
+               peak_bytes=peak())
+    tc = tr.tc
+    del tr
+    _free(dev)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in next(
+        pt.lm_batches(cfg, args.batch, args.seq, seed=tc.seed)).items()}
+    with torch.no_grad():
+        params = pt.lm.init_params(torch.Generator(device=dev).manual_seed(
+            tc.seed), cfg, ctx=ctx)
+        _, ref = pt.tstep.lm_loss(params, batch, cfg, ctx, tc)
+    rec["no_grad"] = {k: float(v) for k, v in ref.items()}
+    del params, batch
+    _free(dev)
+    real = pt.comm.GATHER_BUCKET_ELEMS
+    pt.comm.GATHER_BUCKET_ELEMS = 1
+    try:
+        t0 = time.perf_counter()
+        tr = pt.tlaunch.train(ctx, cfg, type(args)(
+            **dict(vars(args), steps=LR_DS_PIECE_STEPS)))
+        rec["per_piece_s"] = time.perf_counter() - t0
+    finally:
+        pt.comm.GATHER_BUCKET_ELEMS = real
+    rec["per_piece"] = [m for _, m in tr.metrics_log]
+    del tr
+    _free(dev)
+    return rec
+
+
+def _free(dev):
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _lr_ds_rank(ctx, serve_leg, train_leg):
+    """One rank of (d), a (2, 2) mesh over NCCL: deepseek-v3-671b through
+    the serve launcher's rank function (:func:`_lr_ds_serve`), then the
+    train launcher's (:func:`_lr_ds_train`).  Every rank's records go to
+    global rank 0, in global rank order."""
+    import torch.distributed as tdist
+
+    pt = port_namespace()
+    kmods = _kernel_mods()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"place": (tdist.get_rank(), ctx.dp_rank, ctx.rank),
+           "serve": _lr_ds_serve(pt, kmods, ctx, serve_leg)}
+    _free(ctx.device)
+    out["train"] = _lr_ds_train(pt, kmods, ctx, train_leg)
+    gathered = [None] * LR_WORLD
+    tdist.all_gather_object(gathered, out)
+    return gathered
+
+
+def _check_held(label, recs, hold=None) -> float:
+    """Each rank's :func:`_hold_tbe` record (``rec["tbe_held"]``: the TBE
+    wrapper's launch shapes on the path's own inputs): every shape within
+    POOL_TOL of the plain version, and every launch that the rank counted
+    among those held.  Logs each rank's shapes; returns the largest
+    error."""
+    hold = hold or check
+    errs = []
+    for r, rec in enumerate(recs):
+        shapes = rec["tbe_held"]
+        errs += [err for _, err, _, _ in shapes]
+        log(f"  [{label}] rank {r}: TBE launch shapes held against the "
+            f"plain version (allclose rtol={POOL_TOL['rtol']} "
+            f"atol={POOL_TOL['atol']}): " + "; ".join(
+                f"{key[0]} {key[2:]} x {n}: max_abs_err {err:.3e}"
+                for key, err, _, n in shapes))
+        hold(all(excess <= 0 for _, _, excess, _ in shapes),
+             f"{label} rank {r}: every TBE launch shape within POOL_TOL of "
+             f"its plain version")
+        seen = sum(n for *_, n in shapes)
+        hold(seen == rec["counts"][TBE_FLAT],
+             f"{label} rank {r}: every TBE launch went through the held "
+             f"wrapper ({seen} of {rec['counts'][TBE_FLAT]})")
+    return max(errs, default=0.0)
+
+
+def _lr_ds_check_serve(pt, leg, ranks, hold) -> dict:
+    """(d)'s serving checks: every rank's tokens rank 0's; each rank's
+    parameter bytes the arithmetic's, under the whole model's; per rank
+    one TBE launch an embedding call, each shape within POOL_TOL of the
+    plain version, and no flash launch (MLA's head dims 192/128: full
+    attention at these lengths); decode against the forward on each data
+    group's long request, on the forward's routing (the aligned run), at
+    every call (the prefill's last row, then each decode step): the
+    hidden row and the logits within DECODE_REL_L2, the greedy token the
+    forward's argmax but at a near-tie of its top two logits (under twice
+    the largest logit difference; named); the free-running decode's
+    routing flips and relative L2 logged; nothing dropped at
+    LR_DS_CAPACITY.  ``hold(ok, what)`` takes each check."""
+    cfg = leg["cfg"]
+    n_moe = cfg.num_layers - cfg.first_k_dense
+    toks = ranks[0]["serve"]["tokens"]
+    whole = pt.lm.init_params(None, cfg, tp_size=LR_TP, device="meta")
+    whole_b = sum(t.numel() * t.element_size() for t in _leaves(whole))
+    for g, out in enumerate(ranks):
+        sv = out["serve"]
+        # a rank prefills its own data group's admissions
+        n_adm = len(leg["prompts"]) // LR_DP
+        n_steps = len(sv["timings"][g]["decode"])
+        hold(sv["tokens"] == toks, f"8lr (nccl) (d) global rank {g}: tokens "
+                                    f"rank 0's")
+        hold(sv["held"] == sv["want"] and sv["held"] < whole_b,
+             f"8lr (nccl) (d) global rank {g}: {sv['held']:,} B of "
+             f"parameters, the arithmetic's {sv['want']:,} (the whole "
+             f"model {whole_b:,})")
+        hold(sv["counts"] == dict(_launches(**{TBE_FLAT: n_adm + n_steps}),
+                                  chunked=0),
+             f"8lr (nccl) (d) global rank {g}: one TBE launch per embedding "
+             f"call ({n_adm} admissions, {n_steps} decode steps), no flash "
+             f"launch, no chunked_attention call ({sv['counts']})")
+    tbe_err = _check_held("8lr (nccl) (d) serving",
+                          [out["serve"] for out in ranks], hold)
+    rels, named, agree, calls = [], [], 0, 0
+    for d in range(LR_DP):
+        c = ranks[d * LR_TP]["serve"]["check"]
+        drops = sum(sum(ranks[d * LR_TP + m]["serve"]["check"]["drops"])
+                    for m in range(LR_TP))
+        hold(drops == 0, f"8lr (nccl) (d) data group {d}: nothing dropped "
+                         f"at capacity {leg['capacity']} ({drops})")
+        hold(c["n"] == LR_DS_NEW and len(c["calls"]["aligned"]) == c["n"],
+             f"8lr (nccl) (d) request {c['rid']}: the aligned decode held at "
+             f"all {c['n']} calls, the prefill's and {c['n'] - 1} decode "
+             f"steps")
+        for j, (a, b) in enumerate(zip(c["aligned"], c["fwd"])):
+            calls += 1
+            h_rel = c["calls"]["aligned"][j]
+            rel = float((a - b).norm() / b.norm())
+            rels.append(max(rel, h_rel))
+            hold(h_rel < DECODE_REL_L2 and rel < DECODE_REL_L2,
+                 f"8lr (nccl) (d) request {c['rid']} call {j}: on the "
+                 f"forward's routing, the hidden row ({h_rel:.3e}) and the "
+                 f"logits ({rel:.3e}) within {DECODE_REL_L2} of the "
+                 f"forward's")
+            top = b.topk(2).values
+            if float(top[0] - top[1]) < 2 * float((a - b).abs().max()):
+                named.append((c["rid"], j, "near-tie"))
+            else:
+                hold(int(a.argmax()) == int(b.argmax()),
+                     f"8lr (nccl) (d) request {c['rid']} call {j}: the "
+                     f"greedy token the forward's argmax")
+            # the served run's token (its admission at the config's
+            # capacity, which drops) against the dropless forward's
+            agree += toks[c["rid"]][j] == int(b.argmax())
+        free = [float((a - b).norm() / b.norm())
+                for a, b in zip(c["free"], c["fwd"])]
+        log(f"  [(d) (nccl) request {c['rid']}, {c['P']} tokens] decode "
+            f"against the forward at capacity {leg['capacity']}: logits' "
+            f"relative L2 per call on the forward's routing "
+            f"{' '.join(f'{v:.2e}' for v in rels[-c['n']:])}, free-running "
+            f"{' '.join(f'{v:.2e}' for v in free)}; the free run's MoE "
+            f"layers whose expert set differs per decode step "
+            f"{c['step_flips']}, tokens per MoE layer {c['flips']}")
+    timings = ranks[0]["serve"]["timings"]
+    sv = [out["serve"] for out in ranks]
+    dropped = [sum(s["drops"]) for s in sv]
+    log(f"  [(d) (nccl) {cfg.name}, {cfg.num_layers} layers "
+        f"({n_moe} MoE), 4 requests of {list(leg['prompts'])} tokens] tokens "
+        f"{toks}; decode against the forward on its routing held at all "
+        f"{calls} calls, max relative L2 {max(rels):.3e}; near-ties named "
+        f"{named}; the served tokens the dropless forward's argmax at "
+        f"{agree} of {calls} calls; served moe_dropped a "
+        f"rank {dropped} (capacity {cfg.moe_capacity_factor}); parameters "
+        f"{[round(s['held'] / 1e9, 3) for s in sv]} GB a rank (the whole "
+        f"model {whole_b / 1e9:.3f}); drawn in "
+        f"{[round(s['draw_s'], 1) for s in sv]} s (peak "
+        f"{[round(s['draw_peak'] / 1e9, 2) for s in sv]} GB); median prefill "
+        f"ms {[round(1e3 * statistics.median(t['prefill']), 1) for t in timings]}"
+        f", median decode step ms "
+        f"{[round(1e3 * statistics.median(t['decode']), 3) for t in timings]}"
+        f" (host clock); peak serving "
+        f"{[round(s['serve_peak'] / 1e9, 2) for s in sv]} GB, with the check "
+        f"{[round(s['peak_bytes'] / 1e9, 2) for s in sv]} GB a rank; per "
+        f"rank {TBE_FLAT} {[s['counts'][TBE_FLAT] for s in sv]} (max_abs_err "
+        f"{tbe_err:.3e} against the plain version), chunked_attention "
+        f"{[s['counts']['chunked'] for s in sv]}")
+    return dict(rel=max(rels), calls=calls, named=named, tbe_err=tbe_err,
+                prefill_ms=[1e3 * statistics.median(t["prefill"])
+                            for t in timings],
+                decode_ms=[1e3 * statistics.median(t["decode"])
+                           for t in timings],
+                param_gb=[s["held"] / 1e9 for s in sv],
+                peak_gb=[s["peak_bytes"] / 1e9 for s in sv])
+
+
+def _lr_ds_check_train(pt, leg, ranks, hold) -> dict:
+    """(d)'s training checks: every rank's metrics rank 0's, finite; two
+    TBE launches a step (the embedding of the tokens and, for the MTP
+    head, of the labels), each shape within POOL_TOL of the plain
+    version, nothing else; step 1's loss, ce and mtp_ce within
+    LR_DS_LOSS_REL of the no-grad lm_loss (bitwise logged); each rank's
+    parameter, gradient and moment bytes the specs' arithmetic; the run
+    with a bucket a piece: its losses and gradient norms within
+    LR_DS_LOSS_REL of the bucketed run's (bitwise logged).  ``hold(ok,
+    what)`` takes each check."""
+    cfg, args = leg["cfg"], leg["args"]
+    recs = [out["train"] for out in ranks]
+    m0 = recs[0]["metrics"]
+    per_step = 1 + bool(cfg.mtp_depth)
+    keys = ("loss", "grad_norm")
+    for g, rec in enumerate(recs):
+        hold([[m[k] for k in keys] for m in rec["metrics"]] ==
+             [[m[k] for k in keys] for m in m0]
+             and [[m[k] for k in keys] for m in rec["per_piece"]] ==
+             [[m[k] for k in keys] for m in recs[0]["per_piece"]]
+             and len(m0) == args.steps
+             and all(np.isfinite(m["loss"]) for m in m0),
+             f"8lr (nccl) (d) train global rank {g}: {args.steps} finite "
+             f"losses and norms, rank 0's, and the per-piece run's rank 0's")
+        hold(rec["counts"] == dict(_launches(**{TBE_FLAT: per_step
+                                                * args.steps}), chunked=0),
+             f"8lr (nccl) (d) train global rank {g}: {per_step} TBE launches "
+             f"a step (the forward's embedding and the MTP head's), nothing "
+             f"else ({rec['counts']})")
+        b = rec["state_bytes"]
+        hold(b["held"] == b["spec"] and sum(b["held"].values()) > 0,
+             f"8lr (nccl) (d) train global rank {g}: its parameter, "
+             f"gradient and moment bytes the placement's arithmetic "
+             f"({b['held']}; the specs {b['spec']})")
+    tbe_err = _check_held("8lr (nccl) (d) train", recs, hold)
+    ref = recs[0]["no_grad"]
+    rel = {k: abs(m0[0][k] - ref[k]) / abs(ref[k])
+           for k in ("loss", "ce", "mtp_ce")}
+    bitwise = all(m0[0][k] == ref[k] for k in rel)
+    for g, rec in enumerate(recs):
+        hold(rec["no_grad"] == ref, f"8lr (nccl) (d) train global rank {g}:"
+                                    f" the no-grad loss rank 0's")
+    hold(all(v <= LR_DS_LOSS_REL for v in rel.values()),
+         f"8lr (nccl) (d) train: step 1's loss, ce and mtp_ce within "
+         f"{LR_DS_LOSS_REL} of a no-grad lm_loss of the same drawn "
+         f"parameters in serving's layout ({rel})")
+    pp = recs[0]["per_piece"]
+    pp_rel = [{k: abs(a[k] - b[k]) / abs(b[k]) for k in keys}
+              for a, b in zip(pp, m0)]
+    pp_bitwise = all(a[k] == b[k] for a, b in zip(pp, m0) for k in keys)
+    hold(len(pp) == LR_DS_PIECE_STEPS
+         and all(v <= LR_DS_LOSS_REL for r in pp_rel for v in r.values()),
+         f"8lr (nccl) (d) train: with a bucket a piece, {LR_DS_PIECE_STEPS} "
+         f"steps' losses and gradient norms within {LR_DS_LOSS_REL} of the "
+         f"bucketed run's ({pp_rel})")
+    step_s = [[m["step_time_s"] for m in rec["metrics"]] for rec in recs]
+    peak = [rec["peak_bytes"] / 1e9 for rec in recs]
+    state = [{k: round(v / 1e9, 3) for k, v in rec["state_bytes"][
+        "held"].items()} for rec in recs]
+    log(f"  [(d) (nccl) train {cfg.name}, {cfg.num_layers} layers "
+        f"({cfg.num_layers - cfg.first_k_dense} MoE), {args.batch} x "
+        f"{args.seq} tokens a step ({args.batch // LR_DP} a data group), "
+        f"int8 moments, placed] losses "
+        f"{[m['loss'] for m in m0]}, ce {[m['ce'] for m in m0]}, mtp_ce "
+        f"{[m['mtp_ce'] for m in m0]}, grad norms "
+        f"{[m['grad_norm'] for m in m0]}, moe_dropped "
+        f"{[m.get('moe_dropped') for m in m0]}; step 1 "
+        f"{'bitwise' if bitwise else 'not bitwise'} the no-grad lm_loss "
+        f"({', '.join(f'{k} {v:.3e}' for k, v in rel.items())}); a bucket a "
+        f"piece: losses {[m['loss'] for m in pp]}, grad norms "
+        f"{[m['grad_norm'] for m in pp]}, "
+        f"{'bitwise' if pp_bitwise else 'not bitwise'} the bucketed run's "
+        f"({pp_rel}; {max(r['per_piece_s'] for r in recs):.1f} s); steps "
+        f"{[[round(v, 3) for v in s] for s in step_s]} s per rank (host "
+        f"clock), peak {[round(v, 2) for v in peak]} GB a rank; state a "
+        f"rank (GB, parameters / gradients / moments) {state}, the whole "
+        f"state {recs[0]['state_bytes']['whole'] / 1e9:.3f} GB; "
+        f"{len(recs[0]['state_bytes']['data_cut'])} leaves cut over the "
+        f"data axis; TBE max_abs_err {tbe_err:.3e} against the plain "
+        f"version")
+    return dict(losses=[m["loss"] for m in m0], rel=max(rel.values()),
+                bitwise=bitwise, per_piece_bitwise=pp_bitwise,
+                tbe_err=tbe_err, step_s=step_s, peak_gb=peak,
+                state_gb=state)
+
+
+def _lr_run(pt, backend, serve_leg, train_legs, fn=None) -> list:
     t0 = time.perf_counter()
     ranks = pt.run_ranks(
-        _lr_rank, LR_WORLD, backend=backend, dp_size=LR_DP,
+        fn or _lr_rank, LR_WORLD, backend=backend, dp_size=LR_DP,
         device=_rank_device() if backend == "gloo" else None,
         args=(serve_leg, train_legs), timeout_s=LR_TIMEOUT_S)
     check([r["place"] for r in ranks] == [
@@ -6589,10 +7133,16 @@ def phase_launch_ranks(pt, kmods, backends=("gloo", "nccl")) -> dict:
     """Phase 8lr: the serve and train launchers' rank functions on 4
     processes as the reference's debug mesh (2, 2), sharing the card over
     gloo (and where there are 4 cards over NCCL, one a card): (a)
-    granite-8b served at all 36 layers, each rank drawing only its
-    share; (b) training at 2 layers with a checkpoint, its resume and a
-    tied head; (c) on 4 cards both at full width.  Each held to the
-    simulated make_context(2, dp_size=2) on the card."""
+    granite-8b served at LR_SERVE_LAYERS layers, each rank drawing only
+    its share; (b) training at 2 layers with a checkpoint, its resume and
+    a tied head; each held to the simulated make_context(2, dp_size=2)
+    on the card; on 4 cards (c) both at granite-8b's full depth, held
+    the same way, and (d) deepseek-v3-671b served at LR_DS_SERVE_LAYERS
+    layers (decode against the forward) and trained under the placement
+    at LR_DS_TRAIN_LAYERS (step 1 against a no-grad loss, each rank's
+    state bytes the specs').  ``backends`` picks the legs: "gloo" (a),
+    (b); "nccl" (c) and (d); "ds" (d) alone (``tools/rank_phases.py
+    8lr-nccl`` and ``8lr-ds``)."""
     n_cards = torch.cuda.device_count() if DEV != "cpu" else 0
     log(f"== 8lr. the launchers over ({LR_DP}, {LR_TP}) meshes of processes"
         f" ({LR_WORLD} processes sharing the card over gloo: the serve and "
@@ -6605,31 +7155,53 @@ def phase_launch_ranks(pt, kmods, backends=("gloo", "nccl")) -> dict:
     tmp = tempfile.mkdtemp(prefix="chip_smoke_8lr_")
     out = {}
     try:
-        serve_leg = _lr_serve_leg(pt)
-        legs = _lr_train_legs(pt, tmp)
-        ranks = _lr_run(pt, "gloo", serve_leg, legs)
-        sim = _lr_simulated_serve(pt, serve_leg)
-        out["serve"] = _lr_check_serve(pt, serve_leg, sim, ranks, "")
-        out["train"] = {leg["label"]: _lr_check_train(
-            leg, _lr_simulated_train(pt, leg), ranks, "") for leg in legs}
-        out["launches"] = dict(out["serve"]["launches"])
-        out["launches"][TBE_FLAT] += sum(t["tbe"]
-                                         for t in out["train"].values())
-        del ranks
-        if "nccl" in backends and n_cards >= LR_WORLD:
-            cfg = pt.LMT_CONFIG
-            leg = dict(label="(c)", cfg=cfg, resume=False,
-                       args=pt.tlaunch.parser().parse_args(LR_NCCL_TRAIN))
-            ranks = _lr_run(pt, "nccl", serve_leg, [leg])
-            nc = {"serve": _lr_check_serve(pt, serve_leg, sim, ranks,
-                                           " (nccl)")}
-            nc["train"] = _lr_check_train(leg, _lr_simulated_train(pt, leg),
-                                          ranks, " (nccl)")
+        if "gloo" in backends:
+            serve_leg = _lr_serve_leg(pt, LR_SERVE_LAYERS)
+            legs = _lr_train_legs(pt, tmp)
+            ranks = _lr_run(pt, "gloo", serve_leg, legs)
+            sim = _lr_simulated_serve(pt, serve_leg)
+            out["serve"] = _lr_check_serve(pt, serve_leg, sim, ranks, "")
+            out["train"] = {leg["label"]: _lr_check_train(
+                leg, _lr_simulated_train(pt, leg), ranks, "")
+                for leg in legs}
+            out["launches"] = dict(out["serve"]["launches"])
+            out["launches"][TBE_FLAT] += sum(t["tbe"]
+                                             for t in out["train"].values())
+            del ranks, sim
+        nccl = {"nccl", "ds"} & set(backends)
+        if nccl and n_cards >= LR_WORLD:
+            nc = {}
+            if "nccl" in backends:
+                serve_leg = _lr_serve_leg(pt, pt.LM_CONFIG.num_layers)
+                cfg = pt.LMT_CONFIG
+                leg = dict(label="(c)", cfg=cfg, resume=False,
+                           args=pt.tlaunch.parser().parse_args(LR_NCCL_TRAIN))
+                ranks = _lr_run(pt, "nccl", serve_leg, [leg])
+                sim = _lr_simulated_serve(pt, serve_leg)
+                nc["serve"] = _lr_check_serve(pt, serve_leg, sim, ranks,
+                                              " (nccl)")
+                nc["train"] = _lr_check_train(
+                    leg, _lr_simulated_train(pt, leg), ranks, " (nccl)")
+                del ranks, sim
+            ds_serve, ds_train = _lr_ds_legs(pt)
+            with _expandable_segments():
+                ranks = _lr_run(pt, "nccl", ds_serve, ds_train,
+                                fn=_lr_ds_rank)
+            # every reading of (d) is logged before a failed check raises
+            fails = []
+
+            def hold(ok, what):
+                if not ok:
+                    fails.append(what)
+                    log(f"  check failed: {what}")
+            nc["ds"] = {"serve": _lr_ds_check_serve(pt, ds_serve, ranks, hold),
+                        "train": _lr_ds_check_train(pt, ds_train, ranks, hold)}
+            check(not fails, f"8lr (nccl) (d): {len(fails)} checks failed")
             out["nccl"] = nc
             del ranks
-        elif "nccl" in backends:
-            log(f"  (c) the NCCL leg needs {LR_WORLD} cards (one process a "
-                f"card): not run on this machine")
+        elif nccl:
+            log(f"  (c), (d) the NCCL legs need {LR_WORLD} cards (one process "
+                f"a card): not run on this machine")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     if DEV != "cpu":
@@ -7552,6 +8124,23 @@ TRAIN_MOMENT_REL = {"m": 2e-3, "v": 2.5e-2}
 # at granite's layer over 4,096 keys (B, S, H, KH, hd): two softmax orders
 CHUNKED_GRAD_SHAPE = (1, 4096, 32, 8, 128)
 CHUNKED_GRAD_REL = 1e-4
+# (e) deepseek-v3-671b's first training on the card, at its published
+# widths cut in depth to its first dense MLA layer and the MTP head
+# (num_layers and first_k_dense cut together to 1: the MoE stack is empty;
+# a MoE layer's training state alone, ~8 B a parameter over its 11.27e9
+# routed-expert parameters, is ~92 GB, so no MoE layer trains on one
+# card).  3,123,106,816 parameters: 6.25 GB each of bf16 parameters and
+# gradients and 6.44 GB of int8 moments with their scales
+DS_TRAIN_PARAMS = 3_123_106_816
+DS_TRAIN_STEPS = 2
+DS_TRAIN_BATCH, DS_TRAIN_SEQ = 1, 2048
+# (e) step 1's update against the warmup's learning rate, per element:
+# AdamW's first step moves a weight by lr (|m / sqrt(v)| <= 1 at step 1)
+# plus lr wd |w|, and the bf16 store rounds the new value x by up to
+# 2**-8 |x| <= 2**-8 / (1 - 2**-8) of the stored one; the bound's own f32
+# arithmetic takes 1e-6 more
+DS_TRAIN_ROUND = 2.0 ** -8 / (1 - 2.0 ** -8)
+DS_TRAIN_SLACK = 1 + 1e-6
 
 
 def _tree_bytes(pt, tree) -> int:
@@ -7871,12 +8460,127 @@ def _train_long(pt, kmods, cfg) -> dict:
                 grad_rel=max(rels))
 
 
+def _update_ratio(before, after, lr, wd) -> tuple:
+    """(the largest |after - before| over its bound lr (1 + wd |before|)
+    + DS_TRAIN_ROUND |after|, whether every value of ``after`` is finite,
+    the largest |after - before|), in slices of 2**26 elements."""
+    worst, finite, moved = 0.0, True, 0.0
+    if not after.numel():           # the empty MoE stack's leaves
+        return worst, finite, moved
+    for a, b in zip(after.reshape(-1).split(2 ** 26),
+                    before.reshape(-1).split(2 ** 26)):
+        a, b = a.float(), b.float()
+        d = (a - b).abs()
+        bound = (lr * (1 + wd * b.abs()) + DS_TRAIN_ROUND * a.abs()) \
+            * DS_TRAIN_SLACK
+        worst = max(worst, float((d / bound).max()))
+        finite &= bool(torch.isfinite(a).all())
+        moved = max(moved, float(d.max()))
+    return worst, finite, moved
+
+
+def _train_mla(pt, kmods) -> dict:
+    """(e): deepseek-v3-671b at its published widths, 1 dense layer and
+    the MTP head, bf16, int8 moments, DS_TRAIN_STEPS Trainer steps of
+    DS_TRAIN_BATCH x DS_TRAIN_SEQ tokens: the state's bytes against the
+    meta state's, step 1's loss, ce and mtp_ce against a no-grad lm_loss
+    of the same parameters and batch, step 1's update finite and within
+    the warmup's learning rate, no kernel launch."""
+    cfg = dataclasses.replace(pt.deepseek_v3_671b.CONFIG, num_layers=1,
+                              first_k_dense=1)
+    tc = pt.TrainConfig(optimizer_state_dtype="int8", remat=True,
+                        warmup_steps=1, total_steps=DS_TRAIN_STEPS + 2)
+    stream = pt.lm_batches(cfg, DS_TRAIN_BATCH, DS_TRAIN_SEQ, seed=0)
+    batches = [next(stream) for _ in range(DS_TRAIN_STEPS)]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = pt.Trainer(cfg, tc, iter(batches))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    params, opt = tr.state["params"], tr.state["opt"]
+    meta = pt.tstep.init_train_state(None, cfg, tc, device="meta")
+    n_params = sum(t.numel() for t in pt.leaves(params))
+    pbytes = _tree_bytes(pt, params)
+    moments = _moment_bytes(pt, opt["m"]) + _moment_bytes(pt, opt["v"])
+    want = _moment_bytes(pt, meta["opt"]["m"]) + \
+        _moment_bytes(pt, meta["opt"]["v"])
+    log(f"  (e) {cfg.name}, {cfg.num_layers} dense layer and the MTP head "
+        f"(first_k_dense {cfg.first_k_dense}: no MoE layer), {n_params:,} "
+        f"parameters: {pbytes:,} B bf16, moments {sum(moments):,} B (int8 "
+        f"and f32 scales), drawn in {init_s:.1f} s")
+    check(n_params == DS_TRAIN_PARAMS and pbytes == 2 * DS_TRAIN_PARAMS
+          and moments == want,
+          f"8t (e): {DS_TRAIN_PARAMS:,} bf16 parameters and the int8 moments "
+          f"to the byte of the state's arithmetic ({moments}, want {want})")
+    batch = {k: torch.as_tensor(v, device=DEV) for k, v in batches[0].items()}
+    with torch.no_grad():
+        _, ref = pt.tstep.lm_loss(params, batch, cfg, None, tc)
+    ref = {k: float(v) for k, v in ref.items()}
+    before = {p: t.clone() for p, t in pt.flatten_with_paths(params)}
+    _reset_counts(pt, kmods)
+    on = (lambda s, m: log(
+        f"  (e) step {s}: loss {m['loss']:.4f} (ce {m['ce']:.4f}, mtp_ce "
+        f"{m['mtp_ce']:.4f}), grad_norm {m['grad_norm']:.4f}, lr "
+        f"{m['lr']:.3e}, {m['step_time_s']:.3f} s"))
+    tr.run(1, on_metrics=on)
+    m1 = tr.metrics_log[0][1]
+    upd = {p: _update_ratio(before[p], t, m1["lr"], tc.weight_decay)
+           for p, t in pt.flatten_with_paths(tr.state["params"])}
+    del before
+    tr.run(DS_TRAIN_STEPS - 1, on_metrics=on)
+    counts = _counts(pt, kmods)
+    gbytes = _tree_bytes(pt, tr.step_fn.grads)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    metrics = [m for _, m in tr.metrics_log]
+    rel = {k: abs(m1[k] - ref[k]) / abs(ref[k])
+           for k in ("loss", "ce", "mtp_ce")}
+    bitwise = all(m1[k] == ref[k] for k in rel)
+    worst = max(upd, key=lambda p: upd[p][0])
+    log(f"  (e) step 1 against a no-grad lm_loss of the same parameters and "
+        f"batch: {'bitwise' if bitwise else 'not bitwise'} (relative "
+        + ", ".join(f"{k} {v:.3e}" for k, v in rel.items())
+        + f"); step 1's update at most {upd[worst][0]:.4f} of its bound lr "
+        f"(1 + wd |w|) + 2**-8 |w'| / (1 - 2**-8) ({worst}; the largest move "
+        f"{max(u[2] for u in upd.values()):.3e}, lr {m1['lr']:.3e}); state "
+        f"{(pbytes + gbytes + sum(moments)) / 1e9:.2f} GB, peak "
+        f"{peak_gb:.2f} GB; steps "
+        f"{[round(m['step_time_s'], 3) for m in metrics]} s; {counts}")
+    check(all(v <= LMTP_LOSS_REL for v in rel.values()),
+          f"8t (e): step 1's loss, ce and mtp_ce within {LMTP_LOSS_REL} of "
+          f"the no-grad lm_loss ({rel})")
+    check(all(u[1] for u in upd.values())
+          and all(u[0] <= 1.0 for u in upd.values())
+          and max(u[2] for u in upd.values()) > 0
+          and 0 < m1["lr"] <= tc.learning_rate * DS_TRAIN_SLACK,
+          f"8t (e): step 1's update finite, nonzero and within the warmup's "
+          f"learning rate {m1['lr']:.3e} on every leaf (worst {worst} at "
+          f"{upd[worst][0]:.4f} of its bound)")
+    check(len(metrics) == DS_TRAIN_STEPS and all(
+        np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])
+        for m in metrics), "8t (e): finite losses and gradient norms")
+    check(gbytes == 2 * DS_TRAIN_PARAMS
+          and counts == dict(_launches(), chunked=0),
+          f"8t (e): bf16 gradients to the byte, no kernel launch and no "
+          f"chunked_attention call at {DS_TRAIN_SEQ} tokens ({counts})")
+    del tr, params, opt, batch
+    torch.cuda.empty_cache()
+    return dict(losses=[m["loss"] for m in metrics], bitwise=bitwise,
+                rel=max(rel.values()), update=upd[worst][0],
+                step_s=[m["step_time_s"] for m in metrics], peak_gb=peak_gb,
+                state_gb=(pbytes + gbytes + sum(moments)) / 1e9,
+                launches=counts["flash_attention"])
+
+
 def phase_lm_train(pt, kmods) -> dict:
     cfg = pt.LMT_CONFIG
     log(f"== 8t. LM training: {cfg.name} at full width and depth "
         f"({cfg.num_layers} layers, d {cfg.d_model}, d_ff {cfg.d_ff}, vocab "
         f"{cfg.vocab_size}, {cfg.dtype}), AdamW with int8 moments, remat, "
-        f"{LMT_BATCH} x {LMT_SEQ} tokens a step from lm_batches")
+        f"{LMT_BATCH} x {LMT_SEQ} tokens a step from lm_batches; (e) "
+        f"deepseek-v3-671b at its published widths cut in depth to 1 dense "
+        f"layer and the MTP head (num_layers = first_k_dense = 1: a MoE "
+        f"layer's training state, ~92 GB, fits on no card), "
+        f"{DS_TRAIN_BATCH} x {DS_TRAIN_SEQ} tokens a step")
     laps = {}
     with _timed(laps, "(a) train"):
         full = _train_full(pt, kmods, cfg)
@@ -7890,9 +8594,13 @@ def phase_lm_train(pt, kmods) -> dict:
         _train_resume(pt, cfg, pt.make_context(CTX_RANKS))
     with _timed(laps, "(d) long"):
         long = _train_long(pt, kmods, cfg)
+    with _timed(laps, "(e) deepseek"):
+        mla = _train_mla(pt, kmods)
     secs = _log_laps("8t", laps)
-    return dict(full, grad=grad, resume=resume, long=long, secs=secs,
-                launches=full["launches"] + long["launches"], ctx=ctx_step)
+    return dict(full, grad=grad, resume=resume, long=long, mla=mla,
+                secs=secs, ctx=ctx_step,
+                launches=full["launches"] + long["launches"]
+                + mla["launches"])
 
 
 def _profile_lm(fn, label, unprofiled_ms) -> dict:
@@ -8718,7 +9426,13 @@ def main() -> int:
         f"{LONG_TRAIN_TOKENS} tokens: {ll['step_s']:.3f} s, chunked_attention"
         f" calls {ll['chunked']}, flash launches {ll['launches']}, peak "
         f"{ll['peak_gb']:.2f} GB, chunked vs full gradients "
-        f"{ll['grad_rel']:.3e}; phase {lt['secs']:.1f} s")
+        f"{ll['grad_rel']:.3e}; deepseek-v3-671b at 1 dense layer and the "
+        f"MTP head, losses {[round(v, 4) for v in lt['mla']['losses']]}, "
+        f"step 1 {'bitwise' if lt['mla']['bitwise'] else 'within'} "
+        f"{lt['mla']['rel']:.3e} of the no-grad loss, the update at most "
+        f"{lt['mla']['update']:.4f} of its bound, state "
+        f"{lt['mla']['state_gb']:.2f} GB, peak {lt['mla']['peak_gb']:.2f} GB"
+        f"; phase {lt['secs']:.1f} s")
     lc, mc, dc, tcx = lm["ctx"], moe["ctx"], ds["ctx"], lt["ctx"]
     log(f"LM under make_context({CTX_RANKS}): granite prefill logits bitwise"
         f" the local run's, decode relative L2 {lc['rel']:.3e} over "
@@ -8737,8 +9451,11 @@ def main() -> int:
         f"moe_dropped per step {dc['dropped']}; granite train step loss "
         f"{tcx['loss']!r} bitwise, {tcx['step_s']:.3f} s, peak "
         f"{tcx['peak_gb']:.2f} GB; resume under the context bitwise")
-    lg_, lm_ = lprocs["granite"], lprocs["moe"]
+    lg_, lm_, ld_ = lprocs["granite"], lprocs["moe"], lprocs["ds"]
     moe_logits = "bitwise" if lm_["bitwise"] else f"within {lm_['rel']:.3e}"
+    ds_logits = "bitwise" if ld_["bitwise"] else f"within {ld_['rel']:.3e}"
+    ds_tokens = "equal" if ld_["flip"] > CTX_NEW else \
+        f"differ first at {ld_['flip']}"
     log(f"LM serving with each rank a process (8p, gloo, {LMP_RANKS} "
         f"processes on one card; host clock): granite-8b at "
         f"{LMP_GRANITE_LAYERS} layers bitwise the simulated ranks, median "
@@ -8750,6 +9467,10 @@ def main() -> int:
         f"prefill {max(lm_['prefill_ms']):.1f} ms, median decode step "
         f"{max(lm_['decode_ms']):.3f} ms (simulated "
         f"{lm_['sim_decode_ms']:.3f}), peak {max(lm_['peak_gb']):.2f} GB a "
+        f"rank; deepseek-v3-671b at {LMP_DS_LAYERS} layers logits "
+        f"{ds_logits}, greedy tokens {ds_tokens}, prefill {max(ld_['prefill_ms']):.1f} ms, median decode step "
+        f"{max(ld_['decode_ms']):.3f} ms (simulated "
+        f"{ld_['sim_decode_ms']:.3f}), peak {max(ld_['peak_gb']):.2f} GB a "
         f"rank; NCCL leg {'run' if 'nccl' in lprocs else 'needs 4 cards'}; "
         f"phase {lprocs['secs']:.1f} s")
     log("DLRM training with each rank a process (7tp, gloo, one card; host "
@@ -8794,7 +9515,7 @@ def main() -> int:
     ls, lt8 = lrprocs["serve"], lrprocs["train"]
     log(f"the launchers over a ({LR_DP}, {LR_TP}) mesh of processes (8lr, "
         f"gloo, {LR_WORLD} processes on one card; host clock): "
-        f"{pt.LM_CONFIG.name} served at {pt.LM_CONFIG.num_layers} layers, "
+        f"{pt.LM_CONFIG.name} served at {LR_SERVE_LAYERS} layers, "
         f"logits within {ls['rel']:.3e} of the simulated ranks' (near-tie: "
         f"{ls['tie']}), median prefill {[round(v, 1) for v in ls['prefill_ms']]}"
         f" ms and decode step {[round(v, 3) for v in ls['decode_ms']]} ms a "

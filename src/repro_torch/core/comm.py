@@ -122,6 +122,9 @@ from repro_torch.kernels.onesided_a2a import (
 )
 
 BACKENDS = ("bulk", "onesided")
+# the elements of the pieces a placed gather's backward sums in one
+# collective an axis (its f32 staging, 0.5 GB); a larger piece goes alone
+GATHER_BUCKET_ELEMS = 1 << 27
 
 # ---------------------------------------------------------------------------
 # Instrumentation
@@ -605,30 +608,39 @@ def _gather_many(xs: list, cuts: list, ctx) -> None:
 
 def _reduce_many(xs: dict, cuts: list, whole: list, axis: str,
                  ctx) -> None:
-    """Each ``xs[i]`` summed over ``axis``: this rank's slice along
+    """Each ``xs[i]`` summed over ``axis`` in f32: this rank's slice along
     ``dim`` for each ``(i, dim)`` of ``cuts`` (one reduce-scatter of them
     laid end to end, rank-major), all of it for each ``i`` of ``whole``
-    (one all-reduce)."""
+    (one all-reduce).  Each piece goes into one f32 staging buffer in one
+    copy that takes the cast and the layout."""
     n, _, group = _axis_group(ctx, axis)
     if cuts:
-        rows = [xs[i].movedim(d, 0) for i, d in cuts]
-        src = torch.cat([r.reshape(n, -1) for r in rows], dim=1)
-        out = torch.empty(src.shape[1], dtype=src.dtype, device=src.device)
-        _oa.reduce_scatter_into(out, src.contiguous(), group)
+        rows = [xs[i].movedim(d, 0).unflatten(0, (n, -1)) for i, d in cuts]
+        sizes = [r[0].numel() for r in rows]
+        src = torch.empty((n, sum(sizes)), dtype=torch.float32,
+                          device=rows[0].device)
+        out = torch.empty(sum(sizes), dtype=torch.float32,
+                          device=rows[0].device)
         off = 0
-        for (i, d), r in zip(cuts, rows):
-            shape = (r.shape[0] // n,) + tuple(r.shape[1:])
-            m = r.numel() // n
-            xs[i] = out[off:off + m].view(shape).movedim(0, d)
+        for r, m in zip(rows, sizes):
+            src[:, off:off + m].view(r.shape).copy_(r)
+            off += m
+        _oa.reduce_scatter_into(out, src, group)
+        del src
+        off = 0
+        for (i, d), r, m in zip(cuts, rows, sizes):
+            xs[i] = out[off:off + m].view(r.shape[1:]).movedim(0, d)
             off += m
     if whole:
-        flat = torch.cat([xs[i].reshape(-1) for i in whole])
-        dist.all_reduce(flat, group=group)
+        flat = torch.empty(sum(xs[i].numel() for i in whole),
+                           dtype=torch.float32, device=xs[whole[0]].device)
         off = 0
         for i in whole:
             m = xs[i].numel()
+            flat[off:off + m].view(xs[i].shape).copy_(xs[i])
             xs[i] = flat[off:off + m].view(xs[i].shape)
             off += m
+        dist.all_reduce(flat, group=group)
 
 
 class _PlacedGather(torch.autograd.Function):
@@ -642,8 +654,12 @@ class _PlacedGather(torch.autograd.Function):
     the sum over the model axis (a reduce-scatter; an all-reduce where
     the gradient stays whole); over the data axis the sum (a
     reduce-scatter, or an all-reduce) when ``split``, else this rank's
-    slice.  Every sum runs in f32, one collective an axis for all the
-    pieces, and rounds once."""
+    slice.  Every sum runs in f32 and rounds once, into the buffer, one
+    collective an axis for a bucket of pieces of up to
+    :data:`GATHER_BUCKET_ELEMS` elements (a larger piece alone), each
+    piece staged in f32 in one copy (:func:`_reduce_many`): a layer's
+    pieces never stand in f32 all at once (a deepseek-v3 MoE layer's 128
+    experts a rank are 22.5 GB in f32)."""
 
     @staticmethod
     def forward(fctx, ps, *local):
@@ -668,28 +684,39 @@ class _PlacedGather(torch.autograd.Function):
                 return p.summed and ctx.world > 1
             return p.split and ctx.dp_size > 1
 
-        xs = {i: gs[i].float() if sums(ps[i], "model") or sums(
-            ps[i], "data") else gs[i] for i in live}
-        for axis in ("model", "data"):
-            cuts, whole = [], []
-            for i in live:
-                gather, keep = ps[i].dims()
-                dims = [d for d, e in enumerate(gather) if e == axis]
-                kept = bool(dims) and keep[dims[0]] == axis
-                if sums(ps[i], axis):
-                    if kept:
-                        cuts.append((i, dims[0]))
-                    else:
-                        whole.append(i)
-                elif kept:
-                    n, r, _ = _axis_group(ctx, axis)
-                    b = xs[i].shape[dims[0]] // n
-                    xs[i] = xs[i].narrow(dims[0], r * b, b)
-            _reduce_many(xs, cuts, whole, axis, ctx)
+        # buckets of pieces of up to GATHER_BUCKET_ELEMS elements (a larger
+        # piece alone), each through its axes' collectives and into its
+        # buffers before the next
+        buckets, size = [[]], 0
         for i in live:
-            p = ps[i]
-            buf = p.buffer if p.index is None else p.buffer[p.index]
-            buf.add_(xs[i].to(buf.dtype))
+            if buckets[-1] and size + gs[i].numel() > GATHER_BUCKET_ELEMS:
+                buckets.append([])
+                size = 0
+            buckets[-1].append(i)
+            size += gs[i].numel()
+        for bucket in buckets:
+            xs = {i: gs[i] for i in bucket}
+            for axis in ("model", "data"):
+                cuts, whole = [], []
+                for i in bucket:
+                    gather, keep = ps[i].dims()
+                    dims = [d for d, e in enumerate(gather) if e == axis]
+                    kept = bool(dims) and keep[dims[0]] == axis
+                    if sums(ps[i], axis):
+                        if kept:
+                            cuts.append((i, dims[0]))
+                        else:
+                            whole.append(i)
+                    elif kept:
+                        n, r, _ = _axis_group(ctx, axis)
+                        b = xs[i].shape[dims[0]] // n
+                        xs[i] = xs[i].narrow(dims[0], r * b, b)
+                _reduce_many(xs, cuts, whole, axis, ctx)
+            for i in bucket:
+                p = ps[i]
+                buf = p.buffer if p.index is None else p.buffer[p.index]
+                buf.add_(xs[i].to(buf.dtype))
+            del xs
         return (None,) * (len(ps) + 1)
 
 

@@ -26,7 +26,8 @@ specs=)``: its rows of the vocabulary, its experts, its cut of each
 dense weight -- the model axis's and, FSDP, the data axis's -- and the
 moments at their specs), takes the same seeded batches and trains its
 data group's half of each, each layer's weights gathered whole only
-while it runs; global rank 0 alone logs, writes ``--metrics-out`` and
+while it runs; global rank 0 alone logs (the placement in one line, then
+each step), writes ``--metrics-out`` and
 writes the checkpoint (the whole state), and a restore puts each
 rank's pieces back.
 
@@ -46,6 +47,8 @@ from repro_torch.data import Prefetcher, lm_batches
 from repro_torch.launch import specs as S
 from repro_torch.launch.mesh import rank_count, run_debug_mesh
 from repro_torch.train.loop import Trainer
+from repro_torch.train.step import init_train_state, rank_tensors
+from repro_torch.utils.tree import flatten_with_paths
 
 
 def parser() -> argparse.ArgumentParser:
@@ -94,6 +97,28 @@ def _train_rank(ctx, cfg, args) -> list:
     return train(ctx, cfg, args).metrics_log
 
 
+def placement_report(trainer: Trainer, specs) -> str:
+    """One line on a placed ``trainer``'s state: its leaves cut over
+    each axis by ``specs`` (a state spec tree), and this rank's bytes
+    against the whole state's."""
+    def axes(spec):
+        return {a for e in spec if e is not None
+                for a in ((e,) if isinstance(e, str) else e)}
+    flat = [axes(s) for s in S.flatten_specs(specs).values()]
+    whole = init_train_state(None, trainer.cfg, trainer.tc,
+                             tp_size=trainer.ranks.world, device="meta")
+
+    def nbytes(state):
+        return sum(t.numel() * t.element_size() for _, t in
+                   flatten_with_paths({"params": rank_tensors(
+                       state["params"], trainer.cfg), "opt": state["opt"]}))
+    return (f"placed: {sum(bool(a) for a in flat)} of {len(flat)} state "
+            f"leaves cut ({sum('model' in a for a in flat)} over the model "
+            f"axis, {sum('data' in a for a in flat)} over the data axis); "
+            f"global rank 0 holds {nbytes(trainer.state)} of "
+            f"{nbytes(whole)} B")
+
+
 def train(ctx, cfg, args) -> Trainer:
     """``cfg`` trained ``args.steps`` steps on the seeded batches (from
     its newest checkpoint in ``args.ckpt_dir`` when there is one), on one
@@ -109,6 +134,8 @@ def train(ctx, cfg, args) -> Trainer:
     trainer = Trainer(cfg, tc, data, ckpt_dir=args.ckpt_dir, ctx=ctx,
                       device=args.device if ctx is None else None,
                       state_shardings=specs)
+    if ctx is not None and lead:
+        print(placement_report(trainer, specs))
 
     def log(step, m):
         print(f"step {step:5d}  loss {m['loss']:.4f}  "

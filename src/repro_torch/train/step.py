@@ -196,7 +196,11 @@ def lm_loss(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     loss = ce
     metrics = {"ce": ce}
 
-    if cfg.is_moe:
+    # the load-balance term is a mean over the MoE layers that ran: a
+    # model cut in depth to its first_k_dense dense layers has none.  A
+    # difference on purpose: the reference's mean over no layer is NaN
+    # there, so its loss too
+    if cfg.is_moe and "moe_aux" in aux:
         loss = loss + 0.01 * aux["moe_aux"]
         metrics["moe_aux"] = aux["moe_aux"]
         metrics["moe_dropped"] = aux["moe_dropped"].float()

@@ -38,7 +38,18 @@ multi-device path -- the debug mesh ``(data = N / 2, model = 2)`` of
     ``comm.permute_ring`` (bitwise: a permute moves values) and
     ``comm.fetch_rows`` (within ``FETCH_GRAD``: a row asked for more than
     once adds its cotangents in another order) on a 1-D mesh;
-  * an odd ``--ranks`` raises ``ValueError`` in either launcher.
+  * an odd ``--ranks`` raises ``ValueError`` in either launcher;
+  * deepseek-v3 (MLA, an MoE layer beside a dense one, the MTP head) at
+    smoke width, f32: the serve rank function's hidden states within
+    ``HIDDEN`` of the reference's launcher path (at ``DS_DROPLESS``: the
+    reference's admission prefills on one device, the port's under the
+    context), and the train rank
+    function's two steps under the launcher's placement within
+    ``REF_RTOL`` of the reference's launcher path
+    (``src/repro/launch/train.py:63-74``: ``Trainer(state_shardings=)``
+    from ``state_spec_tree`` on the debug mesh) from the same initial
+    state and batches; ``train.main(--ranks 4)`` runs deepseek and
+    reports its placement.
 """
 import dataclasses
 import hashlib
@@ -89,6 +100,17 @@ LB, LS = 4, 16
 E = 4                       # the comm cases' ranks, a 1-D mesh
 ROWS, D, M = 6, 8, 5        # the row fetch: a rank's rows, width, asks
 SHIFTS = (1, 3)
+DS = "deepseek-v3-671b"
+# the deepseek train legs: 2 steps of 4 x 16 tokens
+DS_TRAIN = ["--arch", DS, "--smoke", "--device", "cpu", "--batch", "4",
+            "--seq", "16", "--steps", "2"]
+# the deepseek serve legs' capacity factor, at which the expert-parallel
+# MoE drops nothing (a rank's local expert may take every token of every
+# rank: num_experts / experts_per_token = 8 / 2): the reference's admission
+# prefills on one device, whose MoE drops nothing, and the port's under
+# the context (ROADMAP "Differences on purpose"), so they agree where no
+# capacity binds
+DS_DROPLESS = 4.0
 
 # hidden states against the reference (f32; tests/test_torch_dp_ranks.py)
 HIDDEN = dict(rtol=1e-5, atol=1e-5)
@@ -132,6 +154,15 @@ def _serve_args(*extra):
                                        "cpu", *SERVE, *extra])
 
 
+def _ds_serve_args():
+    return tserve.parser().parse_args(["--arch", DS, "--smoke", "--device",
+                                       "cpu", *SERVE])
+
+
+def _ds_train_args():
+    return tlaunch.parser().parse_args(DS_TRAIN)
+
+
 # ---------------------------------------------------------------------------
 # Inputs, from seeds, as numpy (the reference's parameters drawn here)
 # ---------------------------------------------------------------------------
@@ -155,6 +186,25 @@ def _inputs() -> dict:
             x[f"{key}/params/{path}"] = leaf.numpy()
     for k, v in next(lm_batches(_tied(), LB, LS, seed=3)).items():
         x[f"tied/batch/{k}"] = v
+    # deepseek: the reference's serving parameters (f32, tp 2); the train
+    # launcher's initial state as the port draws it (the whole of what
+    # each rank draws its pieces of, from the TrainConfig's seed) and its
+    # batches
+    params = jlm.init_params(jax.random.key(2), dataclasses.replace(
+        jconfigs.get_smoke_config(DS), dtype="float32"), tp_size=TP)
+    for path, leaf in flatten_with_paths(jax.tree_util.tree_map(
+            lambda a: torch.as_tensor(np.array(a)), params)):
+        x[f"ds_serve/params/{path}"] = leaf.numpy()
+    args = _ds_train_args()
+    tc = tlaunch.train_config(args)
+    state = tstep.init_train_state(torch.Generator().manual_seed(tc.seed),
+                                   _cfg(DS), tc, tp_size=TP, device="cpu")
+    for path, leaf in flatten_with_paths(state["params"]):
+        x[f"ds_train/params/{path}"] = leaf.numpy()
+    batches = lm_batches(_cfg(DS), args.batch, args.seq, seed=tc.seed)
+    for s in range(args.steps):
+        for k, v in next(batches).items():
+            x[f"ds_train/batch/{s}/{k}"] = v
     rng = np.random.default_rng(2032)
     x["ring"] = rng.standard_normal((E, 3, D)).astype(np.float32)
     x["ring/cot"] = rng.standard_normal((E, 3, D)).astype(np.float32)
@@ -266,6 +316,60 @@ def _jax_reference(inputs: Path, outputs: Path) -> None:
                      jnp.asarray(x["fetch/shards"]))
     out["fetch"] = np.asarray(y)
     out["fetch/grad"] = np.asarray(vjp(jnp.asarray(x["fetch/cot"]))[0])
+
+    # deepseek through the reference's serve launcher path, as granite,
+    # at the capacity where the expert-parallel decode drops nothing
+    ds = dataclasses.replace(jconfigs.get_smoke_config(DS), dtype="float32",
+                             moe_capacity_factor=DS_DROPLESS)
+    args = _ds_serve_args()
+    eng = JBatcher(jtree("ds_serve/params"), ds, num_slots=args.slots,
+                   max_len=MAX_LEN, ctx=ctx, eos_id=-1)
+    real, counts = eng._head, {"prefill": 0, "decode": 0}
+
+    def ds_head(h):
+        kind = "prefill" if h.shape[0] == 1 else "decode"
+        out[f"ds_serve/{kind}/{counts[kind]}"] = np.asarray(h)
+        counts[kind] += 1
+        return real(h)
+    eng._head = ds_head
+    rng = np.random.default_rng(args.seed)
+    for rid in range(args.requests):
+        eng.submit(JRequest(rid=rid, prompt=rng.integers(
+            0, ds.vocab_size, args.prompt_len).astype(np.int32),
+            max_new=args.max_new))
+    for rid, r in eng.run_to_completion().items():
+        out[f"ds_serve/tokens/{rid}"] = np.array(r.generated)
+
+    # deepseek through the reference's train launcher path
+    # (src/repro/launch/train.py:63-74) on the debug mesh, from the port's
+    # initial state: the launcher's TrainConfig, the state placed by
+    # state_spec_tree
+    from repro.launch import specs as JS
+    from repro.train.loop import Trainer as JTrainer
+
+    ds = dataclasses.replace(ds, moe_capacity_factor=_cfg(
+        DS).moe_capacity_factor)
+    targs = _ds_train_args()
+    jtc = JTrainConfig(learning_rate=targs.lr, total_steps=targs.steps,
+                       warmup_steps=max(1, targs.steps // 10),
+                       grad_accum=targs.grad_accum,
+                       optimizer_state_dtype=targs.opt_state_dtype,
+                       checkpoint_every=targs.ckpt_every)
+    _, st_specs = JS.state_spec_tree(ds, jtc, ctx)
+    shardings = jax.tree.map(ctx.sharding, st_specs)
+    template = jstep.init_train_state(jax.random.key(0), ds, jtc, tp_size=TP)
+    params = jax.tree_util.tree_map(jnp.asarray, _tree(x, "ds_train/params"))
+    assert jax.tree_util.tree_structure(params) == \
+        jax.tree_util.tree_structure(template["params"])
+    batches = [_tree(x, f"ds_train/batch/{s}") for s in range(targs.steps)]
+    tr = JTrainer(ds, jtc, iter(batches), ctx=ctx,
+                  state_shardings=shardings)
+    tr.state = jax.device_put({"params": params, "opt": template["opt"]},
+                              shardings)
+    tr.run(targs.steps)
+    for i, (_, m) in enumerate(tr.metrics_log):
+        for k in ("loss", "grad_norm"):
+            out[f"ds_train/{i}/{k}"] = np.float64(m[k])
     np.savez(outputs, **out)
 
 
@@ -325,6 +429,36 @@ def _init_mismatches(ctx) -> dict:
     return out
 
 
+def _ds_cases(ctx, x, heads) -> dict:
+    """deepseek through both launchers' rank functions on this rank: the
+    serve rank function on its cut of the reference's parameters (the
+    head calls it records), and the train rank function's 2 steps, whose
+    state the launcher draws and places (its metrics, the specs it
+    placed by against state_spec_tree's, and whether it holds less than
+    the whole state)."""
+    cfg = _cfg(DS, moe_capacity_factor=DS_DROPLESS)
+    n = len(heads)
+    mine = lm_params_for_rank(lm_params_from_numpy(
+        _tree(x, "ds_serve/params"), device="cpu"), cfg, ctx)
+    served = tserve.serve(ctx, cfg, _ds_serve_args(), params=mine)
+    out = {"heads": heads[n:], "tokens": served["tokens"]}
+    del heads[n:]
+    cfg = _cfg(DS)
+    args = _ds_train_args()
+    tr = tlaunch.train(ctx, cfg, args)
+    want = tspecs.Placement.of(tspecs.state_spec_tree(
+        cfg, tr.tc, ctx)[1], cfg, ctx).state
+    meta = tstep.init_train_state(None, cfg, tr.tc, tp_size=TP,
+                                  device="meta")
+    sizes = [sum(t.numel() * t.element_size() for _, t in
+                 flatten_with_paths({"params": tstep.rank_tensors(
+                     s["params"], cfg), "opt": s["opt"]}))
+             for s in (tr.state, meta)]
+    out.update(metrics=[m for _, m in tr.metrics_log],
+               placed=tr.specs == want, held=sizes[0], whole=sizes[1])
+    return out
+
+
 def _mesh_cases(ctx, x):
     """The (2, 2) mesh's cases on this rank; global rank 0 returns every
     rank's, in global rank order."""
@@ -336,6 +470,7 @@ def _mesh_cases(ctx, x):
     served = tserve.serve(ctx, _cfg(), _serve_args(), params=mine)
     out = {"heads": heads, "tokens": served["tokens"],
            "init": _init_mismatches(ctx), "tied": _tied_step(x, ctx)}
+    out["ds"] = _ds_cases(ctx, x, heads)
     return tmesh.gather_world(out)
 
 
@@ -464,6 +599,57 @@ def test_serve_rank_path_matches_the_reference_launcher(runs):
     assert {rid: list(t) for rid, t in square[0]["tokens"].items()} == {
         int(k.split("/")[-1]): want[k].tolist()
         for k in want if k.startswith("serve/tokens/")}
+
+
+def test_deepseek_serve_rank_path_matches_the_reference_launcher(runs):
+    """deepseek (MLA, its MoE layer expert-parallel over the model axis,
+    at DS_DROPLESS) through the serve rank function: every head call's
+    hidden states on every rank within HIDDEN of the reference's launcher
+    path at the same call, every admission computed by one data group,
+    the tokens the reference's."""
+    _, want, square, _ = runs
+    n_prefill = sum(k.startswith("ds_serve/prefill/") for k in want)
+    n_decode = sum(k.startswith("ds_serve/decode/") for k in want)
+    assert n_prefill == 4 and n_decode > 0
+    for g, out in enumerate(square):
+        ds = out["ds"]
+        kinds = [(k, i) for k, i, _ in ds["heads"]]
+        assert [i for k, i in kinds if k == "decode"] == list(range(n_decode))
+        for kind, i, h in ds["heads"]:
+            np.testing.assert_allclose(
+                h.numpy(), want[f"ds_serve/{kind}/{i}"], **HIDDEN,
+                err_msg=f"global rank {g} {kind} {i}")
+        assert ds["tokens"] == square[0]["ds"]["tokens"], g
+    admitted = sorted(i for out in square[::TP] for k, i, _ in
+                      out["ds"]["heads"] if k == "prefill")
+    assert admitted == list(range(n_prefill))
+    assert {rid: list(t) for rid, t in square[0]["ds"]["tokens"].items()} \
+        == {int(k.split("/")[-1]): want[k].tolist()
+            for k in want if k.startswith("ds_serve/tokens/")}
+
+
+def test_deepseek_train_rank_path_matches_the_reference_launcher(runs):
+    """deepseek through the train rank function on the (2, 2) mesh: the
+    state placed by state_spec_tree's specs, each rank holding less than
+    the whole state; two steps' losses and gradient norms (the MTP head's
+    cross-entropy and the MoE aux loss in them) within REF_RTOL of the
+    reference's launcher path from the same state and batches, the same
+    on every rank."""
+    _, want, square, _ = runs
+    steps = _ds_train_args().steps
+    for g, out in enumerate(square):
+        ds = out["ds"]
+        assert ds["placed"], g
+        assert 0 < ds["held"] < ds["whole"], (g, ds["held"], ds["whole"])
+        assert len(ds["metrics"]) == steps
+        for i, m in enumerate(ds["metrics"]):
+            assert "mtp_ce" in m and "moe_aux" in m, sorted(m)
+            for k in ("loss", "grad_norm"):
+                ref = float(want[f"ds_train/{i}/{k}"])
+                assert abs(m[k] - ref) <= REF_RTOL * abs(ref), (g, i, k,
+                                                                m[k], ref)
+        assert [(m["loss"], m["grad_norm"]) for m in ds["metrics"]] == [
+            (m["loss"], m["grad_norm"]) for m in square[0]["ds"]["metrics"]]
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -625,6 +811,27 @@ def test_train_over_ranks_data_groups_hold_one_state(trained):
             assert hashlib.sha256(piece.tobytes()).hexdigest() == h, (
                 g, path)
     assert cut
+
+
+def test_train_main_over_ranks_runs_and_places_deepseek():
+    """train.main(--arch deepseek-v3-671b --smoke --ranks 4 --device cpu):
+    two steps on the (2, 2) mesh of gloo processes, global rank 0 alone
+    logging them and the state's placement (the reference's specs: the
+    leaves cut over each axis, its bytes against the whole state's)."""
+    text = _captured(lambda: tlaunch.main(DS_TRAIN + ["--ranks",
+                                                      str(WORLD)]))
+    lines = text.splitlines()
+    assert [ln.split()[1] for ln in lines if ln.startswith("step")] == \
+        ["1", "2"], lines
+    placed = [ln for ln in lines if ln.startswith("placed:")]
+    assert len(placed) == 1, lines
+    m = re.match(r"placed: (\d+) of (\d+) state leaves cut \((\d+) over "
+                 r"the model axis, (\d+) over the data axis\); global rank "
+                 r"0 holds (\d+) of (\d+) B", placed[0])
+    assert m, placed[0]
+    cut, n, model, data, held, whole = map(int, m.groups())
+    assert 0 < model <= cut <= n and 0 < held < whole, placed[0]
+    assert sum(ln.startswith("done: 2 steps") for ln in lines) == 1, lines
 
 
 @pytest.mark.parametrize("mesh", list(MESHES))

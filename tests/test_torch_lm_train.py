@@ -640,3 +640,44 @@ def test_launch_train_smoke_cpu():
     lines = out.getvalue().splitlines()
     assert [ln.split()[1] for ln in lines[:3]] == ["1", "2", "3"]
     assert lines[-1].startswith("done: 3 steps")
+
+
+def test_deepseek_cut_to_its_dense_layer_trains():
+    """deepseek cut in depth to num_layers = first_k_dense = 1 (the MoE
+    stack empty, the cut ``chip_smoke.py`` phase 8t trains on one card):
+    the port's ``lm_loss`` is ce + 0.3 mtp_ce, finite, with no
+    load-balance term; its ce and mtp_ce within F32's metric bound of the
+    reference's.  The reference's loss is NaN there (its moe_aux is the
+    mean over no MoE layer), so the port adds the term only where a MoE
+    layer ran (``train/step.lm_loss``)."""
+    cut = dict(dtype="float32", num_layers=1, first_k_dense=1)
+    arch = "deepseek-v3-671b"
+    jcfg = dataclasses.replace(jconfigs.get_smoke_config(arch), **cut)
+    cfg = dataclasses.replace(tconfigs.get_smoke_config(arch), **cut)
+    jparams = jax.tree_util.tree_map(
+        jnp.asarray, jstep.init_train_state(jax.random.key(3), jcfg,
+                                            JTrainConfig())["params"])
+    tree: dict = {}
+    for path, leaf in flatten_with_paths(jax.tree_util.tree_map(
+            lambda a: torch.as_tensor(np.array(a)), jparams)):
+        *keys, last = path.split("/")
+        node = tree
+        for k in keys:
+            node = node.setdefault(k, {})
+        node[last] = leaf.numpy()
+    params = lm_params_from_numpy(tree, device="cpu")
+    batch = next(lm_batches(cfg, 2, 16, seed=4))
+    _, want = jstep.lm_loss(jparams, {k: jnp.asarray(v) for k, v in
+                                      batch.items()}, jcfg, None,
+                            JTrainConfig())
+    with torch.no_grad():
+        loss, got = tstep.lm_loss(params, {k: torch.as_tensor(v) for k, v
+                                           in batch.items()}, cfg, None,
+                                  TrainConfig())
+    assert "moe_aux" not in got and torch.isfinite(loss)
+    assert torch.equal(loss, got["ce"] + 0.3 * got["mtp_ce"])
+    for k in ("ce", "mtp_ce"):
+        w = float(want[k])
+        assert abs(float(got[k]) - w) <= F32["metric"] * abs(w), (k, got[k],
+                                                                  w)
+    assert np.isnan(float(want["loss"]))
