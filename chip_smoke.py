@@ -24,6 +24,13 @@ Phases:
      exchange (the chunk-put kernel) on 4 simulated
      hosts' contributions of 2**18 rows (the padded fetch of every flush
      of phase 6) at D=128 and of 1000 rows at D=10, f32 and bf16, bitwise;
+     the signal kernel (the per-rank exchanges' waits, copies and signals)
+     on 4 buffers of this process with their pads, as rank 1, at the
+     per-rank path's shapes: the reduce-scatter's staging (4, 13,312, 128)
+     f32, the a2a's receive (4, C) int32, a fetch's wait and
+     acknowledgement, a bf16 receive off 16-byte alignment: the copies and
+     every SIGNAL/ACK word bitwise its plain version's, the block counter
+     at the host's count;
      (2b) the flash-attention wrapper at tests/test_kernels.py's four
      shapes in f32 and bf16, and at granite-8b's layer (1, 16384, 32/8,
      128) causal and (1, 9000, 32/8, 128) under a 4096 window, bf16,
@@ -45,7 +52,8 @@ Phases:
      the same requests: scores and pooled lookups bitwise-equal to phase 3;
   5. kernel, plain-version and library times: the TBE wrappers at the
      phase-2 shapes, the row fetch's puts at the padded fetch of a
-     steady-state flush of phase 4, the flash kernel at granite-8b's layer
+     steady-state flush of phase 4, the signal kernel at the staging's
+     shape (a signal alone logged), the flash kernel at granite-8b's layer
      (SDPA the library call; the SIMT kernel timed beside it at the same
      shapes), beside each kernel's bound;
   6. the cached engine over the REMOTE cold tier (the same cache, the
@@ -80,10 +88,13 @@ Phases:
      each from the side stream in (b); (c) comm.permute_ring(ctx=) at
      row 7's shape, a (13,312, 128) f32 block a rank, on both backends:
      bitwise torch.roll of the stacked blocks, one ring launch per rank
-     on one-sided; per rank the median flush (host clock), the fetches'
-     ms, the fences' share and peak memory; no rank process left after
-     it; with 2 or more cards, the same over NCCL, one process a card
-     (4 hosts, or 2 on 2 or 3 cards);
+     on one-sided; every one-sided exchange finished on the card (its put
+     and its receive signalling each other through the buffers' pads: two
+     signal launches a fetch, one a ring permute), 0 host fences; per
+     rank the median flush (host clock, beside the figures the host-fenced
+     exchanges took), the fetches' ms and peak memory; no rank process
+     left after it; with 2 or more cards, the same over NCCL, one process
+     a card (4 hosts, or 2 on 2 or 3 cards);
   6c. the planner -> engine round trip with telemetry, on the same
      requests: sharding_plan.plan over CONFIG's 26 tables (H100_DGX, Zipf
      1.05, host tier, 2048 a shard); (a) plan A (2 shards, 0.5 GB: 8 pools
@@ -131,12 +142,20 @@ Phases:
      2**-24 * sum_s |partial_s| of the simulated sum and pCTR within
      tolerance; each rank's a2a drops those of its simulated rank; one
      TBE launch per rank per flush (3 put + 1 pull-sum launches per
-     one-sided a2a flush), counted in each process and summed here; each
-     rank's peak memory about its shard; the median flush per rank on the
-     host clock with its fences' share (processes time-slicing one card:
-     no interconnect's time), each bulk collective's route; with 2 or
-     more cards, the row-wise strategies again over NCCL, one process a
-     card (else logged as needing them);
+     one-sided a2a flush, and 4 signal launches: every exchange finishes
+     on the card through signals in the symmetric buffers' pads, 0 host
+     fences in the flushes), counted in each process and summed here;
+     each rank's peak memory about its shard; the median flush per rank
+     on the host clock beside the figures the host-fenced exchanges took
+     (processes time-slicing one card: no interconnect's time), each bulk
+     collective's route; the race leg: 200 back-to-back per-rank
+     exchanges of each kind (all-to-all, reduce-scatter, all-reduce,
+     fetch, ring) in f32 and bf16 on 4 processes, new data at every call,
+     the last rank late by a random 0-2 ms on the host before each call
+     and nothing synchronised between calls, every result bitwise its
+     plain version's, no fence; with 2 or more cards, the row-wise
+     strategies again over NCCL, one process a card (else logged as
+     needing them);
   7t. DLRM training at full width (phase 3's tables freed first; fresh
      tables from a seed): at a small size, the fused, unfused and flat
      ops' gradients (tables and weights) against autograd of the plain
@@ -399,6 +418,7 @@ line.  It also fails without a CUDA card, and without the port's sources
 beside it.
 """
 import contextlib
+import ctypes
 import dataclasses
 import gc
 import hashlib
@@ -434,6 +454,7 @@ SOURCES = {"gather_pool_tbe_flat": TBE_SOURCE, "gather_pool_tbe": TBE_SOURCE,
            "onesided_all_to_all": A2A_SOURCE,
            "onesided_reduce_scatter": A2A_SOURCE,
            "onesided_ring_permute": A2A_SOURCE,
+           "onesided_signal": A2A_SOURCE,
            "flash_attention": FLASH_SOURCE}
 REPLACES = {"gather_pool_tbe_flat":
             "src/repro/kernels/embedding_gather.py:150",
@@ -443,6 +464,8 @@ REPLACES = {"gather_pool_tbe_flat":
             "onesided_all_to_all": "src/repro/kernels/onesided_a2a.py:57",
             "onesided_reduce_scatter": "src/repro/kernels/onesided_a2a.py:77",
             "onesided_ring_permute": "src/repro/kernels/onesided_a2a.py:145",
+            # the DMA semaphores' waits of rows 4-7 (_a2a_kernel's c.wait())
+            "onesided_signal": "src/repro/kernels/onesided_a2a.py:53",
             "flash_attention": "src/repro/kernels/flash_attention.py:103"}
 # H100 SXM peaks (NVIDIA data sheet), at a 700 W power limit
 HBM_BYTES_PER_S = 3.35e12
@@ -756,6 +779,110 @@ def _check_puts(oa, c, tag) -> float:
     return err
 
 
+class _LocalBuffers:
+    """RANKS buffers of this process, each with its signal pad (zeroed)
+    after its bytes, seen as rank ``rank`` sees its SymmetricBuffers: the
+    signal kernel's check and times run on them in one process."""
+
+    def __init__(self, oa, rank, nbytes, dev):
+        self.world, self.rank, self.nbytes, self.device = (RANKS, rank,
+                                                           nbytes, dev)
+        self.pad = oa.pad_layout(RANKS, nbytes)
+        self._counts = (ctypes.c_ulonglong * (RANKS + 1))()
+        self.raw = [torch.zeros(nbytes + self.pad.nbytes, dtype=torch.uint8,
+                                device=dev) for _ in range(RANKS)]
+        self._table = (ctypes.c_longlong * RANKS)(
+            *(b.data_ptr() for b in self.raw))
+        oa._timeout_record(oa._kernel(), dev.index or 0)
+
+    def view(self, dtype, shape):
+        n = math.prod(shape) * dtype.itemsize
+        return self.raw[self.rank][:n].view(dtype).view(tuple(shape))
+
+    def pads(self) -> list:
+        """Each rank's pad as int64 words."""
+        return [b[self.nbytes:self.nbytes + 8 * self.pad.words].view(
+            torch.int64) for b in self.raw]
+
+
+def _signal_cases(oa, g, dev) -> tuple:
+    """(the local buffers, the signal launches of the per-rank path at its
+    shapes as (epoch, keyword arguments, the slots the sources signal
+    first)): the reduce-scatter's staging of its f32 (4, 13,312, 128)
+    partials, the a2a's receive of its int32 (4, C) buckets, the fetch's
+    wait and acknowledgement (no copy), the ring's receive of a bf16 block
+    of odd length off 16-byte alignment (2-byte units)."""
+    cap, rows = _a2a_shapes()
+    stage = torch.randn((RANKS, rows, D), generator=g, device=dev)
+    bufs = _LocalBuffers(oa, 1, _pow2(stage.numel() * 4), dev)
+    every = (1 << RANKS) - 1
+    # the receives read the rank's buffer as the staging left it
+    recv = bufs.view(torch.int32, (RANKS, cap))
+    odd = bufs.view(torch.bfloat16, (1002,))[1:]
+    fresh = torch.empty(1002, dtype=torch.bfloat16, device=dev)[1:]
+    cases = [
+        (1, dict(wait=every, wait_region=oa.ACK, wait_epoch=0, signal=every,
+                 signal_region=oa.SIGNAL, src=stage,
+                 dst=bufs.view(torch.float32, stage.shape)), 0),
+        (2, dict(wait=every, wait_region=oa.SIGNAL, wait_epoch=2,
+                 signal=every, signal_region=oa.ACK, src=recv,
+                 dst=torch.empty_like(recv)), every),
+        (3, dict(wait=every, wait_region=oa.SIGNAL, wait_epoch=3), every),
+        (3, dict(signal=every, signal_region=oa.ACK), 0),
+        (4, dict(wait=1, wait_region=oa.SIGNAL, wait_epoch=4, signal=every,
+                 signal_region=oa.ACK, src=odd, dst=fresh), 1),
+    ]
+    return bufs, cases
+
+
+def _check_signal_kernel(oa, g, dev) -> float:
+    """signal_copy_kernel against signal_copy_ref at the per-rank path's
+    shapes (:func:`_signal_cases`), rank 1 of RANKS buffers of this
+    process, the sources' signals stored first where a launch waits for
+    them: the copies and every SIGNAL and ACK word bitwise, and the block
+    counter COUNT[RANKS] of the rank's pad at the host's count."""
+    bufs, cases = _signal_cases(oa, g, dev)
+    pads = bufs.pads()
+    ref = [p.clone() for p in pads]
+    oa.reset_launch_counts()
+    err = 0.0
+    for epoch, kw, sources in cases:
+        for i in range(RANKS):
+            if sources >> i & 1:
+                pads[bufs.rank][bufs.pad.signal + i] = epoch
+                ref[bufs.rank][bufs.pad.signal + i] = epoch
+        plain = dict(kw)
+        if "dst" in kw:
+            plain["dst"] = torch.empty_like(kw["dst"])
+        oa.signal_copy_ref(ref, bufs.rank, epoch, **plain)
+        oa._signal_copy(bufs, epoch, **kw)
+        if "dst" in kw:
+            torch.cuda.synchronize()
+            err = max(err, float((kw["dst"].double()
+                                  - plain["dst"].double()).abs().max()))
+            check(_same_bits(kw["dst"], plain["dst"]),
+                  f"onesided_signal epoch {epoch}: the copy bitwise its "
+                  f"plain version's")
+    torch.cuda.synchronize()
+    words = bufs.pad.count              # SIGNAL and ACK
+    same = all(torch.equal(p[:words], r[:words]) for p, r in zip(pads, ref))
+    count = int(pads[bufs.rank][bufs.pad.count + RANKS])
+    log(f"  onesided_signal ({len(cases)} launches as rank {bufs.rank} of "
+        f"{RANKS}: staging {RANKS}x{_a2a_shapes()[1]}x{D} f32, a2a receive "
+        f"{RANKS}x{_a2a_shapes()[0]} int32, a fetch's wait and "
+        f"acknowledgement, a bf16 receive of 1001 off alignment): SIGNAL "
+        f"and ACK words {'bitwise equal' if same else 'DIFFER'}, block "
+        f"counter {count} (host {bufs._counts[RANKS]}), launches "
+        f"{oa.LAUNCH_COUNTS['onesided_signal']}")
+    check(same, "onesided_signal: the pads' SIGNAL and ACK words bitwise "
+                "the plain version's")
+    check(count == bufs._counts[RANKS] > 0
+          and oa.LAUNCH_COUNTS["onesided_signal"] == len(cases),
+          "onesided_signal: the block counter at the host's count, one "
+          "launch a call")
+    return err
+
+
 def phase_kernels(eg, oa) -> dict:
     log("== 2. kernels against their plain versions")
     dev = torch.device(DEV)
@@ -835,6 +962,7 @@ def phase_kernels(eg, oa) -> dict:
                 oa, c, f"H={HOSTS} M={m} D={d} {str(dtype)[6:]}"))
             del c
     errs["onesided_put_rows"] = put_err
+    errs["onesided_signal"] = _check_signal_kernel(oa, g, dev)
     x["errs"] = errs
     return x
 
@@ -1318,6 +1446,43 @@ def phase_times(eg, oa, x, m_pad) -> dict:
             f"({bound_by}); kernel at {100 * bound_ms / out[name]['ms']:.1f}%"
             f" of the bound")
     out["onesided_put_rows"] = _times_puts(oa, m_pad, scratch)
+    out["onesided_signal"] = _times_signal(oa, scratch)
+    return out
+
+
+def _times_signal(oa, scratch) -> dict:
+    """The signal launch at its largest on the per-rank path, the
+    reduce-scatter's staging of (4, 13,312, 128) f32 partials (a copy and
+    a signal to every rank), against its plain version; no PyTorch call
+    computes it (library null).  A launch that only signals is timed too
+    (logged)."""
+    dev = torch.device(DEV)
+    g = torch.Generator(device=dev).manual_seed(9)
+    bufs, cases = _signal_cases(oa, g, dev)
+    epoch, kw, _ = cases[0]
+    ref = [p.clone() for p in bufs.pads()]
+    want = torch.empty_like(kw["dst"])
+    kern = lambda: oa._signal_copy(bufs, epoch, **kw)
+    plain = lambda: oa.signal_copy_ref(ref, bufs.rank, epoch,
+                                       **dict(kw, dst=want))
+    bare = lambda: oa._signal_copy(bufs, epoch, signal=(1 << RANKS) - 1,
+                                   signal_region=oa.ACK)
+    kern()
+    p1 = _times(plain, 10, scratch)
+    k1 = _times(kern, 10, scratch)
+    k2 = _times(kern, 10, scratch)
+    p2 = _times(plain, 10, scratch)
+    b1 = _times(bare, 20, scratch)
+    moved = 2 * kw["src"].numel() * 4
+    bound_ms = moved / HBM_BYTES_PER_S * 1e3
+    out = dict(ms=statistics.median(k1 + k2),
+               plain_ms=statistics.median(p1 + p2), library_ms=None,
+               bound_ms=bound_ms, bound_by="bytes")
+    log(f"  onesided_signal (the staging: {moved / 1e6:.1f} MB moved, a "
+        f"signal to {RANKS} pads): kernel {out['ms']:.4f} ms, plain "
+        f"{out['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms (bytes); kernel "
+        f"at {100 * bound_ms / out['ms']:.1f}% of the bound; a signal alone "
+        f"(one block) {statistics.median(b1):.4f} ms")
     return out
 
 
@@ -2437,14 +2602,29 @@ ULPS_OF = {"gloo": lambda e: e, "nccl": lambda e: 2 * (e - 1)}
 PROC_LAUNCHES = {
     "row/allgather/bulk": dict(gather_pool_tbe_flat=1),
     "row/allgather/onesided": dict(gather_pool_tbe_flat=1,
-                                   onesided_reduce_scatter=1),
+                                   onesided_reduce_scatter=1,
+                                   onesided_signal=1),
     "row/a2a/bulk": {},
     "row/a2a/onesided": dict(onesided_all_to_all=3,
-                             onesided_reduce_scatter=1),
+                             onesided_reduce_scatter=1, onesided_signal=4),
     "column": dict(gather_pool_tbe=1),
     "table": dict(gather_pool_tbe=1),
 }
+# (the signal launches: one receive per all-to-all, one staging per
+# pull-sum)
 PROC_FLUSHES = REQUESTS // BATCH     # the requests of phases 3 and 7
+# the per-rank median flush (ms, host clock) of these routes and of 6p's
+# one-sided legs when a host fence (the rank's stream drained, a barrier
+# of the group) bracketed every exchange, on one H100 at 700 W over gloo:
+# the yardstick the flushes are logged beside (not a check)
+FENCED_FLUSH_MS = {("gloo", "row/allgather/onesided"): (20.9, 22.0),
+                   ("gloo", "row/a2a/onesided"): (46.9, 64.4),
+                   ("nccl", "row/allgather/onesided"): (10.0, 10.3),
+                   ("nccl", "row/a2a/onesided"): (19.8, 21.4),
+                   ("gloo", "cached onesided"): (154.1, 186.3),
+                   ("gloo", "pipelined onesided"): (749.3, 771.5),
+                   ("nccl", "cached onesided"): (156.4, 168.8),
+                   ("nccl", "pipelined onesided"): (1057.5, 1080.3)}
 PROC_TIMEOUT_S = 300.0
 RANK_PATH = "7p ranks as processes"
 # a rank's device memory beyond its shard: a flush's working tensors (the
@@ -2481,8 +2661,9 @@ def _rank_serve(ctx, base, tables, mlp, reqs, strategies, batch):
     rank's ProcessContext (its shard copied from the parent's tables,
     which reach it through CUDA IPC) serves the requests in flushes of
     BATCH, in lockstep with the other ranks.  Each flush is timed on the
-    host clock beside its fences' seconds; the launch counts are set to
-    0 just before the flushes and read just after.  Then the checks'
+    host clock; the launch counts and the fences (none: the exchanges
+    finish on the card) are set to 0 just before the flushes and read
+    just after.  Then the checks'
     extras: the a2a's dropped lookups of each flush's batch, and for the
     bulk sums the first batch's pooled rows and their bound's measure.
     Every rank's record is gathered to rank 0, which returns them."""
@@ -2520,18 +2701,16 @@ def _rank_serve(ctx, base, tables, mlp, reqs, strategies, batch):
             eng.submit(r)
         heads = [requests[i:i + batch] for i in range(0, len(requests),
                                                       batch)]
-        scores, flush_ms, fence_ms = {}, [], []
+        scores, flush_ms = {}, []
         eg.reset_launch_counts()
         oa.reset_launch_counts()
         while eng.queue:
-            f0 = oa.FENCE_STATS["seconds"]
             t = time.perf_counter()
             scores.update(eng.flush())      # ends in .cpu(): synchronous
             flush_ms.append(1e3 * (time.perf_counter() - t))
-            fence_ms.append(1e3 * (oa.FENCE_STATS["seconds"] - f0))
         rec["counts"] = {**eg.LAUNCH_COUNTS, **oa.LAUNCH_COUNTS}
         rec.update(scores=np.array([scores[i] for i in sorted(scores)]),
-                   flush_ms=flush_ms, fence_ms=fence_ms)
+                   flush_ms=flush_ms, fences=oa.FENCE_STATS["fences"])
         rs = eng.params["tables"]
         batches = []
         for head in heads:
@@ -2601,6 +2780,9 @@ def _check_rank_leg(pt, unc, dist, got, leg) -> dict:
                   f"[{leg} {label}] rank {r}: launches {per} in {n} flushes")
             check(rec["shard_ptr_own"], f"[{leg} {label}] rank {r} holds its "
                                         f"shard in memory of its own")
+            check(rec["fences"] == 0,
+                  f"[{leg} {label}] rank {r}: no host fence in its {n} "
+                  f"flushes ({rec['fences']})")
         launches = {k: sum(rec["counts"].get(k, 0) for rec in ranks_)
                     for k in SOURCES}
         line = (f"  [{leg} {label}] {e} ranks: scores "
@@ -2635,7 +2817,6 @@ def _check_rank_leg(pt, unc, dist, got, leg) -> dict:
                 f"{float((diff / bound.clamp_min(1e-30)).max()):.3f}, "
                 f"bitwise {bool(torch.equal(rec0['pooled'], ref))}")
         med = [statistics.median(rec["flush_ms"]) for rec in ranks_]
-        fence = [sum(rec["fence_ms"]) / sum(rec["flush_ms"]) for rec in ranks_]
         peak = [(rec.get("peak_bytes", 0) + rec["symmetric_bytes"]) / 1e9
                 for rec in ranks_]
         shard_gb = ranks_[0]["shard_bytes"] / 1e9
@@ -2643,14 +2824,16 @@ def _check_rank_leg(pt, unc, dist, got, leg) -> dict:
             check(all(p * 1e9 <= ranks_[0]["shard_bytes"] + PROC_MEM_SLACK
                       for p in peak),
                   f"[{leg} {label}] each rank's peak memory about its shard")
+        fenced = FENCED_FLUSH_MS.get((leg, label))
         log(f"  [{leg} {label}] median flush ms per rank "
-            f"{[round(m, 3) for m in med]} (host clock), fences "
-            f"{[round(100 * f, 1) for f in fence]}% of it; shard "
+            f"{[round(m, 3) for m in med]} (host clock; no fence"
+            + (f"; with host fences {fenced[0]}-{fenced[1]} ms"
+               if fenced else "") + f"); shard "
             f"{shard_gb:.2f} GB a rank (copied in "
             f"{max(r['shard_s'] for r in ranks_):.2f} s), peak "
             f"{[round(p, 2) for p in peak]} GB a rank (allocator peak + "
             f"symmetric buffers)")
-        summary[label] = dict(median_ms=med, fence_share=fence, peak_gb=peak,
+        summary[label] = dict(median_ms=med, peak_gb=peak,
                               launches=launches, bitwise=same, err=err)
     return summary
 
@@ -2689,6 +2872,125 @@ def _padded_arrays(pt, head):
             torch.as_tensor(lens, device=dev))
 
 
+# the race leg of 7p: back-to-back per-rank exchanges of each kind, new
+# data at every call, nothing synchronised on the host between calls, the
+# last rank late by a random 0-2 ms before each call
+RACE_ROUNDS = 200
+RACE_KINDS = ("all_to_all", "reduce_scatter", "all_reduce", "fetch", "ring")
+RACE_CHUNK, RACE_ROWS = 4096, 256       # a2a chunks; fetch and ring rows
+RACE_SEED = 17
+
+
+def _race_call(kind, g, ctx, dtype):
+    """One per-rank exchange of ``kind`` through the path's own entry
+    points (comm's, and the row fetch's exchange), on inputs every rank
+    draws alike from ``g``: (the rank's result, the plain version's of the
+    stacked inputs), both on the card."""
+    from repro_torch.core import comm
+    from repro_torch.kernels import onesided_a2a as oa
+
+    e, r, dev = ctx.world, ctx.rank, ctx.device
+
+    def draw(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    if kind == "all_to_all":
+        xs = draw(e, e, RACE_CHUNK)
+        return (comm.all_to_all(xs[r].contiguous(), backend="onesided",
+                                ctx=ctx), oa.onesided_all_to_all_ref(xs)[r])
+    if kind == "reduce_scatter":
+        xs = draw(e, e, RACE_CHUNK)
+        # the kernel sums in x.sum(0)'s order (the plain version's too)
+        return (comm.reduce_scatter(xs[r].contiguous(), backend="onesided",
+                                    ctx=ctx),
+                oa.onesided_reduce_scatter_ref(xs)[r])
+    if kind == "all_reduce":
+        xs = draw(e, 2 * RACE_CHUNK)
+        return (comm.all_reduce(xs[r].contiguous(), backend="onesided",
+                                ctx=ctx), xs.sum(0, dtype=dtype))
+    if kind == "fetch":
+        rows = draw(e, RACE_ROWS, D)             # each requester's rows
+        owner = torch.randint(0, e, (e, RACE_ROWS), generator=g, device=dev)
+        mine = owner[None] == torch.arange(e, device=dev)[:, None, None]
+        contribs = rows[None] * mine[..., None].to(dtype)
+        c = contribs[r].contiguous()
+        got = oa.onesided_fetch_rows_rank(c, r, ctx.group,
+                                          comm._symmetric(ctx, "recv", c))
+        return got, oa.onesided_fetch_rows_ref(contribs)[r]
+    xs = draw(e, RACE_ROWS, D)
+    return (comm.permute_ring(xs[r].contiguous(), shift=1,
+                              backend="onesided", ctx=ctx),
+            oa.onesided_ring_permute_ref(xs, 1)[r])
+
+
+def _race_rank(ctx, rounds):
+    """One rank of 7p's race leg: ``rounds`` exchanges of each kind in f32,
+    then in bf16, each bitwise-compared on the card, nothing read back
+    until the end.  Every rank's (mismatched elements per kind and dtype,
+    fences, launches, seconds) goes to rank 0, which returns them."""
+    import random
+
+    import torch.distributed as tdist
+
+    from repro_torch.kernels import onesided_a2a as oa
+
+    rng = random.Random(RACE_SEED + ctx.rank)
+    g = torch.Generator(device=ctx.device).manual_seed(RACE_SEED)
+    bad = {}
+    oa.reset_launch_counts()
+    t0 = time.perf_counter()
+    for dtype in (torch.float32, torch.bfloat16):
+        for kind in RACE_KINDS:
+            bad[(kind, str(dtype)[6:])] = torch.zeros(
+                (), dtype=torch.int64, device=ctx.device)
+        for _ in range(rounds):
+            for kind in RACE_KINDS:
+                if ctx.rank == ctx.world - 1:
+                    time.sleep(rng.uniform(0.0, 0.002))
+                got, want = _race_call(kind, g, ctx, dtype)
+                bad[(kind, str(dtype)[6:])] += (
+                    _bits(got) != _bits(want)).sum()
+    _sync(ctx.device)
+    rec = dict(bad={k: int(v) for k, v in bad.items()},
+               fences=oa.FENCE_STATS["fences"],
+               launches=dict(oa.LAUNCH_COUNTS),
+               secs=time.perf_counter() - t0)
+    gathered = [None] * ctx.world
+    tdist.all_gather_object(gathered, rec, group=ctx.group)
+    return gathered
+
+
+def _race_leg(pt) -> dict:
+    """7p's race leg on RANKS gloo processes sharing the card: every
+    result bitwise its plain version's, no fence, the launches of each
+    call (a signal launch a receive or a staging, two a fetch)."""
+    t0 = time.perf_counter()
+    ranks_ = pt.run_ranks(_race_rank, RANKS, backend="gloo",
+                          device=_rank_device(), args=(RACE_ROUNDS,),
+                          timeout_s=PROC_TIMEOUT_S)
+    n = 2 * RACE_ROUNDS
+    want = _launches(onesided_all_to_all=n, onesided_put_rows=n,
+                     onesided_reduce_scatter=2 * n, onesided_ring_permute=n,
+                     onesided_signal=6 * n)
+    for r, rec in enumerate(ranks_):
+        check(set(rec["bad"].values()) == {0},
+              f"7p race: rank {r}'s {n * len(RACE_KINDS)} back-to-back "
+              f"exchanges bitwise their plain versions ({rec['bad']})")
+        check(rec["fences"] == 0, f"7p race: rank {r} took no fence")
+        check({k: rec["launches"].get(k, 0) for k in SOURCES} == want,
+              f"7p race: rank {r}'s launches {want} ({rec['launches']})")
+    secs = [rec["secs"] for rec in ranks_]
+    log(f"  [race] {RANKS} processes, {RACE_ROUNDS} back-to-back exchanges "
+        f"of each of {', '.join(RACE_KINDS)} in f32 and bf16 (rank "
+        f"{RANKS - 1} late by 0-2 ms each call, nothing synchronised "
+        f"between calls): every result bitwise its plain version's on "
+        f"every rank, 0 fences; {max(secs):.1f} s a rank "
+        f"({1e3 * max(secs) / (n * len(RACE_KINDS)):.3f} ms an exchange, "
+        f"the host's sleeps included); the leg "
+        f"{time.perf_counter() - t0:.1f} s with its spawn")
+    return dict(secs=max(secs), exchanges=n * len(RACE_KINDS))
+
+
 def phase_ranks(pt, unc, dist) -> dict:
     n_cards = torch.cuda.device_count() if DEV != "cpu" else 0
     log(f"== 7p. ranks as processes ({RANKS} processes sharing the card in "
@@ -2713,6 +3015,7 @@ def phase_ranks(pt, unc, dist) -> dict:
             f"{time.perf_counter() - t1:.1f} s (spawn, shard copies, "
             f"flushes, checks' extras)")
     out = dict(gloo=_check_rank_leg(pt, unc, dist, got, "gloo"))
+    out["race"] = _race_leg(pt)
     if n_cards >= 2:
         world = RANKS if n_cards >= RANKS else 2
         rows = [(label, fields) for label, fields, r in PROC_STRATEGIES
@@ -2774,31 +3077,27 @@ def _remote_leg(ctx, eng, requests, depth, comm, eg, oa) -> dict:
     fetches, put_streams = [], []
     put = oa._put_rank
 
-    def _recording(x, rank, group, recv, counter):
+    def _recording(x, rank, recv, counter):
         if counter == "onesided_put_rows" and x.is_cuda:
             put_streams.append(torch.cuda.current_stream(x.device).cuda_stream)
-        return put(x, rank, group, recv, counter)
+        return put(x, rank, recv, counter)
 
     prev = comm.set_event_sink(fetches.append)
     oa._put_rank = _recording
     eg.reset_launch_counts()
     oa.reset_launch_counts()
-    rec = dict(flush_ms=[], fence_ms=[])
+    rec = dict(flush_ms=[])
     try:
         if depth == 1:
             scores = {}
             while eng.queue:
-                f0 = oa.FENCE_STATS["seconds"]
                 t = time.perf_counter()
                 scores.update(eng.flush())      # ends in .cpu(): synchronous
                 rec["flush_ms"].append(1e3 * (time.perf_counter() - t))
-                rec["fence_ms"].append(
-                    1e3 * (oa.FENCE_STATS["seconds"] - f0))
         else:
             t = time.perf_counter()
             scores = eng.run_to_completion()    # ends in the last drain
             rec["flush_ms"].append(1e3 * (time.perf_counter() - t))
-            rec["fence_ms"].append(1e3 * oa.FENCE_STATS["seconds"])
     finally:
         comm.set_event_sink(prev)
         oa._put_rank = put
@@ -2895,7 +3194,9 @@ def _remote_rank_serve(ctx, base, tables, mlp, reqs, batch):
         got = got.cpu()
         rec = dict(ms=1e3 * (time.perf_counter() - t),
                    bitwise=torch.equal(got.view(torch.int32), want),
-                   launches=oa.LAUNCH_COUNTS["onesided_ring_permute"])
+                   launches=oa.LAUNCH_COUNTS["onesided_ring_permute"],
+                   signals=oa.LAUNCH_COUNTS["onesided_signal"],
+                   fences=oa.FENCE_STATS["fences"])
         gathered = [None] * ctx.world
         tdist.all_gather_object(gathered, rec, group=ctx.group)
         if ctx.rank == 0:
@@ -2968,15 +3269,20 @@ def _check_remote_legs(pt, unc, remote, piped, got, leg) -> dict:
                   f"{tag} every put launch issued from the side stream")
             tbe_want = ph6b["tbe"]
         for r, rec in enumerate(ranks_):
+            # a one-sided fetch: its put, a wait for the arrivals and an
+            # acknowledgement
             want_counts = _launches(gather_pool_tbe_flat=tbe_want,
-                                    onesided_put_rows=puts_want[r])
+                                    onesided_put_rows=puts_want[r],
+                                    onesided_signal=2 * puts_want[r])
             check({k: rec["counts"].get(k, 0) for k in SOURCES}
                   == want_counts and len(rec["m_pads"]) > 0
                   and rec["comm_events"] == len(rec["m_pads"]),
                   f"{tag} rank {r}: launches {want_counts}, one fetch_rows "
                   f"event of comm's beside each of the store's")
+            check(rec["fences"] == 0,
+                  f"{tag} rank {r}: no host fence in its flushes "
+                  f"({rec['fences']})")
         med = [statistics.median(r["flush_ms"]) for r in ranks_]
-        fence = [sum(r["fence_ms"]) / sum(r["flush_ms"]) for r in ranks_]
         peak = [(r.get("peak_bytes", 0) + r["symmetric_bytes"]) / 1e9
                 for r in ranks_]
         if DEV != "cpu":
@@ -2988,16 +3294,18 @@ def _check_remote_legs(pt, unc, remote, piped, got, leg) -> dict:
             f"launches per rank {ranks_[0]['counts']}; m_pads "
             f"{ranks_[0]['m_pads']}; counters {counters}"
             + (f"; fallbacks {ranks_[0]['fallbacks']}" if depth > 1 else ""))
+        fenced = FENCED_FLUSH_MS.get((leg, label))
         log(f"  {tag} {'median flush' if depth == 1 else 'run_to_completion'}"
-            f" ms per rank {[round(m, 3) for m in med]} (host clock), fences "
-            f"{[round(100 * f, 1) for f in fence]}% of it "
-            f"({ranks_[0]['fences']} a rank); fetch ms per rank {fetch_ms}; "
+            f" ms per rank {[round(m, 3) for m in med]} (host clock; "
+            f"{ranks_[0]['fences']} fences"
+            + (f"; with host fences {fenced[0]}-{fenced[1]} ms"
+               if fenced else "") + f"); fetch ms per rank {fetch_ms}; "
             f"shard {ranks_[0]['shard_bytes'] / 1e9:.2f} GB a rank (copied "
             f"in {max(r['shard_s'] for r in ranks_):.2f} s), pools "
             f"{ranks_[0]['pool_bytes'] / 1e9:.3f} GB, peak "
             f"{[round(p, 2) for p in peak]} GB a rank (allocator peak + "
             f"symmetric buffers)")
-        summary[label] = dict(median_ms=med, fence_share=fence, peak_gb=peak,
+        summary[label] = dict(median_ms=med, peak_gb=peak,
                               fetch_ms=fetch_ms,
                               launches={k: sum(r["counts"].get(k, 0)
                                                for r in ranks_)
@@ -3008,8 +3316,10 @@ def _check_remote_legs(pt, unc, remote, piped, got, leg) -> dict:
         check(all(r["bitwise"] for r in ranks_),
               f"[{leg} ring {backend}] every rank's block bitwise torch.roll "
               f"of the stacked blocks")
-        check(all(r["launches"] == want_n for r in ranks_),
-              f"[{leg} ring {backend}] {want_n} ring launch(es) per rank")
+        check(all(r["launches"] == r["signals"] == want_n
+                  and r["fences"] == 0 for r in ranks_),
+              f"[{leg} ring {backend}] {want_n} ring and signal launch(es) "
+              f"per rank, no fence")
         log(f"  [{leg} ring {backend}] {RING_BLOCK} f32 a rank, shift 1: "
             f"bitwise on every rank, ms per rank "
             f"{[round(r['ms'], 3) for r in ranks_]} (host clock, to the "
@@ -3017,12 +3327,15 @@ def _check_remote_legs(pt, unc, remote, piped, got, leg) -> dict:
             f"{[r['launches'] for r in ranks_]}")
         summary[f"ring {backend}"] = dict(
             ms=[r["ms"] for r in ranks_],
-            launches=sum(r["launches"] for r in ranks_))
+            launches=sum(r["launches"] for r in ranks_),
+            signals=sum(r["signals"] for r in ranks_))
     summary["launches"] = {
         k: sum(summary[label]["launches"][k] for label, _, _ in REMOTE_LEGS)
         for k in SOURCES}
     summary["launches"]["onesided_ring_permute"] += \
         summary["ring onesided"]["launches"]
+    summary["launches"]["onesided_signal"] += \
+        summary["ring onesided"]["signals"]
     return summary
 
 
@@ -3505,7 +3818,8 @@ TRP_STRATEGIES = (
 TRP_LAUNCHES = {
     "row/allgather/bulk": dict(gather_pool_tbe_flat=1),
     "row/allgather/onesided": dict(gather_pool_tbe_flat=1,
-                                   onesided_reduce_scatter=1),
+                                   onesided_reduce_scatter=1,
+                                   onesided_signal=1),
     "row/a2a/bulk": {},
     "column": dict(gather_pool_tbe=1),
     "table": dict(gather_pool_tbe=1),
@@ -3831,7 +4145,7 @@ def _check_train_ranks(got, refusal, ref_losses, tag) -> tuple:
     """Phase 7tp's checks of one leg; returns (each strategy's summary,
     the kernels' launches summed over its ranks and steps)."""
     launches = dict(gather_pool_tbe_flat=0, gather_pool_tbe=0,
-                    onesided_reduce_scatter=0)
+                    onesided_reduce_scatter=0, onesided_signal=0)
     summary = {}
     for label, _, world in TRP_STRATEGIES:
         ranks_ = got[label]
@@ -9188,8 +9502,15 @@ def main() -> int:
     }
     by_path["onesided_reduce_scatter"][TRAIN_RANK_PATH] = \
         tprocs["launches"]["onesided_reduce_scatter"]
+    # the per-rank exchanges' signal launches: only ranks as processes
+    # run them
+    by_path["onesided_signal"] = {
+        RANK_PATH: procs["launches"]["onesided_signal"],
+        REMOTE_RANK_PATH: rprocs["launches"]["onesided_signal"],
+        TRAIN_RANK_PATH: tprocs["launches"]["onesided_signal"]}
     for name in ("gather_pool_tbe_flat", "gather_pool_tbe",
-                 "onesided_all_to_all", "onesided_reduce_scatter"):
+                 "onesided_all_to_all", "onesided_reduce_scatter",
+                 "onesided_signal"):
         by_path[name][DP_RANK_PATH] = dprocs["launches"][name]
     for name in ("gather_pool_tbe_flat", "flash_attention"):
         by_path[name][LR_PATH] = lrprocs["launches"][name]
@@ -9267,11 +9588,13 @@ def main() -> int:
     log("ranks as processes (7p, gloo, one card; host clock, four "
         "processes time-slicing the card): " + "; ".join(
             f"{label} median flush {max(s['median_ms']):.3f} ms (slowest "
-            f"rank), fences {100 * max(s['fence_share']):.1f}%, peak "
+            f"rank), no fence, peak "
             f"{max(s['peak_gb']):.2f} GB a rank, scores "
             + ("bitwise" if s["bitwise"] else f"max_abs_err {s['err']:.3e}")
             for label, s in procs["gloo"].items())
-        + f"; NCCL leg {'run' if 'nccl' in procs else 'needs 2+ cards'}; "
+        + f"; race leg {procs['race']['exchanges']} exchanges a rank bitwise "
+        f"in {procs['race']['secs']:.1f} s; NCCL leg "
+        f"{'run' if 'nccl' in procs else 'needs 2+ cards'}; "
         f"phase {procs['secs']:.1f} s")
     rg = rprocs["gloo"]
     log("remote tier, one host per process (6p, gloo, one card; host clock, "
@@ -9279,7 +9602,7 @@ def main() -> int:
             f"{label} {'median flush' if depth == 1 else 'run'} "
             f"{max(rg[label]['median_ms']):.3f} ms (slowest rank), median "
             f"fetch {max(statistics.median(f) for f in rg[label]['fetch_ms']):.3f}"
-            f" ms, fences {100 * max(rg[label]['fence_share']):.1f}%, peak "
+            f" ms, no fence, peak "
             f"{max(rg[label]['peak_gb']):.2f} GB a rank"
             for label, _, depth in REMOTE_LEGS)
         + f"; ring bulk/onesided {max(rg['ring bulk']['ms']):.3f}/"

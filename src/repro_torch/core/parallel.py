@@ -27,7 +27,8 @@ idiom (:class:`ProcessContext`, :func:`make_process_context`,
 :func:`run_ranks`): it holds only its own shard on its own device, and
 its collectives go through a ``torch.distributed`` process group
 (``core/comm.py``), its one-sided puts into the peers' buffers through
-CUDA IPC (``kernels/onesided_a2a.SymmetricBuffers``).  The world is laid
+CUDA IPC (``kernels/onesided_a2a.SymmetricBuffers``), each finished on the
+card by signals in those buffers' pads.  The world is laid
 out as the reference's ``("data", "model")`` mesh, the model axis last:
 global rank ``d * tp_size + m`` is rank m of data group d.  A rank's
 model-axis collectives go through its data group's model-axis subgroup,
@@ -57,6 +58,7 @@ import dataclasses
 import gc
 import os
 import shutil
+import sys
 import tempfile
 import time
 import traceback
@@ -214,8 +216,10 @@ class ProcessContext:
         """The symmetric buffers ``name`` ("send" or "recv") of at least
         ``nbytes`` on every rank.  Collective: every rank asks at the same
         point for the same size (the ranks run the same exchanges in
-        lockstep); a larger size replaces the buffers, at the next power
-        of two."""
+        lockstep, so their epochs agree); a larger size replaces the
+        buffers, at the next power of two, after a fence (no rank still
+        reads or signals the old ones), and the new ones' pads start from
+        epoch 0 on every rank."""
         from repro_torch.kernels.onesided_a2a import SymmetricBuffers, fence
 
         bufs = self._buffers.get(name)
@@ -448,11 +452,21 @@ def _rank_main(index: int, fn: Callable, world: int, dp_size: int,
         # it brings down
         with open(os.path.join(os.path.dirname(result),
                                f"error_{index}"), "w") as f:
-            f.write(f"{time.perf_counter()!r}\n{traceback.format_exc()}")
+            f.write(f"{time.perf_counter()!r}\n{traceback.format_exc()}"
+                    f"{_signal_note()}")
         raise
     finally:
         box.clear()
         dist.destroy_process_group()
+
+
+def _signal_note() -> str:
+    """What a one-sided exchange's spin that ran out in this process
+    waited for (its kernel trapped, and the error the rank raised names
+    only the CUDA fault), or nothing."""
+    oa = sys.modules.get("repro_torch.kernels.onesided_a2a")
+    report = oa.signal_timeout_report() if oa is not None else None
+    return f"{report}\n" if report else ""
 
 
 def _first_error(tmp: str) -> Optional[Tuple[int, str]]:

@@ -58,12 +58,20 @@ through its CUDA IPC handle:
     of rank ``(rank - shift) % n``: one ring-put launch writes it into
     rank ``(rank + shift) % n``'s receive buffer.
 
-Across processes, stream order no longer orders the puts: a fence (this
-rank's stream synchronised, then a barrier of the group) comes before
-every exchange, so no peer still reads the buffer it writes, and after
-the puts and the copy into the send buffer, so every write has landed
-before anyone reads.  :data:`FENCE_STATS` counts the fences and their
-seconds.
+Across processes, stream order no longer orders the ranks, and the
+exchanges finish on the device, as the reference's kernels do on their
+DMA semaphores: each buffer carries a pad of signal words after its bytes
+(:func:`pad_layout`), and each exchange of it an epoch (:class:`Epochs`,
+kept in lockstep by every rank's host).  A put waits until its
+destination has acknowledged the last exchange, then signals its arrival;
+the receiver's signal launch (``signal_copy_kernel``, counted under
+``onesided_signal``) waits for the arrivals, copies its buffer into a
+fresh result and acknowledges; the pull-sum's staging and pull do the
+same over the send buffers.  No host barrier and no stream drain sits
+between an exchange and what reads its result; :func:`fence` (counted in
+:data:`FENCE_STATS`) is only taken when a buffer is replaced or freed.
+Every spin on the card is bounded (:data:`SIGNAL_TIMEOUT_S`): one that
+runs out traps its kernel and leaves :func:`signal_timeout_report`.
 
 Every wrapper dispatches on the device of the tensor it is given: a CPU
 tensor takes the plain version beside it (``*_ref``; per rank, the
@@ -71,7 +79,8 @@ group's collectives), a CUDA tensor launches the kernel, anything else
 raises.  Each kernel launch adds one to the wrapper's entry in
 :data:`LAUNCH_COUNTS` (the per-rank all-reduce under
 ``onesided_reduce_scatter``, its kernel's; the per-rank row fetch under
-``onesided_put_rows``); the plain versions count nothing.  Every call of a
+``onesided_put_rows``; the per-rank signal launches under
+``onesided_signal``); the plain versions count nothing.  Every call of a
 wrapper, on either device, adds one to its entry in :data:`CALL_COUNTS`
 (``onesided_fetch_rows`` counts as the ``onesided_put_rows`` call it
 makes, and ``onesided_fetch_rows_rank`` as one).
@@ -79,6 +88,7 @@ makes, and ``onesided_fetch_rows_rank`` as one).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import time
 from typing import Optional, Sequence
 
@@ -87,12 +97,16 @@ import torch.distributed as dist
 
 from repro_torch.kernels import build as _build
 
-LAUNCH_COUNTS = {"onesided_put_rows": 0, "onesided_all_to_all": 0,
-                 "onesided_reduce_scatter": 0, "onesided_ring_permute": 0}
+_WRAPPERS = ("onesided_put_rows", "onesided_all_to_all",
+             "onesided_reduce_scatter", "onesided_ring_permute")
+# the launches of each kernel wrapper's kernel; "onesided_signal" counts
+# the per-rank exchanges' signal_copy_kernel launches (waits, copies,
+# signals), which no wrapper of its own makes
+LAUNCH_COUNTS = dict.fromkeys(_WRAPPERS + ("onesided_signal",), 0)
 # calls of each wrapper, on any device (a CPU tensor's plain version
 # too): the launch census of ``repro_torch.analysis.contracts``, which a
 # dispatch mode cannot take, since the ctypes launch dispatches nothing
-CALL_COUNTS = dict.fromkeys(LAUNCH_COUNTS, 0)
+CALL_COUNTS = dict.fromkeys(_WRAPPERS, 0)
 
 _DTYPE_CODES = {torch.int32: 0, torch.float32: 1, torch.bfloat16: 2}
 # the ranks a launch takes (kMaxRanks of the .cu): the table goes to the
@@ -101,7 +115,8 @@ _DTYPE_CODES = {torch.int32: 0, torch.float32: 1, torch.bfloat16: 2}
 MAX_RANKS = 63
 
 
-# the per-rank exchanges' fences: how many, and their host seconds
+# the fences of the symmetric buffers' life (a buffer grown, a context
+# closed; no exchange takes one): how many, and their host seconds
 FENCE_STATS = {"fences": 0, "seconds": 0.0}
 
 
@@ -115,27 +130,41 @@ def _kernel():
     lib = _build.load("onesided_a2a")
     if lib.onesided_a2a_put.argtypes is None:
         P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        TAB = ctypes.POINTER(LL)
-        lib.onesided_a2a_put.argtypes = [P, TAB, I, I, I, LL, I, I, P]
+        U = ctypes.c_ulonglong
+        TAB, CNT = ctypes.POINTER(LL), ctypes.POINTER(U)
+        # ..., counts (null: no signals), epoch, pad offset, bound (ns)
+        SIG = [CNT, U, LL, LL]
+        lib.onesided_a2a_put.argtypes = [P, TAB, I, I, I, LL, I, I] + SIG \
+            + [P]
         lib.onesided_a2a_put.restype = I
-        lib.onesided_rs_pull.argtypes = [TAB, P, I, I, I, LL, I, I, P]
+        lib.onesided_rs_pull.argtypes = [TAB, P, I, I, I, LL, I, I, I] \
+            + SIG + [P]
         lib.onesided_rs_pull.restype = I
-        lib.onesided_ring_put.argtypes = [P, TAB, I, I, I, I, LL, I, I, P]
+        lib.onesided_ring_put.argtypes = [P, TAB, I, I, I, I, LL, I, I] \
+            + SIG + [P]
         lib.onesided_ring_put.restype = I
+        lib.onesided_signal_copy.argtypes = [P, P, LL, I, TAB, I, I, U, I,
+                                             U, U, I, U, CNT, LL, LL, P]
+        lib.onesided_signal_copy.restype = I
         lib.a2a_error_string.argtypes = [I]
         lib.a2a_error_string.restype = ctypes.c_char_p
         PP = ctypes.POINTER(ctypes.c_void_p)
         lib.symm_handle_bytes.argtypes = []
         lib.symm_handle_bytes.restype = I
-        lib.symm_alloc.argtypes = [I, LL, PP]
+        lib.signal_record.argtypes = [I, PP]
+        lib.symm_alloc.argtypes = [I, LL, LL, PP]
         lib.symm_export.argtypes = [I, P, ctypes.c_char_p]
         lib.symm_open.argtypes = [I, ctypes.c_char_p, PP]
         lib.symm_close.argtypes = [I, P]
         lib.symm_free.argtypes = [I, P]
-        for fn in (lib.symm_alloc, lib.symm_export, lib.symm_open,
-                   lib.symm_close, lib.symm_free):
+        for fn in (lib.signal_record, lib.symm_alloc, lib.symm_export,
+                   lib.symm_open, lib.symm_close, lib.symm_free):
             fn.restype = I
     return lib
+
+
+# the stacked ranks' launches pass no signals
+_NO_SIGNALS = (None, 0, 0, 0)
 
 
 def _check_device(x: torch.Tensor, what: str) -> None:
@@ -242,7 +271,7 @@ def _launch_all_to_all(x: torch.Tensor, counter: str, first: int = 0,
         stream = torch.cuda.current_stream(x.device).cuda_stream
         _check_rc(lib, lib.onesided_a2a_put(
             x[first].data_ptr(), ptrs, first, count, E, chunk,
-            _DTYPE_CODES[x.dtype], int(vec), stream), counter)
+            _DTYPE_CODES[x.dtype], int(vec), *_NO_SIGNALS, stream), counter)
     LAUNCH_COUNTS[counter] += 1
     return out
 
@@ -266,7 +295,7 @@ def _launch_pull_sum(x: torch.Tensor, first: int = 0,
         stream = torch.cuda.current_stream(x.device).cuda_stream
         _check_rc(lib, lib.onesided_rs_pull(
             ptrs, out.data_ptr(), E, first, count, chunk,
-            _DTYPE_CODES[x.dtype], int(vec), stream),
+            _DTYPE_CODES[x.dtype], int(vec), 0, *_NO_SIGNALS, stream),
             "onesided_reduce_scatter")
     LAUNCH_COUNTS["onesided_reduce_scatter"] += 1
     return out
@@ -323,7 +352,8 @@ def _launch_ring(x: torch.Tensor, shift: int, first: int = 0,
         stream = torch.cuda.current_stream(x.device).cuda_stream
         _check_rc(lib, lib.onesided_ring_put(
             x[first].data_ptr(), ptrs, first, count, n, shift % n, chunk,
-            _DTYPE_CODES[x.dtype], int(vec), stream), "onesided_ring_permute")
+            _DTYPE_CODES[x.dtype], int(vec), *_NO_SIGNALS, stream),
+            "onesided_ring_permute")
     LAUNCH_COUNTS["onesided_ring_permute"] += 1
     return out
 
@@ -382,27 +412,154 @@ def _check_symm(lib, rc: int, what: str) -> None:
                            f"{lib.a2a_error_string(rc).decode()} ({rc})")
 
 
+# the pad's regions (kSignalRegion, kAckRegion of the .cu): SIGNAL[s] is
+# "full" (source s's put landed, or s's send buffer holds the epoch),
+# ACK[d] "empty" (rank d finished reading what the exchange left for it)
+SIGNAL, ACK = 0, 1
+PAD_ALIGN = 256
+# each spin's bound on the card, in seconds: a spin that runs out traps
+# and names what it waited for (signal_timeout_report); a check may lower
+# it for its own run
+SIGNAL_TIMEOUT_S = 10.0
+# the epoch an exchange may carry at most (the pads' words are uint64; the
+# launchers take it as a signed 64-bit integer)
+EPOCH_MAX = 2 ** 63 - 1
+# the first word of the timeout record once a spin ran out (kTimedOut)
+TIMED_OUT = 0x5349474E414C54
+
+
+@dataclasses.dataclass(frozen=True)
+class PadLayout:
+    """Where a buffer's signal pad lies: ``offset`` bytes from the
+    buffer's base (its ``nbytes``, past every byte :meth:`SymmetricBuffers.
+    view` hands out), ``nbytes`` long, in uint64 words ``signal``
+    (SIGNAL[0..world)), ``ack`` (ACK[0..world)) and ``count`` (COUNT, the
+    rank's block counters: ``world`` for its puts into each rank, one for
+    its own copies and pulls) from its start."""
+
+    world: int
+    offset: int
+    signal: int
+    ack: int
+    count: int
+    words: int
+    nbytes: int
+
+
+def pad_layout(world: int, nbytes: int) -> PadLayout:
+    """The pad of a symmetric buffer of ``nbytes`` over ``world`` ranks
+    (1 to :data:`MAX_RANKS`): ``3 * world + 1`` words after the buffer's
+    bytes, rounded up to :data:`PAD_ALIGN` bytes."""
+    if not 1 <= world <= MAX_RANKS:
+        raise ValueError(f"at most {MAX_RANKS} ranks, got {world}")
+    if nbytes <= 0 or nbytes % PAD_ALIGN:
+        raise ValueError(f"a symmetric buffer's bytes must be a positive "
+                         f"multiple of {PAD_ALIGN}, got {nbytes}")
+    words = 3 * world + 1
+    return PadLayout(world=world, offset=nbytes, signal=0, ack=world,
+                     count=2 * world, words=words,
+                     nbytes=-(-8 * words // PAD_ALIGN) * PAD_ALIGN)
+
+
+class Epochs:
+    """The exchanges of one set of symmetric buffers, counted: each
+    exchange takes :meth:`next`, 1, 2, ...  Every rank runs the same
+    exchanges on the same buffers in the same order, so every rank's count
+    agrees without a word between them; a new set (a buffer grown) starts
+    again from 0."""
+
+    def __init__(self):
+        self.epoch = 0
+
+    def next(self) -> int:
+        if self.epoch >= EPOCH_MAX:
+            raise OverflowError(f"the symmetric buffers' exchanges reached "
+                                f"epoch {EPOCH_MAX}, the most a pad holds")
+        self.epoch += 1
+        return self.epoch
+
+
+_RECORD: Optional[int] = None   # the process's host-mapped timeout record
+
+
+def _timeout_record(lib, index: int) -> None:
+    global _RECORD
+    host = ctypes.c_void_p()
+    _check_symm(lib, lib.signal_record(index, ctypes.byref(host)),
+                "the signals' timeout record")
+    _RECORD = host.value
+
+
+def signal_timeout_report() -> Optional[str]:
+    """What a spin that ran out in this process waited for, as a sentence
+    (its kernel trapped after writing it); None when none ran out.  Reads
+    host memory only, so it answers after the trap too."""
+    if _RECORD is None:
+        return None
+    words = (ctypes.c_uint64 * 8).from_address(_RECORD)
+    if words[0] != TIMED_OUT:
+        return None
+    rank, region, slot, want, seen, bound_ns, world = words[1:8]
+    what = ("SIGNAL", "the put or staging of rank") if region == SIGNAL \
+        else ("ACK", "the acknowledgement of rank")
+    return (f"signal wait timed out after {bound_ns / 1e9:g} s: rank {rank} "
+            f"of {world} waited for slot {what[0]}[{slot}] of its pad to "
+            f"reach epoch {want} (it read {seen}): {what[1]} {slot} never "
+            f"came")
+
+
+def signal_copy_ref(pads: Sequence[torch.Tensor], rank: int, epoch: int, *,
+                    wait: int = 0, wait_region: int = SIGNAL,
+                    wait_epoch: int = 0, signal: int = 0,
+                    signal_region: int = SIGNAL,
+                    src: Optional[torch.Tensor] = None,
+                    dst: Optional[torch.Tensor] = None) -> None:
+    """Plain signal launch over the ranks' pads as int64 tensors of
+    ``pad.words`` (``pads[i]`` rank i's): what the kernel waits for must
+    already hold (a plain version cannot wait: it raises; epoch 0 always
+    holds and is not read), then ``dst`` takes ``src``'s bytes and
+    ``epoch`` goes into slot ``rank`` of ``signal_region`` of each pad in
+    ``signal``.  The block counters are the kernel's own and are left as
+    they are."""
+    world = len(pads)
+    for i in range(world if wait_epoch else 0):
+        if wait >> i & 1 and int(pads[rank][wait_region * world + i]) \
+                < wait_epoch:
+            raise RuntimeError(f"signal_copy_ref: slot {i} of region "
+                               f"{wait_region} is below epoch {wait_epoch}")
+    if src is not None:
+        dst.copy_(src)
+    for i in range(world):
+        if signal >> i & 1:
+            pads[i][signal_region * world + rank] = epoch
+
+
 class SymmetricBuffers:
     """One buffer of ``nbytes`` on every rank of a process group, each
     addressable by every rank: the symmetric memory of the one-sided
     exchanges when each rank is a process.
 
     Every rank allocates its own buffer with ``cudaMalloc`` on its device
-    (``csrc/onesided_a2a.cu``, ``symm_alloc``), exports its CUDA IPC
-    handle, gathers every rank's handle over the group
-    (``all_gather_object``) and opens the peers' handles
+    (``csrc/onesided_a2a.cu``, ``symm_alloc``), with its signal pad
+    (:func:`pad_layout`, zeroed) after the ``nbytes`` in the same
+    allocation, exports its CUDA IPC handle, gathers every rank's handle
+    over the group (``all_gather_object``) and opens the peers' handles
     (``cudaIpcOpenMemHandle`` with lazy peer access).  :attr:`ptrs` then
     holds the E buffers' addresses in this process, in rank order, which
-    the put and pull-sum kernels take as their table.  A handle that does
-    not open raises: there is no fallback to a bulk collective.
+    the put and pull-sum kernels take as their table; each pad lies
+    ``pad.offset`` bytes past its buffer's.  A buffer, a pad or a handle
+    that cannot be made or opened raises: there is no fallback, to a bulk
+    collective or to host fences.
 
     The constructor is collective: every rank of the group builds its
-    buffers at the same point with the same size.  ``rank`` and ``world``
-    are the rank's and the size of ``group`` (a model-axis subgroup under
-    a data axis: the handles are gathered over it and indexed by the rank
-    in it, so two model axes sharing a card open only their own peers'
-    buffers); others raise.  :attr:`handles` keeps the E handles, in
-    rank order."""
+    buffers at the same point with the same size, and the handles'
+    gathering is what tells a rank that every peer's pad is zeroed.
+    ``rank`` and ``world`` are the rank's and the size of ``group`` (a
+    model-axis subgroup under a data axis: the handles are gathered over
+    it and indexed by the rank in it, so two model axes sharing a card
+    open only their own peers' buffers); others raise.  :attr:`handles`
+    keeps the E handles, in rank order.  :attr:`epochs` counts this set's
+    exchanges, and the COUNT words' host copy lives beside it."""
 
     def __init__(self, group, rank: int, world: int, device, nbytes: int):
         self.group, self.rank, self.world = group, rank, world
@@ -419,12 +576,17 @@ class SymmetricBuffers:
                 f" group: {dist.get_rank(group)} of "
                 f"{dist.get_world_size(group)}")
         self.nbytes = int(nbytes)
+        self.pad = pad_layout(world, self.nbytes)
+        self.epochs = Epochs()
+        self._counts = (ctypes.c_ulonglong * (world + 1))()
         self._index = self.device.index if self.device.index is not None \
             else torch.cuda.current_device()
         lib = self._lib = _kernel()
+        _timeout_record(lib, self._index)
         own = ctypes.c_void_p()
         _check_symm(lib, lib.symm_alloc(self._index, self.nbytes,
-                                        ctypes.byref(own)), "cudaMalloc")
+                                        self.pad.nbytes, ctypes.byref(own)),
+                    "cudaMalloc")
         self._own = own.value
         handle = ctypes.create_string_buffer(lib.symm_handle_bytes())
         _check_symm(lib, lib.symm_export(self._index, self._own, handle),
@@ -449,7 +611,7 @@ class SymmetricBuffers:
 
     def view(self, dtype: torch.dtype, shape: Sequence[int]) -> torch.Tensor:
         """This rank's buffer, its first bytes as a ``shape`` tensor of
-        ``dtype``."""
+        ``dtype``; never its pad."""
         n = 1
         for s in shape:
             n *= int(s)
@@ -479,7 +641,9 @@ class SymmetricBuffers:
 def fence(group, device: torch.device) -> None:
     """This rank's stream drained, then a barrier of the group: every
     rank's earlier device work -- a put, a read of its buffers -- is done
-    before any rank goes on.  Counted and timed in :data:`FENCE_STATS`."""
+    before any rank goes on.  Only a buffer's life takes one (a buffer
+    replaced at a larger size, the context closed): the exchanges finish
+    on the device.  Counted and timed in :data:`FENCE_STATS`."""
     t0 = time.perf_counter()
     if device.type == "cuda":
         torch.cuda.current_stream(device).synchronize()
@@ -564,7 +728,77 @@ def onesided_ring_permute_rank_ref(x: torch.Tensor, shift: int,
     return out
 
 
-# wrappers
+# wrappers: each exchange takes the next epoch of its buffers and finishes
+# on the device (the .cu's Completion paragraph)
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _timeout_ns() -> int:
+    return int(SIGNAL_TIMEOUT_S * 1e9)
+
+
+def _ranks(*ranks: int) -> int:
+    """The set of ``ranks`` as a bit mask, bit i rank i."""
+    mask = 0
+    for r in ranks:
+        mask |= 1 << r
+    return mask
+
+
+def _signals(bufs: SymmetricBuffers, epoch: int) -> tuple:
+    """The launchers' signal arguments for an exchange of ``bufs``."""
+    return bufs._counts, epoch, bufs.pad.offset, _timeout_ns()
+
+
+def _unit(src: torch.Tensor, dst: torch.Tensor, nbytes: int) -> int:
+    """The copy's unit: 16 bytes where the bytes and both bases allow,
+    else 4, else 2 (every dtype here is 2 or 4 bytes wide)."""
+    for unit in (16, 4):
+        if nbytes % unit == 0 and src.data_ptr() % unit == 0 \
+                and dst.data_ptr() % unit == 0:
+            return unit
+    return 2
+
+
+def _signal_copy(bufs: SymmetricBuffers, epoch: int, *, wait: int = 0,
+                 wait_region: int = SIGNAL, wait_epoch: int = 0,
+                 signal: int = 0, signal_region: int = SIGNAL,
+                 src: Optional[torch.Tensor] = None,
+                 dst: Optional[torch.Tensor] = None) -> None:
+    """One signal_copy_kernel launch for this rank of ``bufs``, counted
+    under ``onesided_signal``: wait until the slots of ``wait_region`` of
+    its pad for the ranks in the mask ``wait`` reach ``wait_epoch`` (none
+    when 0), copy ``src`` into ``dst`` (contiguous, alike; none when
+    None), then store ``epoch`` into its slot of ``signal_region`` of the
+    pads of the ranks in ``signal``."""
+    nbytes = 0 if src is None else src.numel() * src.element_size()
+    unit = 2 if nbytes == 0 else _unit(src, dst, nbytes)
+    lib = _kernel()
+    with torch.cuda.device(bufs.device):
+        _check_rc(lib, lib.onesided_signal_copy(
+            None if src is None else src.data_ptr(),
+            None if dst is None else dst.data_ptr(), nbytes, unit,
+            bufs._table, bufs.rank, bufs.world, wait, wait_region,
+            wait_epoch, signal, signal_region, epoch, bufs._counts,
+            bufs.pad.offset, _timeout_ns(), _stream(bufs.device)),
+            "onesided_signal")
+    LAUNCH_COUNTS["onesided_signal"] += 1
+
+
+def _receive(bufs: SymmetricBuffers, epoch: int, buf: torch.Tensor,
+             sources: int) -> torch.Tensor:
+    """This rank's receive buffer ``buf`` at ``epoch``: one launch waits
+    for the signals of ``sources``, copies it into a fresh tensor and
+    acknowledges ``epoch`` to every rank, whose next put into it waits for
+    that."""
+    out = torch.empty_like(buf)
+    _signal_copy(bufs, epoch, wait=sources, wait_region=SIGNAL,
+                 wait_epoch=epoch, signal=_ranks(*range(bufs.world)),
+                 signal_region=ACK, src=buf, dst=out)
+    return out
+
 
 def onesided_all_to_all_rank(x: torch.Tensor, rank: int, group,
                              recv: Optional[SymmetricBuffers] = None
@@ -572,63 +806,74 @@ def onesided_all_to_all_rank(x: torch.Tensor, rank: int, group,
     """This rank's all-to-all: ``(E_dst, C, ...)`` -> ``(E_src, C, ...)``,
     chunk d of every source at ``[source]`` of rank d's result.  One
     launch of the put kernel with ``first = rank, count = 1`` writes this
-    rank's E chunks into the peers' receive buffers ``recv``, between two
-    fences; the result is a copy of this rank's receive buffer.  CPU
-    tensors take the group's ``all_to_all_single`` (``recv`` unused)."""
+    rank's E chunks into the peers' receive buffers ``recv`` and signals
+    each; one signal launch waits for every source's, copies the receive
+    buffer into the result and acknowledges.  CPU tensors take the
+    group's ``all_to_all_single`` (``recv`` unused)."""
     CALL_COUNTS["onesided_all_to_all"] += 1
     if x.device.type == "cpu":
         return onesided_all_to_all_rank_ref(x, group)
     _check_device(x, "all-to-all")
     _check_rank_chunks(x, recv.world, "onesided_all_to_all_rank")
-    return _put_rank(x, rank, group, recv, "onesided_all_to_all").clone()
+    return _all_to_all_on_card(x, rank, recv)
 
 
-def _put_rank(x: torch.Tensor, rank: int, group, recv: SymmetricBuffers,
-              counter: str) -> torch.Tensor:
-    """One put launch (``first = rank, count = 1``, counted under
-    ``counter``) of this rank's ``(E_dst, C, ...)`` chunks into the peers'
-    receive buffers ``recv``, between two fences; returns this rank's
-    receive buffer as ``(E_src, C, ...)``, which the next exchange's first
-    fence keeps from the peers until what reads it here has run."""
+def _all_to_all_on_card(x: torch.Tensor, rank: int,
+                        recv: SymmetricBuffers) -> torch.Tensor:
+    if x[0].numel() == 0:
+        return torch.empty_like(x)
+    buf, e = _put_rank(x, rank, recv, "onesided_all_to_all")
+    return _receive(recv, e, buf, _ranks(*range(recv.world)))
+
+
+def _put_rank(x: torch.Tensor, rank: int, recv: SymmetricBuffers,
+              counter: str) -> tuple:
+    """The next exchange of ``recv``: one put launch (``first = rank,
+    count = 1``, counted under ``counter``) of this rank's non-empty
+    ``(E_dst, C, ...)`` chunks into the peers' receive buffers, each put
+    waiting for its destination's acknowledgement of the last exchange and
+    signalling its arrival.  Returns (this rank's receive buffer as
+    ``(E_src, C, ...)``, the epoch): its bytes are the peers' until this
+    rank waits for their signals, and the peers' again once it
+    acknowledges."""
     E = recv.world
     chunk = x[0].numel()
-    if chunk == 0:
-        return torch.empty_like(x)
-    out = recv.view(x.dtype, x.shape)
-    vec = _aligned(x, out, chunk)
+    e = recv.epochs.next()
+    buf = recv.view(x.dtype, x.shape)
+    vec = _aligned(x, buf, chunk)
     lib = _kernel()
-    fence(group, x.device)              # no peer still reads its buffer
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
         _check_rc(lib, lib.onesided_a2a_put(
             x.data_ptr(), recv._table, rank, 1, E, chunk,
-            _DTYPE_CODES[x.dtype], int(vec), stream), counter)
+            _DTYPE_CODES[x.dtype], int(vec), *_signals(recv, e),
+            _stream(x.device)), counter)
     LAUNCH_COUNTS[counter] += 1
-    fence(group, x.device)              # every rank's puts have landed
-    return out
+    return buf, e
 
 
-def _pull_sum_rank(x: torch.Tensor, rank: int, group,
-                   send: SymmetricBuffers, first: int, chunk: int,
-                   out_shape) -> torch.Tensor:
-    """``x`` copied into this rank's send buffer between two fences, then
-    one pull-sum launch over the E send buffers' chunk ``first``."""
+def _pull_sum_rank(x: torch.Tensor, rank: int, send: SymmetricBuffers,
+                   first: int, chunk: int, out_shape) -> torch.Tensor:
+    """The next exchange of ``send``: one signal launch waits for every
+    peer's acknowledgement of the last exchange, copies ``x`` into this
+    rank's send buffer and signals it ready to every peer; then one
+    pull-sum launch waits for every peer's, sums the E send buffers' chunk
+    ``first`` and acknowledges to each."""
     E = send.world
     out = torch.empty(out_shape, dtype=x.dtype, device=x.device)
     if chunk == 0:
         return out
+    e = send.epochs.next()
     staged = send.view(x.dtype, x.shape)
+    everyone = _ranks(*range(E))
+    _signal_copy(send, e, wait=everyone, wait_region=ACK, wait_epoch=e - 1,
+                 signal=everyone, signal_region=SIGNAL, src=x, dst=staged)
     vec = _aligned(staged, out, chunk)
     lib = _kernel()
-    fence(group, x.device)              # no peer still reads its buffer
-    staged.copy_(x)
-    fence(group, x.device)              # every send buffer is written
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
         _check_rc(lib, lib.onesided_rs_pull(
             send._table, out.data_ptr(), E, first, 1, chunk,
-            _DTYPE_CODES[x.dtype], int(vec), stream),
-            "onesided_reduce_scatter")
+            _DTYPE_CODES[x.dtype], int(vec), rank, *_signals(send, e),
+            _stream(x.device)), "onesided_reduce_scatter")
     LAUNCH_COUNTS["onesided_reduce_scatter"] += 1
     return out
 
@@ -638,16 +883,16 @@ def onesided_reduce_scatter_rank(x: torch.Tensor, rank: int, group,
                                  ) -> torch.Tensor:
     """This rank's reduce-scatter: ``(E_dst, M, ...)`` -> ``(M, ...)``, the
     sum over sources of their ``[rank]``, in ``x``'s dtype and rank order
-    (``x.sum(0)``'s).  One pull-sum launch with ``first = rank, count =
-    1`` reads the chunk from every peer's send buffer ``send``.  The next
-    exchange's first fence keeps the peers from overwriting their send
-    buffers while this rank still reads them."""
+    (``x.sum(0)``'s).  ``x`` staged into this rank's send buffer ``send``
+    (one signal launch), then one pull-sum launch with ``first = rank,
+    count = 1`` reads the chunk from every peer's send buffer once each
+    peer has signalled it ready, and acknowledges."""
     CALL_COUNTS["onesided_reduce_scatter"] += 1
     if x.device.type == "cpu":
         return onesided_reduce_scatter_rank_ref(x, group)
     _check_device(x, "reduce-scatter")
     _check_rank_chunks(x, send.world, "onesided_reduce_scatter_rank")
-    return _pull_sum_rank(x, rank, group, send, rank, x[0].numel(),
+    return _pull_sum_rank(x, rank, send, rank, x[0].numel(),
                           tuple(x.shape[1:]))
 
 
@@ -655,9 +900,10 @@ def onesided_all_reduce_rank(x: torch.Tensor, rank: int, group,
                              send: Optional[SymmetricBuffers] = None
                              ) -> torch.Tensor:
     """This rank's all-reduce: the sum of every rank's ``x``, in ``x``'s
-    dtype and rank order (``x.sum(0)``'s over the stacked ranks).  One
-    pull-sum launch over the peers' whole send buffers (the chunk is all
-    of ``x``), counted under ``onesided_reduce_scatter``."""
+    dtype and rank order (``x.sum(0)``'s over the stacked ranks).  ``x``
+    staged as for the reduce-scatter, then one pull-sum launch over the
+    peers' whole send buffers (the chunk is all of ``x``), counted under
+    ``onesided_reduce_scatter``."""
     CALL_COUNTS["onesided_reduce_scatter"] += 1
     if x.device.type == "cpu":
         return onesided_all_reduce_rank_ref(x, group)
@@ -666,8 +912,7 @@ def onesided_all_reduce_rank(x: torch.Tensor, rank: int, group,
         raise ValueError(f"onesided_all_reduce_rank takes a contiguous "
                          f"tensor of one of {tuple(_DTYPE_CODES)}, got "
                          f"{x.dtype}")
-    return _pull_sum_rank(x, rank, group, send, 0, x.numel(),
-                          tuple(x.shape))
+    return _pull_sum_rank(x, rank, send, 0, x.numel(), tuple(x.shape))
 
 
 def onesided_fetch_rows_rank(contribs: torch.Tensor, rank: int, group,
@@ -676,11 +921,13 @@ def onesided_fetch_rows_rank(contribs: torch.Tensor, rank: int, group,
     """This rank's row fetch: its ``(H_dst, M, D)`` contributions -> its
     ``(M, D)`` fetched rows.  One launch of the put kernel with ``first =
     rank, count = 1``, counted under ``onesided_put_rows``, writes chunk d
-    into rank d's receive buffer ``recv`` at ``[rank]``, between two
-    fences; then the sum over the ``(H_src, M, D)`` received, on this
-    rank's stream.  Each element has one owner and zeros elsewhere, so the
-    sum returns the owner's bits (``-0.0`` comes back ``+0.0``).  CPU
-    tensors take the group's ``all_to_all_single`` (``recv`` unused)."""
+    into rank d's receive buffer ``recv`` at ``[rank]``; one signal launch
+    waits for every source's arrival, the sum over the ``(H_src, M, D)``
+    received runs on this rank's stream into a fresh tensor, and one more
+    signal launch acknowledges.  Each element has one owner and zeros
+    elsewhere, so the sum returns the owner's bits (``-0.0`` comes back
+    ``+0.0``).  CPU tensors take the group's ``all_to_all_single``
+    (``recv`` unused)."""
     CALL_COUNTS["onesided_put_rows"] += 1
     if contribs.device.type == "cpu":
         return onesided_fetch_rows_rank_ref(contribs, group)
@@ -689,8 +936,19 @@ def onesided_fetch_rows_rank(contribs: torch.Tensor, rank: int, group,
     if contribs.dim() != 3:
         raise ValueError(f"contribs must be (H, M, D), got "
                          f"{tuple(contribs.shape)}")
-    return _put_rank(contribs, rank, group, recv,
-                     "onesided_put_rows").sum(dim=0)
+    return _fetch_rows_on_card(contribs, rank, recv)
+
+
+def _fetch_rows_on_card(contribs: torch.Tensor, rank: int,
+                        recv: SymmetricBuffers) -> torch.Tensor:
+    if contribs[0].numel() == 0:
+        return torch.empty_like(contribs).sum(dim=0)
+    buf, e = _put_rank(contribs, rank, recv, "onesided_put_rows")
+    everyone = _ranks(*range(recv.world))
+    _signal_copy(recv, e, wait=everyone, wait_region=SIGNAL, wait_epoch=e)
+    out = buf.sum(dim=0)
+    _signal_copy(recv, e, signal=everyone, signal_region=ACK)
+    return out
 
 
 def onesided_ring_permute_rank(x: torch.Tensor, shift: int, rank: int,
@@ -699,9 +957,10 @@ def onesided_ring_permute_rank(x: torch.Tensor, shift: int, rank: int,
     """This rank's ring permute: its block goes to rank ``(rank + shift) %
     n``, and it returns the block of rank ``(rank - shift) % n``.  One
     launch of the ring-put kernel with ``first = rank, count = 1`` writes
-    the block into that rank's receive buffer ``recv``, between two
-    fences; the result is a copy of this rank's receive buffer.  CPU
-    tensors take a send/recv pair over the group (``recv`` unused)."""
+    the block into that rank's receive buffer ``recv`` and signals it; one
+    signal launch waits for the source's signal, copies the block into the
+    result and acknowledges.  CPU tensors take a send/recv pair over the
+    group (``recv`` unused)."""
     CALL_COUNTS["onesided_ring_permute"] += 1
     if x.device.type == "cpu":
         return onesided_ring_permute_rank_ref(x, shift, group)
@@ -710,19 +969,23 @@ def onesided_ring_permute_rank(x: torch.Tensor, shift: int, rank: int,
         raise ValueError(f"onesided_ring_permute_rank takes a contiguous "
                          f"tensor of one of {tuple(_DTYPE_CODES)}, got "
                          f"{x.dtype}")
+    return _ring_permute_on_card(x, shift, rank, recv)
+
+
+def _ring_permute_on_card(x: torch.Tensor, shift: int, rank: int,
+                          recv: SymmetricBuffers) -> torch.Tensor:
     n = recv.world
     chunk = x.numel()
     if chunk == 0:
         return torch.empty_like(x)
-    out = recv.view(x.dtype, x.shape)
-    vec = _aligned(x, out, chunk)
+    e = recv.epochs.next()
+    buf = recv.view(x.dtype, x.shape)
+    vec = _aligned(x, buf, chunk)
     lib = _kernel()
-    fence(group, x.device)              # no peer still reads its buffer
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
         _check_rc(lib, lib.onesided_ring_put(
             x.data_ptr(), recv._table, rank, 1, n, shift % n, chunk,
-            _DTYPE_CODES[x.dtype], int(vec), stream), "onesided_ring_permute")
+            _DTYPE_CODES[x.dtype], int(vec), *_signals(recv, e),
+            _stream(x.device)), "onesided_ring_permute")
     LAUNCH_COUNTS["onesided_ring_permute"] += 1
-    fence(group, x.device)              # every rank's block has landed
-    return out.clone()
+    return _receive(recv, e, buf, _ranks((rank - shift) % n))

@@ -46,12 +46,17 @@ device the caller chose, and nothing is skipped on the card.
 
 Over a remote cold tier whose hosts are ranks (``remote_ctx``), the fetch
 is a sequence of group operations (the requests' all-gathers, then the
-reduce-scatter or the fenced puts), and the worker issues them: the
-fences and the growth of the symmetric buffers run there too, and a
-fence synchronises the current stream, the side stream, so the forward
-on the main stream goes on overlapping.  A gloo group pairs collectives
-by their order, so one rank must never issue group operations from two
-threads at once.  None does: the main thread's forward and drain issue
+reduce-scatter or the one-sided puts), and the worker issues them, the
+growth of the symmetric buffers too (a fence, which synchronises the
+current stream, the side stream).  The one-sided exchange finishes on the
+card: its puts wait for the peers' acknowledgements and its receive
+waits for their signals on the side stream, with no stream drain on the
+host, and the forward's stream waits on the worker's event as for any
+fetch, so the forward on the main stream goes on overlapping.  No put on
+the side stream waits on work that only a later launch of that stream
+would do: what it waits for are the peers' launches and this rank's
+earlier ones.  A gloo group pairs collectives by their order, so one rank
+must never issue group operations from two threads at once.  None does: the main thread's forward and drain issue
 none, and the capacity fallback's serialized fetch runs on the main
 thread only after the worker has been joined.  The capacity decisions
 come from the same requests on every rank, so every rank falls back at

@@ -344,5 +344,5 @@ def test_source_names_what_it_replaces_and_what_bounds_it():
                  "sum_chunks_kernel", "What bounds both: device-memory bytes",
                  "thread_reduce_impl"):
         assert name in SOURCE, name
-    assert len(re.findall(r"__global__", SOURCE)) == 2
+    assert len(re.findall(r"__global__", SOURCE)) == 3
     assert _const("kMaxRanks") == oa.MAX_RANKS

@@ -17,7 +17,11 @@ shift up to n + 1 and over ranges of source ranks, and the pull-sum at
 every rank count from 9 to ``MAX_RANKS``; and, with each rank a process
 (``core.parallel.run_ranks``, 2 and 4 processes sharing the card), the
 put, the pull-sum and the all-reduce through the peers' symmetric
-buffers, and a peer's handle that does not open.  Every comparison is bitwise:
+buffers, and a peer's handle that does not open; 200 back-to-back
+exchanges of every kind with host delays and nothing synchronised between
+them, a buffer grown between exchanges (its epochs start again), and a
+rank that skips an exchange, whose peers' spins run out and trap (the run
+fails naming the timeout; it does not hang).  Every comparison is bitwise:
 the puts copy bits, and the pull-sum adds in the order of PyTorch's CUDA
 sum over an outer dimension (four partial sums, combined left to right),
 for any E up to ``MAX_RANKS``.  One exception:
@@ -28,6 +32,9 @@ bound, 2 * (E - 1) * 2**-24 * sum|x| (one bf16 ulp, 2**-7 * |sum|, more for
 bf16), and stays bitwise against ``x.sum(0)``.  This file imports no JAX,
 so that it runs where only PyTorch is installed.
 """
+import random
+import time
+
 import pytest
 import torch
 
@@ -239,7 +246,8 @@ def test_put_rows_and_ring_launches(card, e):
     assert oa.LAUNCH_COUNTS == {"onesided_put_rows": 2,
                                 "onesided_all_to_all": 0,
                                 "onesided_reduce_scatter": 0,
-                                "onesided_ring_permute": 1}
+                                "onesided_ring_permute": 1,
+                                "onesided_signal": 0}
     assert _same(got, oa.onesided_put_rows_ref(c))
     assert _same(fetched, oa.onesided_fetch_rows_ref(c))
     assert _same(ring, torch.roll(c[0], 1, 0))
@@ -410,3 +418,175 @@ def test_processes_refuse_a_handle_that_does_not_open(proc_results, e):
     for out in proc_results[e]:
         assert out["bad_handle"] is not None
         assert "cudaIpcOpenMemHandle" in out["bad_handle"]
+
+
+# ---------------------------------------------------------------------------
+# one rank per process: exchanges that finish on the card, by signals
+# ---------------------------------------------------------------------------
+
+RACE_ROUNDS = 200
+RACE_KINDS = ("all_to_all", "reduce_scatter", "all_reduce", "fetch", "ring")
+RACE_CHUNK, RACE_ROWS, RACE_D = 1024, 64, 128
+
+
+def _race_call(kind, g, ctx, dtype):
+    """One per-rank exchange of ``kind`` on new data (every rank draws the
+    same stacked inputs from ``g``): (the rank's result, its plain
+    version's), both left on the card."""
+    e, r, dev = ctx.world, ctx.rank, ctx.device
+
+    def draw(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    if kind == "all_to_all":
+        xs = draw(e, e, RACE_CHUNK)
+        return (comm.all_to_all(xs[r].contiguous(), backend="onesided",
+                                ctx=ctx), xs[:, r])
+    if kind == "reduce_scatter":
+        xs = draw(e, e, RACE_CHUNK)
+        return (comm.reduce_scatter(xs[r].contiguous(), backend="onesided",
+                                    ctx=ctx), xs.sum(0, dtype=dtype)[r])
+    if kind == "all_reduce":
+        xs = draw(e, 2 * RACE_CHUNK)
+        return (comm.all_reduce(xs[r].contiguous(), backend="onesided",
+                                ctx=ctx), xs.sum(0, dtype=dtype))
+    if kind == "fetch":
+        rows = draw(e, RACE_ROWS, RACE_D)          # each requester's rows
+        owner = torch.randint(0, e, (e, RACE_ROWS), generator=g, device=dev)
+        mine = owner[None] == torch.arange(e, device=dev)[:, None, None]
+        contribs = rows[None] * mine[..., None].to(dtype)   # (src, dst, ...)
+        c = contribs[r].contiguous()
+        got = oa.onesided_fetch_rows_rank(c, r, ctx.group,
+                                          comm._symmetric(ctx, "recv", c))
+        return got, oa.onesided_fetch_rows_ref(contribs)[r]
+    xs = draw(e, 2 * RACE_ROWS, RACE_D)
+    return (comm.permute_ring(xs[r].contiguous(), shift=1,
+                              backend="onesided", ctx=ctx), xs[(r - 1) % e])
+
+
+def _race(ctx, rounds):
+    """``rounds`` back-to-back exchanges of each kind, f32 then bf16, the
+    data new at every call; the last rank sleeps 0-2 ms on the host before
+    each call, and nothing synchronises the host until the end.  Returns
+    (mismatched elements per kind and dtype, fences, launches)."""
+    rng = random.Random(ctx.rank)
+    g = torch.Generator(device=ctx.device).manual_seed(4321)
+    bad = {}
+    oa.reset_launch_counts()
+    for dtype in (torch.float32, torch.bfloat16):
+        for kind in RACE_KINDS:
+            bad[(kind, str(dtype))] = torch.zeros((), dtype=torch.int64,
+                                                  device=ctx.device)
+        for _ in range(rounds):
+            for kind in RACE_KINDS:
+                if ctx.rank == ctx.world - 1:
+                    time.sleep(rng.uniform(0.0, 0.002))
+                got, want = _race_call(kind, g, ctx, dtype)
+                bad[(kind, str(dtype))] += (_bits(got) != _bits(want)).sum()
+    torch.cuda.synchronize()
+    return ({k: int(v) for k, v in bad.items()},
+            oa.FENCE_STATS["fences"], dict(oa.LAUNCH_COUNTS))
+
+
+def _race_rank(ctx, rounds):
+    gathered = [None] * ctx.world
+    torch.distributed.all_gather_object(gathered, _race(ctx, rounds),
+                                        group=ctx.group)
+    return gathered
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e", PROC_WORLDS)
+def test_processes_back_to_back_exchanges_match_plain_versions(card, e):
+    """Every kind of per-rank exchange, 200 times in a row in f32 and
+    bf16 with a rank late by 0-2 ms each time and nothing synchronised
+    between calls: each result bitwise its plain version's, no fence, and
+    the launches of each call."""
+    from repro_torch.core import parallel
+
+    got = parallel.run_ranks(_race_rank, e, backend="gloo", device="cuda:0",
+                             args=(RACE_ROUNDS,), timeout_s=300)
+    n = 2 * RACE_ROUNDS
+    for rank, (bad, fences, launches) in enumerate(got):
+        assert set(bad.values()) == {0}, (rank, bad)
+        assert fences == 0
+        assert launches == {"onesided_all_to_all": n, "onesided_put_rows": n,
+                            "onesided_reduce_scatter": 2 * n,
+                            "onesided_ring_permute": n,
+                            "onesided_signal": 6 * n}, (rank, launches)
+
+
+GROWTH = ((256, "all_to_all"), (256, "reduce_scatter"), (256, "all_to_all"),
+          (300_000, "all_to_all"), (300_000, "reduce_scatter"),
+          (256, "all_to_all"), (256, "reduce_scatter"))
+
+
+def _growth_rank(ctx):
+    """GROWTH's exchanges in a row: chunks of 300,000 f32 elements a rank
+    grow the symmetric buffers past their first 1 MiB.  Per exchange: its
+    result bitwise the plain version's, its buffers' epoch, and the fences
+    so far."""
+    e, r = ctx.world, ctx.rank
+    g = torch.Generator(device=ctx.device).manual_seed(77)
+    oa.reset_launch_counts()
+    out = []
+    for c, kind in GROWTH:
+        xs = torch.randn((e, e, c), generator=g, device=ctx.device)
+        if kind == "all_to_all":
+            got = comm.all_to_all(xs[r].contiguous(), backend="onesided",
+                                  ctx=ctx)
+            want, name = xs[:, r], "recv"
+        else:
+            got = comm.reduce_scatter(xs[r].contiguous(), backend="onesided",
+                                      ctx=ctx)
+            want, name = xs.sum(0)[r], "send"
+        out.append((_same(got, want), ctx._buffers[name].epochs.epoch,
+                    oa.FENCE_STATS["fences"]))
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e", PROC_WORLDS)
+def test_processes_grown_buffers_start_again_from_epoch_one(card, e):
+    """A buffer grown between exchanges: one fence for each set replaced,
+    the new set's epochs from 1 again, every result bitwise."""
+    from repro_torch.core import parallel
+
+    got = parallel.run_ranks(_growth_rank, e, backend="gloo",
+                             device="cuda:0", timeout_s=300)
+    # recv: 1, 2 | grown: 1, 2; send: 1 | grown: 1, 2
+    assert [x[1] for x in got] == [1, 1, 2, 1, 1, 2, 2]
+    assert [x[2] for x in got] == [0, 0, 0, 1, 2, 2, 2]
+    assert all(x[0] for x in got)
+
+
+def _skip_rank(ctx, skip, bound_s):
+    """Six one-sided all-to-alls, of which rank ``skip`` leaves out the
+    third, under a spin bound of ``bound_s``."""
+    oa.SIGNAL_TIMEOUT_S = bound_s
+    e, r = ctx.world, ctx.rank
+    for i in range(6):
+        if r == skip and i == 2:
+            continue
+        x = torch.full((e, 4096), float(i), device=ctx.device)
+        comm.all_to_all(x, backend="onesided", ctx=ctx)
+    torch.cuda.synchronize()
+    return "finished"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e", PROC_WORLDS)
+def test_processes_a_lost_signal_traps_instead_of_hanging(card, e):
+    """A rank that skips one exchange: its peers' last receive never sees
+    its signal, their spins run out within the lowered bound, the kernels
+    trap, and run_ranks raises naming the timeout long before its own."""
+    from repro_torch.core import parallel
+
+    t0 = time.monotonic()
+    with pytest.raises(RuntimeError, match="signal wait timed out") as err:
+        parallel.run_ranks(_skip_rank, e, backend="gloo", device="cuda:0",
+                           args=(e - 1, 1.0), timeout_s=240)
+    assert time.monotonic() - t0 < 120
+    assert "did not finish within" not in str(err.value)
+    assert "SIGNAL[" in str(err.value)

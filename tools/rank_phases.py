@@ -7,8 +7,9 @@ Phase 1 (environment and the kernels' build), phase 3 (the uncached
 engine at full width, whose tables and scores the others read), phase 4
 (the cached engine over the host tier), phase 6 (the remote tier on
 simulated hosts), phase 6b (pipelined), phase 7 (the simulated ranks),
-phase 7p (ranks as processes: the gloo leg on one card, and the NCCL leg
-where there are 2 or more) and phase 6p (the remote tier with one host
+phase 7p (ranks as processes: the gloo leg on one card with its race leg
+of back-to-back one-sided exchanges, and the NCCL leg where there are 2
+or more) and phase 6p (the remote tier with one host
 per process: the gloo leg, and the NCCL leg where there are 2 or more
 cards, one process a card, the bulk fetch over the group's
 reduce-scatter and the one-sided puts across cards through CUDA IPC)
